@@ -1,0 +1,52 @@
+"""Public entry points of the kde_rowsum kernels.
+
+Dispatch goes by the tensor's device: a CUDA tensor launches the kernel
+(or raises), a CPU tensor takes the plain version.  The CUDA kernels mask
+ragged query rows and dataset columns themselves, so nothing is padded
+per call.  ``_pad_rows`` keeps the reference's pad convention for the
+plain oracles: rows at ``+_PAD_OFFSET`` in every coordinate drive the
+squared distance to f32 ``inf`` and every kernel value to exactly 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.kernels_fn import Kernel
+from repro_torch.device import not_in_slice
+from repro_torch.kernels.kde_rowsum import kernel as _k
+
+# ||pad||^2 = d * 1e60 overflows f32 -> d2 = inf -> k = 0 for every kind.
+_PAD_OFFSET = 1.0e30
+
+
+def _pad_rows(a: torch.Tensor, mult: int, offset: float) -> torch.Tensor:
+    rem = (-a.shape[0]) % mult
+    if rem == 0:
+        return a
+    pad = torch.full((rem, a.shape[1]), offset, dtype=a.dtype,
+                     device=a.device) + a[-1:]
+    return torch.cat([a, pad], dim=0)
+
+
+def _check_precision(precision: str) -> None:
+    if precision != "f32":
+        raise not_in_slice(f"precision={precision!r}", "queue 1, item 1")
+
+
+def kde_rowsum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
+               precision: str = "f32") -> torch.Tensor:
+    """KDE oracle: (m,) row sums of the kernel matrix block k(q, x)."""
+    _check_precision(precision)
+    args = (q.float().contiguous(), x.float().contiguous(), kernel.name,
+            1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0))
+    return _k.rowsum_cuda(*args) if q.is_cuda else _k.rowsum_plain(*args)
+
+
+def kde_blocksum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
+                 bn: int = 256, precision: str = "f32") -> torch.Tensor:
+    """Level-1 read: (m, ceil(n/bn)) per-block kernel sums.  ``bn`` is the
+    semantic level-1 block size (it fixes the output width)."""
+    _check_precision(precision)
+    args = (q.float().contiguous(), x.float().contiguous(), kernel.name,
+            1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0), int(bn))
+    return _k.blocksum_cuda(*args) if q.is_cuda else _k.blocksum_plain(*args)
