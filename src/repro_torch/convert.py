@@ -1,7 +1,8 @@
 """Carry the reference's state across to the port.
 
 The system has no weights: its state is the dataset, the kernel
-parameters and the preprocessed degrees (or row norms).  These helpers
+parameters, the preprocessed degrees (or row norms) and the hashed
+estimator's bucket layout.  These helpers
 build the port's objects from the same plain numbers the reference was
 built from, so tests construct both sides from one set of numpy arrays.
 """
@@ -13,6 +14,7 @@ import torch
 from repro_torch.core.kernels_fn import Kernel, make_kernel
 from repro_torch.core.sampling.vertex import PrefixCDF
 from repro_torch.device import as_f32, resolve_device
+from repro_torch.kernels.kde_hash.ref import HashState
 
 
 def kernel_from_reference(name: str, bandwidth: float,
@@ -35,3 +37,21 @@ def degrees_from_numpy(weights, seed: int = 0, device=None) -> PrefixCDF:
     ``PrefixCDF``, drawing from ``np.random.default_rng(seed)``."""
     return PrefixCDF(np.asarray(weights, np.float64), seed=seed,
                      device=device)
+
+
+def hash_state_from_reference(state, device=None) -> HashState:
+    """The reference's ``HashState`` (arrays read with ``np.asarray``) as
+    the port's: integer arrays as int64 (uint32 keys keep their value),
+    ``shift`` / ``self_stored`` as float32, on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(name):
+        a = getattr(state, name)
+        if a is None:
+            return None
+        a = np.array(a)
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int64)
+        return torch.as_tensor(a).to(dev)
+
+    return HashState(**{name: conv(name) for name in HashState._fields})

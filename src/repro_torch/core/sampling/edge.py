@@ -1,10 +1,17 @@
 """Weighted neighbor / edge sampling -- Algorithms 4.11 and 4.13.
 
-Given a vertex u, sample a neighbor v with Pr[v] = k(u, v) / deg(u)
+Given a vertex u, sample a neighbor v with Pr[v] ~= k(u, v) / deg(u)
 (Definition 4.10) through the depth-2 block factorization of DESIGN.md §2:
-exact masked level-1 block sums and a Gumbel-max block draw (one CUDA
-kernel call), then the exact level-2 row and the in-block draw.  This slice
-ports ``mode="blocked"`` with ``exact_blocks=True``.
+level-1 block sums and a block draw, then the exact level-2 row and the
+in-block draw.  Two level-1 reads are ported (``mode="blocked"``):
+
+* ``exact_blocks=True`` -- exact masked block sums and a Gumbel-max block
+  draw in one sample-block kernel call;
+* ``level1="hash"`` -- block masses estimated by the ``kde_hash``
+  padded-bucket estimator (exact NEAR members + HT FAR samples scattered
+  into their blocks, through the weighted-kv kernel) at O(max_bucket +
+  B far_per_block) evals per frontier row, then an inverse-CDF block
+  draw (DESIGN.md §10).
 
 ``sample`` returns the *realized* sampling probability of each drawn
 neighbor, and ``prob_of`` evaluates the probability the sampler assigns to
@@ -29,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.kde.base import ExactBlockKDE
+from repro_torch.core.kde.base import ExactBlockKDE, StratifiedKDE
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import not_in_slice, resolve_device
 from repro_torch.ft import guards as _g
@@ -45,25 +52,32 @@ class NeighborSampler:
     """Algorithm 4.11 / Theorem 4.12: sample v ~ k(u, v)/deg(u) given u.
 
     Cost per sample: one level-1 read (w*n exact kernel evals for a
-    w-frontier) plus w exact level-2 rows of ``block_size`` columns.
+    w-frontier, w*(max_bucket + B far_per_block) hashed) plus w exact
+    level-2 rows of ``block_size`` columns.
 
     >>> nbr = NeighborSampler(x, gaussian(1.0), exact_blocks=True)
     >>> v, q = nbr.sample(np.array([0, 1, 2]))
     """
 
     def __init__(self, x, kernel: Kernel, mode: str = "blocked",
-                 block_size: Optional[int] = None, exact_blocks: bool = False,
-                 seed: int = 0, mesh=None, level1: str = "blocked",
+                 block_size: Optional[int] = None, samples_per_block: int = 16,
+                 exact_blocks: bool = False, seed: int = 0, mesh=None,
+                 level1: str = "blocked", hash_opts: Optional[dict] = None,
                  dataset=None, precision: str = "f32", device=None):
         if mode != "blocked":
             raise not_in_slice(f"mode={mode!r}", "queue 1, item 5")
-        if not exact_blocks:
+        if level1 not in ("blocked", "hash"):
+            raise ValueError(f"unknown level1 {level1!r}")
+        if level1 == "hash" and exact_blocks:
+            raise ValueError("level1='hash' replaces the level-1 read with "
+                             "hashed estimates; exact_blocks=True (the "
+                             "reproducible exact read) cannot be honored "
+                             "-- pick one")
+        if level1 == "blocked" and not exact_blocks:
             raise not_in_slice("exact_blocks=False (stratified level-1 "
                                "reads)", "queue 1, item 2")
         if mesh is not None:
             raise not_in_slice("mesh=", "queue 1, item 9")
-        if level1 != "blocked":
-            raise not_in_slice(f"level1={level1!r}", "queue 1, item 6")
         if dataset is not None:
             raise not_in_slice("dataset=", "queue 1, item 7")
         self.device = resolve_device(device)
@@ -76,20 +90,46 @@ class NeighborSampler:
         # ONE device dataset + one precomputed-norms sweep, shared with the
         # block KDE structure (and, through ``blocks``, with any degree
         # sampler built on top of it -- DESIGN.md §6).
-        self._blocks = ExactBlockKDE(x, kernel, block_size=bs,
-                                     precision=precision, device=self.device)
+        if exact_blocks:
+            self._blocks = ExactBlockKDE(x, kernel, block_size=bs,
+                                         precision=precision,
+                                         device=self.device)
+        else:
+            self._blocks = StratifiedKDE(x, kernel, block_size=bs,
+                                         samples_per_block=samples_per_block,
+                                         seed=seed, precision=precision,
+                                         device=self.device)
         self.x = self._blocks.x
         self.x_sq = self._blocks.x_sq
         self.n = self._blocks.n
         self.block_size = self._blocks.block_size
         self.num_blocks = self._blocks.num_blocks
-        self.exact_blocks = True
+        self.exact_blocks = exact_blocks
+        self._far_per_block = 1
+        self._hash = None
+        self._hstate = None
+        if level1 == "hash":
+            # Hashed level-1 (DESIGN.md §10), with the reference's defaults:
+            # ``far_per_block`` stratified FAR slots per block, buckets of
+            # at most 128 stored members, layout seed ``seed + 7919``.
+            from repro_torch.core.kde.hashed import HashedKDE
+            hopts = dict(hash_opts or {})
+            self._far_per_block = int(hopts.pop("far_per_block", 2))
+            hopts.setdefault("max_bucket", 128)
+            self._hash = HashedKDE(self.x, kernel, seed=seed + 7919,
+                                   precision=precision, device=self.device,
+                                   **hopts)
+            self._hstate = self._hash.state
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.status = 0
         self.flag_counts: Counter = Counter()
         self.device_counters = _c.HostTotals()
         self._extra_evals = 0
-        self._cfg = self._blocks._static_cfg()
+        self._cfg = dict(kind=kernel.name, inv_bw=1.0 / kernel.bandwidth,
+                         beta=getattr(kernel, "beta", 1.0),
+                         block_size=self.block_size,
+                         num_blocks=self.num_blocks, n=self.n,
+                         level1=level1, num_far=self._far_per_block)
         self._l2_cfg = {k: self._cfg[k] for k in
                         ("kind", "inv_bw", "beta", "block_size", "n")}
         self._views = _ref.block_views(self.x, self.x_sq, self.block_size)
@@ -99,10 +139,19 @@ class NeighborSampler:
 
     # ------------------------------------------------------------------ #
     @property
-    def blocks(self) -> ExactBlockKDE:
+    def blocks(self):
         """The level-1 KDE structure, shared with the sparsifier's degree
         preprocessing."""
         return self._blocks
+
+    @property
+    def hash_estimator(self):
+        """The shared hashed-KDE estimator behind ``level1="hash"`` --
+        exposed so Algorithm 4.3 degree preprocessing reuses the one
+        bucket layout instead of hashing the dataset twice."""
+        if self._hash is None:
+            raise ValueError("hash_estimator needs a level1='hash' sampler")
+        return self._hash
 
     @property
     def evals(self) -> int:
@@ -112,6 +161,20 @@ class NeighborSampler:
 
     def _count(self, k: int) -> None:
         self._extra_evals += int(k)
+
+    def _level1_evals(self, w: int) -> int:
+        """Kernel evals of one level-1 read of a w-frontier: the bucket
+        width plus ``far_per_block`` FAR slots per block when hashed, n
+        per row when exact -- the shapes the counter words are built
+        from."""
+        return w * _ops._l1_cols(self.level1, self.num_blocks, self.n,
+                                 self._far_per_block, self._hstate)[0]
+
+    def _noise(self, w: int):
+        """The noise of one depth-2 step on this sampler's level-1 read."""
+        return _ops.draw_sample_noise(
+            w, self.num_blocks, self._gen, self.device, level1=self.level1,
+            num_far=self._far_per_block, block_size=self.block_size)
 
     def _note(self, word, context: str) -> int:
         """Fold one program's counter word into the counters, then apply
@@ -136,9 +199,11 @@ class NeighborSampler:
         dig = self._digest(src32)
         if self._l1_cache is not None and self._l1_cache[0] == dig:
             return self._l1_cache[1]
-        bs, cw = _ops.masked_block_sums(self.x, self.x_sq, src_dev,
-                                        **self._cfg)
-        self._count(len(src32) * self.n)
+        off = (self._noise(len(src32))[0] if self.level1 == "hash"
+               else None)
+        bs, cw = _ops.masked_block_sums(self.x, self.x_sq, src_dev, off,
+                                        self._hstate, **self._cfg)
+        self._count(self._level1_evals(len(src32)))
         self._note(cw, "NeighborSampler.level1")
         self._l1_cache = (dig, bs, src32)
         return bs
@@ -155,12 +220,10 @@ class NeighborSampler:
                 self.x, self.x_sq, src_dev, self._l1_cache[1], u_blk, u_in,
                 self._views, **self._l2_cfg)
         else:
-            g, u_in = _ops.draw_sample_noise(w, self.num_blocks, self._gen,
-                                             self.device)
-            nb, prob, bs, st = _ops.fused_sample(self.x, self.x_sq, src_dev,
-                                                 g, u_in, self._views,
-                                                 **self._cfg)
-            self._count(w * self.n)
+            nb, prob, bs, st = _ops.fused_sample(
+                self.x, self.x_sq, src_dev, *self._noise(w),
+                views=self._views, hstate=self._hstate, **self._cfg)
+            self._count(self._level1_evals(w))
             self._l1_cache = (dig, bs, src32)
         self._count(w * self.block_size)
         self._note(st, "NeighborSampler.sample")
@@ -196,11 +259,12 @@ class NeighborSampler:
         *data, word = _ops.edge_batch_scan(
             self.x, self.x_sq, cdf_device.to(self.device),
             degs_device.to(self.device), 1.0 / float(total_degree), 1.0 / t,
-            gen, num_batches, batch=int(batch), **self._cfg)
+            gen, num_batches, self._hstate, batch=int(batch), **self._cfg)
         drawn = num_batches * batch
         # per edge: one level-1 read of the u frontier, one exact level-2
         # row, and one aligned k(u, v) pair
-        self._count(drawn * self.n + drawn * self.block_size + drawn)
+        self._count(self._level1_evals(drawn) + drawn * self.block_size
+                    + drawn)
         self._l1_cache = None  # frontier moved; cached sums are stale
         self._note(word, "NeighborSampler.edge_batches")
         return tuple(a.reshape(-1)[:t].cpu().numpy() for a in data)
@@ -208,14 +272,25 @@ class NeighborSampler:
 
 def shared_level1_estimator(nbr: NeighborSampler, estimator: str,
                             seed: int = 0):
-    """Reuse ``nbr``'s exact level-1 structure as the degree estimator
-    (DESIGN.md §6/§7): one device dataset, one ``x_sq`` sweep, one eval
-    counter for the whole pipeline."""
-    if estimator in ("exact", "exact_block"):
+    """Reuse ``nbr``'s level-1 KDE structure as the degree estimator
+    whenever it implements the requested one (DESIGN.md §6/§7): one device
+    dataset, one ``x_sq`` sweep, one eval counter for the whole pipeline.
+    A ``level1="hash"`` sampler shares its hashed bucket layout the same
+    way; other requests build a standalone ``make_estimator`` over the
+    sampler's device dataset."""
+    from repro_torch.core.kde.base import make_estimator
+    if estimator == "hash":
+        if nbr.level1 == "hash":
+            return nbr.hash_estimator
+        return make_estimator("hash", nbr.x, nbr.kernel, seed=seed,
+                              device=nbr.device)
+    wants_exact = estimator in ("exact", "exact_block")
+    if wants_exact == nbr.exact_blocks and estimator not in (
+            "rs", "grid_hbe", "robust"):
         return nbr.blocks
-    if estimator in ("rs", "stratified"):
-        raise not_in_slice(f"estimator={estimator!r}", "queue 1, item 1")
-    raise not_in_slice(f"estimator={estimator!r}", "queue 1, item 6")
+    return make_estimator("exact" if estimator == "exact_block" else
+                          estimator, nbr.x, nbr.kernel, seed=seed,
+                          device=nbr.device)
 
 
 class EdgeSampler:

@@ -85,7 +85,12 @@ def host_degree_loop(estimator: KDEBase, batch: int = 1024) -> np.ndarray:
 
 
 def approximate_degrees(estimator: KDEBase, batch: int = 1024) -> np.ndarray:
-    """Algorithm 4.3: p_i = KDE_X(x_i) - k(x_i, x_i), clamped positive."""
+    """Algorithm 4.3: p_i = KDE_X(x_i) - k(x_i, x_i), clamped positive.
+    Estimators exposing a ``degrees()`` method (the hashed ``HashedKDE``)
+    are dispatched to it instead of the host batch loop."""
+    if hasattr(estimator, "degrees"):
+        return np.maximum(np.asarray(estimator.degrees(), np.float64),
+                          1e-12)
     return np.maximum(host_degree_loop(estimator, batch), 1e-12)
 
 

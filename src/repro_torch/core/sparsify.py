@@ -3,10 +3,16 @@
 Length-squared sampling of the edge-vertex incidence matrix H: sample
 u ~ p_hat (degrees), v ~ q_hat(.|u) (neighbor sampler), and reweight each
 drawn edge by 1 / (t * (p_u q_uv + p_v q_vu)), with the exact probabilities
-the samplers used.  This slice ports the exact-level-1 configuration
-(``estimator="exact"``, ``exact_blocks=True``): one device dataset and one
-exact level-1 structure shared by the degree preprocessing (blocksum
-kernel) and every edge batch (sample-block kernel).
+the samplers used.  Two configurations are ported, each with one device
+dataset and one level-1 structure shared by the degree preprocessing and
+every edge batch:
+
+* ``estimator="exact", exact_blocks=True`` -- exact level-1 reads: degrees
+  through the blocksum kernel, edge batches through the sample-block
+  kernel;
+* ``estimator="hash"`` -- the sub-linear hashed estimator of Section 3.1:
+  the dataset is hashed once, degrees through the weighted-kv-sum kernel,
+  every edge batch's level-1 read through the weighted-kv kernel.
 """
 from __future__ import annotations
 
@@ -65,35 +71,45 @@ class SparseGraph:
 def spectral_sparsify(x, kernel: Kernel, num_edges: int,
                       estimator: str = "stratified", seed: int = 0,
                       batch: int = 1024, exact_blocks: bool = False,
-                      mesh=None, device=None) -> SparseGraph:
+                      samples_per_block: int = 16, mesh=None,
+                      device=None) -> SparseGraph:
     """Algorithm 5.1 with edge budget ``num_edges`` (= t).
 
-    ONE device dataset + exact level-1 structure is shared between the
-    degree preprocessing and the neighbor sampler; the degree CDF lives on
-    the device (float64-accumulated prefix, rounded to f32), and all edge
+    ONE device dataset + level-1 structure is shared between the degree
+    preprocessing and the neighbor sampler; the degree CDF lives on the
+    device (float64-accumulated prefix, rounded to f32), and all edge
     batches -- steps (a)-(d) including the reverse probability and the
     reweighting -- run as one device loop with a single transfer of the
-    edge list to the host.  The reference's defaults (stratified level-1
-    reads) are not ported yet and raise ``NotImplementedError``; pass
-    ``estimator="exact", exact_blocks=True``.
+    edge list to the host.  With ``estimator="hash"`` both the degree
+    preprocessing and the per-edge level-1 reads run on the hashed
+    estimator (one shared bucket layout): total kernel evals drop from
+    O((n + t) n) to O((n + t)(max_bucket + num_far)).  The reference's
+    default (stratified level-1 reads) is not ported yet and raises
+    ``NotImplementedError``; pass ``estimator="exact", exact_blocks=True``
+    or ``estimator="hash"``.
     """
     if mesh is not None:
         raise not_in_slice("spectral_sparsify(mesh=)", "queue 1, item 9")
-    if estimator not in ("exact", "exact_block") or not exact_blocks:
+    ported = (estimator == "hash" and not exact_blocks) or (
+        estimator in ("exact", "exact_block") and exact_blocks)
+    if not ported:
         raise not_in_slice(
             f"spectral_sparsify(estimator={estimator!r}, "
-            f"exact_blocks={exact_blocks})", "queue 1, items 1-2 and 6")
+            f"exact_blocks={exact_blocks})", "queue 1, items 1-2")
     n = int(x.shape[0])
     t = int(num_edges)
     nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
-                          exact_blocks=True, device=device)
+                          exact_blocks=exact_blocks,
+                          samples_per_block=samples_per_block,
+                          level1="hash" if estimator == "hash" else "blocked",
+                          device=device)
     est = shared_level1_estimator(nbr, estimator, seed=seed)
     deg = DegreeSampler(est, seed=seed + 1)
     u, v, w, _, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
                                      deg.total, t, batch=batch)
     g = SparseGraph(n, u.astype(np.int64), v.astype(np.int64),
                     w.astype(np.float64))
-    g.kernel_evals = nbr.evals
+    g.kernel_evals = nbr.evals + (0 if est is nbr.blocks else est.evals)
     g.status = nbr.status | est.device_counters.status
     # degree preprocessing + one forward level-1 read per drawn edge (the
     # reverse probability collapses onto the preprocessed degrees)

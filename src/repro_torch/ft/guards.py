@@ -74,6 +74,17 @@ def checks_enabled() -> bool:
     return os.environ.get("REPRO_CHECKS", "0") not in ("", "0")
 
 
+def ht_bound() -> float:
+    """Static HT inverse-probability weight bound (``REPRO_HT_BOUND``)."""
+    return float(os.environ.get("REPRO_HT_BOUND", "4096"))
+
+
+def ht_frac() -> float:
+    """Fraction of |far estimate| one sample may contribute before the
+    draw is flagged ``HT_HEAVY`` (``REPRO_HT_FRAC``)."""
+    return float(os.environ.get("REPRO_HT_FRAC", "0.95"))
+
+
 class EstimationError(RuntimeError):
     """A program raised a status flag under ``REPRO_CHECKS=1``."""
 

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("kde_rowsum.cu", "kde_sampler.cu")
+SOURCES = ("kde_rowsum.cu", "kde_sampler.cu", "kde_hash.cu")
 HEADERS = ("kde_tile.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -43,6 +43,10 @@ SIGNATURES = {
                                    _F, _F, _F, _P),
     "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _F, _F, _F, _P),
+    "kde_weighted_kv_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _F, _F, _F, _P),
+    "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _F, _F, _P),
 }
 
 _LIB = None

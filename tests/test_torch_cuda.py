@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.core.kernels_fn import gaussian
 from repro_torch.core.sampling.edge import NeighborSampler
+from repro_torch.core.sparsify import spectral_sparsify
+from repro_torch.kernels.kde_hash import kernel as hk
 from repro_torch.kernels.kde_rowsum import kernel as rk
 from repro_torch.kernels.kde_sampler import kernel as sk
 from repro_torch.kernels.kde_sampler.ops import gumbel
@@ -18,6 +20,9 @@ from repro_torch.kernels.kde_sampler.ops import gumbel
 RTOL, ATOL = 2e-4, 1e-5
 KINDS = ["gaussian", "exponential", "laplacian", "rational_quadratic"]
 SHAPES = [(37, 301, 19, 70), (64, 1024, 16, 256), (20, 203, 784, 50)]
+# (m, n, t, d) of the weighted gathered kernels: ragged, the degree-query
+# width (t = 128 + 64), and the laplacian's mnist_like width
+HASH_SHAPES = [(37, 301, 45, 19), (64, 4096, 192, 16), (20, 203, 33, 784)]
 
 
 @pytest.fixture
@@ -83,3 +88,48 @@ def test_sampler_runs_on_the_kernels(cuda):
     fresh = NeighborSampler(x, gaussian(1.0), exact_blocks=True, device=cuda)
     np.testing.assert_allclose(fresh.prob_of(src, v), p, rtol=1e-4)
     assert sk.LAUNCHES["masked_blocksum"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HASH_SHAPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_hash_kernels_match_plain(cuda, kind, shape):
+    """Both kde_hash kernels vs their plain versions, columns past the end
+    included (clamped): rtol 2e-4 and an atol of 1e-6 of the largest
+    value (the HT weights scale the outputs up to 256 here)."""
+    m, n, t, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(m * 1000 + d)
+    q = torch.randn(m, d, generator=gen, device=cuda) * 0.3
+    x = torch.randn(n, d, generator=gen, device=cuda) * 0.3
+    cols = torch.randint(0, n + 3, (m, t), generator=gen, device=cuda)
+    wgt = torch.rand((m, t), generator=gen, device=cuda) * 256.0
+    inv_bw = 1.0 / (0.3 * d) if kind == "laplacian" else 1.0 / (0.4 * d ** 0.5)
+    args = (q, x, cols, wgt, kind, inv_bw, 0.7)
+    want = hk.weighted_kv_plain(*args)
+    torch.testing.assert_close(hk.weighted_kv_cuda(*args), want, rtol=RTOL,
+                               atol=1e-6 * float(want.abs().max()))
+    want = hk.weighted_kv_sum_plain(*args)
+    torch.testing.assert_close(hk.weighted_kv_sum_cuda(*args), want,
+                               rtol=RTOL, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_hash_path_runs_on_the_kernels(cuda):
+    """A level-1-hash sampler on the card reads its frontier through the
+    weighted-kv kernel and prob_of reproduces the realized probabilities;
+    the hashed sparsifier's degrees go through the weighted-kv-sum kernel
+    (one launch per 1024-row batch) and its edge batches through the
+    weighted-kv kernel (one launch per batch)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 0.5, (3000, 8)).astype(np.float32)
+    src = rng.integers(0, 3000, 500)
+    hk.reset_launches()
+    nbr = NeighborSampler(x, gaussian(1.0), level1="hash", device=cuda)
+    v, p = nbr.sample(src)
+    assert hk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 1}
+    np.testing.assert_allclose(nbr.prob_of(src, v), p, rtol=1e-6)
+    hk.reset_launches()
+    g = spectral_sparsify(x, gaussian(1.0), num_edges=4096, estimator="hash",
+                          device=cuda)
+    assert hk.LAUNCHES == {"weighted_kv_sum": 3, "weighted_kv": 4}
+    assert np.all(np.isfinite(g.weight)) and g.num_edges == 4096

@@ -230,16 +230,25 @@ def test_status_bits_and_helpers_match_reference(monkeypatch):
 
 def test_device_defaults_to_the_card_and_slice_limits():
     """``device=None`` means CUDA and never drops to the CPU; options the
-    slice does not cover raise NotImplementedError."""
+    port does not cover yet raise NotImplementedError (``stratified`` and
+    ``hash`` are ported)."""
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
     x = np.zeros((4, 2), np.float32)
-    for name in ("stratified", "rs", "hash", "robust", "grid_hbe"):
+    for name in ("rs", "robust", "grid_hbe"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbase.make_estimator(name, x, tmake("gaussian"), device="cpu")
+    for kw in (dict(mesh=object()), dict(dataset=object()),
+               dict(overflow_cap=8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
+                                 **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
+                             precision="bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbase.ExactKDE(x, tmake("gaussian"), precision="bf16", device="cpu")
 

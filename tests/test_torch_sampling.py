@@ -274,8 +274,12 @@ def test_inverse_cdf_and_zero_row_guard_match_reference():
 def test_sampler_rejects_options_outside_the_slice():
     x = np.zeros((20, 2), np.float32)
     for kw in (dict(), dict(exact_blocks=True, mode="tree"),
-               dict(exact_blocks=True, level1="hash"),
+               dict(level1="hash", mesh=object()),
                dict(exact_blocks=True, mesh=object()),
                dict(exact_blocks=True, precision="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NeighborSampler(x, gaussian(), device="cpu", **kw)
+    # as in the reference: a hashed level-1 read cannot be exact
+    with pytest.raises(ValueError, match="pick one"):
+        NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,
+                        level1="hash")
