@@ -570,7 +570,8 @@ def phase_hash_kernels(data, gen):
         m, t, n = 37, 45, 301
         q = torch.randn(m, d, generator=gen, device=dev) * 0.3
         x = torch.randn(n, d, generator=gen, device=dev) * 0.3
-        cols = torch.randint(0, n + 2, (m, t), generator=gen, device=dev)
+        cols = torch.randint(0, n + 2, (m, t), generator=gen,
+                             dtype=torch.int32, device=dev)
         wgt = torch.rand((m, t), generator=gen, device=dev) * 256.0
         inv_bw = 1.0 / (0.3 * d) if kind == "laplacian" else \
             1.0 / (0.4 * d ** 0.5)
@@ -600,7 +601,6 @@ def phase_hash_kernels(data, gen):
         args = (qq, x, cols, wgt, "gaussian", inv)
         errs[name] = max(errs[name], close_scaled(kern(*args), plain(*args),
                                                   f"{name} main"))
-        c32 = cols.to(torch.int32)      # the kernel's own operand type
         m, t = cols.shape
         uniq = torch.unique(cols).numel()
         b_ms, b_by = bound(m * t * (pair_ops("gaussian", d) + 1),
@@ -610,7 +610,7 @@ def phase_hash_kernels(data, gen):
             name=name, route="cuda", source="src/repro_torch/csrc/kde_hash.cu",
             replaces=f"src/repro/kernels/kde_hash/kernel.py:{line}",
             shape=f"m={m} t={t} d={d} gaussian, {uniq} distinct rows",
-            ms=timed(lambda: kern(qq, x, c32, wgt, "gaussian", inv), 50),
+            ms=timed(lambda: kern(*args), 50),
             plain_ms=timed(lambda: plain(*args), 10),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in rows:
@@ -677,20 +677,21 @@ def block_pits(x, bn, src, dst, bw, gen, chunk=8192):
     return pit
 
 
-def hash_edge_law(x, bn, g, deg, bw=HS_BW):
+def hash_edge_law(x, bn, g, bw=HS_BW):
     """Chi-square checks (alpha 1e-3) of the hashed sparsifier's edges:
-    sources per level-1 block against the hashed degrees ``deg`` the
-    sampler drew from, and each destination's in-block PIT (index order,
+    sources per level-1 block against the hashed degrees ``g.degrees`` the
+    run drew them from, and each destination's in-block PIT (index order,
     value order) against the uniform.  The block a destination was drawn
     from follows the row's hashed block estimates, which the run does not
-    keep: that law is not checked here."""
+    keep: that draw is held against the reference on the CPU only
+    (tests/test_torch_hash_pipeline.py, shared noise)."""
     import torch
     n, dev = x.shape[0], x.device
     src = torch.as_tensor(g.src, device=dev)
     dst = torch.as_tensor(g.dst, device=dev)
     t = src.numel()
     nb = -(-n // bn)
-    deg = torch.as_tensor(deg, dtype=torch.float64, device=dev)
+    deg = torch.as_tensor(g.degrees, dtype=torch.float64, device=dev)
     blk_mass = torch.zeros(nb, dtype=torch.float64, device=dev)
     blk_mass.index_add_(0, torch.arange(n, device=dev) // bn, deg)
     got = torch.bincount(src // bn, minlength=nb).double()
@@ -722,8 +723,6 @@ def hash_checks(data, g):
     import numpy as np
     import torch
     from repro_torch.core.kernels_fn import gaussian
-    from repro_torch.core.sampling.edge import NeighborSampler
-    from repro_torch.core.sampling.vertex import approximate_degrees
     from repro_torch.core.sparsify import spectral_sparsify
     from repro_torch.ft import guards
     from repro_torch.kernels.kde_hash.ref import lookup_buckets
@@ -737,14 +736,9 @@ def hash_checks(data, g):
     log(f"[hash] (1) device hashing reproduces point_bucket for all {n} "
         f"rows: {state.keys.numel()} buckets, "
         f"{int(state.truncated.sum())} truncated at {HS_MAX_BUCKET}")
-    # (2) hashed degrees: the sampler's own, recomputed (the layout and the
-    # FAR stream are seeded, the sum kernel is deterministic -- shown by
-    # two recomputations agreeing bit for bit) against the exact degrees
-    degs = [approximate_degrees(NeighborSampler(
-        x, gaussian(HS_BW), level1="hash", seed=2,
-        device="cuda").hash_estimator) for _ in range(2)]
-    assert np.array_equal(degs[0], degs[1]), "hashed degrees not reproducible"
-    deg = degs[0]
+    # (2) the hashed degrees the run drew its sources from, against the
+    # exact degrees
+    deg = g.degrees
     exact = torch.cat([
         rk.blocksum_cuda(x[lo:lo + BATCH].contiguous(), x, "gaussian",
                          1.0 / HS_BW, 1.0, bn).double().sum(1)
@@ -773,7 +767,7 @@ def hash_checks(data, g):
         f"kde_queries {g.kde_queries} = n + drawn")
     # (4) the edge law
     log(f"[hash] (4) edge law of the {g.num_edges} drawn edges: "
-        f"{hash_edge_law(x, bn, g, deg)} (alpha 1e-3)")
+        f"{hash_edge_law(x, bn, g)} (alpha 1e-3)")
     # (5) spectral error at the reference bench's spectral config
     xs = np.random.default_rng(0).normal(
         0, SPEC_SIGMA, (SPEC_N, SPEC_D)).astype(np.float32)
@@ -809,8 +803,8 @@ def hash_breakdown(data):
     gen = torch.Generator(device=dev).manual_seed(5)
     src = torch.randint(0, n, (BATCH,), generator=gen, device=dev)
     off = hops.draw_frontier_noise(BATCH, nb, HS_FAR_PER_BLOCK, bn, gen, dev)
-    fidx = (torch.arange(nb, device=dev)[None, :, None] * bn
-            + off).reshape(BATCH, -1)
+    fidx = (torch.arange(nb, dtype=torch.int32, device=dev)[None, :, None]
+            * bn + off).reshape(BATCH, -1)
     b = state.point_bucket[src]
     mem = state.members[b]
     mvalid = (torch.arange(mem.shape[1], device=dev)[None, :]

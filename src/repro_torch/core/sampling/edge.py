@@ -60,10 +60,10 @@ class NeighborSampler:
     """
 
     def __init__(self, x, kernel: Kernel, mode: str = "blocked",
-                 block_size: Optional[int] = None, samples_per_block: int = 16,
-                 exact_blocks: bool = False, seed: int = 0, mesh=None,
-                 level1: str = "blocked", hash_opts: Optional[dict] = None,
-                 dataset=None, precision: str = "f32", device=None):
+                 block_size: Optional[int] = None, exact_blocks: bool = False,
+                 seed: int = 0, mesh=None, level1: str = "blocked",
+                 hash_opts: Optional[dict] = None, dataset=None,
+                 precision: str = "f32", device=None):
         if mode != "blocked":
             raise not_in_slice(f"mode={mode!r}", "queue 1, item 5")
         if level1 not in ("blocked", "hash"):
@@ -96,7 +96,6 @@ class NeighborSampler:
                                          device=self.device)
         else:
             self._blocks = StratifiedKDE(x, kernel, block_size=bs,
-                                         samples_per_block=samples_per_block,
                                          seed=seed, precision=precision,
                                          device=self.device)
         self.x = self._blocks.x
@@ -270,27 +269,18 @@ class NeighborSampler:
         return tuple(a.reshape(-1)[:t].cpu().numpy() for a in data)
 
 
-def shared_level1_estimator(nbr: NeighborSampler, estimator: str,
-                            seed: int = 0):
-    """Reuse ``nbr``'s level-1 KDE structure as the degree estimator
-    whenever it implements the requested one (DESIGN.md §6/§7): one device
-    dataset, one ``x_sq`` sweep, one eval counter for the whole pipeline.
-    A ``level1="hash"`` sampler shares its hashed bucket layout the same
-    way; other requests build a standalone ``make_estimator`` over the
-    sampler's device dataset."""
-    from repro_torch.core.kde.base import make_estimator
-    if estimator == "hash":
-        if nbr.level1 == "hash":
-            return nbr.hash_estimator
-        return make_estimator("hash", nbr.x, nbr.kernel, seed=seed,
-                              device=nbr.device)
-    wants_exact = estimator in ("exact", "exact_block")
-    if wants_exact == nbr.exact_blocks and estimator not in (
-            "rs", "grid_hbe", "robust"):
+def shared_level1_estimator(nbr: NeighborSampler, estimator: str):
+    """Reuse ``nbr``'s level-1 structure as the degree estimator
+    (DESIGN.md §6/§7): one device dataset, one ``x_sq`` sweep, one eval
+    counter for the whole pipeline -- the exact block structure of an
+    ``exact_blocks=True`` sampler, the hashed bucket layout of a
+    ``level1="hash"`` one.  Other pairings are not ported yet."""
+    if estimator == "hash" and nbr.level1 == "hash":
+        return nbr.hash_estimator
+    if estimator in ("exact", "exact_block") and nbr.exact_blocks:
         return nbr.blocks
-    return make_estimator("exact" if estimator == "exact_block" else
-                          estimator, nbr.x, nbr.kernel, seed=seed,
-                          device=nbr.device)
+    raise not_in_slice(f"shared_level1_estimator(estimator={estimator!r})",
+                       "queue 1, items 1-2")
 
 
 class EdgeSampler:

@@ -87,7 +87,9 @@ def host_degree_loop(estimator: KDEBase, batch: int = 1024) -> np.ndarray:
 def approximate_degrees(estimator: KDEBase, batch: int = 1024) -> np.ndarray:
     """Algorithm 4.3: p_i = KDE_X(x_i) - k(x_i, x_i), clamped positive.
     Estimators exposing a ``degrees()`` method (the hashed ``HashedKDE``)
-    are dispatched to it instead of the host batch loop."""
+    are dispatched to it instead of the host batch loop, at the
+    estimator's own batch size (so its counter words match the
+    reference's, whose dispatch passes no batch either)."""
     if hasattr(estimator, "degrees"):
         return np.maximum(np.asarray(estimator.degrees(), np.float64),
                           1e-12)

@@ -17,6 +17,7 @@ every edge batch:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -39,6 +40,9 @@ class SparseGraph:
     # or-fold of the status bits of every program the pipeline ran (not
     # in the reference's SparseGraph; ``ft.guards.decode_status`` reads it)
     status: int = 0
+    # (n,) the degrees the edge sources were drawn from (not in the
+    # reference's SparseGraph either); None after ``resparsify``
+    degrees: Optional[np.ndarray] = None
 
     @property
     def num_edges(self) -> int:
@@ -71,8 +75,7 @@ class SparseGraph:
 def spectral_sparsify(x, kernel: Kernel, num_edges: int,
                       estimator: str = "stratified", seed: int = 0,
                       batch: int = 1024, exact_blocks: bool = False,
-                      samples_per_block: int = 16, mesh=None,
-                      device=None) -> SparseGraph:
+                      mesh=None, device=None) -> SparseGraph:
     """Algorithm 5.1 with edge budget ``num_edges`` (= t).
 
     ONE device dataset + level-1 structure is shared between the degree
@@ -100,10 +103,9 @@ def spectral_sparsify(x, kernel: Kernel, num_edges: int,
     t = int(num_edges)
     nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
                           exact_blocks=exact_blocks,
-                          samples_per_block=samples_per_block,
                           level1="hash" if estimator == "hash" else "blocked",
                           device=device)
-    est = shared_level1_estimator(nbr, estimator, seed=seed)
+    est = shared_level1_estimator(nbr, estimator)
     deg = DegreeSampler(est, seed=seed + 1)
     u, v, w, _, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
                                      deg.total, t, batch=batch)
@@ -111,6 +113,7 @@ def spectral_sparsify(x, kernel: Kernel, num_edges: int,
                     w.astype(np.float64))
     g.kernel_evals = nbr.evals + (0 if est is nbr.blocks else est.evals)
     g.status = nbr.status | est.device_counters.status
+    g.degrees = deg.degrees
     # degree preprocessing + one forward level-1 read per drawn edge (the
     # reverse probability collapses onto the preprocessed degrees)
     drawn = ((t + batch - 1) // batch) * batch

@@ -35,7 +35,6 @@ def _launch(name: str, out_shape, q, x, cols, wgt, kind, inv_bw, beta):
         raise ValueError(f"q and x widths differ: {d} vs {x.shape[1]}")
     if n == 0:
         raise ValueError("empty dataset")
-    cols = cols.to(dtype=torch.int32).contiguous()
     check_operand(cols, "cols", torch.int32, 2, q.device)
     check_operand(wgt, "wgt", torch.float32, 2, q.device)
     if cols.shape[0] != m or wgt.shape != cols.shape:
@@ -59,7 +58,7 @@ def _launch(name: str, out_shape, q, x, cols, wgt, kind, inv_bw, beta):
 def weighted_kv_cuda(q, x, cols, wgt, kind: str, inv_bw: float,
                      beta: float = 1.0):
     """out[i, j] = wgt[i, j] k(q_i, x[cols[i, j]]) by the weighted-kv
-    kernel: q (m, d), x (n, d), wgt (m, t) f32 and cols (m, t) integer CUDA
+    kernel: q (m, d), x (n, d), wgt (m, t) f32 and cols (m, t) int32 CUDA
     tensors -> (m, t) f32.  Columns outside [0, n) are clamped."""
     return _launch("weighted_kv", lambda m, t: (m, t), q, x, cols, wgt, kind,
                    inv_bw, beta)

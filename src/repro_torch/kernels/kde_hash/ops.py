@@ -121,7 +121,7 @@ def build_hash_state(x, kernel, cell_width: float | None = None,
 
     state = _ref.HashState(
         dims=dev_i64(dims), shift=torch.as_tensor(shift).to(dev),
-        keys=dev_i64(uniq), members=dev_i64(members),
+        keys=dev_i64(uniq), members=torch.as_tensor(members).to(dev),
         counts=dev_i64(counts), point_bucket=dev_i64(point_bucket),
         self_stored=torch.as_tensor(stored).to(dev),
         truncated=torch.as_tensor(truncated).to(dev), overflow=None)
@@ -132,20 +132,21 @@ def build_hash_state(x, kernel, cell_width: float | None = None,
 # noise
 # --------------------------------------------------------------------- #
 def draw_query_noise(m: int, num_far: int, n: int, generator, device):
-    """(m, num_far) FAR row indices uniform on [0, n) for one
+    """(m, num_far) int32 FAR row indices uniform on [0, n) for one
     ``hashed_query`` call; None when ``num_far == 0``."""
     if num_far == 0:
         return None
     return torch.randint(0, n, (m, num_far), generator=generator,
-                         device=device)
+                         dtype=torch.int32, device=device)
 
 
 def draw_frontier_noise(w: int, num_blocks: int, num_far: int,
                         block_size: int, generator, device):
-    """(w, B, num_far) in-block FAR offsets uniform on [0, block_size) for
-    one ``hashed_block_sums`` call."""
+    """(w, B, num_far) int32 in-block FAR offsets uniform on [0,
+    block_size) for one ``hashed_block_sums`` call."""
     return torch.randint(0, block_size, (w, num_blocks, num_far),
-                         generator=generator, device=device)
+                         generator=generator, dtype=torch.int32,
+                         device=device)
 
 
 # --------------------------------------------------------------------- #

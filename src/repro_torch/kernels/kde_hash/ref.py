@@ -23,7 +23,9 @@ Differences from the reference, all in form, none in the function:
   noise, so tests can feed both sides the reference's own draws;
 * the gathers return the evaluation columns, not the gathered rows: the
   CUDA kernel reads ``x[cols]`` itself and never forms the (m, t, d)
-  tensor.  The plain weighted pass forms it.
+  tensor.  The plain weighted pass forms it.  The columns come out int32
+  (``members`` is int32, and so is the drawn FAR noise), the kernels'
+  own column type, so no launch converts them.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ class HashState(NamedTuple):
     dims: torch.Tensor          # (h,)  int64  hashed coordinate subset
     shift: torch.Tensor         # (h,)  f32    random grid shift
     keys: torch.Tensor          # (U,)  int64  sorted packed keys in [0, 2^32)
-    members: torch.Tensor       # (U, max_bucket) int64 global row indices
+    members: torch.Tensor       # (U, max_bucket) int32 global row indices
+    #                                          (the kernels' column type)
     counts: torch.Tensor        # (U,)  int64  stored member count
     point_bucket: torch.Tensor  # (n,)  int64  bucket id of each dataset row
     self_stored: torch.Tensor   # (n,)  f32    1.0 iff the row is stored in
@@ -185,7 +188,7 @@ def query_gather(y, state: HashState, fidx, cell_width: float,
         return mem, mvalid.to(torch.float32), cnt, trunc
     collide = (_far_collide(fidx, mem[:, :mb], mvalid[:, :mb])
                | _far_hits_overflow(fidx, state))
-    cols = torch.cat([mem, fidx], dim=1)
+    cols = torch.cat([mem, fidx.to(mem.dtype)], dim=1)
     wgt = torch.cat([mvalid.to(torch.float32),
                      (float(n) / num_far)
                      * (1.0 - collide.to(torch.float32))], dim=1)
@@ -211,13 +214,14 @@ def frontier_gather(src, state: HashState, off, num_far: int,
     trunc = (state.truncated[bc] & ~nohit if state.truncated is not None
              else torch.zeros_like(nohit))
     mem, mvalid = _exact_cols(state, mem, cnt, w)
-    base = torch.arange(num_blocks, device=src.device) * block_size
+    base = torch.arange(num_blocks, dtype=off.dtype,
+                        device=src.device) * block_size
     fidx = (base[None, :, None] + off).reshape(w, num_blocks * num_far)
     dead = (_far_collide(fidx, mem[:, :mb], mvalid[:, :mb])
             | _far_hits_overflow(fidx, state) | (fidx == src[:, None])
             | (fidx >= n))
     fidx = torch.clamp(fidx, max=n - 1)
-    cols = torch.cat([mem, fidx], dim=1)
+    cols = torch.cat([mem, fidx.to(mem.dtype)], dim=1)
     wgt = torch.cat([mvalid.to(torch.float32),
                      (float(block_size) / num_far)
                      * (1.0 - dead.to(torch.float32))], dim=1)
@@ -267,7 +271,7 @@ def scatter_block_sums(kv, cols, src, state: HashState, num_far: int,
     nex = num_exact_cols(state)
     w = src.shape[0]
     bs = kv[:, nex:].reshape(w, num_blocks, num_far).sum(-1)
-    bs = bs.scatter_add(1, cols[:, :nex] // block_size, kv[:, :nex])
+    bs = bs.scatter_add(1, (cols[:, :nex] // block_size).long(), kv[:, :nex])
     own = src // block_size
     corr = torch.arange(num_blocks, device=src.device)[None, :] \
         == own[:, None]

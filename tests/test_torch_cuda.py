@@ -101,7 +101,8 @@ def test_hash_kernels_match_plain(cuda, kind, shape):
     gen = torch.Generator(device=cuda).manual_seed(m * 1000 + d)
     q = torch.randn(m, d, generator=gen, device=cuda) * 0.3
     x = torch.randn(n, d, generator=gen, device=cuda) * 0.3
-    cols = torch.randint(0, n + 3, (m, t), generator=gen, device=cuda)
+    cols = torch.randint(0, n + 3, (m, t), generator=gen, dtype=torch.int32,
+                         device=cuda)
     wgt = torch.rand((m, t), generator=gen, device=cuda) * 256.0
     inv_bw = 1.0 / (0.3 * d) if kind == "laplacian" else 1.0 / (0.4 * d ** 0.5)
     args = (q, x, cols, wgt, kind, inv_bw, 0.7)

@@ -304,6 +304,30 @@ def test_hashed_query_ht_heavy_follows_the_static_rule(monkeypatch):
     assert not int(word[0]) & tg.HT_HEAVY
 
 
+def test_gathers_emit_the_kernels_int32_columns():
+    """On the path, the layout's members and the drawn FAR noise are int32,
+    so both gathers hand the kernels int32 columns and no launch converts
+    them; ``cols // block_size`` still scatters (int64 index)."""
+    x, _, _, _, tstate, w = _gather_case("int32")
+    n, nf, bs = x.shape[0], 16, 64
+    nb = -(-n // bs)
+    gen = torch.Generator().manual_seed(0)
+    tx = torch.as_tensor(x)
+    assert tstate.members.dtype == torch.int32
+    fidx = thops.draw_query_noise(40, nf, n, gen, "cpu")
+    cols, *_ = thref.query_gather(tx[:40], tstate, fidx, w, nf, n)
+    assert cols.dtype == torch.int32 and cols.is_contiguous()
+    src = torch.arange(0, n, 9)
+    off = thops.draw_frontier_noise(src.numel(), nb, 2, bs, gen, "cpu")
+    cols, *_ = thref.frontier_gather(src, tstate, off, 2, bs, nb, n)
+    assert cols.dtype == torch.int32 and cols.is_contiguous()
+    bsums, _ = thops.hashed_block_sums(
+        tx, src, tstate, off, kind="gaussian", inv_bw=1.0, beta=1.0,
+        num_far=2, block_size=bs, num_blocks=nb, n=n)
+    assert bsums.shape == (src.numel(), nb)
+    assert bool(torch.isfinite(bsums).all())
+
+
 @pytest.mark.parametrize("kind", ["gaussian", "rational_quadratic"])
 def test_hashed_kde_near_only_matches_reference(kind):
     """``HashedKDE`` with ``num_far_samples=0`` (deterministic) against the
