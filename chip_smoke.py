@@ -50,14 +50,40 @@ Phases (any failure exits non-zero; no phase catches and continues):
                error at the reference's bench_kde spectral config within
                ``SPEC_BOUND``.  A per-stage breakdown of one edge batch
                follows, timed with CUDA events.
-7. report   -- a ``{"kernels": [...]}`` line, the card line from
+7. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
+               on the card, 6.06 B parameters): ``make_prefill_step(impl=
+               "flash")`` on ``make_batch`` tokens at batch 1, seq 8192
+               (the reference's prefill_32k shape, 32768 x 32, cut to
+               8192 x 1): exactly 32 flash launches; its last-position
+               logits against ``impl="xla"`` (the chunked branch at 8192):
+               max |diff| <= 1e-3 max |logit| and the same argmax per row.
+8. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
+               same model, batch 4, prompt 512, gen 16, twice: ``--attention
+               xla`` (its last-prompt-step logits against the flash prefill
+               of the same prompts, same bound and argmax) and ``--attention
+               kde`` (the CLI defaults top_p 4, bk 32, stride 4; cache 528
+               rounded up to 544): exactly 32 x (512 + 15) block-lse
+               launches, then on its final cache (layers 0, 15, 31)
+               kde_attention through the kernel against the plain-torch
+               mirror.  Prints the first generated step's logit correlation
+               (kde vs xla, reported, not gated), prefill s and decode tok/s.
+9. report   -- a ``{"kernels": [...]}`` line, the card line from
                nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
 
+Phase 2 also holds the two LM kernels against their plain versions
+(``phase_lm_kernels``): flash at the reference's ragged sweep and (5, 37),
+f32 and bf16 operands, and at the prefill shape (1, 32, 8192, 128) with 4
+kv-heads; block-lse at the serve shape and at S = 32768, bk 256, stride 16;
+kde_attention at S = 32768 with bench_attention's planted keys.  Times the
+kernels, their plain versions and, for flash, ``scaled_dot_product_attention
+(is_causal=True, enable_gqa=True)`` as the yardstick.
+
 Launch counters are set to 0 just before phase 3 and read just after
-phase 5, and set to 0 again just before phase 6 and read just after its
-sparsifier returns, so the comparisons and timings of phase 2 and the
-checks do not count.  Each kernel's ``launches`` is its count from the
-run of its own path.
+phase 5, set to 0 again just before phase 6 and read just after its
+sparsifier returns, and again around the flash prefill of phase 7 and
+the kde serve run of phase 8, so the comparisons and timings of phase 2
+and the checks do not count.  Each kernel's ``launches`` is its count from
+the run of its own path.
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -68,10 +94,14 @@ term, the distance assembly, the scale, exp and the accumulate) and
 3d + 3 for the laplacian (subtract, |.|, add per coordinate; scale, exp,
 accumulate); the kde_hash kernels add one multiply by the weight per
 pair and read each distinct gathered row of x once (x is 16 MB and stays
-in the 50 MB L2).
+in the 50 MB L2).  Flash counts the causal half, 4 b hq dh s^2 / 2 FP32
+operations (QK^T and PV), against q, k, v, out and lse; block-lse reads
+the strided keys once per kv-head, b hkv nb ceil(bk/stride) dh floats,
+with 2 dh + 4 operations per (q-head, strided key).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -108,6 +138,23 @@ SPEC_N, SPEC_D, SPEC_SIGMA, SPEC_BW = 1024, 8, 0.35, 3.0
 # spectral_sparsify(estimator="hash") at this config over seeds 0-4 on the
 # CPU (tools/hash_spectral_bound.py: 0.04874407935336533).
 SPEC_BOUND = 0.073116119030048
+LM_ARCH = "yi_6b"
+# the reference's prefill_32k shape (seq 32768, batch 32), cut to 8192 x 1
+LM_PREFILL_SEQ, LM_PREFILL_BATCH = 8192, 1
+LM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen", "16"]
+LM_LOGIT_REL = 1e-3         # max |diff| <= 1e-3 max |logit|, same argmax
+LM_KDE_LAYERS = (0, 15, 31)
+BF16_ATOL = 3e-2            # the reference's bf16 flash tolerance
+# (b, hq, hkv, sq, skv, dh): the reference's flash sweep and (5, 37)
+FLASH_RAGGED = [(2, 4, 2, 64, 64, 32), (1, 8, 2, 1, 300, 64),
+                (2, 4, 4, 100, 228, 16), (1, 2, 1, 17, 17, 8),
+                (1, 2, 1, 5, 37, 16)]
+FLASH_MAIN = (1, 32, 4, 8192, 8192, 128)    # the prefill shape
+# (b, hq, hkv, S, dh, bk, stride): the serve shape (yi's heads, cache 544)
+# and bench_attention's production setting at yi's heads
+LSE_SERVE = (4, 32, 4, 544, 128, 32, 4)
+LSE_LONG = (1, 32, 4, 32768, 128, 256, 16)
+KDE_LONG_TOP_P = 16
 
 
 def log(*a):
@@ -130,15 +177,16 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def close(got, want, what: str, atol: float = ATOL) -> float:
-    """Assert |got - want| <= atol + RTOL |want| everywhere; return the
+def close(got, want, what: str, atol: float = ATOL,
+          rtol: float = RTOL) -> float:
+    """Assert |got - want| <= atol + rtol |want| everywhere; return the
     max abs error."""
     import torch
     got, want = got.double(), want.double()
     err = (got - want).abs()
-    bad = err > atol + RTOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     assert not bool(bad.any()), (
-        f"{what}: {int(bad.sum())} values outside rtol {RTOL} / atol "
+        f"{what}: {int(bad.sum())} values outside rtol {rtol} / atol "
         f"{atol:.3e} (max abs err {float(err.max()):.3e})")
     assert bool(torch.isfinite(got).all()), f"{what}: non-finite values"
     return float(err.max())
@@ -622,6 +670,325 @@ def phase_hash_kernels(data, gen):
     return rows
 
 
+def free_cuda():
+    """Hand a phase's freed tensors back to the card before the next."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_kernels(gen):
+    """Phase 2, LM part: the flash and block-lse kernels against their plain
+    versions on the card (ragged, bf16, the main-path shapes), kde_attention
+    at S = 32768 through the kernel against the plain mirror; returns the
+    two report rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.kde_attention import kernel as kk
+    from repro_torch.kernels.kde_attention import ops as kops
+    dev = torch.device("cuda")
+    errs = {"flash_attention": 0.0, "block_lse": 0.0}
+
+    def qkv(b, hq, hkv, sq, skv, dh, dtype=torch.float32):
+        # q, k contiguous and v a transposed view: as the model hands them
+        q = torch.randn((b, hq, sq, dh), generator=gen, device=dev)
+        k = torch.randn((b, hkv, skv, dh), generator=gen, device=dev)
+        v = torch.randn((b, skv, hkv, dh), generator=gen,
+                        device=dev).transpose(1, 2)
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def flash_check(q, k, v, bq, bk, tag):
+        kp, vp, kw = fops.flash_args(q, k, v, True, bq, bk)
+        out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
+        p_out, p_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+        if q.dtype == torch.bfloat16:
+            e = close(out.float(), p_out.float(), f"flash out {tag}",
+                      atol=BF16_ATOL, rtol=0.0)
+            close(lse, p_lse, f"flash lse {tag}")
+            return e
+        e = max(close(out, p_out, f"flash out {tag}"),
+                close(lse, p_lse, f"flash lse {tag}"))
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        return e
+
+    for shape in FLASH_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            e = flash_check(*qkv(*shape, dtype=dtype), 64, 64,
+                            f"{shape} {dtype}")
+            log(f"[kernels] flash ragged (b, hq, hkv, sq, skv, dh) = {shape} "
+                f"{str(dtype)[6:]}: max_abs_err {e:.3e}")
+
+    rows = []
+    b, hq, hkv, s, _, dh = FLASH_MAIN
+    q, k, v = qkv(*FLASH_MAIN)
+    e = flash_check(q, k, v, 128, 128, "main")
+    free_cuda()
+    kp, vp, kw = fops.flash_args(q, k, v)
+    b_ms, b_by = bound(4 * b * hq * dh * s * s / 2,
+                       4 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh
+                            + b * hq * s))
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:67",
+        shape=f"b={b} hq={hq} hkv={hkv} s={s} dh={dh} causal f32",
+        ms=timed(lambda: fk.flash_attention_cuda(q, kp, vp, **kw), 5),
+        plain_ms=timed(lambda: fk.flash_attention_plain(q, kp, vp, **kw), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 3)))
+    del q, k, v, kp, vp
+    free_cuda()
+
+    def lse_inputs(b, hq, hkv, s, dh):
+        q = torch.randn((b, hq, dh), generator=gen, device=dev)
+        k = torch.randn((b, hkv, s, dh), generator=gen, device=dev) * 0.3
+        return q, k
+
+    b, hq, hkv, s, dh, bk, stride = LSE_SERVE
+    q, k = lse_inputs(b, hq, hkv, s, dh)
+    scale = dh ** -0.5
+    for kv_valid in (1, 300, s - 16):     # early, middle and last serve steps
+        kw = dict(scale=scale, stride=stride, kv_valid=kv_valid, bk=bk)
+        got = kk.block_lse_cuda(q, k, **kw)
+        errs["block_lse"] = max(errs["block_lse"], close(
+            got, kk.block_lse_plain(q, k, **kw), f"block_lse kv={kv_valid}"))
+        dead = -(-kv_valid // bk)
+        assert bool((got[..., dead:] == -1e30).all()), "masked blocks"
+    nb, nk = s // bk, -(-bk // stride)
+    b_ms, b_by = bound(b * hq * nb * nk * (2 * dh + 4),
+                       4 * (b * hkv * nb * nk * dh + b * hq * dh
+                            + b * hq * nb))
+    rows.append(dict(
+        name="block_lse", route="cuda",
+        source="src/repro_torch/csrc/kde_attention.cu",
+        replaces="src/repro/kernels/kde_attention/kernel.py:40",
+        shape=f"b={b} hq={hq} hkv={hkv} S={s} dh={dh} bk={bk} "
+              f"stride={stride}",
+        ms=timed(lambda: kk.block_lse_cuda(q, k, **kw), 200),
+        plain_ms=timed(lambda: kk.block_lse_plain(q, k, **kw), 50),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    b, hq, hkv, s, dh, bk, stride = LSE_LONG
+    q, k = lse_inputs(b, hq, hkv, s, dh)
+    kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=s, bk=bk)
+    errs["block_lse"] = max(errs["block_lse"], close(
+        kk.block_lse_cuda(q, k, **kw), kk.block_lse_plain(q, k, **kw),
+        "block_lse S=32768"))
+    # bench_attention's peaked mass at yi's heads: planted keys dominate
+    # the S-key background
+    k = torch.randn((b, hkv, s, dh), generator=gen, device=dev) * 0.05
+    qv = q.reshape(b, hkv, hq // hkv, dh).mean(2)
+    qv = qv / torch.linalg.vector_norm(qv, dim=-1, keepdim=True)
+    k[:, :, 50:90] += 8.0 * qv[:, :, None]
+    k[:, :, s // 2:s // 2 + 30] += 6.0 * qv[:, :, None]
+    v = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
+    kw = dict(top_p=KDE_LONG_TOP_P, bk=bk, stride=stride)
+    out = kops.kde_attention(q, k, v, **kw)
+    close(out, kops.kde_attention_ref(q, k, v, **kw), "kde_attention S=32768")
+    exact = kops.exact_decode_attention(q, k, v)
+    log(f"[kernels] kde_attention S={s} (top_p {KDE_LONG_TOP_P}, bk {bk}, "
+        f"stride {stride}, planted keys): kernel path = plain mirror; max "
+        f"|kde - exact| / max |exact| = "
+        f"{float((out - exact).abs().max() / exact.abs().max()):.4e}")
+    del q, k, v, out, exact
+    free_cuda()
+    for r in rows:
+        r["max_abs_err"] = errs[r["name"]]
+        log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
+            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    log("[kernels] block_lse library_ms null: no PyTorch call computes "
+        "strided per-block log-sum-exps of a GQA decode query")
+    return rows
+
+
+def logit_check(got, want, vocab: int, what: str) -> str:
+    """max |got - want| <= LM_LOGIT_REL max |want| over the real vocab, and
+    the same argmax on every row; returns the log text."""
+    import torch
+    got, want = got[..., :vocab].double(), want[..., :vocab].double()
+    assert bool(torch.isfinite(got).all()), f"{what}: non-finite logits"
+    diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    assert diff <= LM_LOGIT_REL * top, (what, diff, top)
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    assert same, f"{what}: argmax differs"
+    return (f"max |diff| {diff:.3e} <= {LM_LOGIT_REL} x max |logit| "
+            f"{top:.4f}; argmax equal on all {got.shape[0]} rows")
+
+
+def device_profile(fn, top: int = 4):
+    """(wall s without the profiler, device s, busy share, the ``top``
+    kernels by device time) of one call of ``fn``: the wall time from a
+    host clock around a run ending in a synchronize, the device time from
+    a ``torch.profiler`` trace of a second run (the sum of the CUDA
+    kernels' self time; one stream, so they do not overlap).  A trace that
+    shows no device time gives device s 0.0, printed as not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in prof.key_averages() if dev_us(e) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(dev_us(e) for e in kern) / 1e6
+    kern.sort(key=dev_us, reverse=True)
+    names = [(e.key[:60], dev_us(e) / 1e6, e.count) for e in kern[:top]]
+    return wall, busy, busy / wall, names
+
+
+def profile_text(wall, busy, share, names) -> str:
+    if busy == 0.0:
+        return (f"wall {wall:.4f} s; device time not measured (the trace "
+                f"shows none)")
+    return (f"wall {wall:.4f} s, device busy {busy:.4f} s ({share:.1%}; "
+            f"idle share {1 - share:.1%}); top kernels: " + "; ".join(
+                f"{n} {t:.4f} s x{c}" for n, t, c in names))
+
+
+def phase_lm_prefill():
+    """Phase 7: yi-6b at full width and depth, the flash prefill counted
+    and checked against xla."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    # the reference's param_count leaves out the final norm's d gains
+    assert n_params == cfg.param_count() + cfg.d_model, n_params
+    log(f"[lm-prefill] {cfg.name} f32 random init on the card: {n_params} "
+        f"parameters ({4 * n_params / 1e9:.2f} GB), "
+        f"{time.perf_counter() - t0:.2f} s")
+    shape = ShapeConfig("prefill_8k", LM_PREFILL_SEQ, LM_PREFILL_BATCH,
+                        "prefill")
+    batch = make_batch(cfg, shape, 0, 0)
+    tokens = LM_PREFILL_SEQ * LM_PREFILL_BATCH
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    flash = make_prefill_step(cfg, impl="flash")(model, batch)
+    torch.cuda.synchronize()
+    t_flash = time.perf_counter() - t0
+    launches = fk.LAUNCHES["flash_attention"]
+    assert launches == cfg.num_layers, launches
+    t0 = time.perf_counter()
+    xla = make_prefill_step(cfg, impl="xla")(model, batch)
+    torch.cuda.synchronize()
+    t_xla = time.perf_counter() - t0
+    text = logit_check(flash[:, -1], xla[:, -1], cfg.vocab_size,
+                       "lm-prefill flash vs xla")
+    log(f"[lm-prefill] batch {LM_PREFILL_BATCH} x seq {LM_PREFILL_SEQ}: "
+        f"flash {t_flash:.3f} s ({tokens / t_flash:.1f} tokens/s, "
+        f"{launches} flash launches), xla (chunked) {t_xla:.3f} s "
+        f"({tokens / t_xla:.1f} tokens/s); last-position logits: {text}")
+    del flash, xla
+    free_cuda()
+    step = make_prefill_step(cfg, impl="flash")
+    log("[lm-prefill] one flash prefill, where the time goes: "
+        + profile_text(*device_profile(lambda: step(model, batch))))
+    return model, launches, t_flash
+
+
+def phase_lm_serve(model, gen):
+    """Phase 8: the serve driver on the full model, xla then kde."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.kde_attention import kernel as kk
+    from repro_torch.kernels.kde_attention import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.train.train_step import (make_decode_step,
+                                              make_prefill_step)
+    cfg = model.cfg
+    args = {a: serve.parser().parse_args(LM_SERVE_ARGS + ["--attention", a])
+            for a in ("xla", "kde")}
+    b, plen = args["xla"].batch, args["xla"].prompt_len
+    batch = make_batch(cfg, ShapeConfig("serve", plen, b, "prefill"), 0,
+                       args["xla"].seed)
+    want = make_prefill_step(cfg, impl="flash")(model, batch)[:, 0]
+    res = {"xla": serve.run_lm(args["xla"], model=model)}
+    text = logit_check(res["xla"]["prompt_logits"], want, cfg.vocab_size,
+                       "lm-serve xla last prompt step vs flash prefill")
+    log(f"[lm-serve] xla: last-prompt-step logits vs the flash prefill of "
+        f"the same prompts: {text}")
+    del res["xla"]["cache"], want
+    free_cuda()
+    kk.reset_launches()
+    res["kde"] = serve.run_lm(args["kde"], model=model)
+    launches = kk.LAUNCHES["block_lse"]
+    steps = plen + args["kde"].gen - 1
+    assert launches == cfg.num_layers * steps, (launches, steps)
+    assert res["kde"]["max_len"] == 544, res["kde"]["max_len"]
+    kcfg = dict(top_p=args["kde"].kde_top_p, bk=args["kde"].kde_bk,
+                stride=args["kde"].kde_stride, kv_valid=steps)
+    for layer in LM_KDE_LAYERS:
+        ck = res["kde"]["cache"]["k"][layer]
+        cv = res["kde"]["cache"]["v"][layer]
+        q = torch.randn((b, cfg.num_heads, cfg.hd), generator=gen,
+                        device=ck.device)
+        e = close(kops.kde_attention(q, ck, cv, **kcfg),
+                  kops.kde_attention_ref(q, ck, cv, **kcfg),
+                  f"kde_attention layer {layer} final cache")
+        log(f"[lm-serve] kde final cache layer {layer}: kde_attention "
+            f"kernel path vs plain mirror max_abs_err {e:.3e}")
+    v = cfg.vocab_size
+    a = res["xla"]["prompt_logits"][:, :v].double().cpu().numpy()
+    k = res["kde"]["prompt_logits"][:, :v].double().cpu().numpy()
+    corr = float(np.mean([np.corrcoef(x1, x2)[0, 1] for x1, x2 in zip(a, k)]))
+    agree = float((res["xla"]["tokens"] == res["kde"]["tokens"]).mean())
+    for name, r in res.items():
+        log(f"[lm-serve] {name}: batch {b}, prompt {plen}, gen "
+            f"{args[name].gen}, cache {r['max_len']}: prefill (teacher-"
+            f"forced replay) {r['prefill_s']:.3f} s, decode "
+            f"{r['decode_s']:.3f} s ({args[name].gen * b / r['decode_s']:.1f}"
+            f" tok/s)")
+    log(f"[lm-serve] kde: {launches} block_lse launches = {cfg.num_layers} "
+        f"layers x {steps} steps; first generated step's logits, Pearson "
+        f"correlation kde vs xla {corr:.6f} (reported, not gated); "
+        f"generated tokens equal to xla's: {agree:.3f}")
+    # where a decode step's time goes: 8 steps past the run's last
+    # position on its cache (544 slots), each attention once
+    cache = res["kde"]["cache"]
+    cur = torch.as_tensor(res["kde"]["tokens"][:, -1:],
+                          device=cache["k"].device)
+    for name in ("xla", "kde"):
+        step = make_decode_step(cfg, impl=name, kde_cfg=dict(
+            top_p=args["kde"].kde_top_p, bk=args["kde"].kde_bk,
+            stride=args["kde"].kde_stride))
+
+        def steps8():
+            for pos in range(steps, steps + 8):
+                step(model, cache, cur, pos)
+
+        log(f"[lm-serve] 8 {name} decode steps (batch {b}, cache 544), "
+            f"where the time goes: " + profile_text(*device_profile(steps8)))
+    del res, cache
+    free_cuda()
+    return launches
+
+
 def phase_hash(data):
     """Phase 6's counted run: the hashed-KDE sparsifier."""
     import torch
@@ -879,7 +1246,8 @@ def main() -> int:
         lra_x_np=lra_x_np, lra_x=lra_x, lra_bw=lra_bw,
         lra_xs=(lra_x * 2.0).contiguous())   # laplacian squaring constant
     log(f"[setup] data made; laplacian median bandwidth {lra_bw:.4f}")
-    rows = phase_kernels(data, gen) + phase_hash_kernels(data, gen)
+    rows = phase_kernels(data, gen) + phase_hash_kernels(data, gen) + \
+        phase_lm_kernels(gen)
     phases["kernels"] = time.perf_counter() - t0
 
     rk.reset_launches()
@@ -924,6 +1292,20 @@ def main() -> int:
     phases["hash checks"] = time.perf_counter() - t0
     log("[hash] one edge batch, ms by stage (CUDA events): " + ", ".join(
         f"{k} {v:.4f}" for k, v in hash_breakdown(data).items()))
+    del data, g, g_hash, res, deg
+    free_cuda()
+
+    # the LM phases run in IEEE f32: no TF32 in any matmul
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    t0 = time.perf_counter()
+    model, launches["flash_attention"], _ = phase_lm_prefill()
+    phases["lm-prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["block_lse"] = phase_lm_serve(model, gen)
+    phases["lm-serve"] = time.perf_counter() - t0
+    del model
+    free_cuda()
 
     for r in rows:
         r["launches"] = launches[r["name"]]

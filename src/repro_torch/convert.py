@@ -1,10 +1,11 @@
 """Carry the reference's state across to the port.
 
-The system has no weights: its state is the dataset, the kernel
-parameters, the preprocessed degrees (or row norms) and the hashed
-estimator's bucket layout.  These helpers
-build the port's objects from the same plain numbers the reference was
-built from, so tests construct both sides from one set of numpy arrays.
+The kernel-matrix side has no weights: its state is the dataset, the
+kernel parameters, the preprocessed degrees (or row norms) and the hashed
+estimator's bucket layout.  The LM's state is its parameter tree.  These
+helpers build the port's objects from the same plain numbers the reference
+was built from, so tests construct both sides from one set of numpy
+arrays.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from repro_torch.core.kernels_fn import Kernel, make_kernel
 from repro_torch.core.sampling.vertex import PrefixCDF
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.kde_hash.ref import HashState
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 
 def kernel_from_reference(name: str, bandwidth: float,
@@ -56,3 +59,28 @@ def hash_state_from_reference(state, device=None) -> HashState:
         return torch.as_tensor(a).to(dev)
 
     return HashState(**{name: conv(name) for name in HashState._fields})
+
+
+def params_from_reference(tree, cfg, device=None) -> "T.Transformer":
+    """The reference's dense ``init_params`` tree (numpy arrays: ``embed``,
+    ``layers`` stacked on a leading L axis, ``final_norm``, ``lm_head``
+    unless tied) as the port's ``Transformer`` on ``device``.  Weights keep
+    the reference's (in, out) layout: the port applies them as ``x @ w``,
+    so nothing is transposed."""
+    dev = resolve_device(device)
+
+    def t(a):        # a copy: the reference's arrays may be read-only
+        return as_f32(np.array(a, dtype=np.float32), dev)
+
+    lt = tree["layers"]
+    attn, mlp = lt["attn"], lt["mlp"]
+    bias = ("bq", "bk", "bv") if cfg.qkv_bias else ()
+    layers = []
+    for i in range(cfg.num_layers):
+        a = L.Attention(*(t(attn[n][i]) for n in ("wq", "wk", "wv", "wo")),
+                        *(t(attn[n][i]) for n in bias))
+        m = L.MLP(*(t(mlp[n][i]) for n in ("w1", "w3", "w2")))
+        layers.append(T.DenseLayer(t(lt["ln1"][i]), t(lt["ln2"][i]), a, m))
+    head = tree.get("lm_head")
+    return T.Transformer(cfg, t(tree["embed"]), layers, t(tree["final_norm"]),
+                         None if head is None else t(head))

@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("kde_rowsum.cu", "kde_sampler.cu", "kde_hash.cu")
+SOURCES = ("kde_rowsum.cu", "kde_sampler.cu", "kde_hash.cu",
+           "flash_attention.cu", "kde_attention.cu")
 HEADERS = ("kde_tile.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -33,6 +34,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every exported function (all return cudaError_t as int)
 SIGNATURES = {
     "kde_rowsum_splits": (_I, _I),
@@ -47,6 +49,11 @@ SIGNATURES = {
                                _F, _F, _F, _P),
     "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _F, _F, _F, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _L, _L, _L, _L, _L, _L, _L,
+                               _L, _L, _I, _P),
+    "kde_block_lse_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _F, _L, _L, _L, _L, _L, _P),
 }
 
 _LIB = None

@@ -5,10 +5,13 @@ card.  These tests need a CUDA device and skip without one; on the card:
 
 (This file imports no JAX, so it runs where only PyTorch is installed.)
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_reduced
 from repro_torch.core.kernels_fn import gaussian
 from repro_torch.core.sampling.edge import NeighborSampler
 from repro_torch.core.sparsify import spectral_sparsify
@@ -16,6 +19,12 @@ from repro_torch.kernels.kde_hash import kernel as hk
 from repro_torch.kernels.kde_rowsum import kernel as rk
 from repro_torch.kernels.kde_sampler import kernel as sk
 from repro_torch.kernels.kde_sampler.ops import gumbel
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.kde_attention import kernel as kk
+from repro_torch.kernels.kde_attention import ops as kops
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
 
 RTOL, ATOL = 2e-4, 1e-5
 KINDS = ["gaussian", "exponential", "laplacian", "rational_quadratic"]
@@ -134,3 +143,116 @@ def test_hash_path_runs_on_the_kernels(cuda):
                           device=cuda)
     assert hk.LAUNCHES == {"weighted_kv_sum": 3, "weighted_kv": 4}
     assert np.all(np.isfinite(g.weight)) and g.num_edges == 4096
+
+
+# (b, hq, hkv, sq, skv, dh): the reference's flash sweep, the (5, 37)
+# offset case, rows with no valid key (negative offsets), and head dim 128
+# (over 48 KB of dynamic shared memory) with ragged tiles
+FLASH_SHAPES = [(2, 4, 2, 64, 64, 32), (1, 8, 2, 1, 300, 64),
+                (2, 4, 4, 100, 228, 16), (1, 2, 1, 17, 17, 8),
+                (1, 2, 1, 5, 37, 16), (1, 4, 2, 100, 40, 32),
+                (1, 2, 2, 200, 17, 16), (1, 8, 2, 300, 300, 128),
+                (2, 4, 1, 130, 77, 128)]
+# (b, hq, hkv, S, dh, bk, stride, kv_valid): the serve driver's shape at
+# an early and the last step, the S = 32768 production setting at yi's
+# heads, a group of 32 (warps loop), dh not a multiple of 32, bk not a
+# multiple of stride
+LSE_SHAPES = [(4, 32, 4, 544, 128, 32, 4, 1), (4, 32, 4, 544, 128, 32, 4, 527),
+              (1, 32, 4, 32768, 128, 256, 16, 32768),
+              (2, 32, 1, 1024, 64, 128, 8, 700),
+              (1, 6, 2, 480, 100, 96, 8, 300), (1, 4, 4, 240, 16, 30, 4, 200)]
+
+
+def _randn(gen, shape, dev, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    """The flash kernel (through ops: the reference's padding and offset,
+    bq = bk = 64) vs the plain version on the same tensors moved to the
+    CPU: out and lse at rtol 2e-4 / atol 1e-5 for f32 operands, out at atol
+    3e-2 (the reference's bf16 tolerance) for bf16; v is a transposed view,
+    as the model hands it."""
+    b, hq, hkv, sq, skv, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
+    q = _randn(gen, (b, hq, sq, dh), cuda, dtype)
+    k = _randn(gen, (b, hkv, skv, dh), cuda, dtype)
+    v = _randn(gen, (b, skv, hkv, dh), cuda, dtype).transpose(1, 2)
+    fk.reset_launches()
+    out, lse = fops.flash_attention(q, k, v, True, 64, 64, with_lse=True)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == 1
+    want, want_lse = fops.flash_attention(q.cpu(), k.cpu(), v.cpu(), True,
+                                          64, 64, with_lse=True)
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.cpu(), want, rtol=RTOL, atol=ATOL)
+    else:
+        torch.testing.assert_close(out.cpu().float(), want.float(), rtol=0,
+                                   atol=3e-2)
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LSE_SHAPES)
+def test_block_lse_kernel_matches_plain(cuda, shape):
+    """The block-lse kernel vs its plain version: rtol 2e-4 / atol 1e-5;
+    blocks with no valid key come out at -1e30 exactly."""
+    b, hq, hkv, s, dh, bk, stride, kv_valid = shape
+    gen = torch.Generator(device=cuda).manual_seed(s + dh)
+    q = _randn(gen, (b, hq, dh), cuda)
+    k = _randn(gen, (b, hkv, s, dh), cuda, scale=0.3)
+    kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=kv_valid, bk=bk)
+    kk.reset_launches()
+    got = kk.block_lse_cuda(q, k, **kw)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES["block_lse"] == 1
+    want = kk.block_lse_plain(q, k, **kw)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    dead = -(-kv_valid // bk)
+    assert bool((got[..., dead:] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_valid", [None, 3000])
+def test_kde_attention_runs_on_the_kernel(cuda, kv_valid):
+    """kde_attention on the card (block-lse kernel) vs the plain-torch
+    mirror on the same tensors, atol 2e-5 (the reference's)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, (2, 32, 128), cuda)
+    k = _randn(gen, (2, 4, 8192, 128), cuda, scale=0.3)
+    v = _randn(gen, (2, 4, 8192, 128), cuda)
+    kw = dict(top_p=4, bk=256, stride=16, kv_valid=kv_valid)
+    kk.reset_launches()
+    got = kops.kde_attention(q, k, v, **kw)
+    assert kk.LAUNCHES["block_lse"] == 1
+    torch.testing.assert_close(got, kops.kde_attention_ref(q, k, v, **kw),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_reduced_lm_runs_on_the_kernels(cuda):
+    """The reduced yi-6b on the card: forward with flash (one launch per
+    layer) against xla at atol 1e-4; the serve driver with --attention kde
+    launches block-lse once per layer and decode step."""
+    cfg = dataclasses.replace(get_reduced("yi_6b"), dtype="float32")
+    model = T.init_params(cfg, seed=0, device=cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 200))
+    fk.reset_launches()
+    with torch.inference_mode():
+        flash, _ = T.forward(model, cfg, {"tokens": toks}, impl="flash")
+        xla, _ = T.forward(model, cfg, {"tokens": toks}, impl="xla")
+    assert fk.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(flash, xla, rtol=0, atol=1e-4)
+    args = serve.parser().parse_args(["--reduced", "--batch", "2",
+                                      "--prompt-len", "40", "--gen", "5",
+                                      "--attention", "kde"])
+    kk.reset_launches()
+    res = serve.run_lm(args)
+    assert kk.LAUNCHES["block_lse"] == cfg.num_layers * (40 + 5 - 1)
+    assert res["tokens"].shape == (2, 5)
+    assert bool(torch.isfinite(res["prompt_logits"][:, :cfg.vocab_size])
+                .all())
