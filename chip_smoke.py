@@ -62,21 +62,33 @@ Phases (any failure exits non-zero; no phase catches and continues):
                xla`` (its last-prompt-step logits against the flash prefill
                of the same prompts, same bound and argmax) and ``--attention
                kde`` (the CLI defaults top_p 4, bk 32, stride 4; cache 528
-               rounded up to 544): exactly 32 x (512 + 15) block-lse
-               launches, then on its final cache (layers 0, 15, 31)
-               kde_attention through the kernel against the plain-torch
-               mirror.  Prints the first generated step's logit correlation
-               (kde vs xla, reported, not gated), prefill s and decode tok/s.
+               rounded up to 544): exactly 32 x (512 + 15) launches of the
+               fused KDE decode kernel and no block-lse launch, then on its
+               final cache (layers 0, 15, 31) kde_attention through the
+               kernel against the plain-torch mirror.  Prints the first
+               generated step's logit correlation (kde vs xla, reported,
+               not gated), prefill s and decode tok/s, a torch.profiler
+               split of 8 decode steps of each attention, and their walls
+               over three rounds of 8 steps taken in turns (xla, kde, kde,
+               xla, xla, kde).
 9. report   -- a ``{"kernels": [...]}`` line, the card line from
                nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
 (``phase_lm_kernels``): flash at the reference's ragged sweep and (5, 37),
-f32 and bf16 operands, and at the prefill shape (1, 32, 8192, 128) with 4
-kv-heads; block-lse at the serve shape and at S = 32768, bk 256, stride 16;
-kde_attention at S = 32768 with bench_attention's planted keys.  Times the
-kernels, their plain versions and, for flash, ``scaled_dot_product_attention
-(is_causal=True, enable_gqa=True)`` as the yardstick.
+at head dims that take the scalar-staged instance (30, 7) and on k / v
+rows off 16-byte alignment, f32 and bf16 operands, and at the prefill
+shape (1, 32, 8192, 128) with 4 kv-heads, printing the kernel instance
+each check ran; the fused KDE decode kernel (out and its step-1
+estimates) against its plain pipeline and ``block_lse_plain`` at the
+serve shape over kv_valid 1, 31, 32, 33, 527, 544, at S = 32768, bk
+256, stride 16, top_p 16 (random and bench_attention's planted keys) and
+at a 131072-key cache at the serve settings; the estimate-only block-lse
+kernel at the same inputs.  Times the kernels
+(``ms``: CUDA events around back-to-back calls, host cost included;
+``device_ms``: torch.profiler's kernel durations), their plain versions
+and, for flash, ``scaled_dot_product_attention(is_causal=True,
+enable_gqa=True)`` as the yardstick.
 
 Launch counters are set to 0 just before phase 3 and read just after
 phase 5, set to 0 again just before phase 6 and read just after its
@@ -95,9 +107,14 @@ term, the distance assembly, the scale, exp and the accumulate) and
 accumulate); the kde_hash kernels add one multiply by the weight per
 pair and read each distinct gathered row of x once (x is 16 MB and stays
 in the 50 MB L2).  Flash counts the causal half, 4 b hq dh s^2 / 2 FP32
-operations (QK^T and PV), against q, k, v, out and lse; block-lse reads
-the strided keys once per kv-head, b hkv nb ceil(bk/stride) dh floats,
-with 2 dh + 4 operations per (q-head, strided key).
+operations (QK^T and PV), against q, k, v, out and lse; the KDE decode
+kernel's work depends on the run's data (kv_valid and the selection): it
+reads the strided keys below kv_valid once per kv-head, less those of the
+selected blocks (they are read as gathered keys), and the gathered keys and
+values below kv_valid, with q and out; 2 dh + 4 operations per (q-head,
+strided key below kv_valid) and 4 dh + 4 per (q-head, selected key below
+kv_valid) -- counted from the plain pipeline's selection on the same inputs
+(``decode_bound``).
 """
 from __future__ import annotations
 
@@ -149,12 +166,19 @@ BF16_ATOL = 3e-2            # the reference's bf16 flash tolerance
 FLASH_RAGGED = [(2, 4, 2, 64, 64, 32), (1, 8, 2, 1, 300, 64),
                 (2, 4, 4, 100, 228, 16), (1, 2, 1, 17, 17, 8),
                 (1, 2, 1, 5, 37, 16)]
+# head dims that are not a multiple of 16 bytes: the scalar-staged instance
+FLASH_SCALAR = [(1, 4, 2, 257, 257, 30), (1, 2, 2, 70, 70, 7)]
 FLASH_MAIN = (1, 32, 4, 8192, 8192, 128)    # the prefill shape
 # (b, hq, hkv, S, dh, bk, stride): the serve shape (yi's heads, cache 544)
 # and bench_attention's production setting at yi's heads
 LSE_SERVE = (4, 32, 4, 544, 128, 32, 4)
 LSE_LONG = (1, 32, 4, 32768, 128, 256, 16)
+# a long cache at the serve settings: 4096 blocks, 512 per CTA of a cluster
+LSE_XL = (4, 32, 4, 131072, 128, 32, 4)
 KDE_LONG_TOP_P = 16
+KDE_SERVE_TOP_P = 4
+# decode steps of the serve run around block edges, and its last step
+KDE_VALID_SWEEP = (1, 31, 32, 33, 527, 544)
 
 
 def log(*a):
@@ -175,6 +199,21 @@ def timed(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds per call of ``fn`` over ``reps`` calls after
+    one warm-up: the host clock around the calls only, so a wrapper's
+    Python and launch cost, not the card's time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def close(got, want, what: str, atol: float = ATOL,
@@ -678,11 +717,38 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
+def decode_bound(q, k, kw, est):
+    """bound() of one kde_decode call on this run's data: ``est`` (b, hq,
+    nb) is the plain pipeline's step 1 on the same inputs, so its top-P
+    selection is the call's."""
+    import torch
+    from repro_torch.kernels.kde_attention import ref as kref
+    b, hq, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    bk, stride, kv = kw["bk"], kw["stride"], kw["kv_valid"]
+    nb = s // bk
+    sel = kref.top_blocks(kref._group_lse(est, hq // hkv),
+                          min(kw["top_p"], nb)).cpu()    # (b, hkv, P)
+    blk = torch.arange(nb)
+    strided = ((blk[:, None] * bk + torch.arange(0, bk, stride)[None])
+               < kv).sum(1)                 # strided keys below kv_valid
+    gathered = (kv - blk * bk).clamp(0, bk)     # block keys below kv_valid
+    n_str = b * hkv * int(strided.sum())
+    n_gat = int(gathered[sel].sum())
+    rows = n_str - int(strided[sel].sum()) + 2 * n_gat
+    g = hq // hkv
+    return bound(g * (n_str * (2 * dh + 4) + n_gat * (4 * dh + 4)),
+                 4 * (rows * dh + 2 * b * hq * dh))
+
+
 def phase_lm_kernels(gen):
-    """Phase 2, LM part: the flash and block-lse kernels against their plain
-    versions on the card (ragged, bf16, the main-path shapes), kde_attention
-    at S = 32768 through the kernel against the plain mirror; returns the
-    two report rows."""
+    """Phase 2, LM part: the flash kernel against its plain version on the
+    card (ragged, scalar-staged, bf16, the prefill shape); the fused KDE
+    decode kernel against its plain pipeline (out and its step-1
+    estimates, the latter also against block_lse_plain) over the serve
+    run's decode steps and at S = 32768 with bench_attention's planted
+    keys; the estimate-only block-lse kernel against its plain version;
+    returns the two report rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -690,7 +756,7 @@ def phase_lm_kernels(gen):
     from repro_torch.kernels.kde_attention import kernel as kk
     from repro_torch.kernels.kde_attention import ops as kops
     dev = torch.device("cuda")
-    errs = {"flash_attention": 0.0, "block_lse": 0.0}
+    errs = {"flash_attention": 0.0, "kde_decode": 0.0}
 
     def qkv(b, hq, hkv, sq, skv, dh, dtype=torch.float32):
         # q, k contiguous and v a transposed view: as the model hands them
@@ -704,27 +770,40 @@ def phase_lm_kernels(gen):
         kp, vp, kw = fops.flash_args(q, k, v, True, bq, bk)
         out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
         p_out, p_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+        inst = fk.instantiation(q, kp, vp)
         if q.dtype == torch.bfloat16:
             e = close(out.float(), p_out.float(), f"flash out {tag}",
                       atol=BF16_ATOL, rtol=0.0)
             close(lse, p_lse, f"flash lse {tag}")
-            return e
+            return e, inst
         e = max(close(out, p_out, f"flash out {tag}"),
                 close(lse, p_lse, f"flash lse {tag}"))
         errs["flash_attention"] = max(errs["flash_attention"], e)
-        return e
+        return e, inst
 
-    for shape in FLASH_RAGGED:
-        for dtype in (torch.float32, torch.bfloat16):
-            e = flash_check(*qkv(*shape, dtype=dtype), 64, 64,
-                            f"{shape} {dtype}")
-            log(f"[kernels] flash ragged (b, hq, hkv, sq, skv, dh) = {shape} "
-                f"{str(dtype)[6:]}: max_abs_err {e:.3e}")
+    for kind, shapes in (("ragged", FLASH_RAGGED), ("scalar", FLASH_SCALAR)):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                e, inst = flash_check(*qkv(*shape, dtype=dtype), 64, 64,
+                                      f"{shape} {dtype}")
+                log(f"[kernels] flash {kind} (b, hq, hkv, sq, skv, dh) = "
+                    f"{shape} {str(dtype)[6:]} [{inst}]: max_abs_err "
+                    f"{e:.3e}")
+    # rows 4 bytes off 16-byte alignment: k / v views into a flat buffer
+    # (skv a multiple of the block, so flash_args does not pad them)
+    q, _, _ = qkv(1, 4, 2, 256, 256, 64)
+    flat = torch.randn(2, 2 * 256 * 64 + 1, generator=gen, device=dev)
+    k, v = (t[1:].view(1, 2, 256, 64) for t in flat)
+    e, inst = flash_check(q, k, v, 64, 64, "unaligned rows")
+    assert inst.endswith("scalar"), inst
+    log(f"[kernels] flash unaligned k / v rows (1, 4, 2, 256, 256, 64) "
+        f"[{inst}]: max_abs_err {e:.3e}")
 
     rows = []
     b, hq, hkv, s, _, dh = FLASH_MAIN
     q, k, v = qkv(*FLASH_MAIN)
-    e = flash_check(q, k, v, 128, 128, "main")
+    e, inst = flash_check(q, k, v, 128, 128, "main")
+    log(f"[kernels] flash main {FLASH_MAIN} [{inst}]: max_abs_err {e:.3e}")
     free_cuda()
     kp, vp, kw = fops.flash_args(q, k, v)
     b_ms, b_by = bound(4 * b * hq * dh * s * s / 2,
@@ -734,8 +813,11 @@ def phase_lm_kernels(gen):
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:67",
-        shape=f"b={b} hq={hq} hkv={hkv} s={s} dh={dh} causal f32",
+        shape=f"b={b} hq={hq} hkv={hkv} s={s} dh={dh} causal f32 [{inst}]",
         ms=timed(lambda: fk.flash_attention_cuda(q, kp, vp, **kw), 5),
+        device_ms=kernel_device_ms(
+            lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
+            "flash_fwd_kernel", 3),
         plain_ms=timed(lambda: fk.flash_attention_plain(q, kp, vp, **kw), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda: F.scaled_dot_product_attention(
@@ -743,41 +825,77 @@ def phase_lm_kernels(gen):
     del q, k, v, kp, vp
     free_cuda()
 
-    def lse_inputs(b, hq, hkv, s, dh):
+    def decode_inputs(b, hq, hkv, s, dh):
         q = torch.randn((b, hq, dh), generator=gen, device=dev)
         k = torch.randn((b, hkv, s, dh), generator=gen, device=dev) * 0.3
-        return q, k
+        v = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
+        return q, k, v
+
+    def decode_check(q, k, v, kw, tag):
+        """Fused kernel vs plain pipeline (out, est), est vs block_lse_plain
+        and, at the same kv_valid, the estimate-only kernel vs it."""
+        out, est = kk.kde_decode_cuda(q, k, v, with_est=True, **kw)
+        p_out, p_est = kk.kde_decode_plain(q, k, v, with_est=True, **kw)
+        lse_kw = dict(scale=q.shape[-1] ** -0.5, stride=kw["stride"],
+                      kv_valid=kw["kv_valid"], bk=kw["bk"])
+        want_est = kk.block_lse_plain(q, k, **lse_kw)
+        e = max(close(out, p_out, f"kde_decode out {tag}"),
+                close(est, p_est, f"kde_decode est {tag}"),
+                close(est, want_est, f"kde_decode est vs block_lse {tag}"))
+        got = kk.block_lse_cuda(q, k, **lse_kw)
+        e_lse = close(got, want_est, f"block_lse {tag}")
+        dead = -(-kw["kv_valid"] // kw["bk"])
+        for name, t in (("kde_decode est", est), ("block_lse", got)):
+            assert bool((t[..., dead:] == -1e30).all()), f"{name} {tag}"
+        errs["kde_decode"] = max(errs["kde_decode"], e)
+        return e, e_lse
 
     b, hq, hkv, s, dh, bk, stride = LSE_SERVE
-    q, k = lse_inputs(b, hq, hkv, s, dh)
-    scale = dh ** -0.5
-    for kv_valid in (1, 300, s - 16):     # early, middle and last serve steps
-        kw = dict(scale=scale, stride=stride, kv_valid=kv_valid, bk=bk)
-        got = kk.block_lse_cuda(q, k, **kw)
-        errs["block_lse"] = max(errs["block_lse"], close(
-            got, kk.block_lse_plain(q, k, **kw), f"block_lse kv={kv_valid}"))
-        dead = -(-kv_valid // bk)
-        assert bool((got[..., dead:] == -1e30).all()), "masked blocks"
-    nb, nk = s // bk, -(-bk // stride)
-    b_ms, b_by = bound(b * hq * nb * nk * (2 * dh + 4),
-                       4 * (b * hkv * nb * nk * dh + b * hq * dh
-                            + b * hq * nb))
+    q, k, v = decode_inputs(b, hq, hkv, s, dh)
+    for kv_valid in (1, 300, s - 16):     # early, middle and last steps
+        lse_kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=kv_valid,
+                      bk=bk)
+        got = kk.block_lse_cuda(q, k, **lse_kw)
+        close(got, kk.block_lse_plain(q, k, **lse_kw),
+              f"block_lse kv={kv_valid}")
+        assert bool((got[..., -(-kv_valid // bk):] == -1e30).all())
+    for kv_valid in KDE_VALID_SWEEP:
+        kw = dict(top_p=KDE_SERVE_TOP_P, bk=bk, stride=stride,
+                  kv_valid=kv_valid)
+        e, e_lse = decode_check(q, k, v, kw, f"serve kv={kv_valid}")
+        log(f"[kernels] kde_decode serve shape kv_valid {kv_valid}: out and "
+            f"est max_abs_err {e:.3e}; block_lse (estimate-only kernel) "
+            f"{e_lse:.3e}")
+    kw = dict(top_p=KDE_SERVE_TOP_P, bk=bk, stride=stride, kv_valid=s - 17)
+    b_ms, b_by = decode_bound(q, k, kw, kk.kde_decode_plain(
+        q, k, v, with_est=True, **kw)[1])
     rows.append(dict(
-        name="block_lse", route="cuda",
+        name="kde_decode", route="cuda",
         source="src/repro_torch/csrc/kde_attention.cu",
         replaces="src/repro/kernels/kde_attention/kernel.py:40",
         shape=f"b={b} hq={hq} hkv={hkv} S={s} dh={dh} bk={bk} "
-              f"stride={stride}",
-        ms=timed(lambda: kk.block_lse_cuda(q, k, **kw), 200),
-        plain_ms=timed(lambda: kk.block_lse_plain(q, k, **kw), 50),
+              f"stride={stride} top_p={KDE_SERVE_TOP_P} kv_valid={s - 17}",
+        ms=timed(lambda: kk.kde_decode_cuda(q, k, v, **kw), 200),
+        device_ms=kernel_device_ms(lambda: kk.kde_decode_cuda(q, k, v, **kw),
+                                   "kde_decode_kernel", 200),
+        plain_ms=timed(lambda: kk.kde_decode_plain(q, k, v, **kw), 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    log(f"[kernels] kde_decode wrapper host time: "
+        f"{host_us(lambda: kk.kde_decode_cuda(q, k, v, **kw), 200):.2f} us a "
+        f"call (host clock over 200 calls, no synchronize inside)")
+    lse_kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=s - 17, bk=bk)
+    lse_ms = timed(lambda: kk.block_lse_cuda(q, k, **lse_kw), 200)
+    lse_dev = kernel_device_ms(lambda: kk.block_lse_cuda(q, k, **lse_kw),
+                               "block_lse_kernel", 200)
+    log(f"[kernels] block_lse (estimate-only kernel, off the decode path) "
+        f"serve shape: {lse_ms:.4f} ms a call, device {lse_dev} ms")
 
     b, hq, hkv, s, dh, bk, stride = LSE_LONG
-    q, k = lse_inputs(b, hq, hkv, s, dh)
-    kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=s, bk=bk)
-    errs["block_lse"] = max(errs["block_lse"], close(
-        kk.block_lse_cuda(q, k, **kw), kk.block_lse_plain(q, k, **kw),
-        "block_lse S=32768"))
+    q, k, v = decode_inputs(b, hq, hkv, s, dh)
+    kw = dict(top_p=KDE_LONG_TOP_P, bk=bk, stride=stride, kv_valid=s)
+    e, e_lse = decode_check(q, k, v, kw, "S=32768")
+    log(f"[kernels] kde_decode S={s} random keys: max_abs_err {e:.3e}; "
+        f"block_lse {e_lse:.3e}")
     # bench_attention's peaked mass at yi's heads: planted keys dominate
     # the S-key background
     k = torch.randn((b, hkv, s, dh), generator=gen, device=dev) * 0.05
@@ -785,25 +903,48 @@ def phase_lm_kernels(gen):
     qv = qv / torch.linalg.vector_norm(qv, dim=-1, keepdim=True)
     k[:, :, 50:90] += 8.0 * qv[:, :, None]
     k[:, :, s // 2:s // 2 + 30] += 6.0 * qv[:, :, None]
-    v = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
+    e, e_lse = decode_check(q, k, v, kw, "S=32768 planted")
+    b_ms, _ = decode_bound(q, k, kw, kk.kde_decode_plain(
+        q, k, v, with_est=True, **kw)[1])
     kw = dict(top_p=KDE_LONG_TOP_P, bk=bk, stride=stride)
     out = kops.kde_attention(q, k, v, **kw)
     close(out, kops.kde_attention_ref(q, k, v, **kw), "kde_attention S=32768")
     exact = kops.exact_decode_attention(q, k, v)
-    log(f"[kernels] kde_attention S={s} (top_p {KDE_LONG_TOP_P}, bk {bk}, "
-        f"stride {stride}, planted keys): kernel path = plain mirror; max "
-        f"|kde - exact| / max |exact| = "
+    dms = kernel_device_ms(lambda: kops.kde_attention(q, k, v, **kw),
+                           "kde_decode_kernel", 50)
+    log(f"[kernels] kde_decode S={s} (top_p {KDE_LONG_TOP_P}, bk {bk}, "
+        f"stride {stride}, planted keys) through ops.kde_attention: kernel "
+        f"= plain pipeline (max_abs_err {e:.3e}); device {dms} ms a launch, "
+        f"bound {b_ms:.5f} ms; max |kde - exact| / max |exact| = "
         f"{float((out - exact).abs().max() / exact.abs().max()):.4e}")
     del q, k, v, out, exact
+    free_cuda()
+
+    b, hq, hkv, s, dh, bk, stride = LSE_XL
+    q, k, v = decode_inputs(b, hq, hkv, s, dh)
+    for kv_valid in (s // 2 + 3, s):
+        kw = dict(top_p=KDE_SERVE_TOP_P, bk=bk, stride=stride,
+                  kv_valid=kv_valid)
+        e, e_lse = decode_check(q, k, v, kw, f"S={s} kv={kv_valid}")
+    b_ms, _ = decode_bound(q, k, kw, kk.kde_decode_plain(
+        q, k, v, with_est=True, **kw)[1])
+    dms = kernel_device_ms(lambda: kk.kde_decode_cuda(q, k, v, **kw),
+                           "kde_decode_kernel", 50)
+    log(f"[kernels] kde_decode S={s} (b {b}, bk {bk}, stride {stride}, "
+        f"top_p {KDE_SERVE_TOP_P}; {s // bk} blocks): max_abs_err {e:.3e}; "
+        f"block_lse {e_lse:.3e}; device {dms} ms a launch, bound "
+        f"{b_ms:.5f} ms")
+    del q, k, v
     free_cuda()
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
         log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
-            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']})")
-    log("[kernels] block_lse library_ms null: no PyTorch call computes "
-        "strided per-block log-sum-exps of a GQA decode query")
+            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (device "
+            f"{r['device_ms']}, plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']}, bound {r['bound_ms']:.5f} by "
+            f"{r['bound_by']})")
+    log("[kernels] kde_decode library_ms null: no PyTorch call computes "
+        "KDE block selection with attention over the selected blocks")
     return rows
 
 
@@ -820,6 +961,33 @@ def logit_check(got, want, vocab: int, what: str) -> str:
     assert same, f"{what}: argmax differs"
     return (f"max |diff| {diff:.3e} <= {LM_LOGIT_REL} x max |logit| "
             f"{top:.4f}; argmax equal on all {got.shape[0]} rows")
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_device_ms(fn, kernel: str, reps: int):
+    """Mean device ms per launch of the CUDA kernel whose name contains
+    ``kernel``, from torch.profiler's kernel durations over ``reps`` calls
+    of ``fn`` (so the host's cost per call is left out); None, printed as
+    not measured, when the trace shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if kernel in e.key
+          and _dev_us(e) > 0]
+    count = sum(e.count for e in ev)
+    if count == 0:
+        return None
+    return sum(_dev_us(e) for e in ev) / count / 1e3
 
 
 def device_profile(fn, top: int = 4):
@@ -840,16 +1008,11 @@ def device_profile(fn, top: int = 4):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kern = [e for e in prof.key_averages() if dev_us(e) > 0
+    kern = [e for e in prof.key_averages() if _dev_us(e) > 0
             and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(dev_us(e) for e in kern) / 1e6
-    kern.sort(key=dev_us, reverse=True)
-    names = [(e.key[:60], dev_us(e) / 1e6, e.count) for e in kern[:top]]
+    busy = sum(_dev_us(e) for e in kern) / 1e6
+    kern.sort(key=_dev_us, reverse=True)
+    names = [(e.key[:60], _dev_us(e) / 1e6, e.count) for e in kern[:top]]
     return wall, busy, busy / wall, names
 
 
@@ -937,9 +1100,10 @@ def phase_lm_serve(model, gen):
     free_cuda()
     kk.reset_launches()
     res["kde"] = serve.run_lm(args["kde"], model=model)
-    launches = kk.LAUNCHES["block_lse"]
+    launches = kk.LAUNCHES["kde_decode"]
     steps = plen + args["kde"].gen - 1
     assert launches == cfg.num_layers * steps, (launches, steps)
+    assert kk.LAUNCHES["block_lse"] == 0, kk.LAUNCHES
     assert res["kde"]["max_len"] == 544, res["kde"]["max_len"]
     kcfg = dict(top_p=args["kde"].kde_top_p, bk=args["kde"].kde_bk,
                 stride=args["kde"].kde_stride, kv_valid=steps)
@@ -952,7 +1116,7 @@ def phase_lm_serve(model, gen):
                   kops.kde_attention_ref(q, ck, cv, **kcfg),
                   f"kde_attention layer {layer} final cache")
         log(f"[lm-serve] kde final cache layer {layer}: kde_attention "
-            f"kernel path vs plain mirror max_abs_err {e:.3e}")
+            f"kernel path vs plain pipeline max_abs_err {e:.3e}")
     v = cfg.vocab_size
     a = res["xla"]["prompt_logits"][:, :v].double().cpu().numpy()
     k = res["kde"]["prompt_logits"][:, :v].double().cpu().numpy()
@@ -964,7 +1128,7 @@ def phase_lm_serve(model, gen):
             f"forced replay) {r['prefill_s']:.3f} s, decode "
             f"{r['decode_s']:.3f} s ({args[name].gen * b / r['decode_s']:.1f}"
             f" tok/s)")
-    log(f"[lm-serve] kde: {launches} block_lse launches = {cfg.num_layers} "
+    log(f"[lm-serve] kde: {launches} kde_decode launches = {cfg.num_layers} "
         f"layers x {steps} steps; first generated step's logits, Pearson "
         f"correlation kde vs xla {corr:.6f} (reported, not gated); "
         f"generated tokens equal to xla's: {agree:.3f}")
@@ -973,17 +1137,33 @@ def phase_lm_serve(model, gen):
     cache = res["kde"]["cache"]
     cur = torch.as_tensor(res["kde"]["tokens"][:, -1:],
                           device=cache["k"].device)
+    step = {name: make_decode_step(cfg, impl=name, kde_cfg=dict(
+        top_p=args["kde"].kde_top_p, bk=args["kde"].kde_bk,
+        stride=args["kde"].kde_stride)) for name in ("xla", "kde")}
+
+    def steps8(name):
+        for pos in range(steps, steps + 8):
+            step[name](model, cache, cur, pos)
+
+    walls = {}
     for name in ("xla", "kde"):
-        step = make_decode_step(cfg, impl=name, kde_cfg=dict(
-            top_p=args["kde"].kde_top_p, bk=args["kde"].kde_bk,
-            stride=args["kde"].kde_stride))
-
-        def steps8():
-            for pos in range(steps, steps + 8):
-                step(model, cache, cur, pos)
-
+        prof = device_profile(lambda: steps8(name))
+        walls[name] = [prof[0] / 8]
         log(f"[lm-serve] 8 {name} decode steps (batch {b}, cache 544), "
-            f"where the time goes: " + profile_text(*device_profile(steps8)))
+            f"where the time goes: " + profile_text(*prof))
+    # host-bound walls spread with the machine: two more rounds in turns
+    for name in ("kde", "xla", "xla", "kde"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps8(name)
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) / 8)
+    mean = {n: sum(w) / len(w) for n, w in walls.items()}
+    log(f"[lm-serve] decode step wall over 3 rounds of 8 steps (xla, kde, "
+        f"kde, xla, xla, kde): kde {mean['kde'] * 1e3:.2f} ms "
+        f"{[round(w * 1e3, 2) for w in walls['kde']]}, xla "
+        f"{mean['xla'] * 1e3:.2f} ms {[round(w * 1e3, 2) for w in walls['xla']]}"
+        f" (kde / xla {mean['kde'] / mean['xla']:.3f})")
     del res, cache
     free_cuda()
     return launches
@@ -1302,7 +1482,7 @@ def main() -> int:
     model, launches["flash_attention"], _ = phase_lm_prefill()
     phases["lm-prefill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches["block_lse"] = phase_lm_serve(model, gen)
+    launches["kde_decode"] = phase_lm_serve(model, gen)
     phases["lm-serve"] = time.perf_counter() - t0
     del model
     free_cuda()
@@ -1312,7 +1492,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("device_ms",) if k in r} for r in rows]}))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

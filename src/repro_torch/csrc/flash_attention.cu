@@ -14,47 +14,60 @@
 // Bound on the H100: operations.  At the prefill shape (1, 32, 8192, 128)
 // the causal half of QK^T and PV is 4 b hq dh s^2 / 2 = 5.5e11 FP32
 // operations (8.2 ms at 67 TFLOP/s) against ~0.3 GB of operands (0.09 ms).
-// The design keeps the score tile out of device memory (online softmax, as
-// the TPU kernel does) and feeds the FMA units from shared memory through
-// register micro-tiles: per k-step a thread reads 4 query and 4 key values
-// for 16 FMAs (QK^T), per key 4 probabilities and 8 values for 32 FMAs (PV).
-// Key tiles wholly above the diagonal or past kv_valid are skipped once
-// every row of the CTA has a finite running max: there p = exp(-1e30 - m)
-// = 0 and alpha = 1 exactly, so skipping changes nothing.  A row with no
-// valid key yet takes p = exp(0) = 1 per masked key, as the Pallas body
-// does, so such tiles are never skipped.  IEEE f32 throughout (expf, logf,
-// true division), no tensor cores: wgmma / TMA / bf16 MMA are a later step.
+// The score tile never leaves the chip (online softmax, as the TPU kernel
+// does), and the design feeds the FMA units from registers:
 //
-// Layout: one CTA of 256 threads per (64-row query tile, q-head, batch).
-// Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16 i (i < 4),
-// score columns tx + 16 j (j < 4) and output columns tx + 16 j (j < 8), so
-// a row's 16 owners are one half-warp and its max / sum reduce by xor
-// shuffles.  Shared memory (dynamic, 99,840 bytes at dh = 128, so two CTAs
-// fit on an SM): the query tile (row stride dh + 4), the key tile
-// transposed (dh x 65; the probability tile reuses it once the scores are
-// formed) and the value tile (64 x dh).  Operands are converted to f32 as
-// they are staged.  GQA: q-head h reads kv-head h / (hq / hkv); no head is
+// * Register tiles fed by vector shared loads.  One CTA of 256 threads per
+//   (q-head, batch, 128-row query tile).  Thread (ty, tx) = (tid / 16,
+//   tid % 16) owns query rows 8 ty .. 8 ty + 7, score columns tx + 16 j
+//   (j < 4) and, in PV, output columns in groups of up to 16 bytes.  Q, K
+//   and V tiles are row-major with a 16-byte pad per row, so the 8 rows a
+//   quarter-warp reads with one 16-byte load fall in 8 distinct bank
+//   groups; the probability tile is stored key-major, so one 16-byte load
+//   gives 4 of a thread's rows.  Per 16 bytes of head dim QK^T issues 12
+//   shared loads for the 8 x 4 tile's 128 FMAs in f32 (256 in bf16), 0.094
+//   loads per FMA; PV issues 4 loads per 64 FMAs (0.0625).
+//   The head dim is a compile-time bucket (32, 64, 128) so the loops
+//   unroll; columns past dh are zero in shared memory.
+// * Copies that overlap math.  K / V tiles of 64 keys are double-buffered
+//   in dynamic shared memory (202,752 bytes at f32 dh 128: one CTA per SM)
+//   and filled by cp.async 16-byte copies (zero-filling rows past the end)
+//   while the previous tile computes.  Operands stay in their own type in
+//   shared memory; bf16 converts to f32 in registers after the shared
+//   load.  The probability tile reuses the current K buffer once the
+//   scores are formed.  Rows that are not 16-byte aligned, or a dh that is
+//   not a multiple of 16 bytes, go through the scalar-staged instantiation
+//   of the same template (the wrapper picks it; ``VEC`` below).
+// * Masks only where they bite.  A key tile that lies wholly below the
+//   diagonal of every row and before kv_valid and skv skips the
+//   per-element masks; the diagonal tile and the tile holding kv_valid (or
+//   the ragged end of skv) apply them.
+// * Heavy tiles first.  The query tile is the slow part of the grid's x
+//   index (x = tile * hq + head) and, when causal, runs in reverse, so the tiles with the most keys
+//   start in the first wave and the tail of the last wave is short.
+//
+// Sentinel semantics are the reference's: a masked score is -1e30 and a
+// row with no valid key yet takes p = exp(0) = 1 per masked key, so a
+// masked tile is skipped only once every row of the CTA has a finite max
+// (then p = exp(-1e30 - m) = 0 and alpha = 1 exactly).  Keys past skv do
+// not exist (p = 0).  IEEE f32 throughout (expf, logf, true division), no
+// tensor cores.  GQA: q-head h reads kv-head h / (hq / hkv); no head is
 // replicated.  q, k, v may be strided over (batch, head, position); the
 // head dimension must be contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per CTA
+constexpr int BQ = 128;          // query rows per CTA
 constexpr int BKV = 64;          // keys per tile
 constexpr int THREADS = 256;
-constexpr int RM = 4;            // rows per thread
-constexpr int CM = 4;            // score columns per thread
+constexpr int RM = 8;            // rows per thread (8 ty .. 8 ty + 7)
+constexpr int CM = 4;            // score columns per thread (tx + 16 j)
+constexpr int PS = BQ + 4;       // key-major probability tile row stride (floats)
 constexpr int DMAX = 128;
-constexpr int DJ = DMAX / 16;    // output columns per thread
-constexpr int KT_STRIDE = BKV + 1;
 constexpr float NEG = -1.0e30f;  // the reference's sentinel
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct Shape {
   int hq, hkv, sq, skv, dh, causal, offset, kv_valid;
@@ -62,111 +75,234 @@ struct Shape {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
 };
 
-__host__ __device__ inline int q_stride(int dh) { return dh + 4; }
-__host__ __device__ inline int kt_rows(int dh) { return dh > BQ ? dh : BQ; }
+// elements of T in 16 bytes, and the padded row stride of the Q / K / V tiles
+template <typename T> struct Tile {
+  static constexpr int VE = 16 / (int)sizeof(T);
+};
+template <typename T, int DB> struct Layout {
+  static constexpr int VE = Tile<T>::VE;
+  static constexpr int RS = DB + VE;                    // elements per row
+  static constexpr int KBYTES = BKV * RS * (int)sizeof(T);
+  static constexpr int PBYTES = BKV * PS * (int)sizeof(float);
+  static constexpr int SLOT = KBYTES > PBYTES ? KBYTES : PBYTES;  // K or P
+  static constexpr int QBYTES = BQ * RS * (int)sizeof(T);
+  static constexpr int BYTES = QBYTES + 2 * SLOT + 2 * KBYTES;
+  // output columns per thread, in NG groups of G contiguous elements
+  static constexpr int OC = DB / 16;
+  static constexpr int G = OC < VE ? OC : VE;
+  static constexpr int NG = OC / G;
+};
 
-size_t smem_bytes(int dh) {
-  return sizeof(float) *
-         ((size_t)BQ * q_stride(dh) + (size_t)kt_rows(dh) * KT_STRIDE + (size_t)BKV * dh);
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.0f);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// N contiguous elements of T from shared memory (N * sizeof(T) in {4, 8, 16}
+// bytes, aligned), as f32
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float* o) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x; o[1] = x.y;
+  } else {
+    static_assert(N == 1, "float loads of 1, 2 or 4");
+    o[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void lds(const __nv_bfloat16* p, float* o) {
+  if constexpr (N == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    o[0] = bf_lo(x.x); o[1] = bf_hi(x.x); o[2] = bf_lo(x.y); o[3] = bf_hi(x.y);
+    o[4] = bf_lo(x.z); o[5] = bf_hi(x.z); o[6] = bf_lo(x.w); o[7] = bf_hi(x.w);
+  } else if constexpr (N == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    o[0] = bf_lo(x.x); o[1] = bf_hi(x.x); o[2] = bf_lo(x.y); o[3] = bf_hi(x.y);
+  } else {
+    static_assert(N == 2, "bf16 loads of 2, 4 or 8");
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+    o[0] = bf_lo(x); o[1] = bf_hi(x);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage rows [0, BR) of a tile: row r comes from src + r * rs when r < n,
+// columns past dh are zero, rows at or past n are zero.  VEC: 16-byte
+// cp.async copies (asynchronous until cp_async_wait_all; src, rs and dh
+// must keep every copy 16-byte aligned).  Otherwise plain element loads.
+// No runtime division: a thread's (row, column) step is a compile-time
+// power of two.
+template <typename T, int DB, bool VEC, int BR>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, long long rs, int n,
+                                      int dh, int tid) {
+  using L = Layout<T, DB>;
+  if constexpr (VEC) {
+    constexpr int CH = DB / L::VE;              // 16-byte chunks per row
+    constexpr int RPP = THREADS / CH;           // rows per pass
+    const int c = tid % CH, r0 = tid / CH;      // compile-time shifts
+    const int d = c * L::VE;
+#pragma unroll
+    for (int r = r0; r < BR; r += RPP) {
+      const bool ok = r < n && d < dh;
+      const T* g = ok ? src + r * rs + d : src;
+      cp_async16(dst + r * L::RS + d, g, ok ? 16 : 0);
+    }
+  } else {
+    constexpr int RPP = THREADS / DB;
+    const int d = tid % DB, r0 = tid / DB;
+#pragma unroll 4
+    for (int r = r0; r < BR; r += RPP) {
+      const bool ok = r < n && d < dh;
+      dst[r * L::RS + d] = ok ? src[r * rs + d] : zero<T>();
+    }
+  }
+}
+
+template <typename T, int DB, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Shape s) {
-  extern __shared__ float smem[];
-  const int dh = s.dh;
-  const int qs = q_stride(dh);
-  float* Qs = smem;                              // BQ x qs
-  float* Kt = Qs + BQ * qs;                      // dh x KT_STRIDE
-  float* Ps = Kt;                                // BQ x KT_STRIDE (aliases Kt)
-  float* Vs = Kt + kt_rows(dh) * KT_STRIDE;      // BKV x dh
+  using L = Layout<T, DB>;
+  constexpr int VE = L::VE, RS = L::RS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  unsigned char* slots = smem + L::QBYTES;                      // K / P, 2 slots
+  unsigned char* vbufs = slots + 2 * L::SLOT;                   // V, 2 buffers
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
+  // blockIdx.x = (query tile) * hq + head: the tile is the slow index
+  const int h = blockIdx.x % s.hq;
+  const int bi = blockIdx.y;
+  const int nqt = gridDim.x / s.hq;
+  const int z = blockIdx.x / s.hq;
+  const int qt = s.causal ? nqt - 1 - z : z;
+  const int q0 = qt * BQ;
   const int kvh = h / (s.hq / s.hkv);
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
+  const int r0 = ty * RM;
 
   const T* qb = q + bi * s.qsb + h * s.qsh;
   const T* kb = k + bi * s.ksb + kvh * s.ksh;
   const T* vb = v + bi * s.vsb + kvh * s.vsh;
 
-  for (int e = tid; e < BQ * dh; e += THREADS) {
-    const int r = e / dh, d = e - r * dh;
-    const int row = q0 + r;
-    Qs[r * qs + d] = row < s.sq ? to_f32(qb[row * s.qss + d]) : 0.0f;
-  }
+  // rows past sq are never stored; they count as finite for the skip test
+  const int last_row = min(q0 + BQ, s.sq) - 1;
+  const int qpos_min = q0 + s.offset;
+  const int qpos_max = last_row + s.offset;
+  const int nt = (s.skv + BKV - 1) / BKV;
+  // tiles from first_masked on are masked for every row (masks are monotone
+  // in the key position); only they may be skipped, so only earlier tiles
+  // are prefetched
+  int lim = min(s.kv_valid, s.skv);
+  if (s.causal) lim = min(lim, qpos_max + 1);
+  const int first_masked = lim <= 0 ? 0 : min(nt, (lim + BKV - 1) / BKV);
 
-  float m[RM], l[RM], acc[RM][DJ];
+  auto issue = [&](int t) {
+    const int kt = t * BKV;
+    T* kd = reinterpret_cast<T*>(slots + (t & 1) * L::SLOT);
+    T* vd = reinterpret_cast<T*>(vbufs + (t & 1) * L::KBYTES);
+    stage<T, DB, VEC, BKV>(kd, kb + kt * s.kss, s.kss, s.skv - kt, s.dh, tid);
+    stage<T, DB, VEC, BKV>(vd, vb + kt * s.vss, s.vss, s.skv - kt, s.dh, tid);
+    if constexpr (VEC) cp_async_commit();
+  };
+
+  stage<T, DB, VEC, BQ>(Qs, qb + q0 * s.qss, s.qss, s.sq - q0, s.dh, tid);
+  if (first_masked > 0) issue(0);
+  else if constexpr (VEC) cp_async_commit();
+
+  float m[RM], l[RM], acc[RM][L::OC];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     m[i] = NEG;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
+    for (int o = 0; o < L::OC; ++o) acc[i][o] = 0.0f;
   }
-  // rows past sq are never stored; count them as finite for the skip test
-  const int last_row = min(q0 + BQ, s.sq) - 1;
-  const int qpos_max = last_row + s.offset;
 
-  for (int kt = 0; kt < s.skv; kt += BKV) {
-    const bool tile_masked = kt >= s.kv_valid || (s.causal && kt > qpos_max);
-    if (tile_masked) {
-      // masks are monotone in the key position: every later tile is masked
-      // too, and with a finite max it adds exactly nothing
+  for (int t = 0; t < nt; ++t) {
+    const int kt = t * BKV;
+    if (t >= first_masked) {
+      // with a finite max every later tile adds exactly nothing
       int finite = 1;
 #pragma unroll
       for (int i = 0; i < RM; ++i)
-        if (q0 + ty + 16 * i < s.sq && m[i] == NEG) finite = 0;
+        if (q0 + r0 + i < s.sq && m[i] == NEG) finite = 0;
       if (__syncthreads_and(finite)) break;
+      issue(t);   // not prefetched: its buffers were last read two tiles ago
     }
-    __syncthreads();   // the previous tile's Ps / Vs reads are done
-    for (int e = tid; e < BKV * dh; e += THREADS) {
-      const int c = e / dh, d = e - c * dh;
-      const int key = kt + c;
-      float kv = 0.0f, vv = 0.0f;
-      if (key < s.skv) {
-        kv = to_f32(kb[key * s.kss + d]);
-        vv = to_f32(vb[key * s.vss + d]);
-      }
-      Kt[d * KT_STRIDE + c] = kv;
-      Vs[c * dh + d] = vv;
-    }
-    __syncthreads();
+    if constexpr (VEC) cp_async_wait_all();
+    __syncthreads();   // tile t has landed; every thread is done with tile t - 1
+    if (t + 1 < first_masked) issue(t + 1);
+
+    const T* Ks = reinterpret_cast<const T*>(slots + (t & 1) * L::SLOT);
+    const T* Vs = reinterpret_cast<const T*>(vbufs + (t & 1) * L::KBYTES);
+    float* Ps = reinterpret_cast<float*>(slots + (t & 1) * L::SLOT);
 
     float sc[RM][CM];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < CM; ++j) sc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      float a[RM], b[CM];
+#pragma unroll 8
+    for (int d0 = 0; d0 < DB; d0 += VE) {
+      float kf[CM][VE];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = Qs[(ty + 16 * i) * qs + d];
+      for (int j = 0; j < CM; ++j) lds<VE>(Ks + (tx + 16 * j) * RS + d0, kf[j]);
 #pragma unroll
-      for (int j = 0; j < CM; ++j) b[j] = Kt[d * KT_STRIDE + tx + 16 * j];
+      for (int i = 0; i < RM; ++i) {
+        float qf[VE];
+        lds<VE>(Qs + (r0 + i) * RS + d0, qf);
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+        for (int j = 0; j < CM; ++j)
 #pragma unroll
-        for (int j = 0; j < CM; ++j) sc[i][j] = fmaf(a[i], b[j], sc[i][j]);
+          for (int e = 0; e < VE; ++e) sc[i][j] = fmaf(qf[e], kf[j][e], sc[i][j]);
+      }
     }
 
-    float p[RM][CM];
+    // a tile needs masks only if some key of it is at or past kv_valid or
+    // skv, or (causal) past the smallest query position of the CTA
+    const bool interior = kt + BKV <= s.kv_valid && kt + BKV <= s.skv &&
+                          (!s.causal || kt + BKV - 1 <= qpos_min);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int qpos = q0 + ty + 16 * i + s.offset;
       float mx = NEG;
+      if (interior) {
 #pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        const int key = kt + tx + 16 * j;
-        bool valid = key < s.kv_valid;
-        if (s.causal) valid = valid && key <= qpos;
-        sc[i][j] = valid ? sc[i][j] * s.scale : NEG;
-        mx = fmaxf(mx, sc[i][j]);
+        for (int j = 0; j < CM; ++j) {
+          sc[i][j] *= s.scale;
+          mx = fmaxf(mx, sc[i][j]);
+        }
+      } else {
+        const int qpos = q0 + r0 + i + s.offset;
+#pragma unroll
+        for (int j = 0; j < CM; ++j) {
+          const int key = kt + tx + 16 * j;
+          bool valid = key < s.kv_valid;
+          if (s.causal) valid = valid && key <= qpos;
+          sc[i][j] = valid ? sc[i][j] * s.scale : NEG;
+          mx = fmaxf(mx, sc[i][j]);
+        }
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -176,8 +312,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CM; ++j) {
         // keys past skv do not exist (the last tile's ragged end): p = 0
-        p[i][j] = kt + tx + 16 * j < s.skv ? expf(sc[i][j] - m_new) : 0.0f;
-        rs += p[i][j];
+        const float p = (interior || kt + tx + 16 * j < s.skv) ? expf(sc[i][j] - m_new) : 0.0f;
+        sc[i][j] = p;
+        rs += p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -185,65 +322,85 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m[i] - m_new);
       l[i] = l[i] * alpha + rs;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      for (int o = 0; o < L::OC; ++o) acc[i][o] *= alpha;
       m[i] = m_new;
     }
-    __syncthreads();   // every thread is done reading Kt
+    __syncthreads();   // every thread is done reading this K tile: P takes its place
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CM; ++j) Ps[(ty + 16 * i) * KT_STRIDE + tx + 16 * j] = p[i][j];
+    for (int j = 0; j < CM; ++j) {
+      float* pr = Ps + (tx + 16 * j) * PS + r0;
+      *reinterpret_cast<float4*>(pr) = make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+      *reinterpret_cast<float4*>(pr + 4) = make_float4(sc[4][j], sc[5][j], sc[6][j], sc[7][j]);
+    }
     __syncthreads();
 
-    const int nkeys = min(BKV, s.skv - kt);
-    for (int c = 0; c < nkeys; ++c) {
-      float pv[RM];
+    // keys past skv have p = 0 and zero rows in Vs, so every tile runs all
+    // BKV keys
+#pragma unroll 8
+    for (int c = 0; c < BKV; ++c) {
+      float p[RM];
+      lds<4>(Ps + c * PS + r0, p);
+      lds<4>(Ps + c * PS + r0 + 4, p + 4);
+      float vv[L::OC];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = Ps[(ty + 16 * i) * KT_STRIDE + c];
+      for (int g = 0; g < L::NG; ++g)
+        lds<L::G>(Vs + c * RS + (tx + 16 * g) * L::G, vv + g * L::G);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < dh) {
-          const float vv = Vs[c * dh + d];
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-          for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
+        for (int o = 0; o < L::OC; ++o) acc[i][o] = fmaf(p[i], vv[o], acc[i][o]);
     }
   }
+  if constexpr (VEC) cp_async_wait_all();   // nothing in flight at exit
 
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + 16 * i;
+    const int row = q0 + r0 + i;
     if (row >= s.sq) continue;
     const float safe = fmaxf(l[i], 1e-30f);
     const size_t o = ((size_t)(bi * s.hq + h) * s.sq + row);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) put(out + o * dh + d, acc[i][j] / safe);
-    }
+    for (int g = 0; g < L::NG; ++g)
+#pragma unroll
+      for (int e = 0; e < L::G; ++e) {
+        const int d = (tx + 16 * g) * L::G + e;
+        if (d < s.dh) put(out + o * s.dh + d, acc[i][g * L::G + e] / safe);
+      }
     if (tx == 0) lse[o] = l[i] > 0.0f ? m[i] + logf(safe) : NEG;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int b, const Shape& s, cudaStream_t st) {
-  const size_t smem = smem_bytes(s.dh);
+template <typename T, int DB, bool VEC>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+           const Shape& s, cudaStream_t st) {
+  constexpr int smem = Layout<T, DB>::BYTES;
   static bool raised = false;
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(DMAX));
+        flash_fwd_kernel<T, DB, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     raised = true;
   }
-  const dim3 grid((s.sq + BQ - 1) / BQ, s.hq, b);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, st>>>(
+  const dim3 grid(s.hq * ((s.sq + BQ - 1) / BQ), b);
+  flash_fwd_kernel<T, DB, VEC><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool VEC>
+int launch_bucket(const void* q, const void* k, const void* v, void* out, float* lse,
+                  int b, const Shape& s, cudaStream_t st) {
+  if (s.dh <= 32) return launch<T, 32, VEC>(q, k, v, out, lse, b, s, st);
+  if (s.dh <= 64) return launch<T, 64, VEC>(q, k, v, out, lse, b, s, st);
+  return launch<T, 128, VEC>(q, k, v, out, lse, b, s, st);
+}
+
+template <typename T>
+bool aligned16(const void* p, long long a, long long b, long long c, int dh) {
+  constexpr int ve = 16 / sizeof(T);
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && a % ve == 0 && b % ve == 0 &&
+         c % ve == 0 && dh % ve == 0;
 }
 
 }  // namespace
@@ -252,20 +409,36 @@ extern "C" {
 
 // dtype 0: float32 operands and output; 1: bfloat16.  Strides in elements,
 // head dimension contiguous; out and lse contiguous.  dh <= 128, hq % hkv
-// == 0 (the wrapper checks).
+// == 0, b <= 65535 (the wrapper checks).  vec 1 asks for
+// the cp.async instantiation: every operand's base and (batch, head,
+// position) strides and dh must then keep rows 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            float* lse, int b, int hq, int hkv, int sq, int skv, int dh,
                            int causal, int offset, int kv_valid, float scale,
                            long long qsb, long long qsh, long long qss, long long ksb,
                            long long ksh, long long kss, long long vsb, long long vsh,
-                           long long vss, int dtype, void* stream) {
-  if (dh < 1 || dh > DMAX || hkv < 1 || hq % hkv != 0)
+                           long long vss, int dtype, int vec, void* stream) {
+  if (dh < 1 || dh > DMAX || hkv < 1 || hq % hkv != 0 || b > 65535 ||
+      (long long)hq * ((sq + BQ - 1) / BQ) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{hq, hkv, sq, skv, dh, causal, offset, kv_valid, scale,
                 qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, lse, b, s, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, out, lse, b, s, st);
+  if (dtype == 0) {
+    if (!vec) return launch_bucket<float, false>(q, k, v, out, lse, b, s, st);
+    if (!aligned16<float>(q, qsb, qsh, qss, dh) || !aligned16<float>(k, ksb, ksh, kss, dh) ||
+        !aligned16<float>(v, vsb, vsh, vss, dh))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    return launch_bucket<float, true>(q, k, v, out, lse, b, s, st);
+  }
+  if (dtype == 1) {
+    if (!vec) return launch_bucket<__nv_bfloat16, false>(q, k, v, out, lse, b, s, st);
+    if (!aligned16<__nv_bfloat16>(q, qsb, qsh, qss, dh) ||
+        !aligned16<__nv_bfloat16>(k, ksb, ksh, kss, dh) ||
+        !aligned16<__nv_bfloat16>(v, vsb, vsh, vss, dh))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    return launch_bucket<__nv_bfloat16, true>(q, k, v, out, lse, b, s, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

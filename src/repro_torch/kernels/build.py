@@ -35,7 +35,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-# C signatures of every exported function (all return cudaError_t as int)
+
+
+class KdeDecodeShape(ctypes.Structure):
+    """``struct KdeDecodeShape`` of csrc/kde_attention.cu: the static
+    arguments of a kde_decode launch."""
+    _fields_ = [(n, _I) for n in ("b", "hq", "hkv", "S", "dh", "bk",
+                                  "stride", "top_p")] + \
+        [("scale", _F), ("log_stride", _F)] + \
+        [(n, _L) for n in ("qsb", "qsh", "ksb", "ksh", "kss", "vsb", "vsh",
+                           "vss")]
+
+# C signatures of every exported function (all return an int: cudaError_t,
+# or kde_decode_cluster's cluster size)
 SIGNATURES = {
     "kde_rowsum_splits": (_I, _I),
     "kde_rowsum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
@@ -51,9 +63,12 @@ SIGNATURES = {
                                    _I, _F, _F, _F, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _L, _L, _L, _L, _L, _L, _L,
-                               _L, _L, _I, _P),
+                               _L, _L, _I, _I, _P),
     "kde_block_lse_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                              _F, _L, _L, _L, _L, _L, _P),
+    "kde_decode_launch": (_P, _P, _P, _P, _P, _I, _P,
+                          ctypes.POINTER(KdeDecodeShape)),
+    "kde_decode_cluster": (ctypes.POINTER(KdeDecodeShape),),
 }
 
 _LIB = None

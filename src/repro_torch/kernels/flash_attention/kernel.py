@@ -3,7 +3,9 @@
 
 ``flash_attention_cuda`` launches the kernel on CUDA tensors and counts
 each launch in ``LAUNCHES``; ``flash_attention_plain`` computes the same
-function with plain torch ops.  Both are the Pallas kernel
+function with plain torch ops.  ``instantiation`` names the kernel template
+instance a call takes (operand type, head-dim bucket, cp.async or scalar
+staging).  Both are the Pallas kernel
 ``flash_attention_pallas`` of the reference: query row r sits at position
 ``r + offset``, key j is valid iff ``j < kv_valid`` (and ``j <= r +
 offset`` when causal), masked scores take the sentinel -1e30, and a row
@@ -24,6 +26,8 @@ LAUNCHES = {"flash_attention": 0}
 #: operand dtypes the kernel takes (its ``dtype`` argument)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+#: head-dim buckets the kernel is specialised on at compile time
+HEAD_DIM_BUCKETS = (32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -53,6 +57,27 @@ def _check(q, k, v):
                          f"{k.shape[1]}")
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} outside [1, {MAX_HEAD_DIM}]")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535")
+
+
+def _vec_ok(t) -> bool:
+    """Every row of ``t`` starts 16-byte aligned and holds whole 16-byte
+    chunks (base, batch / head / position strides and the head dim)."""
+    ve = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[3] % ve == 0
+            and all(st % ve == 0 for st in t.stride()[:3]))
+
+
+def instantiation(q, k, v) -> str:
+    """The kernel instance a call takes: operand type, head-dim bucket and
+    staging -- ``cp.async`` (16-byte asynchronous copies, double-buffered)
+    when every operand row is 16-byte aligned, else ``scalar`` (element
+    loads into the same layout)."""
+    dh = q.shape[3]
+    bucket = next(b for b in HEAD_DIM_BUCKETS if dh <= b)
+    staging = "cp.async" if all(map(_vec_ok, (q, k, v))) else "scalar"
+    return f"{str(q.dtype)[6:]} dh<={bucket} {staging}"
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float,
@@ -71,7 +96,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, hq, hkv, sq, skv, dh, int(causal), int(offset),
         int(kv_valid), float(scale), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], DTYPE_IDS[q.dtype], stream_of(q))
+        *v.stride()[:3], DTYPE_IDS[q.dtype],
+        int(all(map(_vec_ok, (q, k, v)))), stream_of(q))
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out, lse

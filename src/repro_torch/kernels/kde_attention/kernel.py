@@ -1,12 +1,16 @@
-"""Binding of the block-lse CUDA kernel (``csrc/kde_attention.cu``), with
-its plain PyTorch version.
+"""Bindings of the KDE decode CUDA kernels (``csrc/kde_attention.cu``),
+with their plain PyTorch versions.
 
-``block_lse_cuda`` launches the kernel on CUDA tensors and counts each
-launch in ``LAUNCHES``; ``block_lse_plain`` computes the same function with
-plain torch ops.  Both are the reference's ``block_lse_pallas``: for each
-(batch, q-head, key block of ``bk``), ``log(stride * sum_i exp(q . k_i *
-scale))`` over the block's keys ``i = 0, stride, 2 stride, ...``, with
-positions ``>= kv_valid`` at -1e30.  f32 only: the LM slice runs f32.
+``kde_decode_cuda`` launches the fused decode kernel -- the reference's
+whole ``kde_attention`` for one decode step and one layer -- and
+``kde_decode_plain`` is its plain version, the four-step pipeline in torch
+ops with ``block_lse_plain`` as step 1.  ``block_lse_cuda`` launches the
+estimate-only kernel and ``block_lse_plain`` computes the same function:
+both are the reference's ``block_lse_pallas``, for each (batch, q-head,
+key block of ``bk``), ``log(stride * sum_i exp(q . k_i * scale))`` over the
+block's keys ``i = 0, stride, 2 stride, ...``, with positions ``>=
+kv_valid`` at -1e30.  Each wrapper counts its launches in ``LAUNCHES``.
+f32 only: the LM slice runs f32.
 """
 from __future__ import annotations
 
@@ -15,11 +19,12 @@ import math
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.kde_attention import ref as _ref
 from repro_torch.kernels.kde_rowsum.kernel import stream_of
 
 _NEG_INF = -1.0e30
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES = {"block_lse": 0}
+LAUNCHES = {"block_lse": 0, "kde_decode": 0}
 MAX_HEAD_DIM = 128
 #: the kernel parks a CTA's scores in static-size shared memory: at most
 #: 8 warps x ceil(bk / stride) floats in 48 KB
@@ -94,3 +99,125 @@ def block_lse_plain(q, k, *, scale: float, stride: int, kv_valid: int,
     lse = m + torch.log(torch.clamp(
         torch.sum(torch.exp(sc - m[..., None]), dim=-1), min=1e-30))
     return (lse + math.log(float(stride))).reshape(b, hq, nb)
+
+
+def kde_decode_plain(q, k, v, *, top_p: int, bk: int, stride: int,
+                     kv_valid: int | None = None, with_est: bool = False):
+    """Plain torch version of ``kde_decode_cuda``: the reference's
+    ``kde_attention`` step by step (its ``ops.py:34-81``), with
+    ``block_lse_plain`` as the level-1 sweep.  Returns out (b, hq, dh) in
+    q's dtype, and the estimates (b, hq, S / bk) with ``with_est``; no
+    ``kv_valid`` means every key is valid."""
+    b, hq, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    kv_valid = s if kv_valid is None else kv_valid
+    group = hq // hkv
+    nb = s // bk
+    top_p = min(top_p, nb)
+    scale = 1.0 / (dh ** 0.5)
+    dev = q.device
+
+    # (1) level-1 KDE estimates per block
+    est = block_lse_plain(q, k, scale=scale, stride=stride,
+                          kv_valid=kv_valid, bk=bk)       # (b, hq, nb)
+
+    # (2) block selection (shared within each GQA group)
+    est_kv = _ref._group_lse(est, group)                  # (b, hkv, nb)
+    sel = _ref.top_blocks(est_kv, top_p)                  # (b, hkv, P)
+
+    # (3) gather + exact attention over the selected blocks
+    elem = (sel[..., None] * bk
+            + torch.arange(bk, device=dev)).reshape(b, hkv, -1)
+    idx = elem[..., None].expand(-1, -1, -1, dh)
+    kg = torch.gather(k, 2, idx)                          # (b, hkv, P*bk, dh)
+    vg = torch.gather(v, 2, idx)
+    qg = q.reshape(b, hkv, group, dh)
+    valid = elem < kv_valid                               # (b, hkv, P*bk)
+    kg = torch.where(valid[..., None], kg, 0.0)
+    vg = torch.where(valid[..., None], vg, 0.0)
+    sc = torch.einsum("bhgd,bhsd->bhgs", qg.float(), kg.float()) * scale
+    sc = torch.where(valid[:, :, None, :], sc, _NEG_INF)
+    m = torch.amax(sc, dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l_sel = p.sum(-1)                                     # (b, hkv, g)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, vg.float())
+    out = out / torch.clamp(l_sel, min=1e-30)[..., None]
+
+    # (4) denominator correction with the estimated residual mass
+    sel_q = torch.repeat_interleave(sel, group, dim=1)    # (b, hq, P)
+    chosen = torch.zeros((b, hq, nb), dtype=torch.bool, device=dev)
+    chosen.scatter_(2, sel_q, True)
+    est_resid = torch.where(chosen, _NEG_INF, est)
+    m_q = m.reshape(b, hq, 1)
+    resid_mass = torch.exp(est_resid - m_q).sum(-1)       # (b, hq)
+    l_q = l_sel.reshape(b, hq)
+    frac = l_q / torch.clamp(l_q + resid_mass, min=1e-30)
+    out = (out.reshape(b, hq, dh) * frac[..., None]).to(q.dtype)
+    return (out, est) if with_est else out
+
+
+#: the static launch arguments (``build.KdeDecodeShape``) per (shapes,
+#: strides, device indices, dtypes, bk, stride, top_p), validated once
+_PLANS: dict = {}
+
+
+def _decode_plan(q, k, v, bk, stride, top_p):
+    """Check a kde_decode call once and return its static arguments."""
+    _check(q, k, bk, stride)
+    if not v.is_cuda or v.device != q.device or v.dtype != torch.float32:
+        raise ValueError(f"v must be a float32 CUDA tensor on {q.device}, "
+                         f"got {v.dtype} on {v.device}")
+    if v.shape != k.shape or v.stride(-1) != 1:
+        raise ValueError(f"v {tuple(v.shape)} must match k {tuple(k.shape)} "
+                         f"and be contiguous in the head dim")
+    if top_p < 1:
+        raise ValueError(f"top_p must be >= 1, got {top_p}")
+    b, hq, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if b > 65535 or hkv > 65535:
+        raise ValueError(f"batch {b} / kv heads {hkv} exceed the grid's 65535")
+    plan = _build.KdeDecodeShape(
+        b, hq, hkv, s, dh, int(bk), int(stride), int(top_p),
+        float(dh ** -0.5), math.log(float(stride)), *q.stride()[:2],
+        *k.stride()[:3], *v.stride()[:3])
+    cluster = _build.library().kde_decode_cluster(plan)
+    if cluster < 0:
+        _build.check(-cluster, "kde_decode_cluster")
+    if cluster == 0:
+        raise ValueError(
+            f"kde_decode: {s // bk} key blocks of {bk} (group {hq // hkv}, "
+            f"{-(-bk // stride)} strided keys a block) do not fit the shared "
+            f"memory of a cluster of 8 CTAs, which keeps g + 2 words per "
+            f"block (about 985k keys at bk 32, group 8, dh 128); use a "
+            f"larger bk")
+    return plan
+
+
+def kde_decode_cuda(q, k, v, *, top_p: int, bk: int, stride: int,
+                    kv_valid: int, with_est: bool = False):
+    """out (b, hq, dh) f32 by the fused KDE decode kernel, one launch: q
+    (b, hq, dh), k / v (b, hkv, S, dh) f32 CUDA tensors (strided over
+    batch, head and position; S a multiple of bk).  With ``with_est`` the
+    kernel also writes its step-1 estimates (b, hq, S / bk).
+
+    The decode path calls this once per layer and step, so the host side
+    is kept short: a cached plan, one allocation and one ctypes call of 8
+    arguments."""
+    key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
+           q.get_device(), k.get_device(), v.get_device(), q.dtype, k.dtype,
+           v.dtype, bk, stride, top_p)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _decode_plan(q, k, v, bk, stride, top_p)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    est = torch.empty((q.shape[0], q.shape[1], k.shape[2] // bk),
+                      dtype=torch.float32, device=q.device) if with_est \
+        else None
+    err = _build.library().kde_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if est is None else est.data_ptr(), int(kv_valid),
+        stream_of(q), plan)
+    if err:
+        _build.check(err, "kde_decode")
+    LAUNCHES["kde_decode"] += 1
+    return (out, est) if with_est else out

@@ -63,7 +63,10 @@ def check_qx(q: torch.Tensor, x: torch.Tensor) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of ``t``'s device (the
+    same value as ``torch.cuda.current_stream(t.device).cuda_stream``
+    without building a Stream object: a launch pays for this on the host)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def rowsum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0):

@@ -13,7 +13,7 @@ reference's implementations, selected at call time:
                shard the cache; the port has no mesh and calls its own
                ``kde_attention.ops.kde_attention``, the same function
                (ROADMAP.md section 3), so every KDE decode step runs the
-               block-lse kernel.
+               fused decode kernel, one launch per layer.
 The mesh helpers (``constrain``, ``activation_sharding``, the shard_map
 decode) have no counterpart (ROADMAP.md queue 1 item 9), nor do the MoE
 blocks and cross attention (queue 1 item 11).
@@ -233,8 +233,8 @@ CHUNKED_ATTN_THRESHOLD = 8192
 
 def kde_decode_attention(q, k, v, kv_valid, top_p: int, bk: int,
                          stride: int):
-    """KDE decode attention through ``kde_attention.ops.kde_attention`` (the
-    block-lse kernel on CUDA tensors).
+    """KDE decode attention through ``kde_attention.ops.kde_attention`` (one
+    launch of the fused decode kernel per layer on CUDA tensors).
 
     q (b, hq, 1, hd) single decode step; k, v (b, hkv, S, hd)."""
     from repro_torch.kernels.kde_attention.ops import kde_attention

@@ -162,6 +162,27 @@ def test_flash_cuda_wrapper_rejects_cpu_tensors():
                            bk=4)
 
 
+def test_flash_instantiation_follows_alignment():
+    """The kernel instance a call takes: cp.async staging when every
+    operand row is 16-byte aligned, else the scalar-staged instance of the
+    same template; the head dim picks the compile-time bucket."""
+    q, k, v = (_t(a) for a in _qkv(2, 1, 4, 2, 16, 16, 128))
+    vt = v.transpose(1, 2).contiguous().transpose(1, 2)
+    assert tfk.instantiation(q, k, vt) == "float32 dh<=128 cp.async"
+    q, k, v = (_t(a) for a in _qkv(2, 1, 4, 2, 16, 16, 30))
+    assert tfk.instantiation(q, k, v) == "float32 dh<=32 scalar"
+    q, k, v = (_t(a) for a in _qkv(2, 1, 4, 2, 16, 17, 64))
+    assert tfk.instantiation(q, k[:, :, 1:], v[:, :, 1:]) == \
+        "float32 dh<=64 cp.async"
+    flat = torch.zeros(1 + k.numel())
+    shifted = flat[1:].view(k.shape)             # rows 4 bytes off 16
+    assert tfk.instantiation(q, shifted, v) == "float32 dh<=64 scalar"
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(2, 1, 2, 1, 8, 8, 16))
+    assert tfk.instantiation(q, k, v) == "bfloat16 dh<=32 cp.async"
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(2, 1, 2, 1, 8, 8, 12))
+    assert tfk.instantiation(q, k, v) == "bfloat16 dh<=32 scalar"
+
+
 # ------------------------------------------------------------------ block lse
 def _decode_inputs(seed, b, hq, hkv, s, dh):
     rng = np.random.default_rng(seed)
@@ -188,8 +209,6 @@ def test_block_lse_matches_reference(shape, partial):
         _jblock_lse(q, k, interpret=True, **kw)), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got, np.asarray(_jblock_lse_ref(q, k, **kw)),
                                rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(_np(tkr.block_lse_ref(_t(q), _t(k), **kw)),
-                               got, rtol=2e-5, atol=2e-5)
     if partial:
         assert np.all(got[..., 2:] == np.float32(-1e30))
 
@@ -213,9 +232,114 @@ def test_kde_attention_matches_reference(shape, partial):
     np.testing.assert_allclose(got, np.asarray(want), atol=2e-5)
     np.testing.assert_allclose(got, np.asarray(_jkde_ref(q, k, v, **kw)),
                                atol=2e-5)
-    np.testing.assert_allclose(
-        _np(tkr.kde_attention_ref(_t(q), _t(k), _t(v), **kw)), got,
-        atol=2e-5)
+
+
+_jkde = jax.jit(jka.kde_attention,
+               static_argnames=("top_p", "bk", "stride", "kv_valid",
+                                "interpret"))
+# the fused decode kernel's plain version against the reference pipeline:
+# b 2, hkv 2, S = 8 blocks of bk 16, dh 16, stride 4, top_p 3
+DEC_BK, DEC_NB, DEC_DH, DEC_STRIDE, DEC_TOP_P = 16, 8, 16, 4, 3
+
+
+def _decode_case(seed, group, top_p=DEC_TOP_P, kv_valid=None):
+    b, hkv = 2, 2
+    s = DEC_BK * DEC_NB
+    q, k, v = _decode_inputs(seed, b, hkv * group, hkv, s, DEC_DH)
+    kw = dict(top_p=top_p, bk=DEC_BK, stride=DEC_STRIDE,
+              kv_valid=s if kv_valid is None else kv_valid)
+    got, est = tkk.kde_decode_plain(_t(q), _t(k), _t(v), with_est=True, **kw)
+    want = _jkde(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 interpret=True, **kw)
+    want_est = _jblock_lse(q, k, scale=1 / np.sqrt(DEC_DH), stride=DEC_STRIDE,
+                           kv_valid=kw["kv_valid"], bk=DEC_BK, interpret=True)
+    return _np(got), np.asarray(want), _np(est), np.asarray(want_est)
+
+
+@pytest.mark.parametrize("kv_valid", [1, DEC_BK - 1, DEC_BK, DEC_BK + 1,
+                                      DEC_BK * DEC_NB])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_kde_decode_plain_matches_reference(group, kv_valid):
+    """``kde_decode_plain`` (the fused kernel's plain version, and the CPU
+    path of ``ops.kde_attention``) against the reference's kde_attention
+    with its block-lse kernel in Pallas interpret mode: out and the step-1
+    estimates at rtol 2e-4 / atol 2e-5, over GQA groups of 1, 4 and 8 and
+    kv_valid at 1, bk - 1, bk, bk + 1 and S (early decode steps leave
+    fully-masked blocks tied at -1e30 in the selection)."""
+    got, want, est, want_est = _decode_case(100 + group, group,
+                                            kv_valid=kv_valid)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(est, want_est, rtol=2e-4, atol=2e-5)
+    dead = -(-kv_valid // DEC_BK)
+    assert np.all(est[..., dead:] == np.float32(-1e30))
+
+
+@pytest.mark.parametrize("top_p", [DEC_NB, DEC_NB + 3])
+def test_kde_decode_plain_top_p_covers_every_block(top_p):
+    """top_p >= nb selects every block: no residual mass, and the
+    reference's min(top_p, nb) clamp."""
+    got, want, _, _ = _decode_case(7, 4, top_p=top_p)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def _tied_case():
+    """Blocks 1, 3 and 5 of every kv-head hold the same keys, aligned with
+    the group's mean query, so they tie for the top of the selection at a
+    finite value; values differ between blocks.  Entries are small
+    multiples of powers of two, so every score is exact in f32."""
+    b, hkv, group = 1, 2, 4
+    rng = np.random.default_rng(31)
+    s = DEC_BK * DEC_NB
+    q = rng.integers(-2, 3, (b, hkv * group, DEC_DH)).astype(np.float32) / 2
+    k = rng.integers(-2, 3, (b, hkv, s, DEC_DH)).astype(np.float32) / 8
+    v = rng.normal(0, 1, (b, hkv, s, DEC_DH)).astype(np.float32)
+    sign = np.sign(q.reshape(b, hkv, group, DEC_DH).sum(2))
+    for blk in (1, 3, 5):
+        k[:, :, blk * DEC_BK:(blk + 1) * DEC_BK] = \
+            k[:, :, DEC_BK:2 * DEC_BK] if blk != 1 else \
+            k[:, :, DEC_BK:2 * DEC_BK] + sign[:, :, None, :] / 2
+    return q, k, v
+
+
+@pytest.mark.parametrize("top_p", [1, 2])
+def test_kde_decode_ties_go_to_the_lower_block(top_p):
+    """Finite ties between block estimates: the top-P selection takes the
+    lower block index first, as ``lax.top_k`` does, so the plain pipeline
+    matches the reference at a selection boundary that cuts a tied set."""
+    q, k, v = _tied_case()
+    kw = dict(top_p=top_p, bk=DEC_BK, stride=DEC_STRIDE, kv_valid=k.shape[2])
+    got, est = tkk.kde_decode_plain(_t(q), _t(k), _t(v), with_est=True, **kw)
+    est_kv = tkr._group_lse(est, 4)
+    assert bool((est_kv[..., 1] == est_kv[..., 3]).all())
+    assert bool((est_kv[..., 1] == est_kv[..., 5]).all())
+    assert bool((est_kv[..., 1] > est_kv[..., 0]).all())
+    assert tkr.top_blocks(est_kv, 3).tolist() == [[[1, 3, 5]] * 2]
+    want = _jkde(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 interpret=True, **kw)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(_np(got), np.asarray(_jkde_ref(q, k, v, **kw)),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_top_blocks_orders_as_lax_top_k():
+    """Ties at a finite value and at the -1e30 sentinel go to the lower
+    index, as ``lax.top_k`` orders them."""
+    est = np.array([[[1.0, 3.0, 3.0, 2.0, 3.0, -1e30, -1e30, 2.0]]],
+                   np.float32)
+    for p in range(1, 9):
+        _, want = jax.lax.top_k(jnp.asarray(est), p)
+        assert tkr.top_blocks(_t(est), p).tolist() == \
+            np.asarray(want).tolist()
+
+
+def test_kde_decode_cuda_wrapper_rejects_cpu_tensors():
+    """The fused kernel's wrapper launches or raises: CPU tensors are
+    refused, never routed to the plain version."""
+    q, k, v = _decode_inputs(1, 1, 4, 2, 64, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tkk.kde_decode_cuda(_t(q), _t(k), _t(v), top_p=2, bk=16, stride=4,
+                            kv_valid=64)
 
 
 def test_kde_attention_approximates_exact_on_peaked():
