@@ -17,7 +17,19 @@ Phases (any failure exits non-zero; no phase catches and continues):
                the output, see ``HASH_ATOL``), drawn blocks equal except
                on rows whose top two scores lie within 1e-5.  Times the
                kernel, its plain version and a PyTorch yardstick
-               (``torch.cdist`` + elementwise + sum) with CUDA events.
+               (``torch.cdist`` + elementwise + sum) with CUDA events, and
+               every kernel's card time with torch.profiler
+               (``device_ms``).  The sample-block kernel is also held to
+               one device launch a call (profiler events), to int32 and
+               int64 own giving the same result, to planted exact ties
+               (two equal blocks, equal Gumbel noise: the lower block on
+               every row, every kind) and to calls of several row counts
+               in a row (its arrival counters reset themselves); the
+               wide-tile ragged shapes (d = 8, 32) and, for the kde_hash
+               kernels, x off 16-byte alignment join the ragged checks.
+               ``host_us`` of the sample-block and weighted-kv wrappers,
+               and the weighted-kv kernel's achieved rate of gathered
+               bytes, are printed.
 3. sparsify -- ``spectral_sparsify`` (exact level-1, Alg 5.1) at n=65536,
                d=16, t=10n, batch 1024, with counters checked against the
                analytic formula; after the main path, the law of all its
@@ -302,10 +314,12 @@ def phase_kernels(data, gen):
         e["sample_block"] = max(e["sample_block"],
                                 close(got[1], pb, f"sample_block p {tag}"))
 
-    # ragged shapes, every kind
+    # ragged shapes, every kind (d = 19, 784: the sampler kernels' generic
+    # tile; d = 8, 32: their wide tile padded to 16 and 32)
     for kind, d in [("gaussian", 19), ("exponential", 19),
                     ("rational_quadratic", 19), ("laplacian", 19),
-                    ("laplacian", 784)]:
+                    ("laplacian", 784), ("exponential", 8),
+                    ("rational_quadratic", 32)]:
         m, n, bn = 37, 301, 70
         q = torch.randn(m, d, generator=gen, device=dev) * 0.3
         x = torch.randn(n, d, generator=gen, device=dev) * 0.3
@@ -332,6 +346,9 @@ def phase_kernels(data, gen):
         replaces="src/repro/kernels/kde_rowsum/kernel.py:137",
         shape=f"m={m} n={n} d={d} laplacian",
         ms=timed(lambda: rk.rowsum_cuda(q, xs, "laplacian", inv), 10),
+        # its two kernels: blocksum_kernel's partials, rowsum_reduce_kernel
+        device_ms=kernel_device_ms(
+            lambda: rk.rowsum_cuda(q, xs, "laplacian", inv), "", 5),
         plain_ms=timed(lambda: rk.rowsum_plain(q, xs, "laplacian", inv), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda: torch.cdist(q, xs, p=1).mul_(-inv).exp_()
@@ -359,6 +376,9 @@ def phase_kernels(data, gen):
         replaces="src/repro/kernels/kde_rowsum/kernel.py:169",
         shape=f"m={m} n={n} d={d} bn={bn} gaussian",
         ms=timed(lambda: rk.blocksum_cuda(q, x, "gaussian", inv, 1.0, bn), 20),
+        device_ms=kernel_device_ms(
+            lambda: rk.blocksum_cuda(q, x, "gaussian", inv, 1.0, bn),
+            "blocksum_kernel", 20),
         plain_ms=timed(lambda: rk.blocksum_plain(q, x, "gaussian", inv, 1.0,
                                                  bn), 5),
         bound_ms=b_ms, bound_by=b_by,
@@ -366,7 +386,7 @@ def phase_kernels(data, gen):
 
     src = data["ns_src"]
     q = x[src].contiguous()
-    own = (src // bn).to(torch.int32)
+    own = src // bn                 # int64, as the sampler hands it
     m = q.shape[0]
     errs["masked_blocksum"] = max(errs["masked_blocksum"], close(
         sk.masked_blocksum_cuda(q, x, own, "gaussian", inv, 1.0, bn),
@@ -387,23 +407,40 @@ def phase_kernels(data, gen):
         shape=f"m={m} n={n} d={d} bn={bn} gaussian",
         ms=timed(lambda: sk.masked_blocksum_cuda(q, x, own, "gaussian", inv,
                                                  1.0, bn), 10),
+        device_ms=kernel_device_ms(lambda: sk.masked_blocksum_cuda(
+            q, x, own, "gaussian", inv, 1.0, bn), "sampler_", 10),
         plain_ms=timed(lambda: sk.masked_blocksum_plain(
             q, x, own, "gaussian", inv, 1.0, bn), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=timed(cdist_masked, 3)))
 
     src = src[:BATCH]
     q = x[src].contiguous()
-    own = (src // bn).to(torch.int32)
+    own = src // bn                 # the edge batch's own blocks, int64
     m = q.shape[0]
     g = gumbel((m, nb), gen, dev)
+    plan = sk.sample_block_plan(
+        m, n, d, bn, sms=torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
     got = sk.sample_block_cuda(q, x, own, g, "gaussian", inv, 1.0, bn)
     want = sk.sample_block_plain(q, x, own, g, "gaussian", inv, 1.0, bn)
     check_blk(got[0], want[3], g, "sample_block main")
+    assert got[0].dtype == torch.int64, got[0].dtype
     pb = torch.gather(want[3], 1, got[0][:, None])[:, 0] / want[2]
     errs["sample_block"] = max(errs["sample_block"],
                                close(got[3], want[3], "sample_block main"),
                                close(got[2], want[2], "sample_block tot main"),
                                close(got[1], pb, "sample_block p main"))
+    got32 = sk.sample_block_cuda(q, x, own.to(torch.int32), g, "gaussian",
+                                 inv, 1.0, bn)
+    assert all(torch.equal(a, b) for a, b in zip(got32, got)), \
+        "sample_block: int32 and int64 own differ"
+    per_call = launches_per_call(
+        lambda: sk.sample_block_cuda(q, x, own, g, "gaussian", inv, 1.0, bn),
+        10)
+    assert per_call == 1.0, f"sample_block: {per_call} launches a call"
+    log(f"[kernels] sample_block main: plan {plan}; {per_call:.0f} device "
+        f"launch a call (torch.profiler); int32 and int64 own agree")
+    sample_block_draw_checks(x, bn, gen)
     b_ms, b_by = bound(m * n * pair_ops("gaussian", d) + 3 * m * nb,
                        4 * (m * d + n * d + m + 2 * m * nb + 3 * m))
     rows.append(dict(
@@ -413,16 +450,80 @@ def phase_kernels(data, gen):
         shape=f"m={m} n={n} d={d} bn={bn} gaussian",
         ms=timed(lambda: sk.sample_block_cuda(q, x, own, g, "gaussian", inv,
                                               1.0, bn), 20),
+        device_ms=kernel_device_ms(lambda: sk.sample_block_cuda(
+            q, x, own, g, "gaussian", inv, 1.0, bn), "sampler_", 20),
+        host_us=host_us(lambda: sk.sample_block_cuda(
+            q, x, own, g, "gaussian", inv, 1.0, bn), 200),
         plain_ms=timed(lambda: sk.sample_block_plain(
             q, x, own, g, "gaussian", inv, 1.0, bn), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
-        log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
-            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+        log_row(r)
     return rows
+
+
+def log_row(r) -> None:
+    host = f", host {r['host_us']:.2f} us a call" if "host_us" in r else ""
+    log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
+        f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (device "
+        f"{r.get('device_ms')}{host}, plain {r['plain_ms']:.4f}, library "
+        f"{r['library_ms']}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
+
+
+def sample_block_draw_checks(x, bn, gen):
+    """The fused draw of the sample-block kernel on the card: (1) planted
+    exact ties at the main shape's n, d and bn go to the lower block on
+    every row, every kind; (2) calls of several row counts in a row, each
+    with fresh noise, match the plain version, so every launch leaves its
+    tiles' arrival counters at 0."""
+    import torch
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    from repro_torch.kernels.kde_sampler.ops import gumbel
+    dev = x.device
+    n, d = x.shape
+    nb = -(-n // bn)
+    lo, hi = 1, nb - 2
+    # dyadic coordinates: every distance is exact in f32 in any order, so
+    # block hi (a copy of block lo) has bitwise equal sums
+    xt = torch.randint(-4, 5, (n, d), generator=gen, device=dev) / 8.0
+    xt[hi * bn:(hi + 1) * bn] = xt[lo * bn:(lo + 1) * bn]
+    qt = torch.randint(-4, 5, (BATCH, d), generator=gen, device=dev) / 8.0
+    own = torch.randint(-1, nb, (BATCH,), generator=gen, device=dev)
+    own[(own == lo) | (own == hi)] = -1
+    g = gumbel((BATCH, nb), gen, dev)
+    g[:, lo] = g[:, hi] = 30.0
+    for kind in ("gaussian", "exponential", "rational_quadratic",
+                 "laplacian"):
+        inv = 1.0 / (0.25 * d) if kind == "laplacian" else \
+            1.0 / (0.5 * d ** 0.5)
+        blk, _, tot, bs = sk.sample_block_cuda(qt, xt, own, g, kind, inv,
+                                               0.7, bn)
+        assert torch.equal(bs[:, lo], bs[:, hi]), f"tie sums differ {kind}"
+        assert bool((blk == lo).all()), (
+            f"sample_block ties {kind}: {int((blk != lo).sum())} rows did "
+            f"not take the lower block")
+        want = sk.sample_block_plain(qt, xt, own, g, kind, inv, 0.7, bn)
+        close(bs, want[3], f"sample_block ties sums {kind}")
+        close(tot, want[2], f"sample_block ties tot {kind}")
+    log(f"[kernels] sample_block planted ties (blocks {lo} and {hi} equal, "
+        f"equal Gumbel noise, {BATCH} rows, every kind): the lower block "
+        f"on every row")
+    ms = (BATCH, 37, 300, 1, BATCH, 129, 4096, BATCH)
+    for m in ms:
+        q = x[torch.randint(0, n, (m,), generator=gen, device=dev)]
+        own = torch.randint(-1, nb, (m,), generator=gen, device=dev)
+        g = gumbel((m, nb), gen, dev)
+        got = sk.sample_block_cuda(q, x, own, g, "gaussian", 1.0 / SP_BW,
+                                   1.0, bn)
+        want = sk.sample_block_plain(q, x, own, g, "gaussian", 1.0 / SP_BW,
+                                     1.0, bn)
+        check_blk(got[0], want[3], g, f"sample_block repeated m={m}")
+        close(got[3], want[3], f"sample_block repeated sums m={m}")
+        pb = torch.gather(want[3], 1, got[0][:, None])[:, 0] / want[2]
+        close(got[1], pb, f"sample_block repeated p m={m}")
+    log(f"[kernels] sample_block repeated calls, m = {ms}: every draw "
+        f"matches (the arrival counters reset themselves)")
 
 
 def phase_sparsify(data):
@@ -651,19 +752,27 @@ def phase_hash_kernels(data, gen):
             hk.weighted_kv_sum_cuda(*args), hk.weighted_kv_sum_plain(*args),
             f"weighted_kv_sum {tag}"))
 
-    for kind, d in [("gaussian", 19), ("exponential", 19),
-                    ("rational_quadratic", 19), ("laplacian", 19),
-                    ("laplacian", 784)]:
+    # ragged, every kind: d = 19, 784 and x off 16 bytes take the scalar
+    # instance, d = 8, 16, 32 the vector one
+    for kind, d, aligned in [("gaussian", 19, True), ("exponential", 19, True),
+                             ("rational_quadratic", 19, True),
+                             ("laplacian", 19, True), ("laplacian", 784, True),
+                             ("gaussian", 8, True), ("laplacian", 16, True),
+                             ("rational_quadratic", 32, True),
+                             ("gaussian", 16, False)]:
         m, t, n = 37, 45, 301
         q = torch.randn(m, d, generator=gen, device=dev) * 0.3
-        x = torch.randn(n, d, generator=gen, device=dev) * 0.3
-        cols = torch.randint(0, n + 2, (m, t), generator=gen,
+        flat = torch.randn(n * d + 1, generator=gen, device=dev) * 0.3
+        x = (flat[:-1] if aligned else flat[1:]).view(n, d)
+        cols = torch.randint(-2, n + 2, (m, t), generator=gen,
                              dtype=torch.int32, device=dev)
         wgt = torch.rand((m, t), generator=gen, device=dev) * 256.0
         inv_bw = 1.0 / (0.3 * d) if kind == "laplacian" else \
             1.0 / (0.4 * d ** 0.5)
+        plan = hk.weighted_kv_plan(m, n, d, t, x.data_ptr() % 16 == 0)
         check(q, x, cols, wgt, kind, inv_bw, 0.7, f"{kind} d={d} ragged")
-        log(f"[kernels] ragged m={m} t={t} d={d} {kind}: ok")
+        log(f"[kernels] ragged m={m} t={t} d={d} {kind}"
+            f"{'' if aligned else ', x off 16 bytes'} [{plan}]: ok")
 
     x, state, cw = data["hs_x"], data["hs_state"], data["hs_cw"]
     n, d = x.shape
@@ -698,14 +807,24 @@ def phase_hash_kernels(data, gen):
             replaces=f"src/repro/kernels/kde_hash/kernel.py:{line}",
             shape=f"m={m} t={t} d={d} gaussian, {uniq} distinct rows",
             ms=timed(lambda: kern(*args), 50),
+            device_ms=kernel_device_ms(lambda: kern(*args), "weighted_kv",
+                                       50),
             plain_ms=timed(lambda: plain(*args), 10),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        if not sum_out:
+            rows[-1]["host_us"] = host_us(lambda: kern(*args), 200)
+        gathered = m * t * d * 4
+        dms = rows[-1]["device_ms"]
+        rate = "not measured" if dms is None else \
+            f"{gathered / (dms * 1e-3) / 1e12:.2f} TB/s"
+        log(f"[kernels] {name} main [{hk.weighted_kv_plan(m, n, d, t)}]: "
+            f"gathers {gathered / 1e6:.1f} MB of x rows through L2 "
+            f"({gathered / (uniq * d * 4):.2f}x the distinct rows) at {rate} "
+            f"on the card, against the HBM bound's {PEAK_BYTES / 1e12:.2f} "
+            f"TB/s over the distinct rows")
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
-        log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
-            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+        log_row(r)
     return rows
 
 
@@ -968,11 +1087,10 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def kernel_device_ms(fn, kernel: str, reps: int):
-    """Mean device ms per launch of the CUDA kernel whose name contains
-    ``kernel``, from torch.profiler's kernel durations over ``reps`` calls
-    of ``fn`` (so the host's cost per call is left out); None, printed as
-    not measured, when the trace shows no such kernel."""
+def device_kernels(fn, reps: int):
+    """{name: (launches, device us)} of every CUDA kernel (and memset or
+    copy) in a torch.profiler trace of ``reps`` calls of ``fn``, after one
+    warm-up call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -982,12 +1100,27 @@ def kernel_device_ms(fn, kernel: str, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if kernel in e.key
-          and _dev_us(e) > 0]
-    count = sum(e.count for e in ev)
-    if count == 0:
-        return None
-    return sum(_dev_us(e) for e in ev) / count / 1e3
+    return {e.key: (e.count, _dev_us(e)) for e in prof.key_averages()
+            if _dev_us(e) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")}
+
+
+def kernel_device_ms(fn, kernel: str, reps: int):
+    """Mean device ms per call of ``fn`` in the CUDA kernels whose names
+    contain ``kernel`` ("" for all of them), from torch.profiler's kernel
+    durations over ``reps`` calls (so the host's cost per call is left
+    out); None, printed as not measured, when the trace shows no such
+    kernel."""
+    hit = [us for name, (_, us) in device_kernels(fn, reps).items()
+           if kernel in name]
+    return sum(hit) / reps / 1e3 if hit else None
+
+
+def launches_per_call(fn, reps: int) -> float:
+    """Device launches (kernels, memsets, copies) per call of ``fn`` in a
+    torch.profiler trace; NaN when the trace shows no device activity."""
+    ks = device_kernels(fn, reps)
+    return sum(c for c, _ in ks.values()) / reps if ks else float("nan")
 
 
 def device_profile(fn, top: int = 4):
@@ -1493,7 +1626,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("device_ms",) if k in r} for r in rows]}))
+        {k: r[k] for k in keys + ("device_ms", "host_us") if k in r}
+        for r in rows]}))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -46,6 +46,21 @@ class KdeDecodeShape(ctypes.Structure):
         [(n, _L) for n in ("qsb", "qsh", "ksb", "ksh", "kss", "vsb", "vsh",
                            "vss")]
 
+class KdeTileShape(ctypes.Structure):
+    """``struct KdeTileShape`` of csrc/kde_sampler.cu: the static arguments
+    of a masked-blocksum or sample-block launch."""
+    _fields_ = [(n, _I) for n in ("m", "n", "d", "bn", "nb", "own64",
+                                  "instance", "group", "kind")] + \
+        [(n, _F) for n in ("inv_bw", "inv_bw2", "beta")]
+
+
+class KdeWeightedShape(ctypes.Structure):
+    """``struct KdeWeightedShape`` of csrc/kde_hash.cu: the static
+    arguments of a weighted-kv(-sum) launch."""
+    _fields_ = [(n, _I) for n in ("m", "n", "d", "t", "instance", "kind")] + \
+        [(n, _F) for n in ("inv_bw", "inv_bw2", "beta")]
+
+
 # C signatures of every exported function (all return an int: cudaError_t,
 # or kde_decode_cluster's cluster size)
 SIGNATURES = {
@@ -53,14 +68,14 @@ SIGNATURES = {
     "kde_rowsum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "kde_blocksum_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                             _P),
-    "kde_masked_blocksum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _F, _F, _P),
-    "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _F, _F, _F, _P),
-    "kde_weighted_kv_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _F, _P),
-    "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _F, _F, _F, _P),
+    "kde_masked_blocksum_launch": (_P, _P, _P, _P, _P,
+                                   ctypes.POINTER(KdeTileShape)),
+    "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                ctypes.POINTER(KdeTileShape)),
+    "kde_weighted_kv_launch": (_P, _P, _P, _P, _P, _P,
+                               ctypes.POINTER(KdeWeightedShape)),
+    "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _P,
+                                   ctypes.POINTER(KdeWeightedShape)),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _L, _L, _L, _L, _L, _L, _L,
                                _L, _L, _I, _I, _P),

@@ -28,10 +28,14 @@ from repro_torch.models import transformer as T
 
 RTOL, ATOL = 2e-4, 1e-5
 KINDS = ["gaussian", "exponential", "laplacian", "rational_quadratic"]
-SHAPES = [(37, 301, 19, 70), (64, 1024, 16, 256), (20, 203, 784, 50)]
+# (m, n, d, bn): ragged (the generic tile: d = 19 and d = 784), aligned,
+# and the wide tile ragged at both padded widths (d = 8 -> 16, d = 32)
+SHAPES = [(37, 301, 19, 70), (64, 1024, 16, 256), (20, 203, 784, 50),
+          (37, 301, 8, 70), (130, 1000, 32, 256)]
 # (m, n, t, d) of the weighted gathered kernels: ragged, the degree-query
 # width (t = 128 + 64), and the laplacian's mnist_like width
-HASH_SHAPES = [(37, 301, 45, 19), (64, 4096, 192, 16), (20, 203, 33, 784)]
+HASH_SHAPES = [(37, 301, 45, 19), (64, 4096, 192, 16), (20, 203, 33, 784),
+               (37, 301, 45, 8), (50, 2000, 300, 32)]
 
 
 @pytest.fixture
@@ -81,6 +85,170 @@ def test_kernels_match_plain(cuda, kind, shape):
     assert bool(((blk == rblk) | tie).all())
     torch.testing.assert_close(pb, torch.gather(rbs, 1, blk[:, None])[:, 0]
                                / rtot, rtol=RTOL, atol=ATOL)
+
+
+def _assert_sample_block(got, want, g, exact=False):
+    """sample_block kernel output vs plain: bs, tot rtol 2e-4 / atol 1e-5,
+    blk int64 and equal except at near-ties within 1e-5 (everywhere with
+    ``exact``), p_blk against the plain sums at the kernel's draw."""
+    blk, pb, tot, bs = got
+    rblk, _, rtot, rbs = want
+    assert blk.dtype == torch.int64
+    torch.testing.assert_close(bs, rbs, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(tot, rtot, rtol=RTOL, atol=ATOL)
+    if exact:
+        assert torch.equal(blk, rblk)
+    else:
+        top2 = torch.topk(torch.log(rbs) + g, min(2, rbs.shape[1]), dim=1).values
+        tie = top2[:, 0] - top2[:, -1] <= 1e-5
+        assert bool(((blk == rblk) | tie).all())
+    torch.testing.assert_close(pb, torch.gather(rbs, 1, blk[:, None])[:, 0]
+                               / rtot, rtol=RTOL, atol=ATOL)
+
+
+def tie_case(kind, m, n, d, bn, dev, seed=0):
+    """Planted exact ties: dyadic coordinates (k / 8, |k| <= 4), so every
+    distance is exact in f32 in any summation order; block ``hi`` is a
+    copy of block ``lo``, no row owns either, and both get the same large
+    Gumbel noise, so every row's top two scores tie exactly and the lower
+    block must win.  Returns (q, x, own, g, inv_bw, lo)."""
+    rng = np.random.default_rng(seed)
+    nb = -(-n // bn)
+    lo, hi = 1, n // bn - 1
+    x = rng.integers(-4, 5, (n, d)) / 8.0
+    x[hi * bn:(hi + 1) * bn] = x[lo * bn:(lo + 1) * bn]
+    q = rng.integers(-4, 5, (m, d)) / 8.0
+    own = rng.integers(-1, nb, m)
+    own[(own == lo) | (own == hi)] = -1
+    g = rng.gumbel(size=(m, nb))
+    g[:, lo] = g[:, hi] = 30.0
+    inv_bw = 1.0 / (0.25 * d) if kind == "laplacian" else 1.0 / (0.5 * d ** 0.5)
+    t = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (q, x, g)]
+    return (t[0], t[1], torch.as_tensor(own, device=dev), t[2], inv_bw, lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 19])
+@pytest.mark.parametrize("kind", KINDS)
+def test_sample_block_kernel_ties_go_to_the_lower_block(cuda, kind, d):
+    """Two blocks with the same rows and equal Gumbel noise: the fused
+    draw picks the lower one on every row, as the reference's strict-">"
+    update (wide tile at d = 16, generic at d = 19)."""
+    q, x, own, g, inv_bw, lo = tie_case(kind, 300, 2048, d, 256, cuda)
+    got = sk.sample_block_cuda(q, x, own, g, kind, inv_bw, 0.7, 256)
+    assert bool((got[0] == lo).all())
+    _assert_sample_block(got, sk.sample_block_plain(q, x, own, g, kind,
+                                                    inv_bw, 0.7, 256), g,
+                         exact=True)
+
+
+@pytest.mark.cuda
+def test_sample_block_kernel_at_the_main_shape(cuda):
+    """The exact sparsifier's edge-batch shape (m = 1024, n = 65536, d =
+    16, bn = 256, gaussian) with int64 own as the path hands it, and the
+    masked-blocksum kernel on the same rows: one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(65536, 16, generator=gen, device=cuda) * 0.5
+    src = torch.randint(0, 65536, (1024,), generator=gen, device=cuda)
+    q, own = x[src], src // 256
+    g = gumbel((1024, 256), gen, cuda)
+    assert sk.sample_block_plan(1024, 65536, 16, 256).instance == 16
+    sk.reset_launches()
+    got = sk.sample_block_cuda(q, x, own, g, "gaussian", 1.0, 1.0, 256)
+    masked = sk.masked_blocksum_cuda(q, x, own, "gaussian", 1.0, 1.0, 256)
+    assert sk.LAUNCHES == {"masked_blocksum": 1, "sample_block": 1}
+    want = sk.sample_block_plain(q, x, own, g, "gaussian", 1.0, 1.0, 256)
+    _assert_sample_block(got, want, g)
+    torch.testing.assert_close(masked, want[3], rtol=RTOL, atol=ATOL)
+    got32 = sk.sample_block_cuda(q, x, own.to(torch.int32), g, "gaussian",
+                                 1.0, 1.0, 256)
+    for a, b in zip(got32, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 3, 8])
+@pytest.mark.parametrize("shape", [(37, 301, 8, 70), (130, 1000, 32, 256),
+                                   (37, 301, 19, 70), (300, 4096, 16, 256)])
+def test_sample_block_kernel_block_groups(cuda, monkeypatch, shape, group):
+    """A CTA summing several consecutive level-1 blocks (the last group
+    ragged, the last block too) gives the same sums and draws, both
+    instances."""
+    monkeypatch.setattr(sk, "group_for", lambda *_: group)
+    monkeypatch.setattr(sk, "_PLANS", {})
+    q, x, own, g, inv_bw, bn = _inputs("gaussian", shape, cuda)
+    m, n, d, _ = shape
+    assert sk.sample_block_plan(m, n, d, bn).group == group
+    _assert_sample_block(sk.sample_block_cuda(q, x, own, g, "gaussian",
+                                              inv_bw, 0.7, bn),
+                         sk.sample_block_plain(q, x, own, g, "gaussian",
+                                               inv_bw, 0.7, bn), g)
+    torch.testing.assert_close(
+        sk.masked_blocksum_cuda(q, x, own, "gaussian", inv_bw, 0.7, bn),
+        sk.masked_blocksum_plain(q, x, own, "gaussian", inv_bw, 0.7, bn),
+        rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 19])
+def test_sample_block_kernel_repeated_calls_reset_the_counters(cuda, d):
+    """Calls of several row counts in a row, each with fresh noise: every
+    draw matches, so each launch leaves its tiles' arrival counters at 0."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(3000, d, generator=gen, device=cuda) * 0.4
+    for m in (1024, 37, 300, 1, 1024, 129, 1024):
+        q = torch.randn(m, d, generator=gen, device=cuda) * 0.4
+        own = torch.randint(-1, 12, (m,), generator=gen, device=cuda)
+        g = gumbel((m, 12), gen, cuda)
+        got = sk.sample_block_cuda(q, x, own, g, "exponential", 0.5, 1.0, 256)
+        _assert_sample_block(got, sk.sample_block_plain(
+            q, x, own, g, "exponential", 0.5, 1.0, 256), g)
+
+
+@pytest.mark.cuda
+def test_weighted_kv_kernels_at_the_main_shape(cuda):
+    """The hashed sparsifier's frontier read (m = 1024, t = 1152, d = 16
+    over n = 262144) and the degree query's width (t = 192): the vector
+    instance, against the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(262144, 16, generator=gen, device=cuda)
+    for t, name in ((1152, "weighted_kv"), (192, "weighted_kv_sum")):
+        q = torch.randn(1024, 16, generator=gen, device=cuda)
+        cols = torch.randint(0, 262144, (1024, t), generator=gen,
+                             dtype=torch.int32, device=cuda)
+        wgt = torch.rand((1024, t), generator=gen, device=cuda) * 256.0
+        args = (q, x, cols, wgt, "gaussian", 1.0)
+        want = getattr(hk, name + "_plain")(*args)
+        torch.testing.assert_close(getattr(hk, name + "_cuda")(*args), want,
+                                   rtol=RTOL,
+                                   atol=1e-6 * float(want.abs().max()))
+    assert hk.weighted_kv_plan(1024, 262144, 16, 1152).instance == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "d19"])
+def test_weighted_kv_kernels_scalar_path(cuda, case):
+    """x off 16-byte alignment (a view one float into a buffer) at d = 16,
+    and d = 19: both take the scalar instance and match the plain
+    versions."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    m, n, t = 64, 5000, 300
+    d = 16 if case == "unaligned" else 19
+    flat = torch.randn(n * d + 1, generator=gen, device=cuda)
+    x = flat[1:].view(n, d) if case == "unaligned" else flat[:n * d].view(n, d)
+    if case == "unaligned":
+        assert x.data_ptr() % 16 != 0
+    assert hk.weighted_kv_plan(m, n, d, t, x.data_ptr() % 16 == 0).instance == 0
+    q = torch.randn(m, d, generator=gen, device=cuda)
+    cols = torch.randint(-2, n + 2, (m, t), generator=gen, dtype=torch.int32,
+                         device=cuda)
+    wgt = torch.rand((m, t), generator=gen, device=cuda) * 256.0
+    for name in ("weighted_kv", "weighted_kv_sum"):
+        args = (q, x, cols, wgt, "laplacian" if d == 19 else "gaussian", 0.3)
+        want = getattr(hk, name + "_plain")(*args)
+        torch.testing.assert_close(getattr(hk, name + "_cuda")(*args), want,
+                                   rtol=RTOL,
+                                   atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.cuda

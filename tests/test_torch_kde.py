@@ -121,6 +121,121 @@ def test_masked_and_sample_block_plain_match_reference(kind, shape):
     np.testing.assert_allclose(pb[keep], rpb[keep], rtol=RTOL, atol=ATOL)
 
 
+def tie_case(kind, m, n, d, bn, seed=0):
+    """Planted exact ties: dyadic coordinates (k / 8, |k| <= 4), so every
+    distance is exact in f32 in any summation order; block ``hi`` is a
+    copy of block ``lo``, no row owns either, and both get the same large
+    Gumbel noise, so every row's top two scores tie exactly."""
+    rng = np.random.default_rng(seed)
+    nb = -(-n // bn)
+    lo, hi = 1, n // bn - 1
+    x = (rng.integers(-4, 5, (n, d)) / 8.0).astype(np.float32)
+    x[hi * bn:(hi + 1) * bn] = x[lo * bn:(lo + 1) * bn]
+    q = (rng.integers(-4, 5, (m, d)) / 8.0).astype(np.float32)
+    own = rng.integers(-1, nb, m).astype(np.int32)
+    own[(own == lo) | (own == hi)] = -1
+    g = rng.gumbel(size=(m, nb)).astype(np.float32)
+    g[:, lo] = g[:, hi] = 30.0
+    inv_bw = 1.0 / (0.25 * d) if kind == "laplacian" else 1.0 / (0.5 * d ** 0.5)
+    return q, x, own, g, float(inv_bw), lo
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_sample_block_plain_ties_go_to_the_lower_block(kind):
+    """Two blocks with the same rows and equal Gumbel noise:
+    ``sample_block_plain`` and the reference's ``sample_block_ref`` both
+    draw the lower block on every row (first maximum, the reference's
+    strict-">" update), with equal sums."""
+    q, x, own, g, inv_bw, lo = tie_case(kind, 40, 512, 16, 64)
+    xp, xp_sq = _padded(x, 64)
+    rblk, _, rtot, rbs = [np.asarray(a) for a in _sample_block_ref(
+        jnp.asarray(q), xp, xp_sq, jnp.asarray(own), jnp.asarray(g), kind,
+        inv_bw, 0.7, 64)]
+    blk, pb, tot, bs = tsk.sample_block_plain(
+        torch.as_tensor(q), torch.as_tensor(x), torch.as_tensor(own),
+        torch.as_tensor(g), kind, inv_bw, 0.7, 64)
+    hi = bs.shape[1] - 1
+    assert np.array_equal(rbs[:, lo], rbs[:, hi])
+    assert torch.equal(bs[:, lo], bs[:, hi])
+    assert np.all(rblk == lo) and bool((blk == lo).all())
+    np.testing.assert_allclose(bs.numpy(), rbs, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tot.numpy(), rtot, rtol=RTOL, atol=ATOL)
+
+
+# (m, n, d, bn, aligned) -> (instance, query tiles): the main path's edge
+# batch and sampler frontier, chip_smoke.py's ragged checks (d = 19, 784),
+# the CUDA tests' wide ragged shapes, their tie cases, and a view off 16
+# bytes (the generic tile)
+PLAN_CASES = [
+    ((1024, 65536, 16, 256, True), (16, 8)),
+    ((4096, 65536, 16, 256, True), (16, 32)),
+    ((37, 301, 19, 70, True), (0, 1)),
+    ((20, 203, 784, 50, True), (0, 1)),
+    ((37, 301, 8, 70, True), (16, 1)),
+    ((130, 1000, 32, 256, True), (32, 2)),
+    ((300, 2048, 19, 256, True), (0, 5)),
+    ((1024, 65536, 16, 256, False), (0, 16)),
+    ((0, 10, 4, 4, True), (16, 0)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_CASES)
+def test_sample_block_plan_picks_the_instance(args, want):
+    """The host-side plan of the sampler kernels: the wide 128-row tile
+    (d padded to 16 or 32) where d % 4 == 0, d <= 32 and the rows start on
+    16 bytes, the generic 64-row tile elsewhere; the grid of
+    ceil(nb / group) x tiles CTAs fits one wave of resident CTAs on 132
+    SMs unless a group would exceed the tile's blocks."""
+    plan = tsk.sample_block_plan(*args)
+    assert (plan.instance, plan.tiles) == want
+    assert plan.bm == (64 if plan.instance == 0 else 128)
+    assert plan.nb == -(-args[1] // args[3])
+    ctas = -(-plan.nb // plan.group) * plan.tiles
+    slots = tsk.CTAS_PER_SM * 132
+    assert 1 <= plan.group <= max(plan.nb, 1)
+    assert ctas <= slots + plan.tiles or plan.group == plan.nb
+
+
+def test_sample_block_plan_groups_blocks_into_one_wave():
+    """The edge batch (m 1024, bn 256 over n 65536: 8 tiles x 256 blocks)
+    runs 8 blocks a CTA, 256 CTAs on 132 SMs; the sampler frontier (m
+    4096) 32; small calls one; fewer SMs, larger groups."""
+    assert tsk.sample_block_plan(1024, 65536, 16, 256).group == 8
+    assert tsk.sample_block_plan(4096, 65536, 16, 256).group == 32
+    assert tsk.sample_block_plan(37, 301, 19, 70).group == 1
+    assert tsk.sample_block_plan(1024, 65536, 16, 256, sms=66).group == 16
+    assert tsk.sample_block_plan(64, 1000, 19, 10).group == 1
+
+
+def test_sample_block_plan_refuses_what_the_kernel_does_not_take():
+    for args, match in (((4, 0, 4, 4), "empty"), ((4, 8, 0, 4), ">= 1"),
+                        ((4, 8, 4, 0), ">= 1"),
+                        ((128 * 65535 + 1, 8, 4, 4), "65535"),
+                        ((64 * 65535 + 1, 8, 5, 4), "65535"),
+                        ((4, 2 ** 31, 4, 4), "int32")):
+        with pytest.raises(ValueError, match=match):
+            tsk.sample_block_plan(*args)
+    assert tsk.sample_block_plan(128 * 65535, 8, 4, 4).tiles == 65535
+
+
+def test_sample_block_wrapper_contract_on_the_cpu():
+    """``ops.sample_block`` on CPU tensors takes the plain version: blk is
+    int64, and an int32 or int64 own gives the same draw; the CUDA wrapper
+    refuses CPU tensors before anything is built."""
+    q, x, own, g, inv_bw, beta, bn = _case("gaussian", SHAPES[0])
+    tq, tx, tg_ = torch.as_tensor(q), torch.as_tensor(x), torch.as_tensor(g)
+    cfg = dict(kind="gaussian", inv_bw=inv_bw, beta=beta, block_size=bn)
+    outs = [tops.sample_block(tq, tx, torch.as_tensor(own).to(dt), tg_, **cfg)
+            for dt in (torch.int32, torch.int64)]
+    assert outs[0][0].dtype == torch.int64
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert tsk.LAUNCHES == {"masked_blocksum": 0, "sample_block": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk.sample_block_cuda(tq, tx, torch.as_tensor(own).float(), tg_,
+                              "gaussian", inv_bw, beta, bn)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_exact_kde_matches_reference(kind):
     """``ExactKDE.query`` (the rowsum path) and ``ExactBlockKDE``'s

@@ -153,6 +153,46 @@ def test_weighted_kv_plain_matches_reference(kind, d):
     assert thk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0}
 
 
+# (m, n, d, t, aligned) -> instance: the frontier read and degree query of
+# the main path, chip_smoke.py's ragged checks (d = 19, 784), the CUDA
+# tests' vector shapes (d = 8, 32), and x off 16 bytes (scalar)
+WEIGHTED_PLAN_CASES = [
+    ((1024, 262144, 16, 1152, True), 4), ((1024, 262144, 16, 192, True), 4),
+    ((37, 301, 19, 45, True), 0), ((20, 203, 784, 33, True), 0),
+    ((37, 301, 8, 45, True), 4), ((50, 2000, 32, 300, True), 8),
+    ((64, 5000, 16, 300, False), 0), ((3, 10, 36, 5, True), 0),
+]
+
+
+@pytest.mark.parametrize("args,want", WEIGHTED_PLAN_CASES)
+def test_weighted_kv_plan_picks_the_instance(args, want):
+    """The host-side plan of the weighted kernels: the vector instance
+    (float4 per row padded to 4 or 8, q in registers) where d % 4 == 0,
+    d <= 32 and x starts on 16 bytes, the scalar one elsewhere."""
+    plan = thk.weighted_kv_plan(*args)
+    assert plan.instance == want
+    # a gathered row is one 16-byte piece a lane on the vector instance
+    assert plan.lanes == (plan.instance or 1)
+
+
+def test_weighted_kv_plan_refuses_what_the_kernel_does_not_take():
+    for args, match in (((4, 0, 4, 4), "empty"), ((4, 8, 0, 4), ">= 1"),
+                        ((4, 8, 4, 2 ** 31), "int32")):
+        with pytest.raises(ValueError, match=match):
+            thk.weighted_kv_plan(*args)
+
+
+def test_weighted_kv_cuda_wrappers_reject_cpu_tensors():
+    """The kde_hash CUDA wrappers launch or raise: CPU tensors are refused
+    before anything is built."""
+    q = torch.zeros((3, 4))
+    cols = torch.zeros((3, 5), dtype=torch.int32)
+    for fn in (thk.weighted_kv_cuda, thk.weighted_kv_sum_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, cols, torch.zeros((3, 5)), "gaussian", 1.0)
+    assert thk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0}
+
+
 def _gather_case(label, num_far=16):
     x = _data(label, n=640, d=6, scale=1.2)
     jk, tk = _kernels("gaussian", bw=1.0)
