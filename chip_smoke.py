@@ -25,8 +25,11 @@ Phases (any failure exits non-zero; no phase catches and continues):
                (two equal blocks, equal Gumbel noise: the lower block on
                every row, every kind) and to calls of several row counts
                in a row (its arrival counters reset themselves); the
-               wide-tile ragged shapes (d = 8, 32) and, for the kde_hash
-               kernels, x off 16-byte alignment join the ragged checks.
+               blocksum kernel to one launch a call and the rowsum to two;
+               the wide-tile ragged shapes (d = 8, 32), the deep tile's
+               (d = 36, 784) and views off 16 bytes (the generic tile of
+               every kernel; for the kde_hash kernels, x) join the ragged
+               checks, each printing the rowsum / blocksum tile it took.
                ``host_us`` of the sample-block and weighted-kv wrappers,
                and the weighted-kv kernel's achieved rate of gathered
                bytes, are printed.
@@ -314,21 +317,34 @@ def phase_kernels(data, gen):
         e["sample_block"] = max(e["sample_block"],
                                 close(got[1], pb, f"sample_block p {tag}"))
 
-    # ragged shapes, every kind (d = 19, 784: the sampler kernels' generic
-    # tile; d = 8, 32: their wide tile padded to 16 and 32)
-    for kind, d in [("gaussian", 19), ("exponential", 19),
-                    ("rational_quadratic", 19), ("laplacian", 19),
-                    ("laplacian", 784), ("exponential", 8),
-                    ("rational_quadratic", 32)]:
+    def misaligned(a):              # a contiguous copy 4 bytes past 16
+        view = torch.empty(a.numel() + 1, device=dev)[1:]
+        return view.view(a.shape).copy_(a)
+
+    # ragged shapes, every kind (d = 19: every kernel's generic tile; d =
+    # 8, 32: the wide tile padded to 16 and 32; d = 36, 784: rowsum's and
+    # blocksum's deep tile, the sampler kernels' generic one; views off 16
+    # bytes: the generic tile of every kernel)
+    for kind, d, view in [("gaussian", 19, False), ("exponential", 19, False),
+                          ("rational_quadratic", 19, False),
+                          ("laplacian", 19, False), ("laplacian", 784, False),
+                          ("exponential", 8, False),
+                          ("rational_quadratic", 32, False),
+                          ("gaussian", 36, False), ("laplacian", 36, False),
+                          ("gaussian", 16, True), ("laplacian", 784, True)]:
         m, n, bn = 37, 301, 70
         q = torch.randn(m, d, generator=gen, device=dev) * 0.3
         x = torch.randn(n, d, generator=gen, device=dev) * 0.3
+        if view:
+            q, x = misaligned(q), misaligned(x)
         inv_bw = 1.0 / (0.3 * d) if kind == "laplacian" else \
             1.0 / (0.4 * d ** 0.5)
         own = torch.randint(-1, -(-n // bn), (m,), generator=gen, device=dev)
         g = gumbel((m, -(-n // bn)), gen, dev)
-        check_all(q, x, own, g, kind, inv_bw, 0.7, bn, f"{kind} d={d} ragged")
-        log(f"[kernels] ragged m={m} n={n} d={d} bn={bn} {kind}: ok")
+        tag = f"{kind} d={d} ragged{' misaligned' if view else ''}"
+        check_all(q, x, own, g, kind, inv_bw, 0.7, bn, tag)
+        log(f"[kernels] {tag} m={m} n={n} bn={bn}: ok (rowsum / blocksum "
+            f"tile {rk._cached_plan(q, x, kind, inv_bw, 0.7, bn)[0].instance})")
 
     rows = []
     # main-path shapes
@@ -341,12 +357,22 @@ def phase_kernels(data, gen):
     m, n, d = q.shape[0], xs.shape[0], xs.shape[1]
     b_ms, b_by = bound(m * n * pair_ops("laplacian", d),
                        4 * (m * d + n * d + m))
+    plan = rk._cached_plan(q, xs, "laplacian", inv, 1.0, None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_call = launches_per_call(lambda: rk.rowsum_cuda(q, xs, "laplacian",
+                                                        inv), 5)
+    assert per_call == 2.0, f"rowsum: {per_call} launches a call"
+    # a subtract and an add with |.| per (pair, coordinate), no packed f32
+    # add: the issue floor at 128 lanes an SM and 1.98 GHz
+    log(f"[kernels] rowsum main: plan {plan[0]} ({plan[1].bn} columns a "
+        f"split); {per_call:.0f} device launches a call; issue floor "
+        f"{2 * m * n * d / (sms * 128 * 1.98e9) * 1e3:.4f} ms")
     rows.append(dict(
         name="rowsum", route="cuda", source="src/repro_torch/csrc/kde_rowsum.cu",
         replaces="src/repro/kernels/kde_rowsum/kernel.py:137",
         shape=f"m={m} n={n} d={d} laplacian",
         ms=timed(lambda: rk.rowsum_cuda(q, xs, "laplacian", inv), 10),
-        # its two kernels: blocksum_kernel's partials, rowsum_reduce_kernel
+        # its two kernels: the split's block sums, rowsum_reduce_kernel
         device_ms=kernel_device_ms(
             lambda: rk.rowsum_cuda(q, xs, "laplacian", inv), "", 5),
         plain_ms=timed(lambda: rk.rowsum_plain(q, xs, "laplacian", inv), 2),
@@ -369,6 +395,12 @@ def phase_kernels(data, gen):
     errs["blocksum"] = max(errs["blocksum"], close(
         rk.blocksum_cuda(q, x, "gaussian", inv, 1.0, bn),
         rk.blocksum_plain(q, x, "gaussian", inv, 1.0, bn), "blocksum main"))
+    per_call = launches_per_call(
+        lambda: rk.blocksum_cuda(q, x, "gaussian", inv, 1.0, bn), 10)
+    assert per_call == 1.0, f"blocksum: {per_call} launches a call"
+    log(f"[kernels] blocksum main: plan "
+        f"{rk._cached_plan(q, x, 'gaussian', inv, 1.0, bn)[0]}; "
+        f"{per_call:.0f} device launch a call")
     b_ms, b_by = bound(m * n * pair_ops("gaussian", d),
                        4 * (m * d + n * d + m * nb))
     rows.append(dict(
@@ -378,7 +410,7 @@ def phase_kernels(data, gen):
         ms=timed(lambda: rk.blocksum_cuda(q, x, "gaussian", inv, 1.0, bn), 20),
         device_ms=kernel_device_ms(
             lambda: rk.blocksum_cuda(q, x, "gaussian", inv, 1.0, bn),
-            "blocksum_kernel", 20),
+            "blocksum", 20),
         plain_ms=timed(lambda: rk.blocksum_plain(q, x, "gaussian", inv, 1.0,
                                                  bn), 5),
         bound_ms=b_ms, bound_by=b_by,
@@ -1087,22 +1119,32 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_kernels(fn, reps: int):
+def device_kernels(fn, reps: int, traces: int = 3):
     """{name: (launches, device us)} of every CUDA kernel (and memset or
     copy) in a torch.profiler trace of ``reps`` calls of ``fn``, after one
-    warm-up call."""
+    warm-up call.  Every ``fn`` given here launches device work, so a
+    trace that holds no device activity at all lost its CUPTI records:
+    it is logged and taken again, up to ``traces`` traces in all ({} when
+    every one came back empty)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.count, _dev_us(e)) for e in prof.key_averages()
-            if _dev_us(e) > 0
-            and str(getattr(e, "device_type", "")).endswith("CUDA")}
+    for attempt in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ks = {e.key: (e.count, _dev_us(e)) for e in prof.key_averages()
+              if _dev_us(e) > 0
+              and str(getattr(e, "device_type", "")).endswith("CUDA")}
+        if ks:
+            return ks
+        log(f"[profiler] trace {attempt} of {traces} of {reps} calls shows "
+            f"no device activity (CUPTI records lost)"
+            + ("; tracing again" if attempt < traces else ""))
+    return {}
 
 
 def kernel_device_ms(fn, kernel: str, reps: int):

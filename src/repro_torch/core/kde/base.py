@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import as_f32, not_in_slice, resolve_device
+from repro_torch.device import (as_f32, no_switch, not_in_slice,
+                                resolve_device, tile_size)
 from repro_torch.obs import counters as _c
 
 
@@ -60,7 +61,19 @@ class KDEBase:
 
 
 class ExactKDE(KDEBase):
-    """Brute-force oracle: the rowsum CUDA kernel on the card."""
+    """Brute-force oracle: the rowsum CUDA kernel on the card.
+
+    ``chunk`` is the reference's query chunk: checked to be a positive int
+    and otherwise ignored (the kernel's plan sizes its own tiles), so the
+    answers are the same whatever its value.  ``use_pallas`` must be None:
+    the dataset's device chooses the kernel or its plain version."""
+
+    def __init__(self, x, kernel: Kernel, chunk: int = 8192,
+                 use_pallas: bool | None = None, precision: str = "f32",
+                 device=None):
+        tile_size("chunk", chunk)
+        no_switch("use_pallas", use_pallas)
+        super().__init__(x, kernel, precision=precision, device=device)
 
     def query(self, y: torch.Tensor) -> torch.Tensor:
         """Exact row sums; m*n kernel evals per call."""
@@ -122,10 +135,13 @@ class ExactBlockKDE(KDEBase):
     (Algorithm 5.1 computes the probability q_uv with which the sampler
     picks an edge; a deterministic level-1 read makes q exactly
     recomputable).  On a CUDA dataset the sweep is the blocksum kernel.
+    ``use_pallas`` must be None (the dataset's device chooses).
     """
 
     def __init__(self, x, kernel: Kernel, block_size: int = 256,
-                 precision: str = "f32", device=None):
+                 use_pallas: bool | None = None, precision: str = "f32",
+                 device=None):
+        no_switch("use_pallas", use_pallas)
         super().__init__(x, kernel, precision=precision, device=device)
         self.block_size = int(block_size)
         self.num_blocks = (self.n + self.block_size - 1) // self.block_size

@@ -8,8 +8,10 @@ program per query batch, whose weighted pass is the weighted-kv-sum CUDA
 kernel on the card -- O(max_bucket + num_far_samples) kernel evals per
 query instead of the dense backends' O(n).
 
-This slice covers static datasets on one device: ``mesh=`` and
-``dataset=`` raise ``NotImplementedError``.
+This slice covers static datasets on one device: ``mesh=``,
+``data_axes=`` other than ``("data",)`` and ``dataset=`` raise
+``NotImplementedError``; ``use_pallas`` / ``interpret`` must be None (the
+dataset's device chooses the kernel).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.core.kde.base import KDEBase
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import as_f32, not_in_slice
+from repro_torch.device import as_f32, no_switch, not_in_slice
 from repro_torch.ft import guards as _g
 
 
@@ -39,9 +41,17 @@ class HashedKDE(KDEBase):
 
     def __init__(self, x, kernel: Kernel, cell_width: float | None = None,
                  num_hash_dims: int = 8, num_far_samples: int = 64,
-                 max_bucket: int = 256, seed: int = 0, mesh=None,
-                 dataset=None, overflow_cap: int | None = None,
-                 precision: str = "f32", device=None):
+                 max_bucket: int = 256, seed: int = 0,
+                 use_pallas: bool | None = None,
+                 interpret: bool | None = None, mesh=None,
+                 data_axes=("data",), dataset=None,
+                 overflow_cap: int | None = None, precision: str = "f32",
+                 device=None):
+        no_switch("use_pallas", use_pallas)
+        no_switch("interpret", interpret)
+        if tuple(data_axes) != ("data",):
+            raise not_in_slice(f"HashedKDE(data_axes={data_axes!r})",
+                               "queue 1, item 10")
         if mesh is not None:
             raise not_in_slice("HashedKDE(mesh=)", "queue 1, item 9")
         if dataset is not None or overflow_cap:

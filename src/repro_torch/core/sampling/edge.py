@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.core.kde.base import ExactBlockKDE, StratifiedKDE
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import not_in_slice, resolve_device
+from repro_torch.device import no_switch, not_in_slice, resolve_device
 from repro_torch.ft import guards as _g
 from repro_torch.kernels.kde_sampler import ops as _ops
 from repro_torch.kernels.kde_sampler import ref as _ref
@@ -60,10 +60,22 @@ class NeighborSampler:
     """
 
     def __init__(self, x, kernel: Kernel, mode: str = "blocked",
-                 block_size: Optional[int] = None, exact_blocks: bool = False,
-                 seed: int = 0, mesh=None, level1: str = "blocked",
+                 block_size: Optional[int] = None, samples_per_block: int = 16,
+                 exact_blocks: bool = False, tree=None, seed: int = 0,
+                 use_pallas: Optional[bool] = None,
+                 interpret: Optional[bool] = None, mesh=None,
+                 data_axes=("data",), level1: str = "blocked",
                  hash_opts: Optional[dict] = None, dataset=None,
                  precision: str = "f32", device=None):
+        no_switch("use_pallas", use_pallas)
+        no_switch("interpret", interpret)
+        if samples_per_block != 16:
+            raise not_in_slice(f"samples_per_block={samples_per_block!r} "
+                               "(stratified level-1 reads)", "queue 1, item 1")
+        if tree is not None:
+            raise not_in_slice("NeighborSampler(tree=)", "queue 1, item 6")
+        if tuple(data_axes) != ("data",):
+            raise not_in_slice(f"data_axes={data_axes!r}", "queue 1, item 10")
         if mode != "blocked":
             raise not_in_slice(f"mode={mode!r}", "queue 1, item 5")
         if level1 not in ("blocked", "hash"):
@@ -269,12 +281,15 @@ class NeighborSampler:
         return tuple(a.reshape(-1)[:t].cpu().numpy() for a in data)
 
 
-def shared_level1_estimator(nbr: NeighborSampler, estimator: str):
+def shared_level1_estimator(nbr: NeighborSampler, estimator: str,
+                            seed: int = 0):
     """Reuse ``nbr``'s level-1 structure as the degree estimator
     (DESIGN.md §6/§7): one device dataset, one ``x_sq`` sweep, one eval
     counter for the whole pipeline -- the exact block structure of an
     ``exact_blocks=True`` sampler, the hashed bucket layout of a
-    ``level1="hash"`` one.  Other pairings are not ported yet."""
+    ``level1="hash"`` one.  Other pairings are not ported yet; ``seed``
+    seeds the reference's standalone estimator of those pairings, so the
+    shared ones ignore it."""
     if estimator == "hash" and nbr.level1 == "hash":
         return nbr.hash_estimator
     if estimator in ("exact", "exact_block") and nbr.exact_blocks:

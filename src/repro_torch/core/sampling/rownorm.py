@@ -27,8 +27,11 @@ class RowNormSampler:
     """
 
     def __init__(self, x, kernel: Kernel, estimator: str = "exact",
-                 seed: int = 0, mesh=None, dataset=None, device=None,
-                 **est_kw):
+                 seed: int = 0, mesh=None, data_axes=("data",),
+                 dataset=None, device=None, **est_kw):
+        if tuple(data_axes) != ("data",):
+            raise not_in_slice(f"RowNormSampler(data_axes={data_axes!r})",
+                               "queue 1, item 10")
         if mesh is not None:
             raise not_in_slice("RowNormSampler(mesh=)", "queue 1, item 9")
         if dataset is not None:

@@ -75,7 +75,8 @@ class SparseGraph:
 def spectral_sparsify(x, kernel: Kernel, num_edges: int,
                       estimator: str = "stratified", seed: int = 0,
                       batch: int = 1024, exact_blocks: bool = False,
-                      mesh=None, device=None) -> SparseGraph:
+                      samples_per_block: int = 16, mesh=None,
+                      device=None) -> SparseGraph:
     """Algorithm 5.1 with edge budget ``num_edges`` (= t).
 
     ONE device dataset + level-1 structure is shared between the degree
@@ -91,8 +92,11 @@ def spectral_sparsify(x, kernel: Kernel, num_edges: int,
     ``NotImplementedError``; pass ``estimator="exact", exact_blocks=True``
     or ``estimator="hash"``.
     """
+    if samples_per_block != 16:
+        raise not_in_slice(f"spectral_sparsify(samples_per_block="
+                           f"{samples_per_block!r})", "queue 1, item 1")
     if mesh is not None:
-        raise not_in_slice("spectral_sparsify(mesh=)", "queue 1, item 9")
+        raise not_in_slice("spectral_sparsify(mesh=)", "queue 1, item 10")
     ported = (estimator == "hash" and not exact_blocks) or (
         estimator in ("exact", "exact_block") and exact_blocks)
     if not ported:

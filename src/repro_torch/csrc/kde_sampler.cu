@@ -30,14 +30,14 @@
 // tot, and resets the counter to 0.  The draw always reads finished sums in
 // block order, so the result does not depend on the CTAs' order.  The
 // counters are one int per query tile in a buffer the wrapper allocates once
-// per device and reuses: launches on one stream never overlap, and the port
-// runs every kernel on the current stream of its tensors' device (a second
-// stream running this kernel concurrently would need its own buffer).
+// per (device, stream) and reuses: launches on one stream never overlap, and
+// launches on two streams use two buffers.
 //
 // Two instances, chosen by the host-side plan (kernels/kde_sampler/kernel.py
 // ``sample_block_plan``):
-// - wide (d % 4 == 0, d <= 32, q and x 16-byte aligned): 256 threads own a
-//   128-row query tile.  The tile is staged once per CTA with 16-byte
+// - wide (d % 4 == 0, d <= 32, q and x 16-byte aligned; kde_wide.cuh's
+//   wide_block_sums with the masked store): 256 threads own a 128-row query
+//   tile.  The tile is staged once per CTA with 16-byte
 //   cp.async copies; the group's columns stream through two 128-column
 //   buffers (the next chunk's copies overlap the current chunk's math).
 //   Rows stay row-major in shared memory, padded by 4 floats, so a thread's
@@ -55,7 +55,7 @@
 // no own block; own is int32 or int64 (a flag in the shape struct).
 #include <stdint.h>
 
-#include "kde_tile.cuh"
+#include "kde_wide.cuh"
 
 namespace {
 
@@ -63,16 +63,6 @@ constexpr float FLOOR = 1e-12f;   // == ref.BLOCK_SUM_FLOOR
 constexpr int THREADS = 256;
 
 }  // namespace
-
-// Static arguments of a launch (kernels/build.py ``KdeTileShape``).
-struct KdeTileShape {
-  int m, n, d, bn, nb;
-  int own64;      // own is int64 (else int32)
-  int instance;   // 0 generic, 16 or 32: the wide tile with that padded d
-  int group;      // consecutive level-1 blocks a CTA sums
-  int kind;
-  float inv_bw, inv_bw2, beta;
-};
 
 namespace {
 
@@ -96,6 +86,13 @@ __device__ __forceinline__ void store_sum(const Args& a, float s, int gi, int b)
   if (own == b) s -= 1.0f;                      // k(x, x) = 1 self mask
   a.bs[(size_t)gi * a.nb + b] = fmaxf(s, FLOOR);
 }
+
+// The 128-row tiles' store (kde_wide.cuh): the self mask and the floor.
+struct MaskedStore {
+  __device__ __forceinline__ static void put(const Args& a, float s, int gi, int b) {
+    store_sum(a, s, gi, b);
+  }
+};
 
 // Every thread of the CTA calls this after the CTA stored its sums of its
 // blocks for rows [i0, i0 + BM).  The tile's last CTA to arrive draws the
@@ -196,187 +193,17 @@ sampler_generic_kernel(Args a) {
 }
 
 // ------------------------------------------------------------------- wide
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-template <int DK>
-struct Wide {
-  static constexpr int BM = 128;          // query rows per CTA
-  static constexpr int BN = 128;          // dataset columns per chunk
-  static constexpr int TX = 16, TY = 16;  // threads along columns / rows
-  static constexpr int TM = BM / TY, TN = BN / TX;   // 8 x 8 register tile
-  static constexpr int RS = DK + 4;       // padded row stride in floats
-  static constexpr int QS = 0;                       // [BM][RS]
-  static constexpr int XS = QS + BM * RS;            // [2][BN][RS]
-  static constexpr int QN = XS + 2 * BN * RS;        // [BM]
-  static constexpr int XN = QN + BM;                 // [BN]
-  static constexpr int BYTES = (XN + BN) * 4;
-  static_assert(TX * TY == THREADS && BM == BN && 2 * BM == THREADS,
-                "norms take two threads per row");
-};
-
-// Stage rows [0, ROWS) of src (row stride d floats) into dst (row stride RS)
-// with 16-byte copies; rows >= valid and coordinates >= d are zero (d % 4 ==
-// 0, so a 16-byte piece is all in or all out).
-template <int DK, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const float* src, int valid, int d) {
-  constexpr int V = DK / 4;
-  for (int e = threadIdx.x; e < ROWS * V; e += THREADS) {
-    const int r = e / V, k = 4 * (e % V);
-    const bool ok = r < valid && k < d;
-    cp_async16(dst + r * Wide<DK>::RS + k, ok ? src + (size_t)r * d + k : src, ok ? 16 : 0);
-  }
-}
-
-// Squared norm of staged row `row`, by two threads (thread pairs tid, tid ^ 1).
-template <int DK>
-__device__ __forceinline__ float half_norm(const float* rows, int row, int half) {
-  const float* p = rows + row * Wide<DK>::RS + half * (DK / 2);
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < DK / 2; k += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + k);
-    s = fmaf(v.x, v.x, s);
-    s = fmaf(v.y, v.y, s);
-    s = fmaf(v.z, v.z, s);
-    s = fmaf(v.w, v.w, s);
-  }
-  return s + __shfl_xor_sync(0xffffffffu, s, 1);
-}
-
 template <int KIND, int DK, bool DRAW>
 __global__ void __launch_bounds__(THREADS, 2)
 sampler_wide_kernel(Args a) {
-  using W = Wide<DK>;
-  constexpr bool L2 = KIND != kde::LAPLACIAN;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem + W::QS;
-  float* qn = smem + W::QN;
-  float* xn = smem + W::XN;
-  const int tid = threadIdx.x;
-  const int tx = tid % W::TX, ty = tid / W::TX;
-  const int i0 = blockIdx.y * W::BM;
-  // this CTA's blocks [b, b1), streamed as one sequence of chunks: chunk
-  // (b, c) covers columns [b bn + c BN, min(b bn + (c + 1) BN, end of b))
-  int b = blockIdx.x * a.group;
-  const int b1 = min(a.nb, b + a.group);
-  int c = 0;
-
-  stage<DK, W::BM>(qs, a.q + (size_t)i0 * a.d, a.m - i0, a.d);
-  stage<DK, W::BN>(smem + W::XS, a.x + (size_t)b * a.bn * a.d,
-                   min(a.n - b * a.bn, a.bn), a.d);
-  cp_async_commit();
-
-  float rs[W::TM];
-#pragma unroll
-  for (int r = 0; r < W::TM; ++r) rs[r] = 0.0f;
-
-  for (int step = 0;; ++step) {
-    const int jend = min(a.n, (b + 1) * a.bn);          // end of block b
-    const int j0 = b * a.bn + c * W::BN;
-    // the chunk after this one: the next of block b, else block b + 1's first
-    int nb_ = b, nc = c + 1;
-    if (j0 + W::BN >= jend) { nb_ = b + 1; nc = 0; }
-    const bool more = nb_ < b1;
-    const float* xs = smem + W::XS + (step & 1) * W::BN * W::RS;
-    cp_async_wait_all();
-    __syncthreads();          // this chunk (and q) landed; the last one is done
-    if (more) {
-      const int nj0 = nb_ * a.bn + nc * W::BN;
-      stage<DK, W::BN>(smem + W::XS + ((step + 1) & 1) * W::BN * W::RS,
-                       a.x + (size_t)nj0 * a.d, min(a.n, (nb_ + 1) * a.bn) - nj0, a.d);
-      cp_async_commit();
-    }
-    if (L2) {
-      const float s = half_norm<DK>(xs, tid >> 1, tid & 1);
-      if (!(tid & 1)) xn[tid >> 1] = s;
-      if (step == 0) {
-        const float t = half_norm<DK>(qs, tid >> 1, tid & 1);
-        if (!(tid & 1)) qn[tid >> 1] = t;
-      }
-    }
-    __syncthreads();          // norms visible
-
-    float acc[W::TM][W::TN];
-#pragma unroll
-    for (int r = 0; r < W::TM; ++r)
-#pragma unroll
-      for (int cc = 0; cc < W::TN; ++cc) acc[r][cc] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < DK; k += 4) {
-      float4 qa[W::TM];
-#pragma unroll
-      for (int r = 0; r < W::TM; ++r)
-        qa[r] = *reinterpret_cast<const float4*>(qs + (ty + W::TY * r) * W::RS + k);
-#pragma unroll
-      for (int cc = 0; cc < W::TN; ++cc) {
-        const float4 xb = *reinterpret_cast<const float4*>(xs + (tx + W::TX * cc) * W::RS + k);
-#pragma unroll
-        for (int r = 0; r < W::TM; ++r) {
-          float v = acc[r][cc];
-          if (L2) {
-            v = fmaf(qa[r].x, xb.x, v);
-            v = fmaf(qa[r].y, xb.y, v);
-            v = fmaf(qa[r].z, xb.z, v);
-            v = fmaf(qa[r].w, xb.w, v);
-          } else {
-            v += fabsf(qa[r].x - xb.x);
-            v += fabsf(qa[r].y - xb.y);
-            v += fabsf(qa[r].z - xb.z);
-            v += fabsf(qa[r].w - xb.w);
-          }
-          acc[r][cc] = v;
-        }
-      }
-    }
-    const bool full = j0 + W::BN <= jend;
-#pragma unroll
-    for (int cc = 0; cc < W::TN; ++cc) {
-      const int col = tx + W::TX * cc;
-      const float xv = L2 ? xn[col] : 0.0f;
-      const bool ok = full || j0 + col < jend;
-#pragma unroll
-      for (int r = 0; r < W::TM; ++r) {
-        const float qv = L2 ? qn[ty + W::TY * r] : 0.0f;
-        const float v = kde::finish<KIND>(acc[r][cc], qv, xv, a.p);
-        if (ok) rs[r] += v;
-      }
-    }
-    if (nc == 0) {            // block b is complete: its sums, then restart
-      // the TX threads of a row are 16 consecutive lanes: fixed-order xor sums
-#pragma unroll
-      for (int r = 0; r < W::TM; ++r)
-#pragma unroll
-        for (int off = W::TX / 2; off > 0; off >>= 1)
-          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], off, W::TX);
-      if (tx == 0) {
-#pragma unroll
-        for (int r = 0; r < W::TM; ++r) {
-          const int gi = i0 + ty + W::TY * r;
-          if (gi < a.m) store_sum(a, rs[r], gi, b);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < W::TM; ++r) rs[r] = 0.0f;
-    }
-    if (!more) break;
-    b = nb_;
-    c = nc;
-  }
-  if (DRAW) draw_if_last<W::BM>(a, i0);
+  kde::wide_block_sums<KIND, DK, MaskedStore>(smem, a);
+  if (DRAW) draw_if_last<kde::Wide<DK>::BM>(a, blockIdx.y * kde::Wide<DK>::BM);
 }
 
 template <int KIND, int DK, bool DRAW>
 int launch_wide(const Args& a, cudaStream_t st) {
-  constexpr int smem = Wide<DK>::BYTES;
+  constexpr int smem = kde::Wide<DK>::BYTES;
   static bool raised = false;             // above 48 KB at DK = 32
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -384,7 +211,7 @@ int launch_wide(const Args& a, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     raised = true;
   }
-  const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + Wide<DK>::BM - 1) / Wide<DK>::BM);
+  const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + kde::Wide<DK>::BM - 1) / kde::Wide<DK>::BM);
   sampler_wide_kernel<KIND, DK, DRAW><<<grid, THREADS, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

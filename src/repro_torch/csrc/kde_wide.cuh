@@ -1,0 +1,438 @@
+// The 128-row register tiles of the level-1 KDE kernels (kde_sampler.cu,
+// kde_rowsum.cu): the wide tile for d <= 32 and the deep tile for d > 32.
+//
+// Replaces, with kde_tile.cuh's generic tile:
+// src/repro/kernels/kde_rowsum/kernel.py:_tile_kernel_values, the (bm, bn)
+// kernel-value tile that every TPU level-1 kernel reduces.
+//
+// Both tiles are block-sum sweeps: a CTA of 256 threads owns a 128-row query
+// tile and a group of `group` consecutive level-1 blocks of `bn` columns, and
+// hands each finished (row, block) sum to the caller's Store::put(a, s, gi,
+// b) -- the masked, floored store of the sampler kernels or the raw store of
+// blocksum / rowsum's partial pass.  `a` is the caller's launch-argument
+// struct; the sweeps read its fields q, x, m, n, d, bn, nb, group and p.
+// Each thread keeps an 8 x 8 register tile; rows past the valid range and
+// coordinates past d are staged as zeros, which adds 0 to the L2 cross term,
+// the norms and the L1 sum; columns past a block's end are masked in the
+// epilogue.
+//
+// Bound on the H100: FP32 issue.  The L2 kinds cost one FMA a coordinate
+// plus ~15 instructions a pair for the distance, the IEEE transcendental and
+// the sum; the laplacian costs a subtract and an add with the |.| modifier a
+// coordinate (Hopper has no packed f32 add), so at d = 784 it issues at
+// least 2 d instructions a pair.
+//
+// - wide (d <= DK = 16 or 32; d % 4 == 0 and q, x 16-byte aligned, which the
+//   host-side plans check): rows stay row-major in shared memory, padded by
+//   4 floats, staged by 16-byte cp.async; the thread's rows and columns are
+//   t + 16 r, fed by 16-byte loads along the coordinate axis (16 LDS.128 per
+//   4 coordinates x 64 pairs).  The query tile is staged once per CTA; the
+//   columns stream through two 128-column buffers, the next chunk's copies
+//   overlapping the current chunk's math.  Two barriers a chunk.
+// - deep (the plans take it for d > 32): DK = 16 coordinates of the 128
+//   query rows and of 128 columns a step, staged k-major (t[k][row], stride
+//   132) by 4-byte cp.async into two buffers; every step waits for its
+//   coordinates, issues the next step's (the next 16 coordinates, else the
+//   next 128 columns' first ones) and runs an outer product a coordinate:
+//   the thread's rows and columns are 4 t + (0..3) and 64 + 4 t + (0..3),
+//   four LDS.128 per 64 pairs, so 8 + 8 operand registers beside the 64
+//   accumulators.  (Streamed row-major, the wide tile's 32 operand registers
+//   left no room under the 128-register cap of 2 CTAs an SM: ptxas spilled
+//   and serialised the subtract-add pairs; PERF.md's kernel findings have
+//   the times.)
+//   One barrier a step; the L2 kinds sum the norms of every step in
+//   registers (two threads a row) and publish them once a column chunk.
+//   Shared memory (4 DK 132 + 256) floats: 34,816 B.
+#pragma once
+
+#include "kde_tile.cuh"
+
+// Static arguments of a launch of the 128-row tiles or the generic tile
+// (kernels/build.py ``KdeTileShape``).
+struct KdeTileShape {
+  int m, n, d, bn, nb;
+  int own64;      // own is int64 (else int32); sampler kernels only
+  int instance;   // 0 generic, 16 or 32 the wide tile with that padded d, DEEP
+  int group;      // consecutive level-1 blocks a CTA sums
+  int kind;
+  float inv_bw, inv_bw2, beta;
+};
+
+namespace kde {
+
+constexpr int WIDE_THREADS = 256;
+constexpr int DEEP = 1;        // KdeTileShape::instance of the deep tile
+constexpr int DEEP_DK = 16;    // coordinates a deep step stages
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int DK>
+struct Wide {
+  static constexpr int BM = 128;          // query rows per CTA
+  static constexpr int BN = 128;          // dataset columns per chunk
+  static constexpr int TX = 16, TY = 16;  // threads along columns / rows
+  static constexpr int TM = BM / TY, TN = BN / TX;   // 8 x 8 register tile
+  static constexpr int RS = DK + 4;       // padded row stride in floats
+  static constexpr int QS = 0;                       // [BM][RS]
+  static constexpr int XS = QS + BM * RS;            // [2][BN][RS]
+  static constexpr int QN = XS + 2 * BN * RS;        // [BM]
+  static constexpr int XN = QN + BM;                 // [BN]
+  static constexpr int BYTES = (XN + BN) * 4;
+  static_assert(TX * TY == WIDE_THREADS && BM == BN && 2 * BM == WIDE_THREADS,
+                "norms take two threads per row");
+};
+
+template <int DK>
+struct Deep {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int LD = 132;          // k-major row stride: 16-byte rows, 4 banks apart
+  static constexpr int QT = 0;                       // [2][DK][LD] query coordinates
+  static constexpr int XT = QT + 2 * DK * LD;        // [2][DK][LD] column coordinates
+  static constexpr int QN = XT + 2 * DK * LD;        // [BM]
+  static constexpr int XN = QN + BM;                 // [BN]
+  static constexpr int BYTES = (XN + BN) * 4;
+  static_assert(WIDE_THREADS % DK == 0, "a thread stages one coordinate");
+};
+
+// Stage rows [0, ROWS) of src (row stride d floats) into dst (row stride RS)
+// with 16-byte copies; rows >= valid and coordinates >= d are zero (d % 4 ==
+// 0, so a 16-byte piece is all in or all out).
+template <int DK, int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int valid, int d) {
+  constexpr int V = DK / 4;
+  for (int e = threadIdx.x; e < ROWS * V; e += WIDE_THREADS) {
+    const int r = e / V, k = 4 * (e % V);
+    const bool ok = r < valid && k < d;
+    cp_async16(dst + r * Wide<DK>::RS + k, ok ? src + (size_t)r * d + k : src, ok ? 16 : 0);
+  }
+}
+
+// Stage coordinates [k0, k0 + DK) of rows [0, ROWS) of src (row stride d)
+// k-major into dst[k][row] (stride Deep::LD) with 4-byte copies: a thread
+// copies one coordinate of every (256 / DK)-th row.  Rows >= valid and
+// coordinates >= d are zero.
+template <int DK, int ROWS>
+__device__ __forceinline__ void stage_kmajor(float* dst, const float* src, int valid, int d,
+                                             int k0) {
+  constexpr int STEP = WIDE_THREADS / DK;   // rows one pass of the CTA covers
+  const int k = threadIdx.x % DK, r0 = threadIdx.x / DK;
+  const bool kin = k0 + k < d;
+  const float* s = src + (size_t)r0 * d + k0 + k;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const int r = r0 + i * STEP;
+    const bool ok = kin && r < valid;
+    cp_async4(dst + k * Deep<DK>::LD + r, ok ? s + (size_t)i * STEP * d : src, ok ? 4 : 0);
+  }
+}
+
+// Squared norm over the DK staged coordinates of k-major row `row`, by two
+// threads (thread pairs tid, tid ^ 1).
+template <int DK>
+__device__ __forceinline__ float half_norm_kmajor(const float* t, int row, int half) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = half * (DK / 2); k < (half + 1) * (DK / 2); ++k) {
+    const float v = t[k * Deep<DK>::LD + row];
+    s = fmaf(v, v, s);
+  }
+  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+}
+
+// Squared norm of staged row `row`, by two threads (thread pairs tid, tid ^ 1).
+template <int DK>
+__device__ __forceinline__ float half_norm(const float* rows, int row, int half) {
+  const float* p = rows + row * Wide<DK>::RS + half * (DK / 2);
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DK / 2; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + k);
+    s = fmaf(v.x, v.x, s);
+    s = fmaf(v.y, v.y, s);
+    s = fmaf(v.z, v.z, s);
+    s = fmaf(v.w, v.w, s);
+  }
+  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+}
+
+// acc[r][c] += the DK coordinates of staged query rows qs and columns xs
+// (row-major, stride RS): the cross term (L2 kinds) or the L1 distance
+// (laplacian).
+template <bool L2, int DK>
+__device__ __forceinline__ void tile_chunk(float (&acc)[8][8], const float* qs,
+                                           const float* xs, int tx, int ty) {
+  using W = Wide<DK>;
+#pragma unroll
+  for (int k = 0; k < DK; k += 4) {
+    float4 qa[W::TM];
+#pragma unroll
+    for (int r = 0; r < W::TM; ++r)
+      qa[r] = *reinterpret_cast<const float4*>(qs + (ty + W::TY * r) * W::RS + k);
+#pragma unroll
+    for (int cc = 0; cc < W::TN; ++cc) {
+      const float4 xb = *reinterpret_cast<const float4*>(xs + (tx + W::TX * cc) * W::RS + k);
+#pragma unroll
+      for (int r = 0; r < W::TM; ++r) {
+        float v = acc[r][cc];
+        if (L2) {
+          v = fmaf(qa[r].x, xb.x, v);
+          v = fmaf(qa[r].y, xb.y, v);
+          v = fmaf(qa[r].z, xb.z, v);
+          v = fmaf(qa[r].w, xb.w, v);
+        } else {
+          v += fabsf(qa[r].x - xb.x);
+          v += fabsf(qa[r].y - xb.y);
+          v += fabsf(qa[r].z - xb.z);
+          v += fabsf(qa[r].w - xb.w);
+        }
+        acc[r][cc] = v;
+      }
+    }
+  }
+}
+
+// acc[i][j] += the DK coordinates of staged query rows and columns held
+// k-major (qt[k][row], xt[k][col], stride Deep::LD), the thread's rows and
+// columns 4 t + (0..3) and 64 + 4 t + (0..3): an outer product a coordinate,
+// fed by four 16-byte loads per 64 pairs.
+template <bool L2, int DK, int LD>
+__device__ __forceinline__ void tile_chunk_kmajor(float (&acc)[8][8], const float* qt,
+                                                  const float* xt, int tx, int ty) {
+#pragma unroll
+  for (int k = 0; k < DK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(qt + k * LD + 4 * ty);
+    const float4 a1 = *reinterpret_cast<const float4*>(qt + k * LD + 64 + 4 * ty);
+    const float4 b0 = *reinterpret_cast<const float4*>(xt + k * LD + 4 * tx);
+    const float4 b1 = *reinterpret_cast<const float4*>(xt + k * LD + 64 + 4 * tx);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[i][j] = L2 ? fmaf(a[i], b[j], acc[i][j]) : acc[i][j] + fabsf(a[i] - b[j]);
+  }
+}
+
+// Row (of thread row index t) or column (of t = tx) of register r: t + 16 r
+// on the wide tile, 4 t + (r & 3) + 64 (r >> 2) on the deep tile.
+template <bool DEEPMAP>
+__device__ __forceinline__ int tile_line(int t, int r) {
+  return DEEPMAP ? 4 * t + (r & 3) + 64 * (r >> 2) : t + 16 * r;
+}
+
+// rs[r] += the kernel values of a finished 128-column chunk (columns past
+// the block's end, j0 + col >= jend, masked).
+template <int KIND, bool DEEPMAP = false>
+__device__ __forceinline__ void tile_finish(float (&rs)[8], float (&acc)[8][8],
+                                            const float* qn, const float* xn, int tx, int ty,
+                                            int j0, int jend, const Params& p) {
+  using W = Wide<16>;
+  constexpr bool L2 = KIND != LAPLACIAN;
+  const bool full = j0 + W::BN <= jend;
+#pragma unroll
+  for (int cc = 0; cc < W::TN; ++cc) {
+    const int col = tile_line<DEEPMAP>(tx, cc);
+    const float xv = L2 ? xn[col] : 0.0f;
+    const bool ok = full || j0 + col < jend;
+#pragma unroll
+    for (int r = 0; r < W::TM; ++r) {
+      const float qv = L2 ? qn[tile_line<DEEPMAP>(ty, r)] : 0.0f;
+      const float v = finish<KIND>(acc[r][cc], qv, xv, p);
+      if (ok) rs[r] += v;
+    }
+  }
+}
+
+// Block b is complete: sum rs over the TX threads of a row (16 consecutive
+// lanes: fixed-order xor sums, deterministic), hand the sums to Store, and
+// reset rs.
+template <class Store, bool DEEPMAP = false, class A>
+__device__ __forceinline__ void tile_store(const A& a, float (&rs)[8], int tx, int ty, int i0,
+                                           int b) {
+  using W = Wide<16>;
+#pragma unroll
+  for (int r = 0; r < W::TM; ++r)
+#pragma unroll
+    for (int off = W::TX / 2; off > 0; off >>= 1)
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], off, W::TX);
+  if (tx == 0) {
+#pragma unroll
+    for (int r = 0; r < W::TM; ++r) {
+      const int gi = i0 + tile_line<DEEPMAP>(ty, r);
+      if (gi < a.m) Store::put(a, rs[r], gi, b);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < W::TM; ++r) rs[r] = 0.0f;
+}
+
+// The wide sweep (d <= DK): blocks [blockIdx.x group, + group) of query tile
+// blockIdx.y.  smem holds Wide<DK>::BYTES.
+template <int KIND, int DK, class Store, class A>
+__device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
+  using W = Wide<DK>;
+  constexpr bool L2 = KIND != LAPLACIAN;
+  float* qs = smem + W::QS;
+  float* qn = smem + W::QN;
+  float* xn = smem + W::XN;
+  const int tid = threadIdx.x;
+  const int tx = tid % W::TX, ty = tid / W::TX;
+  const int i0 = blockIdx.y * W::BM;
+  // this CTA's blocks [b, b1), streamed as one sequence of chunks: chunk
+  // (b, c) covers columns [b bn + c BN, min(b bn + (c + 1) BN, end of b))
+  int b = blockIdx.x * a.group;
+  const int b1 = min(a.nb, b + a.group);
+  int c = 0;
+
+  stage<DK, W::BM>(qs, a.q + (size_t)i0 * a.d, a.m - i0, a.d);
+  stage<DK, W::BN>(smem + W::XS, a.x + (size_t)b * a.bn * a.d,
+                   min(a.n - b * a.bn, a.bn), a.d);
+  cp_async_commit();
+
+  float rs[W::TM];
+#pragma unroll
+  for (int r = 0; r < W::TM; ++r) rs[r] = 0.0f;
+
+  for (int step = 0;; ++step) {
+    const int jend = min(a.n, (b + 1) * a.bn);          // end of block b
+    const int j0 = b * a.bn + c * W::BN;
+    // the chunk after this one: the next of block b, else block b + 1's first
+    int nb_ = b, nc = c + 1;
+    if (j0 + W::BN >= jend) { nb_ = b + 1; nc = 0; }
+    const bool more = nb_ < b1;
+    const float* xs = smem + W::XS + (step & 1) * W::BN * W::RS;
+    cp_async_wait_all();
+    __syncthreads();          // this chunk (and q) landed; the last one is done
+    if (more) {
+      const int nj0 = nb_ * a.bn + nc * W::BN;
+      stage<DK, W::BN>(smem + W::XS + ((step + 1) & 1) * W::BN * W::RS,
+                       a.x + (size_t)nj0 * a.d, min(a.n, (nb_ + 1) * a.bn) - nj0, a.d);
+      cp_async_commit();
+    }
+    if (L2) {
+      const float s = half_norm<DK>(xs, tid >> 1, tid & 1);
+      if (!(tid & 1)) xn[tid >> 1] = s;
+      if (step == 0) {
+        const float t = half_norm<DK>(qs, tid >> 1, tid & 1);
+        if (!(tid & 1)) qn[tid >> 1] = t;
+      }
+    }
+    __syncthreads();          // norms visible
+
+    float acc[W::TM][W::TN];
+#pragma unroll
+    for (int r = 0; r < W::TM; ++r)
+#pragma unroll
+      for (int cc = 0; cc < W::TN; ++cc) acc[r][cc] = 0.0f;
+    tile_chunk<L2, DK>(acc, qs, xs, tx, ty);
+    tile_finish<KIND>(rs, acc, qn, xn, tx, ty, j0, jend, a.p);
+    if (nc == 0) tile_store<Store>(a, rs, tx, ty, i0, b);   // block b is complete
+    if (!more) break;
+    b = nb_;
+    c = nc;
+  }
+}
+
+// The deep sweep (the plans take it for d > 32): blocks [blockIdx.x group,
+// + group) of query tile blockIdx.y, coordinates streamed DK at a time
+// k-major.  smem holds Deep<DK>::BYTES.
+template <int KIND, int DK, class Store, class A>
+__device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
+  using D = Deep<DK>;
+  constexpr bool L2 = KIND != LAPLACIAN;
+  float* qn = smem + D::QN;
+  float* xn = smem + D::XN;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int i0 = blockIdx.y * D::BM;
+  const int nk = (a.d + DK - 1) / DK;
+  const float* qrows = a.q + (size_t)i0 * a.d;
+  // step (b, c, k): coordinates [k DK, (k + 1) DK) of the query tile and of
+  // columns [b bn + c BN, min(b bn + (c + 1) BN, end of b))
+  int b = blockIdx.x * a.group;
+  const int b1 = min(a.nb, b + a.group);
+  int c = 0, k = 0;
+
+  stage_kmajor<DK, D::BM>(smem + D::QT, qrows, a.m - i0, a.d, 0);
+  stage_kmajor<DK, D::BN>(smem + D::XT, a.x + (size_t)b * a.bn * a.d,
+                          min(a.n - b * a.bn, a.bn), a.d, 0);
+  cp_async_commit();
+
+  float rs[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) rs[r] = 0.0f;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc) acc[r][cc] = 0.0f;
+  float qn_r = 0.0f, xn_r = 0.0f;   // this thread pair's row norms so far
+
+  for (int step = 0;; ++step) {
+    const int jend = min(a.n, (b + 1) * a.bn);          // end of block b
+    const int j0 = b * a.bn + c * D::BN;
+    // the step after this one: the next coordinates, else the next chunk of
+    // block b, else block b + 1's first
+    int nb_ = b, nc = c, nk_ = k + 1;
+    if (nk_ == nk) {
+      nk_ = 0;
+      nc = c + 1;
+      if (j0 + D::BN >= jend) { nb_ = b + 1; nc = 0; }
+    }
+    const bool more = nb_ < b1;
+    const int buf = (step & 1) * DK * D::LD;
+    cp_async_wait_all();
+    __syncthreads();          // this step landed; the last step's reads are done
+    if (more) {
+      const int nbuf = ((step + 1) & 1) * DK * D::LD;
+      const int nj0 = nb_ * a.bn + nc * D::BN;
+      stage_kmajor<DK, D::BM>(smem + D::QT + nbuf, qrows, a.m - i0, a.d, nk_ * DK);
+      stage_kmajor<DK, D::BN>(smem + D::XT + nbuf, a.x + (size_t)nj0 * a.d,
+                              min(a.n, (nb_ + 1) * a.bn) - nj0, a.d, nk_ * DK);
+      cp_async_commit();
+    }
+    const float* qt = smem + D::QT + buf;
+    const float* xt = smem + D::XT + buf;
+    if (L2) {
+      qn_r += half_norm_kmajor<DK>(qt, tid >> 1, tid & 1);
+      xn_r += half_norm_kmajor<DK>(xt, tid >> 1, tid & 1);
+    }
+    tile_chunk_kmajor<L2, DK, D::LD>(acc, qt, xt, tx, ty);
+    if (nk_ == 0) {           // the 128-column chunk is complete
+      if (L2) {
+        if (!(tid & 1)) { qn[tid >> 1] = qn_r; xn[tid >> 1] = xn_r; }
+        qn_r = 0.0f;
+        xn_r = 0.0f;
+        __syncthreads();      // norms visible
+      }
+      tile_finish<KIND, true>(rs, acc, qn, xn, tx, ty, j0, jend, a.p);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) acc[r][cc] = 0.0f;
+      if (nc == 0) tile_store<Store, true>(a, rs, tx, ty, i0, b);   // block b is complete
+    }
+    if (!more) break;
+    b = nb_;
+    c = nc;
+    k = nk_;
+  }
+}
+
+}  // namespace kde

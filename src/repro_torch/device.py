@@ -25,6 +25,27 @@ def not_in_slice(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
 
 
+def tile_size(name: str, value) -> None:
+    """Check a reference tile size the port accepts and ignores (its plans
+    size their own tiles; the result is the same function whatever the
+    value): ``None`` or a positive int, else ValueError."""
+    if value is None:
+        return
+    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+        raise ValueError(f"{name} must be a positive int, got {value!r}")
+
+
+def no_switch(name: str, value) -> None:
+    """Refuse a reference implementation switch (``use_pallas``,
+    ``interpret``) other than ``None``: the port chooses the kernel or its
+    plain version by the tensor's device."""
+    if value is not None:
+        raise ValueError(
+            f"{name}={value!r}: repro_torch chooses the kernel or its plain "
+            f"version by the tensor's device; pass a CPU tensor (or "
+            f"device='cpu') for the plain version")
+
+
 def as_f32(x, device: torch.device) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a contiguous float32 tensor on
     ``device``."""

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
 SOURCES = ("kde_rowsum.cu", "kde_sampler.cu", "kde_hash.cu",
            "flash_attention.cu", "kde_attention.cu")
-HEADERS = ("kde_tile.cuh",)
+HEADERS = ("kde_tile.cuh", "kde_wide.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,8 +47,8 @@ class KdeDecodeShape(ctypes.Structure):
                            "vss")]
 
 class KdeTileShape(ctypes.Structure):
-    """``struct KdeTileShape`` of csrc/kde_sampler.cu: the static arguments
-    of a masked-blocksum or sample-block launch."""
+    """``struct KdeTileShape`` of csrc/kde_wide.cuh: the static arguments
+    of a rowsum, blocksum, masked-blocksum or sample-block launch."""
     _fields_ = [(n, _I) for n in ("m", "n", "d", "bn", "nb", "own64",
                                   "instance", "group", "kind")] + \
         [(n, _F) for n in ("inv_bw", "inv_bw2", "beta")]
@@ -64,10 +64,8 @@ class KdeWeightedShape(ctypes.Structure):
 # C signatures of every exported function (all return an int: cudaError_t,
 # or kde_decode_cluster's cluster size)
 SIGNATURES = {
-    "kde_rowsum_splits": (_I, _I),
-    "kde_rowsum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
-    "kde_blocksum_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                            _P),
+    "kde_rowsum_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(KdeTileShape)),
+    "kde_blocksum_launch": (_P, _P, _P, _P, ctypes.POINTER(KdeTileShape)),
     "kde_masked_blocksum_launch": (_P, _P, _P, _P, _P,
                                    ctypes.POINTER(KdeTileShape)),
     "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

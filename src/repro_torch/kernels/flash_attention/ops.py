@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import not_in_slice
+from repro_torch.device import no_switch, not_in_slice
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -48,11 +48,13 @@ def flash_args(q, k, v, causal=True, bq=128, bk=128):
                         kv_valid=skv, offset=kp.shape[2] - sq_p)
 
 
-def flash_attention(q, k, v, causal=True, bq=128, bk=128, with_lse=False):
+def flash_attention(q, k, v, causal=True, bq=128, bk=128, interpret=None,
+                    with_lse=False):
     """q (b, hq, sq, dh); k, v (b, hkv, skv, dh) -> out (b, hq, sq, dh)
     (and lse (b, hq, sq) with ``with_lse``): the kernel on CUDA tensors,
     its plain version on CPU tensors, with ``flash_args``' padding and
-    offset."""
+    offset.  ``interpret`` must be None (the device chooses)."""
+    no_switch("interpret", interpret)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise not_in_slice("a gradient through flash attention",
                            "queue 1 item 11")

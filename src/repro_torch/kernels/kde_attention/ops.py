@@ -14,19 +14,22 @@ Pallas.
 """
 from __future__ import annotations
 
+from repro_torch.device import no_switch
 from repro_torch.kernels.kde_attention import kernel as _k
 from repro_torch.kernels.kde_attention import ref as _ref
 
 
 def kde_attention(q, k, v, *, top_p: int, bk: int = 256, stride: int = 8,
-                  kv_valid: int | None = None):
+                  kv_valid: int | None = None, interpret: bool | None = None):
     """q (b, hq, dh); k, v (b, hkv, S, dh) -> (b, hq, dh).  S % bk == 0.
 
     The top-P blocks are taken larger first, ties to the lower block index,
     as the reference's ``lax.top_k`` takes them; blocks tied at exactly
     -1e30 (no valid key: early decode steps of a cache rounded up to bk)
     may be taken in any order without changing the output (their keys
-    score -1e30 and their residual mass is exp(-1e30 - m) = 0)."""
+    score -1e30 and their residual mass is exp(-1e30 - m) = 0).
+    ``interpret`` must be None (the device chooses)."""
+    no_switch("interpret", interpret)
     kv_valid = k.shape[2] if kv_valid is None else kv_valid
     fn = _k.kde_decode_cuda if q.is_cuda else _k.kde_decode_plain
     return fn(q, k, v, top_p=top_p, bk=bk, stride=stride, kv_valid=kv_valid)

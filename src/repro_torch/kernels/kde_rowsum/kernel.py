@@ -6,7 +6,15 @@ and count each launch in ``LAUNCHES``; ``rowsum_plain`` /
 ``blocksum_plain`` compute the same functions with plain torch ops (the
 CPU path, and the yardstick the kernels are checked against on the card).
 Kernel kinds and bandwidths are runtime arguments; the tile sizes are
-constants of ``csrc/kde_tile.cuh``.
+constants of ``csrc/kde_tile.cuh`` and ``csrc/kde_wide.cuh``.
+
+``blocksum_plan`` / ``rowsum_plan`` are the host-side plans of both kernels,
+built on ``kde_sampler.kernel.sample_block_plan``: the wide 128-row tile
+(d % 4 == 0, d <= 32, q and x on 16 bytes), the deep 128-row tile (the same
+for d > 32), or the generic 64-row tile; the rowsum's split of n into
+blocks.  Each wrapper validates a call's operands once per (shapes, dtypes,
+devices, layout, kernel arguments) and keeps the launch's static arguments
+as a ``build.KdeTileShape``.
 """
 from __future__ import annotations
 
@@ -14,6 +22,13 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.kde_rowsum.ref import kernel_values
+
+#: ``KdeTileShape::instance`` of the deep tile (``kde::DEEP``)
+DEEP = 1
+#: columns a staged chunk of the generic tile / the 128-row tiles covers
+GENERIC_BN, TILE_BN = 64, 128
+#: CTAs an SM a generic-tile rowsum's split aims for (its 64-row tiles)
+GENERIC_CTAS_PER_SM = 4
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES = {"rowsum": 0, "blocksum": 0}
@@ -69,22 +84,82 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def blocksum_plan(m: int, n: int, d: int, bn: int, aligned: bool = True,
+                  sms: int = 132):
+    """The tile an (m, n, d, bn) blocksum runs, as a ``TilePlan``:
+    ``sample_block_plan``'s wide tile (d % 4 == 0, d <= 32, q and x on 16
+    bytes: ``aligned``), the deep tile for d > 32 under the same
+    conditions (``instance`` DEEP; ``group`` blocks a CTA from
+    ``group_for``), else the generic tile, one block a CTA.  Raises
+    ValueError for what the kernels do not take (``sample_block_plan``)."""
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    plan = sk.sample_block_plan(m, n, d, bn, aligned, sms)
+    if plan.instance:
+        return plan
+    if aligned and d % 4 == 0:
+        tiles = -(-m // sk.WIDE_BM)
+        return sk.TilePlan(DEEP, sk.WIDE_BM, tiles, plan.nb,
+                           sk.group_for(tiles, plan.nb, sms))
+    return plan._replace(group=1)
+
+
+def rowsum_plan(m: int, n: int, d: int, aligned: bool = True,
+                sms: int = 132):
+    """(plan, cols): the rowsum's first pass is a blocksum over ``plan.nb``
+    splits of ``cols`` columns (a multiple of the tile's chunk), one split
+    a CTA, so the grid fills the card: 2 CTAs an SM on the 128-row tiles,
+    4 on the generic one (its 64-row tiles)."""
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    base = blocksum_plan(m, n, d, max(n, 1), aligned, sms)
+    chunk, per_sm = ((GENERIC_BN, GENERIC_CTAS_PER_SM) if base.instance == 0
+                     else (TILE_BN, sk.CTAS_PER_SM))
+    chunks = -(-n // chunk)
+    want = min(max(-(-per_sm * sms // max(base.tiles, 1)), 1), chunks)
+    cols = -(-chunks // want) * chunk
+    return base._replace(nb=-(-n // cols), group=1), cols
+
+
+#: (TilePlan, KdeTileShape) per validated call signature
+_PLANS: dict = {}
+
+
+def _cached_plan(q, x, kind, inv_bw, beta, bn):
+    """Check a call once; its plan and the launch's static arguments.
+    ``bn`` None plans the rowsum."""
+    aligned = q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    key = (q.shape, q.stride(), x.shape, x.stride(), q.dtype, x.dtype,
+           q.get_device(), x.get_device(), kind, inv_bw, beta, bn, aligned)
+    entry = _PLANS.get(key)
+    if entry is None:
+        check_qx(q, x)
+        m, d = q.shape
+        n = x.shape[0]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        if bn is None:
+            plan, cols = rowsum_plan(m, n, d, aligned, sms)
+        else:
+            plan, cols = blocksum_plan(m, n, d, int(bn), aligned, sms), int(bn)
+        shape = _build.KdeTileShape(m, n, d, cols, plan.nb, 0, plan.instance,
+                                    plan.group, *kind_args(kind, inv_bw, beta))
+        entry = _PLANS[key] = (plan, shape)
+    return entry
+
+
 def rowsum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0):
     """out[i] = sum_j k(q_i, x_j) by the rowsum kernel: q (m, d), x (n, d)
-    contiguous f32 CUDA tensors -> (m,) f32."""
-    check_qx(q, x)
-    m, d = q.shape
-    n = x.shape[0]
+    contiguous f32 CUDA tensors -> (m,) f32.  Two launches: the split's
+    block sums, then their sum in split order."""
+    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, None)
+    m = q.shape[0]
     out = torch.empty(m, dtype=torch.float32, device=q.device)
     if m == 0:
         return out
-    lib = _build.library()
-    partial = torch.empty((m, lib.kde_rowsum_splits(m, n)),
-                          dtype=torch.float32, device=q.device)
-    err = lib.kde_rowsum_launch(q.data_ptr(), x.data_ptr(),
-                                partial.data_ptr(), out.data_ptr(), m, n, d,
-                                *kind_args(kind, inv_bw, beta), stream_of(q))
-    _build.check(err, "kde_rowsum")
+    partial = torch.empty((m, plan.nb), dtype=torch.float32, device=q.device)
+    err = _build.library().kde_rowsum_launch(
+        q.data_ptr(), x.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        stream_of(q), shape)
+    if err:
+        _build.check(err, "kde_rowsum")
     LAUNCHES["rowsum"] += 1
     return out
 
@@ -98,18 +173,16 @@ def blocksum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
                   bn: int = 256):
     """out[i, b] = sum_{j in block b} k(q_i, x_j) by the blocksum kernel:
     blocks of ``bn`` consecutive rows of x, the last one ragged ->
-    (m, ceil(n / bn)) f32."""
-    check_qx(q, x)
-    m, d = q.shape
-    n = x.shape[0]
-    nb = -(-n // bn)
-    out = torch.empty((m, nb), dtype=torch.float32, device=q.device)
+    (m, ceil(n / bn)) f32.  One launch."""
+    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, int(bn))
+    m = q.shape[0]
+    out = torch.empty((m, plan.nb), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
     err = _build.library().kde_blocksum_launch(
-        q.data_ptr(), x.data_ptr(), out.data_ptr(), m, n, d, int(bn), nb,
-        *kind_args(kind, inv_bw, beta), stream_of(q))
-    _build.check(err, "kde_blocksum")
+        q.data_ptr(), x.data_ptr(), out.data_ptr(), stream_of(q), shape)
+    if err:
+        _build.check(err, "kde_blocksum")
     LAUNCHES["blocksum"] += 1
     return out
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import not_in_slice
+from repro_torch.device import no_switch, not_in_slice, tile_size
 from repro_torch.kernels.kde_rowsum import kernel as _k
 
 # ||pad||^2 = d * 1e60 overflows f32 -> d2 = inf -> k = 0 for every kind.
@@ -33,20 +33,38 @@ def _check_precision(precision: str) -> None:
         raise not_in_slice(f"precision={precision!r}", "queue 1, item 1")
 
 
-def kde_rowsum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
-               precision: str = "f32") -> torch.Tensor:
-    """KDE oracle: (m,) row sums of the kernel matrix block k(q, x)."""
+def _check_placeholders(bm, bn, interpret, precision: str) -> None:
+    tile_size("bm", bm)
+    tile_size("bn", bn)
+    no_switch("interpret", interpret)
     _check_precision(precision)
+
+
+def kde_rowsum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
+               bm: int | None = None, bn: int | None = None,
+               interpret: bool | None = None,
+               precision: str = "f32") -> torch.Tensor:
+    """KDE oracle: (m,) row sums of the kernel matrix block k(q, x).
+
+    ``bm`` / ``bn`` are the reference's tile sizes: checked to be positive
+    ints and otherwise ignored (the kernel's plan sizes its own tiles), so
+    the output is the same function whatever their value.  ``interpret``
+    must be None: a CPU tensor takes the plain version."""
+    _check_placeholders(bm, bn, interpret, precision)
     args = (q.float().contiguous(), x.float().contiguous(), kernel.name,
             1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0))
     return _k.rowsum_cuda(*args) if q.is_cuda else _k.rowsum_plain(*args)
 
 
 def kde_blocksum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
-                 bn: int = 256, precision: str = "f32") -> torch.Tensor:
+                 bm: int = 128, bn: int = 256, interpret: bool | None = None,
+                 precision: str = "f32") -> torch.Tensor:
     """Level-1 read: (m, ceil(n/bn)) per-block kernel sums.  ``bn`` is the
-    semantic level-1 block size (it fixes the output width)."""
-    _check_precision(precision)
+    semantic level-1 block size (it fixes the output width); ``bm``, the
+    reference's query tile, is checked and ignored (the output is the same
+    function whatever its value); ``interpret`` must be None."""
+    tile_size("bn", bn)
+    _check_placeholders(bm, None, interpret, precision)
     args = (q.float().contiguous(), x.float().contiguous(), kernel.name,
             1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0), int(bn))
     return _k.blocksum_cuda(*args) if q.is_cuda else _k.blocksum_plain(*args)

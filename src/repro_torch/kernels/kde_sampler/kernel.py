@@ -75,8 +75,8 @@ def sample_block_plan(m: int, n: int, d: int, bn: int,
     return TilePlan(instance, bm, tiles, nb, group_for(tiles, nb, sms))
 
 
-#: CTAs of 256 threads an SM holds at once (ptxas: the wide tile uses 128
-#: registers, the generic tile with the draw 118)
+#: CTAs of 256 threads an SM holds at once (ptxas: the wide and deep tiles
+#: use at most 128 registers, the generic tile with the draw 118)
 CTAS_PER_SM = 2
 
 
@@ -92,8 +92,9 @@ def group_for(tiles: int, nb: int, sms: int) -> int:
 
 #: (TilePlan, KdeTileShape) per validated call signature
 _PLANS: dict = {}
-#: arrival counters per device index: int32 zeros, one per query tile,
-#: left at 0 by every launch (one stream, so launches never overlap)
+#: arrival counters per (device index, raw stream): int32 zeros, one per
+#: query tile, left at 0 by every launch.  Launches on one stream never
+#: overlap; launches on two streams may, so each stream has its own buffer.
 _COUNTERS: dict = {}
 
 
@@ -139,11 +140,12 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _counters(device: torch.device, tiles: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device.index)
+def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < tiles:
-        buf = _COUNTERS[device.index] = torch.zeros(
-            max(tiles, 64), dtype=torch.int32, device=device)
+        buf = _COUNTERS[key] = torch.zeros(max(tiles, 64), dtype=torch.int32,
+                                           device=device)
     return buf
 
 
@@ -189,10 +191,11 @@ def sample_block_cuda(q, x, own, gumbel, kind: str, inv_bw: float,
     tot = torch.empty(m, dtype=torch.float32, device=dev)
     if m == 0:
         return blk, pb, tot, bs
+    stream = stream_of(q)
     err = _build.library().kde_sample_block_launch(
         q.data_ptr(), x.data_ptr(), own.data_ptr(), gumbel.data_ptr(),
         bs.data_ptr(), blk.data_ptr(), pb.data_ptr(), tot.data_ptr(),
-        _counters(dev, plan.tiles).data_ptr(), stream_of(q), shape)
+        _counters(dev, stream, plan.tiles).data_ptr(), stream, shape)
     if err:
         _build.check(err, "kde_sample_block")
     LAUNCHES["sample_block"] += 1

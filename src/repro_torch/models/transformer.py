@@ -135,10 +135,14 @@ def _logits(model: Transformer, cfg: ArchConfig, x):
 
 # ------------------------------------------------------------------ decode
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
-               dtype=torch.float32, device=None) -> Dict[str, Any]:
+               dtype=torch.float32, enc_len: int = 0,
+               device=None) -> Dict[str, Any]:
     """Zero KV cache ``k`` / ``v`` of shape (L, b, hkv, max_len, hd).  The
     reference defaults to bf16; the port's slice is f32, so f32 is the
-    default here."""
+    default here.  ``enc_len`` (the enc-dec memory) must be 0."""
+    if enc_len != 0:
+        raise not_in_slice(f"init_cache(enc_len={enc_len!r})",
+                           "queue 1, item 12")
     check_dense(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, cfg.hd)

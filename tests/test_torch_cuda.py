@@ -28,10 +28,16 @@ from repro_torch.models import transformer as T
 
 RTOL, ATOL = 2e-4, 1e-5
 KINDS = ["gaussian", "exponential", "laplacian", "rational_quadratic"]
-# (m, n, d, bn): ragged (the generic tile: d = 19 and d = 784), aligned,
-# and the wide tile ragged at both padded widths (d = 8 -> 16, d = 32)
+# (m, n, d, bn[, "misaligned"]): ragged (the generic tile: d = 19), aligned,
+# the wide tile ragged at both padded widths (d = 8 -> 16, d = 32), the
+# deep tile of rowsum / blocksum (the sampler kernels' generic tile) at its
+# first width with a partial last chunk (d = 36) and at d = 784, once with
+# m > 128 and n not a multiple of the rowsum's split width, and views off
+# 16 bytes (the generic tile of every kernel)
 SHAPES = [(37, 301, 19, 70), (64, 1024, 16, 256), (20, 203, 784, 50),
-          (37, 301, 8, 70), (130, 1000, 32, 256)]
+          (37, 301, 8, 70), (130, 1000, 32, 256), (130, 3000, 36, 256),
+          (300, 5000, 784, 256), (130, 1000, 16, 256, "misaligned"),
+          (40, 500, 784, 100, "misaligned")]
 # (m, n, t, d) of the weighted gathered kernels: ragged, the degree-query
 # width (t = 128 + 64), and the laplacian's mnist_like width
 HASH_SHAPES = [(37, 301, 45, 19), (64, 4096, 192, 16), (20, 203, 33, 784),
@@ -46,11 +52,19 @@ def cuda():
     return torch.device("cuda")
 
 
+def _misaligned(a):
+    """A contiguous copy of ``a`` whose data starts 4 bytes past 16."""
+    view = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:]
+    return view.view(a.shape).copy_(a)
+
+
 def _inputs(kind, shape, dev):
-    m, n, d, bn = shape
+    m, n, d, bn, *layout = shape
     gen = torch.Generator(device=dev).manual_seed(m * 1000 + d)
     q = torch.randn(m, d, generator=gen, device=dev) * 0.3
     x = torch.randn(n, d, generator=gen, device=dev) * 0.3
+    if layout == ["misaligned"]:
+        q, x = _misaligned(q), _misaligned(x)
     nb = -(-n // bn)
     own = torch.randint(-1, nb, (m,), generator=gen, device=dev)
     inv_bw = 1.0 / (0.3 * d) if kind == "laplacian" else 1.0 / (0.4 * d ** 0.5)
@@ -85,6 +99,89 @@ def test_kernels_match_plain(cuda, kind, shape):
     assert bool(((blk == rblk) | tie).all())
     torch.testing.assert_close(pb, torch.gather(rbs, 1, blk[:, None])[:, 0]
                                / rtot, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tile", [
+    ((64, 1024, 16, 256), "wide16"), ((130, 1000, 32, 256), "wide32"),
+    ((130, 3000, 36, 256), "deep"), ((300, 5000, 784, 256), "deep"),
+    ((37, 301, 19, 70), "generic"),
+    ((130, 1000, 16, 256, "misaligned"), "generic"),
+    ((40, 500, 784, 100, "misaligned"), "generic")])
+def test_rowsum_blocksum_plans_pick_the_tile(cuda, shape, tile):
+    """On the card's tensors, the rowsum and blocksum plans take the wide
+    tile (d % 4 == 0, d <= 32, rows on 16 bytes), the deep tile (the same
+    for d > 32) or the generic tile (any other d, any view off 16 bytes)."""
+    want = {"wide16": 16, "wide32": 32, "deep": rk.DEEP, "generic": 0}[tile]
+    q, x, _, _, inv_bw, bn = _inputs("gaussian", shape, cuda)
+    for b in (None, bn):
+        plan, kshape = rk._cached_plan(q, x, "gaussian", inv_bw, 1.0, b)
+        assert plan.instance == want == kshape.instance
+
+
+def _device_kernels_per_call(fn, reps=3, traces=3):
+    """CUDA kernels a call of ``fn`` launches, from a torch.profiler trace
+    (after one warm-up call), by name.  ``fn`` always launches device work,
+    so a trace with no device activity lost its CUPTI records and is taken
+    again, up to ``traces`` traces."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.count / reps for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) > 0}
+        if got:
+            return got
+    return {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 1024, 16, 256), (300, 5000, 784, 256),
+                                   (37, 301, 19, 70)])
+def test_blocksum_is_one_launch_and_rowsum_two(cuda, shape):
+    """A blocksum call is one device launch on every tile; a rowsum call
+    two (the split's block sums, then their deterministic reduction)."""
+    q, x, _, _, inv_bw, bn = _inputs("laplacian", shape, cuda)
+    got = _device_kernels_per_call(
+        lambda: rk.blocksum_cuda(q, x, "laplacian", inv_bw, 1.0, bn))
+    assert sum(got.values()) == 1, got
+    got = _device_kernels_per_call(
+        lambda: rk.rowsum_cuda(q, x, "laplacian", inv_bw, 1.0))
+    assert sum(got.values()) == 2, got
+    assert any("rowsum_reduce_kernel" in k for k in got), got
+
+
+@pytest.mark.cuda
+def test_sample_block_on_two_streams_at_once(cuda):
+    """Two streams launching the sample-block kernel concurrently: each
+    launch's tile arrival counters are its own, so every draw and sum
+    equals the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(65536, 16, generator=gen, device=cuda) * 0.5
+    calls = []
+    for _ in range(2):
+        src = torch.randint(0, 65536, (1024,), generator=gen, device=cuda)
+        calls.append((x[src], x, src // 256, gumbel((1024, 256), gen, cuda),
+                      "gaussian", 1.0, 1.0, 256))
+    wants = [sk.sample_block_plain(*c) for c in calls]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, c) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(st):
+                gots[i].append(sk.sample_block_cuda(*c))
+    torch.cuda.synchronize()
+    for got, want, c in zip(gots, wants, calls):
+        for g in got:
+            _assert_sample_block(g, want, c[3])
 
 
 def _assert_sample_block(got, want, g, exact=False):

@@ -207,6 +207,69 @@ def test_sample_block_plan_groups_blocks_into_one_wave():
     assert tsk.sample_block_plan(64, 1000, 19, 10).group == 1
 
 
+#: (m, n, d, bn, aligned) -> (instance, group) of the blocksum
+BLOCKSUM_PLAN_CASES = [
+    ((1024, 65536, 16, 256, True), (16, 8)),
+    ((37, 301, 8, 70, True), (16, 1)),
+    ((130, 1000, 32, 256, True), (32, 1)),
+    ((130, 3000, 36, 256, True), (trk.DEEP, 1)),
+    ((20, 203, 784, 50, True), (trk.DEEP, 1)),
+    ((300, 5000, 784, 256, True), (trk.DEEP, 1)),
+    ((37, 301, 19, 70, True), (0, 1)),
+    ((300, 2048, 19, 256, True), (0, 1)),
+    ((1024, 65536, 16, 256, False), (0, 1)),
+    ((20, 203, 784, 50, False), (0, 1)),
+]
+
+
+@pytest.mark.parametrize("args,want", BLOCKSUM_PLAN_CASES)
+def test_blocksum_plan_picks_the_tile(args, want):
+    """The blocksum's plan: the sampler's wide tile where it takes the
+    shape (d % 4 == 0, d <= 32, rows on 16 bytes), the deep 128-row tile
+    for d > 32 under the same conditions, the generic tile (one block a
+    CTA) elsewhere; the 128-row tiles group blocks into one wave."""
+    m, n, d, bn, aligned = args
+    plan = trk.blocksum_plan(*args)
+    assert (plan.instance, plan.group) == want
+    assert plan.bm == (64 if plan.instance == 0 else 128)
+    assert plan.nb == -(-n // bn)
+    if plan.instance:
+        assert plan.group == tsk.group_for(plan.tiles, plan.nb, 132)
+
+
+#: (m, n, d, aligned) -> (instance, splits, cols) of the rowsum
+ROWSUM_PLAN_CASES = [
+    ((1024, 16384, 784, True), (trk.DEEP, 32, 512)),
+    ((1024, 16384, 784, False), (0, 32, 512)),
+    ((1024, 16384, 19, True), (0, 32, 512)),
+    ((1024, 65536, 16, True), (16, 32, 2048)),
+    ((37, 301, 8, True), (16, 3, 128)),
+    ((300, 5000, 784, True), (trk.DEEP, 40, 128)),
+    ((20, 203, 784, True), (trk.DEEP, 2, 128)),
+]
+
+
+@pytest.mark.parametrize("args,want", ROWSUM_PLAN_CASES)
+def test_rowsum_plan_splits_n_to_fill_the_card(args, want):
+    """The rowsum's first pass is a blocksum over splits of a chunk
+    multiple, one split a CTA: the 128-row tiles aim for 2 CTAs an SM
+    (the LRA's m = 1024, n = 16384: 8 query tiles x 32 splits of 512
+    columns), the generic tile for 4 (unchanged)."""
+    m, n, d, aligned = args
+    plan, cols = trk.rowsum_plan(*args)
+    assert (plan.instance, plan.nb, cols) == want
+    assert plan.group == 1 and plan.nb == -(-n // cols)
+    chunk = 64 if plan.instance == 0 else 128
+    assert cols % chunk == 0 and (plan.nb - 1) * cols < n
+
+
+def test_rowsum_plan_refuses_what_the_kernel_does_not_take():
+    for args, match in (((4, 0, 4), "empty"), ((4, 8, 0), ">= 1"),
+                        ((4, 2 ** 31, 4), "int32")):
+        with pytest.raises(ValueError, match=match):
+            trk.rowsum_plan(*args)
+
+
 def test_sample_block_plan_refuses_what_the_kernel_does_not_take():
     for args, match in (((4, 0, 4, 4), "empty"), ((4, 8, 0, 4), ">= 1"),
                         ((4, 8, 4, 0), ">= 1"),

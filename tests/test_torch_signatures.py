@@ -1,0 +1,213 @@
+"""Positional signatures of the port's public entry points against the
+reference's.
+
+A caller may pass the reference's arguments by position, so every entry
+point takes the reference's positional parameters in the reference's
+order; the port's own additions (``device=``) come only after them.  A
+reference parameter the port has no use for yet keeps its position as a
+placeholder: a tile size is checked and ignored, an implementation switch
+(``use_pallas``, ``interpret``) must be None, and a feature not ported yet
+raises ``NotImplementedError`` on a non-default value.
+
+Out of this test's scope, by design (ROADMAP.md section 3): the
+explicit-noise parameters of the kernel programs (the reference's ``key``
+becomes ``u`` / ``off`` / ``fidx`` / ``noise`` / ``generator``), and the
+``params`` -> ``model`` / ``key`` -> ``seed`` swaps of ``init_params``,
+``forward`` and ``decode_step``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa
+from repro_torch.configs.base import get_reduced
+from repro_torch.core.kde.base import ExactBlockKDE, ExactKDE
+from repro_torch.core.kde.hashed import HashedKDE
+from repro_torch.core.kernels_fn import make_kernel
+from repro_torch.core.sampling.edge import (NeighborSampler,
+                                            shared_level1_estimator)
+from repro_torch.core.sampling.rownorm import RowNormSampler
+from repro_torch.core.sparsify import spectral_sparsify
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.kde_attention.ops import kde_attention
+from repro_torch.kernels.kde_rowsum import kernel as rs_k
+from repro_torch.kernels.kde_rowsum.ops import kde_blocksum, kde_rowsum
+from repro_torch.models.transformer import init_cache
+
+#: (module under ``repro`` / ``repro_torch``, public name)
+ENTRY_POINTS = [
+    ("kernels.kde_rowsum.ops", "kde_rowsum"),
+    ("kernels.kde_rowsum.ops", "kde_blocksum"),
+    ("kernels.flash_attention.ops", "flash_attention"),
+    ("kernels.kde_attention.ops", "kde_attention"),
+    ("core.kde.base", "ExactKDE"),
+    ("core.kde.base", "ExactBlockKDE"),
+    ("core.kde.hashed", "HashedKDE"),
+    ("core.sampling.edge", "NeighborSampler"),
+    ("core.sampling.edge", "shared_level1_estimator"),
+    ("core.sampling.rownorm", "RowNormSampler"),
+    ("core.sparsify", "spectral_sparsify"),
+    ("models.transformer", "init_cache"),
+]
+
+
+def _params(fn):
+    """(name, kind) of every parameter but ``**kwargs``, in order."""
+    return [(p.name, p.kind) for p in inspect.signature(fn).parameters.values()
+            if p.kind is not inspect.Parameter.VAR_KEYWORD]
+
+
+@pytest.mark.parametrize("module,name", ENTRY_POINTS,
+                         ids=[n for _, n in ENTRY_POINTS])
+def test_reference_parameters_are_a_prefix(module, name):
+    """The reference's parameters, names and kinds, open the port's."""
+    ref = _params(getattr(importlib.import_module("repro." + module), name))
+    port = _params(getattr(importlib.import_module("repro_torch." + module),
+                           name))
+    assert port[:len(ref)] == ref, (ref, port)
+    for pname, kind in port[len(ref):]:
+        assert kind in (inspect.Parameter.KEYWORD_ONLY,
+                        inspect.Parameter.POSITIONAL_OR_KEYWORD), pname
+
+
+def _x(n=64, d=8, seed=0):
+    return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+
+
+K = make_kernel("gaussian", 1.0)
+#: a reduced dense config in the port's f32 (bf16 configs raise)
+CFG = dataclasses.replace(get_reduced("yi_6b"), dtype="float32")
+
+
+def _t(a):
+    return torch.as_tensor(a)
+
+
+def _qkv_attention():
+    q = _t(_x(2 * 4, 16, 1).reshape(1, 4, 2, 16))
+    k = _t(_x(2 * 32, 16, 2).reshape(1, 2, 32, 16))
+    return q, k, k.clone()
+
+
+#: one call per placeholder with a non-default value, and what it raises
+PLACEHOLDERS = {
+    "kde_rowsum.bm": (lambda: kde_rowsum(_t(_x()), _t(_x()), K, 0),
+                      ValueError),
+    "kde_rowsum.bn": (lambda: kde_rowsum(_t(_x()), _t(_x()), K, None, -2),
+                      ValueError),
+    "kde_rowsum.interpret": (
+        lambda: kde_rowsum(_t(_x()), _t(_x()), K, None, None, True),
+        ValueError),
+    "kde_blocksum.bm": (lambda: kde_blocksum(_t(_x()), _t(_x()), K, 1.5),
+                        ValueError),
+    "kde_blocksum.interpret": (
+        lambda: kde_blocksum(_t(_x()), _t(_x()), K, 128, 256, False),
+        ValueError),
+    "flash_attention.interpret": (
+        lambda: tfa.flash_attention(*_qkv_attention(), True, 128, 128, True),
+        ValueError),
+    "kde_attention.interpret": (
+        lambda: kde_attention(*_qkv_attention()[:1],
+                              *[t.reshape(1, 2, 32, 16)
+                                for t in _qkv_attention()[1:]],
+                              top_p=1, bk=16, stride=2, interpret=True),
+        ValueError),
+    "ExactKDE.chunk": (lambda: ExactKDE(_x(), K, 0, device="cpu"),
+                       ValueError),
+    "ExactKDE.use_pallas": (
+        lambda: ExactKDE(_x(), K, 4096, True, device="cpu"), ValueError),
+    "ExactBlockKDE.use_pallas": (
+        lambda: ExactBlockKDE(_x(), K, 16, False, device="cpu"), ValueError),
+    "HashedKDE.use_pallas": (
+        lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, True, device="cpu"),
+        ValueError),
+    "HashedKDE.interpret": (
+        lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, None, True,
+                          device="cpu"), ValueError),
+    "HashedKDE.data_axes": (
+        lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, None, None, None,
+                          ("x",), device="cpu"), NotImplementedError),
+    "NeighborSampler.samples_per_block": (
+        lambda: NeighborSampler(_x(), K, "blocked", None, 8, True,
+                                device="cpu"), NotImplementedError),
+    "NeighborSampler.tree": (
+        lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, object(),
+                                device="cpu"), NotImplementedError),
+    "NeighborSampler.use_pallas": (
+        lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, None, 0,
+                                True, device="cpu"), ValueError),
+    "NeighborSampler.interpret": (
+        lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, None, 0,
+                                None, True, device="cpu"), ValueError),
+    "NeighborSampler.data_axes": (
+        lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, None, 0,
+                                None, None, None, ("model",), device="cpu"),
+        NotImplementedError),
+    "RowNormSampler.data_axes": (
+        lambda: RowNormSampler(_x(), K, "exact", 0, None, ("x", "y"),
+                               device="cpu"), NotImplementedError),
+    "spectral_sparsify.samples_per_block": (
+        lambda: spectral_sparsify(_x(), K, 64, "exact", 0, 32, True, 4,
+                                  device="cpu"), NotImplementedError),
+    "init_cache.enc_len": (
+        lambda: init_cache(CFG, 1, 8, torch.float32, 4,
+                           device="cpu"), NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLACEHOLDERS))
+def test_placeholder_refuses_a_non_default_value(case):
+    call, exc = PLACEHOLDERS[case]
+    param = case.split(".")[1]
+    with pytest.raises(exc, match=param):
+        call()
+
+
+def test_placeholders_at_their_defaults_change_nothing():
+    """Tile sizes of any positive value and None switches give the same
+    answers as the defaults, by position as the reference binds them."""
+    q, x = _t(_x(20, 8, 1)), _t(_x(70, 8, 2))
+    want = rs_k.rowsum_plain(q, x, "gaussian", 1.0)
+    torch.testing.assert_close(kde_rowsum(q, x, K, 7, 33, None, "f32"), want)
+    est = ExactKDE(x, K, 13, None, "f32", device="cpu")
+    torch.testing.assert_close(est.query(q), want)
+    blk = ExactBlockKDE(x, K, 16, None, "f32", device="cpu")
+    torch.testing.assert_close(blk.query(q), want, rtol=2e-6, atol=2e-6)
+    nbr = NeighborSampler(_x(), K, "blocked", 16, 16, True, None, 3, None,
+                          None, None, ("data",), device="cpu")
+    assert shared_level1_estimator(nbr, "exact", 5) is nbr.blocks
+    cache = init_cache(CFG, 1, 8, torch.float32, 0,
+                       device="cpu")
+    assert cache["k"].shape[3] == 8
+
+
+def test_kde_blocksum_binds_bm_by_position():
+    """``kde_blocksum(q, x, k, 128)`` binds ``bm=128``, as the reference
+    does: the width stays ceil(n / 256), not ceil(n / 128)."""
+    q, x = _t(_x(20, 4, 1)), _t(_x(512, 4, 2))
+    got = kde_blocksum(q, x, K, 128)
+    assert tuple(got.shape) == (20, 2)
+    torch.testing.assert_close(
+        got, rs_k.blocksum_plain(q, x, "gaussian", 1.0, 1.0, 256))
+
+
+def test_flash_attention_binds_interpret_by_position():
+    """``flash_attention(q, k, v, True, 128, 128, None)`` returns one
+    tensor, equal to the reference's interpret run, not (out, lse)."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(1, 4, 64, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 2, 64, 16)).astype(np.float32)
+    v = rng.normal(size=(1, 2, 64, 16)).astype(np.float32)
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), True, 128, 128, None)
+    assert isinstance(got, torch.Tensor)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), True, 128, 128, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=1e-5)

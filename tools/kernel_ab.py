@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the sampler and kde_hash kernels of one source tree on the card.
+"""Time the level-1 and kde_hash kernels of one source tree on the card.
 
     python3 tools/kernel_ab.py --src SRC_DIR [--reps 50] [--group G]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (the ``src`` directory of this
 checkout, or of another commit unpacked beside it), builds that tree's
-kernels, and times four wrappers at their main-path shapes, on inputs
+kernels, and times six wrappers at their main-path shapes, on inputs
 drawn from a fixed seed on the card:
 
+- rowsum: m 1024, n 16384, d 784, laplacian (the LRA's row norms);
+- blocksum: m 1024, n 65536, d 16, bn 256, gaussian (the exact degrees);
 - sample_block: m 1024, n 65536, d 16, bn 256, gaussian, int64 own;
 - masked_blocksum: the same at m 4096;
 - weighted_kv: m 1024, t 1152 uniform columns of n 262144, d 16;
@@ -46,6 +48,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_rowsum import kernel as rk
     from repro_torch.kernels.kde_sampler import kernel as sk
 
     build.library()
@@ -63,7 +66,14 @@ def main() -> int:
     qh = torch.randn(1024, 16, generator=gen, device=dev)
     sargs = (q1, x, own1, g, "gaussian", 1.0, 1.0, 256)
     margs = (q4, x, own4, "gaussian", 1.0, 1.0, 256)
+    xl = torch.rand(16384, 784, generator=gen, device=dev)
+    rargs = (xl[:1024].contiguous(), xl, "laplacian", 1.0 / 100.0)
+    bargs = (q1, x, "gaussian", 1.0, 1.0, 256)
     calls = {
+        "rowsum": (lambda: rk.rowsum_cuda(*rargs),
+                   lambda: rk.rowsum_plain(*rargs)),
+        "blocksum": (lambda: rk.blocksum_cuda(*bargs),
+                     lambda: rk.blocksum_plain(*bargs)),
         "sample_block": (lambda: sk.sample_block_cuda(*sargs),
                          lambda: sk.sample_block_plain(*sargs)),
         "masked_blocksum": (lambda: sk.masked_blocksum_cuda(*margs),
