@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; no phase catches and continues):
                checks, each printing the rowsum / blocksum tile it took.
                ``host_us`` of the sample-block and weighted-kv wrappers,
                and the weighted-kv kernel's achieved rate of gathered
-               bytes, are printed.
+               bytes, are printed.  The rowsum kernel is also checked and
+               timed at the rs row norms' shape (1024 queries against 80
+               subsampled rows of cX, d = 784).
 3. sparsify -- ``spectral_sparsify`` (exact level-1, Alg 5.1) at n=65536,
                d=16, t=10n, batch 1024, with counters checked against the
                analytic formula; after the main path, the law of all its
@@ -43,10 +45,22 @@ Phases (any failure exits non-zero; no phase catches and continues):
                shows that the sums are consistent.
 4. sampler  -- ``NeighborSampler.sample`` then ``prob_of`` (a second
                sampler, so the masked-blocksum kernel reads the frontier
-               afresh) on a 4096-row frontier at n=65536.
+               afresh) on a 4096-row frontier at n=65536; then
+               ``sample_exact`` (Theorem 4.12, rounds 8, slack 2) on a
+               stratified sampler over the same frontier, which launches
+               no kernel: its fallback count is printed and, after the
+               main path, its destinations are held to k(u, .) / deg(u)
+               by the destination PITs of the sparsify phase's edge law.
 5. lra      -- ``fkv_lowrank`` (Alg 5.15) on mnist_like(16384, 784) with
                the laplacian kernel, rank 20, 500 rows, against a block
                subspace iteration on the dense K computed on the card.
+               After phase 7, the same call with the sub-linear row norms
+               (``estimator="rs"``: 80 uniformly drawn rows of cX a query
+               through the rowsum kernel, exactly 16 launches; and
+               ``estimator="stratified"``: 16 of each 256-row block, no
+               kernel), each run counted on its own: kernel_evals n 80 +
+               500 n and n 64 16 + 500 n, and each error within 1.5x the
+               subspace iteration's, the exact LRA's bound.
 6. hash     -- ``spectral_sparsify(estimator="hash")`` (the sub-linear
                hashed-KDE path of Section 3.1) on gaussian_clusters(n =
                262144, d = 16), gaussian kernel at bandwidth 1.0, t = 10n,
@@ -65,14 +79,25 @@ Phases (any failure exits non-zero; no phase catches and continues):
                error at the reference's bench_kde spectral config within
                ``SPEC_BOUND``.  A per-stage breakdown of one edge batch
                follows, timed with CUDA events.
-7. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
+7. stratified -- the reference's default call ``spectral_sparsify(x, k,
+               t)`` (stratified level-1 reads, s = 16 of each 512-row
+               block, B = 512; degrees from the same structure) on phase
+               6's data; the run launches no kernel.  Then, off the
+               counted run: (1) no fatal status flag, ``kernel_evals`` =
+               n B s + drawn (B s + bs + 1) and ``kde_queries`` = n +
+               drawn; (2) the sum of the stratified degrees within 2% of
+               the exact sum (blocksum kernel); (3) the edge law of phase
+               6's check 4; (4) the spectral error at the same config
+               within ``STRAT_SPEC_BOUND``.  A per-stage breakdown of one
+               edge batch follows (CUDA events).
+8. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
                on the card, 6.06 B parameters): ``make_prefill_step(impl=
                "flash")`` on ``make_batch`` tokens at batch 1, seq 8192
                (the reference's prefill_32k shape, 32768 x 32, cut to
                8192 x 1): exactly 32 flash launches; its last-position
                logits against ``impl="xla"`` (the chunked branch at 8192):
                max |diff| <= 1e-3 max |logit| and the same argmax per row.
-8. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
+9. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
                same model, batch 4, prompt 512, gen 16, twice: ``--attention
                xla`` (its last-prompt-step logits against the flash prefill
                of the same prompts, same bound and argmax) and ``--attention
@@ -86,7 +111,7 @@ Phases (any failure exits non-zero; no phase catches and continues):
                split of 8 decode steps of each attention, and their walls
                over three rounds of 8 steps taken in turns (xla, kde, kde,
                xla, xla, kde).
-9. report   -- a ``{"kernels": [...]}`` line, the card line from
+10. report  -- a ``{"kernels": [...]}`` line, the card line from
                nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
@@ -107,8 +132,9 @@ enable_gqa=True)`` as the yardstick.
 
 Launch counters are set to 0 just before phase 3 and read just after
 phase 5, set to 0 again just before phase 6 and read just after its
-sparsifier returns, and again around the flash prefill of phase 7 and
-the kde serve run of phase 8, so the comparisons and timings of phase 2
+sparsifier returns, again around phase 7's sparsifier and each of phase
+5's rs and stratified runs, and around the flash prefill of phase 8 and
+the kde serve run of phase 9, so the comparisons and timings of phase 2
 and the checks do not count.  Each kernel's ``launches`` is its count from
 the run of its own path.
 
@@ -170,6 +196,19 @@ SPEC_N, SPEC_D, SPEC_SIGMA, SPEC_BW = 1024, 8, 0.35, 3.0
 # spectral_sparsify(estimator="hash") at this config over seeds 0-4 on the
 # CPU (tools/hash_spectral_bound.py: 0.04874407935336533).
 SPEC_BOUND = 0.073116119030048
+# The reference's default sparsifier (stratified reads, s rows a level-1
+# block) on the hash phase's data, and 1.5x the largest spectral error of
+# the JAX reference's spectral_sparsify(estimator="stratified") at the
+# SPEC config over seeds 0-4 on the CPU (tools/hash_spectral_bound.py
+# --estimator stratified: 0.028442029409182723).
+ST_S = 16
+STRAT_SPEC_BOUND = 0.042663044113774085
+# Theorem 4.12 rejection on the sampler phase's frontier
+EXACT_ROUNDS, EXACT_SLACK = 8, 2.0
+# the LRA's sub-linear row norms: rs reads ceil(1/(tau eps^2)) = 80 rows a
+# query (tau 0.05, eps 0.5); stratified reads s = 16 of each 256-row block
+RS_SAMPLES = 80
+LRA_NB = -(-LRA_N // 256)     # StratifiedKDE's default block size
 LM_ARCH = "yi_6b"
 # the reference's prefill_32k shape (seq 32768, batch 32), cut to 8192 x 1
 LM_PREFILL_SEQ, LM_PREFILL_BATCH = 8192, 1
@@ -284,6 +323,7 @@ def phase_build():
 def phase_kernels(data, gen):
     """Phase 2: every kernel against its plain version; returns the
     report rows (launches filled in after the main path)."""
+    import numpy as np
     import torch
     from repro_torch.kernels.kde_rowsum import kernel as rk
     from repro_torch.kernels.kde_sampler import kernel as sk
@@ -379,6 +419,22 @@ def phase_kernels(data, gen):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda: torch.cdist(q, xs, p=1).mul_(-inv).exp_()
                          .sum(1), 3)))
+    # the rs row norms' shape: RSKDE.query reduces a uniform subsample of
+    # RS_SAMPLES rows of cX a query batch (fkv_lowrank(estimator="rs"))
+    sub = xs[torch.as_tensor(np.random.default_rng(0).integers(
+        0, n, RS_SAMPLES), device=dev)]
+    err = close(rk.rowsum_cuda(q, sub, "laplacian", inv),
+                rk.rowsum_plain(q, sub, "laplacian", inv), "rowsum rs shape")
+    errs["rowsum"] = max(errs["rowsum"], err)
+    rs_ms, rs_by = bound(m * RS_SAMPLES * pair_ops("laplacian", d),
+                         4 * (m * d + RS_SAMPLES * d + m))
+    log(f"[kernels] rowsum rs shape m={m} n={RS_SAMPLES} d={d} laplacian: "
+        f"plan {rk._cached_plan(q, sub, 'laplacian', inv, 1.0, None)[0]}; "
+        f"max_abs_err {err:.3e}, "
+        f"{timed(lambda: rk.rowsum_cuda(q, sub, 'laplacian', inv), 20):.4f}"
+        f" ms (plain "
+        f"{timed(lambda: rk.rowsum_plain(q, sub, 'laplacian', inv), 5):.4f}"
+        f", bound {rs_ms:.5f} by {rs_by})")
 
     x, bn = data["sp_x"], data["sp_bs"]
     n, d = x.shape
@@ -640,7 +696,6 @@ def edge_law(data, g, deg):
     draw of every edge, which the weight sum cannot see (with exact reads
     every weight is total / (2t) whatever was drawn)."""
     import torch
-    from repro_torch.kernels.kde_rowsum.ref import kernel_values
     x, bn = data["sp_x"], data["sp_bs"]
     n, dev = x.shape[0], x.device
     src = torch.as_tensor(g.src, device=dev)
@@ -651,13 +706,23 @@ def edge_law(data, g, deg):
     blk_mass.index_add_(0, torch.arange(n, device=dev) // bn, deg)
     got = torch.bincount(src // bn, minlength=nb).double()
     texts = [chi2_test(got, t * blk_mass / blk_mass.sum(), "sources")]
+    return "; ".join(texts + neighbor_law(x, src, dst, 1.0 / SP_BW))
 
+
+def neighbor_law(x, src, dst, inv_bw):
+    """Chi-square checks (alpha 1e-3) of destinations ``dst`` against v ~
+    k(u, .) / deg(u) over v != u for sources ``src`` (gaussian kernel), by
+    the two randomized PITs of ``edge_law``, in the plain version on the
+    card; returns the log texts."""
+    import torch
+    from repro_torch.kernels.kde_rowsum.ref import kernel_values
+    t, dev = src.numel(), x.device
     gen = torch.Generator(device=dev).manual_seed(1)
     pit = torch.empty((2, t), dtype=torch.float64, device=dev)
     for lo in range(0, t, BATCH):
         u, v = src[lo:lo + BATCH], dst[lo:lo + BATCH]
         rows = torch.arange(u.numel(), device=dev)
-        kv = kernel_values(x[u], x, "gaussian", 1.0 / SP_BW).double()
+        kv = kernel_values(x[u], x, "gaussian", inv_bw).double()
         kv[rows, u] = 0.0                        # no self edges
         kuv = kv[rows, v][:, None]
         tot = kv.sum(1)
@@ -668,19 +733,24 @@ def edge_law(data, g, deg):
         ties = torch.where(kv == kuv, kv, 0.0).sum(1)
         pit[0, lo:lo + BATCH] = (below_idx + r[0] * kuv[:, 0]) / tot
         pit[1, lo:lo + BATCH] = (below_val + r[1] * ties) / tot
+    texts = []
     for row, what in zip(pit, ("destinations, index order",
                                "destinations, value order")):
         got = torch.histc(row, bins=PIT_BINS, min=0.0, max=1.0).double()
         texts.append(chi2_test(got, torch.full_like(got, t / PIT_BINS),
                                what))
-    return "; ".join(texts)
+    return texts
 
 
 def phase_sampler(data):
+    """Phase 4: ``sample`` then ``prob_of`` on the exact read, then
+    ``sample_exact`` (Theorem 4.12) on a stratified sampler, whose read
+    launches no kernel.  Returns (seconds, (src, exact draws))."""
     import numpy as np
     import torch
     from repro_torch.core.kernels_fn import gaussian
     from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.kernels.kde_rowsum import kernel as rk
     from repro_torch.kernels.kde_sampler import kernel as sk
     t0 = time.perf_counter()
     x = data["sp_x"]
@@ -703,7 +773,24 @@ def phase_sampler(data):
     log(f"[sampler] frontier {len(src)} at n={x.shape[0]}: prob_of matches "
         f"the realized probabilities (max rel err "
         f"{float(np.max(np.abs(p_fresh - p) / p)):.2e}); {secs:.2f} s")
-    return secs
+    before = {**rk.LAUNCHES, **sk.LAUNCHES}
+    t0 = time.perf_counter()
+    strat = NeighborSampler(x, gaussian(SP_BW), seed=5, device="cuda")
+    v_ex = strat.sample_exact(src, rounds=EXACT_ROUNDS, slack=EXACT_SLACK)
+    torch.cuda.synchronize()
+    ex_secs = time.perf_counter() - t0
+    assert {**rk.LAUNCHES, **sk.LAUNCHES} == before, \
+        "the stratified read launched a kernel"
+    w, bs, nb = len(src), strat.block_size, strat.num_blocks
+    assert strat.exact_draws == w and np.all(v_ex != src)
+    assert strat.evals == w * nb * ST_S + (EXACT_ROUNDS + 1) * w * bs \
+        + EXACT_ROUNDS * w, strat.evals
+    log(f"[sampler] sample_exact (rounds {EXACT_ROUNDS}, slack "
+        f"{EXACT_SLACK}) on a stratified sampler (s {ST_S}): {w} draws, "
+        f"{strat.exact_fallbacks} fallbacks (predicted rate "
+        f"{(1 - 1 / EXACT_SLACK) ** EXACT_ROUNDS:.4f}), {ex_secs:.2f} s, "
+        f"kernel_evals {strat.evals}")
+    return secs + ex_secs, (src, v_ex)
 
 
 def phase_lra(data):
@@ -725,9 +812,43 @@ def phase_lra(data):
     return res, secs
 
 
-def lra_errors(data, res):
-    """(FKV, subspace iteration) relative Frobenius errors on the dense K,
-    computed in float64 on the card by the plain versions."""
+def phase_lra_estimators(data):
+    """``fkv_lowrank`` with the sub-linear row-norm estimators on phase 5's
+    data, each run counted on its own: ``rs`` (RSKDE through the rowsum
+    kernel, one launch a query batch) and ``stratified`` (plain torch, no
+    kernel).  Returns {estimator: (result, seconds)}."""
+    import torch
+    from repro_torch.core.kernels_fn import laplacian
+    from repro_torch.core.lowrank import fkv_lowrank
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    n = LRA_N
+    out = {}
+    for est, per_row in (("rs", RS_SAMPLES), ("stratified", LRA_NB * ST_S)):
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        res = fkv_lowrank(data["lra_x_np"], laplacian(data["lra_bw"]),
+                          rank=LRA_RANK, num_rows=LRA_ROWS, estimator=est,
+                          seed=0, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = rk.LAUNCHES["rowsum"]
+        assert res.kernel_evals == n * per_row + LRA_ROWS * n, \
+            (est, res.kernel_evals)
+        assert res.u.shape == (LRA_RANK, n)
+        want = -(-n // BATCH) if est == "rs" else 0
+        assert launches == want, (est, launches, want)
+        log(f"[lra] estimator={est}: {secs:.2f} s, kernel_evals "
+            f"{res.kernel_evals} = n*{per_row} + {LRA_ROWS}*n (n^2 / "
+            f"kernel_evals = {n * n / res.kernel_evals:.2f}), rowsum "
+            f"launches {launches}")
+        out[est] = (res, secs)
+    return out
+
+
+def lra_errors(data, results):
+    """(FKV errors, one per result, subspace iteration) relative Frobenius
+    errors on the dense K, computed in float64 on the card by the plain
+    versions."""
     import torch
     from repro_torch.kernels.kde_sampler.ref import l1_dists
     x = data["lra_x"]
@@ -744,8 +865,8 @@ def lra_errors(data, res):
                                     device="cuda", dtype=torch.float64)).Q
     for _ in range(10):
         q = torch.linalg.qr(k @ q).Q
-    u_fkv = torch.as_tensor(res.u, device="cuda")
-    return err(u_fkv), err(q.T)
+    return ([err(torch.as_tensor(res.u, device="cuda")) for res in results],
+            err(q.T))
 
 
 def close_scaled(got, want, what: str) -> float:
@@ -1201,7 +1322,7 @@ def profile_text(wall, busy, share, names) -> str:
 
 
 def phase_lm_prefill():
-    """Phase 7: yi-6b at full width and depth, the flash prefill counted
+    """Phase 8: yi-6b at full width and depth, the flash prefill counted
     and checked against xla."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
@@ -1249,7 +1370,7 @@ def phase_lm_prefill():
 
 
 def phase_lm_serve(model, gen):
-    """Phase 8: the serve driver on the full model, xla then kde."""
+    """Phase 9: the serve driver on the full model, xla then kde."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ShapeConfig
@@ -1440,15 +1561,57 @@ def spectral_error(lap_g, lap, probes: int = 24, seed: int = 1) -> float:
     return float(np.abs(ratios - 1.0).max())
 
 
-def hash_checks(data, g):
-    """Checks 1-5 of the hash phase, off the counted run."""
+def hs_exact_degrees(data):
+    """deg(u) = sum_{v != u} k(u, v) over the hash phase's data by the
+    blocksum kernel, float64 numpy; computed once, off every counted
+    run."""
+    import torch
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    if "hs_exact" not in data:
+        x, bn = data["hs_x"], data["hs_bs"]
+        data["hs_exact"] = torch.cat([
+            rk.blocksum_cuda(x[lo:lo + BATCH].contiguous(), x, "gaussian",
+                             1.0 / HS_BW, 1.0, bn).double().sum(1)
+            for lo in range(0, x.shape[0], BATCH)]).cpu().numpy() - 1.0
+    return data["hs_exact"]
+
+
+def degree_check(data, deg, name: str) -> str:
+    """Sum of the degrees a run drew its sources from within HS_DEG_RTOL
+    of the exact sum; returns the log text."""
+    import numpy as np
+    exact = hs_exact_degrees(data)
+    rel = abs(deg.sum() - exact.sum()) / exact.sum()
+    per_row = np.abs(deg - exact) / exact
+    assert rel <= HS_DEG_RTOL, (name, rel)
+    return (f"sum {name} {deg.sum():.6e} vs exact {exact.sum():.6e}: rel "
+            f"err {rel:.3e} (bound {HS_DEG_RTOL}); per-row rel err median "
+            f"{np.median(per_row):.3e}, p99 {np.quantile(per_row, 0.99):.3e}")
+
+
+def spec_config_error(**kw) -> float:
+    """The spectral error of ``spectral_sparsify(**kw)`` at the reference
+    bench's spectral config (SPEC_*, t = 16n, seed 0) on the card."""
     import numpy as np
     import torch
     from repro_torch.core.kernels_fn import gaussian
     from repro_torch.core.sparsify import spectral_sparsify
+    xs = np.random.default_rng(0).normal(
+        0, SPEC_SIGMA, (SPEC_N, SPEC_D)).astype(np.float32)
+    gs = spectral_sparsify(xs, gaussian(SPEC_BW), num_edges=16 * SPEC_N,
+                           seed=0, batch=BATCH, device="cuda", **kw)
+    xd = torch.as_tensor(xs, device="cuda").double()
+    k = torch.exp(-torch.cdist(xd, xd) ** 2 / SPEC_BW ** 2)
+    k.fill_diagonal_(0.0)
+    lap = (torch.diag(k.sum(1)) - k).cpu().numpy()
+    return spectral_error(gs.laplacian_dense(), lap)
+
+
+def hash_checks(data, g):
+    """Checks 1-5 of the hash phase, off the counted run."""
+    import numpy as np
     from repro_torch.ft import guards
     from repro_torch.kernels.kde_hash.ref import lookup_buckets
-    from repro_torch.kernels.kde_rowsum import kernel as rk
     x, bn, n = data["hs_x"], data["hs_bs"], HS_N
     state, cw = data["hs_state"], data["hs_cw"]
     # (1) device hashing parity with the host build, all n rows
@@ -1460,18 +1623,7 @@ def hash_checks(data, g):
         f"{int(state.truncated.sum())} truncated at {HS_MAX_BUCKET}")
     # (2) the hashed degrees the run drew its sources from, against the
     # exact degrees
-    deg = g.degrees
-    exact = torch.cat([
-        rk.blocksum_cuda(x[lo:lo + BATCH].contiguous(), x, "gaussian",
-                         1.0 / HS_BW, 1.0, bn).double().sum(1)
-        for lo in range(0, n, BATCH)]).cpu().numpy() - 1.0
-    rel = abs(deg.sum() - exact.sum()) / exact.sum()
-    per_row = np.abs(deg - exact) / exact
-    log(f"[hash] (2) sum deg_hash {deg.sum():.6e} vs exact "
-        f"{exact.sum():.6e}: rel err {rel:.3e} (bound {HS_DEG_RTOL}); "
-        f"per-row rel err median {np.median(per_row):.3e}, "
-        f"p99 {np.quantile(per_row, 0.99):.3e}")
-    assert rel <= HS_DEG_RTOL, rel
+    log(f"[hash] (2) {degree_check(data, g.degrees, 'deg_hash')}")
     # (3) status and the reference's counter formulas
     t = 10 * n
     drawn = -(-t // BATCH) * BATCH
@@ -1491,16 +1643,7 @@ def hash_checks(data, g):
     log(f"[hash] (4) edge law of the {g.num_edges} drawn edges: "
         f"{hash_edge_law(x, bn, g)} (alpha 1e-3)")
     # (5) spectral error at the reference bench's spectral config
-    xs = np.random.default_rng(0).normal(
-        0, SPEC_SIGMA, (SPEC_N, SPEC_D)).astype(np.float32)
-    gs = spectral_sparsify(xs, gaussian(SPEC_BW), num_edges=16 * SPEC_N,
-                           estimator="hash", seed=0, batch=BATCH,
-                           device="cuda")
-    xd = torch.as_tensor(xs, device="cuda").double()
-    k = torch.exp(-torch.cdist(xd, xd) ** 2 / SPEC_BW ** 2)
-    k.fill_diagonal_(0.0)
-    lap = (torch.diag(k.sum(1)) - k).cpu().numpy()
-    err = spectral_error(gs.laplacian_dense(), lap)
+    err = spec_config_error(estimator="hash")
     log(f"[hash] (5) spectral error n={SPEC_N} d={SPEC_D} t={16 * SPEC_N}: "
         f"{err:.6f} (bound {SPEC_BOUND:.6f})")
     assert err <= SPEC_BOUND, err
@@ -1539,9 +1682,11 @@ def hash_breakdown(data):
     x_sq = torch.sum(x * x, -1)
     views = block_views(x, x_sq, bn)
     noise = sops.draw_edge_noise(BATCH, nb, gen, dev, level1="hash",
-                                 num_far=HS_FAR_PER_BLOCK, block_size=bn)
+                                 exact=False, num_far=HS_FAR_PER_BLOCK,
+                                 block_size=bn)
     cfg = dict(kind="gaussian", inv_bw=1.0 / HS_BW, beta=1.0, block_size=bn,
-               num_blocks=nb, n=n, level1="hash", num_far=HS_FAR_PER_BLOCK)
+               num_blocks=nb, n=n, s=16, exact=False, level1="hash",
+               num_far=HS_FAR_PER_BLOCK)
     stages = {
         "frontier_gather": lambda: href.frontier_gather(
             src, state, off, HS_FAR_PER_BLOCK, bn, nb, n),
@@ -1553,6 +1698,97 @@ def hash_breakdown(data):
         "fused edge batch": lambda: sops.fused_edge_batch(
             x, x_sq, cdf, degs, 1.0 / n, 1.0 / n, *noise, views=views,
             hstate=state, **cfg),
+    }
+    return {k: timed(fn, 20) for k, fn in stages.items()}
+
+
+def phase_stratified(data):
+    """Phase 7's counted run: the reference's default sparsifier,
+    ``spectral_sparsify(x, k, t)`` with no estimator argument."""
+    import torch
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sparsify import spectral_sparsify
+    t = 10 * HS_N
+    t0 = time.perf_counter()
+    g = spectral_sparsify(data["hs_x_np"], gaussian(HS_BW), t)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"[stratified] n={HS_N} d={HS_D} t={t}: {secs:.2f} s, "
+        f"{t / secs:.0f} edges/s, kernel_evals={g.kernel_evals}, "
+        f"kde_queries={g.kde_queries}, status={g.status}")
+    return g, secs
+
+
+def strat_checks(data, g):
+    """Checks 1-4 of the stratified phase, off the counted run."""
+    import numpy as np
+    from repro_torch.ft import guards
+    x, bn, n = data["hs_x"], data["hs_bs"], HS_N
+    nb = -(-n // bn)
+    t = 10 * n
+    drawn = -(-t // BATCH) * BATCH
+    # (1) status and the reference's counter formulas
+    assert not (g.status & guards.FATAL), guards.decode_status(g.status)
+    assert g.kernel_evals == n * nb * ST_S + drawn * (nb * ST_S + bn + 1), \
+        g.kernel_evals
+    assert g.kde_queries == n + drawn, g.kde_queries
+    assert g.num_edges == t and np.all(np.isfinite(g.weight))
+    log(f"[stratified] (1) status {guards.decode_status(g.status)} (no "
+        f"fatal flag); kernel_evals {g.kernel_evals} = n*{nb}*{ST_S} + "
+        f"drawn*({nb}*{ST_S} + {bn} + 1); kde_queries {g.kde_queries} = "
+        f"n + drawn")
+    # (2) the stratified degrees the run drew its sources from
+    log(f"[stratified] (2) {degree_check(data, g.degrees, 'deg_strat')}")
+    # (3) the edge law: level 2 is exact, the block law estimated
+    log(f"[stratified] (3) edge law of the {g.num_edges} drawn edges: "
+        f"{hash_edge_law(x, bn, g)} (alpha 1e-3)")
+    # (4) spectral error at the reference bench's spectral config
+    err = spec_config_error()
+    log(f"[stratified] (4) spectral error n={SPEC_N} d={SPEC_D} "
+        f"t={16 * SPEC_N}: {err:.6f} (bound {STRAT_SPEC_BOUND:.6f})")
+    assert err <= STRAT_SPEC_BOUND, err
+
+
+def strat_breakdown(data):
+    """CUDA-event ms of the stages of one stratified edge batch (m = 1024
+    frontier rows) on the stratified phase's data, each the path's own
+    function: the subsample's top-k, the (m, B s) read with its gather,
+    the inverse-CDF block draw, the exact level 2, and a whole fused edge
+    batch."""
+    import torch
+    from repro_torch.kernels.kde_sampler import ops as sops
+    from repro_torch.kernels.kde_sampler import ref as sref
+    x, bn = data["hs_x"], data["hs_bs"]
+    n = x.shape[0]
+    nb = -(-n // bn)
+    dev = x.device
+    inv = 1.0 / HS_BW
+    gen = torch.Generator(device=dev).manual_seed(6)
+    src = torch.randint(0, n, (BATCH,), generator=gen, device=dev)
+    x_sq = torch.sum(x * x, -1)
+    u = torch.rand((nb, bn), generator=gen, device=dev)
+    shape = dict(block_size=bn, num_blocks=nb, n=n, s=ST_S)
+    cfg = dict(kind="gaussian", inv_bw=inv, beta=1.0, **shape)
+    q = x[src]
+    bs, _ = sops.masked_block_sums(x, x_sq, src, u, exact=False, **cfg)
+    u_blk = torch.rand(BATCH, generator=gen, device=dev)
+    u_in = torch.rand(BATCH, generator=gen, device=dev)
+    blk, _ = sref.choose_block(bs, u_blk)
+    views = sref.block_views(x, x_sq, bn)
+    cdf = torch.linspace(0, 1, n + 1, device=dev)[1:]
+    degs = torch.ones(n, device=dev)
+    noise = sops.draw_edge_noise(BATCH, nb, gen, dev, exact=False,
+                                 block_size=bn)
+    stages = {
+        "subsample top-k": lambda: sops.stratified_columns(u, **shape),
+        f"({BATCH} x {nb * ST_S}) read, gather included":
+            lambda: sops.stratified_block_sums(q, x, x_sq, u, **cfg),
+        "block draw": lambda: sref.choose_block(bs, u_blk),
+        "level 2": lambda: sref.level2_draw(*sref.level2_row(
+            x, x_sq, views, src, blk, "gaussian", inv, 1.0, bn, n), u_in),
+        "fused edge batch": lambda: sops.fused_edge_batch(
+            x, x_sq, cdf, degs, 1.0 / n, 1.0 / n, *noise, views=views,
+            exact=False, **cfg),
     }
     return {k: timed(fn, 20) for k, fn in stages.items()}
 
@@ -1608,7 +1844,7 @@ def main() -> int:
     rk.reset_launches()
     sk.reset_launches()
     g, phases["sparsify"] = phase_sparsify(data)
-    phases["sampler"] = phase_sampler(data)
+    phases["sampler"], (ex_src, ex_dst) = phase_sampler(data)
     res, phases["lra"] = phase_lra(data)
     launches = {**rk.LAUNCHES, **sk.LAUNCHES}
     log(f"[main path] launches {launches}")
@@ -1626,6 +1862,18 @@ def main() -> int:
     assert hash_launches == want, (hash_launches, want)
     launches.update(hash_launches)
 
+    # the stratified read and its degrees are plain torch ops, as in the
+    # reference: the run launches no kernel
+    rk.reset_launches()
+    sk.reset_launches()
+    hk.reset_launches()
+    g_strat, phases["stratified"] = phase_stratified(data)
+    strat_launches = {**rk.LAUNCHES, **sk.LAUNCHES, **hk.LAUNCHES}
+    log(f"[stratified path] launches {strat_launches}")
+    assert not any(strat_launches.values()), strat_launches
+    lra_est = phase_lra_estimators(data)
+    phases["lra rs + stratified"] = sum(v[1] for v in lra_est.values())
+
     t0 = time.perf_counter()
     deg = exact_degrees(data["sp_x"], 1.0 / SP_BW)
     log(f"[sparsify] edge law of the {g.num_edges} drawn edges: "
@@ -1636,18 +1884,32 @@ def main() -> int:
     log(f"[sparsify] sums consistent: sum(w) = {wsum:.6e}, total kernel "
         f"mass / 2 = {half:.6e}, rel err {rel:.2e} (bound {MASS_RTOL})")
     assert rel <= MASS_RTOL, rel
-    e_fkv, e_svd = lra_errors(data, res)
-    log(f"[lra] n={LRA_N} d={LRA_D} rank {LRA_RANK}: relative Frobenius "
-        f"error FKV {e_fkv:.6e}, subspace iteration {e_svd:.6e} (bound "
-        f"{LRA_FACTOR}x); fkv_lowrank {phases['lra']:.2f} s")
-    assert e_fkv <= LRA_FACTOR * e_svd, (e_fkv, e_svd)
+    log("[sampler] sample_exact destinations against k(u, .) / deg(u): "
+        + "; ".join(neighbor_law(data["sp_x"], torch.as_tensor(
+            ex_src, device=dev), torch.as_tensor(ex_dst, device=dev),
+            1.0 / SP_BW)) + " (alpha 1e-3)")
+    runs = [("exact", res, phases["lra"])] + [
+        (k, *v) for k, v in lra_est.items()]
+    e_fkvs, e_svd = lra_errors(data, [r for _, r, _ in runs])
+    for (est, _, secs), e_fkv in zip(runs, e_fkvs):
+        log(f"[lra] n={LRA_N} d={LRA_D} rank {LRA_RANK} estimator={est}: "
+            f"relative Frobenius error FKV {e_fkv:.6e}, subspace iteration "
+            f"{e_svd:.6e} (ratio {e_fkv / e_svd:.4f}, bound {LRA_FACTOR}x); "
+            f"fkv_lowrank {secs:.2f} s")
+        assert e_fkv <= LRA_FACTOR * e_svd, (est, e_fkv, e_svd)
     phases["checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     hash_checks(data, g_hash)
     phases["hash checks"] = time.perf_counter() - t0
     log("[hash] one edge batch, ms by stage (CUDA events): " + ", ".join(
         f"{k} {v:.4f}" for k, v in hash_breakdown(data).items()))
-    del data, g, g_hash, res, deg
+    t0 = time.perf_counter()
+    strat_checks(data, g_strat)
+    phases["stratified checks"] = time.perf_counter() - t0
+    log("[stratified] one edge batch, ms by stage (CUDA events): "
+        + ", ".join(f"{k} {v:.4f}"
+                    for k, v in strat_breakdown(data).items()))
+    del data, g, g_hash, g_strat, res, lra_est, runs, deg
     free_cuda()
 
     # the LM phases run in IEEE f32: no TF32 in any matmul

@@ -126,7 +126,7 @@ def _module(name: str):
     if arch not in PORTED_ARCHS:
         raise not_in_slice(f"architecture {name!r} (the port carries "
                            f"{', '.join(PORTED_ARCHS)})",
-                           "queue 1 item 11")
+                           12)
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -1,4 +1,4 @@
-"""KDE data structures (Definition 1.1), exact backends.
+"""KDE data structures (Definition 1.1).
 
 A KDE structure over a fixed dataset ``X`` answers queries
 ``KDE_X(y) ~= sum_{x in X} k(x, y)``.  Ported backends of
@@ -6,6 +6,8 @@ A KDE structure over a fixed dataset ``X`` answers queries
 
 * ``ExactKDE``      -- brute-force row sums: the rowsum CUDA kernel on a
                        CUDA dataset, the plain torch sweep on the CPU.
+* ``RSKDE``         -- uniform random sampling, the ``p = 1`` estimator of
+                       Section 3.1, reduced by the same rowsum kernel.
 * ``StratifiedKDE`` -- per-block uniform subsamples (plain torch on every
                        device, as in the reference); also the block holder
                        of the ``level1="hash"`` neighbor sampler.
@@ -21,6 +23,7 @@ programs they run into ``device_counters``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
@@ -39,7 +42,7 @@ class KDEBase:
     def __init__(self, x, kernel: Kernel, precision: str = "f32",
                  device=None):
         if precision != "f32":
-            raise not_in_slice(f"precision={precision!r}", "queue 1, item 1")
+            raise not_in_slice(f"precision={precision!r}", 7)
         self.device = resolve_device(device)
         self.x = as_f32(x, self.device)
         # ||x_j||^2, computed once and reused by every L2-kernel read
@@ -81,6 +84,32 @@ class ExactKDE(KDEBase):
         y = as_f32(y, self.device)
         self.evals += y.shape[0] * self.n
         return rs_ops.kde_rowsum(y, self.x, self.kernel)
+
+
+class RSKDE(KDEBase):
+    """Random-sampling estimator (p = 1): n/|R| * sum_{x in R} k(x, y).
+
+    ``num_samples = O(1/(tau * eps^2))`` per Section 3.1.  Each query draws
+    its |R| indices with replacement on the host, from a numpy generator
+    seeded by ``seed`` exactly as the reference draws them, and reduces
+    through ``kde_rowsum`` (the rowsum CUDA kernel on the card).
+    """
+
+    def __init__(self, x, kernel: Kernel, num_samples: int, seed: int = 0,
+                 precision: str = "f32", device=None):
+        super().__init__(x, kernel, precision=precision, device=device)
+        self.num_samples = min(int(num_samples), self.n)
+        self._rng = np.random.default_rng(seed)
+
+    def query(self, y: torch.Tensor) -> torch.Tensor:
+        """(1 +- eps) row-sum estimates; m*num_samples evals per call."""
+        from repro_torch.kernels.kde_rowsum import ops as rs_ops
+        y = as_f32(y, self.device)
+        idx = self._rng.integers(0, self.n, size=self.num_samples)
+        self.evals += y.shape[0] * self.num_samples
+        sub = self.x[torch.as_tensor(idx).to(self.device)]
+        return rs_ops.kde_rowsum(y, sub, self.kernel) \
+            * (self.n / self.num_samples)
 
 
 class StratifiedKDE(KDEBase):
@@ -145,6 +174,9 @@ class ExactBlockKDE(KDEBase):
         super().__init__(x, kernel, precision=precision, device=device)
         self.block_size = int(block_size)
         self.num_blocks = (self.n + self.block_size - 1) // self.block_size
+        # every row of a block is read, as the reference's subclass of
+        # StratifiedKDE records it
+        self.samples_per_block = self.block_size
 
     def _static_cfg(self) -> dict:
         return dict(kind=self.kernel.name, inv_bw=1.0 / self.kernel.bandwidth,
@@ -169,20 +201,22 @@ class ExactBlockKDE(KDEBase):
 
 def make_estimator(name: str, x, kernel: Kernel, seed: int = 0,
                    tau: float = 0.05, eps: float = 0.5, **kw) -> KDEBase:
-    """Factory over the ported estimators (``exact``, ``exact_block``,
-    ``stratified``, ``hash``); ``device=`` and ``precision=`` are
-    forwarded through ``kw``."""
+    """Factory over the ported estimators (``exact``, ``rs``,
+    ``stratified``, ``exact_block``, ``hash``).  The ``rs`` budget defaults
+    to ceil(1/(tau eps^2)); ``device=`` and ``precision=`` are forwarded
+    through ``kw``."""
     if name == "exact":
         return ExactKDE(x, kernel, **kw)
-    if name == "exact_block":
-        return ExactBlockKDE(x, kernel, **kw)
+    if name == "rs":
+        ns = kw.pop("num_samples", int(np.ceil(1.0 / (tau * eps * eps))))
+        return RSKDE(x, kernel, num_samples=ns, seed=seed, **kw)
     if name == "stratified":
         return StratifiedKDE(x, kernel, seed=seed, **kw)
+    if name == "exact_block":
+        return ExactBlockKDE(x, kernel, **kw)
     if name == "hash":
         from repro_torch.core.kde.hashed import HashedKDE
         return HashedKDE(x, kernel, seed=seed, **kw)
-    if name == "rs":
-        raise not_in_slice(f"estimator={name!r}", "queue 1, item 1")
     if name in ("grid_hbe", "robust"):
-        raise not_in_slice(f"estimator={name!r}", "queue 1, item 6")
+        raise not_in_slice(f"estimator={name!r}", 6)
     raise ValueError(f"unknown estimator {name!r}")

@@ -51,12 +51,12 @@ class HashedKDE(KDEBase):
         no_switch("interpret", interpret)
         if tuple(data_axes) != ("data",):
             raise not_in_slice(f"HashedKDE(data_axes={data_axes!r})",
-                               "queue 1, item 10")
+                               10)
         if mesh is not None:
-            raise not_in_slice("HashedKDE(mesh=)", "queue 1, item 9")
+            raise not_in_slice("HashedKDE(mesh=)", 10)
         if dataset is not None or overflow_cap:
             raise not_in_slice("HashedKDE(dataset=, overflow_cap=)",
-                               "queue 1, item 7")
+                               8)
         super().__init__(x, kernel, precision=precision, device=device)
         from repro_torch.kernels.kde_hash import ops as _ops
         from repro_torch.kernels.kde_sampler.ref import static_pairwise

@@ -105,6 +105,21 @@ def factored_error(k: np.ndarray, v: np.ndarray, u: np.ndarray) -> float:
     return float(np.linalg.norm(k - v @ u, "fro") ** 2)
 
 
+def countsketch_lowrank(k: np.ndarray, rank: int, sketch_size: int,
+                        seed: int = 0) -> np.ndarray:
+    """Clarkson-Woodruff input-sparsity LRA baseline (needs the
+    materialized matrix): U = top-r right singular directions of the
+    CountSketch S K, with the reference's numpy draws."""
+    n = k.shape[0]
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, sketch_size, size=n)
+    s = rng.choice([-1.0, 1.0], size=n)
+    sk = np.zeros((sketch_size, n))
+    np.add.at(sk, h, s[:, None] * k)                 # S K
+    _, _, vt = np.linalg.svd(sk, full_matrices=False)
+    return vt[:rank]                                 # (r, n)
+
+
 def subspace_iteration(k: np.ndarray, rank: int, iters: int = 12,
                        seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Iterative SVD baseline: block power iteration with QR; returns

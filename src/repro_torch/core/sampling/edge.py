@@ -3,8 +3,11 @@
 Given a vertex u, sample a neighbor v with Pr[v] ~= k(u, v) / deg(u)
 (Definition 4.10) through the depth-2 block factorization of DESIGN.md §2:
 level-1 block sums and a block draw, then the exact level-2 row and the
-in-block draw.  Two level-1 reads are ported (``mode="blocked"``):
+in-block draw.  Three level-1 reads are ported (``mode="blocked"``):
 
+* ``exact_blocks=False`` (the reference's default) -- stratified block
+  estimates from ``samples_per_block`` uniformly subsampled rows a block
+  at O(B s) evals per frontier row, then an inverse-CDF block draw;
 * ``exact_blocks=True`` -- exact masked block sums and a Gumbel-max block
   draw in one sample-block kernel call;
 * ``level1="hash"`` -- block masses estimated by the ``kde_hash``
@@ -16,12 +19,15 @@ in-block draw.  Two level-1 reads are ported (``mode="blocked"``):
 ``sample`` returns the *realized* sampling probability of each drawn
 neighbor, and ``prob_of`` evaluates the probability the sampler assigns to
 an arbitrary (u, v) -- both are required by the sparsifier (Alg 5.1 steps
-(c)-(d)).
+(c)-(d)).  ``sample_exact`` corrects the estimated law to the exact one by
+Theorem 4.12's rejection rounds.
 
 Level-1 caching contract (DESIGN.md §4): the masked block sums of the most
-recent frontier stay on the device; ``sample`` / ``prob_of`` on the *same*
-frontier reuse them instead of re-sweeping the dataset, which makes
-``prob_of`` exactly consistent with the estimates ``sample`` realized.
+recent frontier stay on the device; ``sample`` / ``prob_of`` /
+``sample_exact`` on the *same* frontier reuse them instead of re-sweeping
+the dataset, which makes ``prob_of`` exactly consistent with the
+(random, on the stratified and hashed reads) estimates ``sample``
+realized.
 
 Randomness comes from one ``torch.Generator`` on the sampler's device,
 seeded from ``seed``.  Every program's counter word folds into
@@ -36,7 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.kde.base import ExactBlockKDE, StratifiedKDE
+from repro_torch.core.kde.base import (ExactBlockKDE, StratifiedKDE,
+                                       make_estimator)
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import no_switch, not_in_slice, resolve_device
 from repro_torch.ft import guards as _g
@@ -51,11 +58,11 @@ _BENIGN = _g.BUCKET_OVERFLOW | _g.HT_HEAVY | _g.REJECT_EXHAUSTED
 class NeighborSampler:
     """Algorithm 4.11 / Theorem 4.12: sample v ~ k(u, v)/deg(u) given u.
 
-    Cost per sample: one level-1 read (w*n exact kernel evals for a
-    w-frontier, w*(max_bucket + B far_per_block) hashed) plus w exact
-    level-2 rows of ``block_size`` columns.
+    Cost per sample: one level-1 read (w*B*s stratified, w*n exact,
+    w*(max_bucket + B far_per_block) hashed kernel evals for a
+    w-frontier) plus w exact level-2 rows of ``block_size`` columns.
 
-    >>> nbr = NeighborSampler(x, gaussian(1.0), exact_blocks=True)
+    >>> nbr = NeighborSampler(x, gaussian(1.0))
     >>> v, q = nbr.sample(np.array([0, 1, 2]))
     """
 
@@ -69,15 +76,12 @@ class NeighborSampler:
                  precision: str = "f32", device=None):
         no_switch("use_pallas", use_pallas)
         no_switch("interpret", interpret)
-        if samples_per_block != 16:
-            raise not_in_slice(f"samples_per_block={samples_per_block!r} "
-                               "(stratified level-1 reads)", "queue 1, item 1")
         if tree is not None:
-            raise not_in_slice("NeighborSampler(tree=)", "queue 1, item 6")
+            raise not_in_slice("NeighborSampler(tree=)", 6)
         if tuple(data_axes) != ("data",):
-            raise not_in_slice(f"data_axes={data_axes!r}", "queue 1, item 10")
+            raise not_in_slice(f"data_axes={data_axes!r}", 10)
         if mode != "blocked":
-            raise not_in_slice(f"mode={mode!r}", "queue 1, item 5")
+            raise not_in_slice(f"mode={mode!r}", 6)
         if level1 not in ("blocked", "hash"):
             raise ValueError(f"unknown level1 {level1!r}")
         if level1 == "hash" and exact_blocks:
@@ -85,13 +89,10 @@ class NeighborSampler:
                              "hashed estimates; exact_blocks=True (the "
                              "reproducible exact read) cannot be honored "
                              "-- pick one")
-        if level1 == "blocked" and not exact_blocks:
-            raise not_in_slice("exact_blocks=False (stratified level-1 "
-                               "reads)", "queue 1, item 2")
         if mesh is not None:
-            raise not_in_slice("mesh=", "queue 1, item 9")
+            raise not_in_slice("mesh=", 10)
         if dataset is not None:
-            raise not_in_slice("dataset=", "queue 1, item 7")
+            raise not_in_slice("dataset=", 8)
         self.device = resolve_device(device)
         self.kernel = kernel
         self.mode = mode
@@ -108,6 +109,7 @@ class NeighborSampler:
                                          device=self.device)
         else:
             self._blocks = StratifiedKDE(x, kernel, block_size=bs,
+                                         samples_per_block=samples_per_block,
                                          seed=seed, precision=precision,
                                          device=self.device)
         self.x = self._blocks.x
@@ -116,6 +118,8 @@ class NeighborSampler:
         self.block_size = self._blocks.block_size
         self.num_blocks = self._blocks.num_blocks
         self.exact_blocks = exact_blocks
+        self.exact_draws = 0
+        self.exact_fallbacks = 0
         self._far_per_block = 1
         self._hash = None
         self._hstate = None
@@ -140,9 +144,13 @@ class NeighborSampler:
                          beta=getattr(kernel, "beta", 1.0),
                          block_size=self.block_size,
                          num_blocks=self.num_blocks, n=self.n,
-                         level1=level1, num_far=self._far_per_block)
+                         s=self._blocks.samples_per_block,
+                         exact=exact_blocks, level1=level1,
+                         num_far=self._far_per_block)
         self._l2_cfg = {k: self._cfg[k] for k in
                         ("kind", "inv_bw", "beta", "block_size", "n")}
+        self._noise_cfg = {k: self._cfg[k] for k in
+                           ("level1", "exact", "num_far", "block_size")}
         self._views = _ref.block_views(self.x, self.x_sq, self.block_size)
         # (digest, block sums, frontier indices) of the cached frontier
         self._l1_cache: Optional[
@@ -176,16 +184,16 @@ class NeighborSampler:
     def _level1_evals(self, w: int) -> int:
         """Kernel evals of one level-1 read of a w-frontier: the bucket
         width plus ``far_per_block`` FAR slots per block when hashed, n
-        per row when exact -- the shapes the counter words are built
-        from."""
-        return w * _ops._l1_cols(self.level1, self.num_blocks, self.n,
+        per row when exact, B * s per row when stratified -- the shapes
+        the counter words are built from."""
+        return w * _ops._l1_cols(self.level1, self.exact_blocks,
+                                 self.num_blocks, self._cfg["s"], self.n,
                                  self._far_per_block, self._hstate)[0]
 
     def _noise(self, w: int):
         """The noise of one depth-2 step on this sampler's level-1 read."""
-        return _ops.draw_sample_noise(
-            w, self.num_blocks, self._gen, self.device, level1=self.level1,
-            num_far=self._far_per_block, block_size=self.block_size)
+        return _ops.draw_sample_noise(w, self.num_blocks, self._gen,
+                                      self.device, **self._noise_cfg)
 
     def _note(self, word, context: str) -> int:
         """Fold one program's counter word into the counters, then apply
@@ -210,9 +218,10 @@ class NeighborSampler:
         dig = self._digest(src32)
         if self._l1_cache is not None and self._l1_cache[0] == dig:
             return self._l1_cache[1]
-        off = (self._noise(len(src32))[0] if self.level1 == "hash"
-               else None)
-        bs, cw = _ops.masked_block_sums(self.x, self.x_sq, src_dev, off,
+        l1_noise = _ops._level1_noise(len(src32), self.num_blocks,
+                                      self._gen, self.device,
+                                      **self._noise_cfg)
+        bs, cw = _ops.masked_block_sums(self.x, self.x_sq, src_dev, l1_noise,
                                         self._hstate, **self._cfg)
         self._count(self._level1_evals(len(src32)))
         self._note(cw, "NeighborSampler.level1")
@@ -252,6 +261,34 @@ class NeighborSampler:
         self._note(cw, "NeighborSampler.prob_of")
         return out.cpu().numpy()
 
+    def sample_exact(self, src: np.ndarray, rounds: int = 8,
+                     slack: float = 2.0) -> np.ndarray:
+        """Theorem 4.12 exactness: rejection-sample against exact weights.
+
+        Proposal = this sampler; target ~ k(u, v).  Accept v with
+        probability k(u,v) / (c * q(v) * Z_hat), where Z_hat estimates
+        deg(u) from the level-1 sums and c = ``slack`` covers the
+        estimator distortion.  Fixed-round vectorized accept/reject; a row
+        whose rounds all reject keeps its round-0 proposal (probability
+        (1-1/c)^rounds), counted in ``exact_fallbacks``.  The level-1 read
+        happens once (cached per frontier); every round and Z_hat share
+        it."""
+        src32, src_dev = self._frontier(src)
+        w = len(src32)
+        bs = self._level1(src32, src_dev)
+        noise = _ops.draw_exact_noise(w, rounds, self._gen, self.device)
+        cur, cw, fb = _ops.fused_sample_exact(
+            self.x, self.x_sq, src_dev, bs, *noise, self._views,
+            rounds=rounds, slack=slack, **self._l2_cfg)
+        self._count((rounds + 1) * w * self.block_size + rounds * w)
+        self._note(cw, "NeighborSampler.sample_exact")
+        self.exact_draws += w
+        self.exact_fallbacks += int(fb)
+        _g.warn_fallback_rate(self.exact_fallbacks, self.exact_draws,
+                              rounds, slack,
+                              context="NeighborSampler.sample_exact")
+        return cur.cpu().numpy()
+
     # ------------------------------------------------------------------ #
     def edge_batches(self, cdf_device: torch.Tensor,
                      degs_device: torch.Tensor, total_degree: float, t: int,
@@ -283,19 +320,28 @@ class NeighborSampler:
 
 def shared_level1_estimator(nbr: NeighborSampler, estimator: str,
                             seed: int = 0):
-    """Reuse ``nbr``'s level-1 structure as the degree estimator
-    (DESIGN.md §6/§7): one device dataset, one ``x_sq`` sweep, one eval
-    counter for the whole pipeline -- the exact block structure of an
-    ``exact_blocks=True`` sampler, the hashed bucket layout of a
-    ``level1="hash"`` one.  Other pairings are not ported yet; ``seed``
-    seeds the reference's standalone estimator of those pairings, so the
-    shared ones ignore it."""
-    if estimator == "hash" and nbr.level1 == "hash":
-        return nbr.hash_estimator
-    if estimator in ("exact", "exact_block") and nbr.exact_blocks:
+    """Reuse ``nbr``'s level-1 structure as the degree estimator whenever
+    it implements the requested one (DESIGN.md §6/§7): one device dataset,
+    one ``x_sq`` sweep, one eval counter for the whole pipeline -- the
+    stratified or exact block structure of a blocked sampler, the hashed
+    bucket layout of a ``level1="hash"`` one.  ``rs`` and the mismatched
+    pairings (exact on a stratified sampler, stratified on an exact one,
+    hash on a blocked one) get a standalone ``make_estimator`` over the
+    sampler's device dataset, seeded by ``seed``."""
+    if estimator in ("grid_hbe", "robust"):
+        raise not_in_slice(f"shared_level1_estimator(estimator="
+                           f"{estimator!r})", 6)
+    if estimator == "hash":
+        if nbr.level1 == "hash":
+            return nbr.hash_estimator
+        return make_estimator("hash", nbr.x, nbr.kernel, seed=seed,
+                              device=nbr.device)
+    wants_exact = estimator in ("exact", "exact_block")
+    if wants_exact == nbr.exact_blocks and estimator != "rs":
         return nbr.blocks
-    raise not_in_slice(f"shared_level1_estimator(estimator={estimator!r})",
-                       "queue 1, items 1-2")
+    return make_estimator("exact" if estimator == "exact_block"
+                          else estimator, nbr.x, nbr.kernel, seed=seed,
+                          device=nbr.device)
 
 
 class EdgeSampler:

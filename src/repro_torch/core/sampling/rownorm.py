@@ -1,11 +1,14 @@
 """Row-norm^2 (length-squared) sampling of the kernel matrix -- Section 5.2.
 
 For kernels with k(x,y)^2 = k(cx, cy) the squared row norms of K are the
-row sums of the kernel matrix of the *scaled* dataset cX, so n exact KDE
-queries against cX (the rowsum CUDA kernel on the card) give the FKV
-sampling distribution.  Prefix sums accumulate in float64 through the
-shared ``PrefixCDF``; the sketch rows ``K_{idx,*} / sqrt(s p_i)`` are one
-device program (``kde_sampler.ops.kernel_rows``).
+row sums of the kernel matrix of the *scaled* dataset cX, so n KDE queries
+against cX give the FKV sampling distribution: exact (the rowsum CUDA
+kernel on the card) or by any estimator ``make_estimator`` builds -- ``rs``
+(a uniform subsample a query, reduced by the same rowsum kernel, the
+paper's sub-linear setting), ``stratified``, ``exact_block`` or ``hash``.
+Prefix sums accumulate in float64 through the shared ``PrefixCDF``; the
+sketch rows ``K_{idx,*} / sqrt(s p_i)`` are one device program
+(``kde_sampler.ops.kernel_rows``).
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from repro_torch.device import as_f32, not_in_slice, resolve_device
 
 class RowNormSampler:
     """Section 5.2: sample row indices i ~ ||K_i,*||_2^2 / ||K||_F^2 via n
-    exact KDE queries against the scaled dataset cX.  Cost: n KDE queries
-    of preprocessing + ``len(idx) * n`` evals per ``rows`` call.
+    KDE queries (by ``estimator``) against the scaled dataset cX.  Cost: n
+    KDE queries of preprocessing + ``len(idx) * n`` evals per ``rows``
+    call.
 
     >>> s = RowNormSampler(x, laplacian(1.0)); idx = s.sample(150)
     """
@@ -30,15 +34,11 @@ class RowNormSampler:
                  seed: int = 0, mesh=None, data_axes=("data",),
                  dataset=None, device=None, **est_kw):
         if tuple(data_axes) != ("data",):
-            raise not_in_slice(f"RowNormSampler(data_axes={data_axes!r})",
-                               "queue 1, item 10")
+            raise not_in_slice(f"RowNormSampler(data_axes={data_axes!r})", 10)
         if mesh is not None:
-            raise not_in_slice("RowNormSampler(mesh=)", "queue 1, item 9")
+            raise not_in_slice("RowNormSampler(mesh=)", 10)
         if dataset is not None:
-            raise not_in_slice("RowNormSampler(dataset=)", "queue 1, item 7")
-        if estimator not in ("exact", "exact_block"):
-            raise not_in_slice(f"estimator={estimator!r}",
-                               "queue 1, items 1 and 6")
+            raise not_in_slice("RowNormSampler(dataset=)", 8)
         self.device = resolve_device(device)
         self.x = as_f32(x, self.device)        # shared device dataset
         self.x_sq = torch.sum(self.x * self.x, dim=-1)

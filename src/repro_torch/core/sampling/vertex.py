@@ -103,9 +103,9 @@ class DegreeSampler:
     def __init__(self, estimator: KDEBase, seed: int = 0, mesh=None,
                  dataset=None):
         if mesh is not None:
-            raise not_in_slice("DegreeSampler(mesh=)", "queue 1, item 9")
+            raise not_in_slice("DegreeSampler(mesh=)", 10)
         if dataset is not None:
-            raise not_in_slice("DegreeSampler(dataset=)", "queue 1, item 7")
+            raise not_in_slice("DegreeSampler(dataset=)", 8)
         self._estimator = estimator
         self.degrees = approximate_degrees(estimator)
         self._cdf = PrefixCDF(self.degrees, seed=seed,

@@ -3,16 +3,23 @@
 Length-squared sampling of the edge-vertex incidence matrix H: sample
 u ~ p_hat (degrees), v ~ q_hat(.|u) (neighbor sampler), and reweight each
 drawn edge by 1 / (t * (p_u q_uv + p_v q_vu)), with the exact probabilities
-the samplers used.  Two configurations are ported, each with one device
-dataset and one level-1 structure shared by the degree preprocessing and
-every edge batch:
+the samplers used.  One device dataset and one level-1 structure serve the
+degree preprocessing and every edge batch whenever the sampler's read
+implements the requested estimator:
 
+* ``estimator="stratified"`` (the default, with ``exact_blocks=False``) --
+  ``samples_per_block`` subsampled rows a level-1 block: degrees and every
+  edge batch's level-1 read at O(B s) evals a row, plain torch ops;
 * ``estimator="exact", exact_blocks=True`` -- exact level-1 reads: degrees
   through the blocksum kernel, edge batches through the sample-block
   kernel;
 * ``estimator="hash"`` -- the sub-linear hashed estimator of Section 3.1:
   the dataset is hashed once, degrees through the weighted-kv-sum kernel,
   every edge batch's level-1 read through the weighted-kv kernel.
+
+The mixed pairings (``exact`` or ``rs`` degrees on a stratified sampler,
+``stratified`` degrees on an exact one) build a standalone estimator for
+the degrees, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,12 +27,13 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.vertex import DegreeSampler
-from repro_torch.device import not_in_slice
+from repro_torch.device import as_f32, not_in_slice, resolve_device
 
 
 @dataclasses.dataclass
@@ -87,29 +95,21 @@ def spectral_sparsify(x, kernel: Kernel, num_edges: int,
     edge list to the host.  With ``estimator="hash"`` both the degree
     preprocessing and the per-edge level-1 reads run on the hashed
     estimator (one shared bucket layout): total kernel evals drop from
-    O((n + t) n) to O((n + t)(max_bucket + num_far)).  The reference's
-    default (stratified level-1 reads) is not ported yet and raises
-    ``NotImplementedError``; pass ``estimator="exact", exact_blocks=True``
-    or ``estimator="hash"``.
+    O((n + t) B s) to O((n + t)(max_bucket + num_far)).  ``mesh=`` is not
+    ported and raises ``NotImplementedError``.
     """
-    if samples_per_block != 16:
-        raise not_in_slice(f"spectral_sparsify(samples_per_block="
-                           f"{samples_per_block!r})", "queue 1, item 1")
     if mesh is not None:
-        raise not_in_slice("spectral_sparsify(mesh=)", "queue 1, item 10")
-    ported = (estimator == "hash" and not exact_blocks) or (
-        estimator in ("exact", "exact_block") and exact_blocks)
-    if not ported:
-        raise not_in_slice(
-            f"spectral_sparsify(estimator={estimator!r}, "
-            f"exact_blocks={exact_blocks})", "queue 1, items 1-2")
+        raise not_in_slice("spectral_sparsify(mesh=)", 10)
     n = int(x.shape[0])
     t = int(num_edges)
     nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
                           exact_blocks=exact_blocks,
+                          samples_per_block=samples_per_block,
                           level1="hash" if estimator == "hash" else "blocked",
                           device=device)
-    est = shared_level1_estimator(nbr, estimator)
+    # Degree preprocessing (Algorithm 4.3) against the sampler's own
+    # level-1 structure whenever it implements the requested estimator.
+    est = shared_level1_estimator(nbr, estimator, seed=seed)
     deg = DegreeSampler(est, seed=seed + 1)
     u, v, w, _, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
                                      deg.total, t, batch=batch)
@@ -135,3 +135,12 @@ def resparsify(g: SparseGraph, num_edges: int, seed: int = 0) -> SparseGraph:
     return SparseGraph(g.n, g.src[idx], g.dst[idx], w,
                        kde_queries=g.kde_queries, kernel_evals=g.kernel_evals,
                        status=g.status)
+
+
+def incidence_row_norms(kernel: Kernel, x, device=None) -> np.ndarray:
+    """||H_{uv}||^2 = 2 k(u, v) over the pairs u < v (row-major upper
+    triangle) -- test helper for Lemma 5.6 invariants.  The kernel matrix
+    is built on ``device`` (the card unless ``device="cpu"``)."""
+    k = kernel.matrix(as_f32(x, resolve_device(device))).cpu().numpy()
+    iu = np.triu_indices(k.shape[0], 1)
+    return 2.0 * k[iu]

@@ -18,11 +18,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def not_in_slice(what: str, item: str) -> NotImplementedError:
+#: ROADMAP.md queue 1 items that unported options wait for, by number and
+#: title (the title keeps a message readable when the queue is renumbered)
+ROADMAP_ITEMS = {
+    6: "the remaining estimators",
+    7: "the bf16 precision policy",
+    8: "streaming",
+    9: "serving and telemetry",
+    10: "multi-device engines",
+    12: "the rest of the LM stack",
+}
+
+
+def not_in_slice(what: str, item: int) -> NotImplementedError:
     """The error raised for a reference option the port does not cover
-    yet; ``item`` names the ROADMAP.md queue item that will port it."""
+    yet; ``item`` is the number of the ROADMAP.md queue 1 item that will
+    port it, named in the message with its title."""
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 item "
+        f"{item}, {ROADMAP_ITEMS[item]})")
 
 
 def tile_size(name: str, value) -> None:

@@ -10,6 +10,7 @@ turns them into :class:`EstimationError`.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -145,3 +146,22 @@ def sums_status(bs: torch.Tensor, floor: float) -> torch.Tensor:
 def result_status(*arrays) -> torch.Tensor:
     """NONFINITE_RESULT if any program output element is NaN/Inf."""
     return nonfinite_status(*arrays, flag=NONFINITE_RESULT)
+
+
+def warn_fallback_rate(fallbacks: int, draws: int, rounds: int,
+                       slack: float, context: str = "sample_exact") -> None:
+    """Warn when rejection-fallback frequency exceeds the Theorem 4.12
+    prediction: accept prob >= 1/c per round -> all-reject rate
+    <= (1 - 1/c)^rounds."""
+    if draws <= 0 or fallbacks <= 0:
+        return
+    c = max(float(slack), 1.0 + 1e-9)
+    predicted = (1.0 - 1.0 / c) ** int(rounds)
+    rate = fallbacks / draws
+    if rate > max(2.0 * predicted, 1e-3):
+        warnings.warn(
+            f"{context}: rejection fallback rate {rate:.3g} exceeds the "
+            f"(1-1/c)^rounds prediction {predicted:.3g} "
+            f"(c={c:.3g}, rounds={rounds}) -- level-1 estimates are "
+            f"under-covering the true row mass", RuntimeWarning,
+            stacklevel=3)

@@ -57,7 +57,7 @@ def flash_attention(q, k, v, causal=True, bq=128, bk=128, interpret=None,
     no_switch("interpret", interpret)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise not_in_slice("a gradient through flash attention",
-                           "queue 1 item 11")
+                           12)
     kp, vp, kw = flash_args(q, k, v, causal, bq, bk)
     fn = _k.flash_attention_cuda if q.is_cuda else _k.flash_attention_plain
     out, lse = fn(q, kp, vp, **kw)

@@ -98,7 +98,7 @@ def build_hash_state(x, kernel, cell_width: float | None = None,
     data, seed and width give the same layout bit for bit."""
     if live is not None or overflow_cap:
         raise not_in_slice("build_hash_state(live=, overflow_cap=)",
-                           "queue 1, item 7")
+                           8)
     dev = resolve_device(device)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()

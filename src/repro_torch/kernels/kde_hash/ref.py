@@ -97,7 +97,7 @@ def rowwise_kv(q, xr, kind: str, inv_bw: float, beta: float, pairwise=None,
     (w, t).  The L2 kinds assemble d2 = max(qq + xx - 2 cross, 0) from the
     three sums, as the reference and the CUDA kernel do."""
     if precision != "f32":
-        raise not_in_slice(f"precision={precision!r}", "queue 1, item 1")
+        raise not_in_slice(f"precision={precision!r}", 7)
     if kind in _L2_KINDS:
         cross = torch.sum(q[:, None, :] * xr, dim=-1)
         xx = torch.sum(xr * xr, dim=-1)

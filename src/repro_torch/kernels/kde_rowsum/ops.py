@@ -30,7 +30,7 @@ def _pad_rows(a: torch.Tensor, mult: int, offset: float) -> torch.Tensor:
 
 def _check_precision(precision: str) -> None:
     if precision != "f32":
-        raise not_in_slice(f"precision={precision!r}", "queue 1, item 1")
+        raise not_in_slice(f"precision={precision!r}", 7)
 
 
 def _check_placeholders(bm, bn, interpret, precision: str) -> None:

@@ -1,35 +1,48 @@
 """Device-resident depth-2 neighbor sampling programs (DESIGN.md §3).
 
-Each program reads the level-1 block sums of a frontier through the CUDA
-kernels on a CUDA tensor (the plain versions on a CPU tensor), then runs
-the exact level-2 row and the in-block draw as plain torch ops on the same
-device.  The level-1 read is exact (``level1="blocked"``, the masked
-block-sum and sample-block kernels) or hashed (``level1="hash"``: the
-``kde_hash`` padded-bucket estimator, whose ``HashState`` rides along as
-the ``hstate`` operand and whose per-block FAR budget is ``num_far``;
-DESIGN.md §10).  There is no host synchronisation inside a program; the reference's
+Each program reads the level-1 block sums of a frontier, then runs the
+exact level-2 row and the in-block draw as plain torch ops on the same
+device.  Three level-1 reads are ported:
+
+* exact (``level1="blocked", exact=True``): the masked block-sum and
+  sample-block CUDA kernels on a CUDA tensor (their plain versions on a
+  CPU tensor);
+* stratified (``level1="blocked", exact=False``, the reference's default):
+  ``s`` subsampled rows a block, plain torch on every device as in the
+  reference (``stratified_block_sums``; its cross term is a cuBLAS GEMM in
+  IEEE f32);
+* hashed (``level1="hash"``): the ``kde_hash`` padded-bucket estimator,
+  whose ``HashState`` rides along as the ``hstate`` operand and whose
+  per-block FAR budget is ``num_far`` (DESIGN.md §10).
+
+There is no host synchronisation inside a program; the reference's
 ``lax.scan`` over edge batches is a Python loop that keeps every tensor on
 the device and copies to the host once at the end.
 
 Every program's core takes its noise explicitly, so tests can feed the
 JAX reference and the port identical numbers; the ``draw_*_noise``
 helpers draw it from a ``torch.Generator`` for the public entry points.
-A depth-2 step's noise is ``(gumbel (w, B), u_in (w,))`` on the exact read
-and ``(off (w, B, num_far), u_blk (w,), u_in (w,))`` on the hashed read;
-an edge batch puts ``u_vert (batch,)`` in front.  The exact read draws the
-block by Gumbel-max inside the sample-block kernel, as the reference's
-kernel path; the hashed read and the cached-sums path
-(``sample_from_block_sums``) draw it by inverse CDF, as the reference
-does.  Both are exact samplers of the same law.
+A depth-2 step's noise is ``(gumbel (w, B), u_in (w,))`` on the exact
+read, ``(u_strat (B, block_size), u_blk (w,), u_in (w,))`` on the
+stratified read and ``(off (w, B, num_far), u_blk (w,), u_in (w,))`` on
+the hashed read; an edge batch puts ``u_vert (batch,)`` in front.  The
+exact read draws the block by Gumbel-max inside the sample-block kernel,
+as the reference's kernel path; the stratified and hashed reads and the
+cached-sums path (``sample_from_block_sums``) draw it by inverse CDF, as
+the reference does.  Both are exact samplers of the same law.  The
+Theorem 4.12 rejection rounds (``fused_sample_exact``) take ``(u_blk
+(rounds + 1, w), u_in (rounds + 1, w), u_acc (rounds, w))``: row 0 is the
+round-0 proposal, row r + 1 and ``u_acc[r]`` round r's.
 
 Every program also returns the ``(obs.WIDTH,)`` counter word of the
 reference for the same static shapes: slot 0 the status bits
-(``ft.guards``), slots 1+ the realized kernel evaluations, level-1 reads
-and draws.
+(``ft.guards``), slots 1+ the realized kernel evaluations, level-1 reads,
+draws and rejection fallbacks.
 
 Configuration keywords (static in the reference): ``kind``, ``inv_bw``,
-``beta``, ``block_size``, ``num_blocks``, ``n``, ``level1``,
-``num_far``.
+``beta``, ``block_size``, ``num_blocks``, ``n``, ``s`` (rows a block on
+the stratified read), ``exact``, ``level1``, ``num_far``, ``rounds``,
+``slack``.
 """
 from __future__ import annotations
 
@@ -56,18 +69,32 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def draw_sample_noise(w: int, num_blocks: int, generator, device, *,
-                      level1="blocked", num_far=1, block_size=1):
-    """The noise of one depth-2 step: ``(gumbel (w, B), u_in (w,))`` for
-    the exact read, ``(off (w, B, num_far), u_blk (w,), u_in (w,))`` for
-    the hashed read."""
+def _level1_noise(w: int, num_blocks: int, generator, device, *, level1,
+                  exact, num_far, block_size):
+    """The noise of one level-1 read of a w-frontier: FAR offsets (w, B,
+    num_far) on the hashed read, subsample uniforms (B, block_size) on the
+    stratified read, None on the exact read."""
     if level1 == "hash":
-        off = _hops.draw_frontier_noise(w, num_blocks, num_far, block_size,
-                                        generator, device)
-        return (off, torch.rand(w, generator=generator, device=device),
-                torch.rand(w, generator=generator, device=device))
-    g = gumbel((w, num_blocks), generator, device)
-    return g, torch.rand(w, generator=generator, device=device)
+        return _hops.draw_frontier_noise(w, num_blocks, num_far, block_size,
+                                         generator, device)
+    if not exact:
+        return torch.rand((num_blocks, block_size), generator=generator,
+                          device=device)
+    return None
+
+
+def draw_sample_noise(w: int, num_blocks: int, generator, device, *,
+                      level1="blocked", exact, num_far=1, block_size=1):
+    """The noise of one depth-2 step: ``(gumbel (w, B), u_in (w,))`` for
+    the exact read, ``(level-1 noise, u_blk (w,), u_in (w,))`` for the
+    stratified and hashed reads."""
+    if level1 != "hash" and exact:
+        g = gumbel((w, num_blocks), generator, device)
+        return g, torch.rand(w, generator=generator, device=device)
+    l1 = _level1_noise(w, num_blocks, generator, device, level1=level1,
+                       exact=exact, num_far=num_far, block_size=block_size)
+    return (l1, torch.rand(w, generator=generator, device=device),
+            torch.rand(w, generator=generator, device=device))
 
 
 def draw_edge_noise(batch: int, num_blocks: int, generator, device, **kw):
@@ -78,44 +105,61 @@ def draw_edge_noise(batch: int, num_blocks: int, generator, device, **kw):
                                          device, **kw)
 
 
+def draw_exact_noise(w: int, rounds: int, generator, device):
+    """The noise of ``fused_sample_exact``: ``(u_blk (rounds + 1, w), u_in
+    (rounds + 1, w), u_acc (rounds, w))``."""
+    return tuple(torch.rand((r, w), generator=generator, device=device)
+                 for r in (rounds + 1, rounds + 1, rounds))
+
+
 # --------------------------------------------------------------------- #
 # level-1: (m, B) block-sum reads
 # --------------------------------------------------------------------- #
-def _l1_cols(level1, num_blocks, n, num_far, hstate):
+def _l1_cols(level1, exact, num_blocks, s, n, num_far, hstate):
     """(cols, far, overflow) realized PER FRONTIER ROW by one level-1 read
     -- the static shape products the counter words are built from: hashed
     reads sweep ``max_bucket + overflow_cap`` exact columns plus
-    ``B * num_far`` stratified FAR slots, exact reads sweep ``n``."""
+    ``B * num_far`` stratified FAR slots, blocked reads sweep ``n``
+    (exact) or ``B * s`` (stratified)."""
     if level1 == "hash":
         mb, ov = _hops._widths(hstate)
         far = int(num_blocks) * int(num_far)
         return mb + ov + far, far, ov
-    return int(n), 0, 0
+    return (int(n) if exact else int(num_blocks) * int(s)), 0, 0
 
 
-def stratified_block_sums(y, x, x_sq, u, *, kind, inv_bw, beta,
-                          pairwise=None, block_size, num_blocks, n, s):
-    """Per-block uniform-subsample estimates of the block sums, (m, B),
-    with explicit uniforms ``u`` (B, block_size): each block's ``s``
-    slots of smallest ``u`` (top-k without replacement) are its sample.
-    Each block contributes ``size_b / s_b * sum(sampled values)`` with
-    ``s_b`` the count of real (non-padded) samples.  Plain torch on every
-    device, as in the reference.  Returns ``(block sums, counter word)``."""
-    m = y.shape[0]
-    dev = y.device
+def stratified_columns(u, *, block_size, num_blocks, n, s):
+    """The subsample of a stratified read, from explicit uniforms ``u``
+    (B, block_size): each block's ``s`` slots of smallest ``u`` (top-k
+    without replacement; slots past n sort last).  Returns ``(rows (B s,)
+    dataset indices, valid (B, s) real-sample mask, scale (B,))`` with
+    scale = size_b / s_b, ``s_b`` the block's count of real samples."""
+    dev = u.device
     base = torch.arange(num_blocks, device=dev) * block_size
     pos = base[:, None] + torch.arange(block_size, device=dev)[None, :]
     valid_pos = pos < n
     u = torch.where(valid_pos, u, torch.inf)      # invalid slots sort last
     order = torch.topk(-u, s, dim=1).indices      # (B, s) w/o replacement
     idx = torch.clamp(torch.gather(pos, 1, order), max=n - 1)
-    sel_valid = torch.gather(valid_pos, 1, order)
-    flat = idx.reshape(-1)
-    kv = _ref.kv_matrix(y, x[flat], x_sq[flat], kind, inv_bw, beta,
-                        pairwise).reshape(m, num_blocks, s) * sel_valid[None]
+    valid = torch.gather(valid_pos, 1, order)
     sizes = torch.clamp(n - base, max=block_size).to(torch.float32)
     s_b = torch.clamp(sizes, max=float(s))
-    bs = kv.sum(-1) * (sizes / torch.clamp(s_b, min=1.0))[None, :]
+    return idx.reshape(-1), valid, sizes / torch.clamp(s_b, min=1.0)
+
+
+def stratified_block_sums(y, x, x_sq, u, *, kind, inv_bw, beta,
+                          pairwise=None, block_size, num_blocks, n, s):
+    """Per-block uniform-subsample estimates of the block sums, (m, B),
+    with explicit uniforms ``u`` (B, block_size) (``stratified_columns``):
+    each block contributes ``size_b / s_b * sum(sampled values)``.  Plain
+    torch on every device, as in the reference.  Returns ``(block sums,
+    counter word)``."""
+    m = y.shape[0]
+    rows, valid, scale = stratified_columns(u, block_size=block_size,
+                                            num_blocks=num_blocks, n=n, s=s)
+    kv = _ref.kv_matrix(y, x[rows], x_sq[rows], kind, inv_bw, beta,
+                        pairwise).reshape(m, num_blocks, s) * valid[None]
+    bs = kv.sum(-1) * scale[None, :]
     return bs, _c.word(status=_g.nonfinite_status(bs),
                        evals=m * num_blocks * s, l1_reads=m)
 
@@ -132,35 +176,63 @@ def exact_block_sums(y, x, x_sq, *, kind, inv_bw, beta, block_size,
                        l1_reads=m)
 
 
-def _masked_sums_any(x, x_sq, src, off=None, hstate=None, *, kind, inv_bw,
-                     beta, block_size, num_blocks, n, level1="blocked",
-                     num_far=1):
+def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
+                            block_size, num_blocks, n, s):
+    """Stratified level-1 sums of a frontier, own block corrected by
+    k(x, x) = 1 and floored (the reference's ``_masked_block_sums(exact=
+    False)``)."""
+    bs, _ = stratified_block_sums(x[src], x, x_sq, u, kind=kind,
+                                  inv_bw=inv_bw, beta=beta,
+                                  block_size=block_size,
+                                  num_blocks=num_blocks, n=n, s=s)
+    own = src // block_size
+    corr = torch.arange(num_blocks, device=src.device)[None, :] \
+        == own[:, None]
+    bs = torch.where(corr, bs - 1.0, bs)
+    return torch.clamp(bs, min=FLOOR)
+
+
+def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
+                     inv_bw, beta, block_size, num_blocks, n, s, exact,
+                     level1="blocked", num_far=1):
     """Masked level-1 sums of a frontier: the masked-blocksum kernel on the
-    exact read, the hashed estimator's read (weighted-kv kernel, FAR
-    offsets ``off``) on ``level1="hash"``.  Returns ``(bs, status)``."""
+    exact read, ``s`` subsampled rows a block on the stratified read
+    (uniforms ``l1_noise``), the hashed estimator's read (weighted-kv
+    kernel, FAR offsets ``l1_noise``) on ``level1="hash"``.  Returns
+    ``(bs, status)``."""
     if level1 == "hash":
         return _hops._hashed_block_sums(
-            x, src, hstate, off, kind=kind, inv_bw=inv_bw, beta=beta,
+            x, src, hstate, l1_noise, kind=kind, inv_bw=inv_bw, beta=beta,
             num_far=num_far, block_size=block_size, num_blocks=num_blocks,
             n=n)
-    fn = _k.masked_blocksum_cuda if x.is_cuda else _k.masked_blocksum_plain
-    bs = fn(x[src], x, src // block_size, kind, inv_bw, beta, block_size)
+    if exact:
+        fn = (_k.masked_blocksum_cuda if x.is_cuda
+              else _k.masked_blocksum_plain)
+        bs = fn(x[src], x, src // block_size, kind, inv_bw, beta, block_size)
+    else:
+        bs = _stratified_masked_sums(x, x_sq, src, l1_noise, kind=kind,
+                                     inv_bw=inv_bw, beta=beta,
+                                     block_size=block_size,
+                                     num_blocks=num_blocks, n=n, s=s)
     return bs, _g.sums_status(bs, FLOOR)
 
 
-def masked_block_sums(x, x_sq, src, off=None, hstate=None, *, kind, inv_bw,
-                      beta, block_size, num_blocks, n,
+def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
+                      inv_bw, beta, block_size, num_blocks, n, s, exact,
                       level1="blocked", num_far=1):
     """Level-1 read of a frontier ``src`` of dataset indices: block sums,
     own block corrected by k(x, x) = 1, floored at 1e-12 -- exact through
-    the masked-blocksum kernel, or hashed (``level1="hash"``, FAR offsets
-    ``off``).  Returns ``(bs, counter word)``."""
-    bs, st = _masked_sums_any(x, x_sq, src, off, hstate, kind=kind,
+    the masked-blocksum kernel, stratified (``exact=False``: ``s`` rows a
+    block, subsample uniforms ``l1_noise``), or hashed (``level1="hash"``,
+    FAR offsets ``l1_noise``).  Returns ``(bs, counter word)``."""
+    bs, st = _masked_sums_any(x, x_sq, src, l1_noise, hstate, kind=kind,
                               inv_bw=inv_bw, beta=beta,
                               block_size=block_size, num_blocks=num_blocks,
-                              n=n, level1=level1, num_far=num_far)
+                              n=n, s=s, exact=exact, level1=level1,
+                              num_far=num_far)
     w = src.shape[0]
-    cols, far, ov = _l1_cols(level1, num_blocks, n, num_far, hstate)
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
     return bs, _c.word(status=st, evals=w * cols, l1_reads=w,
                        far_samples=w * far, overflow=w * ov)
 
@@ -177,18 +249,19 @@ def sample_block(q, x, own, gumbel_noise, *, kind, inv_bw, beta,
 # depth-2 draws
 # --------------------------------------------------------------------- #
 def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
-                       inv_bw, beta, block_size, num_blocks, n,
+                       inv_bw, beta, block_size, num_blocks, n, s, exact,
                        level1="blocked", num_far=1):
     """(neighbors, realized probs, level-1 sums, status tensor) of one
     depth-2 step with explicit ``noise`` (see the module note); no host
     traffic (the counter word is built by the callers from static
     shapes)."""
-    if level1 == "hash":
-        off, u_blk, u_in = noise
-        bs, st = _masked_sums_any(x, x_sq, src, off, hstate, kind=kind,
+    if level1 == "hash" or not exact:
+        l1_noise, u_blk, u_in = noise
+        bs, st = _masked_sums_any(x, x_sq, src, l1_noise, hstate, kind=kind,
                                   inv_bw=inv_bw, beta=beta,
                                   block_size=block_size,
-                                  num_blocks=num_blocks, n=n, level1=level1,
+                                  num_blocks=num_blocks, n=n, s=s,
+                                  exact=exact, level1=level1,
                                   num_far=num_far)
         nb, prob = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk,
                                          u_in, kind, inv_bw, beta,
@@ -206,22 +279,23 @@ def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
 
 
 def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
-                 inv_bw, beta, block_size, num_blocks, n,
+                 inv_bw, beta, block_size, num_blocks, n, s, exact,
                  level1="blocked", num_far=1):
     """One depth-2 sampling step with explicit noise: the level-1 read and
     block draw (one sample-block kernel call on the exact read; the
-    hashed read then an inverse-CDF draw on ``level1="hash"``), then the
-    exact level-2 row and the in-block draw.  Returns (neighbors, realized
-    probs, level-1 sums, counter word)."""
+    stratified or hashed read then an inverse-CDF draw otherwise), then
+    the exact level-2 row and the in-block draw.  Returns (neighbors,
+    realized probs, level-1 sums, counter word)."""
     if views is None:
         views = _ref.block_views(x, x_sq, block_size)
     w = src.shape[0]
     nb, prob, bs, st = _fused_sample_core(
         x, x_sq, views, src, noise, hstate, kind=kind, inv_bw=inv_bw,
-        beta=beta, block_size=block_size, num_blocks=num_blocks, n=n,
-        level1=level1, num_far=num_far)
+        beta=beta, block_size=block_size, num_blocks=num_blocks, n=n, s=s,
+        exact=exact, level1=level1, num_far=num_far)
     # one level-1 read of the w-frontier + w exact level-2 rows
-    cols, far, ov = _l1_cols(level1, num_blocks, n, num_far, hstate)
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
     cw = _c.word(status=st, evals=w * (cols + block_size), l1_reads=w,
                  draws=w, far_samples=w * far, overflow=w * ov)
     return nb, prob, bs, cw
@@ -265,12 +339,68 @@ def prob_of_from_block_sums(x, x_sq, src, dst, bs, views=None, *, kind,
     return prob, _c.word(status=st, evals=src.shape[0] * block_size)
 
 
+def _sample_exact_core(x, x_sq, views, src, bs, u_blk, u_in, u_acc, *,
+                       kind, inv_bw, beta, block_size, n, rounds, slack):
+    """Theorem 4.12 accept/reject rounds on cached level-1 sums: propose
+    from ``bs`` and accept v with probability min(1, k(u, v) / (slack q(v)
+    Z_hat)), Z_hat = sum of the (own-block corrected, floored) sums.
+    Returns (neighbors, status tensor, fallback count tensor); a row whose
+    rounds all reject keeps the round-0 proposal."""
+    zs = bs.sum(dim=1)
+    cur, _ = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk[0],
+                                   u_in[0], kind, inv_bw, beta, block_size,
+                                   n)
+    accepted = torch.zeros(src.shape[0], dtype=torch.bool,
+                           device=src.device)
+    xs = x[src]
+    for r in range(rounds):
+        cand, q = _ref.sample_from_sums(x, x_sq, views, src, bs,
+                                        u_blk[r + 1], u_in[r + 1], kind,
+                                        inv_bw, beta, block_size, n)
+        kuv = _ref.kv_pairs(xs, x[cand], kind, inv_bw, beta)
+        ratio = kuv / torch.clamp(slack * q * zs, min=1e-30)
+        acc = ~accepted & (u_acc[r] < torch.clamp(ratio, max=1.0))
+        cur = torch.where(acc, cand, cur)
+        accepted |= acc
+    fallbacks = torch.sum(~accepted)
+    return cur, _g.flag_if(fallbacks > 0, _g.REJECT_EXHAUSTED), fallbacks
+
+
+def fused_sample_exact(x, x_sq, src, bs, u_blk, u_in, u_acc, views=None, *,
+                       kind, inv_bw, beta, block_size, n, rounds, slack):
+    """Theorem 4.12 rejection rounds with explicit noise (see the module
+    note).  The cached level-1 sums ``bs`` of the frontier serve every
+    proposal round and the degree estimate.  Returns (neighbors, counter
+    word, fallback count): draws whose rounds all rejected keep the
+    round-0 proposal (biased) and are counted in the word's RETRIES slot
+    and flagged REJECT_EXHAUSTED, not hidden."""
+    w = src.shape[0]
+    shapes = {"u_blk": (u_blk, rounds + 1), "u_in": (u_in, rounds + 1),
+              "u_acc": (u_acc, rounds)}
+    for name, (u, r) in shapes.items():
+        if tuple(u.shape) != (r, w):
+            raise ValueError(f"{name} must be ({r}, {w}), got "
+                             f"{tuple(u.shape)}")
+    if views is None:
+        views = _ref.block_views(x, x_sq, block_size)
+    cur, st, fallbacks = _sample_exact_core(
+        x, x_sq, views, src, bs, u_blk, u_in, u_acc, kind=kind,
+        inv_bw=inv_bw, beta=beta, block_size=block_size, n=n, rounds=rounds,
+        slack=slack)
+    # (rounds + 1) level-2 rows + rounds aligned accept pairs
+    cw = _c.word(status=st | _g.sums_status(bs, FLOOR),
+                 evals=(rounds + 1) * w * block_size + rounds * w,
+                 draws=(rounds + 1) * w)
+    cw[_c.RETRIES] = fallbacks
+    return cur, cw, fallbacks
+
+
 # --------------------------------------------------------------------- #
 # fused Algorithm 5.1 edge batches + LRA sketch rows
 # --------------------------------------------------------------------- #
 def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
                      noise, hstate=None, *, kind, inv_bw, beta, block_size,
-                     num_blocks, n, level1="blocked", num_far=1):
+                     num_blocks, n, s, exact, level1="blocked", num_far=1):
     """Algorithm 5.1 steps (a)-(d) for one batch with explicit noise:
     u ~ degrees (inverse CDF over the device prefix array), v | u by the
     depth-2 engine, the collapsed reverse probability q(u | v) =
@@ -279,8 +409,8 @@ def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
     u = _ref.inverse_cdf_index(cdf, u_vert)
     v, q_uv, _, st = _fused_sample_core(
         x, x_sq, views, u, noise, hstate, kind=kind, inv_bw=inv_bw,
-        beta=beta, block_size=block_size, num_blocks=num_blocks, n=n,
-        level1=level1, num_far=num_far)
+        beta=beta, block_size=block_size, num_blocks=num_blocks, n=n, s=s,
+        exact=exact, level1=level1, num_far=num_far)
     kuv = _ref.kv_pairs(x[u], x[v], kind, inv_bw, beta)
     q_vu = kuv / torch.clamp(degs[v], min=FLOOR)
     # q_e = p_u q_uv + p_v q_vu with p_i = deg_i / sum(deg); the second
@@ -301,7 +431,7 @@ def _edge_batch_word(status, batch: int, cols: int, far: int, ov: int,
 
 def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
                      views=None, hstate=None, kind, inv_bw, beta,
-                     block_size, num_blocks, n, level1="blocked",
+                     block_size, num_blocks, n, s, exact, level1="blocked",
                      num_far=1):
     """One fused Algorithm 5.1 edge batch with explicit noise ``u_vert``
     then the depth-2 step's noise: (u, v, weight, q_uv, q_vu, counter
@@ -312,16 +442,17 @@ def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
                                 u_vert, noise, hstate, kind=kind,
                                 inv_bw=inv_bw, beta=beta,
                                 block_size=block_size,
-                                num_blocks=num_blocks, n=n, level1=level1,
-                                num_far=num_far)
-    cols, far, ov = _l1_cols(level1, num_blocks, n, num_far, hstate)
+                                num_blocks=num_blocks, n=n, s=s, exact=exact,
+                                level1=level1, num_far=num_far)
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
     return (*out, _edge_batch_word(st, u_vert.shape[0], cols, far, ov,
                                    block_size))
 
 
 def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
                     num_batches: int, hstate=None, *, batch, kind, inv_bw,
-                    beta, block_size, num_blocks, n,
+                    beta, block_size, num_blocks, n, s, exact,
                     level1="blocked", num_far=1):
     """All ``num_batches`` edge batches of a sparsifier call: a device
     loop whose body is one fused edge batch, noise drawn per batch from
@@ -338,18 +469,21 @@ def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
     st = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(num_batches):
         u_vert, *noise = draw_edge_noise(batch, num_blocks, generator, dev,
-                                         level1=level1, num_far=num_far,
+                                         level1=level1, exact=exact,
+                                         num_far=num_far,
                                          block_size=block_size)
         *res, s_i = _edge_batch_core(x, x_sq, views, cdf, degs, inv_total,
                                      inv_t, u_vert, noise, hstate, kind=kind,
                                      inv_bw=inv_bw, beta=beta,
                                      block_size=block_size,
-                                     num_blocks=num_blocks, n=n,
-                                     level1=level1, num_far=num_far)
+                                     num_blocks=num_blocks, n=n, s=s,
+                                     exact=exact, level1=level1,
+                                     num_far=num_far)
         for o, r in zip(outs, res):
             o[i] = r
         st = st | s_i
-    cols, far, ov = _l1_cols(level1, num_blocks, n, num_far, hstate)
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
     word = _c.scale(_edge_batch_word(st, batch, cols, far, ov, block_size),
                     num_batches)
     return (*outs, word)

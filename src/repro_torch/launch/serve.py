@@ -75,10 +75,10 @@ def run_lm(args, model=None) -> dict:
     synchronize on the card), the final KV cache, the config and the cache
     length."""
     if args.robust:
-        raise not_in_slice("serve --robust", "queue 1 item 11")
+        raise not_in_slice("serve --robust", 12)
     if args.graph_stream or args.serve_tenants:
         raise not_in_slice("the graph-serving modes of serve",
-                           "queue 1 item 8")
+                           9)
     dev = resolve_device(args.device)
     cfg, max_len = serve_config(args)
     shape = ShapeConfig("serve", args.prompt_len, args.batch, "prefill")

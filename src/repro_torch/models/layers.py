@@ -36,7 +36,7 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
     ROADMAP.md queue 1 item 11)."""
     if cfg.dtype != "float32":
         raise not_in_slice(f"an LM config of dtype {cfg.dtype!r}",
-                           "queue 1 item 11")
+                           12)
     return torch.float32
 
 
@@ -86,7 +86,7 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Attention:
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> MLP:
     if cfg.is_moe:
-        raise not_in_slice("the MoE family", "queue 1 item 11")
+        raise not_in_slice("the MoE family", 12)
     d, f = cfg.d_model, cfg.d_ff
     return MLP(_dense_init(gen, (d, f)), _dense_init(gen, (d, f)),
                _dense_init(gen, (f, d)))

@@ -28,7 +28,7 @@ def check_dense(cfg: ArchConfig) -> None:
                        (cfg.is_encdec, "the enc-dec family"),
                        (cfg.frontend != "none", "the frontend families")):
         if flag:
-            raise not_in_slice(f"{what} ({cfg.name})", "queue 1 item 11")
+            raise not_in_slice(f"{what} ({cfg.name})", 12)
     L.dtype_of(cfg)
 
 
@@ -107,7 +107,7 @@ def _embed_inputs(model: Transformer, cfg: ArchConfig,
     """Returns (x (b, s, d), n_prefix = 0): the dense family has no
     frontend embeddings."""
     if "frontend" in batch:
-        raise not_in_slice("frontend embeddings", "queue 1 item 11")
+        raise not_in_slice("frontend embeddings", 12)
     tok = model.embed[_tokens(model, batch["tokens"])]
     return tok.to(L.dtype_of(cfg)), 0
 
@@ -142,7 +142,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     default here.  ``enc_len`` (the enc-dec memory) must be 0."""
     if enc_len != 0:
         raise not_in_slice(f"init_cache(enc_len={enc_len!r})",
-                           "queue 1, item 12")
+                           12)
     check_dense(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, cfg.hd)

@@ -144,7 +144,7 @@ def test_flash_plain_strided_operands():
 def test_flash_raises_on_requires_grad():
     q, k, v = (_t(a) for a in _qkv(1, 1, 2, 1, 8, 8, 8))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         tfa.flash_attention(q, k, v)
     with torch.no_grad():
         tfa.flash_attention(q, k, v)

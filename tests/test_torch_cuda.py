@@ -12,12 +12,15 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_reduced
-from repro_torch.core.kernels_fn import gaussian
+from repro_torch.core.kde.base import RSKDE
+from repro_torch.core.kernels_fn import gaussian, laplacian
 from repro_torch.core.sampling.edge import NeighborSampler
-from repro_torch.core.sparsify import spectral_sparsify
+from repro_torch.core.sparsify import (incidence_row_norms,
+                                       spectral_sparsify)
 from repro_torch.kernels.kde_hash import kernel as hk
 from repro_torch.kernels.kde_rowsum import kernel as rk
 from repro_torch.kernels.kde_sampler import kernel as sk
+from repro_torch.kernels.kde_sampler import ops as sops
 from repro_torch.kernels.kde_sampler.ops import gumbel
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as fops
@@ -670,3 +673,112 @@ def test_kde_decode_refuses_a_cache_too_long_for_a_cluster(cuda):
                 kk.kde_decode_cuda(q, k, k, top_p=4, bk=32, stride=4,
                                    kv_valid=s)
             assert kk.LAUNCHES["kde_decode"] == 0
+
+
+def _off_boundaries(bs, u, tie=1e-5):
+    """Rows whose block uniform lies farther than ``tie`` from every
+    cumulative boundary of their sums: sums taken in another order draw
+    the same block there."""
+    c = torch.cumsum(bs.double(), dim=1)
+    tot = c[:, -1:]
+    return ~((u.double()[:, None] * tot - c).abs() <= tie * tot).any(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "laplacian"])
+def test_stratified_fused_sample_on_the_card(cuda, kind):
+    """The stratified depth-2 step on the card (its cross term a cuBLAS
+    GEMM in IEEE f32) against the CPU plain path with the same noise, at a
+    ragged n: level-1 sums at rtol 2e-4 / atol 1e-5 and counter words
+    equal; neighbors equal and probabilities at rtol 2e-4 on every row
+    whose block uniform is not within 1e-5 of a boundary."""
+    gen = torch.Generator().manual_seed(17)
+    n, d, bs, w = 65536 + 300, 16, 256, 1024
+    nb = -(-n // bs)
+    x = torch.randn(n, d, generator=gen) * 0.5
+    src = torch.randint(0, n, (w,), generator=gen)
+    noise = sops.draw_sample_noise(w, nb, gen, "cpu", exact=False,
+                                   block_size=bs)
+    inv = 1.0 / (0.3 * d) if kind == "laplacian" else 1.0 / (0.5 * d ** 0.5)
+    cfg = dict(kind=kind, inv_bw=inv, beta=1.0, block_size=bs,
+               num_blocks=nb, n=n, s=16, exact=False)
+    want = sops.fused_sample(x, (x * x).sum(-1), src, *noise, **cfg)
+    xc = x.to(cuda)
+    got = sops.fused_sample(xc, (xc * xc).sum(-1), src.to(cuda),
+                            *[a.to(cuda) for a in noise], **cfg)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[3].cpu(), want[3])
+    keep = _off_boundaries(want[2], noise[1])
+    assert int(keep.sum()) > 0.98 * w
+    assert torch.equal(got[0].cpu()[keep], want[0][keep])
+    torch.testing.assert_close(got[1].cpu()[keep], want[1][keep], rtol=RTOL,
+                               atol=0.0)
+
+
+@pytest.mark.cuda
+def test_rskde_query_through_the_rowsum_kernel(cuda):
+    """``RSKDE`` on the card reads the rows the CPU twin reads (one numpy
+    generator a seed) and reduces them through the rowsum kernel, one
+    launch a query: the plain version's answers at rtol 2e-4 / atol 1e-5,
+    at the rs row norms' shape (1024 queries, 80 rows, d = 784)."""
+    x = np.random.default_rng(0).uniform(size=(4096, 784)).astype(
+        np.float32)
+    ker = laplacian(0.3 * 784)
+    card = RSKDE(x, ker, 80, seed=3, device=cuda)
+    plain = RSKDE(x, ker, 80, seed=3, device="cpu")
+    y = torch.as_tensor(x[:1024])
+    before = rk.LAUNCHES["rowsum"]
+    for _ in range(2):
+        torch.testing.assert_close(card.query(y).cpu(), plain.query(y),
+                                   rtol=RTOL, atol=ATOL)
+    assert rk.LAUNCHES["rowsum"] - before == 2
+    assert card.evals == plain.evals == 2 * 1024 * 80
+
+
+@pytest.mark.cuda
+def test_sample_exact_on_the_card(cuda):
+    """The Theorem 4.12 rounds on the card against the CPU plain path, on
+    the same cached stratified sums and noise: the counter words' evals
+    and draws equal, at most 0.1% of the rows differ (a proposal or an
+    accept test at a near-tie of sums taken in another order) and the
+    fallback counts by no more than that; ``NeighborSampler.sample_exact``
+    runs on the card on a stratified sampler."""
+    gen = torch.Generator().manual_seed(23)
+    n, d, bs, w, rounds = 20000 + 17, 8, 128, 2048, 8
+    nb = -(-n // bs)
+    x = torch.randn(n, d, generator=gen) * 0.5
+    src = torch.randint(0, n, (w,), generator=gen)
+    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, block_size=bs, n=n)
+    sums, _ = sops.masked_block_sums(
+        x, (x * x).sum(-1), src, torch.rand((nb, bs), generator=gen),
+        num_blocks=nb, s=16, exact=False, **cfg)
+    noise = sops.draw_exact_noise(w, rounds, gen, "cpu")
+    want = sops.fused_sample_exact(x, (x * x).sum(-1), src, sums, *noise,
+                                   rounds=rounds, slack=2.0, **cfg)
+    xc = x.to(cuda)
+    got = sops.fused_sample_exact(xc, (xc * xc).sum(-1), src.to(cuda),
+                                  sums.to(cuda),
+                                  *[a.to(cuda) for a in noise],
+                                  rounds=rounds, slack=2.0, **cfg)
+    differ = int((got[0].cpu() != want[0]).sum())
+    assert differ <= w // 1000, differ
+    assert torch.equal(got[1].cpu()[1:4], want[1][1:4])
+    assert abs(int(got[2]) - int(want[2])) <= differ
+    nbr = NeighborSampler(x, gaussian(1.0), seed=1, device=cuda)
+    v = nbr.sample_exact(src.numpy(), rounds=rounds, slack=2.0)
+    assert v.shape == (w,) and np.all(v != src.numpy())
+    assert np.all((v >= 0) & (v < n)) and nbr.exact_draws == w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "laplacian"])
+def test_incidence_row_norms_on_the_card(cuda, kind):
+    """``incidence_row_norms`` builds its kernel matrix on the card by
+    default, from a numpy array or a CUDA tensor: the CPU result at rtol
+    2e-4 / atol 1e-5."""
+    x = np.random.default_rng(5).normal(size=(300, 16)).astype(np.float32)
+    ker = laplacian(0.3 * 16) if kind == "laplacian" else gaussian(2.0)
+    want = incidence_row_norms(ker, x, device="cpu")
+    for arg in (x, torch.as_tensor(x, device=cuda)):
+        np.testing.assert_allclose(incidence_row_norms(ker, arg), want,
+                                   rtol=RTOL, atol=ATOL)

@@ -408,15 +408,15 @@ def test_status_bits_and_helpers_match_reference(monkeypatch):
 
 def test_device_defaults_to_the_card_and_slice_limits():
     """``device=None`` means CUDA and never drops to the CPU; options the
-    port does not cover yet raise NotImplementedError (``stratified`` and
-    ``hash`` are ported)."""
+    port does not cover yet raise NotImplementedError (``rs``,
+    ``stratified`` and ``hash`` are ported)."""
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
     x = np.zeros((4, 2), np.float32)
-    for name in ("rs", "robust", "grid_hbe"):
+    for name in ("robust", "grid_hbe"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbase.make_estimator(name, x, tmake("gaussian"), device="cpu")
     for kw in (dict(mesh=object()), dict(dataset=object()),

@@ -315,7 +315,7 @@ def test_hashed_block_sums_matches_reference(kind):
     m_bs, m_word = tops.masked_block_sums(
         torch.as_tensor(x), None, torch.as_tensor(src.astype(np.int64)), off,
         tstate, kind=kind, inv_bw=cfg["inv_bw"], beta=1.0, block_size=bs,
-        num_blocks=nb, n=n, level1="hash", num_far=nf)
+        num_blocks=nb, n=n, s=16, exact=False, level1="hash", num_far=nf)
     _eq(m_bs, t_bs.numpy())
     _eq(m_word, t_word.numpy())
 

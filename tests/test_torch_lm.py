@@ -258,9 +258,9 @@ def test_out_of_slice_options_raise():
     for bad in (dict(num_experts=4, experts_per_token=2),
                 dict(ssm_kind="mamba2"), dict(encoder_layers=2),
                 dict(frontend="vision")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
             TT.init_params(dataclasses.replace(f32, **bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         tbase.get_config("rwkv6_3b")
     for flag in (["--robust"], ["--graph-stream", "64"],
                  ["--serve-tenants", "2"]):

@@ -179,9 +179,11 @@ def test_fkv_lowrank_matches_reference(lowrank):
 def test_pipelines_reject_options_outside_the_slice():
     x = np.zeros((20, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spectral_sparsify(x, gaussian(), num_edges=10, device="cpu")
+        spectral_sparsify(x, gaussian(), num_edges=10, mesh=object(),
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fkv_lowrank(x, laplacian(), rank=2, estimator="rs", device="cpu")
+        fkv_lowrank(x, laplacian(), rank=2, estimator="grid_hbe",
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RowNormSampler(torch.zeros(4, 2), laplacian(), mesh=object(),
                        device="cpu")

@@ -88,7 +88,7 @@ def test_fused_edge_batch_matches_ref_oracle(kind):
     *got, word = tops.fused_edge_batch(
         tx, tx_sq, torch.as_tensor(g["cdf"]), torch.as_tensor(g["degs"]),
         1.0 / g["total"], 1.0 / 1000, *noise, kind=kind, inv_bw=g["inv_bw"],
-        beta=1.0, block_size=bs, num_blocks=nb, n=n)
+        beta=1.0, block_size=bs, num_blocks=nb, n=n, s=16, exact=True)
     u, v, w, q_uv, q_vu = [a.numpy() for a in got]
     ru, rv, rw, rq_uv, rq_vu = [np.asarray(a) for a in want]
     np.testing.assert_array_equal(u, ru)
@@ -152,7 +152,8 @@ def test_masked_sums_and_prob_of_programs_match_reference():
         xj, xj_sq, jnp.asarray(src), jax.random.PRNGKey(0), pairwise=None,
         num_blocks=nb, s=bs, exact=True, **cfg)
     tsrc = torch.as_tensor(src.astype(np.int64))
-    bsum, w = tops.masked_block_sums(tx, tx_sq, tsrc, num_blocks=nb, **cfg)
+    bsum, w = tops.masked_block_sums(tx, tx_sq, tsrc, num_blocks=nb, s=bs,
+                                     exact=True, **cfg)
     np.testing.assert_allclose(bsum.numpy(), np.asarray(rbs), rtol=RTOL,
                                atol=1e-5)
     assert w.tolist() == np.asarray(rw).astype(np.int64).tolist()
@@ -273,7 +274,7 @@ def test_inverse_cdf_and_zero_row_guard_match_reference():
 
 def test_sampler_rejects_options_outside_the_slice():
     x = np.zeros((20, 2), np.float32)
-    for kw in (dict(), dict(exact_blocks=True, mode="tree"),
+    for kw in (dict(exact_blocks=True, mode="tree"),
                dict(level1="hash", mesh=object()),
                dict(exact_blocks=True, mesh=object()),
                dict(exact_blocks=True, precision="bf16")):

@@ -17,9 +17,11 @@ becomes ``u`` / ``off`` / ``fidx`` / ``noise`` / ``generator``), and the
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import importlib
 import inspect
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,11 +37,14 @@ from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.rownorm import RowNormSampler
 from repro_torch.core.sparsify import spectral_sparsify
+from repro_torch.device import ROADMAP_ITEMS, not_in_slice
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.kde_attention.ops import kde_attention
 from repro_torch.kernels.kde_rowsum import kernel as rs_k
 from repro_torch.kernels.kde_rowsum.ops import kde_blocksum, kde_rowsum
 from repro_torch.models.transformer import init_cache
+
+ROOT = Path(__file__).resolve().parents[1]
 
 #: (module under ``repro`` / ``repro_torch``, public name)
 ENTRY_POINTS = [
@@ -49,11 +54,15 @@ ENTRY_POINTS = [
     ("kernels.kde_attention.ops", "kde_attention"),
     ("core.kde.base", "ExactKDE"),
     ("core.kde.base", "ExactBlockKDE"),
+    ("core.kde.base", "RSKDE"),
+    ("core.kde.base", "make_estimator"),
     ("core.kde.hashed", "HashedKDE"),
     ("core.sampling.edge", "NeighborSampler"),
     ("core.sampling.edge", "shared_level1_estimator"),
     ("core.sampling.rownorm", "RowNormSampler"),
     ("core.sparsify", "spectral_sparsify"),
+    ("core.sparsify", "incidence_row_norms"),
+    ("core.lowrank", "countsketch_lowrank"),
     ("models.transformer", "init_cache"),
 ]
 
@@ -134,9 +143,6 @@ PLACEHOLDERS = {
     "HashedKDE.data_axes": (
         lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, None, None, None,
                           ("x",), device="cpu"), NotImplementedError),
-    "NeighborSampler.samples_per_block": (
-        lambda: NeighborSampler(_x(), K, "blocked", None, 8, True,
-                                device="cpu"), NotImplementedError),
     "NeighborSampler.tree": (
         lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, object(),
                                 device="cpu"), NotImplementedError),
@@ -153,9 +159,6 @@ PLACEHOLDERS = {
     "RowNormSampler.data_axes": (
         lambda: RowNormSampler(_x(), K, "exact", 0, None, ("x", "y"),
                                device="cpu"), NotImplementedError),
-    "spectral_sparsify.samples_per_block": (
-        lambda: spectral_sparsify(_x(), K, 64, "exact", 0, 32, True, 4,
-                                  device="cpu"), NotImplementedError),
     "init_cache.enc_len": (
         lambda: init_cache(CFG, 1, 8, torch.float32, 4,
                            device="cpu"), NotImplementedError),
@@ -188,6 +191,36 @@ def test_placeholders_at_their_defaults_change_nothing():
     assert cache["k"].shape[3] == 8
 
 
+@pytest.mark.parametrize("entry", ["NeighborSampler", "spectral_sparsify"])
+def test_samples_per_block_binds_by_position(entry):
+    """A positional 8 in the reference's place of ``samples_per_block``
+    sets the stratified read's rows a block: ``kernel_evals`` follows the
+    reference's formula at s = 8 and at the default 16 (n = 64: block
+    size 16, B = 4; B s evals a level-1 row)."""
+    x, n, bs, nb = _x(), 64, 16, 4
+    if entry == "NeighborSampler":
+        src = np.arange(10)
+
+        def evals(*spb):
+            nbr = NeighborSampler(x, K, "blocked", None, *spb, device="cpu")
+            nbr.sample(src)
+            return nbr.evals
+
+        def want(s):
+            return len(src) * (nb * s + bs)
+    else:
+        t, batch = 64, 32
+
+        def evals(*spb):
+            return spectral_sparsify(x, K, t, "stratified", 0, batch, False,
+                                     *spb, device="cpu").kernel_evals
+
+        def want(s):
+            return n * nb * s + t * (nb * s + bs + 1)
+    assert evals(8) == want(8)
+    assert evals() == evals(16) == want(16) != want(8)
+
+
 def test_kde_blocksum_binds_bm_by_position():
     """``kde_blocksum(q, x, k, 128)`` binds ``bm=128``, as the reference
     does: the width stays ceil(n / 256), not ceil(n / 128)."""
@@ -211,3 +244,34 @@ def test_flash_attention_binds_interpret_by_position():
                                jnp.asarray(v), True, 128, 128, True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("item", sorted(ROADMAP_ITEMS))
+def test_refusals_name_their_roadmap_item_by_title(item):
+    """A refusal names its ROADMAP.md queue 1 item by number and title,
+    and the queue's item of that number carries that title: a renumbered
+    queue fails here instead of leaving stale numbers in the messages."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text[text.index("### 1. Modules to port"):
+                 text.index("### 2. TPU kernels to port")]
+    heads = [ln for ln in queue.splitlines() if ln.startswith(f"{item}. **")]
+    assert len(heads) == 1, heads
+    assert ROADMAP_ITEMS[item].lower() in heads[0].lower(), heads
+    assert f"queue 1 item {item}, {ROADMAP_ITEMS[item]}" in str(
+        not_in_slice("x", item))
+
+
+def test_every_refusal_names_a_listed_item():
+    """Every ``not_in_slice(what, item)`` call in the port passes an item
+    number that ``ROADMAP_ITEMS`` lists (a literal, so the message can be
+    built)."""
+    calls = 0
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "not_in_slice":
+                item = node.args[1]
+                assert isinstance(item, ast.Constant) \
+                    and item.value in ROADMAP_ITEMS, (path, node.lineno)
+                calls += 1
+    assert calls >= 20
