@@ -90,14 +90,48 @@ Phases (any failure exits non-zero; no phase catches and continues):
                6's check 4; (4) the spectral error at the same config
                within ``STRAT_SPEC_BOUND``.  A per-stage breakdown of one
                edge batch follows (CUDA events).
-8. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
+8. bf16     -- the bf16 precision policy (DESIGN.md §14): (a) the bf16
+               instances of all six KDE kernel entry points against their
+               plain versions on the card, every L2 kind, at the ragged
+               shapes and tiles of phase 2 (d = 19, 8, 32, 36, 784, views
+               off 16 bytes; kde_hash m=37, t=45), one-column blocksums
+               (every kernel value: equal to the plain value wherever no
+               bf16 rounding midpoint lies within the f32 error of the
+               pair's argument), dyadic points (no slack) with planted
+               ties and sample_block calls of several row counts, and each
+               kernel at its main-path shape, timed; floats within rtol
+               2e-4 / atol 1e-5 plus the flip slack of the pairs behind
+               each output (``ref.bf16_flip_slack``: two correct f32
+               summation orders may round the exp argument to
+               neighbouring bf16 values, and read neighbouring table
+               entries, only where a rounding midpoint lies within the
+               f32 error of the exact argument); (b) the reference's
+               bench_kde precision sweep, ExactKDE f32 against bf16,
+               gaussian at bandwidth 4.0, d = 16, m = 64, n = 65,536 ...
+               1,048,576 (not cut): us a batch, evals/s, the bf16 / f32
+               time ratio, the max relative error within 2 BF16_REL_ERR;
+               (c) the exact sparsifier in bf16 on phase 3's data and
+               configuration from the public classes
+               (``NeighborSampler(exact_blocks=True, precision="bf16")``,
+               a ``DegreeSampler`` over its blocks, ``edge_batches``):
+               kernel_evals = n^2 + drawn (n + bs + 1), no fatal flag, the
+               bf16 degree sum against the exact f32 one (within 2
+               BF16_REL_ERR), the edge law (sources against the bf16
+               degrees drawn from, destinations by the block-restricted
+               PITs of phase 6), then ``prob_of`` on a fresh bf16 sampler;
+               (d) the hashed sparsifier in bf16 on phase 6's data
+               (``NeighborSampler(level1="hash", precision="bf16")``,
+               degrees from its hash estimator, t = 10n): phase 6's
+               layout, counter formula, degree-sum bound and edge law.
+               (c) and (d) launch only bf16 instances (asserted).
+9. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
                on the card, 6.06 B parameters): ``make_prefill_step(impl=
                "flash")`` on ``make_batch`` tokens at batch 1, seq 8192
                (the reference's prefill_32k shape, 32768 x 32, cut to
                8192 x 1): exactly 32 flash launches; its last-position
                logits against ``impl="xla"`` (the chunked branch at 8192):
                max |diff| <= 1e-3 max |logit| and the same argmax per row.
-9. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
+10. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
                same model, batch 4, prompt 512, gen 16, twice: ``--attention
                xla`` (its last-prompt-step logits against the flash prefill
                of the same prompts, same bound and argmax) and ``--attention
@@ -111,7 +145,7 @@ Phases (any failure exits non-zero; no phase catches and continues):
                split of 8 decode steps of each attention, and their walls
                over three rounds of 8 steps taken in turns (xla, kde, kde,
                xla, xla, kde).
-10. report  -- a ``{"kernels": [...]}`` line, the card line from
+11. report  -- a ``{"kernels": [...]}`` line, the card line from
                nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
@@ -133,10 +167,12 @@ enable_gqa=True)`` as the yardstick.
 Launch counters are set to 0 just before phase 3 and read just after
 phase 5, set to 0 again just before phase 6 and read just after its
 sparsifier returns, again around phase 7's sparsifier and each of phase
-5's rs and stratified runs, and around the flash prefill of phase 8 and
-the kde serve run of phase 9, so the comparisons and timings of phase 2
-and the checks do not count.  Each kernel's ``launches`` is its count from
-the run of its own path.
+5's rs and stratified runs, around phase 8's sweep (b), exact path (c) and
+hashed path (d), and around the flash prefill of phase 9 and the kde serve
+run of phase 10, so the comparisons and timings of phase 2 and of (a) and
+the checks do not count.  Each kernel's ``launches`` is its count from the
+run of its own path (the bf16 rows: rowsum_bf16 from (b), blocksum,
+masked_blocksum and sample_block from (c), the kde_hash pair from (d)).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -155,7 +191,9 @@ selected blocks (they are read as gathered keys), and the gathered keys and
 values below kv_valid, with q and out; 2 dh + 4 operations per (q-head,
 strided key below kv_valid) and 4 dh + 4 per (q-head, selected key below
 kv_valid) -- counted from the plain pipeline's selection on the same inputs
-(``decode_bound``).
+(``decode_bound``).  The bf16 rows count the same operations as the f32
+ones (f32 FMAs on the rounded values) and the same f32 operand bytes, plus
+the 256 KB exp table for the gaussian kind they run.
 """
 from __future__ import annotations
 
@@ -173,6 +211,7 @@ sys.path.insert(0, str(ROOT / "src"))
 RTOL, ATOL = 2e-4, 1e-5
 TIE = 1e-5
 PEAK_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores
+PEAK_BF16 = 989e12          # H100 SXM, dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SP_N, SP_D, SP_BW = 65536, 16, 1.0
 NS_FRONTIER = 4096
@@ -205,6 +244,15 @@ ST_S = 16
 STRAT_SPEC_BOUND = 0.042663044113774085
 # Theorem 4.12 rejection on the sampler phase's frontier
 EXACT_ROUNDS, EXACT_SLACK = 8, 2.0
+# the bf16 policy: its six kernel entry points (launch-counter keys), the
+# L2 kinds it takes, and the reference's bench_kde precision sweep
+# (benchmarks/bench_kde.py _precision_scaling: ExactKDE, gaussian at
+# bandwidth 4.0, d 16, m 64)
+BF16_NAMES = ("rowsum_bf16", "blocksum_bf16", "masked_blocksum_bf16",
+              "sample_block_bf16", "weighted_kv_sum_bf16", "weighted_kv_bf16")
+L2_KINDS = ("gaussian", "exponential", "rational_quadratic")
+SWEEP_N = (65536, 262144, 524288, 1048576)
+SWEEP_D, SWEEP_M, SWEEP_BW = 16, 64, 4.0
 # the LRA's sub-linear row norms: rs reads ceil(1/(tau eps^2)) = 80 rows a
 # query (tau 0.05, eps 0.5); stratified reads s = 16 of each 256-row block
 RS_SAMPLES = 80
@@ -271,35 +319,41 @@ def host_us(fn, reps: int) -> float:
 
 
 def close(got, want, what: str, atol: float = ATOL,
-          rtol: float = RTOL) -> float:
-    """Assert |got - want| <= atol + rtol |want| everywhere; return the
-    max abs error."""
+          rtol: float = RTOL, slack=0.0) -> float:
+    """Assert |got - want| <= atol + rtol |want| + slack everywhere; return
+    the max abs error.  ``slack`` (the bf16 kernels' flip slack of the
+    pairs behind each output, ``flip_slack``) is 0 for the f32 kernels."""
     import torch
     got, want = got.double(), want.double()
     err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    bad = err > atol + rtol * want.abs() + slack
     assert not bool(bad.any()), (
         f"{what}: {int(bad.sum())} values outside rtol {rtol} / atol "
-        f"{atol:.3e} (max abs err {float(err.max()):.3e})")
+        f"{atol:.3e}{' + flip slack' if torch.is_tensor(slack) else ''} "
+        f"(max abs err {float(err.max()):.3e})")
     assert bool(torch.isfinite(got).all()), f"{what}: non-finite values"
     return float(err.max())
 
 
-def check_blk(blk, bs_plain, gumbel, what: str) -> None:
-    """Drawn blocks equal the plain argmax except on near-tie rows."""
+def check_blk(blk, bs_plain, gumbel, what: str, widen=0.0) -> None:
+    """Drawn blocks equal the plain argmax except on near-tie rows: top two
+    scores within TIE (+ ``widen``, a row's score slack in bf16)."""
     import torch
     score = torch.log(bs_plain) + gumbel
     top2 = torch.topk(score, min(2, score.shape[1]), dim=1).values
-    tie = (top2[:, 0] - top2[:, -1]) <= TIE if score.shape[1] > 1 else \
+    tie = (top2[:, 0] - top2[:, -1]).double() <= TIE + widen \
+        if score.shape[1] > 1 else \
         torch.zeros(score.shape[0], dtype=torch.bool, device=score.device)
     want = torch.argmax(score, dim=1)
     bad = (blk != want) & ~tie
     assert not bool(bad.any()), f"{what}: {int(bad.sum())} drawn blocks differ"
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by) of a kernel call."""
-    t_ops = flops / PEAK_FLOPS * 1e3
+def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
+    """(bound_ms, bound_by) of a kernel call: ``flops`` f32 operations at
+    the FP32 rate plus ``bf16_flops`` operations on bf16 operands at the
+    tensor cores' rate, against ``nbytes`` at the HBM rate."""
+    t_ops = (flops / PEAK_FLOPS + bf16_flops / PEAK_BF16) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -549,6 +603,13 @@ def phase_kernels(data, gen):
         r["max_abs_err"] = errs[r["name"]]
         log_row(r)
     return rows
+
+
+def f32_counts(*counters):
+    """The f32 kernels' launch counts of the given ``LAUNCHES`` dicts (the
+    bf16 instances count under ``<name>_bf16``)."""
+    return {k: v for c in counters for k, v in c.items()
+            if not k.endswith("_bf16")}
 
 
 def log_row(r) -> None:
@@ -1240,48 +1301,29 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_kernels(fn, reps: int, traces: int = 3):
-    """{name: (launches, device us)} of every CUDA kernel (and memset or
-    copy) in a torch.profiler trace of ``reps`` calls of ``fn``, after one
-    warm-up call.  Every ``fn`` given here launches device work, so a
-    trace that holds no device activity at all lost its CUPTI records:
-    it is logged and taken again, up to ``traces`` traces in all ({} when
-    every one came back empty)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, traces + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ks = {e.key: (e.count, _dev_us(e)) for e in prof.key_averages()
-              if _dev_us(e) > 0
-              and str(getattr(e, "device_type", "")).endswith("CUDA")}
-        if ks:
-            return ks
-        log(f"[profiler] trace {attempt} of {traces} of {reps} calls shows "
-            f"no device activity (CUPTI records lost)"
-            + ("; tracing again" if attempt < traces else ""))
-    return {}
+def device_kernels(fn, reps: int):
+    """``profiling.device_kernels`` (padded, retraced until whole), each
+    trace that lost records logged."""
+    from repro_torch.kernels.profiling import device_kernels as traced
+    return traced(fn, reps, log=log)
 
 
 def kernel_device_ms(fn, kernel: str, reps: int):
     """Mean device ms per call of ``fn`` in the CUDA kernels whose names
     contain ``kernel`` ("" for all of them), from torch.profiler's kernel
     durations over ``reps`` calls (so the host's cost per call is left
-    out); None, printed as not measured, when the trace shows no such
-    kernel."""
+    out), taken from a trace that recorded every launch; None, printed as
+    not measured, when no trace shows such a kernel or none was whole."""
     hit = [us for name, (_, us) in device_kernels(fn, reps).items()
            if kernel in name]
-    return sum(hit) / reps / 1e3 if hit else None
+    if not hit or None in hit:
+        return None
+    return sum(hit) / reps / 1e3
 
 
 def launches_per_call(fn, reps: int) -> float:
-    """Device launches (kernels, memsets, copies) per call of ``fn`` in a
-    torch.profiler trace; NaN when the trace shows no device activity."""
+    """Device launches (kernels, memsets, copies) per call of ``fn``, from
+    ``device_kernels``; NaN when no trace shows device activity."""
     ks = device_kernels(fn, reps)
     return sum(c for c, _ in ks.values()) / reps if ks else float("nan")
 
@@ -1322,7 +1364,7 @@ def profile_text(wall, busy, share, names) -> str:
 
 
 def phase_lm_prefill():
-    """Phase 8: yi-6b at full width and depth, the flash prefill counted
+    """Phase 9: yi-6b at full width and depth, the flash prefill counted
     and checked against xla."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
@@ -1370,7 +1412,7 @@ def phase_lm_prefill():
 
 
 def phase_lm_serve(model, gen):
-    """Phase 9: the serve driver on the full model, xla then kde."""
+    """Phase 10: the serve driver on the full model, xla then kde."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ShapeConfig
@@ -1793,6 +1835,557 @@ def strat_breakdown(data):
     return {k: timed(fn, 20) for k, fn in stages.items()}
 
 
+# ------------------------------------------------------------------ bf16
+def bf16_bound(pairs: int, d: int, nbytes: float, f32_extra: float = 0.0):
+    """bound() of a gaussian bf16 call over ``pairs`` pairs: the cross
+    term's 2d operations a pair have bf16 operands (tensor-core rate);
+    the finish's 6 a pair (and ``f32_extra``) are f32."""
+    return bound(6 * pairs + f32_extra, nbytes, bf16_flops=2 * d * pairs)
+
+
+def table_bytes(q, x, inv_bw, chunk=1024) -> int:
+    """Bytes of the exp table a gaussian bf16 call on these inputs needs:
+    4 for each distinct bf16 argument among its pairs (x (n, d), or
+    gathered rows (m, t, d) chunked with q)."""
+    import torch
+    from repro_torch.kernels.kde_sampler.ref import bf16_bits, round_bf16
+    seen = torch.zeros(65536, dtype=torch.bool, device=q.device)
+    for lo in range(0, q.shape[0], chunk):
+        qf = round_bf16(q[lo:lo + chunk])
+        xf = round_bf16(x[lo:lo + chunk] if x.dim() == 3 else x)
+        cross = torch.einsum("wd,wtd->wt", qf, xf) if xf.dim() == 3 \
+            else qf @ xf.T
+        d2 = (qf * qf).sum(-1, keepdim=True) + (xf * xf).sum(-1) - 2 * cross
+        seen[bf16_bits(-d2.clamp(min=0.0) * (inv_bw * inv_bw))] = True
+    return 4 * int(seen.sum())
+
+
+def bf16_kernel_checks(gen):
+    """(a), ragged part: every bf16 entry point against its plain version
+    on the card, every L2 kind, at the ragged shapes (m=37, n=301, d=19,
+    bn=70; kde_hash m=37, t=45), the wide tile (d = 8, 32), the deep tile
+    (d = 36, 784) and views off 16 bytes; one-column blocks (every kernel
+    value of the tile: equal to the plain value wherever the flip slack
+    is 0); dyadic points (exact in bf16 and f32: no slack) with planted
+    ties in sample_block; sample_block calls of several row counts in a
+    row.  Returns the max abs error per kernel."""
+    import torch
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    from repro_torch.kernels.kde_sampler.ops import gumbel
+    from repro_torch.kernels.kde_sampler.ref import bf16_flip_slack
+    dev = torch.device("cuda")
+    errs = {k: 0.0 for k in BF16_NAMES}
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    def misaligned(a):
+        view = torch.empty(a.numel() + 1, device=dev)[1:]
+        return view.view(a.shape).copy_(a)
+
+    for kind, d, view in [(k, 19, False) for k in L2_KINDS] + [
+            ("gaussian", 8, False), ("exponential", 32, False),
+            ("rational_quadratic", 36, False), ("gaussian", 784, False),
+            ("exponential", 16, True), ("gaussian", 784, True)]:
+        m, n, bn = 37, 301, 70
+        q = torch.randn(m, d, generator=gen, device=dev) * 0.3
+        x = torch.randn(n, d, generator=gen, device=dev) * 0.3
+        if view:
+            q, x = misaligned(q), misaligned(x)
+        inv_bw = 1.0 / (0.4 * d ** 0.5)
+        own = torch.randint(-1, -(-n // bn), (m,), generator=gen, device=dev)
+        g = gumbel((m, -(-n // bn)), gen, dev)
+        tag = f"{kind} d={d} ragged{' misaligned' if view else ''}"
+        slack = bf16_flip_slack(q, x, kind, inv_bw)
+        bsl = bf16_flip_slack(q, x, kind, inv_bw, bn)
+        a = (kind, inv_bw, 0.7)
+        note("rowsum_bf16", close(
+            rk.rowsum_cuda(q, x, *a, "bf16"), rk.rowsum_plain(q, x, *a, "bf16"),
+            f"rowsum bf16 {tag}", slack=slack.sum(1)))
+        note("blocksum_bf16", close(
+            rk.blocksum_cuda(q, x, *a, bn, "bf16"),
+            rk.blocksum_plain(q, x, *a, bn, "bf16"), f"blocksum bf16 {tag}",
+            slack=bsl))
+        one = rk.blocksum_cuda(q, x, *a, 1, "bf16")
+        one_plain = rk.blocksum_plain(q, x, *a, 1, "bf16")
+        if kind != "rational_quadratic":
+            assert torch.equal(one[slack == 0], one_plain[slack == 0]), \
+                f"blocksum bf16 one-column {tag}: values differ off the slack"
+        close(one, one_plain, f"blocksum bf16 one-column {tag}", slack=slack)
+        note("masked_blocksum_bf16", close(
+            sk.masked_blocksum_cuda(q, x, own, *a, bn, "bf16"),
+            sk.masked_blocksum_plain(q, x, own, *a, bn, "bf16"),
+            f"masked_blocksum bf16 {tag}", slack=bsl))
+        got = sk.sample_block_cuda(q, x, own, g, *a, bn, "bf16")
+        want = sk.sample_block_plain(q, x, own, g, *a, bn, "bf16")
+        note("sample_block_bf16", check_sample_block_bf16(got, want, g, bsl,
+                                                          tag))
+        log(f"[bf16] {tag} m={m} n={n} bn={bn}: ok (rowsum / blocksum tile "
+            f"{rk._cached_plan(q, x, kind, inv_bw, 0.7, bn, 'bf16')[0].instance}"
+            f"; {int((slack > 0).sum())} of {slack.numel()} pairs within "
+            f"the f32 error of a bf16 midpoint; one-column blocks equal off "
+            f"them)")
+
+    for kind, d, aligned in [(k, 19, True) for k in L2_KINDS] + [
+            ("gaussian", 8, True), ("exponential", 16, True),
+            ("rational_quadratic", 32, True), ("gaussian", 784, True),
+            ("exponential", 16, False)]:
+        m, t, n = 37, 45, 301
+        q = torch.randn(m, d, generator=gen, device=dev) * 0.3
+        flat = torch.randn(n * d + 1, generator=gen, device=dev) * 0.3
+        x = (flat[:-1] if aligned else flat[1:]).view(n, d)
+        cols = torch.randint(-2, n + 2, (m, t), generator=gen,
+                             dtype=torch.int32, device=dev)
+        wgt = torch.rand((m, t), generator=gen, device=dev) * 256.0
+        inv_bw = 1.0 / (0.4 * d ** 0.5)
+        args = (q, x, cols, wgt, kind, inv_bw, 0.7)
+        sl = bf16_flip_slack(q, x[cols.long().clamp(0, n - 1)], kind,
+                             inv_bw) \
+            * wgt.double()
+        want = hk.weighted_kv_plain(*args, precision="bf16")
+        note("weighted_kv_bf16", close(
+            hk.weighted_kv_cuda(*args, precision="bf16"), want,
+            f"weighted_kv bf16 {kind} d={d}",
+            HASH_ATOL * float(want.abs().max()), slack=sl))
+        want = hk.weighted_kv_sum_plain(*args, precision="bf16")
+        note("weighted_kv_sum_bf16", close(
+            hk.weighted_kv_sum_cuda(*args, precision="bf16"), want,
+            f"weighted_kv_sum bf16 {kind} d={d}",
+            HASH_ATOL * float(want.abs().max()), slack=sl.sum(1)))
+        log(f"[bf16] kde_hash ragged m={m} t={t} d={d} {kind}"
+            f"{'' if aligned else ', x off 16 bytes'} "
+            f"[{hk.weighted_kv_plan(m, n, d, t, x.data_ptr() % 16 == 0)}]: ok")
+
+    # dyadic points: exact in bf16, every distance exact in f32 in any
+    # order, so no slack; blocks lo and hi equal, equal Gumbel noise there
+    n, bn, m = 65536, 256, BATCH
+    nb = n // bn
+    lo, hi = 1, nb - 2
+    for d in (16, 19):
+        xt = torch.randint(-4, 5, (n, d), generator=gen, device=dev) / 8.0
+        xt[hi * bn:(hi + 1) * bn] = xt[lo * bn:(lo + 1) * bn]
+        qt = torch.randint(-4, 5, (m, d), generator=gen, device=dev) / 8.0
+        own = torch.randint(-1, nb, (m,), generator=gen, device=dev)
+        own[(own == lo) | (own == hi)] = -1
+        g = gumbel((m, nb), gen, dev)
+        g[:, lo] = g[:, hi] = 30.0
+        for kind in L2_KINDS:
+            a = (kind, 1.0 / (0.5 * d ** 0.5), 0.7)
+            note("rowsum_bf16", close(rk.rowsum_cuda(qt, xt, *a, "bf16"),
+                                      rk.rowsum_plain(qt, xt, *a, "bf16"),
+                                      f"rowsum bf16 dyadic {kind} d={d}"))
+            note("masked_blocksum_bf16", close(
+                sk.masked_blocksum_cuda(qt, xt, own, *a, bn, "bf16"),
+                sk.masked_blocksum_plain(qt, xt, own, *a, bn, "bf16"),
+                f"masked_blocksum bf16 dyadic {kind} d={d}"))
+            blk, _, tot, bs = sk.sample_block_cuda(qt, xt, own, g, *a, bn,
+                                                   "bf16")
+            assert torch.equal(bs[:, lo], bs[:, hi]), f"tie sums {kind} d={d}"
+            assert bool((blk == lo).all()), (
+                f"sample_block bf16 ties {kind} d={d}: "
+                f"{int((blk != lo).sum())} rows did not take the lower block")
+            want = sk.sample_block_plain(qt, xt, own, g, *a, bn, "bf16")
+            note("sample_block_bf16", max(
+                close(bs, want[3], f"sample_block bf16 ties sums {kind}"),
+                close(tot, want[2], f"sample_block bf16 ties tot {kind}")))
+        for m2 in (BATCH, 37, 300, 1, 129, BATCH):
+            q2 = xt[torch.randint(0, n, (m2,), generator=gen, device=dev)]
+            own2 = torch.randint(-1, nb, (m2,), generator=gen, device=dev)
+            g2 = gumbel((m2, nb), gen, dev)
+            a = ("gaussian", 1.0 / (0.5 * d ** 0.5), 1.0)
+            got = sk.sample_block_cuda(q2, xt, own2, g2, *a, bn, "bf16")
+            want = sk.sample_block_plain(q2, xt, own2, g2, *a, bn, "bf16")
+            check_blk(got[0], want[3], g2, f"sample_block bf16 m={m2}")
+            close(got[3], want[3], f"sample_block bf16 repeated m={m2}")
+    log(f"[bf16] dyadic points (no slack), d = 16 / 19, every L2 kind: "
+        f"rowsum, masked_blocksum and sample_block within rtol {RTOL}; "
+        f"planted ties (blocks {lo} and {hi}, {m} rows) go to the lower "
+        f"block; sample_block calls of m = BATCH, 37, 300, 1, 129, BATCH in "
+        f"a row match (the arrival counters reset themselves)")
+    return errs
+
+
+def check_sample_block_bf16(got, want, g, bsl, what):
+    """sample_block in bf16 against its plain version: sums and tot within
+    the flip slack, the drawn block equal except where the top two plain
+    scores lie within 1e-5 or within the sums' slack, p_blk against the
+    plain sums at the kernel's draw."""
+    import torch
+    blk, pb, tot, bs = got
+    _, _, rtot, rbs = want
+    err = max(close(bs, rbs, f"sample_block bf16 sums {what}", slack=bsl),
+              close(tot, rtot, f"sample_block bf16 tot {what}",
+                    slack=bsl.sum(1)))
+    check_blk(blk, rbs, g, f"sample_block bf16 {what}",
+              2.0 * torch.log1p(bsl / rbs.double()).max(1).values)
+    pslack = (bsl.sum(1) + torch.gather(bsl, 1, blk[:, None])[:, 0]) \
+        / rtot.double()
+    pwant = torch.gather(rbs, 1, blk[:, None])[:, 0] / rtot
+    return max(err, close(pb, pwant, f"sample_block bf16 p {what}",
+                          slack=pslack))
+
+
+def bf16_main_rows(data, gen, errs):
+    """(a), main-path part: each bf16 kernel at the shape its path gives
+    it, checked (flip slack) and timed: kernel (CUDA events, host
+    included), device (torch.profiler), plain version, and the yardstick
+    (``torch.cdist`` on the rounded inputs, the table finish and the sum;
+    none for the kde_hash kernels).  Returns the six report rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_hash import ops as hops
+    from repro_torch.kernels.kde_hash import ref as href
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    from repro_torch.kernels.kde_sampler.ops import gumbel
+    from repro_torch.kernels.kde_sampler.ref import (
+        bf16_flip_slack, exp_bf16, round_bf16)
+    dev = torch.device("cuda")
+    rows = []
+
+    def row(name, src, line, shape, fn, plain, b, lib, kernel_name, **kw):
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{line}", shape=shape,
+            ms=timed(fn, kw.get("reps", 20)),
+            device_ms=kernel_device_ms(fn, kernel_name, kw.get("reps", 20)),
+            plain_ms=timed(plain, 3), bound_ms=b[0], bound_by=b[1],
+            library_ms=None if lib is None else timed(lib, 3),
+            max_abs_err=errs[name]))
+
+    # rowsum: the bench_kde sweep's largest batch, ExactKDE(bf16)
+    rng = np.random.default_rng(0)
+    xr = torch.as_tensor(rng.normal(0, 0.5, (SWEEP_N[-1], SWEEP_D))
+                         .astype(np.float32), device=dev)
+    qr = torch.as_tensor(rng.normal(0, 0.5, (SWEEP_M, SWEEP_D))
+                         .astype(np.float32), device=dev)
+    inv = 1.0 / SWEEP_BW
+    a = ("gaussian", inv, 1.0)
+    errs["rowsum_bf16"] = max(errs["rowsum_bf16"], close(
+        rk.rowsum_cuda(qr, xr, *a, "bf16"), rk.rowsum_plain(qr, xr, *a, "bf16"),
+        "rowsum bf16 main", slack=bf16_flip_slack(qr, xr, "gaussian", inv).sum(1)))
+    qb, xb = round_bf16(qr), round_bf16(xr)
+    m, n, d = SWEEP_M, SWEEP_N[-1], SWEEP_D
+    row("rowsum_bf16", "kde_rowsum.cu", "kde_rowsum/kernel.py:137",
+        f"m={m} n={n} d={d} gaussian bw {SWEEP_BW}",
+        lambda: rk.rowsum_cuda(qr, xr, *a, "bf16"),
+        lambda: rk.rowsum_plain(qr, xr, *a, "bf16"),
+        bf16_bound(m * n, d, 4 * (m * d + n * d + m)
+                   + table_bytes(qr, xr, inv)),
+        lambda: exp_bf16(torch.cdist(qb, xb).square_().mul_(-inv * inv))
+        .sum(1), "")
+    del xr, xb
+
+    x, bn = data["sp_x"], data["sp_bs"]
+    n, d = x.shape
+    nb = -(-n // bn)
+    inv = 1.0 / SP_BW
+    a = ("gaussian", inv, 1.0)
+    xb = round_bf16(x)
+
+    def cdist_blocks(qq):
+        kv = exp_bf16(torch.cdist(round_bf16(qq), xb).square_().mul_(
+            -inv * inv))
+        return kv.view(qq.shape[0], nb, bn).sum(-1)
+
+    q = x[:BATCH].contiguous()
+    m = q.shape[0]
+    bsl = bf16_flip_slack(q, x, "gaussian", inv, bn)
+    errs["blocksum_bf16"] = max(errs["blocksum_bf16"], close(
+        rk.blocksum_cuda(q, x, *a, bn, "bf16"),
+        rk.blocksum_plain(q, x, *a, bn, "bf16"), "blocksum bf16 main",
+        slack=bsl))
+    row("blocksum_bf16", "kde_rowsum.cu", "kde_rowsum/kernel.py:169",
+        f"m={m} n={n} d={d} bn={bn} gaussian",
+        lambda: rk.blocksum_cuda(q, x, *a, bn, "bf16"),
+        lambda: rk.blocksum_plain(q, x, *a, bn, "bf16"),
+        bf16_bound(m * n, d, 4 * (m * d + n * d + m * nb)
+                   + table_bytes(q, x, inv)),
+        lambda: cdist_blocks(q), "blocksum")
+
+    src = data["ns_src"]
+    qm = x[src].contiguous()
+    own = src // bn
+    mm = qm.shape[0]
+    bsl = bf16_flip_slack(qm, x, "gaussian", inv, bn)
+    errs["masked_blocksum_bf16"] = max(errs["masked_blocksum_bf16"], close(
+        sk.masked_blocksum_cuda(qm, x, own, *a, bn, "bf16"),
+        sk.masked_blocksum_plain(qm, x, own, *a, bn, "bf16"),
+        "masked_blocksum bf16 main", slack=bsl))
+
+    def cdist_masked():
+        s = cdist_blocks(qm)
+        s[torch.arange(mm, device=dev), own] -= 1.0
+        return s.clamp_(min=1e-12)
+
+    row("masked_blocksum_bf16", "kde_sampler.cu",
+        "kde_sampler/kernel.py:90", f"m={mm} n={n} d={d} bn={bn} gaussian",
+        lambda: sk.masked_blocksum_cuda(qm, x, own, *a, bn, "bf16"),
+        lambda: sk.masked_blocksum_plain(qm, x, own, *a, bn, "bf16"),
+        bf16_bound(mm * n, d, 4 * (mm * d + n * d + mm + mm * nb)
+                   + table_bytes(qm, x, inv)),
+        cdist_masked, "sampler_", reps=10)
+
+    src = src[:BATCH]
+    qs = x[src].contiguous()
+    own = src // bn
+    m = qs.shape[0]
+    g = gumbel((m, nb), gen, dev)
+    bsl = bf16_flip_slack(qs, x, "gaussian", inv, bn)
+    got = sk.sample_block_cuda(qs, x, own, g, *a, bn, "bf16")
+    errs["sample_block_bf16"] = max(errs["sample_block_bf16"],
+                                    check_sample_block_bf16(
+        got, sk.sample_block_plain(qs, x, own, g, *a, bn, "bf16"), g, bsl,
+        "main"))
+    per_call = launches_per_call(
+        lambda: sk.sample_block_cuda(qs, x, own, g, *a, bn, "bf16"), 10)
+    assert per_call == 1.0, f"sample_block bf16: {per_call} launches a call"
+    log(f"[bf16] sample_block main: {per_call:.0f} device launch a call")
+    row("sample_block_bf16", "kde_sampler.cu", "kde_sampler/kernel.py:129",
+        f"m={m} n={n} d={d} bn={bn} gaussian",
+        lambda: sk.sample_block_cuda(qs, x, own, g, *a, bn, "bf16"),
+        lambda: sk.sample_block_plain(qs, x, own, g, *a, bn, "bf16"),
+        bf16_bound(m * n, d, 4 * (m * d + n * d + m + 2 * m * nb + 3 * m)
+                   + table_bytes(qs, x, inv), 3 * m * nb),
+        None, "sampler_")
+
+    x, state, cw = data["hs_x"], data["hs_state"], data["hs_cw"]
+    n, d = x.shape
+    bn = data["hs_bs"]
+    nb = -(-n // bn)
+    inv = 1.0 / HS_BW
+    q = x[:BATCH].contiguous()
+    fidx = hops.draw_query_noise(BATCH, HS_NUM_FAR, n, gen, dev)
+    qcols, qwgt, _, _ = href.query_gather(q, state, fidx, cw, HS_NUM_FAR, n)
+    src = torch.randint(0, n, (BATCH,), generator=gen, device=dev)
+    off = hops.draw_frontier_noise(BATCH, nb, HS_FAR_PER_BLOCK, bn, gen, dev)
+    fcols, fwgt, _, _ = href.frontier_gather(src, state, off,
+                                             HS_FAR_PER_BLOCK, bn, nb, n)
+    fq = x[src].contiguous()
+    for name, qq, cols, wgt, line, sum_out in (
+            ("weighted_kv_sum_bf16", q, qcols, qwgt, 87, True),
+            ("weighted_kv_bf16", fq, fcols, fwgt, 97, False)):
+        kern = hk.weighted_kv_sum_cuda if sum_out else hk.weighted_kv_cuda
+        plain = hk.weighted_kv_sum_plain if sum_out else hk.weighted_kv_plain
+        args = (qq, x, cols, wgt, "gaussian", inv)
+        rows_g = x[cols.long()]
+        sl = bf16_flip_slack(qq, rows_g, "gaussian", inv, chunk=256) \
+            * wgt.double()
+        want = plain(*args, precision="bf16")
+        errs[name] = max(errs[name], close(
+            kern(*args, precision="bf16"), want, f"{name} main",
+            HASH_ATOL * float(want.abs().max()),
+            slack=sl.sum(1) if sum_out else sl))
+        m, t = cols.shape
+        uniq = torch.unique(cols).numel()
+        row(name, "kde_hash.cu", f"kde_hash/kernel.py:{line}",
+            f"m={m} t={t} d={d} gaussian, {uniq} distinct rows",
+            lambda: kern(*args, precision="bf16"),
+            lambda: plain(*args, precision="bf16"),
+            bf16_bound(m * t, d, 4 * (m * d + 2 * m * t
+                                      + (m if sum_out else m * t) + uniq * d)
+                       + table_bytes(qq, rows_g, inv), m * t), None,
+            "weighted_kv",
+            reps=50)
+    return rows
+
+
+def bf16_sweep():
+    """(b): the reference's bench_kde precision sweep on the card, not
+    cut: ExactKDE(precision="f32") against ExactKDE(precision="bf16"),
+    gaussian at bandwidth 4.0, d = 16, m = 64, n = 65,536 ... 1,048,576,
+    data from normal(0, 0.5) with seed 0 (x first, then q, as
+    bench_kde.py).  Prints us a batch, evals/s, the bf16 / f32 time ratio
+    and the max relative error, gated at 2 * BF16_REL_ERR."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kde.base import ExactKDE
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.kernels.kde_sampler.ref import BF16_REL_ERR
+    for n in SWEEP_N:
+        rng = np.random.default_rng(0)
+        x = rng.normal(0, 0.5, (n, SWEEP_D)).astype(np.float32)
+        q = torch.as_tensor(rng.normal(0, 0.5, (SWEEP_M, SWEEP_D))
+                            .astype(np.float32), device="cuda")
+        per = {}
+        for prec in ("f32", "bf16"):
+            est = ExactKDE(x, gaussian(SWEEP_BW), precision=prec,
+                           device="cuda")
+            ms = timed(lambda: est.query(q), 20)
+            per[prec] = (ms, est.query(q).double())
+        rel = float((per["bf16"][1] / per["f32"][1] - 1.0).abs().max())
+        ratio = per["bf16"][0] / per["f32"][0]
+        text = ", ".join(
+            f"{p} {ms * 1e3:.2f} us a batch ({n * SWEEP_M / (ms * 1e-3):.4e} "
+            f"evals/s)" for p, (ms, _) in per.items())
+        log(f"[bf16] sweep n={n}: {text}; bf16 / f32 time {ratio:.4f}; max "
+            f"rel err {rel:.4e} (bound {2 * BF16_REL_ERR})")
+        assert rel <= 2 * BF16_REL_ERR, (n, rel)
+
+
+def bf16_sparsify(x_np, bw, t, **sampler_kw):
+    """Alg 5.1 in bf16 from the public classes, as ``spectral_sparsify``
+    builds it (which takes no ``precision``): a ``NeighborSampler(...,
+    precision="bf16")`` (seed 2, so the hashed layout is phase 6's), a
+    ``DegreeSampler`` over its own level-1 structure (the exact blocks or
+    the hash estimator) and its ``edge_batches``.  Returns the graph's
+    fields as a namespace, with the run's seconds."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.core.sampling.vertex import DegreeSampler
+    t0 = time.perf_counter()
+    nbr = NeighborSampler(x_np, gaussian(bw), seed=2, precision="bf16",
+                          device="cuda", **sampler_kw)
+    est = nbr.hash_estimator if nbr.level1 == "hash" else nbr.blocks
+    deg = DegreeSampler(est, seed=1)
+    u, v, w, q_uv, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
+                                        deg.total, t, batch=BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return types.SimpleNamespace(
+        src=u.astype(np.int64), dst=v.astype(np.int64), weight=w,
+        q_uv=q_uv, degrees=deg.degrees, num_edges=len(u), secs=secs,
+        kernel_evals=nbr.evals + (0 if est is nbr.blocks else est.evals),
+        status=nbr.status | est.device_counters.status, nbr=nbr)
+
+
+def bf16_exact_path(data):
+    """(c): the exact sparsifier in bf16 on phase 3's data and
+    configuration, then ``prob_of`` on a fresh bf16 sampler (the
+    masked-blocksum kernel).  Returns (graph, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.ft import guards
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    n, bs, t = SP_N, data["sp_bs"], 10 * SP_N
+    rk.reset_launches()
+    sk.reset_launches()
+    g = bf16_sparsify(data["sp_x_np"], SP_BW, t, exact_blocks=True)
+    fresh = NeighborSampler(data["sp_x"], gaussian(SP_BW), exact_blocks=True,
+                            seed=4, precision="bf16", device="cuda")
+    p = fresh.prob_of(g.src[:NS_FRONTIER], g.dst[:NS_FRONTIER])
+    launches = {**rk.LAUNCHES, **sk.LAUNCHES}
+    np.testing.assert_allclose(p, g.q_uv[:NS_FRONTIER], rtol=1e-4)
+    drawn = -(-t // BATCH) * BATCH
+    assert g.kernel_evals == n * n + drawn * (n + bs + 1), g.kernel_evals
+    assert not (g.status & guards.FATAL), guards.decode_status(g.status)
+    assert g.num_edges == t and np.all(np.isfinite(g.weight))
+    log(f"[bf16] (c) exact sparsifier n={n} d={SP_D} t={t}: {g.secs:.2f} s, "
+        f"{t / g.secs:.0f} edges/s, kernel_evals {g.kernel_evals} = n^2 + "
+        f"drawn*(n + {bs} + 1), status {guards.decode_status(g.status)}; "
+        f"prob_of on a fresh bf16 sampler reproduces q_uv of {NS_FRONTIER} "
+        f"edges; launches {launches}")
+    want = {"blocksum_bf16": n // BATCH, "sample_block_bf16": drawn // BATCH,
+            "masked_blocksum_bf16": 1}
+    assert launches == {**{k: 0 for k in launches}, **want}, launches
+    return g, launches
+
+
+def bf16_exact_checks(data, g):
+    """(c)'s checks, off the counted run: the bf16 degrees against the
+    exact f32 ones, and the edge law (sources against the bf16 degrees the
+    run drew them from, destinations by the block-restricted PITs; level 2
+    is exact f32)."""
+    from repro_torch.kernels.kde_sampler.ref import BF16_REL_ERR
+    exact = exact_degrees(data["sp_x"], 1.0 / SP_BW).cpu().numpy()
+    rel = abs(g.degrees.sum() - exact.sum()) / exact.sum()
+    log(f"[bf16] (c) sum deg(bf16) {g.degrees.sum():.6e} vs exact f32 "
+        f"{exact.sum():.6e}: rel err {rel:.3e} (bound {2 * BF16_REL_ERR})")
+    assert rel <= 2 * BF16_REL_ERR, rel
+    log(f"[bf16] (c) edge law of the {g.num_edges} drawn edges: "
+        f"{hash_edge_law(data['sp_x'], data['sp_bs'], g, SP_BW)} "
+        f"(alpha 1e-3)")
+
+
+def bf16_hash_path(data):
+    """(d): the hashed sparsifier in bf16 on phase 6's data (the reference's
+    hash defaults, degrees from the sampler's own hash estimator, t = 10n).
+    Returns (graph, launches)."""
+    from repro_torch.kernels.kde_hash import kernel as hk
+    hk.reset_launches()
+    g = bf16_sparsify(data["hs_x_np"], HS_BW, 10 * HS_N, level1="hash")
+    launches = dict(hk.LAUNCHES)
+    log(f"[bf16] (d) hashed sparsifier n={HS_N} d={HS_D} t={10 * HS_N}: "
+        f"{g.secs:.2f} s, {10 * HS_N / g.secs:.0f} edges/s, kernel_evals "
+        f"{g.kernel_evals}, status {g.status}; launches {launches}")
+    want = {"weighted_kv_sum_bf16": HS_N // BATCH,
+            "weighted_kv_bf16": -(-10 * HS_N // BATCH)}
+    assert launches == {**{k: 0 for k in launches}, **want}, launches
+    return g, launches
+
+
+def bf16_hash_checks(data, g):
+    """(d)'s checks: phase 6's counter formulas, the degree sum within 2%
+    of exact, the edge law of phase 6."""
+    import numpy as np
+    from repro_torch.ft import guards
+    state, bn, n = data["hs_state"], data["hs_bs"], HS_N
+    hstate = g.nbr._hstate
+    assert all(bool((a == b).all()) for a, b in zip(hstate[:8], state[:8])), \
+        "the bf16 sampler's layout is not phase 6's"
+    t = 10 * n
+    drawn = -(-t // BATCH) * BATCH
+    nb = -(-n // bn)
+    near = int(state.counts[state.point_bucket].sum())
+    want = (near + n * HS_NUM_FAR
+            + drawn * (HS_MAX_BUCKET + nb * HS_FAR_PER_BLOCK + bn + 1))
+    assert not (g.status & guards.FATAL), guards.decode_status(g.status)
+    assert g.kernel_evals == want, (g.kernel_evals, want)
+    assert g.num_edges == t and np.all(np.isfinite(g.weight))
+    log(f"[bf16] (d) status {guards.decode_status(g.status)} (no fatal "
+        f"flag); kernel_evals {g.kernel_evals} = NEAR {near} + n*{HS_NUM_FAR}"
+        f" + drawn*({HS_MAX_BUCKET} + {nb}*{HS_FAR_PER_BLOCK} + {bn} + 1)")
+    log(f"[bf16] (d) {degree_check(data, g.degrees, 'deg_hash_bf16')}")
+    log(f"[bf16] (d) edge law of the {g.num_edges} drawn edges: "
+        f"{hash_edge_law(data['hs_x'], bn, g)} (alpha 1e-3)")
+
+
+def phase_bf16(data, gen):
+    """Phase 8: the bf16 policy.  (a) the bf16 kernels against their plain
+    versions, (b) the bench_kde precision sweep, (c) the exact sparsifier
+    in bf16, (d) the hashed sparsifier in bf16, each counted on its own.
+    Returns (the six report rows, launches by kernel, seconds by part)."""
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    secs = {}
+    t0 = time.perf_counter()
+    errs = bf16_kernel_checks(gen)
+    rows = bf16_main_rows(data, gen, errs)
+    for r in rows:
+        log_row(r)
+    free_cuda()
+    secs["bf16 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rk.reset_launches()
+    bf16_sweep()
+    launches = {"rowsum_bf16": rk.LAUNCHES["rowsum_bf16"]}
+    # timed(): a warm-up call and 20 timed ones, then one for the values
+    assert rk.LAUNCHES["rowsum"] == launches["rowsum_bf16"] \
+        == 22 * len(SWEEP_N), rk.LAUNCHES
+    secs["bf16 sweep"] = time.perf_counter() - t0
+    g_ex, ex_launches = bf16_exact_path(data)
+    secs["bf16 exact"] = g_ex.secs
+    g_hs, hs_launches = bf16_hash_path(data)
+    secs["bf16 hash"] = g_hs.secs
+    for k, v in {**ex_launches, **hs_launches}.items():
+        if k.endswith("_bf16") and v:
+            launches[k] = v
+    assert sorted(launches) == sorted(BF16_NAMES), launches
+    t0 = time.perf_counter()
+    bf16_exact_checks(data, g_ex)
+    bf16_hash_checks(data, g_hs)
+    secs["bf16 checks"] = time.perf_counter() - t0
+    return rows, launches, secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1846,7 +2439,7 @@ def main() -> int:
     g, phases["sparsify"] = phase_sparsify(data)
     phases["sampler"], (ex_src, ex_dst) = phase_sampler(data)
     res, phases["lra"] = phase_lra(data)
-    launches = {**rk.LAUNCHES, **sk.LAUNCHES}
+    launches = f32_counts(rk.LAUNCHES, sk.LAUNCHES)
     log(f"[main path] launches {launches}")
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was not launched on the main path"
@@ -1855,7 +2448,7 @@ def main() -> int:
     sk.reset_launches()
     hk.reset_launches()
     g_hash, phases["hash"] = phase_hash(data)
-    hash_launches = dict(hk.LAUNCHES)
+    hash_launches = f32_counts(hk.LAUNCHES)
     log(f"[hash path] launches {hash_launches}")
     want = {"weighted_kv_sum": HS_N // BATCH,
             "weighted_kv": -(-10 * HS_N // BATCH)}
@@ -1909,7 +2502,14 @@ def main() -> int:
     log("[stratified] one edge batch, ms by stage (CUDA events): "
         + ", ".join(f"{k} {v:.4f}"
                     for k, v in strat_breakdown(data).items()))
-    del data, g, g_hash, g_strat, res, lra_est, runs, deg
+    del g, g_hash, g_strat, res, lra_est, runs, deg
+    free_cuda()
+
+    bf16_rows, bf16_launches, bf16_secs = phase_bf16(data, gen)
+    rows += bf16_rows
+    launches.update(bf16_launches)
+    phases.update(bf16_secs)
+    del data
     free_cuda()
 
     # the LM phases run in IEEE f32: no TF32 in any matmul

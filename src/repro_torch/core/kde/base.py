@@ -20,6 +20,15 @@ A KDE structure over a fixed dataset ``X`` answers queries
 All estimators count kernel evaluations (``.evals``) -- the paper's
 headline cost metric in Section 7 -- and fold the counter words of the
 programs they run into ``device_counters``.
+
+``precision`` (DESIGN.md §14) selects the dtype policy of the level-1
+dataset sweeps: ``"f32"`` (the default) or ``"bf16"`` (operands rounded to
+bf16, f32 accumulation, the bf16 exp table; the L2 kinds only, checked at
+construction).  On the CPU the bf16 ``ExactKDE`` / ``RSKDE`` answers are
+``rowsum_plain(precision="bf16")``, the plain version of the bf16 rowsum
+kernel, where the reference's CPU path runs ``_bf16_rowsum`` (the block
+sums of ``kv_block_sums_bf16``, summed): the same function up to the
+order of the sums.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ import torch
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import (as_f32, no_switch, not_in_slice,
                                 resolve_device, tile_size)
+from repro_torch.kernels.kde_sampler.ref import (check_precision,
+                                                 static_pairwise)
 from repro_torch.obs import counters as _c
 
 
@@ -41,8 +52,7 @@ class KDEBase:
 
     def __init__(self, x, kernel: Kernel, precision: str = "f32",
                  device=None):
-        if precision != "f32":
-            raise not_in_slice(f"precision={precision!r}", 7)
+        check_precision(precision, kernel.name, static_pairwise(kernel))
         self.device = resolve_device(device)
         self.x = as_f32(x, self.device)
         # ||x_j||^2, computed once and reused by every L2-kernel read
@@ -83,7 +93,8 @@ class ExactKDE(KDEBase):
         from repro_torch.kernels.kde_rowsum import ops as rs_ops
         y = as_f32(y, self.device)
         self.evals += y.shape[0] * self.n
-        return rs_ops.kde_rowsum(y, self.x, self.kernel)
+        return rs_ops.kde_rowsum(y, self.x, self.kernel,
+                                 precision=self.precision)
 
 
 class RSKDE(KDEBase):
@@ -108,7 +119,8 @@ class RSKDE(KDEBase):
         idx = self._rng.integers(0, self.n, size=self.num_samples)
         self.evals += y.shape[0] * self.num_samples
         sub = self.x[torch.as_tensor(idx).to(self.device)]
-        return rs_ops.kde_rowsum(y, sub, self.kernel) \
+        return rs_ops.kde_rowsum(y, sub, self.kernel,
+                                 precision=self.precision) \
             * (self.n / self.num_samples)
 
 
@@ -132,12 +144,11 @@ class StratifiedKDE(KDEBase):
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _static_cfg(self) -> dict:
-        from repro_torch.kernels.kde_sampler.ref import static_pairwise
         return dict(kind=self.kernel.name, inv_bw=1.0 / self.kernel.bandwidth,
                     beta=getattr(self.kernel, "beta", 1.0),
                     pairwise=static_pairwise(self.kernel),
                     block_size=self.block_size, num_blocks=self.num_blocks,
-                    n=self.n)
+                    n=self.n, precision=self.precision)
 
     def block_sums(self, y: torch.Tensor) -> torch.Tensor:
         """(m, B) estimated per-block kernel sums; m*B*s evals per call."""
@@ -182,7 +193,7 @@ class ExactBlockKDE(KDEBase):
         return dict(kind=self.kernel.name, inv_bw=1.0 / self.kernel.bandwidth,
                     beta=getattr(self.kernel, "beta", 1.0),
                     block_size=self.block_size, num_blocks=self.num_blocks,
-                    n=self.n)
+                    n=self.n, precision=self.precision)
 
     def block_sums(self, y: torch.Tensor) -> torch.Tensor:
         """Exact (m, B) per-block sums; m*n evals per call."""

@@ -6,7 +6,9 @@ Definition 1.1 estimator interface: the KAP22/DEANN near/far decomposition
 Horvitz-Thompson FAR term over uniform complement samples) as one device
 program per query batch, whose weighted pass is the weighted-kv-sum CUDA
 kernel on the card -- O(max_bucket + num_far_samples) kernel evals per
-query instead of the dense backends' O(n).
+query instead of the dense backends' O(n).  ``precision="bf16"`` runs that
+pass in the bf16 policy (its bf16 kernel instance); the bucket layout, the
+FAR draws and the HT weights are the same at either precision.
 
 This slice covers static datasets on one device: ``mesh=``,
 ``data_axes=`` other than ``("data",)`` and ``dataset=`` raise
@@ -77,7 +79,8 @@ class HashedKDE(KDEBase):
                          beta=getattr(kernel, "beta", 1.0),
                          pairwise=static_pairwise(kernel),
                          cell_width=self.cell_width,
-                         num_far=min(self.num_far_samples, self.n), n=self.n)
+                         num_far=min(self.num_far_samples, self.n), n=self.n,
+                         precision=self.precision)
 
     def _note(self, word) -> int:
         """Fold one program's counter word into the guard state and

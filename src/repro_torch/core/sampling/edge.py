@@ -16,6 +16,11 @@ in-block draw.  Three level-1 reads are ported (``mode="blocked"``):
   B far_per_block) evals per frontier row, then an inverse-CDF block
   draw (DESIGN.md §10).
 
+``precision="bf16"`` (DESIGN.md §14) runs every level-1 read of the
+sampler in the bf16 policy (the bf16 kernel instances on the card, as the
+shared block structure's own sums); level-2 rows, draws and probabilities
+stay f32.
+
 ``sample`` returns the *realized* sampling probability of each drawn
 neighbor, and ``prob_of`` evaluates the probability the sampler assigns to
 an arbitrary (u, v) -- both are required by the sparsifier (Alg 5.1 steps
@@ -49,6 +54,8 @@ from repro_torch.device import no_switch, not_in_slice, resolve_device
 from repro_torch.ft import guards as _g
 from repro_torch.kernels.kde_sampler import ops as _ops
 from repro_torch.kernels.kde_sampler import ref as _ref
+from repro_torch.kernels.kde_sampler.ref import (check_precision,
+                                                 static_pairwise)
 from repro_torch.obs import counters as _c
 
 # Flags a healthy pipeline may legitimately raise (accuracy, not validity).
@@ -93,6 +100,9 @@ class NeighborSampler:
             raise not_in_slice("mesh=", 10)
         if dataset is not None:
             raise not_in_slice("dataset=", 8)
+        # the level-1 sweep's dtype policy (DESIGN.md §14), checked against
+        # the kernel kind before anything is built
+        check_precision(precision, kernel.name, static_pairwise(kernel))
         self.device = resolve_device(device)
         self.kernel = kernel
         self.mode = mode
@@ -146,7 +156,7 @@ class NeighborSampler:
                          num_blocks=self.num_blocks, n=self.n,
                          s=self._blocks.samples_per_block,
                          exact=exact_blocks, level1=level1,
-                         num_far=self._far_per_block)
+                         num_far=self._far_per_block, precision=precision)
         self._l2_cfg = {k: self._cfg[k] for k in
                         ("kind", "inv_bw", "beta", "block_size", "n")}
         self._noise_cfg = {k: self._cfg[k] for k in

@@ -51,7 +51,16 @@
 // cores.  The (m,) sum adds each thread's columns in index order, then warp
 // xor-shuffles, then the four warp totals in warp order: a fixed order, so
 // the result is the same from run to run.  No atomics.
+//
+// precision="bf16" (the Pallas kernel's bf16 specialisation: rowwise_kv on
+// rounded rows, finished through the exp-table operand) runs both
+// instances at the bf16 kind ids of kde_tile.cuh: q's coordinates are
+// rounded where they are loaded, each gathered coordinate as it arrives in
+// a register, and exp is read from `table` (the L2 kinds only; the HT
+// weights stay f32).
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "kde_tile.cuh"
 
@@ -66,6 +75,11 @@ struct KdeWeightedShape {
 namespace {
 
 constexpr int THREADS = 128;      // threads a row
+
+// A KIND instance's kernel-value arguments: the f32 kinds' 12-byte Params,
+// the bf16 kinds' TableParams (with the exp table).
+template <int KIND>
+using KindParams = std::conditional_t<kde::is_bf16(KIND), kde::TableParams, kde::Params>;
 constexpr int WARPS = THREADS / 32;
 
 // Sum of a thread's values in index order, then across the CTA in a fixed
@@ -89,12 +103,12 @@ template <int KIND, bool SUM>
 __global__ void __launch_bounds__(THREADS)
 weighted_kv_scalar_kernel(const float* __restrict__ q, const float* __restrict__ x,
                           const int* __restrict__ cols, const float* __restrict__ wgt,
-                          float* __restrict__ out, int n, int d, int t, kde::Params p) {
+                          float* __restrict__ out, int n, int d, int t, KindParams<KIND> p) {
   extern __shared__ float qs[];              // d floats: this CTA's query row
   constexpr bool L2 = KIND != kde::LAPLACIAN;
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int k = tid; k < d; k += THREADS) qs[k] = q[(size_t)row * d + k];
+  for (int k = tid; k < d; k += THREADS) qs[k] = kde::operand<KIND>(q[(size_t)row * d + k]);
   __syncthreads();
   float qq = 0.0f;
   if (L2) {
@@ -108,7 +122,7 @@ weighted_kv_scalar_kernel(const float* __restrict__ q, const float* __restrict__
     const float* xr = x + (size_t)c * d;
     float acc = 0.0f, xx = 0.0f;
     for (int k = 0; k < d; ++k) {
-      const float v = __ldg(xr + k);
+      const float v = kde::operand<KIND>(__ldg(xr + k));
       if (L2) {
         acc = fmaf(qs[k], v, acc);
         xx = fmaf(v, v, xx);
@@ -160,7 +174,7 @@ template <int KIND, bool SUM, int D4>
 __global__ void __launch_bounds__(THREADS)
 weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
                        const int* __restrict__ cols, const float* __restrict__ wgt,
-                       float* __restrict__ out, int n, int d, int t, kde::Params p) {
+                       float* __restrict__ out, int n, int d, int t, KindParams<KIND> p) {
   constexpr bool L2 = KIND != kde::LAPLACIAN;
   constexpr int L = D4;                       // lanes a column
   constexpr int SLOTS = THREADS / L;          // columns a CTA reads at once
@@ -178,8 +192,9 @@ weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const float* qr = q + (size_t)row * d;
   float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (mine)
-    qv = make_float4(__ldg(qr + 4 * lane_l), __ldg(qr + 4 * lane_l + 1),
-                     __ldg(qr + 4 * lane_l + 2), __ldg(qr + 4 * lane_l + 3));
+    qv = kde::operand4<KIND>(make_float4(__ldg(qr + 4 * lane_l), __ldg(qr + 4 * lane_l + 1),
+                                         __ldg(qr + 4 * lane_l + 2),
+                                         __ldg(qr + 4 * lane_l + 3)));
   float qq = 0.0f;
   if (L2) {
     qq = qv.x * qv.x;
@@ -210,7 +225,7 @@ weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
     load_group<U>(c, w, c_row, w_row, base + STEP + slot, SLOTS, n, t);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const float4 v = xv[u];
+      const float4 v = kde::operand4<KIND>(xv[u]);
       float acc, xx = 0.0f;
       if (L2) {
         acc = qv.x * v.x;
@@ -245,8 +260,9 @@ weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 template <int KIND, bool SUM>
 int launch_kind(const float* q, const float* x, const int* cols, const float* wgt,
-                float* out, const KdeWeightedShape& s, cudaStream_t st) {
-  const kde::Params p{s.inv_bw, s.inv_bw2, s.beta};
+                float* out, const float* table, const KdeWeightedShape& s, cudaStream_t st) {
+  KindParams<KIND> p{s.inv_bw, s.inv_bw2, s.beta};
+  if constexpr (kde::is_bf16(KIND)) p.table = table;
   if (s.instance == 4)
     weighted_kv_vec_kernel<KIND, SUM, 4><<<s.m, THREADS, 0, st>>>(q, x, cols, wgt, out,
                                                                       s.n, s.d, s.t, p);
@@ -263,14 +279,21 @@ int launch_kind(const float* q, const float* x, const int* cols, const float* wg
 
 template <bool SUM>
 int launch(const float* q, const float* x, const int* cols, const float* wgt, float* out,
-           const KdeWeightedShape& s, cudaStream_t st) {
+           const float* t, const KdeWeightedShape& s, cudaStream_t st) {
   switch (s.kind) {
-    case kde::GAUSSIAN: return launch_kind<kde::GAUSSIAN, SUM>(q, x, cols, wgt, out, s, st);
+    case kde::GAUSSIAN: return launch_kind<kde::GAUSSIAN, SUM>(q, x, cols, wgt, out, t, s, st);
     case kde::EXPONENTIAL:
-      return launch_kind<kde::EXPONENTIAL, SUM>(q, x, cols, wgt, out, s, st);
+      return launch_kind<kde::EXPONENTIAL, SUM>(q, x, cols, wgt, out, t, s, st);
     case kde::RATIONAL_QUADRATIC:
-      return launch_kind<kde::RATIONAL_QUADRATIC, SUM>(q, x, cols, wgt, out, s, st);
-    case kde::LAPLACIAN: return launch_kind<kde::LAPLACIAN, SUM>(q, x, cols, wgt, out, s, st);
+      return launch_kind<kde::RATIONAL_QUADRATIC, SUM>(q, x, cols, wgt, out, t, s, st);
+    case kde::LAPLACIAN:
+      return launch_kind<kde::LAPLACIAN, SUM>(q, x, cols, wgt, out, t, s, st);
+    case kde::GAUSSIAN_BF16:
+      return launch_kind<kde::GAUSSIAN_BF16, SUM>(q, x, cols, wgt, out, t, s, st);
+    case kde::EXPONENTIAL_BF16:
+      return launch_kind<kde::EXPONENTIAL_BF16, SUM>(q, x, cols, wgt, out, t, s, st);
+    case kde::RATIONAL_QUADRATIC_BF16:
+      return launch_kind<kde::RATIONAL_QUADRATIC_BF16, SUM>(q, x, cols, wgt, out, t, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -279,15 +302,18 @@ int launch(const float* q, const float* x, const int* cols, const float* wgt, fl
 
 extern "C" {
 
+// table: the (65536,) bf16 exp table for the bf16 gaussian and exponential
+// kinds, else null.
 int kde_weighted_kv_launch(const float* q, const float* x, const int* cols, const float* wgt,
-                           float* out, void* stream, const KdeWeightedShape* s) {
-  return launch<false>(q, x, cols, wgt, out, *s, static_cast<cudaStream_t>(stream));
+                           float* out, const float* table, void* stream,
+                           const KdeWeightedShape* s) {
+  return launch<false>(q, x, cols, wgt, out, table, *s, static_cast<cudaStream_t>(stream));
 }
 
 int kde_weighted_kv_sum_launch(const float* q, const float* x, const int* cols,
-                               const float* wgt, float* out, void* stream,
+                               const float* wgt, float* out, const float* table, void* stream,
                                const KdeWeightedShape* s) {
-  return launch<true>(q, x, cols, wgt, out, *s, static_cast<cudaStream_t>(stream));
+  return launch<true>(q, x, cols, wgt, out, table, *s, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

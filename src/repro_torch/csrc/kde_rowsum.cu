@@ -28,6 +28,11 @@
 //   per (block, query tile).
 // Any semantic block size bn works (not a power of two, e.g. 70); the
 // ragged last block is masked in the kernels.
+//
+// precision="bf16" (the Pallas kernels' bf16 specialisation with its
+// exp-table operand) is the same tiles at the bf16 kind ids of
+// kde_tile.cuh: operands rounded where they are staged, the table passed in
+// `table`.  Only the three L2 kinds have bf16 instances.
 #include "kde_wide.cuh"
 
 namespace {
@@ -39,7 +44,7 @@ struct SumArgs {
   const float* x;
   float* out;           // (m, nb)
   int m, n, d, bn, nb, group;
-  kde::Params p;
+  kde::TableParams p;
 };
 
 // The 128-row tiles' store: the raw block sum.
@@ -126,16 +131,21 @@ int blocksum_kind(const SumArgs& a, int instance, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int blocksum(const float* q, const float* x, float* out, const KdeTileShape& s,
-             cudaStream_t st) {
+int blocksum(const float* q, const float* x, float* out, const float* table,
+             const KdeTileShape& s, cudaStream_t st) {
   const SumArgs a{q, x, out, s.m, s.n, s.d, s.bn, s.nb, s.group,
-                  kde::Params{s.inv_bw, s.inv_bw2, s.beta}};
+                  kde::TableParams{s.inv_bw, s.inv_bw2, s.beta, table}};
   switch (s.kind) {
     case kde::GAUSSIAN: return blocksum_kind<kde::GAUSSIAN>(a, s.instance, st);
     case kde::EXPONENTIAL: return blocksum_kind<kde::EXPONENTIAL>(a, s.instance, st);
     case kde::RATIONAL_QUADRATIC:
       return blocksum_kind<kde::RATIONAL_QUADRATIC>(a, s.instance, st);
     case kde::LAPLACIAN: return blocksum_kind<kde::LAPLACIAN>(a, s.instance, st);
+    case kde::GAUSSIAN_BF16: return blocksum_kind<kde::GAUSSIAN_BF16>(a, s.instance, st);
+    case kde::EXPONENTIAL_BF16:
+      return blocksum_kind<kde::EXPONENTIAL_BF16>(a, s.instance, st);
+    case kde::RATIONAL_QUADRATIC_BF16:
+      return blocksum_kind<kde::RATIONAL_QUADRATIC_BF16>(a, s.instance, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -145,19 +155,20 @@ int blocksum(const float* q, const float* x, float* out, const KdeTileShape& s,
 extern "C" {
 
 // s: the plan's split as a blocksum (bn = columns a split, nb = splits);
-// partial: an (m, nb) float32 scratch buffer.
+// partial: an (m, nb) float32 scratch buffer; table: the (65536,) bf16 exp
+// table for the bf16 gaussian and exponential kinds, else null.
 int kde_rowsum_launch(const float* q, const float* x, float* partial, float* out,
-                      void* stream, const KdeTileShape* s) {
+                      const float* table, void* stream, const KdeTileShape* s) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = blocksum(q, x, partial, *s, st);
+  const int err = blocksum(q, x, partial, table, *s, st);
   if (err != 0) return err;
   rowsum_reduce_kernel<<<(s->m + 255) / 256, 256, 0, st>>>(partial, out, s->m, s->nb);
   return static_cast<int>(cudaGetLastError());
 }
 
-int kde_blocksum_launch(const float* q, const float* x, float* out, void* stream,
-                        const KdeTileShape* s) {
-  return blocksum(q, x, out, *s, static_cast<cudaStream_t>(stream));
+int kde_blocksum_launch(const float* q, const float* x, float* out, const float* table,
+                        void* stream, const KdeTileShape* s) {
+  return blocksum(q, x, out, table, *s, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -50,7 +50,10 @@
 // - generic (any d, any alignment; the ragged checks' d = 19 and d = 784):
 //   the 64-row tile of kde_tile.cuh, unchanged, with the same epilogue.
 // Both keep the reference's arithmetic: d2 = max(qn + xn - 2 cross, 0)
-// through kde::finish, IEEE expf/sqrtf/powf, no TF32, no fast-math.  Queries
+// through kde::finish, IEEE expf/sqrtf/powf, no TF32, no fast-math.
+// precision="bf16" runs both at the bf16 kind ids of kde_tile.cuh (the
+// Pallas kernels' bf16 specialisation): operands rounded where they are
+// staged, exp read from `table` (the L2 kinds only; the draw is f32).  Queries
 // are not padded: rows >= m are masked; a negative own index marks a row with
 // no own block; own is int32 or int64 (a flag in the shape struct).
 #include <stdint.h>
@@ -77,7 +80,7 @@ struct Args {
   float* tot;
   int* counter;         // one per query tile, 0 between launches
   int m, n, d, bn, nb, own64, group;
-  kde::Params p;
+  kde::TableParams p;
 };
 
 __device__ __forceinline__ void store_sum(const Args& a, float s, int gi, int b) {
@@ -230,13 +233,19 @@ template <bool DRAW>
 int launch(Args a, const KdeTileShape& s, cudaStream_t st) {
   a.m = s.m; a.n = s.n; a.d = s.d; a.bn = s.bn; a.nb = s.nb; a.own64 = s.own64;
   a.group = s.group;
-  a.p = kde::Params{s.inv_bw, s.inv_bw2, s.beta};
+  a.p.inv_bw = s.inv_bw; a.p.inv_bw2 = s.inv_bw2; a.p.beta = s.beta;
   switch (s.kind) {
     case kde::GAUSSIAN: return launch_kind<kde::GAUSSIAN, DRAW>(a, s.instance, st);
     case kde::EXPONENTIAL: return launch_kind<kde::EXPONENTIAL, DRAW>(a, s.instance, st);
     case kde::RATIONAL_QUADRATIC:
       return launch_kind<kde::RATIONAL_QUADRATIC, DRAW>(a, s.instance, st);
     case kde::LAPLACIAN: return launch_kind<kde::LAPLACIAN, DRAW>(a, s.instance, st);
+    case kde::GAUSSIAN_BF16:
+      return launch_kind<kde::GAUSSIAN_BF16, DRAW>(a, s.instance, st);
+    case kde::EXPONENTIAL_BF16:
+      return launch_kind<kde::EXPONENTIAL_BF16, DRAW>(a, s.instance, st);
+    case kde::RATIONAL_QUADRATIC_BF16:
+      return launch_kind<kde::RATIONAL_QUADRATIC_BF16, DRAW>(a, s.instance, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -245,20 +254,23 @@ int launch(Args a, const KdeTileShape& s, cudaStream_t st) {
 
 extern "C" {
 
+// table: the (65536,) bf16 exp table for the bf16 gaussian and exponential
+// kinds, else null.
 int kde_masked_blocksum_launch(const float* q, const float* x, const void* own, float* out,
-                               void* stream, const KdeTileShape* s) {
+                               const float* table, void* stream, const KdeTileShape* s) {
   Args a{};
-  a.q = q; a.x = x; a.own = own; a.bs = out;
+  a.q = q; a.x = x; a.own = own; a.bs = out; a.p.table = table;
   return launch<false>(a, *s, static_cast<cudaStream_t>(stream));
 }
 
 // counter: one int per query tile of the plan, all 0 (the kernel leaves them 0).
 int kde_sample_block_launch(const float* q, const float* x, const void* own,
                             const float* gumbel, float* bs, long long* blk, float* pb,
-                            float* tot, int* counter, void* stream, const KdeTileShape* s) {
+                            float* tot, int* counter, const float* table, void* stream,
+                            const KdeTileShape* s) {
   Args a{};
   a.q = q; a.x = x; a.own = own; a.g = gumbel; a.bs = bs; a.blk = blk; a.pb = pb;
-  a.tot = tot; a.counter = counter;
+  a.tot = tot; a.counter = counter; a.p.table = table;
   return launch<true>(a, *s, static_cast<cudaStream_t>(stream));
 }
 

@@ -29,14 +29,34 @@
 // columns >= jhi contribute nothing (jhi <= n), so callers pass the dataset
 // unpadded.  Coordinates >= d are staged as zeros on both sides, which adds 0
 // to both the L2 cross term and the L1 sum, so d needs no tile multiple.
+//
+// The bf16 policy (DESIGN.md §14; replaces the precision="bf16" branch of
+// _tile_kernel_values and its _finish_l2_bf16): three more kind ids, the L2
+// kinds with bf16 operands.  Their tiles round every staged coordinate to
+// bf16 (round to nearest even) once, where it lands in shared memory or in
+// a register, so the norms and the cross term are f32 sums of exact
+// products of the rounded values; finish() rounds the gaussian and
+// exponential argument to bf16 and reads exp from the 65,536-entry table
+// (kde_sampler/ref.py bf16_exp_table, 256 KB in global memory, gathered
+// through the read-only path: L1 and L2 keep the few KB a sweep touches),
+// carried in TableParams.  The rational quadratic finishes in
+// f32 as before.  The f32 kinds never read the table: the kde_hash kernels
+// take their f32 instances' arguments as the 12-byte Params, unchanged.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace kde {
 
-enum Kind : int { GAUSSIAN = 0, EXPONENTIAL = 1, RATIONAL_QUADRATIC = 2, LAPLACIAN = 3 };
+enum Kind : int {
+  GAUSSIAN = 0, EXPONENTIAL = 1, RATIONAL_QUADRATIC = 2, LAPLACIAN = 3,
+  GAUSSIAN_BF16 = 4, EXPONENTIAL_BF16 = 5, RATIONAL_QUADRATIC_BF16 = 6,
+};
+
+// The kind's operands are rounded to bf16.
+__host__ __device__ constexpr bool is_bf16(int kind) { return kind >= GAUSSIAN_BF16; }
 
 constexpr int BM = 64;          // query rows per CTA
 constexpr int BN = 64;          // dataset columns per staged chunk
@@ -53,6 +73,41 @@ struct Params {
   float beta;      // rational quadratic exponent
 };
 
+// Params and the bf16 exp table (the bf16 gaussian and exponential kinds;
+// null elsewhere).
+struct TableParams {
+  float inv_bw, inv_bw2, beta;
+  const float* table;
+};
+
+// v rounded to bf16 (nearest even) and back.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A staged coordinate of a KIND tile: rounded to bf16 for the bf16 kinds.
+template <int KIND>
+__device__ __forceinline__ float operand(float v) {
+  return is_bf16(KIND) ? round_bf16(v) : v;
+}
+
+// Four coordinates at once (the same value for the f32 kinds).
+template <int KIND>
+__device__ __forceinline__ float4 operand4(float4 v) {
+  if constexpr (is_bf16(KIND)) {
+    v.x = round_bf16(v.x);
+    v.y = round_bf16(v.y);
+    v.z = round_bf16(v.z);
+    v.w = round_bf16(v.w);
+  }
+  return v;
+}
+
+// exp(y) for y rounded to bf16: the table entry of its bit pattern.
+__device__ __forceinline__ float exp_table(float y, const float* table) {
+  return __ldg(table + __bfloat16_as_ushort(__float2bfloat16_rn(y)));
+}
+
 struct TileSmem {
   float qs[DK][BM + 1];   // +1 column: conflict-light transposed stores
   float xs[DK][BN + 1];
@@ -60,12 +115,16 @@ struct TileSmem {
   float xn[BN];           // ||x||^2 of the chunk's columns (L2 kinds)
 };
 
-template <int KIND>
-__device__ __forceinline__ float finish(float acc, float qn, float xn, const Params& p) {
+// P: Params or TableParams (the bf16 gaussian and exponential kinds read
+// its table).
+template <int KIND, class P>
+__device__ __forceinline__ float finish(float acc, float qn, float xn, const P& p) {
   if (KIND == LAPLACIAN) return expf(-acc * p.inv_bw);
   const float d2 = fmaxf(qn + xn - 2.0f * acc, 0.0f);
   if (KIND == GAUSSIAN) return expf(-d2 * p.inv_bw2);
   if (KIND == EXPONENTIAL) return expf(-sqrtf(d2) * p.inv_bw);
+  if constexpr (KIND == GAUSSIAN_BF16) return exp_table(-d2 * p.inv_bw2, p.table);
+  if constexpr (KIND == EXPONENTIAL_BF16) return exp_table(-sqrtf(d2) * p.inv_bw, p.table);
   return powf(1.0f + d2 * p.inv_bw2, -p.beta);
 }
 
@@ -76,7 +135,7 @@ __device__ __forceinline__ float finish(float acc, float qn, float xn, const Par
 template <int KIND>
 __device__ void tile_row_sums(const float* __restrict__ q, const float* __restrict__ x,
                               int m, int d, int i0, int jlo, int jhi,
-                              const Params& p, float (&rs)[TM], TileSmem& sm) {
+                              const TableParams& p, float (&rs)[TM], TileSmem& sm) {
   constexpr bool L2 = KIND != LAPLACIAN;
   const int tid = threadIdx.x;
   const int tx = tid % TX;
@@ -95,12 +154,12 @@ __device__ void tile_row_sums(const float* __restrict__ q, const float* __restri
       for (int e = tid; e < BM * DK; e += THREADS) {
         const int kk = e % DK, ii = e / DK;
         const int gi = i0 + ii, gk = k0 + kk;
-        sm.qs[kk][ii] = (gi < m && gk < d) ? q[(size_t)gi * d + gk] : 0.0f;
+        sm.qs[kk][ii] = (gi < m && gk < d) ? operand<KIND>(q[(size_t)gi * d + gk]) : 0.0f;
       }
       for (int e = tid; e < BN * DK; e += THREADS) {
         const int kk = e % DK, jj = e / DK;
         const int gj = j0 + jj, gk = k0 + kk;
-        sm.xs[kk][jj] = (gj < jhi && gk < d) ? x[(size_t)gj * d + gk] : 0.0f;
+        sm.xs[kk][jj] = (gj < jhi && gk < d) ? operand<KIND>(x[(size_t)gj * d + gk]) : 0.0f;
       }
       __syncthreads();
       if (L2) {

@@ -43,6 +43,15 @@
 //   One barrier a step; the L2 kinds sum the norms of every step in
 //   registers (two threads a row) and publish them once a column chunk.
 //   Shared memory (4 DK 132 + 256) floats: 34,816 B.
+//
+// The bf16 kinds (kde_tile.cuh): cp.async copies raw bytes, so nothing is
+// rounded in flight.  After its cp_async_wait_all() each thread rounds, in
+// place, exactly the pieces it copied itself (round_staged /
+// round_staged_kmajor walk the staging loops' own index pattern), before
+// the barrier that already precedes the norms and the FMAs: a thread's own
+// cp.async writes are visible to it after its wait, and the barrier
+// publishes the rounded values.  So the bf16 tiles add no barrier and no
+// instruction to the inner loop; the f32 kinds compile none of it.
 #pragma once
 
 #include "kde_tile.cuh"
@@ -139,6 +148,32 @@ __device__ __forceinline__ void stage_kmajor(float* dst, const float* src, int v
     const bool ok = kin && r < valid;
     cp_async4(dst + k * Deep<DK>::LD + r, ok ? s + (size_t)i * STEP * d : src, ok ? 4 : 0);
   }
+}
+
+// Round to bf16, in place, the pieces this thread staged with
+// stage<DK, ROWS>(dst, ...) (the same index pattern).
+template <int DK, int ROWS>
+__device__ __forceinline__ void round_staged(float* dst) {
+  constexpr int V = DK / 4;
+  for (int e = threadIdx.x; e < ROWS * V; e += WIDE_THREADS) {
+    float4* p = reinterpret_cast<float4*>(dst + (e / V) * Wide<DK>::RS + 4 * (e % V));
+    float4 v = *p;
+    v.x = round_bf16(v.x);
+    v.y = round_bf16(v.y);
+    v.z = round_bf16(v.z);
+    v.w = round_bf16(v.w);
+    *p = v;
+  }
+}
+
+// Round to bf16, in place, the coordinates this thread staged with
+// stage_kmajor<DK, ROWS>(dst, ...) (the same index pattern).
+template <int DK, int ROWS>
+__device__ __forceinline__ void round_staged_kmajor(float* dst) {
+  constexpr int STEP = WIDE_THREADS / DK;
+  float* p = dst + (threadIdx.x % DK) * Deep<DK>::LD + threadIdx.x / DK;
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) p[i * STEP] = round_bf16(p[i * STEP]);
 }
 
 // Squared norm over the DK staged coordinates of k-major row `row`, by two
@@ -241,7 +276,7 @@ __device__ __forceinline__ int tile_line(int t, int r) {
 template <int KIND, bool DEEPMAP = false>
 __device__ __forceinline__ void tile_finish(float (&rs)[8], float (&acc)[8][8],
                                             const float* qn, const float* xn, int tx, int ty,
-                                            int j0, int jend, const Params& p) {
+                                            int j0, int jend, const TableParams& p) {
   using W = Wide<16>;
   constexpr bool L2 = KIND != LAPLACIAN;
   const bool full = j0 + W::BN <= jend;
@@ -318,6 +353,10 @@ __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
     const bool more = nb_ < b1;
     const float* xs = smem + W::XS + (step & 1) * W::BN * W::RS;
     cp_async_wait_all();
+    if (is_bf16(KIND)) {      // each thread rounds what it staged
+      if (step == 0) round_staged<DK, W::BM>(qs);
+      round_staged<DK, W::BN>(smem + W::XS + (step & 1) * W::BN * W::RS);
+    }
     __syncthreads();          // this chunk (and q) landed; the last one is done
     if (more) {
       const int nj0 = nb_ * a.bn + nc * W::BN;
@@ -398,6 +437,10 @@ __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
     const bool more = nb_ < b1;
     const int buf = (step & 1) * DK * D::LD;
     cp_async_wait_all();
+    if (is_bf16(KIND)) {      // each thread rounds what it staged
+      round_staged_kmajor<DK, D::BM>(smem + D::QT + buf);
+      round_staged_kmajor<DK, D::BN>(smem + D::XT + buf);
+    }
     __syncthreads();          // this step landed; the last step's reads are done
     if (more) {
       const int nbuf = ((step + 1) & 1) * DK * D::LD;

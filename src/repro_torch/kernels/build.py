@@ -62,17 +62,19 @@ class KdeWeightedShape(ctypes.Structure):
 
 
 # C signatures of every exported function (all return an int: cudaError_t,
-# or kde_decode_cluster's cluster size)
+# or kde_decode_cluster's cluster size).  The KDE launchers take the bf16
+# exp table (or null) just before the stream.
 SIGNATURES = {
-    "kde_rowsum_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(KdeTileShape)),
-    "kde_blocksum_launch": (_P, _P, _P, _P, ctypes.POINTER(KdeTileShape)),
-    "kde_masked_blocksum_launch": (_P, _P, _P, _P, _P,
+    "kde_rowsum_launch": (_P, _P, _P, _P, _P, _P,
+                          ctypes.POINTER(KdeTileShape)),
+    "kde_blocksum_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(KdeTileShape)),
+    "kde_masked_blocksum_launch": (_P, _P, _P, _P, _P, _P,
                                    ctypes.POINTER(KdeTileShape)),
-    "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.POINTER(KdeTileShape)),
-    "kde_weighted_kv_launch": (_P, _P, _P, _P, _P, _P,
+    "kde_weighted_kv_launch": (_P, _P, _P, _P, _P, _P, _P,
                                ctypes.POINTER(KdeWeightedShape)),
-    "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _P,
+    "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _P, _P,
                                    ctypes.POINTER(KdeWeightedShape)),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _L, _L, _L, _L, _L, _L, _L,

@@ -13,7 +13,9 @@ instance where the rows allow 16-byte gathers, the scalar one elsewhere).
 The wrappers validate a call's operands once per (shapes, dtypes,
 devices, layout, kernel arguments) and keep the launch's static arguments
 as a ``build.KdeWeightedShape``, so a call is one allocation and one
-ctypes call of seven arguments.
+ctypes call of eight arguments.  ``precision="bf16"`` launches the bf16
+instances (``kde_rowsum.kernel``'s kind ids and exp table), counted under
+``<name>_bf16``.
 """
 from __future__ import annotations
 
@@ -23,11 +25,13 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.kde_hash.ref import weighted_kv_ref
-from repro_torch.kernels.kde_rowsum.kernel import (check_operand, kind_args,
-                                                   stream_of)
+from repro_torch.kernels.kde_rowsum.kernel import (check_operand,
+                                                   exp_table_ptr, kind_args,
+                                                   launch_key, stream_of)
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES = {"weighted_kv_sum": 0, "weighted_kv": 0}
+LAUNCHES = {"weighted_kv_sum": 0, "weighted_kv": 0,
+            "weighted_kv_sum_bf16": 0, "weighted_kv_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -66,7 +70,7 @@ def weighted_kv_plan(m: int, n: int, d: int, t: int,
 _PLANS: dict = {}
 
 
-def _plan(q, x, cols, wgt, kind, inv_bw, beta, aligned):
+def _plan(q, x, cols, wgt, kind, inv_bw, beta, aligned, precision):
     """Check a call once; the launch's static arguments."""
     check_operand(q, "q", torch.float32, 2, q.device)
     check_operand(x, "x", torch.float32, 2, q.device)
@@ -82,21 +86,22 @@ def _plan(q, x, cols, wgt, kind, inv_bw, beta, aligned):
     t = cols.shape[1]
     plan = weighted_kv_plan(m, n, d, t, aligned)
     return _build.KdeWeightedShape(m, n, d, t, plan.instance,
-                                   *kind_args(kind, inv_bw, beta))
+                                   *kind_args(kind, inv_bw, beta, precision))
 
 
-def _launch(name: str, q, x, cols, wgt, kind, inv_bw, beta):
+def _launch(name: str, q, x, cols, wgt, kind, inv_bw, beta, precision):
     xp = x.data_ptr()
     aligned = xp % 16 == 0
     # (shape, strides) pins contiguity; the checks run once per key
     key = (q.shape, q.stride(), x.shape, x.stride(), cols.shape,
            cols.stride(), wgt.shape, wgt.stride(), q.dtype, x.dtype,
            cols.dtype, wgt.dtype, q.get_device(), x.get_device(),
-           cols.get_device(), wgt.get_device(), kind, inv_bw, beta, aligned)
+           cols.get_device(), wgt.get_device(), kind, inv_bw, beta, aligned,
+           precision)
     shape = _PLANS.get(key)
     if shape is None:
         shape = _PLANS[key] = _plan(q, x, cols, wgt, kind, inv_bw, beta,
-                                    aligned)
+                                    aligned, precision)
     m = shape.m
     out = torch.empty((m,) if name == "weighted_kv_sum" else (m, shape.t),
                       dtype=torch.float32, device=q.device)
@@ -106,37 +111,43 @@ def _launch(name: str, q, x, cols, wgt, kind, inv_bw, beta):
     fn = lib.kde_weighted_kv_sum_launch if name == "weighted_kv_sum" \
         else lib.kde_weighted_kv_launch
     err = fn(q.data_ptr(), xp, cols.data_ptr(), wgt.data_ptr(),
-             out.data_ptr(), stream_of(q), shape)
+             out.data_ptr(), exp_table_ptr(kind, precision, q.device),
+             stream_of(q), shape)
     if err:
         _build.check(err, f"kde_{name}")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, precision)] += 1
     return out
 
 
 def weighted_kv_cuda(q, x, cols, wgt, kind: str, inv_bw: float,
-                     beta: float = 1.0):
+                     beta: float = 1.0, precision: str = "f32"):
     """out[i, j] = wgt[i, j] k(q_i, x[cols[i, j]]) by the weighted-kv
     kernel: q (m, d), x (n, d), wgt (m, t) f32 and cols (m, t) int32 CUDA
     tensors -> (m, t) f32.  Columns outside [0, n) are clamped."""
-    return _launch("weighted_kv", q, x, cols, wgt, kind, inv_bw, beta)
+    return _launch("weighted_kv", q, x, cols, wgt, kind, inv_bw, beta,
+                   precision)
 
 
 def weighted_kv_sum_cuda(q, x, cols, wgt, kind: str, inv_bw: float,
-                         beta: float = 1.0):
+                         beta: float = 1.0, precision: str = "f32"):
     """out[i] = sum_j wgt[i, j] k(q_i, x[cols[i, j]]) by the
     weighted-kv-sum kernel -> (m,) f32, reduced in a fixed order."""
-    return _launch("weighted_kv_sum", q, x, cols, wgt, kind, inv_bw, beta)
+    return _launch("weighted_kv_sum", q, x, cols, wgt, kind, inv_bw, beta,
+                   precision)
 
 
 def weighted_kv_plain(q, x, cols, wgt, kind: str, inv_bw: float,
-                      beta: float = 1.0, pairwise=None):
+                      beta: float = 1.0, pairwise=None,
+                      precision: str = "f32"):
     """Plain torch version of ``weighted_kv_cuda`` (also takes the custom
     kinds' ``pairwise`` callable)."""
-    return weighted_kv_ref(q, x, cols, wgt, kind, inv_bw, beta, pairwise)
+    return weighted_kv_ref(q, x, cols, wgt, kind, inv_bw, beta, pairwise,
+                           precision)
 
 
 def weighted_kv_sum_plain(q, x, cols, wgt, kind: str, inv_bw: float,
-                          beta: float = 1.0, pairwise=None):
+                          beta: float = 1.0, pairwise=None,
+                          precision: str = "f32"):
     """Plain torch version of ``weighted_kv_sum_cuda``."""
     return torch.sum(weighted_kv_plain(q, x, cols, wgt, kind, inv_bw, beta,
-                                       pairwise), dim=1)
+                                       pairwise, precision), dim=1)

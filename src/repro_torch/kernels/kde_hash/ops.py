@@ -153,14 +153,14 @@ def draw_frontier_noise(w: int, num_blocks: int, num_far: int,
 # device programs
 # --------------------------------------------------------------------- #
 def _weighted_pass(q, x, cols, wgt, *, kind, inv_bw, beta, pairwise,
-                   reduce_sum):
+                   reduce_sum, precision="f32"):
     """One weighted kernel-value pass: the CUDA kernel on a CUDA tensor,
     the plain version on a CPU tensor."""
     if q.is_cuda:
         fn = _k.weighted_kv_sum_cuda if reduce_sum else _k.weighted_kv_cuda
-        return fn(q, x, cols, wgt, kind, inv_bw, beta)
+        return fn(q, x, cols, wgt, kind, inv_bw, beta, precision)
     fn = _k.weighted_kv_sum_plain if reduce_sum else _k.weighted_kv_plain
-    return fn(q, x, cols, wgt, kind, inv_bw, beta, pairwise)
+    return fn(q, x, cols, wgt, kind, inv_bw, beta, pairwise, precision)
 
 
 def _widths(state):
@@ -170,7 +170,7 @@ def _widths(state):
 
 
 def hashed_query(x, y, state, fidx, *, kind, inv_bw, beta, pairwise=None,
-                 cell_width, num_far, n):
+                 cell_width, num_far, n, precision="f32"):
     """(m,) row-sum estimates + (m,) realized NEAR eval counts + a counter
     word -- the Definition 1.1 read at O(max_bucket + num_far) evals per
     query.  The word's status flags bucket truncation, out-of-range member
@@ -179,7 +179,8 @@ def hashed_query(x, y, state, fidx, *, kind, inv_bw, beta, pairwise=None,
                                               num_far, n)
     corrupt = torch.any((cols < 0) | (cols >= n))
     est = _weighted_pass(y, x, cols, wgt, kind=kind, inv_bw=inv_bw,
-                         beta=beta, pairwise=pairwise, reduce_sum=True)
+                         beta=beta, pairwise=pairwise, reduce_sum=True,
+                         precision=precision)
     heavy = num_far > 0 and float(n) / num_far > _g.ht_bound()
     st = _g.merge(_g.flag_if(corrupt, _g.STATE_CORRUPT),
                   _g.flag_if(torch.any(trunc), _g.BUCKET_OVERFLOW),
@@ -192,13 +193,15 @@ def hashed_query(x, y, state, fidx, *, kind, inv_bw, beta, pairwise=None,
 
 
 def _hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
-                       pairwise=None, num_far, block_size, num_blocks, n):
+                       pairwise=None, num_far, block_size, num_blocks, n,
+                       precision="f32"):
     """Core of ``hashed_block_sums`` (also called from the fused sampler
     programs of ``kde_sampler.ops``).  Returns ``(block sums, status)``."""
     cols, wgt, _, trunc = _ref.frontier_gather(src, state, off, num_far,
                                                block_size, num_blocks, n)
     kv = _weighted_pass(x[src], x, cols, wgt, kind=kind, inv_bw=inv_bw,
-                        beta=beta, pairwise=pairwise, reduce_sum=False)
+                        beta=beta, pairwise=pairwise, reduce_sum=False,
+                        precision=precision)
     bs = _ref.scatter_block_sums(kv, cols, src, state, num_far, block_size,
                                  num_blocks)
     st = _g.merge(_g.flag_if(torch.any((cols < 0) | (cols >= n)),
@@ -209,14 +212,16 @@ def _hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
 
 
 def hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
-                      pairwise=None, num_far, block_size, num_blocks, n):
+                      pairwise=None, num_far, block_size, num_blocks, n,
+                      precision="f32"):
     """(w, B) level-1 estimates of a dataset frontier from O(max_bucket +
     B num_far) evals per row: exact NEAR scatter + ``num_far`` stratified
     FAR slots per block.  Returns ``(block sums, counter word)``."""
     bs, st = _hashed_block_sums(x, src, state, off, kind=kind, inv_bw=inv_bw,
                                 beta=beta, pairwise=pairwise,
                                 num_far=num_far, block_size=block_size,
-                                num_blocks=num_blocks, n=n)
+                                num_blocks=num_blocks, n=n,
+                                precision=precision)
     w = src.shape[0]
     mb, ov = _widths(state)
     far = int(num_blocks) * int(num_far)

@@ -33,9 +33,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.device import not_in_slice
 from repro_torch.kernels.kde_sampler.ref import (BLOCK_SUM_FLOOR, _L2_KINDS,
-                                                 _finish_l2)
+                                                 _finish_l2, _finish_l2_bf16,
+                                                 check_precision, round_bf16)
 
 # Knuth's 2^32 golden-ratio multiplier; the multiply-add wraps mod 2^32.
 HASH_MULT = 2654435761
@@ -95,14 +95,18 @@ def rowwise_kv(q, xr, kind: str, inv_bw: float, beta: float, pairwise=None,
                precision: str = "f32"):
     """Per-row kernel values k(q_i, xr_i_j): q (w, d), xr (w, t, d) ->
     (w, t).  The L2 kinds assemble d2 = max(qq + xx - 2 cross, 0) from the
-    three sums, as the reference and the CUDA kernel do."""
+    three sums, as the reference and the CUDA kernel do.
+    ``precision="bf16"`` rounds both operands to bf16, sums the same three
+    terms in f32 and finishes through the bf16 exp table."""
     if precision != "f32":
-        raise not_in_slice(f"precision={precision!r}", 7)
+        check_precision(precision, kind, pairwise)
+        q, xr = round_bf16(q), round_bf16(xr)
     if kind in _L2_KINDS:
         cross = torch.sum(q[:, None, :] * xr, dim=-1)
         xx = torch.sum(xr * xr, dim=-1)
         qq = torch.sum(q * q, dim=-1)
-        return _finish_l2(qq[:, None] + xx - 2.0 * cross, kind, inv_bw, beta)
+        finish = _finish_l2 if precision == "f32" else _finish_l2_bf16
+        return finish(qq[:, None] + xx - 2.0 * cross, kind, inv_bw, beta)
     if kind == "laplacian":
         acc = torch.sum(torch.abs(q[:, None, :] - xr), dim=-1)
         return torch.exp(-acc * inv_bw)
@@ -232,20 +236,21 @@ def frontier_gather(src, state: HashState, off, num_far: int,
 # oracles
 # --------------------------------------------------------------------- #
 def weighted_kv_ref(q, x, cols, wgt, kind: str, inv_bw: float,
-                    beta: float, pairwise=None):
+                    beta: float, pairwise=None, precision: str = "f32"):
     """w_ij k(q_i, x[cols_ij]) as (m, t), columns clamped to [0, n) as a
     JAX gather clamps them."""
     xr = x[torch.clamp(cols, 0, x.shape[0] - 1)]
-    return rowwise_kv(q, xr, kind, inv_bw, beta, pairwise) * wgt
+    return rowwise_kv(q, xr, kind, inv_bw, beta, pairwise, precision) * wgt
 
 
 def hashed_query_ref(x, y, state: HashState, fidx, kind: str, inv_bw: float,
                      beta: float, cell_width: float, num_far: int, n: int,
-                     pairwise=None):
+                     pairwise=None, precision: str = "f32"):
     """NEAR-exact + HT-FAR row-sum estimates: (m,) estimates and the (m,)
     realized NEAR eval counts."""
     cols, wgt, cnt, _ = query_gather(y, state, fidx, cell_width, num_far, n)
-    kv = weighted_kv_ref(y, x, cols, wgt, kind, inv_bw, beta, pairwise)
+    kv = weighted_kv_ref(y, x, cols, wgt, kind, inv_bw, beta, pairwise,
+                         precision)
     return torch.sum(kv, dim=1), cnt
 
 

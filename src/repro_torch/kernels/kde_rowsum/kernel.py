@@ -15,6 +15,11 @@ for d > 32), or the generic 64-row tile; the rowsum's split of n into
 blocks.  Each wrapper validates a call's operands once per (shapes, dtypes,
 devices, layout, kernel arguments) and keeps the launch's static arguments
 as a ``build.KdeTileShape``.
+
+Every wrapper takes ``precision`` ("f32" or "bf16", DESIGN.md §14).  bf16
+launches the same tiles at the bf16 kind ids (``kind_args``), with the
+bf16 exp table (``exp_table_ptr``: one copy a device) for the gaussian and
+exponential kinds, and counts under ``<name>_bf16`` in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.kde_rowsum.ref import kernel_values
+from repro_torch.kernels.kde_sampler.ref import check_precision, exp_table_on
 
 #: ``KdeTileShape::instance`` of the deep tile (``kde::DEEP``)
 DEEP = 1
@@ -30,12 +36,16 @@ GENERIC_BN, TILE_BN = 64, 128
 #: CTAs an SM a generic-tile rowsum's split aims for (its 64-row tiles)
 GENERIC_CTAS_PER_SM = 4
 
-#: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES = {"rowsum": 0, "blocksum": 0}
+#: kernel launches per wrapper and precision since the last
+#: ``reset_launches()``
+LAUNCHES = {"rowsum": 0, "blocksum": 0, "rowsum_bf16": 0,
+            "blocksum_bf16": 0}
 
 #: ``enum Kind`` of csrc/kde_tile.cuh
 KIND_IDS = {"gaussian": 0, "exponential": 1, "rational_quadratic": 2,
             "laplacian": 3}
+#: ... and its bf16 kinds (the L2 kinds with bf16 operands)
+KIND_IDS_BF16 = {"gaussian": 4, "exponential": 5, "rational_quadratic": 6}
 
 
 def reset_launches() -> None:
@@ -43,14 +53,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def kind_args(kind: str, inv_bw: float, beta: float):
+def launch_key(name: str, precision: str) -> str:
+    """The ``LAUNCHES`` key of a launch of ``name`` at ``precision``."""
+    return name if precision == "f32" else f"{name}_{precision}"
+
+
+def kind_args(kind: str, inv_bw: float, beta: float, precision: str = "f32"):
     """(kind id, inv_bw, inv_bw^2, beta) as the C launchers take them;
     inv_bw^2 is rounded once from the double product, as the reference's
-    ``inv_bw * inv_bw`` static."""
+    ``inv_bw * inv_bw`` static.  bf16 takes the bf16 kind id (L2 kinds
+    only: ``check_precision``)."""
     if kind not in KIND_IDS:
         raise ValueError(f"no CUDA kernel for kernel kind {kind!r}; "
                          f"built-in kinds are {sorted(KIND_IDS)}")
-    return KIND_IDS[kind], float(inv_bw), float(inv_bw * inv_bw), float(beta)
+    check_precision(precision, kind)
+    ids = KIND_IDS if precision == "f32" else KIND_IDS_BF16
+    return ids[kind], float(inv_bw), float(inv_bw * inv_bw), float(beta)
+
+
+def needs_exp_table(kind: str, precision: str) -> bool:
+    """True when the kernel finishes through the bf16 exp table: bf16 and
+    the gaussian or exponential kind (the rational quadratic finishes in
+    f32)."""
+    return precision != "f32" and kind in ("gaussian", "exponential")
+
+
+def exp_table_ptr(kind: str, precision: str, device: torch.device):
+    """The launchers' ``table`` argument: the device's copy of the bf16 exp
+    table when the kernel reads it, else None (a null pointer)."""
+    return exp_table_on(device).data_ptr() if needs_exp_table(
+        kind, precision) else None
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -123,12 +155,13 @@ def rowsum_plan(m: int, n: int, d: int, aligned: bool = True,
 _PLANS: dict = {}
 
 
-def _cached_plan(q, x, kind, inv_bw, beta, bn):
+def _cached_plan(q, x, kind, inv_bw, beta, bn, precision="f32"):
     """Check a call once; its plan and the launch's static arguments.
     ``bn`` None plans the rowsum."""
     aligned = q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
     key = (q.shape, q.stride(), x.shape, x.stride(), q.dtype, x.dtype,
-           q.get_device(), x.get_device(), kind, inv_bw, beta, bn, aligned)
+           q.get_device(), x.get_device(), kind, inv_bw, beta, bn, aligned,
+           precision)
     entry = _PLANS.get(key)
     if entry is None:
         check_qx(q, x)
@@ -140,16 +173,18 @@ def _cached_plan(q, x, kind, inv_bw, beta, bn):
         else:
             plan, cols = blocksum_plan(m, n, d, int(bn), aligned, sms), int(bn)
         shape = _build.KdeTileShape(m, n, d, cols, plan.nb, 0, plan.instance,
-                                    plan.group, *kind_args(kind, inv_bw, beta))
+                                    plan.group,
+                                    *kind_args(kind, inv_bw, beta, precision))
         entry = _PLANS[key] = (plan, shape)
     return entry
 
 
-def rowsum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0):
+def rowsum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
+                precision: str = "f32"):
     """out[i] = sum_j k(q_i, x_j) by the rowsum kernel: q (m, d), x (n, d)
     contiguous f32 CUDA tensors -> (m,) f32.  Two launches: the split's
     block sums, then their sum in split order."""
-    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, None)
+    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, None, precision)
     m = q.shape[0]
     out = torch.empty(m, dtype=torch.float32, device=q.device)
     if m == 0:
@@ -157,41 +192,44 @@ def rowsum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0):
     partial = torch.empty((m, plan.nb), dtype=torch.float32, device=q.device)
     err = _build.library().kde_rowsum_launch(
         q.data_ptr(), x.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        stream_of(q), shape)
+        exp_table_ptr(kind, precision, q.device), stream_of(q), shape)
     if err:
         _build.check(err, "kde_rowsum")
-    LAUNCHES["rowsum"] += 1
+    LAUNCHES[launch_key("rowsum", precision)] += 1
     return out
 
 
-def rowsum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0):
+def rowsum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
+                 precision: str = "f32"):
     """Plain torch version of ``rowsum_cuda``."""
-    return torch.sum(kernel_values(q, x, kind, inv_bw, beta), dim=1)
+    return torch.sum(kernel_values(q, x, kind, inv_bw, beta, precision),
+                     dim=1)
 
 
 def blocksum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
-                  bn: int = 256):
+                  bn: int = 256, precision: str = "f32"):
     """out[i, b] = sum_{j in block b} k(q_i, x_j) by the blocksum kernel:
     blocks of ``bn`` consecutive rows of x, the last one ragged ->
     (m, ceil(n / bn)) f32.  One launch."""
-    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, int(bn))
+    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, int(bn), precision)
     m = q.shape[0]
     out = torch.empty((m, plan.nb), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
     err = _build.library().kde_blocksum_launch(
-        q.data_ptr(), x.data_ptr(), out.data_ptr(), stream_of(q), shape)
+        q.data_ptr(), x.data_ptr(), out.data_ptr(),
+        exp_table_ptr(kind, precision, q.device), stream_of(q), shape)
     if err:
         _build.check(err, "kde_blocksum")
-    LAUNCHES["blocksum"] += 1
+    LAUNCHES[launch_key("blocksum", precision)] += 1
     return out
 
 
 def blocksum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
-                   bn: int = 256):
+                   bn: int = 256, precision: str = "f32"):
     """Plain torch version of ``blocksum_cuda``: the (m, n) values,
     zero-padded to a block multiple, summed per block."""
-    kv = kernel_values(q, x, kind, inv_bw, beta)
+    kv = kernel_values(q, x, kind, inv_bw, beta, precision)
     pad = -kv.shape[1] % bn
     if pad:
         kv = torch.nn.functional.pad(kv, (0, pad))

@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import no_switch, not_in_slice, tile_size
+from repro_torch.device import no_switch, tile_size
 from repro_torch.kernels.kde_rowsum import kernel as _k
+from repro_torch.kernels.kde_sampler.ref import (check_precision,
+                                                 static_pairwise)
 
 # ||pad||^2 = d * 1e60 overflows f32 -> d2 = inf -> k = 0 for every kind.
 _PAD_OFFSET = 1.0e30
@@ -28,16 +30,12 @@ def _pad_rows(a: torch.Tensor, mult: int, offset: float) -> torch.Tensor:
     return torch.cat([a, pad], dim=0)
 
 
-def _check_precision(precision: str) -> None:
-    if precision != "f32":
-        raise not_in_slice(f"precision={precision!r}", 7)
-
-
-def _check_placeholders(bm, bn, interpret, precision: str) -> None:
+def _check_placeholders(bm, bn, interpret, kernel: Kernel,
+                        precision: str) -> None:
     tile_size("bm", bm)
     tile_size("bn", bn)
     no_switch("interpret", interpret)
-    _check_precision(precision)
+    check_precision(precision, kernel.name, static_pairwise(kernel))
 
 
 def kde_rowsum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
@@ -49,10 +47,11 @@ def kde_rowsum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
     ``bm`` / ``bn`` are the reference's tile sizes: checked to be positive
     ints and otherwise ignored (the kernel's plan sizes its own tiles), so
     the output is the same function whatever their value.  ``interpret``
-    must be None: a CPU tensor takes the plain version."""
-    _check_placeholders(bm, bn, interpret, precision)
+    must be None: a CPU tensor takes the plain version.  ``precision=
+    "bf16"`` (L2 kinds) runs the bf16 kernel, or its plain version."""
+    _check_placeholders(bm, bn, interpret, kernel, precision)
     args = (q.float().contiguous(), x.float().contiguous(), kernel.name,
-            1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0))
+            1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0), precision)
     return _k.rowsum_cuda(*args) if q.is_cuda else _k.rowsum_plain(*args)
 
 
@@ -64,7 +63,8 @@ def kde_blocksum(q: torch.Tensor, x: torch.Tensor, kernel: Kernel,
     reference's query tile, is checked and ignored (the output is the same
     function whatever its value); ``interpret`` must be None."""
     tile_size("bn", bn)
-    _check_placeholders(bm, None, interpret, precision)
+    _check_placeholders(bm, None, interpret, kernel, precision)
     args = (q.float().contiguous(), x.float().contiguous(), kernel.name,
-            1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0), int(bn))
+            1.0 / kernel.bandwidth, getattr(kernel, "beta", 1.0), int(bn),
+            precision)
     return _k.blocksum_cuda(*args) if q.is_cuda else _k.blocksum_plain(*args)

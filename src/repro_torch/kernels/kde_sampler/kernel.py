@@ -14,6 +14,8 @@ the generic 64-row tile elsewhere) and how many query tiles it has; it
 refuses what the kernel does not take.  Each wrapper validates a call's
 operands once per (shapes, dtypes, devices, layout, kernel arguments) and
 keeps the launch's static arguments as a ``build.KdeTileShape``.
+``precision="bf16"`` launches the bf16 instances (``kde_rowsum.kernel``'s
+kind ids and exp table), counted under ``<name>_bf16``.
 """
 from __future__ import annotations
 
@@ -23,12 +25,14 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.kde_rowsum.kernel import (check_operand, check_qx,
-                                                   kind_args, stream_of)
+                                                   exp_table_ptr, kind_args,
+                                                   launch_key, stream_of)
 from repro_torch.kernels.kde_sampler.ref import (argmax_draw,
                                                  masked_exact_sums_ref)
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES = {"masked_blocksum": 0, "sample_block": 0}
+LAUNCHES = {"masked_blocksum": 0, "sample_block": 0,
+            "masked_blocksum_bf16": 0, "sample_block_bf16": 0}
 
 WIDE_BM, GENERIC_BM = 128, 64      # query rows per tile of each instance
 MAX_WIDE_D = 32
@@ -98,7 +102,7 @@ _PLANS: dict = {}
 _COUNTERS: dict = {}
 
 
-def _plan(q, x, own, gumbel, kind, inv_bw, beta, bn, aligned):
+def _plan(q, x, own, gumbel, kind, inv_bw, beta, bn, aligned, precision):
     """Check a call once; its plan and the launch's static arguments."""
     check_qx(q, x)
     m, d = q.shape
@@ -116,23 +120,24 @@ def _plan(q, x, own, gumbel, kind, inv_bw, beta, bn, aligned):
                              f"{tuple(gumbel.shape)}")
     shape = _build.KdeTileShape(m, n, d, int(bn), plan.nb,
                                 int(own.dtype == torch.int64), plan.instance,
-                                plan.group, *kind_args(kind, inv_bw, beta))
+                                plan.group,
+                                *kind_args(kind, inv_bw, beta, precision))
     return plan, shape
 
 
-def _cached_plan(q, x, own, gumbel, kind, inv_bw, beta, bn):
+def _cached_plan(q, x, own, gumbel, kind, inv_bw, beta, bn, precision):
     aligned = q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
     # (shape, strides) pins contiguity; the checks run once per key
     key = (q.shape, q.stride(), x.shape, x.stride(), own.shape, own.stride(),
            q.dtype, x.dtype, own.dtype, q.get_device(), x.get_device(),
-           own.get_device(), kind, inv_bw, beta, bn, aligned)
+           own.get_device(), kind, inv_bw, beta, bn, aligned, precision)
     if gumbel is not None:
         key += (gumbel.shape, gumbel.stride(), gumbel.dtype,
                 gumbel.get_device())
     entry = _PLANS.get(key)
     if entry is None:
         entry = _PLANS[key] = _plan(q, x, own, gumbel, kind, inv_bw, beta,
-                                    bn, aligned)
+                                    bn, aligned, precision)
     return entry
 
 
@@ -150,39 +155,44 @@ def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
 
 
 def masked_blocksum_cuda(q, x, own, kind: str, inv_bw: float,
-                         beta: float = 1.0, bn: int = 256):
+                         beta: float = 1.0, bn: int = 256,
+                         precision: str = "f32"):
     """bs[i, b] = max(sum_{j in block b} k(q_i, x_j) - [own_i == b],
     1e-12) by the masked-blocksum kernel -> (m, ceil(n / bn)) f32.
     ``own`` (m,) int32 or int64 holds each query's own block (-1: none)."""
-    plan, shape = _cached_plan(q, x, own, None, kind, inv_bw, beta, bn)
+    plan, shape = _cached_plan(q, x, own, None, kind, inv_bw, beta, bn,
+                               precision)
     m = q.shape[0]
     out = torch.empty((m, plan.nb), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
     err = _build.library().kde_masked_blocksum_launch(
         q.data_ptr(), x.data_ptr(), own.data_ptr(), out.data_ptr(),
-        stream_of(q), shape)
+        exp_table_ptr(kind, precision, q.device), stream_of(q), shape)
     if err:
         _build.check(err, "kde_masked_blocksum")
-    LAUNCHES["masked_blocksum"] += 1
+    LAUNCHES[launch_key("masked_blocksum", precision)] += 1
     return out
 
 
 def masked_blocksum_plain(q, x, own, kind: str, inv_bw: float,
-                          beta: float = 1.0, bn: int = 256):
+                          beta: float = 1.0, bn: int = 256,
+                          precision: str = "f32"):
     """Plain torch version of ``masked_blocksum_cuda``."""
     return masked_exact_sums_ref(q, x, torch.sum(x * x, dim=-1),
                                  own.to(q.device), kind, inv_bw, beta, bn,
-                                 x.shape[0])
+                                 x.shape[0], precision=precision)
 
 
 def sample_block_cuda(q, x, own, gumbel, kind: str, inv_bw: float,
-                      beta: float = 1.0, bn: int = 256):
+                      beta: float = 1.0, bn: int = 256,
+                      precision: str = "f32"):
     """Masked block sums plus the Gumbel-max block draw in one launch:
     returns (blk (m,) int64, p_blk (m,), tot (m,), bs (m, B)) with blk =
     argmax_b log(bs_b) + g_b, the first maximum on ties.  ``own`` is int32
     or int64 (read as it is, no cast)."""
-    plan, shape = _cached_plan(q, x, own, gumbel, kind, inv_bw, beta, bn)
+    plan, shape = _cached_plan(q, x, own, gumbel, kind, inv_bw, beta, bn,
+                               precision)
     m = q.shape[0]
     dev = q.device
     bs = torch.empty((m, plan.nb), dtype=torch.float32, device=dev)
@@ -195,16 +205,18 @@ def sample_block_cuda(q, x, own, gumbel, kind: str, inv_bw: float,
     err = _build.library().kde_sample_block_launch(
         q.data_ptr(), x.data_ptr(), own.data_ptr(), gumbel.data_ptr(),
         bs.data_ptr(), blk.data_ptr(), pb.data_ptr(), tot.data_ptr(),
-        _counters(dev, stream, plan.tiles).data_ptr(), stream, shape)
+        _counters(dev, stream, plan.tiles).data_ptr(),
+        exp_table_ptr(kind, precision, dev), stream, shape)
     if err:
         _build.check(err, "kde_sample_block")
-    LAUNCHES["sample_block"] += 1
+    LAUNCHES[launch_key("sample_block", precision)] += 1
     return blk, pb, tot, bs
 
 
 def sample_block_plain(q, x, own, gumbel, kind: str, inv_bw: float,
-                       beta: float = 1.0, bn: int = 256):
+                       beta: float = 1.0, bn: int = 256,
+                       precision: str = "f32"):
     """Plain torch version of ``sample_block_cuda``."""
-    bs = masked_blocksum_plain(q, x, own, kind, inv_bw, beta, bn)
+    bs = masked_blocksum_plain(q, x, own, kind, inv_bw, beta, bn, precision)
     blk, pb, tot = argmax_draw(bs, gumbel)
     return blk, pb, tot, bs

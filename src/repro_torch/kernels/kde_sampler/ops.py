@@ -42,7 +42,11 @@ draws and rejection fallbacks.
 Configuration keywords (static in the reference): ``kind``, ``inv_bw``,
 ``beta``, ``block_size``, ``num_blocks``, ``n``, ``s`` (rows a block on
 the stratified read), ``exact``, ``level1``, ``num_far``, ``rounds``,
-``slack``.
+``slack``, ``precision``.  ``precision="bf16"`` (DESIGN.md §14) changes
+the level-1 reads only, as in the reference: the bf16 instances of the
+blocksum, masked-blocksum, sample-block and weighted-kv kernels, and the
+bf16 values in the stratified read's plain torch sweep.  Level-2 rows,
+CDFs, draws, probabilities and the aligned k(u, v) pairs stay f32.
 """
 from __future__ import annotations
 
@@ -148,43 +152,47 @@ def stratified_columns(u, *, block_size, num_blocks, n, s):
 
 
 def stratified_block_sums(y, x, x_sq, u, *, kind, inv_bw, beta,
-                          pairwise=None, block_size, num_blocks, n, s):
+                          pairwise=None, block_size, num_blocks, n, s,
+                          precision="f32"):
     """Per-block uniform-subsample estimates of the block sums, (m, B),
     with explicit uniforms ``u`` (B, block_size) (``stratified_columns``):
     each block contributes ``size_b / s_b * sum(sampled values)``.  Plain
-    torch on every device, as in the reference.  Returns ``(block sums,
-    counter word)``."""
+    torch on every device, as in the reference; the subsample is the same
+    at either precision, only the gathered values take ``precision``.
+    Returns ``(block sums, counter word)``."""
     m = y.shape[0]
     rows, valid, scale = stratified_columns(u, block_size=block_size,
                                             num_blocks=num_blocks, n=n, s=s)
     kv = _ref.kv_matrix(y, x[rows], x_sq[rows], kind, inv_bw, beta,
-                        pairwise).reshape(m, num_blocks, s) * valid[None]
+                        pairwise, precision).reshape(m, num_blocks, s) \
+        * valid[None]
     bs = kv.sum(-1) * scale[None, :]
     return bs, _c.word(status=_g.nonfinite_status(bs),
                        evals=m * num_blocks * s, l1_reads=m)
 
 
 def exact_block_sums(y, x, x_sq, *, kind, inv_bw, beta, block_size,
-                     num_blocks, n):
+                     num_blocks, n, precision="f32"):
     """Exact (m, B) block sums; returns ``(block sums, counter word)``.
-    A CUDA tensor goes through the blocksum kernel and never forms the
-    (m, n) matrix."""
+    A CUDA tensor goes through the blocksum kernel (its bf16 instance at
+    ``precision="bf16"``) and never forms the (m, n) matrix."""
     m = y.shape[0]
     fn = _rk.blocksum_cuda if y.is_cuda else _rk.blocksum_plain
-    bs = fn(y, x, kind, inv_bw, beta, block_size)
+    bs = fn(y, x, kind, inv_bw, beta, block_size, precision)
     return bs, _c.word(status=_g.nonfinite_status(bs), evals=m * n,
                        l1_reads=m)
 
 
 def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
-                            block_size, num_blocks, n, s):
+                            block_size, num_blocks, n, s, precision="f32"):
     """Stratified level-1 sums of a frontier, own block corrected by
     k(x, x) = 1 and floored (the reference's ``_masked_block_sums(exact=
     False)``)."""
     bs, _ = stratified_block_sums(x[src], x, x_sq, u, kind=kind,
                                   inv_bw=inv_bw, beta=beta,
                                   block_size=block_size,
-                                  num_blocks=num_blocks, n=n, s=s)
+                                  num_blocks=num_blocks, n=n, s=s,
+                                  precision=precision)
     own = src // block_size
     corr = torch.arange(num_blocks, device=src.device)[None, :] \
         == own[:, None]
@@ -194,7 +202,7 @@ def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
 
 def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
                      inv_bw, beta, block_size, num_blocks, n, s, exact,
-                     level1="blocked", num_far=1):
+                     level1="blocked", num_far=1, precision="f32"):
     """Masked level-1 sums of a frontier: the masked-blocksum kernel on the
     exact read, ``s`` subsampled rows a block on the stratified read
     (uniforms ``l1_noise``), the hashed estimator's read (weighted-kv
@@ -204,22 +212,24 @@ def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
         return _hops._hashed_block_sums(
             x, src, hstate, l1_noise, kind=kind, inv_bw=inv_bw, beta=beta,
             num_far=num_far, block_size=block_size, num_blocks=num_blocks,
-            n=n)
+            n=n, precision=precision)
     if exact:
         fn = (_k.masked_blocksum_cuda if x.is_cuda
               else _k.masked_blocksum_plain)
-        bs = fn(x[src], x, src // block_size, kind, inv_bw, beta, block_size)
+        bs = fn(x[src], x, src // block_size, kind, inv_bw, beta, block_size,
+                precision)
     else:
         bs = _stratified_masked_sums(x, x_sq, src, l1_noise, kind=kind,
                                      inv_bw=inv_bw, beta=beta,
                                      block_size=block_size,
-                                     num_blocks=num_blocks, n=n, s=s)
+                                     num_blocks=num_blocks, n=n, s=s,
+                                     precision=precision)
     return bs, _g.sums_status(bs, FLOOR)
 
 
 def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
                       inv_bw, beta, block_size, num_blocks, n, s, exact,
-                      level1="blocked", num_far=1):
+                      level1="blocked", num_far=1, precision="f32"):
     """Level-1 read of a frontier ``src`` of dataset indices: block sums,
     own block corrected by k(x, x) = 1, floored at 1e-12 -- exact through
     the masked-blocksum kernel, stratified (``exact=False``: ``s`` rows a
@@ -229,7 +239,7 @@ def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
                               inv_bw=inv_bw, beta=beta,
                               block_size=block_size, num_blocks=num_blocks,
                               n=n, s=s, exact=exact, level1=level1,
-                              num_far=num_far)
+                              num_far=num_far, precision=precision)
     w = src.shape[0]
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
                              hstate)
@@ -238,11 +248,12 @@ def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
 
 
 def sample_block(q, x, own, gumbel_noise, *, kind, inv_bw, beta,
-                 block_size):
+                 block_size, precision="f32"):
     """Masked block sums plus the Gumbel-max block draw: (blk, p_blk, tot,
     bs), through the sample-block kernel on CUDA."""
     fn = _k.sample_block_cuda if q.is_cuda else _k.sample_block_plain
-    return fn(q, x, own, gumbel_noise, kind, inv_bw, beta, block_size)
+    return fn(q, x, own, gumbel_noise, kind, inv_bw, beta, block_size,
+              precision)
 
 
 # --------------------------------------------------------------------- #
@@ -250,7 +261,7 @@ def sample_block(q, x, own, gumbel_noise, *, kind, inv_bw, beta,
 # --------------------------------------------------------------------- #
 def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
                        inv_bw, beta, block_size, num_blocks, n, s, exact,
-                       level1="blocked", num_far=1):
+                       level1="blocked", num_far=1, precision="f32"):
     """(neighbors, realized probs, level-1 sums, status tensor) of one
     depth-2 step with explicit ``noise`` (see the module note); no host
     traffic (the counter word is built by the callers from static
@@ -262,7 +273,7 @@ def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
                                   block_size=block_size,
                                   num_blocks=num_blocks, n=n, s=s,
                                   exact=exact, level1=level1,
-                                  num_far=num_far)
+                                  num_far=num_far, precision=precision)
         nb, prob = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk,
                                          u_in, kind, inv_bw, beta,
                                          block_size, n)
@@ -270,7 +281,8 @@ def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
     gumbel_noise, u_in = noise
     blk, pb, _, bs = sample_block(x[src], x, src // block_size,
                                   gumbel_noise, kind=kind, inv_bw=inv_bw,
-                                  beta=beta, block_size=block_size)
+                                  beta=beta, block_size=block_size,
+                                  precision=precision)
     kv, live, cols_c = _ref.level2_row(x, x_sq, views, src, blk, kind,
                                        inv_bw, beta, block_size, n)
     nb, pin = _ref.level2_draw(kv, live, cols_c, u_in)
@@ -280,7 +292,7 @@ def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
 
 def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
                  inv_bw, beta, block_size, num_blocks, n, s, exact,
-                 level1="blocked", num_far=1):
+                 level1="blocked", num_far=1, precision="f32"):
     """One depth-2 sampling step with explicit noise: the level-1 read and
     block draw (one sample-block kernel call on the exact read; the
     stratified or hashed read then an inverse-CDF draw otherwise), then
@@ -292,7 +304,7 @@ def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
     nb, prob, bs, st = _fused_sample_core(
         x, x_sq, views, src, noise, hstate, kind=kind, inv_bw=inv_bw,
         beta=beta, block_size=block_size, num_blocks=num_blocks, n=n, s=s,
-        exact=exact, level1=level1, num_far=num_far)
+        exact=exact, level1=level1, num_far=num_far, precision=precision)
     # one level-1 read of the w-frontier + w exact level-2 rows
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
                              hstate)
@@ -400,7 +412,8 @@ def fused_sample_exact(x, x_sq, src, bs, u_blk, u_in, u_acc, views=None, *,
 # --------------------------------------------------------------------- #
 def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
                      noise, hstate=None, *, kind, inv_bw, beta, block_size,
-                     num_blocks, n, s, exact, level1="blocked", num_far=1):
+                     num_blocks, n, s, exact, level1="blocked", num_far=1,
+                     precision="f32"):
     """Algorithm 5.1 steps (a)-(d) for one batch with explicit noise:
     u ~ degrees (inverse CDF over the device prefix array), v | u by the
     depth-2 engine, the collapsed reverse probability q(u | v) =
@@ -410,7 +423,7 @@ def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
     v, q_uv, _, st = _fused_sample_core(
         x, x_sq, views, u, noise, hstate, kind=kind, inv_bw=inv_bw,
         beta=beta, block_size=block_size, num_blocks=num_blocks, n=n, s=s,
-        exact=exact, level1=level1, num_far=num_far)
+        exact=exact, level1=level1, num_far=num_far, precision=precision)
     kuv = _ref.kv_pairs(x[u], x[v], kind, inv_bw, beta)
     q_vu = kuv / torch.clamp(degs[v], min=FLOOR)
     # q_e = p_u q_uv + p_v q_vu with p_i = deg_i / sum(deg); the second
@@ -432,7 +445,7 @@ def _edge_batch_word(status, batch: int, cols: int, far: int, ov: int,
 def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
                      views=None, hstate=None, kind, inv_bw, beta,
                      block_size, num_blocks, n, s, exact, level1="blocked",
-                     num_far=1):
+                     num_far=1, precision="f32"):
     """One fused Algorithm 5.1 edge batch with explicit noise ``u_vert``
     then the depth-2 step's noise: (u, v, weight, q_uv, q_vu, counter
     word)."""
@@ -443,7 +456,8 @@ def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
                                 inv_bw=inv_bw, beta=beta,
                                 block_size=block_size,
                                 num_blocks=num_blocks, n=n, s=s, exact=exact,
-                                level1=level1, num_far=num_far)
+                                level1=level1, num_far=num_far,
+                                precision=precision)
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
                              hstate)
     return (*out, _edge_batch_word(st, u_vert.shape[0], cols, far, ov,
@@ -453,7 +467,7 @@ def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
 def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
                     num_batches: int, hstate=None, *, batch, kind, inv_bw,
                     beta, block_size, num_blocks, n, s, exact,
-                    level1="blocked", num_far=1):
+                    level1="blocked", num_far=1, precision="f32"):
     """All ``num_batches`` edge batches of a sparsifier call: a device
     loop whose body is one fused edge batch, noise drawn per batch from
     ``generator``.  Returns ((T, batch) u, v, wgt, q_uv, q_vu on the
@@ -478,7 +492,7 @@ def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
                                      block_size=block_size,
                                      num_blocks=num_blocks, n=n, s=s,
                                      exact=exact, level1=level1,
-                                     num_far=num_far)
+                                     num_far=num_far, precision=precision)
         for o, r in zip(outs, res):
             o[i] = r
         st = st | s_i

@@ -9,6 +9,7 @@ JAX reference and the port the same numbers.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _L2_KINDS = ("gaussian", "exponential", "rational_quadratic")
@@ -50,10 +51,209 @@ def _finish_l2(d2, kind: str, inv_bw: float, beta: float):
     return (1.0 + d2 * (inv_bw * inv_bw)) ** (-beta)
 
 
+# --------------------------------------------------------------------- #
+# mixed precision (DESIGN.md §14)
+#
+# ``precision="bf16"`` rounds query and dataset coordinates to bfloat16
+# (round to nearest even) and keeps everything downstream in f32: products
+# of two bf16 values are exact in f32 and the cross term accumulates in
+# f32, both squared norms are recomputed in f32 from the *rounded*
+# coordinates (a precomputed ``x_sq`` describes the unrounded rows and is
+# never reused here), and exp() of the bf16-rounded argument is a read of
+# ``bf16_exp_table``.  Only the level-1 sweeps take the policy: level-2
+# rows, CDFs, draws and probabilities stay f32.
+# --------------------------------------------------------------------- #
+PRECISIONS = ("f32", "bf16")
+
+# The reference's documented accuracy bound of the bf16 path for the
+# Table-1 kernels (input rounding: d2 drifts by ~2^-7 d2, and terms with
+# d2 > 8 carry < 3e-4 of a row's mass); estimators are held to 2x it.
+BF16_REL_ERR = 2.0 ** -4
+
+# The pad offset of kde_rowsum.ops._PAD_OFFSET: bf16-representable, and
+# its squared norm overflows f32 to inf, so pad rows give exactly 0 on the
+# bf16 path too (table[bits(-inf)] = 0).
+_FAR_OFFSET = 1.0e30
+
+_EXP_TABLE = None
+#: the table as a float32 tensor, one per device it was asked for on
+_EXP_TABLES: dict = {}
+
+
+def bf16_exp_table():
+    """(65536,) float32 numpy table of exp() over every bfloat16 bit
+    pattern: numpy's float64 exp, rounded to f32 (-inf -> 0, NaN patterns
+    stay NaN).  Built once a process."""
+    global _EXP_TABLE
+    if _EXP_TABLE is None:
+        with np.errstate(over="ignore", invalid="ignore"):
+            args = (np.arange(65536, dtype=np.uint32) << 16).view(np.float32)
+            _EXP_TABLE = np.exp(args.astype(np.float64)).astype(np.float32)
+    return _EXP_TABLE
+
+
+def exp_table_on(device) -> torch.Tensor:
+    """``bf16_exp_table()`` as a float32 tensor on ``device``, copied there
+    once and kept (the kernels gather from it, as the plain versions)."""
+    device = torch.device(device)
+    table = _EXP_TABLES.get(device)
+    if table is None:
+        table = _EXP_TABLES[device] = torch.as_tensor(
+            bf16_exp_table()).to(device)
+    return table
+
+
+def bf16_bits(y: torch.Tensor) -> torch.Tensor:
+    """The 16-bit pattern of ``y`` rounded to bfloat16 (nearest even), as
+    int64 indices in [0, 65536)."""
+    return y.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def exp_bf16(y: torch.Tensor, table: torch.Tensor | None = None):
+    """exp() of ``y`` after rounding it to bfloat16, read from the table
+    (``table``: ``bf16_exp_table()`` as a tensor on y's device; None takes
+    ``exp_table_on(y.device)``)."""
+    if table is None:
+        table = exp_table_on(y.device)
+    return table[bf16_bits(y)]
+
+
+def check_precision(precision: str, kind: str, pairwise=None) -> None:
+    """Refuse what the reference refuses, at construction: an unknown
+    precision, and bf16 with any kernel but the three built-in L2 kinds
+    (laplacian, or a custom ``pairwise``)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; "
+                         f"expected one of {PRECISIONS}")
+    if precision == "bf16" and (kind not in _L2_KINDS or pairwise is not None):
+        raise ValueError(
+            "precision='bf16' supports the built-in L2 kernels only "
+            f"(gaussian / exponential / rational_quadratic); got {kind!r}")
+
+
+def round_bf16(a: torch.Tensor) -> torch.Tensor:
+    """``a`` rounded to bfloat16 and back to float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def _finish_l2_bf16(d2, kind: str, inv_bw: float, beta: float, table=None):
+    """The L2 finish of the bf16 path: f32 d2 in, table exp out for the
+    gaussian and exponential kinds, the f32 power for the rational
+    quadratic."""
+    d2 = torch.clamp(d2, min=0.0)
+    if kind == "gaussian":
+        return exp_bf16(-d2 * (inv_bw * inv_bw), table)
+    if kind == "exponential":
+        return exp_bf16(-torch.sqrt(d2) * inv_bw, table)
+    return (1.0 + d2 * (inv_bw * inv_bw)) ** (-beta)
+
+
+def kv_matrix_bf16(q, x, kind: str, inv_bw: float, beta: float):
+    """(m, n) kernel values of the bf16 policy.  The rounded operands are
+    upcast before the product, so the cross term is exact products summed
+    in f32 (a bf16 matmul would round its output to bf16)."""
+    qf, xf = round_bf16(q), round_bf16(x)
+    qq = torch.sum(qf * qf, dim=1, keepdim=True)
+    xx = torch.sum(xf * xf, dim=1)
+    d2 = qq + xx[None, :] - 2.0 * (qf @ xf.T)
+    return _finish_l2_bf16(d2, kind, inv_bw, beta)
+
+
+def bf16_flip_slack(q, x, kind: str, inv_bw: float, bn: int | None = None,
+                    chunk: int = 1024) -> torch.Tensor:
+    """How far a kernel value of the bf16 policy may move between two
+    correct computations that sum in different orders (a kernel and its
+    plain version), as a float64 tensor: (m, n) for x (n, d), or (w, t)
+    for per-row gathered rows x (w, t, d); with ``bn``, the slack of each
+    block sum instead, (m, ceil(n / bn)) (the last block ragged), as a
+    blocksum returns them.  Computed over query chunks of ``chunk`` rows,
+    so its float64 intermediates stay (chunk, n)."""
+    parts = []
+    for lo in range(0, q.shape[0], chunk):
+        s = _pair_slack(q[lo:lo + chunk],
+                        x[lo:lo + chunk] if x.dim() == 3 else x, kind, inv_bw)
+        if bn is not None:
+            s = torch.nn.functional.pad(s, (0, -s.shape[1] % bn)).view(
+                s.shape[0], -1, bn).sum(-1)
+        parts.append(s)
+    return torch.cat(parts)
+
+
+def _pair_slack(q, x, kind: str, inv_bw: float) -> torch.Tensor:
+    """``bf16_flip_slack`` of one query chunk, pair by pair.
+
+    Both compute the gaussian / exponential argument y in f32 from exact
+    bf16 products, each within ``err`` of the exact y (f32 sums of any
+    order: (d + 2) u (qq + xx + 2 sum|q_k x_k|) on d2, u = 2^-24, plus the
+    scaling's rounding).  They round y to the same bf16 value, so read the
+    same table entry, unless a bf16 rounding midpoint lies within ``err``
+    of the exact y.  Only such a pair may differ: both rounded arguments
+    lie within err + one bf16 step of y, so the slack there is
+    exp(-(y - err - 2 ulp)) expm1(2 err + 4 ulp), 0 elsewhere (near y = 0,
+    as for a point against itself, err is larger than the step).  The
+    rational quadratic reads no table (its values differ by f32 rounding
+    alone): all 0."""
+    qf, xf = round_bf16(q).double(), round_bf16(x).double()
+    if xf.dim() == 3:
+        cross = torch.einsum("wd,wtd->wt", qf, xf)
+        acs = torch.einsum("wd,wtd->wt", qf.abs(), xf.abs())
+        xx = torch.sum(xf * xf, dim=-1)
+    else:
+        cross, acs = qf @ xf.T, qf.abs() @ xf.abs().T
+        xx = torch.sum(xf * xf, dim=-1)[None, :]
+    qq = torch.sum(qf * qf, dim=-1)[:, None]
+    if kind not in ("gaussian", "exponential"):
+        return torch.zeros_like(cross)
+    u = 2.0 ** -24
+    d2 = torch.clamp(qq + xx - 2.0 * cross, min=0.0)
+    err = (q.shape[-1] + 2) * u * (qq + xx + 2.0 * acs)
+    if kind == "gaussian":
+        y = d2 * (inv_bw * inv_bw)
+        ey = err * (inv_bw * inv_bw)
+    else:
+        y = torch.sqrt(d2) * inv_bw
+        ey = (torch.sqrt(d2 + err) - torch.sqrt(torch.clamp(d2 - err, min=0.0))
+              ) * inv_bw
+    ey = ey + 4.0 * u * y
+    # bf16 keeps 8 significant bits: spacing 2^(e - 7) in [2^e, 2^(e + 1)),
+    # rounding midpoints at odd multiples of half of it; the midpoint below
+    # 2^e lies a quarter spacing under it
+    yc = torch.clamp(y, min=1e-30)
+    low = torch.exp2(torch.floor(torch.log2(yc)))
+    ulp = low / 128.0
+    frac = yc / ulp - torch.floor(yc / ulp)
+    dist = torch.minimum(torch.abs(frac - 0.5) * ulp, yc - low + ulp / 4.0)
+    slack = torch.exp(-torch.clamp(y - ey - 2.0 * ulp, min=0.0)) \
+        * torch.expm1(2.0 * ey + 4.0 * ulp)
+    return torch.where(dist <= ey, slack, 0.0)
+
+
+def kv_block_sums_bf16(q, x, kind: str, inv_bw: float, beta: float,
+                       bn: int):
+    """(m, ceil(n / bn)) per-block sums of the bf16 values, swept over
+    column tiles of about 2^22 values, so the (m, n) matrix is never
+    formed.  The tail is padded at the far offset (values exactly 0)."""
+    m = q.shape[0]
+    n, d = x.shape
+    num_b = -(-n // bn)
+    t = max(1, (1 << 22) // max(m * bn, 1))
+    pad = num_b * bn - n
+    if pad:
+        x = torch.cat([x, torch.full((pad, d), _FAR_OFFSET, dtype=x.dtype,
+                                     device=x.device)], dim=0)
+    outs = [kv_matrix_bf16(q, x[lo * bn:(lo + t) * bn], kind, inv_bw, beta)
+            .reshape(m, -1, bn).sum(-1) for lo in range(0, num_b, t)]
+    return torch.cat(outs, dim=1)
+
+
 def kv_matrix(q, x, x_sq, kind: str, inv_bw: float, beta: float,
-              pairwise=None) -> torch.Tensor:
+              pairwise=None, precision: str = "f32") -> torch.Tensor:
     """(m, n) kernel values; L2 kinds reuse precomputed ``x_sq``.  Unknown
-    kinds fall back to the ``pairwise`` callable."""
+    kinds fall back to the ``pairwise`` callable.  ``precision="bf16"``
+    takes ``kv_matrix_bf16`` (L2 kinds only; ``x_sq`` is not used)."""
+    if precision != "f32":
+        check_precision(precision, kind, pairwise)
+        return kv_matrix_bf16(q, x, kind, inv_bw, beta)
     if kind in _L2_KINDS:
         qq = torch.sum(q * q, dim=1, keepdim=True)
         d2 = qq + x_sq[None, :] - 2.0 * (q @ x.T)
@@ -172,12 +372,13 @@ def sample_from_sums(x, x_sq, views, src, bs, u_blk, u_in, kind: str,
 
 
 def masked_exact_sums_ref(q, x, x_sq, own, kind: str, inv_bw: float,
-                          beta: float, bn: int, n: int, pairwise=None):
+                          beta: float, bn: int, n: int, pairwise=None,
+                          precision: str = "f32"):
     """Masked level-1 sums by one dense sweep over the unpadded dataset,
     zero-padded to a block multiple, own-block corrected by the self
     kernel k(x, x) = 1, floored."""
     m = q.shape[0]
-    kv = kv_matrix(q, x, x_sq, kind, inv_bw, beta, pairwise)
+    kv = kv_matrix(q, x, x_sq, kind, inv_bw, beta, pairwise, precision)
     pad = -n % bn
     if pad:
         kv = torch.nn.functional.pad(kv, (0, pad))

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_reduced
-from repro_torch.core.kde.base import RSKDE
+from repro_torch.core.kde.base import RSKDE, ExactKDE
 from repro_torch.core.kernels_fn import gaussian, laplacian
 from repro_torch.core.sampling.edge import NeighborSampler
 from repro_torch.core.sparsify import (incidence_row_norms,
@@ -21,6 +21,7 @@ from repro_torch.kernels.kde_hash import kernel as hk
 from repro_torch.kernels.kde_rowsum import kernel as rk
 from repro_torch.kernels.kde_sampler import kernel as sk
 from repro_torch.kernels.kde_sampler import ops as sops
+from repro_torch.kernels.kde_sampler import ref as sref
 from repro_torch.kernels.kde_sampler.ops import gumbel
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as fops
@@ -122,27 +123,12 @@ def test_rowsum_blocksum_plans_pick_the_tile(cuda, shape, tile):
         assert plan.instance == want == kshape.instance
 
 
-def _device_kernels_per_call(fn, reps=3, traces=3):
-    """CUDA kernels a call of ``fn`` launches, from a torch.profiler trace
-    (after one warm-up call), by name.  ``fn`` always launches device work,
-    so a trace with no device activity lost its CUPTI records and is taken
-    again, up to ``traces`` traces."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        got = {e.key: e.count / reps for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)) > 0}
-        if got:
-            return got
-    return {}
+def _device_kernels_per_call(fn, reps=3):
+    """CUDA kernels a call of ``fn`` launches, by name, from
+    ``profiling.device_kernels`` (padded traces, retraced until whole; a
+    lost record lowers a count, never raises it)."""
+    from repro_torch.kernels.profiling import device_kernels
+    return {k: c / reps for k, (c, _) in device_kernels(fn, reps).items()}
 
 
 @pytest.mark.cuda
@@ -256,7 +242,8 @@ def test_sample_block_kernel_at_the_main_shape(cuda):
     sk.reset_launches()
     got = sk.sample_block_cuda(q, x, own, g, "gaussian", 1.0, 1.0, 256)
     masked = sk.masked_blocksum_cuda(q, x, own, "gaussian", 1.0, 1.0, 256)
-    assert sk.LAUNCHES == {"masked_blocksum": 1, "sample_block": 1}
+    assert sk.LAUNCHES == {"masked_blocksum": 1, "sample_block": 1,
+                           "masked_blocksum_bf16": 0, "sample_block_bf16": 0}
     want = sk.sample_block_plain(q, x, own, g, "gaussian", 1.0, 1.0, 256)
     _assert_sample_block(got, want, g)
     torch.testing.assert_close(masked, want[3], rtol=RTOL, atol=ATOL)
@@ -404,13 +391,197 @@ def test_hash_path_runs_on_the_kernels(cuda):
     hk.reset_launches()
     nbr = NeighborSampler(x, gaussian(1.0), level1="hash", device=cuda)
     v, p = nbr.sample(src)
-    assert hk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 1}
+    assert hk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 1,
+                           "weighted_kv_sum_bf16": 0, "weighted_kv_bf16": 0}
     np.testing.assert_allclose(nbr.prob_of(src, v), p, rtol=1e-6)
     hk.reset_launches()
     g = spectral_sparsify(x, gaussian(1.0), num_edges=4096, estimator="hash",
                           device=cuda)
-    assert hk.LAUNCHES == {"weighted_kv_sum": 3, "weighted_kv": 4}
+    assert hk.LAUNCHES == {"weighted_kv_sum": 3, "weighted_kv": 4,
+                           "weighted_kv_sum_bf16": 0, "weighted_kv_bf16": 0}
     assert np.all(np.isfinite(g.weight)) and g.num_edges == 4096
+
+
+# --------------------------------------------------------------------- #
+# the bf16 policy (DESIGN.md §14): the bf16 instances of the KDE kernels
+# --------------------------------------------------------------------- #
+L2_KINDS = ["gaussian", "exponential", "rational_quadratic"]
+
+
+def _bf16_close(got, want, slack):
+    """bf16 kernel vs plain: |got - want| <= atol + rtol |want| + slack,
+    where ``slack`` is the reduced ``ref.bf16_flip_slack`` of the pairs
+    behind each output (0 where no pair's f32 argument can cross a bf16
+    rounding midpoint between the two summation orders)."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    bad = err > ATOL + RTOL * want.abs() + slack
+    assert not bool(bad.any()), (int(bad.sum()), float(err.max()))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_bf16_kernels_match_plain(cuda, kind, shape):
+    """The bf16 instances of the four level-1 kernels (every tile: the
+    ragged, wide, deep and misaligned shapes) vs their plain versions at
+    rtol 2e-4 / atol 1e-5 plus the flip slack of each output's pairs;
+    drawn blocks equal except where the top two scores lie within 1e-5 or
+    within the slack; the launches counted under the bf16 keys."""
+    q, x, own, g, inv_bw, bn = _inputs(kind, shape, cuda)
+    slack = sref.bf16_flip_slack(q, x, kind, inv_bw)
+    bslack = sref.bf16_flip_slack(q, x, kind, inv_bw, bn)
+    rk.reset_launches()
+    sk.reset_launches()
+    _bf16_close(rk.rowsum_cuda(q, x, kind, inv_bw, 0.7, "bf16"),
+                rk.rowsum_plain(q, x, kind, inv_bw, 0.7, "bf16"),
+                slack.sum(1))
+    _bf16_close(rk.blocksum_cuda(q, x, kind, inv_bw, 0.7, bn, "bf16"),
+                rk.blocksum_plain(q, x, kind, inv_bw, 0.7, bn, "bf16"),
+                bslack)
+    _bf16_close(sk.masked_blocksum_cuda(q, x, own, kind, inv_bw, 0.7, bn,
+                                        "bf16"),
+                sk.masked_blocksum_plain(q, x, own, kind, inv_bw, 0.7, bn,
+                                         "bf16"), bslack)
+    blk, pb, tot, bs = sk.sample_block_cuda(q, x, own, g, kind, inv_bw, 0.7,
+                                            bn, "bf16")
+    _, _, rtot, rbs = sk.sample_block_plain(q, x, own, g, kind, inv_bw, 0.7,
+                                            bn, "bf16")
+    _bf16_close(bs, rbs, bslack)
+    _bf16_close(tot, rtot, bslack.sum(1))
+    score = torch.log(rbs) + g
+    top2 = torch.topk(score, 2, dim=1).values
+    widen = 2.0 * torch.log1p(bslack / rbs.double()).max(1).values
+    tie = (top2[:, 0] - top2[:, 1]).double() <= 1e-5 + widen
+    assert bool(((blk == torch.argmax(score, 1)) | tie).all())
+    _bf16_close(pb, torch.gather(rbs, 1, blk[:, None])[:, 0] / rtot,
+                (bslack.sum(1) + torch.gather(bslack, 1, blk[:, None])[:, 0])
+                / rtot.double())
+    assert rk.LAUNCHES == {"rowsum": 0, "blocksum": 0, "rowsum_bf16": 1,
+                           "blocksum_bf16": 1}
+    assert sk.LAUNCHES == {"masked_blocksum": 0, "sample_block": 0,
+                           "masked_blocksum_bf16": 1, "sample_block_bf16": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 301, 19, 70), (64, 1024, 16, 256),
+                                   (37, 301, 8, 70), (130, 1000, 32, 256),
+                                   (130, 1000, 36, 256),
+                                   (130, 1000, 16, 256, "misaligned")])
+@pytest.mark.parametrize("kind", ["gaussian", "exponential"])
+def test_bf16_blocksum_one_column_blocks_are_the_plain_values(cuda, kind,
+                                                               shape):
+    """A blocksum of one-column blocks returns every bf16 kernel value of
+    the tile: equal to the plain version's wherever no bf16 rounding
+    midpoint lies within the f32 error of the pair's argument (the kernel
+    rounds its staged operands and reads the same table entry), and within
+    the flip slack where one does."""
+    q, x, _, _, inv_bw, _ = _inputs(kind, shape, cuda)
+    got = rk.blocksum_cuda(q, x, kind, inv_bw, 1.0, 1, "bf16")
+    want = rk.blocksum_plain(q, x, kind, inv_bw, 1.0, 1, "bf16")
+    slack = sref.bf16_flip_slack(q, x, kind, inv_bw)
+    assert torch.equal(got[slack == 0], want[slack == 0])
+    _bf16_close(got, want, slack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 19, 36])
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_bf16_kernels_on_dyadic_points(cuda, kind, d):
+    """Dyadic coordinates are exact in bf16 and every distance is exact in
+    f32 in any order, so the bf16 kernels equal their plain versions to
+    the kernel tolerance with no slack, and planted exact ties (two equal
+    blocks, equal Gumbel noise) go to the lower block on every row."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n, bn, m = 2048, 128, 200
+    x = torch.randint(-4, 5, (n, d), generator=gen, device=cuda) / 8.0
+    x[7 * bn:8 * bn] = x[2 * bn:3 * bn]
+    q = torch.randint(-4, 5, (m, d), generator=gen, device=cuda) / 8.0
+    own = torch.randint(-1, 16, (m,), generator=gen, device=cuda)
+    own[(own == 2) | (own == 7)] = -1
+    g = gumbel((m, 16), gen, cuda)
+    g[:, 2] = g[:, 7] = 30.0
+    inv_bw = 1.0 / (0.5 * d ** 0.5)
+    args = (kind, inv_bw, 0.7)
+    torch.testing.assert_close(rk.rowsum_cuda(q, x, *args, "bf16"),
+                               rk.rowsum_plain(q, x, *args, "bf16"),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(rk.blocksum_cuda(q, x, *args, bn, "bf16"),
+                               rk.blocksum_plain(q, x, *args, bn, "bf16"),
+                               rtol=RTOL, atol=ATOL)
+    blk, _, tot, bs = sk.sample_block_cuda(q, x, own, g, *args, bn, "bf16")
+    want = sk.sample_block_plain(q, x, own, g, *args, bn, "bf16")
+    torch.testing.assert_close(bs, want[3], rtol=RTOL, atol=ATOL)
+    assert torch.equal(bs[:, 2], bs[:, 7])
+    assert bool((blk == 2).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HASH_SHAPES)
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_bf16_hash_kernels_match_plain(cuda, kind, shape):
+    """The bf16 instances of both kde_hash kernels (vector and scalar) vs
+    their plain versions, columns past the end included (clamped): rtol
+    2e-4, an atol of 1e-6 of the largest value, plus the flip slack of
+    each gathered pair times its weight."""
+    m, n, t, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(m * 1000 + d)
+    q = torch.randn(m, d, generator=gen, device=cuda) * 0.3
+    x = torch.randn(n, d, generator=gen, device=cuda) * 0.3
+    cols = torch.randint(0, n + 3, (m, t), generator=gen, dtype=torch.int32,
+                         device=cuda)
+    wgt = torch.rand((m, t), generator=gen, device=cuda) * 256.0
+    inv_bw = 1.0 / (0.4 * d ** 0.5)
+    args = (q, x, cols, wgt, kind, inv_bw, 0.7)
+    slack = sref.bf16_flip_slack(q, x[cols.long().clamp(0, n - 1)], kind,
+                                 inv_bw) * wgt.double()
+    hk.reset_launches()
+    want = hk.weighted_kv_plain(*args, precision="bf16")
+    atol = 1e-6 * float(want.abs().max())
+    _bf16_close(hk.weighted_kv_cuda(*args, precision="bf16"), want,
+                slack + atol)
+    want = hk.weighted_kv_sum_plain(*args, precision="bf16")
+    _bf16_close(hk.weighted_kv_sum_cuda(*args, precision="bf16"), want,
+                slack.sum(1) + 1e-6 * float(want.abs().max()))
+    assert hk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0,
+                           "weighted_kv_sum_bf16": 1, "weighted_kv_bf16": 1}
+
+
+@pytest.mark.cuda
+def test_bf16_paths_run_on_the_bf16_kernels(cuda):
+    """The public bf16 entry points on the card launch the bf16 instances
+    and no f32 one: an exact sampler (sample, then prob_of on a fresh
+    one: sample_block_bf16, masked_blocksum_bf16), its block structure's
+    degrees (blocksum_bf16), ExactKDE (rowsum_bf16, against its CPU twin)
+    and a level-1-hash sampler over a bf16 HashedKDE (weighted_kv_bf16,
+    weighted_kv_sum_bf16)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 0.5, (3000, 8)).astype(np.float32)
+    src = rng.integers(0, 3000, 500)
+    for mod in (rk, sk, hk):
+        mod.reset_launches()
+    nbr = NeighborSampler(x, gaussian(1.0), exact_blocks=True,
+                          precision="bf16", device=cuda)
+    v, p = nbr.sample(src)
+    fresh = NeighborSampler(x, gaussian(1.0), exact_blocks=True,
+                            precision="bf16", device=cuda)
+    np.testing.assert_allclose(fresh.prob_of(src, v), p, rtol=1e-4)
+    nbr.blocks.block_sums(x[:64])
+    est = ExactKDE(x, gaussian(1.0), precision="bf16", device=cuda)
+    cpu = ExactKDE(x, gaussian(1.0), precision="bf16", device="cpu")
+    np.testing.assert_allclose(est.query(x[:100]).cpu().numpy(),
+                               cpu.query(x[:100]).numpy(), rtol=1e-3)
+    hs = NeighborSampler(x, gaussian(1.0), level1="hash", precision="bf16",
+                         device=cuda)
+    hs.sample(src)
+    hs.hash_estimator.query(x[:64])
+    assert rk.LAUNCHES == {"rowsum": 0, "blocksum": 0, "rowsum_bf16": 1,
+                           "blocksum_bf16": 1}
+    assert sk.LAUNCHES == {"masked_blocksum": 0, "sample_block": 0,
+                           "masked_blocksum_bf16": 1, "sample_block_bf16": 1}
+    assert hk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0,
+                           "weighted_kv_sum_bf16": 1, "weighted_kv_bf16": 1}
 
 
 # (b, hq, hkv, sq, skv, dh): the reference's flash sweep, the (5, 37)

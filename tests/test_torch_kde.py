@@ -293,7 +293,9 @@ def test_sample_block_wrapper_contract_on_the_cpu():
     assert outs[0][0].dtype == torch.int64
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    assert tsk.LAUNCHES == {"masked_blocksum": 0, "sample_block": 0}
+    assert tsk.LAUNCHES == {"masked_blocksum": 0, "sample_block": 0,
+                            "masked_blocksum_bf16": 0,
+                            "sample_block_bf16": 0}
     with pytest.raises(ValueError, match="CUDA"):
         tsk.sample_block_cuda(tq, tx, torch.as_tensor(own).float(), tg_,
                               "gaussian", inv_bw, beta, bn)
@@ -409,7 +411,9 @@ def test_status_bits_and_helpers_match_reference(monkeypatch):
 def test_device_defaults_to_the_card_and_slice_limits():
     """``device=None`` means CUDA and never drops to the CPU; options the
     port does not cover yet raise NotImplementedError (``rs``,
-    ``stratified`` and ``hash`` are ported)."""
+    ``stratified``, ``hash`` and ``precision="bf16"`` are ported: bf16
+    constructs, and bf16 with the laplacian raises the reference's
+    ValueError)."""
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
@@ -424,11 +428,16 @@ def test_device_defaults_to_the_card_and_slice_limits():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
                                  **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
+    est = tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
+                               precision="bf16")
+    assert est.precision == "bf16"
+    assert tbase.ExactKDE(x, tmake("gaussian"), precision="bf16",
+                          device="cpu").precision == "bf16"
+    with pytest.raises(ValueError, match="L2 kernels only"):
+        tbase.make_estimator("hash", x, tmake("laplacian"), device="cpu",
                              precision="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbase.ExactKDE(x, tmake("gaussian"), precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="L2 kernels only"):
+        tbase.ExactKDE(x, tmake("laplacian"), precision="bf16", device="cpu")
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

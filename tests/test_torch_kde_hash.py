@@ -150,7 +150,8 @@ def test_weighted_kv_plain_matches_reference(kind, d):
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(thk.weighted_kv_sum_plain(*args).numpy(),
                                want.sum(1), rtol=RTOL, atol=ATOL)
-    assert thk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0}
+    assert thk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0,
+                            "weighted_kv_sum_bf16": 0, "weighted_kv_bf16": 0}
 
 
 # (m, n, d, t, aligned) -> instance: the frontier read and degree query of
@@ -190,7 +191,8 @@ def test_weighted_kv_cuda_wrappers_reject_cpu_tensors():
     for fn in (thk.weighted_kv_cuda, thk.weighted_kv_sum_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, q, cols, torch.zeros((3, 5)), "gaussian", 1.0)
-    assert thk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0}
+    assert thk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0,
+                            "weighted_kv_sum_bf16": 0, "weighted_kv_bf16": 0}
 
 
 def _gather_case(label, num_far=16):

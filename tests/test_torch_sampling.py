@@ -276,10 +276,16 @@ def test_sampler_rejects_options_outside_the_slice():
     x = np.zeros((20, 2), np.float32)
     for kw in (dict(exact_blocks=True, mode="tree"),
                dict(level1="hash", mesh=object()),
-               dict(exact_blocks=True, mesh=object()),
-               dict(exact_blocks=True, precision="bf16")):
+               dict(exact_blocks=True, mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NeighborSampler(x, gaussian(), device="cpu", **kw)
+    # the bf16 policy is ported: it constructs on the L2 kinds, and the
+    # laplacian raises the reference's ValueError at construction
+    assert NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,
+                           precision="bf16").precision == "bf16"
+    with pytest.raises(ValueError, match="L2 kernels only"):
+        NeighborSampler(x, laplacian(), device="cpu", exact_blocks=True,
+                        precision="bf16")
     # as in the reference: a hashed level-1 read cannot be exact
     with pytest.raises(ValueError, match="pick one"):
         NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,

@@ -110,13 +110,19 @@ def main() -> int:
             fn()
         end.record()
         torch.cuda.synchronize()
+        # a trace can drop its first kernel records: spin kernels ahead of
+        # the calls take that place, and are left out of the counts (as in
+        # repro_torch.kernels.profiling, which a --src tree may predate)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                torch.cuda._sleep(20000)
             for _ in range(args.reps):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and "spin_kernel" not in e.key]
         dev_us = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
                      for e in ev)
