@@ -124,14 +124,74 @@ Phases (any failure exits non-zero; no phase catches and continues):
                degrees from its hash estimator, t = 10n): phase 6's
                layout, counter formula, degree-sum bound and edge law.
                (c) and (d) launch only bf16 instances (asserted).
-9. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
+9. graph    -- walks (Algorithm 4.16) and the Table-1 applications through
+               the public entry points, each configuration's wall time and
+               rate printed beside the card line.  (a) stratified walks on
+               the walk-resident cache at bench_sampling's largest
+               walk-scaling point (x ~ N(0, 0.5^2), n = 1,048,576, d = 16,
+               gaussian at bandwidth 4.0, s = 16): 256 walkers x 4 steps
+               timed (walk-steps/s), then 1024 x 8 with the path: no
+               kernel launch, kernel_evals = steps (w B s_eff + w wbs) of
+               the printed walk layout, no fatal flag, every transition by
+               its in-stratum PITs (chi-square, alpha 1e-3); (b)
+               exact-block walks on phase 3's data: 1024 x 8, exactly 8
+               sample-block launches, kernel_evals 8 (w n + w bs), every
+               transition held to k(u, .) / deg(u) (``neighbor_law``); with
+               rejection rounds (8, slack 2) 256 x 4, exactly 4
+               masked-blocksum launches and no sample-block launch,
+               fallbacks printed, the same law; (c) hashed walks on phase
+               6's data and sampler, 1024 x 8: exactly 8 weighted-kv
+               launches, the counter formula, destinations by their
+               block-restricted PITs; (d) Theorem 4.15: 20,000 exact-block
+               walks of 3 steps from vertex 0 at n = 4096, endpoints per
+               level-1 block by chi-square against e_0 M^3 computed in
+               float64 on the card, on N(0, 0.5^2) at bandwidth 4.0 (where
+               e_0 M^3 is near uniform over the blocks) and on GM_CLUSTERS
+               sorted by label at bandwidth 1.0, where uniform endpoints
+               and the walks' endpoints against e_0 M^2 must be rejected;
+               (e)
+               ``triangle_batches`` at bench_graph's engine configuration
+               (n = 16,384, 2048 pairs x 16 draws) on the stratified
+               sampler (timed, draws/s, no kernel) and on the exact one
+               (exact degrees through the blocksum kernel, then exactly one
+               masked-blocksum launch a call and kernel_evals m (n + 1) +
+               ns (m bs + m), timed), then ``estimate_triangle_weight`` at
+               bench_graph's accuracy configuration (gaussian_clusters n =
+               1200; 200 x 8 and 600 x 24) within ``TRI_BOUND`` of
+               ``exact_triangle_weight``; (f) ``edge_batches`` at the engine
+               configuration (4096 edges, timed, edges/s), then
+               ``estimate_arboricity`` at m = 2400 and 9600 within
+               ``ARB_BOUND`` of ``exact_arboricity``, kernel_evals n B s +
+               drawn (B s + bs + 1); (g) on the accuracy configuration:
+               ``same_cluster_test`` on the reference test's four pairs
+               (the expected decisions, kernel_evals 6 walks (n + bs), six
+               sample-block launches a test), ``top_eigenvalue(
+               method="noisy_power", t=192)`` within Lemma 5.21's 2 n /
+               sqrt(t) of ``top_eigenvalue_exact``, ``solve_kernel_
+               laplacian``'s residual under ``CG_RTOL``,
+               ``approximate_spectrum``'s counter formula and its EMD to
+               ``exact_spectrum``, ``spectral_cluster`` on a sparsifier
+               (accuracy printed).  A torch.profiler split of one walk of
+               (a), (b), (c) and of one triangle batch of (e) follows.
+               Each counted path's first call of each kernel wrapper is
+               recorded (``tapped``) and held against the plain version on
+               the same inputs at phase 2's tolerances, its max abs error
+               folded into the kernel's row (``path_kernel_checks``): the
+               sample-block kernel on the walks of (b), (d) and (g), the
+               masked-blocksum kernel on the rejection walk and the exact
+               triangle batch, the weighted-kv kernel on the hashed walk,
+               the blocksum kernel on the exact degrees of (e); those
+               degrees against the plain float64 row sums, and the exact
+               triangle batch's oriented pairs and weights against
+               ``triangle_batch_ref`` on its own noise.
+10. lm-prefill -- yi-6b at full width and depth (random f32 weights drawn
                on the card, 6.06 B parameters): ``make_prefill_step(impl=
                "flash")`` on ``make_batch`` tokens at batch 1, seq 8192
                (the reference's prefill_32k shape, 32768 x 32, cut to
                8192 x 1): exactly 32 flash launches; its last-position
                logits against ``impl="xla"`` (the chunked branch at 8192):
                max |diff| <= 1e-3 max |logit| and the same argmax per row.
-10. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
+11. lm-serve -- the port's serve driver (``launch.serve.run_lm``) on the
                same model, batch 4, prompt 512, gen 16, twice: ``--attention
                xla`` (its last-prompt-step logits against the flash prefill
                of the same prompts, same bound and argmax) and ``--attention
@@ -145,7 +205,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
                split of 8 decode steps of each attention, and their walls
                over three rounds of 8 steps taken in turns (xla, kde, kde,
                xla, xla, kde).
-11. report  -- a ``{"kernels": [...]}`` line, the card line from
+12. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+               the graph phase's paths, ``graph_launches``), the card line from
                nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
@@ -168,11 +229,14 @@ Launch counters are set to 0 just before phase 3 and read just after
 phase 5, set to 0 again just before phase 6 and read just after its
 sparsifier returns, again around phase 7's sparsifier and each of phase
 5's rs and stratified runs, around phase 8's sweep (b), exact path (c) and
-hashed path (d), and around the flash prefill of phase 9 and the kde serve
-run of phase 10, so the comparisons and timings of phase 2 and of (a) and
-the checks do not count.  Each kernel's ``launches`` is its count from the
-run of its own path (the bf16 rows: rowsum_bf16 from (b), blocksum,
-masked_blocksum and sample_block from (c), the kde_hash pair from (d)).
+hashed path (d), and around the flash prefill of phase 10 and the kde
+serve run of phase 11, so the comparisons and timings of phase 2 and of
+(a) and the checks do not count.  Each kernel's ``launches`` is its count
+from the run of its own path (the bf16 rows: rowsum_bf16 from (b),
+blocksum, masked_blocksum and sample_block from (c), the kde_hash pair
+from (d)).  Phase 9 sets every counter to 0 just before each walk,
+triangle batch and application call it counts, reads them just after, and
+reports them under ``graph_launches`` by path.
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -281,6 +345,31 @@ KDE_LONG_TOP_P = 16
 KDE_SERVE_TOP_P = 4
 # decode steps of the serve run around block edges, and its last step
 KDE_VALID_SWEEP = (1, 31, 32, 33, 527, 544)
+# the graph phase: bench_sampling's largest walk-scaling point (x ~ N(0,
+# 0.5^2), numpy seed 0, gaussian at bandwidth 4.0, s = 16; 256 walkers x 4
+# steps), the Markov-law check's n and walk count (tests/test_sampling.py),
+# bench_graph's engine configuration (n 16384, 2048 pairs x 16 draws, 4096
+# edges) and its accuracy configuration (gaussian_clusters n = 1200)
+GW_N, GW_D, GW_BW, GW_S, GW_WALKERS, GW_STEPS = 1048576, 16, 4.0, 16, 256, 4
+GM_N, GM_WALKS = 4096, 20000
+# clustered data, sorted by label so blocks follow clusters, on which the
+# law check rejects uniform endpoints and e_0 M^2 (expected chi-square
+# 32,165 and 2,179 against an alpha 1e-3 point of 103.5 at df 63, where
+# the N(0, 0.5^2) data give 65.1 and 63.0: tools/markov_law_power.py)
+GM_CLUSTERS, GM_CLUSTER_BW = dict(k=8, spread=0.3, sep=0.4), 1.0
+GT_N, GT_PAIRS, GT_DRAWS, GA_EDGES = 16384, 2048, 16, 4096
+ACC_N = 1200
+# 1.5x the largest relative error of the JAX reference's estimators at the
+# accuracy configuration over seeds 0-4 on the CPU (tools/graph_app_bounds.py:
+# arboricity m=2400 0.12865036708776897, m=9600 0.02072011012285744;
+# triangles 200x8 0.1926557008010198, 600x24 0.13892643496443688)
+ARB_BOUND = {2400: 0.19297555063165345, 9600: 0.03108016518428616}
+TRI_BOUND = {(200, 8): 0.2889835512015297, (600, 24): 0.2083896524466553}
+# the CG residual of the reference's CG test (tests/test_fused_apps.py:
+# 1e-4 |b| on its cloud), and on the accuracy configuration, where f32 CG
+# stalls on the plateau of a two-cluster graph (the reference's own solve
+# there stops at 5.88e-3 |b| on the CPU), 2e-2 |b|
+CG_RTOL, CG_PLATEAU = 1e-4, 2e-2
 
 
 def log(*a):
@@ -347,6 +436,18 @@ def check_blk(blk, bs_plain, gumbel, what: str, widen=0.0) -> None:
     want = torch.argmax(score, dim=1)
     bad = (blk != want) & ~tie
     assert not bool(bad.any()), f"{what}: {int(bad.sum())} drawn blocks differ"
+
+
+def sample_block_err(got, want, g, what: str) -> float:
+    """The sample-block kernel's (blk, p, tot, bs) against the plain
+    version's on Gumbel noise ``g``: the draws by ``check_blk``, the sums,
+    totals and p at rtol / atol; returns the max abs error."""
+    import torch
+    check_blk(got[0], want[3], g, what)
+    pb = torch.gather(want[3], 1, got[0][:, None])[:, 0] / want[2]
+    return max(close(got[3], want[3], what),
+               close(got[2], want[2], f"{what} tot"),
+               close(got[1], pb, f"{what} p"))
 
 
 def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
@@ -565,13 +666,9 @@ def phase_kernels(data, gen):
         .multi_processor_count)
     got = sk.sample_block_cuda(q, x, own, g, "gaussian", inv, 1.0, bn)
     want = sk.sample_block_plain(q, x, own, g, "gaussian", inv, 1.0, bn)
-    check_blk(got[0], want[3], g, "sample_block main")
     assert got[0].dtype == torch.int64, got[0].dtype
-    pb = torch.gather(want[3], 1, got[0][:, None])[:, 0] / want[2]
-    errs["sample_block"] = max(errs["sample_block"],
-                               close(got[3], want[3], "sample_block main"),
-                               close(got[2], want[2], "sample_block tot main"),
-                               close(got[1], pb, "sample_block p main"))
+    errs["sample_block"] = max(errs["sample_block"], sample_block_err(
+        got, want, g, "sample_block main"))
     got32 = sk.sample_block_cuda(q, x, own.to(torch.int32), g, "gaussian",
                                  inv, 1.0, bn)
     assert all(torch.equal(a, b) for a, b in zip(got32, got)), \
@@ -714,10 +811,10 @@ def chi2_critical(df: int) -> float:
     return df * (1.0 - a + CHI2_Z * a ** 0.5) ** 3
 
 
-def chi2_test(counts, expected, what: str) -> str:
-    """Pearson chi-square of ``counts`` against ``expected`` (float64
-    tensors; cells expecting fewer than 5 pooled into one) at alpha 1e-3;
-    returns the log text."""
+def chi2_stat(counts, expected):
+    """(statistic, alpha 1e-3 critical point, df) of Pearson's chi-square
+    of ``counts`` against ``expected`` (float64 tensors; cells expecting
+    fewer than 5 pooled into one)."""
     import torch
     small = expected < 5.0
     if bool(small.any()):
@@ -725,7 +822,13 @@ def chi2_test(counts, expected, what: str) -> str:
         expected = torch.cat([expected[~small], expected[small].sum()[None]])
     stat = float(((counts - expected) ** 2 / expected).sum())
     df = counts.numel() - 1
-    crit = chi2_critical(df)
+    return stat, chi2_critical(df), df
+
+
+def chi2_test(counts, expected, what: str) -> str:
+    """``chi2_stat`` asserted under its critical point; returns the log
+    text."""
+    stat, crit, df = chi2_stat(counts, expected)
     assert stat < crit, f"{what}: chi-square {stat:.1f} >= {crit:.1f} (df {df})"
     return f"{what} chi-square {stat:.2f} < {crit:.2f} (df {df})"
 
@@ -1364,7 +1467,7 @@ def profile_text(wall, busy, share, names) -> str:
 
 
 def phase_lm_prefill():
-    """Phase 9: yi-6b at full width and depth, the flash prefill counted
+    """Phase 10: yi-6b at full width and depth, the flash prefill counted
     and checked against xla."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
@@ -1412,7 +1515,7 @@ def phase_lm_prefill():
 
 
 def phase_lm_serve(model, gen):
-    """Phase 10: the serve driver on the full model, xla then kde."""
+    """Phase 11: the serve driver on the full model, xla then kde."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ShapeConfig
@@ -2386,6 +2489,650 @@ def phase_bf16(data, gen):
     return rows, launches, secs
 
 
+# --------------------------------------------------------------------- #
+# phase 9: graph (walks and the Table-1 applications)
+# --------------------------------------------------------------------- #
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_launches(fn):
+    """(fn's result, the f32 kernel launches it made, by name, zeros
+    left out): every counter is set to 0 just before the call."""
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    for mod in (rk, sk, hk):
+        mod.reset_launches()
+    out = fn()
+    counts = f32_counts(rk.LAUNCHES, sk.LAUNCHES, hk.LAUNCHES)
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def best_wall(fn, reps: int):
+    """(min, all) host seconds of ``reps`` calls of ``fn`` after one
+    warm-up, each ending in a synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), walls
+
+
+def transitions(starts, path, dev):
+    """(sources, destinations) of every step of a (T, w) walk path."""
+    import numpy as np
+    import torch
+    src = np.concatenate([np.asarray(starts)[None], path[:-1]]).reshape(-1)
+    return (torch.as_tensor(src, device=dev),
+            torch.as_tensor(path.reshape(-1), device=dev))
+
+
+def pit_law(pit, what: str):
+    """Chi-square of (2, t) PITs against the uniform on PIT_BINS bins."""
+    import torch
+    t = pit.shape[1]
+    return [chi2_test(torch.histc(row, bins=PIT_BINS, min=0.0,
+                                  max=1.0).double(),
+                      torch.full((PIT_BINS,), t / PIT_BINS,
+                                 dtype=torch.float64, device=pit.device),
+                      f"{what}, {order} order")
+            for row, order in zip(pit, ("index", "value"))]
+
+
+def tapped(fn, *targets):
+    """(fn's result, {attr: (args, kwargs, output)}): the first call of
+    each ``(module, attr)`` function in ``targets`` made during ``fn``,
+    with its inputs and output cloned -- what the path hands a kernel
+    wrapper and what it gets back.  The functions are restored after."""
+    import torch
+
+    def copy(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, (tuple, list)):
+            return type(a)(copy(b) for b in a)
+        if isinstance(a, dict):
+            return {k: copy(v) for k, v in a.items()}
+        return a
+
+    seen, saved = {}, []
+
+    def tap(orig, attr):
+        def call(*args, **kw):
+            if attr in seen:
+                return orig(*args, **kw)
+            inputs = copy(args), copy(kw)
+            out = orig(*args, **kw)
+            seen[attr] = (*inputs, copy(out))
+            return out
+        return call
+
+    for mod, attr in targets:
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, tap(getattr(mod, attr), attr))
+    try:
+        out = fn()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    return out, seen
+
+
+def kernel_mods():
+    """The module of each f32 kernel phase 9 checks, by kernel."""
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    return {"blocksum": rk, "masked_blocksum": sk, "sample_block": sk,
+            "weighted_kv": hk}
+
+
+def kernel_taps(*names):
+    """``tapped`` targets of the CUDA wrappers of the named f32 kernels."""
+    mods = kernel_mods()
+    return [(mods[name], f"{name}_cuda") for name in names]
+
+
+def path_kernel_checks(taps, what: str, errs) -> None:
+    """Every kernel call ``tapped`` recorded on a path against its plain
+    version on the same inputs (bound by parameter name: the plain
+    versions take more parameters), at phase 2's tolerances; each max abs
+    error is folded into ``errs`` by kernel."""
+    import inspect
+    mods = kernel_mods()
+    for attr, (args, kw, got) in taps.items():
+        name = attr[:-len("_cuda")]
+        if name not in mods:
+            continue
+        mod = mods[name]
+        a = inspect.signature(getattr(mod, attr)).bind(*args, **kw).arguments
+        want = getattr(mod, f"{name}_plain")(**a)
+        tag = f"{name} on the {what}"
+        if name == "sample_block":
+            err = sample_block_err(got, want, a["gumbel"], tag)
+        elif name == "weighted_kv":
+            err = close_scaled(got, want, tag)
+        else:
+            err = close(got, want, tag)
+        errs[name] = max(errs.get(name, 0.0), err)
+        width = f"t={a['cols'].shape[1]}" if name == "weighted_kv" else \
+            f"bn={a['bn']}"
+        log(f"[graph] {tag}: m={a['q'].shape[0]} n={a['x'].shape[0]} "
+            f"d={a['x'].shape[1]} {width}, the path's own inputs against the "
+            f"plain version: max abs err {err:.3e}")
+
+
+def graph_stratified_walks(card, gen, launches, profiles):
+    """(a) stratified walks on the walk-resident cache at bench_sampling's
+    largest walk-scaling point: timed, counted, no kernel, every
+    transition by its in-stratum PITs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.ft import guards
+    from repro_torch.kernels.kde_sampler import ops
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 0.5, (GW_N, GW_D)).astype(np.float32)
+    nbr = NeighborSampler(x, gaussian(GW_BW), samples_per_block=GW_S, seed=0,
+                          device="cuda")
+    starts = rng.integers(0, GW_N, GW_WALKERS).astype(np.int64)
+    wbs, w_blocks, s_eff = ops.walk_layout(nbr.n, nbr.block_size,
+                                           nbr.num_blocks, GW_S)
+    per_walk = GW_STEPS * (GW_WALKERS * w_blocks * s_eff + GW_WALKERS * wbs)
+    e0 = nbr.evals
+    (best, walls), counts = kernel_launches(
+        lambda: best_wall(lambda: nbr.walk(starts, GW_STEPS), 3))
+    assert not counts, f"the stratified walk launched kernels: {counts}"
+    assert nbr.evals - e0 == 4 * per_walk, (nbr.evals - e0, per_walk)
+    assert nbr.device_counters["evals"] == nbr.evals
+    log(f"[graph] (a) stratified walks n={GW_N} d={GW_D} s={GW_S}: walk "
+        f"layout wbs {wbs}, {w_blocks} strata, s_eff {s_eff} (sampler "
+        f"blocks {nbr.block_size} x {nbr.num_blocks}); {GW_WALKERS} "
+        f"walkers x {GW_STEPS} steps: best {best!r} s of "
+        f"{[round(w, 6) for w in walls]}, "
+        f"{GW_WALKERS * GW_STEPS / best:.0f} walk-steps/s; kernel_evals "
+        f"{per_walk} a walk = steps (w B s_eff + w wbs); no kernel launch "
+        f"({card})")
+    profiles["stratified walk 256 x 4"] = device_profile(
+        lambda: nbr.walk(starts, GW_STEPS))
+    starts2 = rng.integers(0, GW_N, 1024).astype(np.int64)
+    (ends, path), counts = kernel_launches(
+        lambda: nbr.walk(starts2, 8, record_path=True))
+    assert not counts and path.shape == (8, 1024), counts
+    assert not nbr.status & guards.FATAL, guards.decode_status(nbr.status)
+    launches["stratified walk"] = {}
+    src, dst = transitions(starts2, path, nbr.device)
+    xd = torch.as_tensor(x, device="cuda")
+    texts = pit_law(block_pits(xd, wbs, src, dst, GW_BW, gen),
+                    "destinations in their stratum")
+    log(f"[graph] (a) 1024 walkers x 8 steps (record_path): "
+        f"{'; '.join(texts)} (alpha 1e-3)")
+    del nbr, xd
+    free_cuda()
+
+
+def graph_exact_walks(data, card, launches, profiles, errs):
+    """(b) exact-block walks on phase 3's data: one sample-block launch a
+    step; with rejection rounds one masked-blocksum launch a step; every
+    transition held to k(u, .) / deg(u); each kernel's first call of a
+    walk against its plain version."""
+    import numpy as np
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.ft import guards
+    x, bs, n = data["sp_x"], data["sp_bs"], SP_N
+    rng = np.random.default_rng(1)
+    nbr = NeighborSampler(x, gaussian(SP_BW), exact_blocks=True, seed=6,
+                          device="cuda")
+    starts = rng.integers(0, n, 1024).astype(np.int64)
+    e0 = nbr.evals
+    ((ends, path), taps), counts = kernel_launches(lambda: tapped(
+        lambda: nbr.walk(starts, 8, record_path=True),
+        *kernel_taps("sample_block")))
+    assert counts == {"sample_block": 8}, counts
+    path_kernel_checks(taps, "exact-block walk", errs)
+    assert nbr.evals - e0 == 8 * (1024 * n + 1024 * bs), nbr.evals - e0
+    launches["exact-block walk 1024 x 8"] = counts
+    src, dst = transitions(starts, path, x.device)
+    secs, walls = best_wall(lambda: nbr.walk(starts, 8), 3)
+    log(f"[graph] (b) exact-block walk 1024 x 8 at n={n}: best {secs!r} s "
+        f"of {[round(w, 6) for w in walls]}, {8 * 1024 / secs:.0f} "
+        f"walk-steps/s, launches {counts}, "
+        f"kernel_evals 8 (w n + w bs); "
+        + "; ".join(neighbor_law(x, src, dst, 1.0 / SP_BW))
+        + f" (alpha 1e-3; {card})")
+    profiles["exact-block walk 1024 x 8"] = device_profile(
+        lambda: nbr.walk(starts, 8))
+    ex = NeighborSampler(x, gaussian(SP_BW), exact_blocks=True, seed=7,
+                         device="cuda")
+    starts = rng.integers(0, n, 256).astype(np.int64)
+    ((ends, path), taps), counts = kernel_launches(lambda: tapped(
+        lambda: ex.walk(starts, 4, exact=True, rounds=EXACT_ROUNDS,
+                        slack=EXACT_SLACK, record_path=True),
+        *kernel_taps("masked_blocksum")))
+    assert counts == {"masked_blocksum": 4}, counts
+    path_kernel_checks(taps, "exact walk with rejection rounds", errs)
+    assert ex.exact_draws == 256 * 4
+    assert not (nbr.status | ex.status) & guards.FATAL
+    launches["exact walk 256 x 4"] = counts
+    src, dst = transitions(starts, path, x.device)
+    fallbacks = ex.exact_fallbacks
+    secs, walls = best_wall(lambda: ex.walk(
+        starts, 4, exact=True, rounds=EXACT_ROUNDS, slack=EXACT_SLACK), 3)
+    log(f"[graph] (b) exact walk (rounds {EXACT_ROUNDS}, slack "
+        f"{EXACT_SLACK}) 256 x 4: best {secs!r} s of "
+        f"{[round(w, 6) for w in walls]}, {4 * 256 / secs:.0f} "
+        f"walk-steps/s, launches {counts}, {fallbacks} fallbacks of "
+        f"{256 * 4} draws; "
+        + "; ".join(neighbor_law(x, src, dst, 1.0 / SP_BW))
+        + " (alpha 1e-3)")
+
+
+def graph_hash_walks(data, card, gen, launches, profiles, errs):
+    """(c) hashed walks on phase 6's data and sampler: the weighted-kv
+    kernel once a step (its first call against its plain version), the
+    counter formula, destinations by phase 6's block-restricted PITs."""
+    import numpy as np
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.ft import guards
+    from repro_torch.kernels.kde_hash.ops import _widths
+    x, bs = data["hs_x"], data["hs_bs"]
+    nbr = NeighborSampler(x, gaussian(HS_BW), level1="hash", seed=2,
+                          device="cuda")
+    rng = np.random.default_rng(2)
+    starts = rng.integers(0, HS_N, 1024).astype(np.int64)
+    mb, ov = _widths(nbr.hash_estimator.state)
+    per_step = 1024 * (mb + ov + nbr.num_blocks * HS_FAR_PER_BLOCK) \
+        + 1024 * bs
+    e0 = nbr.evals
+    ((ends, path), taps), counts = kernel_launches(lambda: tapped(
+        lambda: nbr.walk(starts, 8, record_path=True),
+        *kernel_taps("weighted_kv")))
+    assert counts == {"weighted_kv": 8}, counts
+    path_kernel_checks(taps, "hashed walk", errs)
+    assert nbr.evals - e0 == 8 * per_step, (nbr.evals - e0, per_step)
+    assert nbr.device_counters["evals"] == 8 * per_step
+    assert not nbr.status & guards.FATAL, guards.decode_status(nbr.status)
+    launches["hashed walk 1024 x 8"] = counts
+    src, dst = transitions(starts, path, x.device)
+    texts = pit_law(block_pits(x, bs, src, dst, HS_BW, gen),
+                    "destinations in their block")
+    secs, walls = best_wall(lambda: nbr.walk(starts, 8), 3)
+    log(f"[graph] (c) hashed walk 1024 x 8 at n={HS_N}: best {secs!r} s of "
+        f"{[round(w, 6) for w in walls]}, {8 * 1024 / secs:.0f} "
+        f"walk-steps/s, launches {counts}, kernel_evals 8 x {per_step} = 8 "
+        f"(w (max_bucket "
+        f"{mb} + overflow {ov} + B far {nbr.num_blocks} x "
+        f"{HS_FAR_PER_BLOCK}) + w bs); {'; '.join(texts)} (alpha 1e-3; "
+        f"{card})")
+    profiles["hashed walk 1024 x 8"] = device_profile(
+        lambda: nbr.walk(starts, 8))
+
+
+def block_masses(x, bw, bs, nb, steps):
+    """The level-1 block masses of e_0 M^t for each t in ``steps``, M the
+    gaussian walk matrix of ``x`` at bandwidth ``bw`` (float64 on the
+    card)."""
+    import torch
+    xd = torch.as_tensor(x, device="cuda").double()
+    k = torch.exp(-torch.cdist(xd, xd) ** 2 / bw ** 2)
+    k.fill_diagonal_(0.0)
+    m = k / k.sum(1, keepdim=True)
+    own = torch.arange(x.shape[0], device="cuda") // bs
+    p, out = m[0], {}
+    for t in range(1, max(steps) + 1):
+        if t > 1:
+            p = p @ m
+        if t in steps:
+            out[t] = torch.zeros(nb, dtype=torch.float64,
+                                 device="cuda").index_add_(0, own, p)
+    return out
+
+
+def graph_markov_law(launches, gen, errs):
+    """(d) Theorem 4.15: 20,000 exact-block walks of 3 steps from vertex
+    0; endpoints per level-1 block against e_0 M^3 (float64 on the card).
+    First on bench_sampling's data (x ~ N(0, 0.5^2), bandwidth 4.0), where
+    every kernel value is near exp(-0.5) and e_0 M^3 is near uniform over
+    the blocks; then on GM_CLUSTERS sorted by label at bandwidth 1.0,
+    where the law is far from uniform and two controls must be rejected:
+    uniform endpoints against e_0 M^3, and the walks' endpoints against
+    e_0 M^2."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.data.synthetic_points import gaussian_clusters
+    x = np.random.default_rng(0).normal(0, 0.5, (GM_N, GW_D)).astype(
+        np.float32)
+    xc, lab = gaussian_clusters(n=GM_N, d=GW_D, seed=0, **GM_CLUSTERS)
+    xc = xc[np.argsort(lab, kind="stable")]
+    for tag, data, bw in (("N(0, 0.5^2), bandwidth 4.0", x, GW_BW),
+                          (f"clusters {GM_CLUSTERS} sorted by label, "
+                           f"bandwidth {GM_CLUSTER_BW}", xc, GM_CLUSTER_BW)):
+        nbr = NeighborSampler(data, gaussian(bw), exact_blocks=True, seed=0,
+                              device="cuda")
+        (ends, taps), counts = kernel_launches(lambda: tapped(
+            lambda: nbr.walk(np.zeros(GM_WALKS, np.int64), 3)[0],
+            *kernel_taps("sample_block")))
+        assert counts == {"sample_block": 3}, counts
+        launches[f"markov law 20000 x 3, {tag}"] = counts
+        path_kernel_checks(taps, f"Markov-law walk ({tag})", errs)
+        bs, nb = nbr.block_size, nbr.num_blocks
+        mass = block_masses(data, bw, bs, nb, (2, 3))
+        got = torch.bincount(torch.as_tensor(ends, device="cuda") // bs,
+                             minlength=nb).double()
+        text = chi2_test(got, GM_WALKS * mass[3], "endpoint blocks")
+        if data is xc:
+            uni = torch.bincount(torch.randint(
+                0, GM_N, (GM_WALKS,), generator=gen, device="cuda") // bs,
+                minlength=nb).double()
+            controls = (("uniform endpoints against e_0 M^3", uni, mass[3]),
+                        ("the endpoints against e_0 M^2", got, mass[2]))
+            for what, c, m in controls:
+                stat, crit, df = chi2_stat(c, GM_WALKS * m)
+                assert stat >= crit, f"control passed: {what} {stat:.1f}"
+                text += (f"; control {what}: chi-square {stat:.2f} >= "
+                         f"{crit:.2f} (df {df}), rejected")
+        log(f"[graph] (d) Markov law ({tag}): {GM_WALKS} walks of 3 steps "
+            f"from vertex 0 at n={GM_N}: endpoints per {bs}-row block "
+            f"against e_0 M^3: {text} (alpha 1e-3)")
+        del nbr
+    free_cuda()
+
+
+def triangle_vs_plain(rec, what: str) -> str:
+    """A recorded ``triangle_edge_scan`` call (``tapped``) against the
+    plain oracle ``triangle_batch_ref`` on the same inputs and noise: the
+    oriented pairs equal, the weights at rtol on all but m / 1000 + 1 rows
+    (a draw that a near-tie of the level-1 sums, summed in another order,
+    sent elsewhere); returns the log text."""
+    import torch
+    from repro_torch.kernels.kde_sampler import ref as sref
+    (x, x_sq, u, v, degs, (_, u_blk, u_in), _), kw, got = rec
+    want = sref.triangle_batch_ref(x, x_sq, u, v, degs, u_blk, u_in,
+                                   kw["kind"], kw["inv_bw"], kw["beta"],
+                                   kw["block_size"], kw["n"])
+    m = u.shape[0]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        f"{what}: oriented pairs differ"
+    off = ~torch.isclose(got[2], want[2], rtol=RTOL, atol=1e-7)
+    assert int(off.sum()) <= m // 1000 + 1, (what, int(off.sum()))
+    assert bool(torch.isfinite(got[2]).all()), f"{what}: non-finite w_hat"
+    err = float((got[2] - want[2])[~off].abs().max())
+    return (f"{what}: oriented pairs equal, w_hat of {m} pairs against "
+            f"triangle_batch_ref: {int(off.sum())} rows off (bound "
+            f"{m // 1000 + 1}), max abs err {err:.3e} on the rest")
+
+
+def graph_triangles(card, launches, profiles, errs):
+    """(e) triangle batches at bench_graph's engine configuration,
+    stratified (timed) and exact (the exact degrees and one masked-blocksum
+    launch a call, each against its plain version), then
+    ``estimate_triangle_weight`` at the accuracy configuration.  Returns
+    the engine's stratified sampler and its data for (f)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph.triangles import (estimate_triangle_weight,
+                                                  exact_triangle_weight)
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.core.sampling.vertex import approximate_degrees
+    from repro_torch.ft import guards
+    from repro_torch.kernels.kde_sampler import ops
+    n, m, ns = GT_N, GT_PAIRS, GT_DRAWS
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 0.5, (n, GW_D)).astype(np.float32)
+    ker = gaussian(GW_BW)
+    nbr = NeighborSampler(x, ker, samples_per_block=GW_S, seed=2,
+                          device="cuda")
+    degs = torch.as_tensor(approximate_degrees(nbr.blocks),
+                           dtype=torch.float32)
+    u = rng.integers(0, n, size=m)
+    v = rng.integers(0, n - 1, size=m)
+    v = np.where(v >= u, v + 1, v)
+    (best, walls), counts = kernel_launches(lambda: best_wall(
+        lambda: nbr.triangle_batches(u, v, degs, ns), 5))
+    assert not counts, counts
+    log(f"[graph] (e) triangle batches n={n} m={m} x {ns} draws, "
+        f"stratified: best {best!r} s of {[round(w, 6) for w in walls]}, "
+        f"{m * ns / best:.0f} draws/s, no kernel launch ({card})")
+    profiles["triangle batch stratified"] = device_profile(
+        lambda: nbr.triangle_batches(u, v, degs, ns))
+    ex = NeighborSampler(x, ker, exact_blocks=True, seed=2, device="cuda")
+    (deg_ex, taps), counts = kernel_launches(lambda: tapped(
+        lambda: approximate_degrees(ex.blocks), *kernel_taps("blocksum")))
+    assert counts == {"blocksum": -(-n // BATCH)}, counts
+    launches["triangle exact degrees"] = counts
+    path_kernel_checks(taps, "exact degrees", errs)
+    err = close(torch.as_tensor(deg_ex, device="cuda"),
+                exact_degrees(ex.x, 1.0 / GW_BW), "exact degrees")
+    log(f"[graph] (e) exact degrees of n={n} against the plain float64 "
+        f"row sums: max abs err {err:.3e}")
+    deg_ex = torch.as_tensor(deg_ex, dtype=torch.float32)
+    bs = ex.block_size
+    e0 = ex.evals
+    (_, taps), counts = kernel_launches(lambda: tapped(
+        lambda: ex.triangle_batches(u, v, deg_ex, ns),
+        *kernel_taps("masked_blocksum"), (ops, "triangle_edge_scan")))
+    assert counts == {"masked_blocksum": 1}, counts
+    path_kernel_checks(taps, "exact triangle batch", errs)
+    log("[graph] (e) " + triangle_vs_plain(taps["triangle_edge_scan"],
+                                           "exact triangle batch"))
+    assert ex.evals - e0 == m * (n + 1) + ns * (m * bs + m), ex.evals - e0
+    launches["triangle batch exact"] = counts
+    best, walls = best_wall(lambda: ex.triangle_batches(u, v, deg_ex, ns), 5)
+    assert not (nbr.status | ex.status) & guards.FATAL
+    log(f"[graph] (e) triangle batches, exact_blocks: launches {counts} a "
+        f"call, kernel_evals m (n + 1) + ns (m bs + m); best {best!r} s of "
+        f"{[round(w, 6) for w in walls]}, {m * ns / best:.0f} draws/s "
+        f"({card})")
+    profiles["triangle batch exact"] = device_profile(
+        lambda: ex.triangle_batches(u, v, deg_ex, ns))
+    xa, _ = acc_data()
+    truth = exact_triangle_weight(gaussian(1.0), xa, device="cuda")
+    for (pairs, draws), bound_ in TRI_BOUND.items():
+        t0 = time.perf_counter()
+        res = estimate_triangle_weight(xa, gaussian(1.0), pairs, draws,
+                                       seed=0, device="cuda")
+        secs = time.perf_counter() - t0
+        rel = abs(res.total_weight - truth) / truth
+        log(f"[graph] (e) estimate_triangle_weight n={ACC_N} {pairs} pairs x "
+            f"{draws} draws: {res.total_weight!r} against the exact "
+            f"{truth!r}, rel err {rel!r} (bound {bound_!r}), kernel_evals "
+            f"{res.kernel_evals}, {secs:.2f} s")
+        assert rel <= bound_, (pairs, draws, rel, bound_)
+    return nbr, degs
+
+
+def acc_data():
+    """bench_graph's accuracy configuration: two clusters, n = 1200."""
+    from repro_torch.data.synthetic_points import gaussian_clusters
+    return gaussian_clusters(n=ACC_N, d=4, k=2, spread=0.3, sep=1.2, seed=3)
+
+
+def graph_arboricity(nbr, card):
+    """(f) edge batches at the engine configuration (timed), then
+    ``estimate_arboricity`` at the accuracy configuration with its
+    counter formula."""
+    import numpy as np
+    from repro_torch.core.graph.arboricity import (estimate_arboricity,
+                                                   exact_arboricity)
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.vertex import DegreeSampler
+    deg = DegreeSampler(nbr.blocks, seed=1)
+    (best, walls), counts = kernel_launches(lambda: best_wall(
+        lambda: nbr.edge_batches(deg.cdf_device, deg.degrees_device,
+                                 deg.total, GA_EDGES, batch=BATCH), 5))
+    assert not counts, counts
+    log(f"[graph] (f) edge batches n={GT_N} {GA_EDGES} edges, batch "
+        f"{BATCH}, stratified: best {best!r} s of "
+        f"{[round(w, 6) for w in walls]}, {GA_EDGES / best:.0f} edges/s, no "
+        f"kernel launch ({card})")
+    xa, _ = acc_data()
+    truth = exact_arboricity(gaussian(1.0), xa, device="cuda")
+    bs = max(int(np.sqrt(ACC_N)), 16)
+    nb = -(-ACC_N // bs)
+    for m, bound_ in ARB_BOUND.items():
+        t0 = time.perf_counter()
+        res = estimate_arboricity(xa, gaussian(1.0), m, seed=0,
+                                  device="cuda")
+        secs = time.perf_counter() - t0
+        drawn = -(-m // 512) * 512
+        want = ACC_N * nb * GW_S + drawn * (nb * GW_S + bs + 1)
+        assert res.kernel_evals == want, (res.kernel_evals, want)
+        rel = abs(res.density - truth) / truth
+        log(f"[graph] (f) estimate_arboricity n={ACC_N} m={m}: density "
+            f"{res.density!r} against the exact peel's {truth!r}, rel err "
+            f"{rel!r} (bound {bound_!r}), kernel_evals {res.kernel_evals} = "
+            f"n B s + drawn (B s + bs + 1), {secs:.2f} s")
+        assert rel <= bound_, (m, rel, bound_)
+
+
+def graph_table1(launches, errs):
+    """(g) local clustering, the top eigenvalue, the Laplacian solve, the
+    spectrum and spectral clustering on the accuracy configuration; the
+    first sample-block call of a test and of the spectrum against its
+    plain version."""
+    import numpy as np
+    from repro_torch.core import (approximate_spectrum, cg_laplacian,
+                                  cluster_accuracy, emd_1d, exact_spectrum,
+                                  same_cluster_test, solve_kernel_laplacian,
+                                  spectral_cluster, spectral_sparsify,
+                                  top_eigenvalue, top_eigenvalue_exact)
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    xa, lab = acc_data()
+    ker, n = gaussian(1.0), ACC_N
+    i0, i1 = np.where(lab == 0)[0], np.where(lab == 1)[0]
+    cases = [(int(i0[0]), int(i0[5]), True), (int(i1[1]), int(i1[7]), True),
+             (int(i0[0]), int(i1[0]), False), (int(i0[3]), int(i1[2]), False)]
+    stats_ = []
+    for seed, (u, w, want) in enumerate(cases):
+        nbr = NeighborSampler(xa, ker, exact_blocks=True, seed=seed,
+                              device="cuda")
+        (res, taps), counts = kernel_launches(lambda: tapped(
+            lambda: same_cluster_test(xa, ker, u, w, walk_length=6,
+                                      num_walks=400, sampler=nbr, seed=seed),
+            *kernel_taps("sample_block")))
+        path_kernel_checks(taps, f"same_cluster_test ({u}, {w})", errs)
+        rng = np.random.default_rng(seed)
+        walks = max(int(rng.poisson(400)), 1) + max(int(rng.poisson(400)), 1)
+        assert counts == {"sample_block": 6}, counts
+        assert res.kernel_evals == 6 * walks * (n + nbr.block_size)
+        assert res.same_cluster == want, (u, w, res.statistic)
+        stats_.append(f"({u}, {w}) {res.statistic:.3e}")
+    launches["same_cluster_test a pair"] = counts
+    log(f"[graph] (g) same_cluster_test (walk_length 6, 400 walks) on the "
+        f"four reference pairs: decisions as expected, statistics "
+        f"{', '.join(stats_)} (threshold {1.0 / n:.3e}), kernel_evals "
+        f"6 walks (n + bs), launches {counts} a test")
+    t = 192
+    truth = top_eigenvalue_exact(ker, xa, device="cuda")
+    res = top_eigenvalue(xa, ker, t=t, method="noisy_power", seed=0,
+                         device="cuda")
+    err = abs(res.eigenvalue - truth)
+    log(f"[graph] (g) top_eigenvalue(noisy_power, t={t}): {res.eigenvalue!r}"
+        f" against {truth!r}, |err| {err:.4f} <= 2 n / sqrt(t) = "
+        f"{2 * n / t ** 0.5:.4f}; kernel_evals {res.kernel_evals}, sampled "
+        f"lookups {res.matvec_sampled_evals}")
+    assert err <= 2.0 * n / np.sqrt(t)
+    assert res.kernel_evals == t * t
+    b = np.random.default_rng(1).standard_normal(n)
+    b -= b.mean()
+    t0 = time.perf_counter()
+    sol, g = solve_kernel_laplacian(xa, ker, b, device="cuda")
+    secs = time.perf_counter() - t0
+    _, res = cg_laplacian(g, b, iters=300, device="cuda")
+    log(f"[graph] (g) solve_kernel_laplacian: {g.num_edges} edges, "
+        f"{secs:.2f} s; CG residual {res / np.linalg.norm(b):.3e} |b| (the "
+        f"f32 plateau of a two-cluster graph), |L_G' x - b| / |b| = "
+        f"{np.linalg.norm(g.matvec(sol) - b) / np.linalg.norm(b):.3e}")
+    assert res < CG_PLATEAU * np.linalg.norm(b), res
+    # the reference's CG test (tests/test_fused_apps.py): its cloud, an
+    # exact sparsifier of 12000 edges, the residual under 1e-4 |b| and the
+    # solution within 1e-3 of the dense solve
+    xc = np.random.default_rng(0).normal(0, 0.35, (300, 5)).astype(
+        np.float32)
+    g = spectral_sparsify(xc, gaussian(2.0), 12000, estimator="exact",
+                          exact_blocks=True, seed=0, device="cuda")
+    b = np.random.default_rng(1).standard_normal(g.n)
+    b -= b.mean()
+    sol, res = cg_laplacian(g, b, iters=400, device="cuda")
+    direct = np.linalg.lstsq(g.laplacian_dense(), b, rcond=None)[0]
+    direct -= direct.mean()
+    err = np.linalg.norm(sol - direct) / np.linalg.norm(direct)
+    log(f"[graph] (g) cg_laplacian on the reference test's cloud (n 300, "
+        f"12000 exact edges): residual {res / np.linalg.norm(b):.3e} |b| "
+        f"(bound {CG_RTOL}), solution vs the dense solve {err:.3e} (bound "
+        f"1e-3)")
+    assert res < CG_RTOL * np.linalg.norm(b) and err < 1e-3, (res, err)
+    sampler = NeighborSampler(xa, ker, exact_blocks=True, seed=0,
+                              device="cuda")
+    (sp, taps), counts = kernel_launches(lambda: tapped(
+        lambda: approximate_spectrum(xa, ker, sampler=sampler),
+        *kernel_taps("sample_block")))
+    assert counts == {"sample_block": 10}, counts
+    path_kernel_checks(taps, "approximate_spectrum", errs)
+    assert sp.kernel_evals == 10 * 32 * 64 * (n + sampler.block_size)
+    launches["approximate_spectrum"] = counts
+    emd = emd_1d(sp.eigenvalues, exact_spectrum(ker, xa, device="cuda"))
+    log(f"[graph] (g) approximate_spectrum (10 steps, 32 x 64 walks): EMD "
+        f"to the exact spectrum {emd!r}, kernel_evals {sp.kernel_evals}, "
+        f"launches {counts}")
+    g = spectral_sparsify(xa, ker, 10 * n, seed=0, device="cuda")
+    acc = cluster_accuracy(spectral_cluster(g, 2).labels, lab, 2)
+    log(f"[graph] (g) spectral_cluster on a {g.num_edges}-edge sparsifier: "
+        f"accuracy {acc!r}")
+
+
+def phase_graph(data, gen):
+    """Phase 9: walks and the Table-1 applications.  Returns (launches by
+    path and kernel, seconds by part, the largest error of each kernel
+    against its plain version on the paths' own inputs)."""
+    import torch
+    card = card_line()
+    launches, profiles, secs, errs = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    graph_stratified_walks(card, gen, launches, profiles)
+    secs["graph (a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph_exact_walks(data, card, launches, profiles, errs)
+    secs["graph (b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph_hash_walks(data, card, gen, launches, profiles, errs)
+    secs["graph (c)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph_markov_law(launches, gen, errs)
+    secs["graph (d)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nbr, _ = graph_triangles(card, launches, profiles, errs)
+    secs["graph (e)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph_arboricity(nbr, card)
+    secs["graph (f)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph_table1(launches, errs)
+    secs["graph (g)"] = time.perf_counter() - t0
+    for what, prof in profiles.items():
+        log(f"[graph] profile of one {what}: {profile_text(*prof)}")
+    torch.cuda.synchronize()
+    free_cuda()
+    return launches, secs, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2509,6 +3256,8 @@ def main() -> int:
     rows += bf16_rows
     launches.update(bf16_launches)
     phases.update(bf16_secs)
+    graph_launches, graph_secs, graph_errs = phase_graph(data, gen)
+    phases.update(graph_secs)
     del data
     free_cuda()
 
@@ -2526,17 +3275,18 @@ def main() -> int:
 
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               graph_errs.get(r["name"], 0.0))
+        r["graph_launches"] = {path: c[r["name"]] for path, c in
+                               graph_launches.items() if r["name"] in c}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("device_ms", "host_us") if k in r}
+        {k: r[k] for k in keys + ("device_ms", "host_us", "graph_launches")
+         if k in r}
         for r in rows]}))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(card)
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

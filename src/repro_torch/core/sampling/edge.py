@@ -25,7 +25,9 @@ stay f32.
 neighbor, and ``prob_of`` evaluates the probability the sampler assigns to
 an arbitrary (u, v) -- both are required by the sparsifier (Alg 5.1 steps
 (c)-(d)).  ``sample_exact`` corrects the estimated law to the exact one by
-Theorem 4.12's rejection rounds.
+Theorem 4.12's rejection rounds.  ``walk`` runs Algorithm 4.16's random
+walks and ``triangle_batches`` Theorem 6.17's per-edge loop, each as one
+device loop over the sampler's level-1 read.
 
 Level-1 caching contract (DESIGN.md §4): the masked block sums of the most
 recent frontier stay on the device; ``sample`` / ``prob_of`` /
@@ -326,6 +328,83 @@ class NeighborSampler:
         self._l1_cache = None  # frontier moved; cached sums are stale
         self._note(word, "NeighborSampler.edge_batches")
         return tuple(a.reshape(-1)[:t].cpu().numpy() for a in data)
+
+    # ------------------------------------------------------------------ #
+    def triangle_batches(self, u: np.ndarray, v: np.ndarray,
+                         degs_device: torch.Tensor, num_draws: int,
+                         generator: Optional[torch.Generator] = None):
+        """Theorem 6.17's inner loop on the device: orient the (u, v)
+        vertex pairs by the degree-then-index order, read the oriented v
+        frontier's level-1 sums ONCE (one masked-blocksum launch on the
+        exact read), draw ``num_draws`` neighbors w ~ k(v, .)/deg(v) from
+        them, and reweight; one transfer of (u', v', W_e) to the host.
+
+        Cost: one level-1 read of the m-edge frontier plus, per draw, m
+        exact level-2 rows and m aligned k(u, w) pairs -- ``m*(B*s + 1) +
+        num_draws*m*(bs + 1)`` kernel evals for stratified reads
+        (``m*(n + 1) + ...`` exact)."""
+        m = len(np.asarray(u))
+        gen = self._gen if generator is None else generator
+        l1 = _ops._level1_noise(m, self.num_blocks, gen, self.device,
+                                **self._noise_cfg)
+        u_blk, u_in = (torch.rand((int(num_draws), m), generator=gen,
+                                  device=self.device) for _ in range(2))
+        uu, vv, w_hat, cw = _ops.triangle_edge_scan(
+            self.x, self.x_sq, self._frontier(u)[1], self._frontier(v)[1],
+            degs_device.to(self.device), (l1, u_blk, u_in), self._hstate,
+            **self._cfg)
+        self._count(self._level1_evals(m) + m
+                    + int(num_draws) * (m * self.block_size + m))
+        self._l1_cache = None  # frontier moved; cached sums are stale
+        self._note(cw, "NeighborSampler.triangle_batches")
+        return uu.cpu().numpy(), vv.cpu().numpy(), w_hat.cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    def walk(self, starts: np.ndarray, length: int, exact: bool = False,
+             rounds: int = 8, slack: float = 2.0,
+             generator: Optional[torch.Generator] = None,
+             record_path: bool = False):
+        """Run |starts| walks of ``length`` steps on the device: the
+        frontier never leaves it, and each step is one depth-2 draw
+        (``exact=True``: one level-1 read and Theorem 4.12's ``rounds``
+        rejection rounds).  A stratified sampler's walks read level 1 from
+        the walk-resident cache (``ops.walk_layout``).  Returns
+        (endpoints, (length, w) path) as numpy arrays; with
+        ``record_path=False`` (default) the path is not kept and None is
+        returned in its place -- the endpoints are the same either way
+        (same noise)."""
+        w = len(np.asarray(starts))
+        gen = self._gen if generator is None else generator
+        rounds_k = rounds if exact else 0
+        noise = _ops.draw_walk_noise(
+            int(length), w, self.num_blocks, gen, self.device,
+            n=self.n, s=self._cfg["s"], rounds=rounds_k, **self._noise_cfg)
+        end, path, word, fb = _ops.walk_scan(
+            self.x, self.x_sq, self._frontier(starts)[1], noise, self._hstate,
+            rounds=rounds_k, slack=slack, record_path=bool(record_path),
+            **self._cfg)
+        if _ops.walk_cached(self.level1, self.exact_blocks):
+            # the walk-resident cache: B * s_eff cached columns a row and
+            # level-2 rows (and rejection rows) wbs wide
+            wbs, w_blocks, s_eff = _ops.walk_layout(
+                self.n, self.block_size, self.num_blocks, self._cfg["s"])
+            per_step = w * w_blocks * s_eff + w * wbs
+        else:
+            wbs = self.block_size
+            per_step = self._level1_evals(w) + w * wbs
+        if exact:
+            per_step += rounds * (w * wbs + w)
+        self._count(int(length) * per_step)
+        self._l1_cache = None  # frontier moved; cached sums are stale
+        self._note(word, "NeighborSampler.walk")
+        if exact:
+            self.exact_draws += w * int(length)
+            self.exact_fallbacks += int(fb)
+            _g.warn_fallback_rate(self.exact_fallbacks, self.exact_draws,
+                                  rounds, slack,
+                                  context="NeighborSampler.walk")
+        return end.cpu().numpy(), (path.cpu().numpy() if record_path
+                                   else None)
 
 
 def shared_level1_estimator(nbr: NeighborSampler, estimator: str,

@@ -34,6 +34,14 @@ Theorem 4.12 rejection rounds (``fused_sample_exact``) take ``(u_blk
 (rounds + 1, w), u_in (rounds + 1, w), u_acc (rounds, w))``: row 0 is the
 round-0 proposal, row r + 1 and ``u_acc[r]`` round r's.
 
+Walks (``walk_scan``, Algorithm 4.16) loop over their steps in Python on
+the device, with the noise of every step given up front
+(``draw_walk_noise``); a stratified walk reads level 1 from a subsample
+cached once a walk (the walk-resident layout of ``walk_layout``) and
+draws by the two-level inverse CDF.  The application programs (noisy
+power, the Laplacian matvec and CG solve, the endpoint statistic, the
+triangle edge scan) follow the reference's ``ops`` one for one.
+
 Every program also returns the ``(obs.WIDTH,)`` counter word of the
 reference for the same static shapes: slot 0 the status bits
 (``ft.guards``), slots 1+ the realized kernel evaluations, level-1 reads,
@@ -53,6 +61,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.ft import guards as _g
+from repro_torch.kernels import tuning as _tuning
 from repro_torch.kernels.kde_hash import ops as _hops
 from repro_torch.kernels.kde_rowsum import kernel as _rk
 from repro_torch.kernels.kde_sampler import kernel as _k
@@ -510,3 +519,357 @@ def kernel_rows(q, x, x_sq, *, kind, inv_bw, beta):
     kv = _ref.kv_matrix(q, x, x_sq, kind, inv_bw, beta)
     return kv, _c.word(status=_g.nonfinite_status(kv),
                        evals=q.shape[0] * x.shape[0])
+
+
+# --------------------------------------------------------------------- #
+# walks (Algorithm 4.16) on the device
+# --------------------------------------------------------------------- #
+def walk_cache_samples(num_blocks: int, s: int) -> int:
+    """Per-block subsample width ``s_eff`` of the walk-resident cache, for
+    the eval accounting of ``core.sampling.edge``."""
+    return _tuning.walk_samples_per_block(num_blocks, s)
+
+
+def walk_layout(n: int, block_size: int, num_blocks: int, s: int):
+    """(stratum width, stratum count, per-stratum cache width) of the
+    walk-resident layout (``tuning.walk_block_size``): the walk step's own
+    block granularity, so the exact level-2 read stays narrow as n grows.
+    The sampler's layout is returned unchanged while ``num_blocks * s <=
+    WALK_CACHE_COLS``; past that the two layouts differ."""
+    if num_blocks * s <= _tuning.WALK_CACHE_COLS:
+        return block_size, num_blocks, s
+    wbs = _tuning.walk_block_size(n, block_size)
+    w_blocks = -(-int(n) // wbs)
+    return wbs, w_blocks, _tuning.walk_samples_per_block(w_blocks, s)
+
+
+def walk_cached(level1: str, exact: bool) -> bool:
+    """Whether a walk reads level 1 from the walk-resident cache: every
+    stratified blocked walk does, on every device (the reference's CPU
+    behaviour; ROADMAP.md section 3)."""
+    return level1 == "blocked" and not exact
+
+
+def _walk_level1_cache(x, x_sq, u, *, block_size, num_blocks, n, s):
+    """Walk-resident compact level-1 subsample (DESIGN.md §14), from
+    explicit uniforms ``u`` (num_blocks, block_size): each stratum's ``s``
+    rows of smallest ``u`` (``stratified_columns``), gathered once per
+    walk into a compact (B * s, d) array that every step's level-1 read
+    sweeps.  SAMPLE-major: column j holds sample j // B of stratum j % B.
+    Returns ``(xs, xs_sq, valid (B s,) real-sample mask, scale (B,))``."""
+    rows, valid, scale = stratified_columns(u, block_size=block_size,
+                                            num_blocks=num_blocks, n=n, s=s)
+    flat = rows.reshape(num_blocks, s).T.reshape(-1)
+    return x[flat], x_sq[flat], valid.T.reshape(-1), scale
+
+
+def _cached_block_sums(cache, x, src, *, kind, inv_bw, beta, block_size,
+                       num_blocks, s, precision="f32"):
+    """Masked level-1 read against the walk-resident cache: one compact
+    (w, B * s) kernel evaluation, the per-stratum sum and rescale, then the
+    own-block correction and the floor."""
+    xs, xs_sq, valid, scale = cache
+    kv = _ref.kv_matrix(x[src], xs, xs_sq, kind, inv_bw, beta, None,
+                        precision) * valid[None, :]
+    bs = kv.reshape(src.shape[0], s, num_blocks).sum(1) * scale[None, :]
+    own = src // block_size
+    corr = torch.arange(num_blocks, device=src.device)[None, :] \
+        == own[:, None]
+    bs = torch.where(corr, bs - 1.0, bs)
+    return torch.clamp(bs, min=FLOOR)
+
+
+def _walk_sample_core(x, x_sq, views, src, bs, u_blk, u_in, *, kind, inv_bw,
+                      beta, block_size, n, num_blocks):
+    """``sample_from_sums`` with the two-level inverse-CDF draws at both
+    depths (``ref.grouped_inverse_cdf``): the walk-resident step.  Returns
+    (neighbors, realized probabilities)."""
+    blk, pb = _ref.choose_block_grouped(bs, u_blk, _ref.cdf_group(num_blocks))
+    kv, live, cols_c = _ref.level2_row(x, x_sq, views, src, blk, kind,
+                                       inv_bw, beta, block_size, n)
+    nb, pin = _ref.level2_draw_grouped(kv, live, cols_c, u_in,
+                                       _ref.cdf_group(block_size))
+    return nb, pb * pin
+
+
+def draw_walk_noise(length: int, w: int, num_blocks: int, generator,
+                    device, *, level1="blocked", exact, num_far=1,
+                    block_size, n, s, rounds=0):
+    """The noise of a ``length``-step walk of ``w`` walkers: ``(cache_u,
+    steps)``.  ``cache_u`` (w_blocks, wbs) draws the walk-resident
+    subsample (None off the cached layout); ``steps[i]`` is step i's
+    noise: ``(l1, u_blk (rounds + 1, w), u_in (rounds + 1, w), u_acc
+    (rounds, w))`` with rejection rounds (``l1`` the FAR offsets of a
+    hashed read, else None), ``(u_blk, u_in)`` on the cached layout,
+    ``draw_sample_noise``'s otherwise."""
+    cache_u = None
+    if walk_cached(level1, exact):
+        wbs, w_blocks, _ = walk_layout(n, block_size, num_blocks, s)
+        cache_u = torch.rand((w_blocks, wbs), generator=generator,
+                             device=device)
+    steps = []
+    for _ in range(length):
+        if rounds > 0:
+            l1 = (_hops.draw_frontier_noise(w, num_blocks, num_far,
+                                            block_size, generator, device)
+                  if level1 == "hash" else None)
+            steps.append((l1,) + draw_exact_noise(w, rounds, generator,
+                                                  device))
+        elif cache_u is not None:
+            steps.append(tuple(torch.rand(w, generator=generator,
+                                          device=device) for _ in range(2)))
+        else:
+            steps.append(draw_sample_noise(w, num_blocks, generator, device,
+                                           level1=level1, exact=exact,
+                                           num_far=num_far,
+                                           block_size=block_size))
+    return cache_u, steps
+
+
+def walk_scan(x, x_sq, starts, noise, hstate=None, *, kind, inv_bw, beta,
+              block_size, num_blocks, n, s, exact, rounds, slack,
+              record_path=True, level1="blocked", num_far=1,
+              precision="f32"):
+    """``len(steps)``-step random walk on the device with explicit noise
+    ``(cache_u, steps)`` (``draw_walk_noise``): the frontier stays on the
+    device and each step is one depth-2 draw -- the sample-block kernel on
+    the exact read, the hashed read's weighted-kv kernels on
+    ``level1="hash"``, the walk-resident cache on the stratified read (no
+    kernel) -- or, with ``rounds > 0``, one level-1 read (the
+    masked-blocksum kernel on the exact read) and the Theorem 4.12
+    rejection rounds.  Statuses or-fold and fallbacks add on the device:
+    no host synchronisation inside the loop.  ``record_path=False``
+    consumes the same noise, so the endpoints are the same.
+
+    Returns (endpoints, (T, w) path or None, counter word, fallback
+    count)."""
+    cache_u, steps = noise
+    w = starts.shape[0]
+    wbs, w_blocks, s_eff = block_size, num_blocks, s
+    cache = None
+    views = _ref.block_views(x, x_sq, block_size)
+    if walk_cached(level1, exact):
+        # walk-resident layout: ~WALK_CACHE_COLS cached level-1 columns
+        # over finer strata, so the exact level-2 read is wbs wide
+        wbs, w_blocks, s_eff = walk_layout(n, block_size, num_blocks, s)
+        cache = _walk_level1_cache(x, x_sq, cache_u, block_size=wbs,
+                                   num_blocks=w_blocks, n=n, s=s_eff)
+        views = _ref.block_views(x, x_sq, wbs)
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
+    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta)
+    cur, st = starts, 0
+    fb = torch.zeros((), dtype=torch.int64, device=starts.device)
+    path = []
+    for step in steps:
+        if rounds > 0:
+            l1, u_blk, u_in, u_acc = step
+            if cache is not None:
+                bs = _cached_block_sums(cache, x, cur, block_size=wbs,
+                                        num_blocks=w_blocks, s=s_eff,
+                                        precision=precision, **l2)
+                st1 = _g.sums_status(bs, FLOOR)
+            else:
+                bs, st1 = _masked_sums_any(x, x_sq, cur, l1, hstate,
+                                           block_size=block_size,
+                                           num_blocks=num_blocks, n=n, s=s,
+                                           exact=exact, level1=level1,
+                                           num_far=num_far,
+                                           precision=precision, **l2)
+            cur, st2, fb_k = _sample_exact_core(
+                x, x_sq, views, cur, bs, u_blk, u_in, u_acc,
+                block_size=wbs, n=n, rounds=rounds, slack=slack, **l2)
+            st, fb = st1 | st2 | st, fb + fb_k
+        elif cache is not None:
+            u_blk, u_in = step
+            bs = _cached_block_sums(cache, x, cur, block_size=wbs,
+                                    num_blocks=w_blocks, s=s_eff,
+                                    precision=precision, **l2)
+            cur, prob = _walk_sample_core(x, x_sq, views, cur, bs, u_blk,
+                                          u_in, block_size=wbs, n=n,
+                                          num_blocks=w_blocks, **l2)
+            st = _g.sums_status(bs, FLOOR) | _g.result_status(prob) | st
+        else:
+            cur, _, _, st_k = _fused_sample_core(
+                x, x_sq, views, cur, step, hstate, block_size=block_size,
+                num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
+                num_far=num_far, precision=precision, **l2)
+            st = st_k | st
+        if record_path:
+            path.append(cur)
+    # per step: one level-1 read of the frontier (the cached compact
+    # columns, or ``cols`` a row) + w exact level-2 rows, and with
+    # rejection rounds ``rounds`` more rows and aligned accept pairs
+    l1_evals = w * w_blocks * s_eff if cache is not None else w * cols
+    evals, draws = l1_evals + w * wbs, w
+    if rounds > 0:
+        evals += rounds * (w * wbs + w)
+        draws = (rounds + 1) * w
+    if cache is not None:
+        far = ov = 0
+    word = _c.scale(_c.word(status=st, evals=evals, l1_reads=w, draws=draws,
+                            far_samples=w * far, overflow=w * ov,
+                            device=starts.device), len(steps))
+    word[_c.RETRIES] = fb
+    if record_path:
+        path = torch.stack(path) if path else starts.new_empty((0, w))
+    return cur, (path if record_path else None), word, fb
+
+
+# --------------------------------------------------------------------- #
+# application programs (DESIGN.md §7): eigen / Laplacian / local
+# clustering / triangles
+# --------------------------------------------------------------------- #
+def noisy_power_scan(ksub, v0, us, *, num_samples):
+    """BIMW21 noisy power method (Algorithm 5.18 step 2) with explicit
+    uniforms ``us`` (iters, num_samples): every iteration importance-
+    samples ``num_samples`` indices j ~ |v_j| by inverse CDF, forms the
+    unbiased matvec estimate and renormalizes (``ref.noisy_power_step``),
+    all on the device.  Returns (Rayleigh quotient of one exact final
+    matvec, final unit vector, counter word -- iterations whose sampled
+    matvec collapsed or went non-finite are flagged; DRAWS counts the
+    sampled lookups into ``ksub``, which are not fresh kernel evals)."""
+    if us.shape[1:] != (num_samples,):
+        raise ValueError(f"us must be (iters, {num_samples}), got "
+                         f"{tuple(us.shape)}")
+    v, st = v0, 0
+    for u in us:
+        v, w, ok = _ref.noisy_power_step(ksub, v, u)
+        st = _g.flag_if(~ok, _g.ZERO_MASS) | _g.nonfinite_status(w) | st
+    lam = v @ (ksub @ v)
+    st = _g.merge(st, _g.result_status(lam, v))
+    return lam, v, _c.word(status=st, draws=us.shape[0] * num_samples,
+                           device=ksub.device)
+
+
+def laplacian_matvec(src, dst, w, p, *, n, deg=None):
+    """L_{G'} p = D p - A p over a COO edge list by scatter-adds; ``deg``
+    is D when the caller has it already (``ref.edge_degrees``)."""
+    return _ref.laplacian_matvec_ref(src, dst, w, p, n, deg)
+
+
+# the host reads laplacian_cg's device-side ``done`` flag every this many
+# iterations
+_CG_CHECK_EVERY = 8
+
+
+def laplacian_cg(src, dst, w, b, tol, *, n, iters):
+    """Jacobi-preconditioned CG for ``L_{G'} x = b`` (b perp 1) on the
+    device (Section 5.1.1's solve step), the reference's ``lax.while_loop``
+    as a loop whose updates freeze by ``torch.where`` once a device-side
+    ``done`` flag is set; the host reads ``done`` every
+    ``_CG_CHECK_EVERY`` iterations only, so a solve costs
+    ceil(iters / _CG_CHECK_EVERY) synchronisations, and the returned
+    iterate, residual and iteration count are those of the reference's
+    loop.
+
+    Float32-safe: tracks the best iterate seen and stops on non-positive
+    curvature or preconditioned residual, a non-finite residual, the
+    tolerance, or 32 iterations without improving the best residual.
+    Returns (best iterate projected to 1^perp, its residual norm, counter
+    word: CG_NO_CONVERGE / non-finite flags, DRAWS = realized
+    iterations)."""
+    dev, dt = w.device, w.dtype
+    deg = _ref.edge_degrees(src, dst, w, n)
+    dinv = 1.0 / torch.clamp(deg, min=1e-30)
+
+    def proj(v):
+        return v - torch.mean(v)
+
+    bb = proj(b)
+    x_, r_ = torch.zeros(n, dtype=dt, device=dev), bb
+    p_ = proj(dinv * r_)
+    rz = torch.dot(r_, p_)
+    bnorm = torch.clamp(torch.linalg.norm(bb), min=1e-30)
+    bx, br = x_, torch.linalg.norm(r_)
+    stall = torch.zeros((), dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for i in range(iters):
+        if i and i % _CG_CHECK_EVERY == 0 and bool(done):
+            break
+        ap = laplacian_matvec(src, dst, w, p_, n=n, deg=deg)
+        denom = torch.dot(p_, ap)
+        ok = (denom > 0.0) & (rz > 0.0)
+        alpha = torch.where(ok, rz / torch.clamp(denom, min=1e-30), 0.0)
+        x2 = x_ + alpha * p_
+        r2 = r_ - alpha * ap
+        rn = torch.linalg.norm(r2)
+        better = ok & (rn < br)
+        z2 = proj(dinv * r2)
+        rz2 = torch.dot(r2, z2)
+        p2 = z2 + torch.where(ok, rz2 / torch.clamp(rz, min=1e-30), 0.0) * p_
+        stall2 = torch.where(better, 0, stall + 1)
+        stop = ~ok | (rn < tol * bnorm) | ~torch.isfinite(rn) \
+            | (rz2 <= 0.0) | (stall2 >= 32)
+        live = ~done
+        x_, r_, p_ = (torch.where(live, a, b_) for a, b_ in
+                      ((x2, x_), (r2, r_), (p2, p_)))
+        rz = torch.where(live, rz2, rz)
+        bx = torch.where(live & better, x2, bx)
+        br = torch.where(live & better, rn, br)
+        stall = torch.where(live, stall2, stall)
+        count = count + live.to(torch.int64)
+        done = done | stop
+    sol = proj(bx)
+    st = _g.merge(_g.flag_if(br >= tol * bnorm, _g.CG_NO_CONVERGE),
+                  _g.result_status(sol, br))
+    word = _c.word(status=st, device=dev)
+    word[_c.DRAWS] = count
+    return sol, br, word
+
+
+def signed_endpoint_stat(ends, signs, *, n):
+    """``sum_i (sum_j signs_j [ends_j = i])^2`` -- the collision part of
+    the CDVV14 l2 statistic on the device: with signs +1 for the u walks
+    and -1 for the w walks it is ``sum_i (X_i - Y_i)^2`` over the endpoint
+    counts, one scatter-add and one reduction (exact in f32 up to 2^24
+    walks, whatever the order of the adds).  Returns ``(statistic,
+    counter word)`` -- no kernel evals."""
+    c = torch.zeros(n, dtype=signs.dtype, device=signs.device)
+    c.index_add_(0, ends, signs)
+    stat = torch.sum(c * c)
+    return stat, _c.word(status=_g.result_status(stat))
+
+
+def triangle_edge_scan(x, x_sq, u, v, degs, noise, hstate=None, *, kind,
+                       inv_bw, beta, block_size, num_blocks, n, s, exact,
+                       level1="blocked", num_far=1, precision="f32"):
+    """Theorem 6.17's per-edge inner loop with explicit noise ``(l1, u_blk
+    (D, m), u_in (D, m))``: degree-ordered orientation of the (u, v)
+    pairs, ONE masked level-1 read of the oriented v frontier (noise
+    ``l1``; the masked-blocksum kernel on the exact read), then per draw
+    i a neighbor w ~ k(v, .)/deg(v) from the cached sums (``u_blk[i]``,
+    ``u_in[i]``), the mask ``v < w`` (degree order) and ``w != u``, and
+    the accumulated k(u,v) k(u,w), reweighted by deg(v)/D.  Returns
+    (oriented u, oriented v, per-edge weight estimates, counter word)."""
+    l1, u_blk, u_in = noise
+    views = _ref.block_views(x, x_sq, block_size)
+    prec = _ref.degree_precedes(degs, u, v)
+    uu = torch.where(prec, u, v)
+    vv = torch.where(prec, v, u)
+    kuv = _ref.kv_pairs(x[uu], x[vv], kind, inv_bw, beta)
+    bs, st = _masked_sums_any(x, x_sq, vv, l1, hstate, kind=kind,
+                              inv_bw=inv_bw, beta=beta,
+                              block_size=block_size, num_blocks=num_blocks,
+                              n=n, s=s, exact=exact, level1=level1,
+                              num_far=num_far, precision=precision)
+    acc = torch.zeros_like(kuv)
+    for ub, ui in zip(u_blk, u_in):
+        w, _ = _ref.sample_from_sums(x, x_sq, views, vv, bs, ub, ui, kind,
+                                     inv_bw, beta, block_size, n)
+        valid = _ref.degree_precedes(degs, vv, w) & (w != uu)
+        kuw = _ref.kv_pairs(x[uu], x[w], kind, inv_bw, beta)
+        acc = acc + torch.where(valid, kuv * kuw, 0.0)
+    num_draws = u_blk.shape[0]
+    w_hat = acc * degs[vv] / num_draws
+    m = u.shape[0]
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
+    # one level-1 read of the m-edge frontier + m k(u,v) pairs + per draw
+    # m level-2 rows and m k(u,w) pairs
+    cw = _c.word(status=_g.merge(st, _g.result_status(w_hat)),
+                 evals=m * cols + m + num_draws * (m * block_size + m),
+                 l1_reads=m, draws=num_draws * m, far_samples=m * far,
+                 overflow=m * ov)
+    return uu, vv, w_hat, cw

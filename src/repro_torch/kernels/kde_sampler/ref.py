@@ -358,6 +358,56 @@ def choose_block(bs, u):
     return blk, pb
 
 
+def cdf_group(m: int) -> int:
+    """Largest divisor of ``m`` that is <= sqrt(m) -- the inner group width
+    of the two-level inverse CDF (1 for prime ``m``: the flat search)."""
+    g = max(int(m ** 0.5), 1)
+    while m % g:
+        g -= 1
+    return g
+
+
+def grouped_inverse_cdf(vals, u, group: int):
+    """Two-level inverse-CDF categorical over each row of ``vals`` (w, m)
+    with uniforms ``u`` (w,): the group of ``group`` contiguous columns by
+    the cumsum of the group sums, then the column by the cumsum inside the
+    group.  The same law as the flat search; the realized index differs
+    from it only where ``u * total`` lies within a few ulps of a partial
+    sum (fp regrouping).  Returns (index, vals[index], row total)."""
+    w, m = vals.shape
+    ng = m // group
+    v3 = vals.reshape(w, ng, group)
+    grp = v3.sum(-1)
+    cg = torch.cumsum(grp, dim=1)
+    tot = cg[:, -1]
+    t = u * tot
+    g = torch.sum(t[:, None] > cg, dim=1).clamp(0, ng - 1)
+    prev = (torch.gather(cg, 1, g[:, None])
+            - torch.gather(grp, 1, g[:, None]))[:, 0]
+    sub = v3[torch.arange(w, device=vals.device), g]
+    cs = torch.cumsum(sub, dim=1)
+    j = torch.sum((t - prev)[:, None] > cs, dim=1).clamp(0, group - 1)
+    val = torch.gather(sub, 1, j[:, None])[:, 0]
+    return g * group + j, val, tot
+
+
+def choose_block_grouped(bs, u, group: int):
+    """``choose_block`` by the two-level inverse CDF, uniforms ``u`` (w,):
+    (block, realized block probability)."""
+    blk, val, tot = grouped_inverse_cdf(bs, u, group)
+    return blk, val / tot
+
+
+def level2_draw_grouped(kv, live, cols_c, u2, group: int):
+    """``level2_draw`` by the two-level inverse CDF (the same all-zero-row
+    fallback to uniform over the live columns)."""
+    rowsum = kv.sum(dim=1)
+    use = torch.where((rowsum > 0.0)[:, None], kv, live.to(kv.dtype))
+    j, val, tot = grouped_inverse_cdf(use, u2, group)
+    nb = torch.gather(cols_c, 1, j[:, None])[:, 0]
+    return nb, val / torch.clamp(tot, min=1e-30)
+
+
 def sample_from_sums(x, x_sq, views, src, bs, u_blk, u_in, kind: str,
                      inv_bw: float, beta: float, block_size: int, n: int,
                      pairwise=None):
@@ -448,3 +498,84 @@ def fused_edge_batch_ref(x, x_sq, cdf, degs, inv_total, inv_t, u_vert,
     q_edge = inv_total * (degs[u] * q_uv + kuv)
     wgt = kuv * inv_t / torch.clamp(q_edge, min=1e-30)
     return u, v, wgt, q_uv, q_vu
+
+
+# --------------------------------------------------------------------- #
+# application oracles (DESIGN.md §7)
+# --------------------------------------------------------------------- #
+def degree_precedes(degs, a, b):
+    """Degree-then-index total vertex order from Theorem 6.17's proof:
+    a < b iff (deg_a, a) < (deg_b, b) lexicographically."""
+    return (degs[a] < degs[b]) | ((degs[a] == degs[b]) & (a < b))
+
+
+def noisy_power_step(ksub, v, u):
+    """One BIMW21 noisy power iteration with uniforms ``u``
+    (num_samples,): j ~ |v_j| by inverse CDF, the unbiased sampled matvec
+    ``sum_j sign(v_j) z / S ksub[:, j]``, renormalized (the previous
+    iterate is kept where the matvec or the mass collapsed).  Returns
+    (next iterate, sampled matvec, ok)."""
+    t = ksub.shape[0]
+    absv = torch.abs(v)
+    z = torch.sum(absv)
+    cdf = torch.cumsum(absv, dim=0)
+    uu = u * torch.clamp(z, min=1e-30)
+    idx = torch.clamp(torch.searchsorted(cdf, uu, right=True), 0, t - 1)
+    contrib = torch.sign(v[idx]) * z / u.shape[0]
+    w = ksub[:, idx] @ contrib
+    nw = torch.linalg.norm(w)
+    ok = (nw > 0.0) & (z > 0.0)
+    return torch.where(ok, w / torch.clamp(nw, min=1e-30), v), w, ok
+
+
+def noisy_power_ref(ksub, v0, us):
+    """Oracle of ``ops.noisy_power_scan``: the iterations of
+    ``noisy_power_step`` with uniforms ``us`` (iters, num_samples), then
+    the Rayleigh quotient.  Returns (eigenvalue, final unit vector)."""
+    v = v0
+    for u in us:
+        v, _, _ = noisy_power_step(ksub, v, u)
+    return v @ (ksub @ v), v
+
+
+def edge_degrees(src, dst, w, n: int):
+    """Weighted degrees D of a COO edge list by two scatter-adds."""
+    deg = torch.zeros(n, dtype=w.dtype, device=w.device)
+    return deg.index_add_(0, src, w).index_add_(0, dst, w)
+
+
+def laplacian_matvec_ref(src, dst, w, p, n: int, deg=None):
+    """L p = D p - A p over a COO edge list by two scatter-adds (the torch
+    transcription of ``SparseGraph.matvec``); ``deg`` is D when the caller
+    has it already (``edge_degrees``)."""
+    av = torch.zeros(n, dtype=w.dtype, device=w.device)
+    av.index_add_(0, src, w * p[dst]).index_add_(0, dst, w * p[src])
+    if deg is None:
+        deg = edge_degrees(src, dst, w, n)
+    return deg * p - av
+
+
+def triangle_batch_ref(x, x_sq, u, v, degs, u_blk, u_in, kind: str,
+                       inv_bw: float, beta: float, block_size: int, n: int,
+                       pairwise=None):
+    """Oracle of ``ops.triangle_edge_scan`` on its exact level-1 read:
+    degree-ordered orientation, one masked level-1 read of the v frontier,
+    then per draw i one ``sample_from_sums`` neighbor (uniforms
+    ``u_blk[i]``, ``u_in[i]``), the validity mask ``v < w`` (degree order)
+    and ``w != u``, and the reweighting by deg(v) / num_draws.  Returns
+    (oriented u, oriented v, per-edge weight estimates)."""
+    views = block_views(x, x_sq, block_size)
+    prec = degree_precedes(degs, u, v)
+    uu = torch.where(prec, u, v)
+    vv = torch.where(prec, v, u)
+    kuv = kv_pairs(x[uu], x[vv], kind, inv_bw, beta, pairwise)
+    bs = masked_exact_sums_ref(x[vv], x, x_sq, vv // block_size, kind,
+                               inv_bw, beta, block_size, n, pairwise)
+    acc = torch.zeros_like(kuv)
+    for ub, ui in zip(u_blk, u_in):
+        w, _ = sample_from_sums(x, x_sq, views, vv, bs, ub, ui, kind,
+                                inv_bw, beta, block_size, n, pairwise)
+        valid = degree_precedes(degs, vv, w) & (w != uu)
+        kuw = kv_pairs(x[uu], x[w], kind, inv_bw, beta, pairwise)
+        acc = acc + torch.where(valid, kuv * kuw, 0.0)
+    return uu, vv, acc * degs[vv] / u_blk.shape[0]

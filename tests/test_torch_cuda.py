@@ -18,6 +18,7 @@ from repro_torch.core.sampling.edge import NeighborSampler
 from repro_torch.core.sparsify import (incidence_row_norms,
                                        spectral_sparsify)
 from repro_torch.kernels.kde_hash import kernel as hk
+from repro_torch.kernels.kde_hash import ops as hops
 from repro_torch.kernels.kde_rowsum import kernel as rk
 from repro_torch.kernels.kde_sampler import kernel as sk
 from repro_torch.kernels.kde_sampler import ops as sops
@@ -953,3 +954,87 @@ def test_incidence_row_norms_on_the_card(cuda, kind):
     for arg in (x, torch.as_tensor(x, device=cuda)):
         np.testing.assert_allclose(incidence_row_norms(ker, arg), want,
                                    rtol=RTOL, atol=ATOL)
+
+
+#: the graph phase's reads: (exact level-1, level1, rejection rounds) and
+#: the launches one walk step and one triangle scan make
+GRAPH_READS = {
+    "sample_block_step": ((True, "blocked", 0), {"sample_block": 1},
+                          {"masked_blocksum": 1}),
+    "masked_blocksum_exact_step": ((True, "blocked", 4),
+                                   {"masked_blocksum": 1},
+                                   {"masked_blocksum": 1}),
+    "hashed_step": ((False, "hash", 0), {"weighted_kv": 1},
+                    {"weighted_kv": 1}),
+}
+
+
+def _launched(fn):
+    """(fn's result, the kernel launches it made, zeros left out)."""
+    for mod in (rk, sk, hk):
+        mod.reset_launches()
+    out = fn()
+    counts = {**rk.LAUNCHES, **sk.LAUNCHES, **hk.LAUNCHES}
+    return out, {k: v for k, v in counts.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read", sorted(GRAPH_READS))
+def test_graph_step_and_triangle_scan_on_the_card(cuda, read):
+    """One walk step and one ``triangle_edge_scan`` on the card against
+    the CPU plain path with the same noise, on the graph phase's reads:
+    the launches ``chip_smoke.py`` asserts (one sample-block launch an
+    exact-block step, one masked-blocksum launch an exact step with
+    rejection rounds or an exact triangle scan, one weighted-kv launch a
+    hashed read), counter words equal, at most 0.1% of the walkers (and of
+    the triangle rows) off the plain version's draws -- a near-tie of
+    sums taken in another order -- and the oriented pairs equal."""
+    (exact, level1, rounds), step_launches, tri_launches = GRAPH_READS[read]
+    gen = torch.Generator().manual_seed(29)
+    n, d, bs, w, m, draws, nf = 20000 + 17, 16, 128, 2048, 1024, 8, 2
+    nb = -(-n // bs)
+    x = torch.randn(n, d, generator=gen) * 0.5
+    starts = torch.randint(0, n, (w,), generator=gen)
+    states = {}
+    if level1 == "hash":
+        states = {dev: hops.build_hash_state(x, gaussian(1.0), max_bucket=64,
+                                             seed=11, device=dev)[0]
+                  for dev in ("cpu", cuda)}
+    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, block_size=bs,
+               num_blocks=nb, n=n, s=16, exact=exact, level1=level1,
+               num_far=nf)
+    noise = sops.draw_walk_noise(1, w, nb, gen, "cpu", n=n, rounds=rounds,
+                                 exact=exact, level1=level1, num_far=nf,
+                                 block_size=bs, s=16)
+    want = sops.walk_scan(x, (x * x).sum(-1), starts, noise,
+                          states.get("cpu"), rounds=rounds, slack=2.0, **cfg)
+    xc = x.to(cuda)
+    noise_c = (None, [tuple(None if a is None else a.to(cuda)
+                            for a in noise[1][0])])
+    got, counts = _launched(lambda: sops.walk_scan(
+        xc, (xc * xc).sum(-1), starts.to(cuda), noise_c, states.get(cuda),
+        rounds=rounds, slack=2.0, **cfg))
+    assert counts == step_launches, counts
+    assert int((got[0].cpu() != want[0]).sum()) <= w // 1000
+    assert torch.equal(got[2].cpu()[1:4], want[2][1:4])
+    assert abs(int(got[3]) - int(want[3])) <= w // 1000
+
+    u = torch.randint(0, n, (m,), generator=gen)
+    v = (u + 1 + torch.randint(0, n - 1, (m,), generator=gen)) % n
+    degs = torch.rand(n, generator=gen) * 50.0 + 1.0
+    l1 = sops._level1_noise(m, nb, gen, "cpu", level1=level1, exact=exact,
+                            num_far=nf, block_size=bs)
+    tri = (l1, torch.rand((draws, m), generator=gen),
+           torch.rand((draws, m), generator=gen))
+    want = sops.triangle_edge_scan(x, (x * x).sum(-1), u, v, degs, tri,
+                                   states.get("cpu"), **cfg)
+    got, counts = _launched(lambda: sops.triangle_edge_scan(
+        xc, (xc * xc).sum(-1), u.to(cuda), v.to(cuda), degs.to(cuda),
+        tuple(None if a is None else a.to(cuda) for a in tri),
+        states.get(cuda), **cfg))
+    assert counts == tri_launches, counts
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    off = ~torch.isclose(got[2].cpu(), want[2], rtol=RTOL, atol=1e-7)
+    assert int(off.sum()) <= m // 1000 + 1, int(off.sum())
+    assert torch.equal(got[3].cpu()[1:4], want[3][1:4])

@@ -30,6 +30,10 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa
 from repro_torch.configs.base import get_reduced
+from repro_torch.core.cluster.local import same_cluster_test
+from repro_torch.core.eigen import top_eigenvalue
+from repro_torch.core.graph.arboricity import estimate_arboricity
+from repro_torch.core.graph.triangles import estimate_triangle_weight
 from repro_torch.core.kde.base import ExactBlockKDE, ExactKDE
 from repro_torch.core.kde.hashed import HashedKDE
 from repro_torch.core.kernels_fn import make_kernel
@@ -37,6 +41,7 @@ from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.rownorm import RowNormSampler
 from repro_torch.core.sparsify import spectral_sparsify
+from repro_torch.core.spectrum import approximate_spectrum
 from repro_torch.device import ROADMAP_ITEMS, not_in_slice
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.kde_attention.ops import kde_attention
@@ -64,6 +69,39 @@ ENTRY_POINTS = [
     ("core.sparsify", "incidence_row_norms"),
     ("core.lowrank", "countsketch_lowrank"),
     ("models.transformer", "init_cache"),
+    ("kernels.kde_sampler.ref", "cdf_group"),
+    ("kernels.kde_sampler.ref", "degree_precedes"),
+    ("kernels.kde_sampler.ref", "laplacian_matvec_ref"),
+    ("kernels.kde_sampler.ops", "walk_layout"),
+    ("kernels.kde_sampler.ops", "walk_cache_samples"),
+    ("kernels.kde_sampler.ops", "laplacian_matvec"),
+    ("kernels.kde_sampler.ops", "signed_endpoint_stat"),
+    ("core.sampling.walks", "random_walks"),
+    ("core.sampling.walks", "endpoint_counts"),
+    ("core.cluster.local", "same_cluster_test"),
+    ("core.cluster.local", "l2_distance_statistic"),
+    ("core.graph.triangles", "estimate_triangle_weight"),
+    ("core.graph.triangles", "exact_triangle_weight"),
+    ("core.graph.arboricity", "estimate_arboricity"),
+    ("core.graph.arboricity", "exact_arboricity"),
+    ("core.graph.arboricity", "greedy_densest_subgraph"),
+    ("core.laplacian", "project_ones"),
+    ("core.laplacian", "cg_laplacian"),
+    ("core.laplacian", "solve_kernel_laplacian"),
+    ("core.laplacian", "laplacian_dense"),
+    ("core.laplacian", "normalized_laplacian_dense"),
+    ("core.eigen", "power_method"),
+    ("core.eigen", "top_eigenvalue"),
+    ("core.eigen", "top_eigenvalue_exact"),
+    ("core.spectrum", "estimate_return_moments"),
+    ("core.spectrum", "invert_moments"),
+    ("core.spectrum", "approximate_spectrum"),
+    ("core.spectrum", "exact_spectrum"),
+    ("core.spectrum", "emd_1d"),
+    ("core.cluster.spectral", "laplacian_eigenvectors"),
+    ("core.cluster.spectral", "kmeans"),
+    ("core.cluster.spectral", "spectral_cluster"),
+    ("core.cluster.spectral", "cluster_accuracy"),
 ]
 
 
@@ -159,6 +197,21 @@ PLACEHOLDERS = {
     "RowNormSampler.data_axes": (
         lambda: RowNormSampler(_x(), K, "exact", 0, None, ("x", "y"),
                                device="cpu"), NotImplementedError),
+    "same_cluster_test.mesh": (
+        lambda: same_cluster_test(_x(), K, 0, 1, 2, 4, 0, None, None, "m",
+                                  device="cpu"), NotImplementedError),
+    "estimate_triangle_weight.mesh": (
+        lambda: estimate_triangle_weight(_x(), K, 4, 2, "exact", 0, "m",
+                                         device="cpu"), NotImplementedError),
+    "estimate_arboricity.mesh": (
+        lambda: estimate_arboricity(_x(), K, 4, "exact", 0, 512, "m",
+                                    device="cpu"), NotImplementedError),
+    "top_eigenvalue.mesh": (
+        lambda: top_eigenvalue(_x(), K, 0.25, 0.1, 8, "noisy_power", 0, "m",
+                               device="cpu"), NotImplementedError),
+    "approximate_spectrum.mesh": (
+        lambda: approximate_spectrum(_x(), K, 4, 2, 2, 0, None, "m",
+                                     device="cpu"), NotImplementedError),
     "init_cache.enc_len": (
         lambda: init_cache(CFG, 1, 8, torch.float32, 4,
                            device="cpu"), NotImplementedError),
