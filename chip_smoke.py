@@ -197,41 +197,74 @@ Phases (any failure exits non-zero; no phase catches and continues):
                of the same prompts, same bound and argmax) and ``--attention
                kde`` (the CLI defaults top_p 4, bk 32, stride 4; cache 528
                rounded up to 544): exactly 32 x (512 + 15) launches of the
-               fused KDE decode kernel and no block-lse launch, then on its
-               final cache (layers 0, 15, 31) kde_attention through the
-               kernel against the plain-torch mirror.  Prints the first
+               fused KDE decode kernel, then on its final cache (layers 0,
+               15, 31) kde_attention through the kernel against the
+               plain-torch mirror.  Prints the first
                generated step's logit correlation (kde vs xla, reported,
                not gated), prefill s and decode tok/s, a torch.profiler
                split of 8 decode steps of each attention, and their walls
                over three rounds of 8 steps taken in turns (xla, kde, kde,
                xla, xla, kde).
-12. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
-               the graph phase's paths, ``graph_launches``), the card line from
+12. lm-bf16 -- the bf16 LM, the reference's default dtype.  (a) phase
+               10's f32 weights rounded through bf16 in place and their bf16
+               twin from ``cast_params`` (yi-6b as configured, bfloat16):
+               ``make_prefill_step(impl="flash")`` at 8192 x 1 on phase
+               10's tokens, exactly 32 flash launches on bf16 operands,
+               the bf16 xla (chunked) prefill and the f32 flash prefill of
+               the rounded f32 model; gate max |flash_bf16 - xla_bf16| <=
+               max |xla_bf16 - f32| over the real vocab at the last
+               position; both gaps, the argmax agreement and tokens/s
+               printed; the f32 model is then freed.  (b) the reference's
+               long_500k KDE decode cell (``launch/dryrun.py``:106-114:
+               batch 1, ``init_cache``'s default bf16 cache of 524,288
+               slots, top_p 16, bk 512, stride 16): first kde vs
+               ``exact_decode_attention`` on bench_attention's planted
+               keys at this shape (printed), then the cache with seeded
+               synthetic N(0, 1) K/V below its last 64 slots, 32
+               teacher-forced and 32 generated ``make_decode_step(impl=
+               "kde")`` steps: exactly 32 x 64 kde_decode launches, finite
+               logits; decode tok/s and ``max_memory_allocated``; a
+               profile of one step (idle share, kde_decode device ms
+               against its bytes bound, the GEMM / GEMV time against the
+               weights' bytes / 3.35 TB/s); on the final cache (layers 0,
+               15, 31) the bf16 kernel bitwise the f32 instance on the
+               upcast inputs and within phase 2's tolerances of the plain
+               pipeline (est; out within one bf16 step); then 2 dense
+               ``impl="xla"`` steps on the same cache (their wall, the
+               kde-vs-xla logit correlation: reported, not gated).
+13. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+               the graph phase's paths, ``graph_launches``; the bf16 flash
+               row with ``max_bf16_steps`` from its plain version), the card line from
                nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
 (``phase_lm_kernels``): flash at the reference's ragged sweep and (5, 37),
 at head dims that take the scalar-staged instance (30, 7) and on k / v
 rows off 16-byte alignment, f32 and bf16 operands, and at the prefill
-shape (1, 32, 8192, 128) with 4 kv-heads, printing the kernel instance
-each check ran; the fused KDE decode kernel (out and its step-1
-estimates) against its plain pipeline and ``block_lse_plain`` at the
-serve shape over kv_valid 1, 31, 32, 33, 527, 544, at S = 32768, bk
-256, stride 16, top_p 16 (random and bench_attention's planted keys) and
-at a 131072-key cache at the serve settings; the estimate-only block-lse
-kernel at the same inputs.  Times the kernels
-(``ms``: CUDA events around back-to-back calls, host cost included;
-``device_ms``: torch.profiler's kernel durations), their plain versions
-and, for flash, ``scaled_dot_product_attention(is_causal=True,
-enable_gqa=True)`` as the yardstick.
+shape (1, 32, 8192, 128) with 4 kv-heads in f32 and in bf16 (the
+lm-bf16 prefill's row), printing the kernel instance each check ran; the
+fused KDE decode kernel (out and its step-1 estimates) against its plain
+pipeline and ``block_lse_plain`` at the serve shape over kv_valid 1, 31,
+32, 33, 527, 544, at S = 32768, bk 256, stride 16, top_p 16 (random and
+bench_attention's planted keys) and at a 131072-key cache at the serve
+settings; its bf16 instance (q, k, v in bf16) at the serve shape, at S =
+32768 and at the long_500k shape, each bitwise the f32 instance on the
+upcast inputs (out rounded to bf16, est equal) and against the plain
+pipeline (est at rtol 2e-4 / atol 1e-5, out within one bf16 step).  Times
+the kernels (``ms``: CUDA events around back-to-back calls, host cost
+included; ``device_ms``: torch.profiler's kernel durations), their plain
+versions and, for flash, ``scaled_dot_product_attention(is_causal=True,
+enable_gqa=True)`` in the operands' dtype as the yardstick.
 
 Launch counters are set to 0 just before phase 3 and read just after
 phase 5, set to 0 again just before phase 6 and read just after its
 sparsifier returns, again around phase 7's sparsifier and each of phase
 5's rs and stratified runs, around phase 8's sweep (b), exact path (c) and
-hashed path (d), and around the flash prefill of phase 10 and the kde
-serve run of phase 11, so the comparisons and timings of phase 2 and of
-(a) and the checks do not count.  Each kernel's ``launches`` is its count
+hashed path (d), around the flash prefill of phase 10, the kde serve run
+of phase 11, the bf16 flash prefill of phase 12 (a) (two calls, 64
+launches, the row takes one call's) and its long_500k decode (b), so the
+comparisons and timings of phase 2 and of (a) and the checks do not
+count.  The bf16 rows take their launches from phase 12.  Each kernel's ``launches`` is its count
 from the run of its own path (the bf16 rows: rowsum_bf16 from (b),
 blocksum, masked_blocksum and sample_block from (c), the kde_hash pair
 from (d)).  Phase 9 sets every counter to 0 just before each walk,
@@ -252,10 +285,12 @@ operations (QK^T and PV), against q, k, v, out and lse; the KDE decode
 kernel's work depends on the run's data (kv_valid and the selection): it
 reads the strided keys below kv_valid once per kv-head, less those of the
 selected blocks (they are read as gathered keys), and the gathered keys and
-values below kv_valid, with q and out; 2 dh + 4 operations per (q-head,
-strided key below kv_valid) and 4 dh + 4 per (q-head, selected key below
-kv_valid) -- counted from the plain pipeline's selection on the same inputs
-(``decode_bound``).  The bf16 rows count the same operations as the f32
+values below kv_valid, with q and out, each at its dtype's size (2 bytes
+in bf16); 2 dh + 4 operations per (q-head, strided key below kv_valid)
+and 4 dh + 4 per (q-head, selected key below kv_valid) -- counted from the
+plain pipeline's selection on the same inputs (``decode_bound``).  The
+bf16 flash row counts its operations on bf16 operands at the tensor
+cores' 989 TFLOP/s, its bytes at 2 a value.  The bf16 rows count the same operations as the f32
 ones (f32 FMAs on the rounded values) and the same f32 operand bytes, plus
 the 256 KB exp table for the gaussian kind they run.
 """
@@ -327,7 +362,6 @@ LM_PREFILL_SEQ, LM_PREFILL_BATCH = 8192, 1
 LM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen", "16"]
 LM_LOGIT_REL = 1e-3         # max |diff| <= 1e-3 max |logit|, same argmax
 LM_KDE_LAYERS = (0, 15, 31)
-BF16_ATOL = 3e-2            # the reference's bf16 flash tolerance
 # (b, hq, hkv, sq, skv, dh): the reference's flash sweep and (5, 37)
 FLASH_RAGGED = [(2, 4, 2, 64, 64, 32), (1, 8, 2, 1, 300, 64),
                 (2, 4, 4, 100, 228, 16), (1, 2, 1, 17, 17, 8),
@@ -342,6 +376,17 @@ LSE_LONG = (1, 32, 4, 32768, 128, 256, 16)
 # a long cache at the serve settings: 4096 blocks, 512 per CTA of a cluster
 LSE_XL = (4, 32, 4, 131072, 128, 32, 4)
 KDE_LONG_TOP_P = 16
+# the reference's long_500k KDE decode cell (launch/dryrun.py:106-114 and
+# KDE_DECODE_CFG at :40): yi-6b, batch 1, a 524,288-slot bf16 cache, top_p
+# 16, bk 512, stride 16 (1,024 blocks)
+LONG_S = 524288
+LONG_KDE = {"top_p": 16, "bk": 512, "stride": 16}
+LSE_500K = (1, 32, 4, LONG_S, 128, LONG_KDE["bk"], LONG_KDE["stride"])
+# the lm-bf16 decode: 32 teacher-forced prompt tokens then 32 generated, in
+# the last 64 slots; cache positions [0, LONG_FILL) hold seeded synthetic
+# K/V (the reference cell compiles this decode and holds no contents)
+LONG_PROMPT, LONG_GEN = 32, 32
+LONG_FILL = LONG_S - LONG_PROMPT - LONG_GEN
 KDE_SERVE_TOP_P = 4
 # decode steps of the serve run around block edges, and its last step
 KDE_VALID_SWEEP = (1, 31, 32, 33, 527, 544)
@@ -1156,7 +1201,8 @@ def free_cuda():
 def decode_bound(q, k, kw, est):
     """bound() of one kde_decode call on this run's data: ``est`` (b, hq,
     nb) is the plain pipeline's step 1 on the same inputs, so its top-P
-    selection is the call's."""
+    selection is the call's.  Bytes at the operands' own sizes (K/V rows at
+    2 bytes a value in bf16; q and out at q's)."""
     import torch
     from repro_torch.kernels.kde_attention import ref as kref
     b, hq, dh = q.shape
@@ -1174,7 +1220,8 @@ def decode_bound(q, k, kw, est):
     rows = n_str - int(strided[sel].sum()) + 2 * n_gat
     g = hq // hkv
     return bound(g * (n_str * (2 * dh + 4) + n_gat * (4 * dh + 4)),
-                 4 * (rows * dh + 2 * b * hq * dh))
+                 k.element_size() * rows * dh
+                 + q.element_size() * 2 * b * hq * dh)
 
 
 def phase_lm_kernels(gen):
@@ -1191,8 +1238,10 @@ def phase_lm_kernels(gen):
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.kde_attention import kernel as kk
     from repro_torch.kernels.kde_attention import ops as kops
-    dev = torch.device("cuda")
+    from repro_torch.testing import assert_bf16_close
+    dev = gen.device
     errs = {"flash_attention": 0.0, "kde_decode": 0.0}
+    steps = {}
 
     def qkv(b, hq, hkv, sq, skv, dh, dtype=torch.float32):
         # q, k contiguous and v a transposed view: as the model hands them
@@ -1203,15 +1252,18 @@ def phase_lm_kernels(gen):
         return q.to(dtype), k.to(dtype), v.to(dtype)
 
     def flash_check(q, k, v, bq, bk, tag):
+        """Kernel vs plain version: out and lse at RTOL / ATOL; a bf16 out
+        within one bf16 step of the plain version's (both sum in f32 from
+        the same operands and round once), its worst step count kept in
+        ``steps[tag]``."""
         kp, vp, kw = fops.flash_args(q, k, v, True, bq, bk)
         out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
         p_out, p_lse = fk.flash_attention_plain(q, kp, vp, **kw)
         inst = fk.instantiation(q, kp, vp)
         if q.dtype == torch.bfloat16:
-            e = close(out.float(), p_out.float(), f"flash out {tag}",
-                      atol=BF16_ATOL, rtol=0.0)
-            close(lse, p_lse, f"flash lse {tag}")
-            return e, inst
+            e, steps[tag] = assert_bf16_close(out, p_out, ATOL,
+                                              f"flash out {tag}")
+            return max(e, close(lse, p_lse, f"flash lse {tag}")), inst
         e = max(close(out, p_out, f"flash out {tag}"),
                 close(lse, p_lse, f"flash lse {tag}"))
         errs["flash_attention"] = max(errs["flash_attention"], e)
@@ -1220,11 +1272,13 @@ def phase_lm_kernels(gen):
     for kind, shapes in (("ragged", FLASH_RAGGED), ("scalar", FLASH_SCALAR)):
         for shape in shapes:
             for dtype in (torch.float32, torch.bfloat16):
+                shape_tag = f"{shape} {dtype}"
                 e, inst = flash_check(*qkv(*shape, dtype=dtype), 64, 64,
-                                      f"{shape} {dtype}")
+                                      shape_tag)
                 log(f"[kernels] flash {kind} (b, hq, hkv, sq, skv, dh) = "
                     f"{shape} {str(dtype)[6:]} [{inst}]: max_abs_err "
-                    f"{e:.3e}")
+                    f"{e:.3e}" + (f", max bf16 steps {steps[shape_tag]}"
+                                  if dtype == torch.bfloat16 else ""))
     # rows 4 bytes off 16-byte alignment: k / v views into a flat buffer
     # (skv a multiple of the block, so flash_args does not pad them)
     q, _, _ = qkv(1, 4, 2, 256, 256, 64)
@@ -1261,47 +1315,65 @@ def phase_lm_kernels(gen):
     del q, k, v, kp, vp
     free_cuda()
 
-    def decode_inputs(b, hq, hkv, s, dh):
+    # the flash kernel's bf16 operands at the prefill shape: the lm-bf16
+    # prefill's row (SDPA in bf16 its yardstick)
+    q, k, v = qkv(*FLASH_MAIN, dtype=torch.bfloat16)
+    e, inst = flash_check(q, k, v, 128, 128, "main bf16")
+    errs["flash_attention_bf16"] = e
+    log(f"[kernels] flash main bf16 {FLASH_MAIN} [{inst}]: max_abs_err "
+        f"{e:.3e}, max bf16 steps {steps['main bf16']} (beyond atol {ATOL})")
+    free_cuda()
+    kp, vp, kw = fops.flash_args(q, k, v)
+    b_ms, b_by = bound(0.0, 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)
+                       + 4 * b * hq * s,
+                       bf16_flops=4 * b * hq * dh * s * s / 2)
+    rows.append(dict(
+        name="flash_attention_bf16", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:67",
+        shape=f"b={b} hq={hq} hkv={hkv} s={s} dh={dh} causal bf16 [{inst}]",
+        max_bf16_steps=steps["main bf16"],
+        ms=timed(lambda: fk.flash_attention_cuda(q, kp, vp, **kw), 5),
+        device_ms=kernel_device_ms(
+            lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
+            "flash_fwd_kernel", 3),
+        plain_ms=timed(lambda: fk.flash_attention_plain(q, kp, vp, **kw), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 3)))
+    del q, k, v, kp, vp
+    free_cuda()
+
+    def decode_inputs(b, hq, hkv, s, dh, dtype=torch.float32):
         q = torch.randn((b, hq, dh), generator=gen, device=dev)
         k = torch.randn((b, hkv, s, dh), generator=gen, device=dev) * 0.3
         v = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
-        return q, k, v
+        return q.to(dtype), k.to(dtype), v.to(dtype)
 
     def decode_check(q, k, v, kw, tag):
-        """Fused kernel vs plain pipeline (out, est), est vs block_lse_plain
-        and, at the same kv_valid, the estimate-only kernel vs it."""
+        """Fused kernel vs plain pipeline (out, est), est vs
+        block_lse_plain; blocks past kv_valid at -1e30 exactly."""
         out, est = kk.kde_decode_cuda(q, k, v, with_est=True, **kw)
         p_out, p_est = kk.kde_decode_plain(q, k, v, with_est=True, **kw)
-        lse_kw = dict(scale=q.shape[-1] ** -0.5, stride=kw["stride"],
-                      kv_valid=kw["kv_valid"], bk=kw["bk"])
-        want_est = kk.block_lse_plain(q, k, **lse_kw)
+        want_est = kk.block_lse_plain(
+            q, k, scale=q.shape[-1] ** -0.5, stride=kw["stride"],
+            kv_valid=kw["kv_valid"], bk=kw["bk"])
         e = max(close(out, p_out, f"kde_decode out {tag}"),
                 close(est, p_est, f"kde_decode est {tag}"),
                 close(est, want_est, f"kde_decode est vs block_lse {tag}"))
-        got = kk.block_lse_cuda(q, k, **lse_kw)
-        e_lse = close(got, want_est, f"block_lse {tag}")
         dead = -(-kw["kv_valid"] // kw["bk"])
-        for name, t in (("kde_decode est", est), ("block_lse", got)):
-            assert bool((t[..., dead:] == -1e30).all()), f"{name} {tag}"
+        assert bool((est[..., dead:] == -1e30).all()), tag
         errs["kde_decode"] = max(errs["kde_decode"], e)
-        return e, e_lse
+        return e
 
     b, hq, hkv, s, dh, bk, stride = LSE_SERVE
     q, k, v = decode_inputs(b, hq, hkv, s, dh)
-    for kv_valid in (1, 300, s - 16):     # early, middle and last steps
-        lse_kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=kv_valid,
-                      bk=bk)
-        got = kk.block_lse_cuda(q, k, **lse_kw)
-        close(got, kk.block_lse_plain(q, k, **lse_kw),
-              f"block_lse kv={kv_valid}")
-        assert bool((got[..., -(-kv_valid // bk):] == -1e30).all())
     for kv_valid in KDE_VALID_SWEEP:
         kw = dict(top_p=KDE_SERVE_TOP_P, bk=bk, stride=stride,
                   kv_valid=kv_valid)
-        e, e_lse = decode_check(q, k, v, kw, f"serve kv={kv_valid}")
+        e = decode_check(q, k, v, kw, f"serve kv={kv_valid}")
         log(f"[kernels] kde_decode serve shape kv_valid {kv_valid}: out and "
-            f"est max_abs_err {e:.3e}; block_lse (estimate-only kernel) "
-            f"{e_lse:.3e}")
+            f"est (also vs block_lse_plain) max_abs_err {e:.3e}")
     kw = dict(top_p=KDE_SERVE_TOP_P, bk=bk, stride=stride, kv_valid=s - 17)
     b_ms, b_by = decode_bound(q, k, kw, kk.kde_decode_plain(
         q, k, v, with_est=True, **kw)[1])
@@ -1319,27 +1391,16 @@ def phase_lm_kernels(gen):
     log(f"[kernels] kde_decode wrapper host time: "
         f"{host_us(lambda: kk.kde_decode_cuda(q, k, v, **kw), 200):.2f} us a "
         f"call (host clock over 200 calls, no synchronize inside)")
-    lse_kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=s - 17, bk=bk)
-    lse_ms = timed(lambda: kk.block_lse_cuda(q, k, **lse_kw), 200)
-    lse_dev = kernel_device_ms(lambda: kk.block_lse_cuda(q, k, **lse_kw),
-                               "block_lse_kernel", 200)
-    log(f"[kernels] block_lse (estimate-only kernel, off the decode path) "
-        f"serve shape: {lse_ms:.4f} ms a call, device {lse_dev} ms")
 
     b, hq, hkv, s, dh, bk, stride = LSE_LONG
     q, k, v = decode_inputs(b, hq, hkv, s, dh)
     kw = dict(top_p=KDE_LONG_TOP_P, bk=bk, stride=stride, kv_valid=s)
-    e, e_lse = decode_check(q, k, v, kw, "S=32768")
-    log(f"[kernels] kde_decode S={s} random keys: max_abs_err {e:.3e}; "
-        f"block_lse {e_lse:.3e}")
+    e = decode_check(q, k, v, kw, "S=32768")
+    log(f"[kernels] kde_decode S={s} random keys: max_abs_err {e:.3e}")
     # bench_attention's peaked mass at yi's heads: planted keys dominate
     # the S-key background
-    k = torch.randn((b, hkv, s, dh), generator=gen, device=dev) * 0.05
-    qv = q.reshape(b, hkv, hq // hkv, dh).mean(2)
-    qv = qv / torch.linalg.vector_norm(qv, dim=-1, keepdim=True)
-    k[:, :, 50:90] += 8.0 * qv[:, :, None]
-    k[:, :, s // 2:s // 2 + 30] += 6.0 * qv[:, :, None]
-    e, e_lse = decode_check(q, k, v, kw, "S=32768 planted")
+    k = planted_keys(q, hkv, s, gen)
+    e = decode_check(q, k, v, kw, "S=32768 planted")
     b_ms, _ = decode_bound(q, k, kw, kk.kde_decode_plain(
         q, k, v, with_est=True, **kw)[1])
     kw = dict(top_p=KDE_LONG_TOP_P, bk=bk, stride=stride)
@@ -1361,17 +1422,57 @@ def phase_lm_kernels(gen):
     for kv_valid in (s // 2 + 3, s):
         kw = dict(top_p=KDE_SERVE_TOP_P, bk=bk, stride=stride,
                   kv_valid=kv_valid)
-        e, e_lse = decode_check(q, k, v, kw, f"S={s} kv={kv_valid}")
+        e = decode_check(q, k, v, kw, f"S={s} kv={kv_valid}")
     b_ms, _ = decode_bound(q, k, kw, kk.kde_decode_plain(
         q, k, v, with_est=True, **kw)[1])
     dms = kernel_device_ms(lambda: kk.kde_decode_cuda(q, k, v, **kw),
                            "kde_decode_kernel", 50)
     log(f"[kernels] kde_decode S={s} (b {b}, bk {bk}, stride {stride}, "
         f"top_p {KDE_SERVE_TOP_P}; {s // bk} blocks): max_abs_err {e:.3e}; "
-        f"block_lse {e_lse:.3e}; device {dms} ms a launch, bound "
-        f"{b_ms:.5f} ms")
+        f"device {dms} ms a launch, bound {b_ms:.5f} ms")
     del q, k, v
     free_cuda()
+
+    # the bf16 instances: bitwise the f32 instance on the upcast inputs,
+    # and against the plain pipeline; timed at each shape, the long_500k
+    # one the lm-bf16 decode's row
+    errs["kde_decode_bf16"] = 0.0
+    for shape, top_p in ((LSE_SERVE, KDE_SERVE_TOP_P),
+                         (LSE_LONG, KDE_LONG_TOP_P),
+                         (LSE_500K, LONG_KDE["top_p"])):
+        b, hq, hkv, s, dh, bk, stride = shape
+        q, k, v = decode_inputs(b, hq, hkv, s, dh, torch.bfloat16)
+        for kv_valid in sorted({s, s // 2 + 3}):
+            kw = dict(top_p=top_p, bk=bk, stride=stride, kv_valid=kv_valid)
+            e = decode_bf16_check(q, k, v, kw, f"bf16 S={s} kv={kv_valid}")
+            errs["kde_decode_bf16"] = max(errs["kde_decode_bf16"], e)
+        plan = kk.plan_of(q, k, v, top_p=top_p, bk=bk, stride=stride)
+        b_ms, b_by = decode_bound(q, k, kw, kk.kde_decode_plain(
+            q, k, v, with_est=True, **kw)[1])
+        row = dict(
+            name="kde_decode_bf16", route="cuda",
+            source="src/repro_torch/csrc/kde_attention.cu",
+            replaces="src/repro/kernels/kde_attention/kernel.py:40",
+            shape=f"b={b} hq={hq} hkv={hkv} S={s} dh={dh} bk={bk} "
+                  f"stride={stride} top_p={top_p} kv_valid={s} bf16 q, k, v "
+                  f"(cluster {kk.decode_cluster(plan)})",
+            ms=timed(lambda: kk.kde_decode_cuda(q, k, v, **kw), 50),
+            device_ms=kernel_device_ms(
+                lambda: kk.kde_decode_cuda(q, k, v, **kw),
+                "kde_decode_kernel", 50),
+            plain_ms=timed(lambda: kk.kde_decode_plain(q, k, v, **kw), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        dms32 = kernel_device_ms(
+            lambda: kk.kde_decode_cuda(q32, k32, v32, **kw),
+            "kde_decode_kernel", 50)
+        log(f"[kernels] kde_decode bf16 {row['shape']}: {row['ms']:.4f} ms "
+            f"(device {row['device_ms']}; the f32 instance on the upcast "
+            f"inputs: device {dms32}; plain {row['plain_ms']:.4f}, bound "
+            f"{b_ms:.5f} by {b_by})")
+        del q, k, v, q32, k32, v32
+        free_cuda()
+    rows.append(row)
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
         log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
@@ -1382,6 +1483,46 @@ def phase_lm_kernels(gen):
     log("[kernels] kde_decode library_ms null: no PyTorch call computes "
         "KDE block selection with attention over the selected blocks")
     return rows
+
+
+def planted_keys(q, hkv, s, gen):
+    """bench_attention's peaked mass at q's heads: N(0, 0.05^2) keys with
+    runs along each group's mean query at [50, 90) (x 8) and [s/2, s/2 +
+    30) (x 6), in q's dtype."""
+    import torch
+    b, hq, dh = q.shape
+    k = torch.randn((b, hkv, s, dh), generator=gen, device=q.device) * 0.05
+    qv = q.float().reshape(b, hkv, hq // hkv, dh).mean(2)
+    qv = qv / torch.linalg.vector_norm(qv, dim=-1, keepdim=True)
+    k[:, :, 50:90] += 8.0 * qv[:, :, None]
+    k[:, :, s // 2:s // 2 + 30] += 6.0 * qv[:, :, None]
+    return k.to(q.dtype)
+
+
+def decode_bf16_check(q, k, v, kw, tag) -> float:
+    """A bf16 instance of kde_decode (q and the cache in bf16): out and
+    est bitwise the f32 instance's on the upcast inputs (out rounded to
+    bf16); est against the plain pipeline at rtol 2e-4 / atol 1e-5 and out
+    within one bf16 step of the plain pipeline's bf16 out (or within atol
+    1e-5 of it, where a sum near zero has steps finer than the f32
+    rounding); blocks past kv_valid at -1e30.  Returns the max abs error
+    against the plain pipeline."""
+    import torch
+    from repro_torch.kernels.kde_attention import kernel as kk
+    from repro_torch.testing import assert_bf16_close
+    out, est = kk.kde_decode_cuda(q, k, v, with_est=True, **kw)
+    o32, e32 = kk.kde_decode_cuda(q.float(), k.float(), v.float(),
+                                  with_est=True, **kw)
+    assert out.dtype == q.dtype, tag
+    assert torch.equal(out, o32.to(q.dtype)), f"{tag}: out != f32 instance"
+    assert torch.equal(est, e32), f"{tag}: est != f32 instance"
+    p_out, p_est = kk.kde_decode_plain(q, k, v, with_est=True, **kw)
+    e = close(est, p_est, f"{tag} est")
+    diff, _ = assert_bf16_close(out, p_out, ATOL, f"{tag} out")
+    assert bool(torch.isfinite(out).all()), tag
+    dead = -(-kw["kv_valid"] // kw["bk"])
+    assert bool((est[..., dead:] == -1e30).all()), tag
+    return max(e, diff)
 
 
 def logit_check(got, want, vocab: int, what: str) -> str:
@@ -1468,7 +1609,8 @@ def profile_text(wall, busy, share, names) -> str:
 
 def phase_lm_prefill():
     """Phase 10: yi-6b at full width and depth, the flash prefill counted
-    and checked against xla."""
+    and checked against xla; returns the f32 model, the flash launches,
+    the flash seconds and the prefill batch."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data.pipeline import make_batch
@@ -1511,7 +1653,7 @@ def phase_lm_prefill():
     step = make_prefill_step(cfg, impl="flash")
     log("[lm-prefill] one flash prefill, where the time goes: "
         + profile_text(*device_profile(lambda: step(model, batch))))
-    return model, launches, t_flash
+    return model, launches, t_flash, batch
 
 
 def phase_lm_serve(model, gen):
@@ -1544,7 +1686,6 @@ def phase_lm_serve(model, gen):
     launches = kk.LAUNCHES["kde_decode"]
     steps = plen + args["kde"].gen - 1
     assert launches == cfg.num_layers * steps, (launches, steps)
-    assert kk.LAUNCHES["block_lse"] == 0, kk.LAUNCHES
     assert res["kde"]["max_len"] == 544, res["kde"]["max_len"]
     kcfg = dict(top_p=args["kde"].kde_top_p, bk=args["kde"].kde_bk,
                 stride=args["kde"].kde_stride, kv_valid=steps)
@@ -1608,6 +1749,244 @@ def phase_lm_serve(model, gen):
     del res, cache
     free_cuda()
     return launches
+
+
+def lm_bf16_prefill(model, batch):
+    """Phase 12 (a): the f32 yi-6b of phase 10 rounded through bf16 in
+    place, its bf16 twin from ``cast_params``; the flash prefill of the
+    bf16 model (exactly 32 launches, bf16 operands), its xla (chunked)
+    prefill and the f32 flash prefill of the rounded f32 model on phase
+    10's tokens.  Gate: max |flash_bf16 - xla_bf16| <= max |xla_bf16 -
+    f32| over the real vocab at the last position.  Returns the bf16
+    model, its config and the flash launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = get_config(LM_ARCH)
+    assert cfg.dtype == "bfloat16", cfg.dtype     # as configured
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    m16 = T.cast_params(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    pairs = list(zip(model.parameters(), m16.parameters()))
+    assert all(torch.equal(a, b.float()) for a, b in pairs)
+    n16 = sum(p.numel() * p.element_size() for p in m16.parameters())
+    n_bf16 = sum(p.dtype == torch.bfloat16 for p in m16.parameters())
+    log(f"[lm-bf16] f32 weights rounded through bf16 in place, cast_params "
+        f"to bf16: {n16 / 1e9:.2f} GB ({n_bf16} of {len(pairs)} tensors "
+        f"bf16), {time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tokens = LM_PREFILL_SEQ * LM_PREFILL_BATCH
+    fk.reset_launches()
+    (flash, walls), taps = tapped(
+        lambda: timed_calls(lambda: make_prefill_step(cfg, impl="flash")(
+            m16, batch), 2), (fk, "flash_attention_cuda"))
+    launches = fk.LAUNCHES["flash_attention"]
+    assert launches == 2 * cfg.num_layers, launches
+    launches //= 2
+    q = taps["flash_attention_cuda"][0][0]
+    assert q.dtype == torch.bfloat16 and flash.dtype == torch.float32, \
+        (q.dtype, flash.dtype)
+    del taps, q
+    t0 = time.perf_counter()
+    xla = make_prefill_step(cfg, impl="xla")(m16, batch)
+    torch.cuda.synchronize()
+    t_xla = time.perf_counter() - t0
+    f32 = make_prefill_step(model.cfg, impl="flash")(model, batch)
+    v = cfg.vocab_size
+    got, want, ref = (t[:, -1, :v].double() for t in (flash, xla, f32))
+    assert bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    gap = float((got - want).abs().max())
+    bf16_err = float((want - ref).abs().max())
+    assert gap <= bf16_err, (gap, bf16_err)
+    agree = float((got.argmax(-1) == want.argmax(-1)).double().mean())
+    agree32 = float((got.argmax(-1) == ref.argmax(-1)).double().mean())
+    log(f"[lm-bf16] (a) bf16 prefill, batch {LM_PREFILL_BATCH} x seq "
+        f"{LM_PREFILL_SEQ}, {launches} flash launches (bf16 operands): "
+        f"flash {walls[0]:.3f} s first, {walls[1]:.3f} s second "
+        f"({tokens / walls[1]:.1f} tokens/s), xla (chunked) {t_xla:.3f} s "
+        f"({tokens / t_xla:.1f} tokens/s); last-position logits: max "
+        f"|flash_bf16 - xla_bf16| {gap:.4e} <= max |xla_bf16 - f32| "
+        f"{bf16_err:.4e} (max |logit| {float(ref.abs().max()):.4f}); argmax "
+        f"flash_bf16 = xla_bf16 on {agree:.3f}, = f32 on {agree32:.3f} of "
+        f"the rows; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return m16, cfg, launches
+
+
+def timed_calls(fn, n: int):
+    """(last result, host seconds of each of ``n`` calls of ``fn``, each
+    ending in a synchronize)."""
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def lm_bf16_long_decode(m16, cfg, gen):
+    """Phase 12 (b): the reference's long_500k KDE decode cell on the bf16
+    yi-6b: a 524,288-slot bf16 cache (``init_cache``'s default) holding
+    seeded synthetic K/V below LONG_FILL, then 64 ``make_decode_step(impl=
+    "kde")`` steps (32 teacher-forced prompt tokens, 32 generated) at top_p
+    16, bk 512, stride 16: exactly 32 x 64 kde_decode launches, finite
+    logits.  Then the kernel on the final cache (layers 0, 15, 31) against
+    the f32 instance on the upcast inputs (bitwise) and the plain
+    pipeline, a profile of one step, and 2 dense xla steps on the same
+    cache.  Returns the kde_decode launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.kde_attention import kernel as kk
+    from repro_torch.kernels.kde_attention import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_decode_step
+    dev = m16.embed.device
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+
+    # kde vs exact on bench_attention's planted keys at this shape (before
+    # the cache: exact attention expands K / V to every q-head in f32)
+    q = torch.randn((1, hq, dh), generator=gen, device=dev).bfloat16()
+    k = planted_keys(q, hkv, LONG_S, gen)
+    v = torch.randn((1, hkv, LONG_S, dh), generator=gen,
+                    device=dev).bfloat16()
+    out = kops.kde_attention(q, k, v, **LONG_KDE)
+    exact = kops.exact_decode_attention(q, k, v)
+    rel = float((out.float() - exact.float()).abs().max()
+                / exact.float().abs().max())
+    log(f"[lm-bf16] (b) planted keys at S={LONG_S} (bf16 q, k, v; top_p "
+        f"{LONG_KDE['top_p']}, bk {LONG_KDE['bk']}, stride "
+        f"{LONG_KDE['stride']}): max |kde - exact| / max |exact| = "
+        f"{rel:.4e}")
+    del q, k, v, out, exact
+    free_cuda()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = T.init_cache(cfg, 1, LONG_S, device=dev)
+    assert cache["k"].dtype == torch.bfloat16, cache["k"].dtype
+    g = torch.Generator(device=dev).manual_seed(500)
+    for name in ("k", "v"):
+        for layer in cache[name]:
+            layer[:, :, :LONG_FILL].normal_(generator=g)
+    torch.cuda.synchronize()
+    c_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    log(f"[lm-bf16] (b) cache {tuple(cache['k'].shape)} x 2 bf16 "
+        f"({c_bytes / 1e9:.2f} GB), positions [0, {LONG_FILL}) synthetic "
+        f"N(0, 1) K/V, {time.perf_counter() - t0:.2f} s")
+    prompt = torch.as_tensor(make_batch(
+        cfg, ShapeConfig("long_500k", LONG_PROMPT, 1, "prefill"), 0,
+        0)["tokens"], device=dev)
+    step = make_decode_step(cfg, impl="kde", kde_cfg=LONG_KDE)
+    finite = torch.ones((), dtype=torch.bool, device=dev)   # no host sync
+    kk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LONG_PROMPT):
+        nxt, logits, cache = step(m16, cache, prompt[:, i:i + 1],
+                                  LONG_FILL + i)
+        finite &= torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    torch.cuda.synchronize()
+    t_prompt = time.perf_counter() - t0
+    cur = nxt[:, None]
+    t0 = time.perf_counter()
+    for i in range(LONG_GEN):
+        nxt, logits, cache = step(m16, cache, cur,
+                                  LONG_FILL + LONG_PROMPT + i)
+        finite &= torch.isfinite(logits[..., :cfg.vocab_size]).all()
+        cur = nxt[:, None]
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    assert bool(finite), "non-finite logits in the long_500k decode"
+    launches = kk.LAUNCHES["kde_decode"]
+    assert launches == cfg.num_layers * (LONG_PROMPT + LONG_GEN), launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[lm-bf16] (b) long_500k KDE decode (yi-6b bf16, batch 1, cache "
+        f"{LONG_S}, top_p {LONG_KDE['top_p']}, bk {LONG_KDE['bk']}, stride "
+        f"{LONG_KDE['stride']}): {launches} kde_decode launches = "
+        f"{cfg.num_layers} layers x {LONG_PROMPT + LONG_GEN} steps; "
+        f"{LONG_PROMPT} teacher-forced steps {t_prompt:.3f} s, {LONG_GEN} "
+        f"generated {t_gen:.3f} s ({LONG_GEN / t_gen:.2f} tok/s, "
+        f"{t_gen / LONG_GEN * 1e3:.2f} ms a step); finite logits; peak "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated)")
+
+    # where one step's time goes (the last slot rewritten: the same cache)
+    last = LONG_S - 1
+    wall, busy, _, names = device_profile(
+        lambda: step(m16, cache, cur, last), top=100000)   # every kernel
+    q = torch.randn((1, hq, dh), generator=gen, device=dev).bfloat16()
+    ck, cv = cache["k"][0], cache["v"][0]
+    kw = dict(LONG_KDE, kv_valid=LONG_S)
+    plan = kk.plan_of(q, ck, cv, top_p=kw["top_p"], bk=kw["bk"],
+                      stride=kw["stride"])
+    b_ms, b_by = decode_bound(q, ck, kw, kk.kde_decode_plain(
+        q, ck, cv, with_est=True, **kw)[1])
+    w_bytes = sum(p.numel() * p.element_size() for n, p in
+                  m16.named_parameters() if n != "embed")
+    if busy == 0.0:
+        log(f"[lm-bf16] (b) one decode step: wall {wall * 1e3:.2f} ms; "
+            f"device time not measured (the trace shows none)")
+    else:
+        kde = [(t, c) for n, t, c in names if "kde_decode" in n]
+        gemm = sum(t for n, t, _ in names if any(
+            w in n.lower() for w in ("gemv", "gemm", "xmma", "cutlass", "nvjet")))
+        kde_ms = sum(t for t, _ in kde) / max(1, sum(c for _, c in kde)) * 1e3
+        log(f"[lm-bf16] (b) one decode step at S={LONG_S}: wall "
+            f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (idle "
+            f"share {1 - busy / wall:.1%}); kde_decode {kde_ms:.4f} ms a "
+            f"launch x {sum(c for _, c in kde)} (bound {b_ms:.5f} ms by "
+            f"{b_by}, cluster {kk.decode_cluster(plan)} CTAs x {hkv} kv-heads"
+            f"); GEMM / GEMV kernels {gemm * 1e3:.3f} ms against the weights' "
+            f"{w_bytes / 1e9:.2f} GB / 3.35 TB/s = "
+            f"{w_bytes / PEAK_BYTES * 1e3:.3f} ms; top kernels: " + "; ".join(
+                f"{n[:50]} {t * 1e3:.3f} ms x{c}" for n, t, c in names[:6]))
+
+    # the bf16 kernel on the final cache: bitwise the f32 instance on the
+    # upcast inputs, against the plain pipeline at phase 2's tolerances
+    err = 0.0
+    for layer in LM_KDE_LAYERS:
+        ck, cv = cache["k"][layer], cache["v"][layer]
+        e = decode_bf16_check(q, ck, cv, kw, f"long_500k layer {layer}")
+        err = max(err, e)
+        log(f"[lm-bf16] (b) final cache layer {layer}: kde_decode bf16 = f32 "
+            f"instance on upcast inputs (bitwise, out and est); vs plain "
+            f"pipeline max abs err {e:.3e}")
+    free_cuda()
+
+    # two dense steps on the same cache: the logits of the kde step of
+    # the same token at the same slot against xla's (reported, not gated)
+    _, kde_logits, cache = step(m16, cache, cur, last)
+    xla_step = make_decode_step(cfg, impl="xla")
+    xla_logits, walls = None, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits, cache = xla_step(m16, cache, cur, last)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        xla_logits = logits if xla_logits is None else xla_logits
+        del logits
+    a = kde_logits[0, -1, :cfg.vocab_size].double().cpu().numpy()
+    b = xla_logits[0, -1, :cfg.vocab_size].double().cpu().numpy()
+    corr = float(np.corrcoef(a, b)[0, 1])
+    log(f"[lm-bf16] (b) 2 dense xla steps at S={LONG_S}: "
+        f"{walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms (kde step "
+        f"{t_gen / LONG_GEN * 1e3:.2f} ms); logits Pearson correlation kde "
+        f"vs xla {corr:.6f} (reported, not gated); argmax equal "
+        f"{bool(a.argmax() == b.argmax())}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del cache, kde_logits, xla_logits
+    free_cuda()
+    return launches, err
 
 
 def phase_hash(data):
@@ -3265,12 +3644,22 @@ def main() -> int:
     assert torch.get_float32_matmul_precision() == "highest"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     t0 = time.perf_counter()
-    model, launches["flash_attention"], _ = phase_lm_prefill()
+    model, launches["flash_attention"], _, batch = phase_lm_prefill()
     phases["lm-prefill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     launches["kde_decode"] = phase_lm_serve(model, gen)
     phases["lm-serve"] = time.perf_counter() - t0
-    del model
+    t0 = time.perf_counter()
+    m16, cfg16, launches["flash_attention_bf16"] = lm_bf16_prefill(model,
+                                                                   batch)
+    del model, batch
+    free_cuda()
+    launches["kde_decode_bf16"], e = lm_bf16_long_decode(m16, cfg16, gen)
+    phases["lm-bf16"] = time.perf_counter() - t0
+    for r in rows:
+        if r["name"] == "kde_decode_bf16":
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+    del m16
     free_cuda()
 
     for r in rows:
@@ -3283,7 +3672,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("device_ms", "host_us", "graph_launches")
+        {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
+                                  "graph_launches")
          if k in r}
         for r in rows]}))
     log(card_line())

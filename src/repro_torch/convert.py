@@ -61,16 +61,31 @@ def hash_state_from_reference(state, device=None) -> HashState:
     return HashState(**{name: conv(name) for name in HashState._fields})
 
 
+def _leaf(a, device: torch.device) -> torch.Tensor:
+    """A reference parameter (numpy array) as a contiguous tensor on
+    ``device``, copied (the reference's arrays may be read-only): a
+    bfloat16 array (the reference's ``cast_params`` output, numpy dtype
+    named "bfloat16") through its 16-bit integer view, so the bits are kept
+    and ``ml_dtypes`` is not needed here; anything else as float32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.int16)))
+        return bits.view(torch.bfloat16).to(device).contiguous()
+    return as_f32(np.array(a, dtype=np.float32), device)
+
+
 def params_from_reference(tree, cfg, device=None) -> "T.Transformer":
     """The reference's dense ``init_params`` tree (numpy arrays: ``embed``,
     ``layers`` stacked on a leading L axis, ``final_norm``, ``lm_head``
-    unless tied) as the port's ``Transformer`` on ``device``.  Weights keep
-    the reference's (in, out) layout: the port applies them as ``x @ w``,
-    so nothing is transposed."""
+    unless tied) as the port's ``Transformer`` on ``device``.  A tree from
+    the reference's ``cast_params`` (bfloat16 leaves beside the f32
+    ``final_norm``) keeps its dtypes bit for bit.  Weights keep the reference's
+    (in, out) layout: the port applies them as ``x @ w``, so nothing is
+    transposed."""
     dev = resolve_device(device)
 
-    def t(a):        # a copy: the reference's arrays may be read-only
-        return as_f32(np.array(a, dtype=np.float32), dev)
+    def t(a):
+        return _leaf(a, dev)
 
     lt = tree["layers"]
     attn, mlp = lt["attn"], lt["mlp"]

@@ -1,40 +1,33 @@
-// KDE decode attention: the level-1 block estimates alone (block lse), and
-// the whole decode pipeline of one step and one layer in one launch.
+// KDE decode attention: the whole decode pipeline of one step and one layer
+// in one launch.
 //
-// kde_block_lse_launch replaces
+// kde_decode_launch replaces
 //     src/repro/kernels/kde_attention/kernel.py:block_lse_pallas
-//     (body _block_lse_kernel)
-//   q (b, hq, dh), k (b, hkv, S, dh) f32 -> out (b, hq, S / bk) f32
-//   out[b, h, j] = log(stride * sum_{i < ceil(bk / stride)}
-//                      exp(q_h . k[j bk + i stride] * scale))
-// with positions >= kv_valid at -1e30 before the max, as the Pallas body:
-// the dot products in f32, then the mask, then the max m, then
-// m + log(max(sum exp(s - m), 1e-30)) + log(stride).  A block with no valid
-// key comes out at -1e30 exactly.  It is the estimate-only entry; the
-// decode path runs kde_decode_launch (below), whose step 1 is this
-// function.
+//     (body _block_lse_kernel) and the jnp steps around it
+//     (src/repro/kernels/kde_attention/ops.py:kde_attention)
+// Step 1 is block_lse_pallas's function: for each (batch, q-head, key block
+// of bk), out[b, h, j] = log(stride * sum_{i < ceil(bk / stride)}
+// exp(q_h . k[j bk + i stride] * scale)), positions >= kv_valid at -1e30
+// before the max, as the Pallas body: the dot products in f32, then the
+// mask, then the max m, then m + log(max(sum exp(s - m), 1e-30)) +
+// log(stride).  A block with no valid key comes out at -1e30 exactly.
 //
-// Bound on the H100: bytes.  Only the strided keys are read:
-// b hkv (S / stride) dh 4 bytes, plus q and the (b, hq, S / bk) output; at
-// the serve shape (b = 4, hkv = 4, S = 544, stride 4, dh = 128) that is 1.1
-// MB (0.3 us at 3.35 TB/s), so a launch costs more than the work.  The
-// design reads each strided key row once per CTA from device memory: one
-// CTA per (key block, kv-head, batch) holds the whole GQA group, one warp
-// per q-head (at most 8 warps, looping over larger groups), and the
-// group's warps read the same 512-byte rows (coalesced across the warp;
-// the repeats hit L1).  A warp keeps its q-head's vector in
-// registers (dims lane + 32 t), reduces each dot product by xor shuffles,
-// parks the block's scores in shared memory and then takes the max and the
-// sum over them in a fixed order.  IEEE f32 (expf, logf), no fast-math.
-// kv_valid is a runtime argument: one build serves every decode step.
+// Operands: q in f32 or bf16, the cache (k and v together) in f32 or bf16;
+// out in q's dtype.  The reference casts q and the keys to f32 inside its
+// kernel (kernel.py:30-31) and the gathered keys and values in its ops
+// (ops.py:68-74), and returns out.astype(q.dtype) (:87).  Here a bf16 value
+// becomes f32 exactly where a row is loaded (its 16 bits shifted up), so
+// every instance runs the f32 instance's arithmetic on the upcast values and
+// a bf16 out is the f32 result rounded to nearest even: bitwise
+// round(kde_decode(q.float(), k.float(), v.float())), and est bitwise the
+// f32 instance's.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 8;
 constexpr int DMAX = 128;
-constexpr int DT = DMAX / 32;    // q dims per lane
 constexpr float NEG = -1.0e30f;
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -49,89 +42,23 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-block_lse_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 float* __restrict__ out, int hq, int hkv, int nb, int dh, int bk,
-                 int stride, int kv_valid, float scale, float log_stride,
-                 long long qsb, long long qsh, long long ksb, long long ksh,
-                 long long kss) {
-  extern __shared__ float scores[];          // (warps of the CTA) x nk
-  const int j = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int group = hq / hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int nk = (bk + stride - 1) / stride;
-  float* my = scores + warp * nk;
-  const float* kb = k + bi * ksb + kvh * ksh;
-
-  for (int hl = warp; hl < group; hl += nwarps) {
-    const int h = kvh * group + hl;
-    const float* qr = q + bi * qsb + h * qsh;
-    float qv[DT];
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const int d = lane + 32 * t;
-      qv[t] = d < dh ? qr[d] : 0.0f;
-    }
-    for (int i = 0; i < nk; ++i) {
-      const int pos = j * bk + i * stride;
-      const float* kr = kb + pos * kss;
-      float part = 0.0f;
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        const int d = lane + 32 * t;
-        if (d < dh) part = fmaf(qv[t], __ldg(kr + d), part);
-      }
-      const float dot = warp_sum(part);
-      if (lane == 0) my[i] = pos < kv_valid ? dot * scale : NEG;
-    }
-    __syncwarp();
-    float mx = NEG;
-    for (int i = lane; i < nk; i += 32) mx = fmaxf(mx, my[i]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int i = lane; i < nk; i += 32) sum += expf(my[i] - mx);
-    sum = warp_sum(sum);
-    if (lane == 0)
-      out[((size_t)bi * hq + h) * nb + j] = mx + logf(fmaxf(sum, 1e-30f)) + log_stride;
-    __syncwarp();
-  }
+// an operand element as f32: a bf16 pattern is the high half of its f32
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
 }
+
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 }  // namespace
 
-extern "C" {
-
-// q strided over (batch, head), k over (batch, head, position); the head
-// dimension contiguous; out contiguous.  dh <= 128, hq % hkv == 0, S a
-// multiple of bk (nb = S / bk blocks); the wrapper checks.
-int kde_block_lse_launch(const float* q, const float* k, float* out, int b, int hq,
-                         int hkv, int nb, int dh, int bk, int stride, int kv_valid,
-                         float scale, float log_stride, long long qsb, long long qsh,
-                         long long ksb, long long ksh, long long kss, void* stream) {
-  if (dh < 1 || dh > DMAX || hkv < 1 || hq % hkv != 0 || bk < 1 || stride < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nk = (bk + stride - 1) / stride;
-  const int warps = hq / hkv < WARPS ? hq / hkv : WARPS;    // one warp per q-head of the group
-  const size_t smem = sizeof(float) * (size_t)warps * nk;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nb, hkv, b);
-  block_lse_kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, out, hq, hkv, nb, dh, bk, stride, kv_valid, scale, log_stride, qsb, qsh, ksb,
-      ksh, kss);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // extern "C"
-
 // ---------------------------------------------------------------------------
 // kde_decode_launch: the reference's whole kde_attention for one decode step
-// and one layer, in one launch.  It replaces the same Pallas kernel plus the
-// jnp steps around it (src/repro/kernels/kde_attention/ops.py:kde_attention):
-//   q (b, hq, dh), k / v (b, hkv, S, dh) f32 -> out (b, hq, dh) f32
-//   (1) est (b, hq, nb): block_lse_pallas's function, as above;
+// and one layer:
+//   q (b, hq, dh), k / v (b, hkv, S, dh) -> out (b, hq, dh) in q's dtype
+//   (1) est (b, hq, nb) f32: block_lse_pallas's function, as above;
 //   (2) the GQA group consensus est_kv[j] = lse over the group's q-heads of
 //       est[h, j] (max, then the sum of exp in head order), then the top P =
 //       min(top_p, nb) blocks of est_kv: the larger value first, ties to the
@@ -148,7 +75,7 @@ int kde_block_lse_launch(const float* q, const float* k, float* out, int b, int 
 // Bound on the H100: bytes -- the strided keys below kv_valid once per
 // kv-head, less those of the selected blocks (read again as gathered keys),
 // and the gathered keys and values below kv_valid (b hkv P bk dh 4 bytes
-// each at most); at the serve shape (b 4, hkv 4, S 544, dh 128, bk 32,
+// each at most, 2 in bf16); at the serve shape (b 4, hkv 4, S 544, dh 128, bk 32,
 // stride 4, top_p 4) about 3.1 MB, 0.9 us at 3.35 TB/s.  The cost to beat
 // is not the bytes but the ~25 eager torch ops per layer that steps 2-4
 // took, each a launch from the host; on the card the time is a chain of
@@ -208,10 +135,10 @@ constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 constexpr int MAX_SMEM = 232448;   // dynamic shared memory a CTA may take
 
 struct Decode {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;
+  const void* q;      // TQ
+  const void* k;      // TKV
+  const void* v;      // TKV
+  void* out;          // TQ
   float* est;
   int hq, hkv, nb, dh, bk, stride, P, kv_valid;
   int g, nk, C, nbc, kc, ks, d4, bpw, scw, ncand, nsel;
@@ -257,13 +184,13 @@ struct Carve {
 };
 
 // Stage rows [c0, c0 + nr) of a CTA's key list: the key rows into kr and,
-// with V, the value rows into vr.  Warp w takes rows w + 8 i, lane l dims
-// l + 32 t; every load of the chunk is issued before the first store.
+// with V, the value rows into vr, as f32.  Warp w takes rows w + 8 i, lane l
+// dims l + 32 t; every load of the chunk is issued before the first store.
 // row_pos maps a list index to its cache position, or -1 for a zero row;
 // dims [dh, 4 d4) are zero.
-template <bool V, typename RowPos>
-__device__ __forceinline__ void stage_rows(float* kr, float* vr, const float* __restrict__ kb,
-                                           const float* __restrict__ vb, const Decode& a,
+template <bool V, typename TKV, typename RowPos>
+__device__ __forceinline__ void stage_rows(float* kr, float* vr, const TKV* __restrict__ kb,
+                                           const TKV* __restrict__ vb, const Decode& a,
                                            int c0, int nr, RowPos row_pos) {
   constexpr int RPW = KCH / DK_WARPS, DPL = DMAX / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -277,8 +204,8 @@ __device__ __forceinline__ void stage_rows(float* kr, float* vr, const float* __
     for (int t = 0; t < DPL; ++t) {
       const int d = lane + 32 * t;
       const bool ok = pos >= 0 && d < a.dh;
-      bk_[i][t] = ok ? __ldg(kb + at * a.kss + d) : 0.0f;
-      if constexpr (V) bv_[i][t] = ok ? __ldg(vb + at * a.vss + d) : 0.0f;
+      bk_[i][t] = ok ? load_f32(kb + at * a.kss + d) : 0.0f;
+      if constexpr (V) bv_[i][t] = ok ? load_f32(vb + at * a.vss + d) : 0.0f;
     }
   }
 #pragma unroll
@@ -328,7 +255,9 @@ __device__ __forceinline__ int own_blocks(const Decode& a, int c) {
 }
 
 // two CTAs per SM (at most 128 registers a thread), so at the serve shape
-// every cluster of a launch is resident at once
+// every cluster of a launch is resident at once.  TQ: q and out; TKV: k and
+// v (float or __nv_bfloat16 each).
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(DK_THREADS, 2)
 kde_decode_kernel(Decode a) {
   extern __shared__ __align__(16) float sm[];
@@ -358,16 +287,17 @@ kde_decode_kernel(Decode a) {
   float* lh = sm + cv.lh;
   float* rh = sm + cv.rh;
   float* acc = sm + cv.acc;
-  const float* kb = a.k + bi * a.ksb + kvh * a.ksh;
-  const float* vb = a.v + bi * a.vsb + kvh * a.vsh;
+  const TKV* kb = static_cast<const TKV*>(a.k) + bi * a.ksb + kvh * a.ksh;
+  const TKV* vb = static_cast<const TKV*>(a.v) + bi * a.vsb + kvh * a.vsh;
   const int j0 = rank * a.nbc;
   const int nbl = own_blocks(a, rank);
 
   for (int h = warp; h < g; h += DK_WARPS) {
-    const float* qr = a.q + bi * a.qsb + (long long)(kvh * g + h) * a.qsh;
+    const TQ* qr = static_cast<const TQ*>(a.q) + bi * a.qsb + (long long)(kvh * g + h) * a.qsh;
     float x[DMAX / 32];
 #pragma unroll
-    for (int t = 0; t < DMAX / 32; ++t) x[t] = lane + 32 * t < dh ? __ldg(qr + lane + 32 * t) : 0.0f;
+    for (int t = 0; t < DMAX / 32; ++t)
+      x[t] = lane + 32 * t < dh ? load_f32(qr + lane + 32 * t) : 0.0f;
 #pragma unroll
     for (int t = 0; t < DMAX / 32; ++t)
       if (lane + 32 * t < w4) qs[h * ks + lane + 32 * t] = x[t];
@@ -590,7 +520,8 @@ kde_decode_kernel(Decode a) {
       if (r < a.C) s = fmaf(cluster.map_shared_rank(acc, r)[h * w4 + d], wc[r * g + h], s);
     const float l = lh[h];
     const float o = s / fmaxf(l, 1e-30f);
-    a.out[((size_t)bi * a.hq + kvh * g + h) * dh + d] = o * (l / fmaxf(l + rh[h], 1e-30f));
+    store_f32(static_cast<TQ*>(a.out) + ((size_t)bi * a.hq + kvh * g + h) * dh + d,
+              o * (l / fmaxf(l + rh[h], 1e-30f)));
   }
   cluster.sync();   // (C) no CTA leaves while another reads its shared memory
 }
@@ -604,6 +535,7 @@ extern "C" {
 // kernels/build.py KdeDecodeShape), so a call passes 8 arguments.
 struct KdeDecodeShape {
   int b, hq, hkv, S, dh, bk, stride, top_p;
+  int q_dtype, kv_dtype;   // 0: float32, 1: bfloat16
   float scale, log_stride;
   long long qsb, qsh, ksb, ksh, kss, vsb, vsh, vss;
 };
@@ -620,7 +552,8 @@ long long decode_args(const KdeDecodeShape* sh, Decode& a) {
   const int b = sh->b, hq = sh->hq, hkv = sh->hkv, S = sh->S, dh = sh->dh, bk = sh->bk,
             stride = sh->stride, top_p = sh->top_p;
   if (dh < 1 || dh > DMAX || hkv < 1 || hq % hkv != 0 || bk < 1 || stride < 1 ||
-      top_p < 1 || S < bk || S % bk != 0 || b < 1 || b > 65535 || hkv > 65535)
+      top_p < 1 || S < bk || S % bk != 0 || b < 1 || b > 65535 || hkv > 65535 ||
+      sh->q_dtype < 0 || sh->q_dtype > 1 || sh->kv_dtype < 0 || sh->kv_dtype > 1)
     return 0;
   static int sms = 0;
   if (sms == 0) {
@@ -656,6 +589,34 @@ long long decode_args(const KdeDecodeShape* sh, Decode& a) {
   return 0;
 }
 
+// One launch of the (TQ, TKV) instance: its dynamic shared memory raised
+// past 48 KB once per instance, the cluster size as a launch attribute.
+template <typename TQ, typename TKV>
+int launch_decode(Decode a, long long smem, const KdeDecodeShape* sh, cudaStream_t st) {
+  static long long raised = 48 * 1024;
+  if (smem > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kde_decode_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.C, sh->hkv, sh->b);
+  cfg.blockDim = dim3(DK_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kde_decode_kernel<TQ, TKV>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -670,10 +631,11 @@ int kde_decode_cluster(const KdeDecodeShape* sh) {
 }
 
 // q strided over (batch, head), k / v over (batch, head, position); head
-// dimension contiguous; out (b, hq, dh) and est (b, hq, S / bk) contiguous,
-// est may be null.  S a multiple of bk, hq % hkv == 0, dh <= 128, and a
-// carve-up that fits (kde_decode_cluster > 0; the wrapper checks).
-int kde_decode_launch(const float* q, const float* k, const float* v, float* out, float* est,
+// dimension contiguous; out (b, hq, dh) in q's dtype and est (b, hq, S / bk)
+// f32 contiguous, est may be null.  S a multiple of bk, hq % hkv == 0, dh <=
+// 128, dtype ids 0 (float32) or 1 (bfloat16), and a carve-up that fits
+// (kde_decode_cluster > 0; the wrapper checks).
+int kde_decode_launch(const void* q, const void* k, const void* v, void* out, float* est,
                       int kv_valid, void* stream, const KdeDecodeShape* sh) {
   Decode a;
   const long long smem = decode_args(sh, a);
@@ -685,28 +647,12 @@ int kde_decode_launch(const float* q, const float* k, const float* v, float* out
   a.out = out;
   a.est = est;
   a.kv_valid = kv_valid;
-  static long long raised = 48 * 1024;
-  if (smem > raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kde_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.C, sh->hkv, sh->b);
-  cfg.blockDim = dim3(DK_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kde_decode_kernel, a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sh->q_dtype == 0)
+    return sh->kv_dtype == 0 ? launch_decode<float, float>(a, smem, sh, st)
+                             : launch_decode<float, __nv_bfloat16>(a, smem, sh, st);
+  return sh->kv_dtype == 0 ? launch_decode<__nv_bfloat16, float>(a, smem, sh, st)
+                           : launch_decode<__nv_bfloat16, __nv_bfloat16>(a, smem, sh, st);
 }
 
 }  // extern "C"

@@ -30,13 +30,18 @@ ROADMAP_ITEMS = {
 }
 
 
+def roadmap_item(item: int) -> str:
+    """"ROADMAP.md queue 1 item N, <title>": how the port names the item
+    that will port an option (in refusals and help texts)."""
+    return f"ROADMAP.md queue 1 item {item}, {ROADMAP_ITEMS[item]}"
+
+
 def not_in_slice(what: str, item: int) -> NotImplementedError:
     """The error raised for a reference option the port does not cover
     yet; ``item`` is the number of the ROADMAP.md queue 1 item that will
     port it, named in the message with its title."""
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 item "
-        f"{item}, {ROADMAP_ITEMS[item]})")
+        f"{what} is not ported to repro_torch yet ({roadmap_item(item)})")
 
 
 def tile_size(name: str, value) -> None:

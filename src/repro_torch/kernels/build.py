@@ -39,9 +39,10 @@ _L = ctypes.c_longlong
 
 class KdeDecodeShape(ctypes.Structure):
     """``struct KdeDecodeShape`` of csrc/kde_attention.cu: the static
-    arguments of a kde_decode launch."""
+    arguments of a kde_decode launch (dtype ids: 0 float32, 1 bfloat16)."""
     _fields_ = [(n, _I) for n in ("b", "hq", "hkv", "S", "dh", "bk",
-                                  "stride", "top_p")] + \
+                                  "stride", "top_p", "q_dtype",
+                                  "kv_dtype")] + \
         [("scale", _F), ("log_stride", _F)] + \
         [(n, _L) for n in ("qsb", "qsh", "ksb", "ksh", "kss", "vsb", "vsh",
                            "vss")]
@@ -79,8 +80,6 @@ SIGNATURES = {
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _L, _L, _L, _L, _L, _L, _L,
                                _L, _L, _I, _I, _P),
-    "kde_block_lse_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                             _F, _L, _L, _L, _L, _L, _P),
     "kde_decode_launch": (_P, _P, _P, _P, _P, _I, _P,
                           ctypes.POINTER(KdeDecodeShape)),
     "kde_decode_cluster": (ctypes.POINTER(KdeDecodeShape),),

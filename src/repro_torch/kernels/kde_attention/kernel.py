@@ -1,16 +1,17 @@
-"""Bindings of the KDE decode CUDA kernels (``csrc/kde_attention.cu``),
-with their plain PyTorch versions.
+"""Binding of the fused KDE decode CUDA kernel (``csrc/kde_attention.cu``),
+with its plain PyTorch version.
 
 ``kde_decode_cuda`` launches the fused decode kernel -- the reference's
 whole ``kde_attention`` for one decode step and one layer -- and
 ``kde_decode_plain`` is its plain version, the four-step pipeline in torch
-ops with ``block_lse_plain`` as step 1.  ``block_lse_cuda`` launches the
-estimate-only kernel and ``block_lse_plain`` computes the same function:
-both are the reference's ``block_lse_pallas``, for each (batch, q-head,
-key block of ``bk``), ``log(stride * sum_i exp(q . k_i * scale))`` over the
-block's keys ``i = 0, stride, 2 stride, ...``, with positions ``>=
-kv_valid`` at -1e30.  Each wrapper counts its launches in ``LAUNCHES``.
-f32 only: the LM slice runs f32.
+ops with ``block_lse_plain`` as step 1: the reference's ``block_lse_pallas``,
+for each (batch, q-head, key block of ``bk``), ``log(stride * sum_i exp(q .
+k_i * scale))`` over the block's keys ``i = 0, stride, 2 stride, ...``, with
+positions ``>= kv_valid`` at -1e30.  q is float32 or bfloat16, the cache (k
+and v together) float32 or bfloat16; both compute in f32 on the upcast
+values and return out in q's dtype, the estimates in f32, as the reference
+casts inside its kernel and ops.  The wrapper counts its launches in
+``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -24,11 +25,10 @@ from repro_torch.kernels.kde_rowsum.kernel import stream_of
 
 _NEG_INF = -1.0e30
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES = {"block_lse": 0, "kde_decode": 0}
+LAUNCHES = {"kde_decode": 0}
 MAX_HEAD_DIM = 128
-#: the kernel parks a CTA's scores in static-size shared memory: at most
-#: 8 warps x ceil(bk / stride) floats in 48 KB
-MAX_STRIDED_KEYS = 48 * 1024 // (8 * 4)
+#: the kernel's dtype ids (``KdeDecodeShape.q_dtype`` / ``kv_dtype``)
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -36,56 +36,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(q, k, bk, stride):
-    for name, t, nd in (("q", q, 3), ("k", k, 4)):
+def _check(q, k, v, bk, stride):
+    for name, t, nd in (("q", q, 3), ("k", k, 4), ("v", v, 4)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
-        if t.dtype != torch.float32 or t.dim() != nd:
-            raise ValueError(f"{name} must be a {nd}-d float32 tensor, got "
-                             f"{t.dim()}-d {t.dtype}")
+        if t.dtype not in DTYPE_IDS or t.dim() != nd:
+            raise ValueError(f"{name} must be a {nd}-d float32 or bfloat16 "
+                             f"tensor, got {t.dim()}-d {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in the head dim")
+    if v.dtype != k.dtype:
+        raise ValueError(f"k and v must share a dtype, got {k.dtype} and "
+                         f"{v.dtype}")
     b, hq, dh = q.shape
     if k.shape[0] != b or k.shape[3] != dh or hq % k.shape[1] != 0:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} must match k {tuple(k.shape)}")
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} outside [1, {MAX_HEAD_DIM}]")
     if bk < 1 or stride < 1 or k.shape[2] % bk:
         raise ValueError(f"cache length {k.shape[2]} must be a multiple of "
                          f"bk={bk} (stride {stride} >= 1)")
-    if -(-bk // stride) > MAX_STRIDED_KEYS:
-        raise ValueError(f"bk / stride = {-(-bk // stride)} strided keys per "
-                         f"block exceed {MAX_STRIDED_KEYS}")
-
-
-def block_lse_cuda(q, k, *, scale: float, stride: int, kv_valid: int,
-                   bk: int):
-    """(b, hq, S / bk) f32 block estimates by the block-lse kernel: q (b,
-    hq, dh) and k (b, hkv, S, dh) f32 CUDA tensors (strided over batch,
-    head and position; S a multiple of bk)."""
-    _check(q, k, bk, stride)
-    b, hq, dh = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    nb = s // bk
-    out = torch.empty((b, hq, nb), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
-    err = _build.library().kde_block_lse_launch(
-        q.data_ptr(), k.data_ptr(), out.data_ptr(), b, hq, hkv, nb, dh,
-        int(bk), int(stride), int(kv_valid), float(scale),
-        math.log(float(stride)), *q.stride()[:2], *k.stride()[:3],
-        stream_of(q))
-    _build.check(err, "kde_block_lse")
-    LAUNCHES["block_lse"] += 1
-    return out
 
 
 def block_lse_plain(q, k, *, scale: float, stride: int, kv_valid: int,
                     bk: int):
-    """Plain torch version of ``block_lse_cuda``: the strided keys only,
-    each GQA group's q-heads against its kv-head."""
+    """Step 1 of ``kde_decode_plain`` (f32 estimates (b, hq, S / bk)): the
+    strided keys only, each GQA group's q-heads against its kv-head."""
     b, hq, dh = q.shape
     hkv, s = k.shape[1], k.shape[2]
     nb = s // bk
@@ -163,13 +143,7 @@ _PLANS: dict = {}
 
 def _decode_plan(q, k, v, bk, stride, top_p):
     """Check a kde_decode call once and return its static arguments."""
-    _check(q, k, bk, stride)
-    if not v.is_cuda or v.device != q.device or v.dtype != torch.float32:
-        raise ValueError(f"v must be a float32 CUDA tensor on {q.device}, "
-                         f"got {v.dtype} on {v.device}")
-    if v.shape != k.shape or v.stride(-1) != 1:
-        raise ValueError(f"v {tuple(v.shape)} must match k {tuple(k.shape)} "
-                         f"and be contiguous in the head dim")
+    _check(q, k, v, bk, stride)
     if top_p < 1:
         raise ValueError(f"top_p must be >= 1, got {top_p}")
     b, hq, dh = q.shape
@@ -178,12 +152,10 @@ def _decode_plan(q, k, v, bk, stride, top_p):
         raise ValueError(f"batch {b} / kv heads {hkv} exceed the grid's 65535")
     plan = _build.KdeDecodeShape(
         b, hq, hkv, s, dh, int(bk), int(stride), int(top_p),
-        float(dh ** -0.5), math.log(float(stride)), *q.stride()[:2],
-        *k.stride()[:3], *v.stride()[:3])
-    cluster = _build.library().kde_decode_cluster(plan)
-    if cluster < 0:
-        _build.check(-cluster, "kde_decode_cluster")
-    if cluster == 0:
+        DTYPE_IDS[q.dtype], DTYPE_IDS[k.dtype], float(dh ** -0.5),
+        math.log(float(stride)), *q.stride()[:2], *k.stride()[:3],
+        *v.stride()[:3])
+    if decode_cluster(plan) == 0:
         raise ValueError(
             f"kde_decode: {s // bk} key blocks of {bk} (group {hq // hkv}, "
             f"{-(-bk // stride)} strided keys a block) do not fit the shared "
@@ -193,22 +165,40 @@ def _decode_plan(q, k, v, bk, stride, top_p):
     return plan
 
 
-def kde_decode_cuda(q, k, v, *, top_p: int, bk: int, stride: int,
-                    kv_valid: int, with_est: bool = False):
-    """out (b, hq, dh) f32 by the fused KDE decode kernel, one launch: q
-    (b, hq, dh), k / v (b, hkv, S, dh) f32 CUDA tensors (strided over
-    batch, head and position; S a multiple of bk).  With ``with_est`` the
-    kernel also writes its step-1 estimates (b, hq, S / bk).
+def decode_cluster(plan) -> int:
+    """The CTAs a cluster of the plan's launch takes (2-8, from the card's
+    SM count and the shared-memory carve-up), or 0 where none fits."""
+    cluster = _build.library().kde_decode_cluster(plan)
+    if cluster < 0:
+        _build.check(-cluster, "kde_decode_cluster")
+    return cluster
 
-    The decode path calls this once per layer and step, so the host side
-    is kept short: a cached plan, one allocation and one ctypes call of 8
-    arguments."""
+
+def plan_of(q, k, v, *, top_p: int, bk: int, stride: int):
+    """The static arguments of a ``kde_decode_cuda`` call on these
+    tensors, checked once per (shapes, strides, devices, dtypes, bk,
+    stride, top_p) and cached."""
     key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
            q.get_device(), k.get_device(), v.get_device(), q.dtype, k.dtype,
            v.dtype, bk, stride, top_p)
     plan = _PLANS.get(key)
     if plan is None:
         plan = _PLANS[key] = _decode_plan(q, k, v, bk, stride, top_p)
+    return plan
+
+
+def kde_decode_cuda(q, k, v, *, top_p: int, bk: int, stride: int,
+                    kv_valid: int, with_est: bool = False):
+    """out (b, hq, dh) in q's dtype by the fused KDE decode kernel, one
+    launch: q (b, hq, dh) float32 or bfloat16, k / v (b, hkv, S, dh) CUDA
+    tensors of one dtype, float32 or bfloat16 (strided over batch, head and
+    position; S a multiple of bk).  With ``with_est`` the kernel also writes
+    its step-1 estimates (b, hq, S / bk) in f32.
+
+    The decode path calls this once per layer and step, so the host side
+    is kept short: a cached plan, one allocation and one ctypes call of 8
+    arguments."""
+    plan = plan_of(q, k, v, top_p=top_p, bk=bk, stride=stride)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     est = torch.empty((q.shape[0], q.shape[1], k.shape[2] // bk),
                       dtype=torch.float32, device=q.device) if with_est \

@@ -11,8 +11,9 @@ On the card (the default device) without ``--reduced`` it serves the full
 configuration with random weights drawn on the card.  As in the reference,
 the cache is built by replaying the prompt through the decode step
 (teacher-forced), so the "prefill" time is that replay; the model runs in
-float32 whatever the config says.  ``--robust``, ``--graph-stream`` and
-``--serve-tenants`` raise (ROADMAP.md queue 1 items 11 and 8).
+float32 whatever the config says, as the reference's driver does.
+``--robust`` raises (ROADMAP.md queue 1 item 12), and so do
+``--graph-stream`` and ``--serve-tenants`` (item 9).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ShapeConfig, get_config, get_reduced
 from repro_torch.data.pipeline import make_batch, token_split
-from repro_torch.device import not_in_slice, resolve_device
+from repro_torch.device import not_in_slice, resolve_device, roadmap_item
 from repro_torch.models import transformer as T
 from repro_torch.train.train_step import make_decode_step
 
@@ -47,11 +48,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--robust", action="store_true",
-                    help="not ported (ROADMAP.md queue 1 item 11)")
+                    help=f"not ported ({roadmap_item(12)})")
     ap.add_argument("--graph-stream", type=int, default=0,
-                    help="not ported (ROADMAP.md queue 1 item 8)")
+                    help=f"not ported ({roadmap_item(9)})")
     ap.add_argument("--serve-tenants", type=int, default=0,
-                    help="not ported (ROADMAP.md queue 1 item 8)")
+                    help=f"not ported ({roadmap_item(9)})")
     return ap
 
 
@@ -77,8 +78,7 @@ def run_lm(args, model=None) -> dict:
     if args.robust:
         raise not_in_slice("serve --robust", 12)
     if args.graph_stream or args.serve_tenants:
-        raise not_in_slice("the graph-serving modes of serve",
-                           9)
+        raise not_in_slice("the graph-serving modes of serve", 9)
     dev = resolve_device(args.device)
     cfg, max_len = serve_config(args)
     shape = ShapeConfig("serve", args.prompt_len, args.batch, "prefill")

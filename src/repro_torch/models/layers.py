@@ -15,11 +15,29 @@ reference's implementations, selected at call time:
                (ROADMAP.md section 3), so every KDE decode step runs the
                fused decode kernel, one launch per layer.
 The mesh helpers (``constrain``, ``activation_sharding``, the shard_map
-decode) have no counterpart (ROADMAP.md queue 1 item 9), nor do the MoE
-blocks and cross attention (queue 1 item 11).
+decode) have no counterpart (ROADMAP.md queue 1 item 10), nor do the MoE
+blocks and cross attention (queue 1 item 12).
+
+Dtypes follow the reference: activations in the config's dtype
+(``dtype_of``: bf16 for "bfloat16", else f32), weights cast to it at use
+(``transformer.cast_params`` casts them once), rmsnorm and RoPE computed
+in f32 and returned in x's dtype, attention scores and PV in f32 with the
+output in q's dtype, the cache written in its own dtype.  The reference's matmuls
+accumulate in f32.  cuBLAS may reduce a split-K bf16 GEMM in bf16 while
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` is
+True (PyTorch's default).  On an H100 it does so at shapes with few output
+tiles and a long K (M = 64, N = 256, K = 65,536), and gives the same bits
+either way at yi-6b's decode GEMVs (M = 1 or 4, K up to 11,008): the CUDA
+tests ``test_bf16_gemv_accumulates_in_f32`` and
+``test_bf16_reduction_shows_without_f32_accumulation`` hold both.  So
+``transformer.forward`` and ``transformer.decode_step`` run under
+``f32_accumulation``, which turns the flag off for the call and restores
+it after: free at the decode widths, and the reference's f32 sum at any
+other batch or width.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -32,12 +50,22 @@ _NEG_INF = -1.0e30
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
-    """The compute dtype: float32.  A bf16 config raises (the bf16 LM is
-    ROADMAP.md queue 1 item 11)."""
-    if cfg.dtype != "float32":
-        raise not_in_slice(f"an LM config of dtype {cfg.dtype!r}",
-                           12)
-    return torch.float32
+    """The compute dtype: bf16 for a "bfloat16" config, else f32."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+@contextmanager
+def f32_accumulation():
+    """Keep cuBLAS's bf16 GEMMs accumulating in f32 inside the block:
+    ``allow_bf16_reduced_precision_reduction`` off, its old value restored
+    on exit."""
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = old
 
 
 # ------------------------------------------------------------------ init
@@ -159,13 +187,14 @@ def _qkv(p: Attention, cfg: ArchConfig, x, positions):
 
 def xla_attention(q, k, v, causal: bool, q_offset=0, kv_valid=None):
     """(b, hq, sq, hd) x (b, hkv, skv, hd) -> (b, hq, sq, hd), f32 softmax,
-    kv heads expanded to hq as the reference does."""
+    kv heads expanded to hq as the reference does (cast to f32 first, so a
+    bf16 cache holds no expanded bf16 copy beside the f32 one)."""
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
-    kk = torch.repeat_interleave(k, g, dim=1)
-    vv = torch.repeat_interleave(v, g, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) / (hd ** 0.5)
+    kk = torch.repeat_interleave(k.float(), g, dim=1)
+    vv = torch.repeat_interleave(v.float(), g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / (hd ** 0.5)
     kpos = torch.arange(skv, device=q.device)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if kv_valid is not None:
@@ -175,7 +204,7 @@ def xla_attention(q, k, v, causal: bool, q_offset=0, kv_valid=None):
         mask = mask & (kpos[None, :] <= qpos)
     s = torch.where(mask[None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vv.float())
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vv)
     return o.to(q.dtype)
 
 
@@ -282,6 +311,17 @@ def attention_block(p: Attention, cfg: ArchConfig, x, positions,
 
 
 # ------------------------------------------------------------------ mlp
+def silu(x):
+    """The reference's ``jax.nn.silu``, ``x * (1 / (1 + exp(-x)))``.  XLA
+    rounds each of those ops to bf16 on a bf16 input, so a bf16 x runs them
+    one by one; torch's fused silu rounds once and differs from it by an
+    ulp in about a third of the entries.  In f32 the fused op stands in
+    (the two differ by f32 ulps)."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def swiglu(p: MLP, x):
-    h = torch.nn.functional.silu(x @ p.w1.to(x.dtype)) * (x @ p.w3.to(x.dtype))
+    h = silu(x @ p.w1.to(x.dtype)) * (x @ p.w3.to(x.dtype))
     return h @ p.w2.to(x.dtype)

@@ -6,8 +6,11 @@ scans over them; here a ``Transformer`` module holds ``embed`` (V_pad, D),
 ``layers`` (an ``nn.ModuleList`` of ``DenseLayer``), ``final_norm`` (D,)
 and ``lm_head`` (D, V_pad) (``None`` when tied), and a Python loop walks
 the layers.  Decode caches keep the reference's stacked layout, ``k`` / ``v``
-of shape (L, b, hkv, max_len, hd).  The MoE, SSM, hybrid, enc-dec and
-frontend families raise (ROADMAP.md queue 1 item 11).
+of shape (L, b, hkv, max_len, hd), bf16 by default as the reference's.
+``init_params`` draws f32 weights whatever the config's dtype, and
+``cast_params`` casts them to the compute dtype, as the reference does.
+The MoE, SSM, hybrid, enc-dec and frontend families raise (ROADMAP.md
+queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -22,14 +25,13 @@ from repro_torch.models import layers as L
 
 
 def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder-only f32 config."""
+    """Raise unless ``cfg`` is a dense decoder-only config."""
     for flag, what in ((cfg.is_moe, "the MoE family"),
                        (cfg.ssm_kind != "none", "the SSM / hybrid families"),
                        (cfg.is_encdec, "the enc-dec family"),
                        (cfg.frontend != "none", "the frontend families")):
         if flag:
             raise not_in_slice(f"{what} ({cfg.name})", 12)
-    L.dtype_of(cfg)
 
 
 class DenseLayer(nn.Module):
@@ -97,6 +99,33 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
                        head)
 
 
+def cast_params(model: Transformer, dtype: torch.dtype) -> Transformer:
+    """The reference's ``cast_params``: a new model whose parameters of two
+    or more dims in the reference's tree are in ``dtype``.  That tree
+    stacks each layer's parameters on a leading L axis, so every layer
+    parameter is cast (its norm gains and QKV biases too), and of the rest
+    embed and lm_head; ``final_norm`` (one dim) stays the same f32 tensor.
+    The casts are made one tensor at a time, so a cast from f32 holds the
+    f32 model and the new weights, never a second f32 copy."""
+    def cast(p, stacked=True):
+        t = p.detach()
+        return t.to(dtype) if t.dim() + stacked >= 2 else t
+
+    def attn(a):
+        bias = [cast(getattr(a, n)) for n in ("bq", "bk", "bv")
+                if getattr(a, n) is not None]
+        return L.Attention(*(cast(getattr(a, n))
+                             for n in ("wq", "wk", "wv", "wo")), *bias)
+
+    layers = [DenseLayer(cast(ly.ln1), cast(ly.ln2), attn(ly.attn),
+                         L.MLP(*(cast(getattr(ly.mlp, n))
+                                 for n in ("w1", "w3", "w2"))))
+              for ly in model.layers]
+    head = None if model.lm_head is None else cast(model.lm_head, False)
+    return Transformer(model.cfg, cast(model.embed, False), layers,
+                       cast(model.final_norm, False), head)
+
+
 # ------------------------------------------------------------------ forward
 def _tokens(model: Transformer, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens).to(model.embed.device).long()
@@ -117,10 +146,11 @@ def forward(model: Transformer, cfg: ArchConfig, batch, *,
     """Prefill forward.  Returns (logits (b, s, V_pad), aux_loss = 0.0)."""
     x, _ = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    for layer in model.layers:
-        x = layer(cfg, x, positions, impl=impl)
-    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return _logits(model, cfg, x), 0.0
+    with L.f32_accumulation():
+        for layer in model.layers:
+            x = layer(cfg, x, positions, impl=impl)
+        x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+        return _logits(model, cfg, x), 0.0
 
 
 def _logits(model: Transformer, cfg: ArchConfig, x):
@@ -135,11 +165,11 @@ def _logits(model: Transformer, cfg: ArchConfig, x):
 
 # ------------------------------------------------------------------ decode
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
-               dtype=torch.float32, enc_len: int = 0,
+               dtype=torch.bfloat16, enc_len: int = 0,
                device=None) -> Dict[str, Any]:
-    """Zero KV cache ``k`` / ``v`` of shape (L, b, hkv, max_len, hd).  The
-    reference defaults to bf16; the port's slice is f32, so f32 is the
-    default here.  ``enc_len`` (the enc-dec memory) must be 0."""
+    """Zero KV cache ``k`` / ``v`` of shape (L, b, hkv, max_len, hd), bf16
+    by default as the reference's.  ``enc_len`` (the enc-dec memory) must
+    be 0."""
     if enc_len != 0:
         raise not_in_slice(f"init_cache(enc_len={enc_len!r})",
                            12)
@@ -160,8 +190,9 @@ def decode_step(model: Transformer, cfg: ArchConfig, tokens, cache, pos, *,
     x = model.embed[tok].to(L.dtype_of(cfg))
     pos = int(pos)
     positions = pos + torch.arange(tok.shape[1], device=x.device)
-    for layer, ck, cv in zip(model.layers, cache["k"], cache["v"]):
-        x = layer(cfg, x, positions, impl=impl, cache=(ck, cv),
-                  cache_pos=pos, kde_cfg=kde_cfg)
-    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return _logits(model, cfg, x), cache
+    with L.f32_accumulation():
+        for layer, ck, cv in zip(model.layers, cache["k"], cache["v"]):
+            x = layer(cfg, x, positions, impl=impl, cache=(ck, cv),
+                      cache_pos=pos, kde_cfg=kde_cfg)
+        x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+        return _logits(model, cfg, x), cache

@@ -3,8 +3,10 @@
 
 ``cross_entropy``, ``loss_fn`` and ``make_train_step`` (AdamW, the flash
 and rmsnorm backward passes) are the training slice's (ROADMAP.md queue 1
-item 11).  The steps run under ``torch.inference_mode``: no autograd
-graph, as the reference's jitted steps keep none.
+item 12).  The steps run under ``torch.inference_mode``: no autograd
+graph, as the reference's jitted steps keep none.  They run the config's
+dtype: a bf16 config with a ``cast_params`` model and a bf16 cache runs
+bf16 activations, f32 logits.
 """
 from __future__ import annotations
 

@@ -151,15 +151,16 @@ def test_flash_raises_on_requires_grad():
 
 
 def test_flash_cuda_wrapper_rejects_cpu_tensors():
-    """The kernel wrapper launches or raises: a CPU tensor is refused, never
-    routed to the plain version."""
+    """The kernel wrappers launch or raise: a CPU tensor is refused, never
+    routed to the plain version (the KDE decode's bf16 operands too)."""
     q, k, v = (_t(a) for a in _qkv(1, 1, 2, 1, 8, 8, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfk.flash_attention_cuda(q, k, v, causal=True, scale=1.0,
                                  kv_valid=8, offset=0)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tkk.block_lse_cuda(q[:, :, 0], k, scale=1.0, stride=2, kv_valid=8,
-                           bk=4)
+        tkk.kde_decode_cuda(q[:, :, 0].bfloat16(), k.bfloat16(),
+                            v.bfloat16(), top_p=1, bk=4, stride=2,
+                            kv_valid=8)
 
 
 def test_flash_instantiation_follows_alignment():

@@ -30,6 +30,8 @@ from repro_torch.kernels.kde_attention import kernel as kk
 from repro_torch.kernels.kde_attention import ops as kops
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
+from repro_torch.testing import assert_bf16_close, bf16_steps
+from repro_torch.train.train_step import make_decode_step
 
 RTOL, ATOL = 2e-4, 1e-5
 KINDS = ["gaussian", "exponential", "laplacian", "rational_quadratic"]
@@ -617,9 +619,10 @@ def _randn(gen, shape, dev, dtype=torch.float32, scale=1.0):
 def test_flash_kernel_matches_plain(cuda, shape, dtype):
     """The flash kernel (through ops: the reference's padding and offset,
     bq = bk = 64) vs the plain version on the same tensors moved to the
-    CPU: out and lse at rtol 2e-4 / atol 1e-5 for f32 operands, out at atol
-    3e-2 (the reference's bf16 tolerance) for bf16; v is a transposed view,
-    as the model hands it."""
+    CPU: out and lse at rtol 2e-4 / atol 1e-5 for f32 operands; a bf16 out
+    within one bf16 step of the plain version's (both sum in f32 and round
+    once), or within atol 1e-5 near zero; v is a transposed view, as the
+    model hands it."""
     b, hq, hkv, sq, skv, dh = shape
     gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
     q = _randn(gen, (b, hq, sq, dh), cuda, dtype)
@@ -635,8 +638,7 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(out.cpu(), want, rtol=RTOL, atol=ATOL)
     else:
-        torch.testing.assert_close(out.cpu().float(), want.float(), rtol=0,
-                                   atol=3e-2)
+        assert_bf16_close(out.cpu(), want, ATOL, "flash out")
     torch.testing.assert_close(lse.cpu(), want_lse, rtol=RTOL, atol=ATOL)
 
 
@@ -645,7 +647,8 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
 def test_flash_kernel_scalar_staging_on_unaligned_rows(cuda, dtype):
     """Operand rows that are not 16-byte aligned (k and v views one element
     into their storage) take the scalar-staged instance and still match the
-    plain version; fresh copies take the cp.async instance."""
+    plain version (a bf16 out within one bf16 step); fresh copies take the
+    cp.async instance."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q = _randn(gen, (1, 4, 200, 64), cuda, dtype)
     kv = _randn(gen, (2, 2 * 200 * 64 + 1), cuda, dtype)
@@ -655,9 +658,10 @@ def test_flash_kernel_scalar_staging_on_unaligned_rows(cuda, dtype):
     assert fk.instantiation(q, k.clone(), v.clone()).endswith("cp.async")
     out, lse = fk.flash_attention_cuda(q, k, v, **kw)
     want, want_lse = fk.flash_attention_plain(q, k, v, **kw)
-    atol = ATOL if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(out.float(), want.float(), rtol=RTOL if
-                               dtype == torch.float32 else 0, atol=atol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert_bf16_close(out, want, ATOL, "flash out")
     torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
 
 
@@ -680,22 +684,179 @@ def test_flash_kernel_matches_plain_at_the_prefill_shape(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", LSE_SHAPES)
-def test_block_lse_kernel_matches_plain(cuda, shape):
-    """The block-lse kernel vs its plain version: rtol 2e-4 / atol 1e-5;
-    blocks with no valid key come out at -1e30 exactly."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kde_decode_step1_matches_block_lse_plain(cuda, shape, dtype):
+    """Step 1 of the fused decode kernel (its ``with_est`` estimates, one
+    launch) vs block_lse_plain, q and the cache in f32 or bf16: rtol 2e-4 /
+    atol 1e-5; blocks with no valid key come out at -1e30 exactly."""
     b, hq, hkv, s, dh, bk, stride, kv_valid = shape
     gen = torch.Generator(device=cuda).manual_seed(s + dh)
-    q = _randn(gen, (b, hq, dh), cuda)
-    k = _randn(gen, (b, hkv, s, dh), cuda, scale=0.3)
-    kw = dict(scale=dh ** -0.5, stride=stride, kv_valid=kv_valid, bk=bk)
+    q = _randn(gen, (b, hq, dh), cuda, dtype)
+    k = _randn(gen, (b, hkv, s, dh), cuda, dtype, scale=0.3)
+    v = _randn(gen, (b, hkv, s, dh), cuda, dtype)
     kk.reset_launches()
-    got = kk.block_lse_cuda(q, k, **kw)
+    _, got = kk.kde_decode_cuda(q, k, v, top_p=4, bk=bk, stride=stride,
+                                kv_valid=kv_valid, with_est=True)
     torch.cuda.synchronize()
-    assert kk.LAUNCHES["block_lse"] == 1
-    want = kk.block_lse_plain(q, k, **kw)
+    assert kk.LAUNCHES["kde_decode"] == 1
+    want = kk.block_lse_plain(q, k, scale=dh ** -0.5, stride=stride,
+                              kv_valid=kv_valid, bk=bk)
+    assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     dead = -(-kv_valid // bk)
     assert bool((got[..., dead:] == -1e30).all())
+
+
+# the reference's long_500k KDE decode cell (launch/dryrun.py): yi's heads,
+# a 524,288-slot cache, top_p 16, bk 512, stride 16 (1,024 blocks)
+LONG_500K = (1, 32, 4, 524288, 128, 512, 16, 524288)
+#: (q dtype, cache dtype) of the bf16 instances
+BF16_INSTANCES = [(torch.bfloat16, torch.bfloat16),
+                  (torch.float32, torch.bfloat16),
+                  (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LSE_SHAPES + [LONG_500K])
+@pytest.mark.parametrize("dtypes", BF16_INSTANCES)
+def test_kde_decode_bf16_equals_f32_on_upcast_inputs(cuda, shape, dtypes):
+    """A bf16 instance of the fused decode kernel equals the f32 instance
+    on the upcast inputs, bitwise: out rounded to q's dtype, the f32
+    estimates equal (the kernel upcasts where it loads a row and runs the
+    f32 arithmetic after)."""
+    b, hq, hkv, s, dh, bk, stride, kv_valid = shape
+    top_p = 16 if s == LONG_500K[3] else 4
+    gen = torch.Generator(device=cuda).manual_seed(7 * s + dh)
+    q = _randn(gen, (b, hq, dh), cuda, dtypes[0])
+    k = _randn(gen, (b, hkv, s, dh), cuda, dtypes[1], scale=0.3)
+    v = _randn(gen, (b, hkv, s, dh), cuda, dtypes[1])
+    kw = dict(top_p=top_p, bk=bk, stride=stride, with_est=True)
+    for kv in sorted({kv_valid, max(1, kv_valid // 2 + 3)}):
+        out, est = kk.kde_decode_cuda(q, k, v, kv_valid=kv, **kw)
+        want, want_est = kk.kde_decode_cuda(q.float(), k.float(), v.float(),
+                                            kv_valid=kv, **kw)
+        assert out.dtype == q.dtype
+        assert torch.equal(out, want.to(q.dtype)), (dtypes, kv)
+        assert torch.equal(est, want_est), (dtypes, kv)
+        assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_kde_decode_refuses_other_dtypes(cuda):
+    """f16 operands, and k and v of different dtypes, are refused before
+    any launch."""
+    q = torch.zeros((1, 8, 64), device=cuda)
+    k = torch.zeros((1, 2, 64, 64), device=cuda)
+    kw = dict(top_p=2, bk=16, stride=4, kv_valid=64)
+    kk.reset_launches()
+    for args, match in (((q.half(), k, k), "float32 or bfloat16"),
+                        ((q, k.half(), k.half()), "float32 or bfloat16"),
+                        ((q, k.bfloat16(), k), "share a dtype"),
+                        ((q.bfloat16(), k, k.bfloat16()), "share a dtype")):
+        with pytest.raises(ValueError, match=match):
+            kk.kde_decode_cuda(*args, **kw)
+    assert kk.LAUNCHES["kde_decode"] == 0
+
+
+@pytest.mark.cuda
+def test_bf16_decode_step_launches_once_per_layer(cuda):
+    """The reduced yi-6b as configured (bf16, cast_params, the default
+    bf16 cache) on the card: a kde decode step is exactly one kde_decode
+    launch a layer, with finite f32 logits; the bf16 prefill makes one
+    flash launch a layer."""
+    cfg = get_reduced("yi_6b")
+    model = T.cast_params(T.init_params(cfg, seed=0, device=cuda),
+                          torch.bfloat16)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+    fk.reset_launches()
+    with torch.inference_mode():
+        T.forward(model, cfg, {"tokens": toks}, impl="flash")
+    assert fk.LAUNCHES["flash_attention"] == cfg.num_layers
+    cache = T.init_cache(cfg, 2, 64, device=cuda)
+    assert cache["k"].dtype == torch.bfloat16
+    step = make_decode_step(cfg, impl="kde",
+                            kde_cfg={"top_p": 2, "bk": 16, "stride": 4})
+    cur = torch.as_tensor(toks[:, :1], device=cuda)
+    for pos in range(3):
+        kk.reset_launches()
+        nxt, logits, cache = step(model, cache, cur, pos)
+        torch.cuda.synchronize()
+        assert kk.LAUNCHES == {"kde_decode": cfg.num_layers}
+        assert logits.dtype == torch.float32
+        assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+        cur = nxt[:, None]
+
+
+#: share of outputs allowed off the f64 product's bf16 rounding: an f32 sum
+#: rounded once misses it only where the product lies within the f32 error
+#: of a rounding midpoint (tools/gemv_reduction_probe.py prints the shares)
+RN_MISS_SHARE = 0.01
+
+
+def _rn_misses(got, x, w):
+    """(max bf16 steps, share of outputs) off the float64 product x @ w
+    rounded once to bf16."""
+    want = (x.double() @ w.double()).to(torch.bfloat16)
+    return (int(bf16_steps(got, want).max()),
+            float((got != want).double().mean()))
+
+
+def _gemv(x, w, reduced):
+    """x @ w with cuBLAS's bf16 reduced-precision reduction on
+    (``reduced``) or under ``layers.f32_accumulation``; the flag restored
+    on exit."""
+    from repro_torch.models import layers as TL
+    mm = torch.backends.cuda.matmul
+    before = mm.allow_bf16_reduced_precision_reduction
+    if reduced:
+        mm.allow_bf16_reduced_precision_reduction = True
+        try:
+            return x @ w
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = before
+    with TL.f32_accumulation():
+        assert mm.allow_bf16_reduced_precision_reduction is False
+        got = x @ w
+    assert mm.allow_bf16_reduced_precision_reduction is before
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("kn", [(11008, 4096), (4096, 11008)])
+def test_bf16_gemv_accumulates_in_f32(cuda, m, kn):
+    """The decode GEMVs at yi-6b's widths (M = 1 and 4, K up to d_ff)
+    under ``layers.f32_accumulation`` (the scope of forward and
+    decode_step), positive operands: every output within one bf16 step of
+    the float64 product rounded to bf16, and at most RN_MISS_SHARE of them
+    off it, as an f32 sum rounded once.  (At these shapes cuBLAS gives the
+    same bits with the flag on; the next test shows the limit catching a
+    bf16 reduction where cuBLAS takes one.)"""
+    k, n = kn
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.rand((m, k), generator=gen, device=cuda).bfloat16()
+    w = torch.rand((k, n), generator=gen, device=cuda).bfloat16()
+    steps, share = _rn_misses(_gemv(x, w, reduced=False), x, w)
+    assert steps <= 1 and share <= RN_MISS_SHARE, (steps, share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, n", [(64, 16), (64, 256), (256, 256)])
+def test_bf16_reduction_shows_without_f32_accumulation(cuda, m, n):
+    """The control of the test above: at K = 65,536 and few output tiles
+    cuBLAS splits K, and with the reduced-precision flag on it sums the
+    partials in bf16, so more than RN_MISS_SHARE of the outputs miss the
+    float64 product's bf16 rounding (N(0, 1) operands: the partials
+    cancel); under ``f32_accumulation`` the same product stays within
+    it."""
+    k = 65536
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    _, share = _rn_misses(_gemv(x, w, reduced=False), x, w)
+    assert share <= RN_MISS_SHARE, share
+    _, share = _rn_misses(_gemv(x, w, reduced=True), x, w)
+    assert share > RN_MISS_SHARE, share
 
 
 @pytest.mark.cuda
@@ -711,7 +872,7 @@ def test_kde_attention_runs_on_the_kernel(cuda, kv_valid):
     kw = dict(top_p=4, bk=256, stride=16, kv_valid=kv_valid)
     kk.reset_launches()
     got = kops.kde_attention(q, k, v, **kw)
-    assert kk.LAUNCHES == {"block_lse": 0, "kde_decode": 1}
+    assert kk.LAUNCHES == {"kde_decode": 1}
     torch.testing.assert_close(got, kops.kde_attention_ref(q, k, v, **kw),
                                rtol=0, atol=2e-5)
 
@@ -736,8 +897,7 @@ def test_reduced_lm_runs_on_the_kernels(cuda):
                                       "--attention", "kde"])
     kk.reset_launches()
     res = serve.run_lm(args)
-    assert kk.LAUNCHES == {"block_lse": 0,
-                           "kde_decode": cfg.num_layers * (40 + 5 - 1)}
+    assert kk.LAUNCHES == {"kde_decode": cfg.num_layers * (40 + 5 - 1)}
     assert res["tokens"].shape == (2, 5)
     assert bool(torch.isfinite(res["prompt_logits"][:, :cfg.vocab_size])
                 .all())
@@ -762,7 +922,7 @@ def _decode_check(q, k, v, top_p, bk, stride, kv_valid):
     kk.reset_launches()
     out, est = kk.kde_decode_cuda(q, k, v, with_est=True, **kw)
     torch.cuda.synchronize()
-    assert kk.LAUNCHES == {"block_lse": 0, "kde_decode": 1}
+    assert kk.LAUNCHES == {"kde_decode": 1}
     want, want_est = kk.kde_decode_plain(q, k, v, with_est=True, **kw)
     torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(est, want_est, rtol=RTOL, atol=ATOL)

@@ -328,3 +328,23 @@ def test_every_refusal_names_a_listed_item():
                     and item.value in ROADMAP_ITEMS, (path, node.lineno)
                 calls += 1
     assert calls >= 20
+
+
+@pytest.mark.parametrize("flag", [["--robust"], ["--graph-stream", "64"],
+                                  ["--serve-tenants", "2"]])
+def test_serve_help_names_the_item_its_refusal_names(flag):
+    """serve's help text for an unported mode is built from
+    ``ROADMAP_ITEMS`` and names the item (number and title) that the
+    mode's refusal names."""
+    from repro_torch.launch import serve
+    ap = serve.parser()
+    helps = {a.option_strings[0]: a.help for a in ap._actions
+             if a.option_strings}
+    with pytest.raises(NotImplementedError) as err:
+        serve.run_lm(ap.parse_args(["--device", "cpu", "--reduced", *flag]))
+    msg = str(err.value)
+    item = msg[msg.index("(ROADMAP.md"):msg.rindex(")") + 1]
+    assert helps[flag[0]] == f"not ported {item}"
+    number = int(item.split("item ")[1].split(",")[0])
+    assert item == f"(ROADMAP.md queue 1 item {number}, " \
+        f"{ROADMAP_ITEMS[number]})"
