@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; no phase catches and continues):
 
 1. build    -- compile the CUDA kernels from ``src/repro_torch/csrc`` with
                nvcc (one process per source, started together) and print
-               the build seconds and ptxas register / spill lines.
+               the build seconds and ptxas register / spill lines; the
+               library's SASS (``cuobjdump``) must show tensor-core HMMA
+               instructions in every bf16 flash instance and none in the
+               f32 ones.
 2. kernels  -- every kernel against its plain PyTorch version on the card:
                all four kernel kinds on ragged shapes (m=37, n=301, d=19,
                bn=70; the kde_hash kernels at m=37, t=45, d=19; laplacian
@@ -225,7 +228,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
                "kde")`` steps: exactly 32 x 64 kde_decode launches, finite
                logits; decode tok/s and ``max_memory_allocated``; a
                profile of one step (idle share, kde_decode device ms
-               against its bytes bound, the GEMM / GEMV time against the
+               against its bytes bound beside its grid -- the spread
+               kernel, CTAs a launch --, the GEMM / GEMV time against the
                weights' bytes / 3.35 TB/s); on the final cache (layers 0,
                15, 31) the bf16 kernel bitwise the f32 instance on the
                upcast inputs and within phase 2's tolerances of the plain
@@ -242,7 +246,9 @@ Phase 2 also holds the two LM kernels against their plain versions
 at head dims that take the scalar-staged instance (30, 7) and on k / v
 rows off 16-byte alignment, f32 and bf16 operands, and at the prefill
 shape (1, 32, 8192, 128) with 4 kv-heads in f32 and in bf16 (the
-lm-bf16 prefill's row), printing the kernel instance each check ran; the
+lm-bf16 prefill's row), printing the kernel instance and body each check
+ran (FMA f32, or the tensor-core bf16 body: mma.sync with p split into
+bf16 hi + lo) and, for bf16, its ``max_bf16_steps``; the
 fused KDE decode kernel (out and its step-1 estimates) against its plain
 pipeline and ``block_lse_plain`` at the serve shape over kv_valid 1, 31,
 32, 33, 527, 544, at S = 32768, bk 256, stride 16, top_p 16 (random and
@@ -250,7 +256,12 @@ bench_attention's planted keys) and at a 131072-key cache at the serve
 settings; its bf16 instance (q, k, v in bf16) at the serve shape, at S =
 32768 and at the long_500k shape, each bitwise the f32 instance on the
 upcast inputs (out rounded to bf16, est equal) and against the plain
-pipeline (est at rtol 2e-4 / atol 1e-5, out within one bf16 step).  Times
+pipeline (est at rtol 2e-4 / atol 1e-5, out within one bf16 step).  The
+decode plan picks a kernel by shape (``kernel.decode_grid``): the cluster
+kernel at the serve shape (16 (batch, kv-head) groups: 128 CTAs), the
+spread kernel (every SM: 132 CTAs on the H100) at batch 1; each bf16 row
+prints its plan and the other kernel's device time on the same inputs.
+Times
 the kernels (``ms``: CUDA events around back-to-back calls, host cost
 included; ``device_ms``: torch.profiler's kernel durations), their plain
 versions and, for flash, ``scaled_dot_product_attention(is_causal=True,
@@ -376,6 +387,8 @@ LSE_LONG = (1, 32, 4, 32768, 128, 256, 16)
 # a long cache at the serve settings: 4096 blocks, 512 per CTA of a cluster
 LSE_XL = (4, 32, 4, 131072, 128, 32, 4)
 KDE_LONG_TOP_P = 16
+# the fused KDE decode's two kernels (the plan picks one by shape)
+KDE_KERNELS = ("kde_decode_kernel", "kde_spread_kernel")
 # the reference's long_500k KDE decode cell (launch/dryrun.py:106-114 and
 # KDE_DECODE_CFG at :40): yi-6b, batch 1, a 524,288-slot bf16 cache, top_p
 # 16, bk 512, stride 16 (1,024 blocks)
@@ -518,6 +531,37 @@ def phase_build():
         if "Compiling entry function" in line or "registers" in line \
                 or "spill" in line:
             log("[build]", line.strip())
+    flash_sass_check(build)
+
+
+def flash_sass_check(build) -> None:
+    """The built library's SASS (``cuobjdump --dump-sass``): every bf16
+    instance of the flash kernel (``flash_mma_kernel``) issues tensor-core
+    ``HMMA`` instructions and no f32 instance (``flash_fwd_kernel``)
+    does."""
+    import re
+    from repro_torch.kernels.flash_attention import kernel as fk
+    import torch
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    lib = build.BUILD_ROOT / build.source_hash() / "libkde.so"
+    sass = subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    for dtype, (body, name) in fk.BODIES.items():
+        hits = {f: c for f, c in counts.items() if name in f}
+        assert hits, f"no {name} in the library's SASS"
+        tensor = dtype == torch.bfloat16
+        assert all((c > 0) == tensor for c in hits.values()), (name, hits)
+        log(f"[build] SASS of {name} ({body}): HMMA instructions per "
+            f"instance {sorted(hits.values())}")
 
 
 def phase_kernels(data, gen):
@@ -1198,6 +1242,13 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
+def grid_text(grid) -> str:
+    """A kde_decode plan's kernel and grid, as ``kernel.decode_grid`` gives
+    them."""
+    return (f"{grid['kernel']} kernel, {grid['ctas']} CTAs a launch, "
+            f"{grid['ctas_per_group']} a (batch, kv-head)")
+
+
 def decode_bound(q, k, kw, est):
     """bound() of one kde_decode call on this run's data: ``est`` (b, hq,
     nb) is the plain pipeline's step 1 on the same inputs, so its top-P
@@ -1259,7 +1310,7 @@ def phase_lm_kernels(gen):
         kp, vp, kw = fops.flash_args(q, k, v, True, bq, bk)
         out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
         p_out, p_lse = fk.flash_attention_plain(q, kp, vp, **kw)
-        inst = fk.instantiation(q, kp, vp)
+        inst = f"{fk.instantiation(q, kp, vp)}, {fk.BODIES[q.dtype][0]}"
         if q.dtype == torch.bfloat16:
             e, steps[tag] = assert_bf16_close(out, p_out, ATOL,
                                               f"flash out {tag}")
@@ -1285,7 +1336,7 @@ def phase_lm_kernels(gen):
     flat = torch.randn(2, 2 * 256 * 64 + 1, generator=gen, device=dev)
     k, v = (t[1:].view(1, 2, 256, 64) for t in flat)
     e, inst = flash_check(q, k, v, 64, 64, "unaligned rows")
-    assert inst.endswith("scalar"), inst
+    assert fk.instantiation(q, k, v).endswith("scalar"), inst
     log(f"[kernels] flash unaligned k / v rows (1, 4, 2, 256, 256, 64) "
         f"[{inst}]: max_abs_err {e:.3e}")
 
@@ -1307,7 +1358,7 @@ def phase_lm_kernels(gen):
         ms=timed(lambda: fk.flash_attention_cuda(q, kp, vp, **kw), 5),
         device_ms=kernel_device_ms(
             lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
-            "flash_fwd_kernel", 3),
+            fk.BODIES[torch.float32][1], 3),
         plain_ms=timed(lambda: fk.flash_attention_plain(q, kp, vp, **kw), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda: F.scaled_dot_product_attention(
@@ -1336,7 +1387,7 @@ def phase_lm_kernels(gen):
         ms=timed(lambda: fk.flash_attention_cuda(q, kp, vp, **kw), 5),
         device_ms=kernel_device_ms(
             lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
-            "flash_fwd_kernel", 3),
+            fk.BODIES[torch.bfloat16][1], 3),
         plain_ms=timed(lambda: fk.flash_attention_plain(q, kp, vp, **kw), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda: F.scaled_dot_product_attention(
@@ -1385,7 +1436,7 @@ def phase_lm_kernels(gen):
               f"stride={stride} top_p={KDE_SERVE_TOP_P} kv_valid={s - 17}",
         ms=timed(lambda: kk.kde_decode_cuda(q, k, v, **kw), 200),
         device_ms=kernel_device_ms(lambda: kk.kde_decode_cuda(q, k, v, **kw),
-                                   "kde_decode_kernel", 200),
+                                   KDE_KERNELS, 200),
         plain_ms=timed(lambda: kk.kde_decode_plain(q, k, v, **kw), 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     log(f"[kernels] kde_decode wrapper host time: "
@@ -1408,7 +1459,7 @@ def phase_lm_kernels(gen):
     close(out, kops.kde_attention_ref(q, k, v, **kw), "kde_attention S=32768")
     exact = kops.exact_decode_attention(q, k, v)
     dms = kernel_device_ms(lambda: kops.kde_attention(q, k, v, **kw),
-                           "kde_decode_kernel", 50)
+                           KDE_KERNELS, 50)
     log(f"[kernels] kde_decode S={s} (top_p {KDE_LONG_TOP_P}, bk {bk}, "
         f"stride {stride}, planted keys) through ops.kde_attention: kernel "
         f"= plain pipeline (max_abs_err {e:.3e}); device {dms} ms a launch, "
@@ -1426,7 +1477,7 @@ def phase_lm_kernels(gen):
     b_ms, _ = decode_bound(q, k, kw, kk.kde_decode_plain(
         q, k, v, with_est=True, **kw)[1])
     dms = kernel_device_ms(lambda: kk.kde_decode_cuda(q, k, v, **kw),
-                           "kde_decode_kernel", 50)
+                           KDE_KERNELS, 50)
     log(f"[kernels] kde_decode S={s} (b {b}, bk {bk}, stride {stride}, "
         f"top_p {KDE_SERVE_TOP_P}; {s // bk} blocks): max_abs_err {e:.3e}; "
         f"device {dms} ms a launch, bound {b_ms:.5f} ms")
@@ -1446,7 +1497,7 @@ def phase_lm_kernels(gen):
             kw = dict(top_p=top_p, bk=bk, stride=stride, kv_valid=kv_valid)
             e = decode_bf16_check(q, k, v, kw, f"bf16 S={s} kv={kv_valid}")
             errs["kde_decode_bf16"] = max(errs["kde_decode_bf16"], e)
-        plan = kk.plan_of(q, k, v, top_p=top_p, bk=bk, stride=stride)
+        grid = kk.decode_grid(q, k, v, top_p=top_p, bk=bk, stride=stride)
         b_ms, b_by = decode_bound(q, k, kw, kk.kde_decode_plain(
             q, k, v, with_est=True, **kw)[1])
         row = dict(
@@ -1455,21 +1506,27 @@ def phase_lm_kernels(gen):
             replaces="src/repro/kernels/kde_attention/kernel.py:40",
             shape=f"b={b} hq={hq} hkv={hkv} S={s} dh={dh} bk={bk} "
                   f"stride={stride} top_p={top_p} kv_valid={s} bf16 q, k, v "
-                  f"(cluster {kk.decode_cluster(plan)})",
+                  f"({grid_text(grid)})", ctas=grid["ctas"],
             ms=timed(lambda: kk.kde_decode_cuda(q, k, v, **kw), 50),
             device_ms=kernel_device_ms(
                 lambda: kk.kde_decode_cuda(q, k, v, **kw),
-                "kde_decode_kernel", 50),
+                KDE_KERNELS, 50),
             plain_ms=timed(lambda: kk.kde_decode_plain(q, k, v, **kw), 5),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         q32, k32, v32 = q.float(), k.float(), v.float()
         dms32 = kernel_device_ms(
             lambda: kk.kde_decode_cuda(q32, k32, v32, **kw),
-            "kde_decode_kernel", 50)
+            KDE_KERNELS, 50)
+        # the other kernel on the same inputs, forced past the plan
+        other = "cluster" if grid["kernel"] == "spread" else "spread"
+        dms_other = kernel_device_ms(
+            lambda: kk.kde_decode_cuda(q, k, v, kernel=other, **kw),
+            KDE_KERNELS, 20)
         log(f"[kernels] kde_decode bf16 {row['shape']}: {row['ms']:.4f} ms "
             f"(device {row['device_ms']}; the f32 instance on the upcast "
-            f"inputs: device {dms32}; plain {row['plain_ms']:.4f}, bound "
-            f"{b_ms:.5f} by {b_by})")
+            f"inputs: device {dms32}; the {other} kernel: device "
+            f"{dms_other}; plain {row['plain_ms']:.4f}, bound {b_ms:.5f} by "
+            f"{b_by})")
         del q, k, v, q32, k32, v32
         free_cuda()
     rows.append(row)
@@ -1552,14 +1609,16 @@ def device_kernels(fn, reps: int):
     return traced(fn, reps, log=log)
 
 
-def kernel_device_ms(fn, kernel: str, reps: int):
+def kernel_device_ms(fn, kernel, reps: int):
     """Mean device ms per call of ``fn`` in the CUDA kernels whose names
-    contain ``kernel`` ("" for all of them), from torch.profiler's kernel
-    durations over ``reps`` calls (so the host's cost per call is left
-    out), taken from a trace that recorded every launch; None, printed as
-    not measured, when no trace shows such a kernel or none was whole."""
+    contain ``kernel`` (a name, or a tuple of names; "" for all of them),
+    from torch.profiler's kernel durations over ``reps`` calls (so the
+    host's cost per call is left out), taken from a trace that recorded
+    every launch; None, printed as not measured, when no trace shows such a
+    kernel or none was whole."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     hit = [us for name, (_, us) in device_kernels(fn, reps).items()
-           if kernel in name]
+           if any(k in name for k in names)]
     if not hit or None in hit:
         return None
     return sum(hit) / reps / 1e3
@@ -1926,8 +1985,8 @@ def lm_bf16_long_decode(m16, cfg, gen):
     q = torch.randn((1, hq, dh), generator=gen, device=dev).bfloat16()
     ck, cv = cache["k"][0], cache["v"][0]
     kw = dict(LONG_KDE, kv_valid=LONG_S)
-    plan = kk.plan_of(q, ck, cv, top_p=kw["top_p"], bk=kw["bk"],
-                      stride=kw["stride"])
+    grid = kk.decode_grid(q, ck, cv, top_p=kw["top_p"], bk=kw["bk"],
+                          stride=kw["stride"])
     b_ms, b_by = decode_bound(q, ck, kw, kk.kde_decode_plain(
         q, ck, cv, with_est=True, **kw)[1])
     w_bytes = sum(p.numel() * p.element_size() for n, p in
@@ -1936,7 +1995,8 @@ def lm_bf16_long_decode(m16, cfg, gen):
         log(f"[lm-bf16] (b) one decode step: wall {wall * 1e3:.2f} ms; "
             f"device time not measured (the trace shows none)")
     else:
-        kde = [(t, c) for n, t, c in names if "kde_decode" in n]
+        kde = [(t, c) for n, t, c in names
+               if any(k in n for k in KDE_KERNELS)]
         gemm = sum(t for n, t, _ in names if any(
             w in n.lower() for w in ("gemv", "gemm", "xmma", "cutlass", "nvjet")))
         kde_ms = sum(t for t, _ in kde) / max(1, sum(c for _, c in kde)) * 1e3
@@ -1944,7 +2004,7 @@ def lm_bf16_long_decode(m16, cfg, gen):
             f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (idle "
             f"share {1 - busy / wall:.1%}); kde_decode {kde_ms:.4f} ms a "
             f"launch x {sum(c for _, c in kde)} (bound {b_ms:.5f} ms by "
-            f"{b_by}, cluster {kk.decode_cluster(plan)} CTAs x {hkv} kv-heads"
+            f"{b_by}; {grid_text(grid)}"
             f"); GEMM / GEMV kernels {gemm * 1e3:.3f} ms against the weights' "
             f"{w_bytes / 1e9:.2f} GB / 3.35 TB/s = "
             f"{w_bytes / PEAK_BYTES * 1e3:.3f} ms; top kernels: " + "; ".join(
@@ -3673,7 +3733,7 @@ def main() -> int:
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
-                                  "graph_launches")
+                                  "ctas", "graph_launches")
          if k in r}
         for r in rows]}))
     log(card_line())

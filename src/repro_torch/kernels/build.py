@@ -39,13 +39,23 @@ _L = ctypes.c_longlong
 
 class KdeDecodeShape(ctypes.Structure):
     """``struct KdeDecodeShape`` of csrc/kde_attention.cu: the static
-    arguments of a kde_decode launch (dtype ids: 0 float32, 1 bfloat16)."""
+    arguments of a kde_decode launch (dtype ids: 0 float32, 1 bfloat16;
+    mode -1 the plan's kernel, 0 cluster, 1 spread)."""
     _fields_ = [(n, _I) for n in ("b", "hq", "hkv", "S", "dh", "bk",
                                   "stride", "top_p", "q_dtype",
-                                  "kv_dtype")] + \
+                                  "kv_dtype", "mode")] + \
         [("scale", _F), ("log_stride", _F)] + \
         [(n, _L) for n in ("qsb", "qsh", "ksb", "ksh", "kss", "vsb", "vsh",
                            "vss")]
+
+
+class KdeDecodePlan(ctypes.Structure):
+    """``struct KdeDecodePlan`` of csrc/kde_attention.cu: the kernel a
+    kde_decode launch takes (mode 0 cluster, 1 spread), its CTAs per
+    (batch, kv-head), key blocks a CTA, shared memory, and the spread
+    kernel's scratch (f32 words after the estimates) and counters."""
+    _fields_ = [(n, _I) for n in ("mode", "ctas", "blocks", "smem")] + \
+        [("work", _L), ("sync", _I)]
 
 class KdeTileShape(ctypes.Structure):
     """``struct KdeTileShape`` of csrc/kde_wide.cuh: the static arguments
@@ -63,7 +73,7 @@ class KdeWeightedShape(ctypes.Structure):
 
 
 # C signatures of every exported function (all return an int: cudaError_t,
-# or kde_decode_cluster's cluster size).  The KDE launchers take the bf16
+# or kde_decode_plan's status).  The KDE launchers take the bf16
 # exp table (or null) just before the stream.
 SIGNATURES = {
     "kde_rowsum_launch": (_P, _P, _P, _P, _P, _P,
@@ -80,9 +90,10 @@ SIGNATURES = {
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _L, _L, _L, _L, _L, _L, _L,
                                _L, _L, _I, _I, _P),
-    "kde_decode_launch": (_P, _P, _P, _P, _P, _I, _P,
+    "kde_decode_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _P,
                           ctypes.POINTER(KdeDecodeShape)),
-    "kde_decode_cluster": (ctypes.POINTER(KdeDecodeShape),),
+    "kde_decode_plan": (ctypes.POINTER(KdeDecodeShape),
+                        ctypes.POINTER(KdeDecodePlan)),
 }
 
 _LIB = None

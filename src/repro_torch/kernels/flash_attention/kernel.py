@@ -5,7 +5,10 @@
 each launch in ``LAUNCHES``; ``flash_attention_plain`` computes the same
 function with plain torch ops.  ``instantiation`` names the kernel template
 instance a call takes (operand type, head-dim bucket, cp.async or scalar
-staging).  Both are the Pallas kernel
+staging), ``BODIES`` the body each operand type runs: FP32 FMAs for f32,
+the tensor cores for bf16 (``flash_bf16_model`` is a plain torch model of
+that body's arithmetic, for the CPU tests; no CUDA path calls it).  Both
+are the Pallas kernel
 ``flash_attention_pallas`` of the reference: query row r sits at position
 ``r + offset``, key j is valid iff ``j < kv_valid`` (and ``j <= r +
 offset`` when causal), masked scores take the sentinel -1e30, and a row
@@ -28,6 +31,13 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 #: head-dim buckets the kernel is specialised on at compile time
 HEAD_DIM_BUCKETS = (32, 64, 128)
+#: the body each operand dtype runs, and its CUDA kernel's name
+BODIES = {torch.float32: ("FMA f32", "flash_fwd_kernel"),
+          torch.bfloat16: ("tensor-core bf16 (mma.sync, p = hi + lo)",
+                           "flash_mma_kernel")}
+#: keys a tile of the kernel; the bf16 body's online softmax rescales once
+#: a tile, as ``flash_bf16_model`` does
+BKV = 64
 
 
 def reset_launches() -> None:
@@ -129,3 +139,51 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
         outs.append(torch.matmul(p, v[:, h:h + 1].float()) / safe)
         lses.append(torch.where(l > 0, m + torch.log(safe), _NEG_INF)[..., 0])
     return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=1)
+
+
+def split_bf16(p):
+    """(hi, lo) of f32 ``p`` as the bf16 body splits it for its PV
+    products: hi = bf16(p), lo = bf16(p - hi) (the difference is exact in
+    f32), both returned as f32; hi + lo is p to about 2^-17 relative."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def flash_bf16_model(q, k, v, *, causal: bool, scale: float, kv_valid: int,
+                     offset: int):
+    """Plain torch model of the bf16 tensor-core body's arithmetic (the CPU
+    tests hold it to the reference; no CUDA path calls it): key tiles of
+    ``BKV``, scores as exact bf16 products summed in f32, masks, an online
+    softmax in f32 rescaled once a tile, p split into bf16 hi + lo and PV
+    as the two products summed in f32 on the f32 accumulators, l the sum
+    of the f32 p; out rounded once to bf16.  Arguments as
+    ``flash_attention_cuda``'s."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    qf = q.float()
+    qpos = torch.arange(sq)[:, None] + offset
+    m = torch.full((b, hq, sq), _NEG_INF)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, dh))
+    for kt in range(0, skv, BKV):
+        ks, vs = kf[:, :, kt:kt + BKV], vf[:, :, kt:kt + BKV]
+        s = torch.matmul(qf, ks.transpose(-1, -2)) * scale
+        kpos = torch.arange(kt, kt + ks.shape[2])[None, :]
+        mask = kpos < kv_valid
+        if causal:
+            mask = mask & (kpos <= qpos)
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        hi, lo = split_bf16(p)
+        acc = acc * alpha[..., None] + torch.matmul(hi, vs) \
+            + torch.matmul(lo, vs)
+        m = m_new
+    safe = torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(safe), _NEG_INF)
+    return (acc / safe[..., None]).to(q.dtype), lse

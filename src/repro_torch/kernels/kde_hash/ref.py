@@ -92,12 +92,14 @@ def query_codes(y: torch.Tensor, dims: torch.Tensor, shift: torch.Tensor,
 
 
 def rowwise_kv(q, xr, kind: str, inv_bw: float, beta: float, pairwise=None,
-               precision: str = "f32"):
+               precision: str = "f32", table=None):
     """Per-row kernel values k(q_i, xr_i_j): q (w, d), xr (w, t, d) ->
     (w, t).  The L2 kinds assemble d2 = max(qq + xx - 2 cross, 0) from the
     three sums, as the reference and the CUDA kernel do.
     ``precision="bf16"`` rounds both operands to bf16, sums the same three
-    terms in f32 and finishes through the bf16 exp table."""
+    terms in f32 and finishes through the bf16 exp table (``table``, as
+    the reference takes it: ``bf16_exp_table()`` as a tensor on q's
+    device; None reads the cached one)."""
     if precision != "f32":
         check_precision(precision, kind, pairwise)
         q, xr = round_bf16(q), round_bf16(xr)
@@ -105,8 +107,10 @@ def rowwise_kv(q, xr, kind: str, inv_bw: float, beta: float, pairwise=None,
         cross = torch.sum(q[:, None, :] * xr, dim=-1)
         xx = torch.sum(xr * xr, dim=-1)
         qq = torch.sum(q * q, dim=-1)
-        finish = _finish_l2 if precision == "f32" else _finish_l2_bf16
-        return finish(qq[:, None] + xx - 2.0 * cross, kind, inv_bw, beta)
+        d2 = qq[:, None] + xx - 2.0 * cross
+        if precision != "f32":
+            return _finish_l2_bf16(d2, kind, inv_bw, beta, table)
+        return _finish_l2(d2, kind, inv_bw, beta)
     if kind == "laplacian":
         acc = torch.sum(torch.abs(q[:, None, :] - xr), dim=-1)
         return torch.exp(-acc * inv_bw)

@@ -97,7 +97,7 @@ def _level1_noise(w: int, num_blocks: int, generator, device, *, level1,
 
 
 def draw_sample_noise(w: int, num_blocks: int, generator, device, *,
-                      level1="blocked", exact, num_far=1, block_size=1):
+                      level1="blocked", exact, num_far=64, block_size=1):
     """The noise of one depth-2 step: ``(gumbel (w, B), u_in (w,))`` for
     the exact read, ``(level-1 noise, u_blk (w,), u_in (w,))`` for the
     stratified and hashed reads."""
@@ -211,7 +211,7 @@ def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
 
 def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
                      inv_bw, beta, block_size, num_blocks, n, s, exact,
-                     level1="blocked", num_far=1, precision="f32"):
+                     level1="blocked", num_far=64, precision="f32"):
     """Masked level-1 sums of a frontier: the masked-blocksum kernel on the
     exact read, ``s`` subsampled rows a block on the stratified read
     (uniforms ``l1_noise``), the hashed estimator's read (weighted-kv
@@ -238,7 +238,7 @@ def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
 
 def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
                       inv_bw, beta, block_size, num_blocks, n, s, exact,
-                      level1="blocked", num_far=1, precision="f32"):
+                      level1="blocked", num_far=64, precision="f32"):
     """Level-1 read of a frontier ``src`` of dataset indices: block sums,
     own block corrected by k(x, x) = 1, floored at 1e-12 -- exact through
     the masked-blocksum kernel, stratified (``exact=False``: ``s`` rows a
@@ -270,7 +270,7 @@ def sample_block(q, x, own, gumbel_noise, *, kind, inv_bw, beta,
 # --------------------------------------------------------------------- #
 def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
                        inv_bw, beta, block_size, num_blocks, n, s, exact,
-                       level1="blocked", num_far=1, precision="f32"):
+                       level1="blocked", num_far=64, precision="f32"):
     """(neighbors, realized probs, level-1 sums, status tensor) of one
     depth-2 step with explicit ``noise`` (see the module note); no host
     traffic (the counter word is built by the callers from static
@@ -301,7 +301,7 @@ def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
 
 def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
                  inv_bw, beta, block_size, num_blocks, n, s, exact,
-                 level1="blocked", num_far=1, precision="f32"):
+                 level1="blocked", num_far=64, precision="f32"):
     """One depth-2 sampling step with explicit noise: the level-1 read and
     block draw (one sample-block kernel call on the exact read; the
     stratified or hashed read then an inverse-CDF draw otherwise), then
@@ -421,7 +421,7 @@ def fused_sample_exact(x, x_sq, src, bs, u_blk, u_in, u_acc, views=None, *,
 # --------------------------------------------------------------------- #
 def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
                      noise, hstate=None, *, kind, inv_bw, beta, block_size,
-                     num_blocks, n, s, exact, level1="blocked", num_far=1,
+                     num_blocks, n, s, exact, level1="blocked", num_far=64,
                      precision="f32"):
     """Algorithm 5.1 steps (a)-(d) for one batch with explicit noise:
     u ~ degrees (inverse CDF over the device prefix array), v | u by the
@@ -454,7 +454,7 @@ def _edge_batch_word(status, batch: int, cols: int, far: int, ov: int,
 def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
                      views=None, hstate=None, kind, inv_bw, beta,
                      block_size, num_blocks, n, s, exact, level1="blocked",
-                     num_far=1, precision="f32"):
+                     num_far=64, precision="f32"):
     """One fused Algorithm 5.1 edge batch with explicit noise ``u_vert``
     then the depth-2 step's noise: (u, v, weight, q_uv, q_vu, counter
     word)."""
@@ -476,7 +476,7 @@ def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
 def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
                     num_batches: int, hstate=None, *, batch, kind, inv_bw,
                     beta, block_size, num_blocks, n, s, exact,
-                    level1="blocked", num_far=1, precision="f32"):
+                    level1="blocked", num_far=64, precision="f32"):
     """All ``num_batches`` edge batches of a sparsifier call: a device
     loop whose body is one fused edge batch, noise drawn per batch from
     ``generator``.  Returns ((T, batch) u, v, wgt, q_uv, q_vu on the
@@ -593,7 +593,7 @@ def _walk_sample_core(x, x_sq, views, src, bs, u_blk, u_in, *, kind, inv_bw,
 
 
 def draw_walk_noise(length: int, w: int, num_blocks: int, generator,
-                    device, *, level1="blocked", exact, num_far=1,
+                    device, *, level1="blocked", exact, num_far=64,
                     block_size, n, s, rounds=0):
     """The noise of a ``length``-step walk of ``w`` walkers: ``(cache_u,
     steps)``.  ``cache_u`` (w_blocks, wbs) draws the walk-resident
@@ -628,7 +628,7 @@ def draw_walk_noise(length: int, w: int, num_blocks: int, generator,
 
 def walk_scan(x, x_sq, starts, noise, hstate=None, *, kind, inv_bw, beta,
               block_size, num_blocks, n, s, exact, rounds, slack,
-              record_path=True, level1="blocked", num_far=1,
+              record_path=True, level1="blocked", num_far=64,
               precision="f32"):
     """``len(steps)``-step random walk on the device with explicit noise
     ``(cache_u, steps)`` (``draw_walk_noise``): the frontier stays on the
@@ -834,7 +834,7 @@ def signed_endpoint_stat(ends, signs, *, n):
 
 def triangle_edge_scan(x, x_sq, u, v, degs, noise, hstate=None, *, kind,
                        inv_bw, beta, block_size, num_blocks, n, s, exact,
-                       level1="blocked", num_far=1, precision="f32"):
+                       level1="blocked", num_far=64, precision="f32"):
     """Theorem 6.17's per-edge inner loop with explicit noise ``(l1, u_blk
     (D, m), u_in (D, m))``: degree-ordered orientation of the (u, v)
     pairs, ONE masked level-1 read of the oriented v frontier (noise

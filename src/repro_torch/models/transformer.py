@@ -142,8 +142,20 @@ def _embed_inputs(model: Transformer, cfg: ArchConfig,
 
 
 def forward(model: Transformer, cfg: ArchConfig, batch, *,
-            impl: str = "xla") -> Tuple[torch.Tensor, float]:
-    """Prefill forward.  Returns (logits (b, s, V_pad), aux_loss = 0.0)."""
+            impl: str = "xla", remat: bool = True, seq_mixer: str = "chunked",
+            remat_policy: Optional[str] = "none"
+            ) -> Tuple[torch.Tensor, float]:
+    """Prefill forward.  Returns (logits (b, s, V_pad), aux_loss = 0.0).
+
+    ``remat``, ``seq_mixer`` and ``remat_policy`` are the reference's
+    training and SSM options, placeholders here: accepted at the
+    reference's defaults (they change nothing in a dense forward without
+    gradients), refused otherwise."""
+    for name, value, default in (("remat", remat, True),
+                                 ("seq_mixer", seq_mixer, "chunked"),
+                                 ("remat_policy", remat_policy, "none")):
+        if value != default or type(value) is not type(default):
+            raise not_in_slice(f"forward({name}={value!r})", 12)
     x, _ = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     with L.f32_accumulation():

@@ -15,11 +15,16 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import not_in_slice
 from repro_torch.models import transformer as T
 
 
-def make_prefill_step(cfg: ArchConfig, *, impl: str = "xla"):
-    """Prefill: forward pass returning last-position logits (no loss)."""
+def make_prefill_step(cfg: ArchConfig, *, impl: str = "xla",
+                      seq_mixer: str = "chunked"):
+    """Prefill: forward pass returning last-position logits (no loss).
+    ``seq_mixer`` (the reference's SSM mixer) must stay at its default."""
+    if seq_mixer != "chunked":
+        raise not_in_slice(f"make_prefill_step(seq_mixer={seq_mixer!r})", 12)
 
     @torch.inference_mode()
     def prefill_step(model, batch):

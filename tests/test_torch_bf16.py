@@ -849,14 +849,14 @@ _CTYPE = {"const float*": "P", "float*": "P", "const void*": "P",
 def _c_params(name):
     """The parameter kinds of the ``extern "C"`` function ``name`` in
     src/repro_torch/csrc: P pointer, I int, F float, L long long, S a
-    pointer to the shape struct."""
+    pointer to a launch struct (a shape, or a plan the function fills)."""
     for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"):
         m = re.search(rf"\bint {name}\(([^)]*)\)", src.read_text())
         if m:
             out = []
             for p in m.group(1).split(","):
                 decl = " ".join(p.split()[:-1]).replace(" *", "*")
-                if re.fullmatch(r"const Kde\w+Shape\*", decl):
+                if re.fullmatch(r"(const )?Kde\w+(Shape|Plan)\*", decl):
                     out.append("S")
                 else:
                     out.append(_CTYPE[decl])

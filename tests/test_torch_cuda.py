@@ -682,6 +682,54 @@ def test_flash_kernel_matches_plain_at_the_prefill_shape(cuda):
     torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
 
 
+#: (sq, skv, kv_valid, offset, causal): sq and skv off multiples of 16,
+#: 64 and 128, kv_valid inside a key tile, rows with no valid key, and a
+#: non-causal call
+FLASH_BF16_CASES = [(77, 333, 333, 256, True), (200, 200, 137, 0, True),
+                    (33, 515, 500, 482, True), (50, 90, 70, -20, True),
+                    (65, 129, 100, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 96, 100, 128])
+def test_flash_bf16_tensor_core_body(cuda, dh):
+    """The bf16 body (tensor cores, p split into bf16 hi + lo) at every
+    head-dim bucket, with cp.async staging and (dh 100: rows of 200 bytes)
+    the scalar-staged instance, over ``FLASH_BF16_CASES``: out within one
+    bf16 step of the plain version (atol 1e-5 near zero), lse at rtol 2e-4
+    / atol 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    for sq, skv, kv_valid, offset, causal in FLASH_BF16_CASES:
+        q = _randn(gen, (1, 8, sq, dh), cuda, torch.bfloat16)
+        k = _randn(gen, (1, 2, skv, dh), cuda, torch.bfloat16)
+        v = _randn(gen, (1, 2, skv, dh), cuda, torch.bfloat16)
+        kw = dict(causal=causal, scale=dh ** -0.5, kv_valid=kv_valid,
+                  offset=offset)
+        out, lse = fk.flash_attention_cuda(q, k, v, **kw)
+        want, want_lse = fk.flash_attention_plain(q, k, v, **kw)
+        assert_bf16_close(out, want, ATOL, f"dh {dh} sq {sq} skv {skv}")
+        torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
+    assert fk.instantiation(q, k, v).endswith(
+        "scalar" if dh % 8 else "cp.async")
+
+
+@pytest.mark.cuda
+def test_flash_bf16_at_the_prefill_shape(cuda):
+    """The bf16 prefill shape (1, 32, 8192, 128), 4 kv-heads, v a
+    transposed view: the tensor-core body within one bf16 step of the
+    plain version, lse at rtol 2e-4 / atol 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(8193)
+    q = _randn(gen, (1, 32, 8192, 128), cuda, torch.bfloat16)
+    k = _randn(gen, (1, 4, 8192, 128), cuda, torch.bfloat16)
+    v = _randn(gen, (1, 8192, 4, 128), cuda, torch.bfloat16).transpose(1, 2)
+    kp, vp, kw = fops.flash_args(q, k, v)
+    assert fk.instantiation(q, kp, vp) == "bfloat16 dh<=128 cp.async"
+    out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
+    want, want_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+    assert_bf16_close(out, want, ATOL, "prefill shape")
+    torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", LSE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -986,25 +1034,116 @@ def test_kde_decode_kernel_ties_go_to_the_lower_block(cuda, top_p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [DECODE_SHAPES[i] for i in (0, 1, 2, 4, 7)])
+@pytest.mark.parametrize("kernel", ["cluster", "spread"])
+def test_kde_decode_either_kernel_matches_plain(cuda, shape, kernel):
+    """Each of the two kernels, forced past the plan's choice (the cluster
+    kernel at the serve shape, the spread kernel at batch 1), against the
+    plain pipeline at a full and a partial cache, rtol 2e-4 / atol 1e-5."""
+    b, hq, hkv, s, dh, bk, stride, top_p = shape
+    gen = torch.Generator(device=cuda).manual_seed(s + 3 * dh)
+    q = _randn(gen, (b, hq, dh), cuda)
+    k = _randn(gen, (b, hkv, s, dh), cuda, scale=0.3)
+    v = _randn(gen, (b, hkv, s, dh), cuda)
+    grid = kk.decode_grid(q, k, v, top_p=top_p, bk=bk, stride=stride,
+                          kernel=kernel)
+    assert grid["kernel"] == kernel
+    for kv_valid in (s, max(1, s // 2 + 3)):
+        kw = dict(top_p=top_p, bk=bk, stride=stride, kv_valid=kv_valid)
+        out, est = kk.kde_decode_cuda(q, k, v, with_est=True, kernel=kernel,
+                                      **kw)
+        want, want_est = kk.kde_decode_plain(q, k, v, with_est=True, **kw)
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(est, want_est, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [131072, 524288])
+def test_kde_decode_long_500k_settings_at_slice_boundaries(cuda, s):
+    """The long_500k settings (yi's heads, bk 512, stride 16, top_p 16) on
+    one layer's bf16 cache: the spread kernel over every SM's worth of
+    CTAs, kv_valid at a CTA's slice boundary and one key either side, and
+    (S = 131072) top_p >= the block count.  est against the plain pipeline
+    at rtol 2e-4 / atol 1e-5, out within one bf16 step of it, and both
+    bitwise the f32 instance's on the upcast inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = _randn(gen, (1, 32, 128), cuda, torch.bfloat16)
+    k = _randn(gen, (1, 4, s, 128), cuda, torch.bfloat16)
+    v = _randn(gen, (1, 4, s, 128), cuda, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nb = s // 512
+    for top_p in (16, nb) if s == 131072 else (16,):
+        grid = kk.decode_grid(q, k, v, top_p=top_p, bk=512, stride=16)
+        assert grid["kernel"] == "spread"
+        assert grid["ctas"] == min(sms // 4, 128) * 4
+        edge = grid["blocks_per_cta"] * 512
+        for kv_valid in (edge - 1, edge, edge + 1, s):
+            kw = dict(top_p=top_p, bk=512, stride=16, kv_valid=kv_valid)
+            out, est = kk.kde_decode_cuda(q, k, v, with_est=True, **kw)
+            o32, e32 = kk.kde_decode_cuda(q.float(), k.float(), v.float(),
+                                          with_est=True, **kw)
+            assert torch.equal(out, o32.to(torch.bfloat16)), kv_valid
+            assert torch.equal(est, e32), kv_valid
+            want, want_est = kk.kde_decode_plain(q, k, v, with_est=True,
+                                                 **kw)
+            torch.testing.assert_close(est, want_est, rtol=RTOL, atol=ATOL)
+            assert_bf16_close(out, want, ATOL, f"S {s} kv {kv_valid}")
+            dead = -(-kv_valid // 512)
+            assert bool((est[..., dead:] == -1e30).all())
+
+
+@pytest.mark.cuda
 def test_kde_decode_refuses_a_cache_too_long_for_a_cluster(cuda):
     """A cache whose per-block shared memory exceeds a cluster of 8 CTAs
-    (2^20 keys in blocks of 32 at a group of 8) is refused by the plan,
-    before any launch; 2^19 keys fit.  The cache is a stride-0 view."""
+    (2^20 keys in blocks of 32 at a group of 8) is refused by the cluster
+    kernel's plan, before any launch, and runs on the spread kernel, which
+    the plan takes for it; past the spread kernel's shared memory (2^25
+    keys here) the plan refuses the cache.  The caches are stride-0
+    views."""
     q = torch.zeros((1, 32, 128), device=cuda)
+
+    def cache(s):
+        return torch.zeros((1, 4, 1, 128), device=cuda).expand(1, 4, s, 128)
+
+    kw = dict(top_p=4, bk=32, stride=4)
     for s, fits in ((1 << 19, True), (1 << 20, False)):
-        k = torch.zeros((1, 4, 1, 128), device=cuda).expand(1, 4, s, 128)
         kk.reset_launches()
         if fits:
-            out = kk.kde_decode_cuda(q, k, k, top_p=4, bk=32, stride=4,
-                                     kv_valid=s)
+            out = kk.kde_decode_cuda(q, cache(s), cache(s), kv_valid=s,
+                                     kernel="cluster", **kw)
             torch.cuda.synchronize()
             assert bool(torch.isfinite(out).all())
             assert kk.LAUNCHES["kde_decode"] == 1
         else:
             with pytest.raises(ValueError, match="do not fit"):
-                kk.kde_decode_cuda(q, k, k, top_p=4, bk=32, stride=4,
-                                   kv_valid=s)
+                kk.kde_decode_cuda(q, cache(s), cache(s), kv_valid=s,
+                                   kernel="cluster", **kw)
             assert kk.LAUNCHES["kde_decode"] == 0
+    k = cache(1 << 20)
+    assert kk.decode_grid(q, k, k, **kw)["kernel"] == "spread"
+    out = kk.kde_decode_cuda(q, k, k, kv_valid=1 << 20, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    kk.reset_launches()
+    with pytest.raises(ValueError, match="do not fit"):
+        kk.kde_decode_cuda(q, cache(1 << 25), cache(1 << 25),
+                           kv_valid=1 << 25, **kw)
+    assert kk.LAUNCHES["kde_decode"] == 0
+
+
+@pytest.mark.cuda
+def test_kde_decode_runs_a_million_key_cache_against_plain(cuda):
+    """2^20 keys in blocks of 32 (past the cluster kernel's shared memory;
+    the reference takes any length): the plan's kernel against the plain
+    pipeline at a full and a partial cache, out and est at rtol 2e-4 /
+    atol 1e-5."""
+    s = 1 << 20
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    q = _randn(gen, (1, 32, 128), cuda)
+    k = _randn(gen, (1, 4, s, 128), cuda, scale=0.3)
+    v = _randn(gen, (1, 4, s, 128), cuda)
+    for kv_valid in (s, s // 2 + 5):
+        _decode_check(q, k, v, 4, 32, 4, kv_valid)
 
 
 def _off_boundaries(bs, u, tie=1e-5):

@@ -47,7 +47,11 @@ from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.kde_attention.ops import kde_attention
 from repro_torch.kernels.kde_rowsum import kernel as rs_k
 from repro_torch.kernels.kde_rowsum.ops import kde_blocksum, kde_rowsum
-from repro_torch.models.transformer import init_cache
+from repro_torch.kernels.kde_hash.ref import rowwise_kv
+from repro_torch.kernels.kde_sampler.ref import (exp_table_on,
+                                                 kv_block_sums_bf16)
+from repro_torch.models.transformer import forward, init_cache, init_params
+from repro_torch.train.train_step import make_prefill_step
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -124,6 +128,141 @@ def test_reference_parameters_are_a_prefix(module, name):
                         inspect.Parameter.POSITIONAL_OR_KEYWORD), pname
 
 
+#: the kernel programs that take explicit noise where the reference takes a
+#: key: their positional noise parameters differ by design (module note),
+#: so they are held by their keywords
+NOISE_PROGRAMS = [("kernels.kde_sampler.ops", n) for n in (
+    "masked_block_sums", "fused_sample", "fused_edge_batch",
+    "edge_batch_scan", "walk_scan", "triangle_edge_scan")]
+#: the reference's implementation switches, which the noise programs drop:
+#: the port chooses the kernel by the tensor's device and sizes its tiles
+SWITCHES = ("pairwise", "use_pallas", "interpret", "bm")
+#: keywords a program reads off its explicit noise instead
+NOISE_SHAPED = {"fused_edge_batch": ("batch",)}
+
+
+@pytest.mark.parametrize("module,name", NOISE_PROGRAMS,
+                         ids=[n for _, n in NOISE_PROGRAMS])
+def test_noise_programs_take_the_reference_keywords(module, name):
+    """Every keyword-only parameter of the reference's program but its
+    implementation switches (and a keyword the port reads off its noise,
+    ``NOISE_SHAPED``) is a keyword-only parameter of the port's, with the
+    same default (``num_far=64`` among them)."""
+    ref = inspect.signature(getattr(
+        importlib.import_module("repro." + module), name)).parameters
+    port = inspect.signature(getattr(
+        importlib.import_module("repro_torch." + module), name)).parameters
+    for p in ref.values():
+        if p.kind is not inspect.Parameter.KEYWORD_ONLY or p.name in \
+                SWITCHES + NOISE_SHAPED.get(name, ()):
+            continue
+        assert p.name in port, p.name
+        assert port[p.name].kind is inspect.Parameter.KEYWORD_ONLY, p.name
+        assert port[p.name].default == p.default, (p.name, p.default,
+                                                   port[p.name].default)
+
+
+#: (name, port default) pairs allowed to differ from the reference's
+#: default: the implementation switches are None in the port
+#: (``device.no_switch``: the device chooses), and ``pairwise`` (the
+#: reference's jnp pair function, required there) is an optional argument
+#: of the port's programs
+DEFAULT_EXCEPTIONS = {("use_pallas", None), ("interpret", None),
+                      ("pairwise", None)}
+
+
+def _ported_modules():
+    """Dotted names (under ``repro`` / ``repro_torch``) of every port
+    module that has a reference twin at the same path."""
+    src = ROOT / "src"
+    out = []
+    for path in sorted((src / "repro_torch").rglob("*.py")):
+        rel = path.relative_to(src / "repro_torch")
+        if (src / "repro" / rel).exists():
+            parts = rel.with_suffix("").parts
+            out.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                                else parts))
+    return out
+
+
+def _same_default(ref, port):
+    """Defaults equal, a JAX dtype matching the torch dtype of its name."""
+    if isinstance(port, torch.dtype):
+        return np.dtype(ref).name == str(port).removeprefix("torch.")
+    try:
+        return bool(ref == port)
+    except (TypeError, ValueError):
+        return ref is port
+
+
+@pytest.mark.parametrize("module", _ported_modules())
+def test_shared_keywords_keep_the_reference_defaults(module):
+    """Every public function and class that a ported module and its
+    reference twin both define gives every parameter they share the
+    reference's default (the F1 fault was a default: ``num_far=1`` where
+    the reference has 64), but for ``DEFAULT_EXCEPTIONS``."""
+    tm = importlib.import_module("repro_torch" + (module and "." + module))
+    rm = importlib.import_module("repro" + (module and "." + module))
+    empty = inspect.Parameter.empty
+    for name, obj in vars(tm).items():
+        ref = getattr(rm, name, None)
+        if name.startswith("_") or not callable(obj) or not callable(ref) \
+                or getattr(obj, "__module__", None) != tm.__name__:
+            continue
+        try:
+            rs, ts = inspect.signature(ref), inspect.signature(obj)
+        except (TypeError, ValueError):
+            continue
+        for p in rs.parameters.values():
+            q = ts.parameters.get(p.name)
+            if q is None or (p.default is empty and q.default is empty):
+                continue
+            if (p.name, q.default) in DEFAULT_EXCEPTIONS:
+                continue
+            assert p.default is not empty and q.default is not empty \
+                and _same_default(p.default, q.default), (
+                    f"{module}.{name}({p.name}=): reference {p.default!r}, "
+                    f"port {q.default!r}")
+
+
+def test_hashed_level1_read_counts_as_the_reference_by_default():
+    """ROADMAP.md's F1 reproduction: the hashed level-1 read of a
+    16-vertex frontier with ``num_far`` left at its default (n = 1024, d =
+    4, N(0, 1) from ``default_rng(0)``, gaussian(1.0), the hash layout of
+    seed 0, blocks of 32, s = 16) counts what the reference counts: 64 FAR
+    slots a block, ``evals`` 36,864 and ``far_samples`` 32,768.  The
+    port's noise comes from ``draw_sample_noise`` at its default."""
+    from repro.core.kernels_fn import gaussian as jgaussian
+    from repro.kernels.kde_hash import ops as jhops
+    from repro.kernels.kde_sampler import ops as jops
+    from repro.obs import counters as jc
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.kernels.kde_hash import ops as thops
+    from repro_torch.kernels.kde_sampler import ops as tops
+    from repro_torch.obs import counters as tc
+    import jax
+    x = np.random.default_rng(0).normal(size=(1024, 4)).astype(np.float32)
+    src = np.arange(0, 1024, 64)
+    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, block_size=32,
+               num_blocks=32, n=1024, s=16, exact=False, level1="hash")
+    jstate, _ = jhops.build_hash_state(x, jgaussian(1.0), seed=0)
+    _, jword = jops.masked_block_sums(
+        jnp.asarray(x), None, jnp.asarray(src.astype(np.int32)),
+        jax.random.PRNGKey(0), jstate, pairwise=None, **cfg)
+    tstate, _ = thops.build_hash_state(x, gaussian(1.0), seed=0,
+                                       device="cpu")
+    noise, _, _ = tops.draw_sample_noise(
+        len(src), 32, torch.Generator().manual_seed(0), "cpu",
+        level1="hash", exact=False, block_size=32)
+    assert noise.shape == (len(src), 32, 64)
+    _, tword = tops.masked_block_sums(
+        torch.as_tensor(x), None, torch.as_tensor(src), noise, tstate,
+        **cfg)
+    want, got = jc.totals(np.asarray(jword)), tc.totals(tword)
+    assert (want["evals"], want["far_samples"]) == (36864, 32768), want
+    assert got == want
+
+
 def _x(n=64, d=8, seed=0):
     return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
 
@@ -141,6 +280,13 @@ def _qkv_attention():
     q = _t(_x(2 * 4, 16, 1).reshape(1, 4, 2, 16))
     k = _t(_x(2 * 32, 16, 2).reshape(1, 2, 32, 16))
     return q, k, k.clone()
+
+
+def _forward(**kw):
+    """``forward`` of a reduced yi-6b on 8 tokens, with keywords ``kw``."""
+    model = init_params(CFG, seed=0, device="cpu")
+    toks = np.random.default_rng(0).integers(0, CFG.vocab_size, (1, 8))
+    return forward(model, CFG, {"tokens": toks}, **kw)[0]
 
 
 #: one call per placeholder with a non-default value, and what it raises
@@ -215,6 +361,17 @@ PLACEHOLDERS = {
     "init_cache.enc_len": (
         lambda: init_cache(CFG, 1, 8, torch.float32, 4,
                            device="cpu"), NotImplementedError),
+    "forward.remat": (lambda: _forward(remat=False), NotImplementedError),
+    "forward.seq_mixer": (lambda: _forward(seq_mixer="scan"),
+                          NotImplementedError),
+    "forward.remat_policy": (lambda: _forward(remat_policy="dots"),
+                             NotImplementedError),
+    "make_prefill_step.seq_mixer": (
+        lambda: make_prefill_step(CFG, seq_mixer="scan"),
+        NotImplementedError),
+    "kv_block_sums_bf16.blocks_per_tile": (
+        lambda: kv_block_sums_bf16(_t(_x()), _t(_x()), "gaussian", 1.0, 1.0,
+                                   16, 0), ValueError),
 }
 
 
@@ -242,6 +399,21 @@ def test_placeholders_at_their_defaults_change_nothing():
     cache = init_cache(CFG, 1, 8, torch.float32, 0,
                        device="cpu")
     assert cache["k"].shape[3] == 8
+    torch.testing.assert_close(
+        _forward(remat=True, seq_mixer="chunked", remat_policy="none"),
+        _forward(), rtol=0, atol=0)
+    # honoured exactly: a tile of any width sums each block alike, and the
+    # reference's exp-table operand is the table the bf16 path reads
+    want = kv_block_sums_bf16(q, x, "gaussian", 1.0, 1.0, 16)
+    for t in (1, 3, 100):
+        torch.testing.assert_close(
+            kv_block_sums_bf16(q, x, "gaussian", 1.0, 1.0, 16, t), want,
+            rtol=0, atol=0)
+    xr = x[:60].reshape(20, 3, 8)
+    want = rowwise_kv(q, xr, "gaussian", 1.0, 1.0, None, "bf16")
+    torch.testing.assert_close(
+        rowwise_kv(q, xr, "gaussian", 1.0, 1.0, None, "bf16",
+                   exp_table_on("cpu")), want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("entry", ["NeighborSampler", "spectral_sparsify"])

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the level-1 and kde_hash kernels of one source tree on the card.
+"""Time the kernels of one source tree on the card.
 
     python3 tools/kernel_ab.py --src SRC_DIR [--reps 50] [--group G]
+                               [--only NAME,...]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (the ``src`` directory of this
 checkout, or of another commit unpacked beside it), builds that tree's
-kernels, and times six wrappers at their main-path shapes, on inputs
+kernels, and times these wrappers at their main-path shapes, on inputs
 drawn from a fixed seed on the card:
 
 - rowsum: m 1024, n 16384, d 784, laplacian (the LRA's row norms);
@@ -13,7 +14,14 @@ drawn from a fixed seed on the card:
 - sample_block: m 1024, n 65536, d 16, bn 256, gaussian, int64 own;
 - masked_blocksum: the same at m 4096;
 - weighted_kv: m 1024, t 1152 uniform columns of n 262144, d 16;
-- weighted_kv_sum: the same at t 192.
+- weighted_kv_sum: the same at t 192;
+- flash / flash_bf16: the yi-6b prefill, (1, 32, 8192, 128), 4 kv-heads,
+  causal, f32 and bf16 operands (v a transposed view, as the model hands
+  it);
+- kde_decode / kde_decode_bf16: the serve shape, q (4, 32, 128), cache (4,
+  4, 544, 128), top_p 4, bk 32, stride 4, kv_valid 527, f32 and bf16;
+- kde_decode_long: the long_500k cell on one layer's 1.07 GB bf16 cache,
+  q (1, 32, 128), cache (1, 4, 524288, 128), top_p 16, bk 512, stride 16.
 
 Prints one JSON line: for each wrapper ``ms`` (CUDA events around
 back-to-back calls, host cost included), ``device_ms`` (torch.profiler:
@@ -21,9 +29,11 @@ every device activity of a call, summed), ``launches`` (device activities
 a call), ``host_us`` (host clock per call, no synchronize inside) and
 ``max_abs_err`` against the plain version (for sample_block, of the block
 sums, with ``blk_equal``, the share of rows drawing the plain version's
-block); and the card's name and power limit.  ``--group G`` sets the
-level-1 blocks a CTA of the sampler kernels sums (trees that have the
-option).  Two trees compare only within one machine, in turns: A, B, B, A.
+block; for bf16 outputs also ``max_bf16_steps``, beyond atol 1e-5); and
+the card's name and power limit.  ``--group G`` sets the level-1 blocks a
+CTA of the sampler kernels sums (trees that have the option); ``--only``
+times the named wrappers alone.  Two trees compare only within one
+machine, in turns: A, B, B, A.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ def main() -> int:
     ap.add_argument("--src", required=True)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--group", type=int, default=None)
+    ap.add_argument("--only", default=None)
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     import torch
@@ -47,6 +58,9 @@ def main() -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.kde_attention import kernel as kk
     from repro_torch.kernels.kde_hash import kernel as hk
     from repro_torch.kernels.kde_rowsum import kernel as rk
     from repro_torch.kernels.kde_sampler import kernel as sk
@@ -87,6 +101,44 @@ def main() -> int:
         calls[name] = (lambda n=name, a=wargs: getattr(hk, n + "_cuda")(*a),
                        lambda n=name, a=wargs: getattr(hk, n + "_plain")(*a))
 
+    for name, dtype in (("flash", torch.float32),
+                        ("flash_bf16", torch.bfloat16)):
+        q = torch.randn((1, 32, 8192, 128), generator=gen, device=dev)
+        k = torch.randn((1, 4, 8192, 128), generator=gen, device=dev)
+        v = torch.randn((1, 8192, 4, 128), generator=gen,
+                        device=dev).transpose(1, 2)
+        q, kp, vp, kw = (q.to(dtype), *fops.flash_args(
+            q.to(dtype), k.to(dtype), v.to(dtype)))
+        calls[name] = (
+            lambda a=(q, kp, vp), kw=kw: fk.flash_attention_cuda(*a, **kw)[0],
+            lambda a=(q, kp, vp), kw=kw: fk.flash_attention_plain(
+                *a, **kw)[0])
+    for name, dtype, (b, s, top_p, bk, stride, kv) in (
+            ("kde_decode", torch.float32, (4, 544, 4, 32, 4, 527)),
+            ("kde_decode_bf16", torch.bfloat16, (4, 544, 4, 32, 4, 527)),
+            ("kde_decode_long", torch.bfloat16,
+             (1, 524288, 16, 512, 16, 524288))):
+        q = torch.randn((b, 32, 128), generator=gen, device=dev).to(dtype)
+        k = (torch.randn((b, 4, s, 128), generator=gen, device=dev)
+             * 0.3).to(dtype)
+        v = torch.randn((b, 4, s, 128), generator=gen, device=dev).to(dtype)
+        kw = dict(top_p=top_p, bk=bk, stride=stride, kv_valid=kv)
+        calls[name] = (
+            lambda a=(q, k, v), kw=kw: kk.kde_decode_cuda(*a, **kw),
+            lambda a=(q, k, v), kw=kw: kk.kde_decode_plain(*a, **kw))
+    if args.only:
+        calls = {n: calls[n] for n in args.only.split(",")}
+
+    def bf16_steps(a, b, atol=1e-5):
+        """Max bf16 steps between a and b where they differ by more than
+        atol (as repro_torch.testing.assert_bf16_close, which a --src tree
+        may predate)."""
+        def line(t):
+            i = t.contiguous().view(torch.int16).to(torch.int32)
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+        far = (a.float() - b.float()).abs() > atol
+        return int(torch.where(far, (line(a) - line(b)).abs(), 0).max())
+
     out = {}
     for name, (fn, plain) in calls.items():
         got, want = fn(), plain()
@@ -94,7 +146,10 @@ def main() -> int:
         if name == "sample_block":
             err["blk_equal"] = float((got[0] == want[0]).float().mean())
             got, want = got[3], want[3]
-        err["max_abs_err"] = float((got - want).abs().max())
+        err["max_abs_err"] = float((got.float() - want.float()).abs().max())
+        if got.dtype == torch.bfloat16:
+            err["max_bf16_steps"] = bf16_steps(got, want)
+        del want
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
