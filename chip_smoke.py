@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; no phase catches and continues):
                nvcc (one process per source, started together) and print
                the build seconds and ptxas register / spill lines; the
                library's SASS (``cuobjdump``) must show tensor-core HMMA
-               instructions in every bf16 flash instance and none in the
-               f32 ones.
+               instructions in every bf16 flash instance and every
+               tensor-core sampler instance (the bf16 sample_block /
+               masked_blocksum tile), and none in the f32 flash instances
+               or the f32 sampler tiles.
 2. kernels  -- every kernel against its plain PyTorch version on the card:
                all four kernel kinds on ragged shapes (m=37, n=301, d=19,
                bn=70; the kde_hash kernels at m=37, t=45, d=19; laplacian
@@ -125,8 +127,16 @@ Phases (any failure exits non-zero; no phase catches and continues):
                (d) the hashed sparsifier in bf16 on phase 6's data
                (``NeighborSampler(level1="hash", precision="bf16")``,
                degrees from its hash estimator, t = 10n): phase 6's
-               layout, counter formula, degree-sum bound and edge law.
-               (c) and (d) launch only bf16 instances (asserted).
+               layout, counter formula, degree-sum bound and edge law,
+               then a bf16 hashed walk (1024 x 8) on the same sampler.
+               (c) and (d) launch only bf16 instances (asserted), and
+               every weighted launch of (d) gathers the estimator's one
+               bf16-resident copy of the dataset (asserted).  (a) also
+               holds the sampler kernels' tensor-core tile to the
+               flip slack on inputs built for cancellation (a common
+               offset large against the spread; queries that are dataset
+               rows), and the weighted kernels on the bf16 copy bitwise to
+               their bf16 instances on the f32 rows.
 9. graph    -- walks (Algorithm 4.16) and the Table-1 applications through
                the public entry points, each configuration's wall time and
                rate printed beside the card line.  (a) stratified walks on
@@ -531,14 +541,16 @@ def phase_build():
         if "Compiling entry function" in line or "registers" in line \
                 or "spill" in line:
             log("[build]", line.strip())
-    flash_sass_check(build)
+    sass_check(build)
 
 
-def flash_sass_check(build) -> None:
+def sass_check(build) -> None:
     """The built library's SASS (``cuobjdump --dump-sass``): every bf16
-    instance of the flash kernel (``flash_mma_kernel``) issues tensor-core
-    ``HMMA`` instructions and no f32 instance (``flash_fwd_kernel``)
-    does."""
+    instance of the flash kernel (``flash_mma_kernel``) and of the
+    sampler's tensor-core tile (``sampler_mma_kernel``, the bf16 kinds
+    4-6) contains tensor-core ``HMMA`` instructions, and no f32 flash
+    instance (``flash_fwd_kernel``) and no other sampler tile (the wide
+    and generic tiles, every f32 kind among them) does."""
     import re
     from repro_torch.kernels.flash_attention import kernel as fk
     import torch
@@ -562,6 +574,22 @@ def flash_sass_check(build) -> None:
         assert all((c > 0) == tensor for c in hits.values()), (name, hits)
         log(f"[build] SASS of {name} ({body}): HMMA instructions per "
             f"instance {sorted(hits.values())}")
+    mma = {f: c for f, c in counts.items() if "sampler_mma_kernel" in f}
+    other = {f: c for f, c in counts.items()
+             if "sampler_wide_kernel" in f or "sampler_generic_kernel" in f}
+    # instances are sampler_mma_kernel<KIND, DK, DRAW>: 3 kinds x 2 x 2
+    assert len(mma) == 12 and all(c > 0 for c in mma.values()), mma
+    assert all(re.search(r"mma_kernelILi[456]E", f) for f in mma), mma
+    # sampler_wide_kernel<KIND, DK, DRAW> for the 4 f32 kinds (0-3) x 2 x 2,
+    # sampler_generic_kernel<KIND, DRAW> for all 7 kinds x 2
+    wide = [f for f in other if "sampler_wide_kernel" in f]
+    assert len(wide) == 16 and len(other) == 30, sorted(other)
+    assert all(re.search(r"wide_kernelILi[0-3]E", f) for f in wide), wide
+    assert not any(other.values()), other
+    log(f"[build] SASS of sampler_mma_kernel (bf16 sample_block / "
+        f"masked_blocksum): HMMA instructions per instance "
+        f"{sorted(mma.values())}; {len(other)} wide / generic sampler "
+        f"instances (the f32 kinds' among them): none")
 
 
 def phase_kernels(data, gen):
@@ -2416,7 +2444,8 @@ def bf16_kernel_checks(gen):
     from repro_torch.kernels.kde_rowsum import kernel as rk
     from repro_torch.kernels.kde_sampler import kernel as sk
     from repro_torch.kernels.kde_sampler.ops import gumbel
-    from repro_torch.kernels.kde_sampler.ref import bf16_flip_slack
+    from repro_torch.kernels.kde_sampler.ref import (bf16_flip_slack,
+                                                     round_bf16)
     dev = torch.device("cuda")
     errs = {k: 0.0 for k in BF16_NAMES}
 
@@ -2496,9 +2525,55 @@ def bf16_kernel_checks(gen):
             hk.weighted_kv_sum_cuda(*args, precision="bf16"), want,
             f"weighted_kv_sum bf16 {kind} d={d}",
             HASH_ATOL * float(want.abs().max()), slack=sl.sum(1)))
+        # the dataset's bf16-resident copy (off 8 bytes where x is off 16):
+        # the bf16-row instances, bitwise the bf16 instances on f32 rows
+        x16 = torch.empty(n * d + 1, dtype=torch.bfloat16, device=dev)[
+            0 if aligned else 1:][:n * d].view(n, d).copy_(round_bf16(x))
+        for fn in (hk.weighted_kv_cuda, hk.weighted_kv_sum_cuda):
+            assert torch.equal(fn(q, x16, *args[2:], precision="bf16"),
+                               fn(*args, precision="bf16")), \
+                f"{fn.__name__} bf16 rows {kind} d={d}: not the f32 rows' bits"
         log(f"[bf16] kde_hash ragged m={m} t={t} d={d} {kind}"
             f"{'' if aligned else ', x off 16 bytes'} "
-            f"[{hk.weighted_kv_plan(m, n, d, t, x.data_ptr() % 16 == 0)}]: ok")
+            f"[{hk.weighted_kv_plan(m, n, d, t, x.data_ptr() % 16 == 0)}]: ok;"
+            f" on the bf16 copy "
+            f"[{hk.weighted_kv_plan(m, n, d, t, x16.data_ptr() % 8 == 0, torch.bfloat16, 'bf16')}]"
+            f": bitwise")
+
+    # cancellation: a common offset large against the spread (qq + xx - 2c
+    # keeps a few bits of the norms), queries that are dataset rows (d2 =
+    # 0 against themselves); the tensor-core tile within the flip slack
+    for d, off, bn in ((16, 4.0, 256), (16, 30.0, 256), (8, 100.0, 70),
+                       (32, 12.0, 70), (16, 300.0, 70)):
+        n, m = 4096, 300
+        x = off + torch.randn(n, d, generator=gen, device=dev) * 0.5
+        src = torch.randint(0, n, (m,), generator=gen, device=dev)
+        q = x[src].contiguous()
+        own = src // bn
+        g = gumbel((m, -(-n // bn)), gen, dev)
+        plan = sk.sample_block_plan(m, n, d, bn, precision="bf16")
+        assert plan.instance == sk.MMA + (16 if d <= 16 else 32), plan
+        with_slack = 0
+        for kind in L2_KINDS:
+            a = (kind, 1.0 / (0.5 * d ** 0.5), 0.7)
+            bsl = bf16_flip_slack(q, x, kind, a[1], bn)
+            with_slack += int((bsl > 0).sum())
+            note("masked_blocksum_bf16", close(
+                sk.masked_blocksum_cuda(q, x, own, *a, bn, "bf16"),
+                sk.masked_blocksum_plain(q, x, own, *a, bn, "bf16"),
+                f"masked_blocksum bf16 cancelling {kind} d={d} offset {off}",
+                slack=bsl))
+            got = sk.sample_block_cuda(q, x, own, g, *a, bn, "bf16")
+            note("sample_block_bf16", check_sample_block_bf16(
+                got, sk.sample_block_plain(q, x, own, g, *a, bn, "bf16"), g,
+                bsl, f"cancelling {kind} d={d} offset {off}"))
+            assert all(torch.equal(u, v) for u, v in zip(
+                got, sk.sample_block_cuda(q, x, own, g, *a, bn, "bf16"))), \
+                f"sample_block bf16 cancelling {kind}: two calls differ"
+        log(f"[bf16] cancelling inputs d={d} offset {off} bn={bn} (tile "
+            f"{plan.instance}): masked_blocksum and sample_block within the "
+            f"flip slack, every L2 kind ({with_slack} of {3 * bsl.numel()} "
+            f"block sums have slack); two calls bitwise equal")
 
     # dyadic points: exact in bf16, every distance exact in f32 in any
     # order, so no slack; blocks lo and hi equal, equal Gumbel noise there
@@ -2707,12 +2782,18 @@ def bf16_main_rows(data, gen, errs):
     fcols, fwgt, _, _ = href.frontier_gather(src, state, off,
                                              HS_FAR_PER_BLOCK, bn, nb, n)
     fq = x[src].contiguous()
+    # the bf16-resident copy HashedKDE(precision="bf16") makes once
+    copy_ms = timed(lambda: round_bf16(x).to(torch.bfloat16), 5)
+    x16 = round_bf16(x).to(torch.bfloat16)
+    log(f"[bf16] the dataset's bf16 copy: {x16.numel() * 2} bytes (n={n} "
+        f"d={d}), {copy_ms!r} ms to build once (CUDA events, mean of 5), "
+        f"against the f32 rows' {x.numel() * 4} bytes")
     for name, qq, cols, wgt, line, sum_out in (
             ("weighted_kv_sum_bf16", q, qcols, qwgt, 87, True),
             ("weighted_kv_bf16", fq, fcols, fwgt, 97, False)):
         kern = hk.weighted_kv_sum_cuda if sum_out else hk.weighted_kv_cuda
         plain = hk.weighted_kv_sum_plain if sum_out else hk.weighted_kv_plain
-        args = (qq, x, cols, wgt, "gaussian", inv)
+        args = (qq, x16, cols, wgt, "gaussian", inv)
         rows_g = x[cols.long()]
         sl = bf16_flip_slack(qq, rows_g, "gaussian", inv, chunk=256) \
             * wgt.double()
@@ -2723,15 +2804,20 @@ def bf16_main_rows(data, gen, errs):
             slack=sl.sum(1) if sum_out else sl))
         m, t = cols.shape
         uniq = torch.unique(cols).numel()
+        # bytes: q, cols, wgt and the output at 4, each distinct gathered
+        # row once at 2 bytes a coordinate (4 on the f32 rows: the old
+        # bound, logged beside the new one)
+        fixed = 4 * (m * d + 2 * m * t + (m if sum_out else m * t)) \
+            + table_bytes(qq, rows_g, inv)
+        b = bf16_bound(m * t, d, fixed + 2 * uniq * d, m * t)
+        log(f"[bf16] {name} bound on the bf16 rows {b[0]!r} ms ({b[1]}); "
+            f"on the f32 rows "
+            f"{bf16_bound(m * t, d, fixed + 4 * uniq * d, m * t)[0]!r} ms")
         row(name, "kde_hash.cu", f"kde_hash/kernel.py:{line}",
-            f"m={m} t={t} d={d} gaussian, {uniq} distinct rows",
+            f"m={m} t={t} d={d} gaussian, {uniq} distinct rows, bf16 copy",
             lambda: kern(*args, precision="bf16"),
             lambda: plain(*args, precision="bf16"),
-            bf16_bound(m * t, d, 4 * (m * d + 2 * m * t
-                                      + (m if sum_out else m * t) + uniq * d)
-                       + table_bytes(qq, rows_g, inv), m * t), None,
-            "weighted_kv",
-            reps=50)
+            b, None, "weighted_kv", reps=50)
     return rows
 
 
@@ -2848,21 +2934,88 @@ def bf16_exact_checks(data, g):
         f"(alpha 1e-3)")
 
 
+def gathered_rows(fn):
+    """(fn's result, the set of (dtype, data_ptr) of the dataset every
+    weighted-kv(-sum) launch made during ``fn`` gathered from)."""
+    from repro_torch.kernels.kde_hash import kernel as hk
+    seen, saved = set(), []
+
+    def spy(orig):
+        def call(q, x, *a, **kw):
+            seen.add((x.dtype, x.data_ptr()))
+            return orig(q, x, *a, **kw)
+        return call
+
+    for attr in ("weighted_kv_cuda", "weighted_kv_sum_cuda"):
+        saved.append((attr, getattr(hk, attr)))
+        setattr(hk, attr, spy(getattr(hk, attr)))
+    try:
+        out = fn()
+    finally:
+        for attr, orig in saved:
+            setattr(hk, attr, orig)
+    return out, seen
+
+
 def bf16_hash_path(data):
     """(d): the hashed sparsifier in bf16 on phase 6's data (the reference's
     hash defaults, degrees from the sampler's own hash estimator, t = 10n).
+    Every weighted launch gathers the estimator's bf16 copy of the dataset.
     Returns (graph, launches)."""
+    import torch
     from repro_torch.kernels.kde_hash import kernel as hk
     hk.reset_launches()
-    g = bf16_sparsify(data["hs_x_np"], HS_BW, 10 * HS_N, level1="hash")
+    g, rows = gathered_rows(lambda: bf16_sparsify(
+        data["hs_x_np"], HS_BW, 10 * HS_N, level1="hash"))
     launches = dict(hk.LAUNCHES)
+    copy = g.nbr.hash_estimator.state.x_bf16
     log(f"[bf16] (d) hashed sparsifier n={HS_N} d={HS_D} t={10 * HS_N}: "
         f"{g.secs:.2f} s, {10 * HS_N / g.secs:.0f} edges/s, kernel_evals "
         f"{g.kernel_evals}, status {g.status}; launches {launches}")
     want = {"weighted_kv_sum_bf16": HS_N // BATCH,
             "weighted_kv_bf16": -(-10 * HS_N // BATCH)}
     assert launches == {**{k: 0 for k in launches}, **want}, launches
+    assert rows == {(torch.bfloat16, copy.data_ptr())}, rows
+    log(f"[bf16] (d) every weighted launch gathered the estimator's bf16 "
+        f"copy ({copy.numel() * 2} bytes, made once)")
     return g, launches
+
+
+def bf16_hash_walk(g, errs):
+    """(d), walks: a bf16 hashed walk (1024 x 8) on (d)'s sampler: the
+    weighted-kv bf16 kernel once a step on the estimator's bf16 copy, its
+    first call against its plain version within the flip slack."""
+    import inspect
+    import numpy as np
+    import torch
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_sampler.ref import bf16_flip_slack
+    nbr = g.nbr
+    copy = nbr.hash_estimator.state.x_bf16
+    starts = np.random.default_rng(3).integers(0, HS_N, 1024).astype(
+        np.int64)
+    hk.reset_launches()
+    (_, taps), rows = gathered_rows(lambda: tapped(
+        lambda: nbr.walk(starts, 8), (hk, "weighted_kv_cuda")))
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    assert launches == {"weighted_kv_bf16": 8}, launches
+    assert rows == {(torch.bfloat16, copy.data_ptr())}, rows
+    args, kw, got = taps["weighted_kv_cuda"]
+    a = inspect.signature(hk.weighted_kv_cuda).bind(*args, **kw).arguments
+    want = hk.weighted_kv_plain(**a)
+    x32 = nbr.x
+    sl = bf16_flip_slack(a["q"], x32[a["cols"].long().clamp(0, HS_N - 1)],
+                         a["kind"], a["inv_bw"], chunk=256) \
+        * a["wgt"].double()
+    errs["weighted_kv_bf16"] = max(errs["weighted_kv_bf16"], close(
+        got, want, "weighted_kv bf16 on the hashed walk",
+        HASH_ATOL * float(want.abs().max()), slack=sl))
+    secs, walls = best_wall(lambda: nbr.walk(starts, 8), 3)
+    log(f"[bf16] (d) bf16 hashed walk 1024 x 8: best {secs!r} s of "
+        f"{[round(w, 6) for w in walls]}, {8 * 1024 / secs:.0f} "
+        f"walk-steps/s, launches {launches} on the bf16 copy; the first "
+        f"call against its plain version within the flip slack")
+    return launches
 
 
 def bf16_hash_checks(data, g):
@@ -2917,6 +3070,13 @@ def phase_bf16(data, gen):
     secs["bf16 exact"] = g_ex.secs
     g_hs, hs_launches = bf16_hash_path(data)
     secs["bf16 hash"] = g_hs.secs
+    t0 = time.perf_counter()
+    walk_errs = {"weighted_kv_bf16": 0.0}
+    bf16_hash_walk(g_hs, walk_errs)
+    for r in rows:
+        if r["name"] in walk_errs:
+            r["max_abs_err"] = max(r["max_abs_err"], walk_errs[r["name"]])
+    secs["bf16 hashed walk"] = time.perf_counter() - t0
     for k, v in {**ex_launches, **hs_launches}.items():
         if k.endswith("_bf16") and v:
             launches[k] = v

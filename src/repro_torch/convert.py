@@ -50,7 +50,7 @@ def hash_state_from_reference(state, device=None) -> HashState:
     dev = resolve_device(device)
 
     def conv(name):
-        a = getattr(state, name)
+        a = getattr(state, name, None)     # x_bf16 is the port's own
         if a is None:
             return None
         a = np.array(a)

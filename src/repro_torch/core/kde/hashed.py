@@ -7,8 +7,10 @@ Horvitz-Thompson FAR term over uniform complement samples) as one device
 program per query batch, whose weighted pass is the weighted-kv-sum CUDA
 kernel on the card -- O(max_bucket + num_far_samples) kernel evals per
 query instead of the dense backends' O(n).  ``precision="bf16"`` runs that
-pass in the bf16 policy (its bf16 kernel instance); the bucket layout, the
-FAR draws and the HT weights are the same at either precision.
+pass in the bf16 policy (its bf16 kernel instance) on a bf16-resident copy
+of the dataset, ``state.x_bf16``, made once here (half the gathered bytes;
+the same values as the rounded f32 rows); the bucket layout, the FAR draws
+and the HT weights are the same at either precision.
 
 This slice covers static datasets on one device: ``mesh=``,
 ``data_axes=`` other than ``("data",)`` and ``dataset=`` raise
@@ -26,6 +28,7 @@ from repro_torch.core.kde.base import KDEBase
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import as_f32, no_switch, not_in_slice
 from repro_torch.ft import guards as _g
+from repro_torch.kernels.kde_sampler.ref import round_bf16
 
 
 class HashedKDE(KDEBase):
@@ -75,6 +78,9 @@ class HashedKDE(KDEBase):
             self.x, kernel, cell_width=cell_width,
             num_hash_dims=int(num_hash_dims), max_bucket=self.max_bucket,
             seed=int(seed), device=self.device)
+        if self.precision == "bf16":
+            self.state = self.state._replace(
+                x_bf16=round_bf16(self.x).to(torch.bfloat16))
         self._cfg = dict(kind=kernel.name, inv_bw=1.0 / kernel.bandwidth,
                          beta=getattr(kernel, "beta", 1.0),
                          pairwise=static_pairwise(kernel),

@@ -55,9 +55,20 @@
 // precision="bf16" (the Pallas kernel's bf16 specialisation: rowwise_kv on
 // rounded rows, finished through the exp-table operand) runs both
 // instances at the bf16 kind ids of kde_tile.cuh: q's coordinates are
-// rounded where they are loaded, each gathered coordinate as it arrives in
-// a register, and exp is read from `table` (the L2 kinds only; the HT
-// weights stay f32).
+// rounded where they are loaded and exp is read from `table` (the L2 kinds
+// only; the HT weights stay f32).  The gathered rows come one of two ways
+// (the plan picks by x's dtype, kernels/kde_hash/kernel.py
+// ``weighted_kv_plan``):
+// - an f32 x: each gathered coordinate is rounded as it arrives in a
+//   register (the f32 rows' 64 bytes at d = 16 cross L2 for 32 used);
+// - a bf16 x, the dataset's bf16-resident copy (instance + BF16_ROWS,
+//   made once per dataset by the hashed estimator): the rows are 32 bytes
+//   at d = 16, 64 at d = 32, so the gathers move half the bytes and x
+//   takes half the L2.  The vector instance keeps L = D4 lanes a row, each
+//   loading its 4 coordinates as one 8-byte piece (evict-last, as the f32
+//   rows) and unpacking the bf16 pairs by bit operations (exact), so every
+//   lane adds the same values in the same order as on the f32 x: the
+//   outputs are bitwise those of the f32-x instance on the same dataset.
 #include <stdint.h>
 
 #include <type_traits>
@@ -67,7 +78,8 @@
 // Static arguments of a launch (kernels/build.py ``KdeWeightedShape``).
 struct KdeWeightedShape {
   int m, n, d, t;
-  int instance;   // 0 scalar, 4 or 8: the vector instance with that many float4 per row
+  int instance;   // 0 scalar, 4 or 8: the vector instance with that many float4 per row;
+                  // + BF16_ROWS: the same on a bf16 x
   int kind;
   float inv_bw, inv_bw2, beta;
 };
@@ -75,6 +87,20 @@ struct KdeWeightedShape {
 namespace {
 
 constexpr int THREADS = 128;      // threads a row
+constexpr int BF16_ROWS = 16;     // KdeWeightedShape::instance flag: x is bf16
+
+using bf16 = __nv_bfloat16;
+
+// A gathered coordinate as f32: a KIND operand from an f32 x, exact from a
+// bf16 x (its values are already rounded).
+template <int KIND>
+__device__ __forceinline__ float gathered(const float* p) {
+  return kde::operand<KIND>(__ldg(p));
+}
+template <int KIND>
+__device__ __forceinline__ float gathered(const bf16* p) {
+  return __bfloat162float(*p);
+}
 
 // A KIND instance's kernel-value arguments: the f32 kinds' 12-byte Params,
 // the bf16 kinds' TableParams (with the exp table).
@@ -99,9 +125,9 @@ __device__ __forceinline__ void cta_sum(float total, float* out) {
 }
 
 // -------------------------------------------------------------- scalar
-template <int KIND, bool SUM>
+template <int KIND, bool SUM, class XT>
 __global__ void __launch_bounds__(THREADS)
-weighted_kv_scalar_kernel(const float* __restrict__ q, const float* __restrict__ x,
+weighted_kv_scalar_kernel(const float* __restrict__ q, const XT* __restrict__ x,
                           const int* __restrict__ cols, const float* __restrict__ wgt,
                           float* __restrict__ out, int n, int d, int t, KindParams<KIND> p) {
   extern __shared__ float qs[];              // d floats: this CTA's query row
@@ -119,10 +145,10 @@ weighted_kv_scalar_kernel(const float* __restrict__ q, const float* __restrict__
   float total = 0.0f;
   for (int j = tid; j < t; j += THREADS) {
     const int c = min(max(c_row[j], 0), n - 1);
-    const float* xr = x + (size_t)c * d;
+    const XT* xr = x + (size_t)c * d;
     float acc = 0.0f, xx = 0.0f;
     for (int k = 0; k < d; ++k) {
-      const float v = kde::operand<KIND>(__ldg(xr + k));
+      const float v = gathered<KIND>(xr + k);
       if (L2) {
         acc = fmaf(qs[k], v, acc);
         xx = fmaf(v, v, xx);
@@ -153,6 +179,17 @@ __device__ __forceinline__ float4 ld_keep(const float4* ptr, uint64_t pol) {
   return v;
 }
 
+// 8-byte read-only load of a bf16 x with the L2 evict-last policy: four
+// coordinates, unpacked to f32 (a bf16 value is the high half of its f32).
+__device__ __forceinline__ float4 ld_keep(const uint2* ptr, uint64_t pol) {
+  uint32_t lo, hi;
+  asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;\n"
+      : "=r"(lo), "=r"(hi)
+      : "l"(ptr), "l"(pol));
+  return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u),
+                     __uint_as_float(hi << 16), __uint_as_float(hi & 0xffff0000u));
+}
+
 // Clamped column indices (-1 past the row's end) and weights of columns
 // j0 + stride u, u < U.
 template <int U>
@@ -168,17 +205,22 @@ __device__ __forceinline__ void load_group(int (&c)[U], float (&w)[U], const int
 }
 
 // The vector instance: L = D4 lanes share a column, lane l loading float4 l
-// of its row, so a warp's 16-byte gather instruction touches 32 / L rows
-// (one L1 wavefront each) instead of 32.
-template <int KIND, bool SUM, int D4>
+// of its row (or its 4 bf16 coordinates, 8 bytes, from a bf16 x), so a
+// warp's gather instruction touches 32 / L rows (one L1 wavefront each)
+// instead of 32.
+template <int KIND, bool SUM, int D4, class XT>
 __global__ void __launch_bounds__(THREADS)
-weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
+weighted_kv_vec_kernel(const float* __restrict__ q, const XT* __restrict__ x,
                        const int* __restrict__ cols, const float* __restrict__ wgt,
                        float* __restrict__ out, int n, int d, int t, KindParams<KIND> p) {
   constexpr bool L2 = KIND != kde::LAPLACIAN;
   constexpr int L = D4;                       // lanes a column
   constexpr int SLOTS = THREADS / L;          // columns a CTA reads at once
-  constexpr int U = 8;                        // gathers in flight a thread
+  constexpr bool ROWS16 = std::is_same_v<XT, bf16>;
+  // gathers in flight a thread: 4 for the 8-byte pieces of a bf16 x (8
+  // measured slower there on the H100, PERF.md's findings; the order in which
+  // a thread adds its columns does not depend on U)
+  constexpr int U = ROWS16 ? 4 : 8;
   constexpr int STEP = SLOTS * U;             // columns a CTA covers a group
   const int row = blockIdx.x;
   const int lane_l = threadIdx.x % L;         // float4 of the row this lane reads
@@ -206,7 +248,8 @@ weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
   }
   const int* c_row = cols + (size_t)row * t;
   const float* w_row = wgt + (size_t)row * t;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
+  using Piece = std::conditional_t<ROWS16, uint2, float4>;   // 4 coordinates
+  const Piece* x4 = reinterpret_cast<const Piece*>(x);
   float total = 0.0f;
   int c[U];
   float w[U];
@@ -225,7 +268,7 @@ weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
     load_group<U>(c, w, c_row, w_row, base + STEP + slot, SLOTS, n, t);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const float4 v = kde::operand4<KIND>(xv[u]);
+      const float4 v = ROWS16 ? xv[u] : kde::operand4<KIND>(xv[u]);
       float acc, xx = 0.0f;
       if (L2) {
         acc = qv.x * v.x;
@@ -258,27 +301,42 @@ weighted_kv_vec_kernel(const float* __restrict__ q, const float* __restrict__ x,
   if (SUM) cta_sum(total, out + row);
 }
 
-template <int KIND, bool SUM>
-int launch_kind(const float* q, const float* x, const int* cols, const float* wgt,
-                float* out, const float* table, const KdeWeightedShape& s, cudaStream_t st) {
-  KindParams<KIND> p{s.inv_bw, s.inv_bw2, s.beta};
-  if constexpr (kde::is_bf16(KIND)) p.table = table;
-  if (s.instance == 4)
-    weighted_kv_vec_kernel<KIND, SUM, 4><<<s.m, THREADS, 0, st>>>(q, x, cols, wgt, out,
-                                                                      s.n, s.d, s.t, p);
-  else if (s.instance == 8)
-    weighted_kv_vec_kernel<KIND, SUM, 8><<<s.m, THREADS, 0, st>>>(q, x, cols, wgt, out,
-                                                                      s.n, s.d, s.t, p);
-  else if (s.instance == 0)
-    weighted_kv_scalar_kernel<KIND, SUM><<<s.m, THREADS, sizeof(float) * (size_t)s.d, st>>>(
-        q, x, cols, wgt, out, s.n, s.d, s.t, p);
+template <int KIND, bool SUM, class XT>
+int launch_rows(const float* q, const XT* x, const int* cols, const float* wgt, float* out,
+                const KindParams<KIND>& p, int instance, const KdeWeightedShape& s,
+                cudaStream_t st) {
+  if (instance == 4)
+    weighted_kv_vec_kernel<KIND, SUM, 4, XT><<<s.m, THREADS, 0, st>>>(q, x, cols, wgt, out,
+                                                                          s.n, s.d, s.t, p);
+  else if (instance == 8)
+    weighted_kv_vec_kernel<KIND, SUM, 8, XT><<<s.m, THREADS, 0, st>>>(q, x, cols, wgt, out,
+                                                                          s.n, s.d, s.t, p);
+  else if (instance == 0)
+    weighted_kv_scalar_kernel<KIND, SUM, XT>
+        <<<s.m, THREADS, sizeof(float) * (size_t)s.d, st>>>(q, x, cols, wgt, out, s.n, s.d,
+                                                            s.t, p);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
+// x is f32, or bf16 (instance + BF16_ROWS) for the bf16 kinds
+template <int KIND, bool SUM>
+int launch_kind(const float* q, const void* x, const int* cols, const float* wgt,
+                float* out, const float* table, const KdeWeightedShape& s, cudaStream_t st) {
+  KindParams<KIND> p{s.inv_bw, s.inv_bw2, s.beta};
+  if constexpr (kde::is_bf16(KIND)) {
+    p.table = table;
+    if (s.instance >= BF16_ROWS)
+      return launch_rows<KIND, SUM>(q, static_cast<const bf16*>(x), cols, wgt, out, p,
+                                    s.instance - BF16_ROWS, s, st);
+  }
+  return launch_rows<KIND, SUM>(q, static_cast<const float*>(x), cols, wgt, out, p,
+                                s.instance, s, st);
+}
+
 template <bool SUM>
-int launch(const float* q, const float* x, const int* cols, const float* wgt, float* out,
+int launch(const float* q, const void* x, const int* cols, const float* wgt, float* out,
            const float* t, const KdeWeightedShape& s, cudaStream_t st) {
   switch (s.kind) {
     case kde::GAUSSIAN: return launch_kind<kde::GAUSSIAN, SUM>(q, x, cols, wgt, out, t, s, st);
@@ -304,13 +362,14 @@ extern "C" {
 
 // table: the (65536,) bf16 exp table for the bf16 gaussian and exponential
 // kinds, else null.
-int kde_weighted_kv_launch(const float* q, const float* x, const int* cols, const float* wgt,
+// x: (n, d) f32, or bf16 where the shape's instance has BF16_ROWS.
+int kde_weighted_kv_launch(const float* q, const void* x, const int* cols, const float* wgt,
                            float* out, const float* table, void* stream,
                            const KdeWeightedShape* s) {
   return launch<false>(q, x, cols, wgt, out, table, *s, static_cast<cudaStream_t>(stream));
 }
 
-int kde_weighted_kv_sum_launch(const float* q, const float* x, const int* cols,
+int kde_weighted_kv_sum_launch(const float* q, const void* x, const int* cols,
                                const float* wgt, float* out, const float* table, void* stream,
                                const KdeWeightedShape* s) {
   return launch<true>(q, x, cols, wgt, out, table, *s, static_cast<cudaStream_t>(stream));

@@ -33,11 +33,11 @@
 // per (device, stream) and reuses: launches on one stream never overlap, and
 // launches on two streams use two buffers.
 //
-// Two instances, chosen by the host-side plan (kernels/kde_sampler/kernel.py
+// Three instances, chosen by the host-side plan (kernels/kde_sampler/kernel.py
 // ``sample_block_plan``):
-// - wide (d % 4 == 0, d <= 32, q and x 16-byte aligned; kde_wide.cuh's
-//   wide_block_sums with the masked store): 256 threads own a 128-row query
-//   tile.  The tile is staged once per CTA with 16-byte
+// - wide (the f32 kinds where d % 4 == 0, d <= 32, q and x 16-byte aligned;
+//   kde_wide.cuh's wide_block_sums with the masked store): 256 threads own
+//   a 128-row query tile.  The tile is staged once per CTA with 16-byte
 //   cp.async copies; the group's columns stream through two 128-column
 //   buffers (the next chunk's copies overlap the current chunk's math).
 //   Rows stay row-major in shared memory, padded by 4 floats, so a thread's
@@ -49,11 +49,21 @@
 //   expf, the sum); 128 registers leave 2 CTAs an SM.
 // - generic (any d, any alignment; the ragged checks' d = 19 and d = 784):
 //   the 64-row tile of kde_tile.cuh, unchanged, with the same epilogue.
-// Both keep the reference's arithmetic: d2 = max(qn + xn - 2 cross, 0)
-// through kde::finish, IEEE expf/sqrtf/powf, no TF32, no fast-math.
-// precision="bf16" runs both at the bf16 kind ids of kde_tile.cuh (the
-// Pallas kernels' bf16 specialisation): operands rounded where they are
-// staged, exp read from `table` (the L2 kinds only; the draw is f32).  Queries
+// - mma (precision="bf16" where wide's conditions hold; kde_wide.cuh's
+//   mma_block_sums with the masked store, instance MMA + 16 or MMA + 32):
+//   the wide tile's CTA and staging with the cross term on the tensor
+//   cores (mma.sync m16n8k16, bf16 operands, f32 accumulation), the query
+//   fragments in registers for the whole sweep and a short per-pair
+//   epilogue (~8 instructions a pair against the wide tile's ~31).  The
+//   draw below is the same for every instance.
+// All three keep the reference's arithmetic: d2 = max(qn + xn - 2 cross, 0)
+// through kde::finish (mma: its twin finish2), IEEE expf/sqrtf/powf, no TF32,
+// no fast-math.
+// precision="bf16" runs the mma and generic tiles at the bf16 kind ids of
+// kde_tile.cuh (the Pallas kernels' bf16 specialisation): operands rounded
+// where they are staged, exp read from `table` (the L2 kinds only; the draw
+// is f32).  The wide tile is built for the f32 kinds only: at a bf16 kind
+// instance 16 / 32 returns cudaErrorInvalidValue.  Queries
 // are not padded: rows >= m are masked; a negative own index marks a row with
 // no own block; own is int32 or int64 (a flag in the shape struct).
 #include <stdint.h>
@@ -204,25 +214,49 @@ sampler_wide_kernel(Args a) {
   if (DRAW) draw_if_last<kde::Wide<DK>::BM>(a, blockIdx.y * kde::Wide<DK>::BM);
 }
 
+// ------------------------------------------------------------------- mma
 template <int KIND, int DK, bool DRAW>
-int launch_wide(const Args& a, cudaStream_t st) {
-  constexpr int smem = kde::Wide<DK>::BYTES;
-  static bool raised = false;             // above 48 KB at DK = 32
+__global__ void __launch_bounds__(THREADS, 2)
+sampler_mma_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  kde::mma_block_sums<KIND, DK, MaskedStore>(smem, a);
+  if (DRAW) draw_if_last<kde::Mma<DK>::BM>(a, blockIdx.y * kde::Mma<DK>::BM);
+}
+
+// A launch of a 128-row tile kernel (wide or mma) with SMEM bytes of
+// dynamic shared memory: above 48 KB (DK = 32) it needs the attribute,
+// set at the kernel's first launch.
+template <void (*KERNEL)(Args), int SMEM>
+int launch_tile(const Args& a, cudaStream_t st) {
+  constexpr int BM = kde::Wide<16>::BM;
+  static_assert(kde::Mma<16>::BM == BM, "both tiles take 128 query rows");
+  static bool raised = false;
   if (!raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sampler_wide_kernel<KIND, DK, DRAW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     raised = true;
   }
-  const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + kde::Wide<DK>::BM - 1) / kde::Wide<DK>::BM);
-  sampler_wide_kernel<KIND, DK, DRAW><<<grid, THREADS, smem, st>>>(a);
+  const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + BM - 1) / BM);
+  KERNEL<<<grid, THREADS, SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KIND, bool DRAW>
 int launch_kind(const Args& a, int instance, cudaStream_t st) {
-  if (instance == 16) return launch_wide<KIND, 16, DRAW>(a, st);
-  if (instance == 32) return launch_wide<KIND, 32, DRAW>(a, st);
+  using kde::Mma;
+  using kde::Wide;
+  if constexpr (kde::is_bf16(KIND)) {
+    if (instance == kde::MMA + 16)
+      return launch_tile<sampler_mma_kernel<KIND, 16, DRAW>, Mma<16>::BYTES>(a, st);
+    if (instance == kde::MMA + 32)
+      return launch_tile<sampler_mma_kernel<KIND, 32, DRAW>, Mma<32>::BYTES>(a, st);
+  } else {
+    if (instance == 16)
+      return launch_tile<sampler_wide_kernel<KIND, 16, DRAW>, Wide<16>::BYTES>(a, st);
+    if (instance == 32)
+      return launch_tile<sampler_wide_kernel<KIND, 32, DRAW>, Wide<32>::BYTES>(a, st);
+  }
   if (instance != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + kde::BM - 1) / kde::BM);
   sampler_generic_kernel<KIND, DRAW><<<grid, kde::THREADS, 0, st>>>(a);

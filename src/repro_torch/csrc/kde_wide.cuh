@@ -1,17 +1,19 @@
-// The 128-row register tiles of the level-1 KDE kernels (kde_sampler.cu,
-// kde_rowsum.cu): the wide tile for d <= 32 and the deep tile for d > 32.
+// The 128-row tiles of the level-1 KDE kernels (kde_sampler.cu,
+// kde_rowsum.cu): the wide register tile for d <= 32, the deep one for
+// d > 32, and the bf16 kinds' tensor-core tile for d <= 32.
 //
 // Replaces, with kde_tile.cuh's generic tile:
 // src/repro/kernels/kde_rowsum/kernel.py:_tile_kernel_values, the (bm, bn)
 // kernel-value tile that every TPU level-1 kernel reduces.
 //
-// Both tiles are block-sum sweeps: a CTA of 256 threads owns a 128-row query
+// All three are block-sum sweeps: a CTA of 256 threads owns a 128-row query
 // tile and a group of `group` consecutive level-1 blocks of `bn` columns, and
 // hands each finished (row, block) sum to the caller's Store::put(a, s, gi,
 // b) -- the masked, floored store of the sampler kernels or the raw store of
 // blocksum / rowsum's partial pass.  `a` is the caller's launch-argument
 // struct; the sweeps read its fields q, x, m, n, d, bn, nb, group and p.
-// Each thread keeps an 8 x 8 register tile; rows past the valid range and
+// On the wide and deep tiles each thread keeps an 8 x 8 register tile
+// (the mma tile: C fragments); rows past the valid range and
 // coordinates past d are staged as zeros, which adds 0 to the L2 cross term,
 // the norms and the L1 sum; columns past a block's end are masked in the
 // epilogue.
@@ -43,6 +45,9 @@
 //   One barrier a step; the L2 kinds sum the norms of every step in
 //   registers (two threads a row) and publish them once a column chunk.
 //   Shared memory (4 DK 132 + 256) floats: 34,816 B.
+// - mma (the bf16 kinds at d <= 32, same conditions as wide; the sampler's
+//   plan takes it, instance MMA + DK): the wide tile's staging, with the
+//   cross term on the tensor cores.  See mma_block_sums below.
 //
 // The bf16 kinds (kde_tile.cuh): cp.async copies raw bytes, so nothing is
 // rounded in flight.  After its cp_async_wait_all() each thread rounds, in
@@ -54,6 +59,8 @@
 // instruction to the inner loop; the f32 kinds compile none of it.
 #pragma once
 
+#include <stdint.h>
+
 #include "kde_tile.cuh"
 
 // Static arguments of a launch of the 128-row tiles or the generic tile
@@ -61,7 +68,8 @@
 struct KdeTileShape {
   int m, n, d, bn, nb;
   int own64;      // own is int64 (else int32); sampler kernels only
-  int instance;   // 0 generic, 16 or 32 the wide tile with that padded d, DEEP
+  int instance;   // 0 generic, 16 or 32 the wide tile with that padded d, DEEP,
+                  // MMA + 16 or MMA + 32 the bf16 tensor-core tile
   int group;      // consecutive level-1 blocks a CTA sums
   int kind;
   float inv_bw, inv_bw2, beta;
@@ -475,6 +483,255 @@ __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
     b = nb_;
     c = nc;
     k = nk_;
+  }
+}
+
+// ------------------------------------------------------------------ mma
+// The bf16 kinds' tensor-core sweep (instance MMA + DK; the sampler's plan
+// takes it for the bf16 kinds where the wide tile's conditions hold).
+// Replaces the cross term of _tile_kernel_values(precision="bf16")
+// (kde_rowsum/kernel.py:62-77): dot_general of the rounded operands with
+// preferred_element_type=f32.  Products of two bf16 values are exact in
+// f32, so mma.sync.m16n8k16 bf16 with f32 accumulation computes that cross
+// term, summed in another order (kde_sampler/ref.py _pair_slack says why
+// the tensor cores' accumulation stays within the flip-slack model).
+//
+// Bound on the H100: operations, and not the tensor cores' (2d of the
+// pair's 2d + 6 run there).  Per pair the CUDA cores run the epilogue:
+// d2 = max(qn + xn - 2 c, 0), the bf16 argument, the table entry and the
+// add, ~8 instructions against the wide tile's ~31 (16 FMAs of the cross
+// term among them); the table read is one random 4-byte load a pair.
+//
+// Design.  The wide tile's CTA (256 threads, a 128-row query tile, the
+// group's columns streamed in 128-column chunks through two cp.async f32
+// buffers, a chunk never past its block's end).  Warp w owns query rows
+// 16 w .. 16 w + 15 for the whole sweep: their A fragments (4 registers a
+// k-step) and the two row norms a lane needs are loaded once, at the first
+// chunk, and stay in registers.  After each chunk lands, thread pair
+// (2 r, 2 r + 1) rounds row r of it to bf16 (cvt.rn.bf16x2.f32) into a
+// padded bf16 tile (row stride DK + 8: ldmatrix rows hit distinct banks)
+// and sums its norm from the rounded values in half_norm's order, so the
+// norms are the wide tile's.  The warp then sweeps the chunk's 8-column
+// tiles: B fragments by ldmatrix, one mma a k-step (d = 8 zero-padded to
+// k = 16, d = 32 two k-steps), and the epilogue on the C fragment (rows
+// gid, gid + 8; columns 2 tig, 2 tig + 1).  The epilogue keeps finish()'s
+// arithmetic: qn + xn - 2 c as one fma (2 c is exact, so it rounds as the
+// subtraction), and the arguments rounded to bf16 two at a time (one
+// cvt.rn.bf16x2.f32: the scalar cvt runs at a quarter of its rate).  A
+// full chunk runs without masks; in a ragged one the column tiles past the
+// block's end are skipped (a warp-uniform test) and the columns of the
+// last tile past it are masked, so every bn works (bn = 70: a 70-column
+// chunk, 5 column pairs, the last half masked).  A row's block sum lives
+// in the 4 lanes of a quad: two xor shuffles in a fixed order when the
+// block is complete.  The exp table is read from global memory through
+// the read-only path, as the other tiles read it: a copy of its reachable
+// patterns in shared memory (68,416 B, 2 CTAs an SM) measured slower on
+// the H100, its bank conflicts and the range test of the patterns it does
+// not hold costing more than the L1 hits it replaced (PERF.md's findings).
+// Shared memory at DK = 16: 44,032 B.
+constexpr int MMA = 64;                // KdeTileShape::instance: MMA + DK
+
+template <int DK>
+struct Mma {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int RS = Wide<DK>::RS;              // f32 landing stride (stage())
+  static constexpr int HS = DK + 8;                    // bf16 row stride
+  static constexpr int QS = 0;                         // [BM][RS] f32 queries as landed
+  static constexpr int XS = QS + BM * RS;              // [2][BN][RS] f32 columns as landed
+  static constexpr int QN = XS + 2 * BN * RS;          // [BM]
+  static constexpr int XN = QN + BM;                   // [BN]
+  static constexpr int QB = XN + BN;                   // [BM][HS] bf16 queries
+  static constexpr int XB = QB + BM * HS / 2;          // [BN][HS] bf16 columns
+  static constexpr int BYTES = (XB + BN * HS / 2) * 4;
+  static_assert(XB % 4 == 0 && (BM * HS / 2) % 4 == 0, "16-byte aligned regions");
+};
+
+// Round half `half` (DK / 2 coordinates) of f32 staged row `row` to bf16
+// into `out` (row stride Mma::HS), and return the row's squared norm over
+// the rounded values, by two threads (pairs tid, tid ^ 1): half_norm's sum.
+template <int DK>
+__device__ __forceinline__ float round_half(const float* rows, __nv_bfloat16* out, int row,
+                                            int half) {
+  const float* p = rows + row * Wide<DK>::RS + half * (DK / 2);
+  __nv_bfloat162* o =
+      reinterpret_cast<__nv_bfloat162*>(out + row * Mma<DK>::HS + half * (DK / 2));
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DK / 2; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + k);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+    s = fmaf(a.x, a.x, s);
+    s = fmaf(a.y, a.y, s);
+    s = fmaf(b.x, b.x, s);
+    s = fmaf(b.y, b.y, s);
+    o[k / 2] = lo;
+    o[k / 2 + 1] = hi;
+  }
+  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// finish() of two pairs: d2 = max(qn + xn - 2 c, 0) as finish() rounds it,
+// then the two bf16 arguments by one cvt and their table entries (the
+// gaussian and exponential kinds; the rational quadratic's f32 power).
+template <int KIND>
+__device__ __forceinline__ float2 finish2(float c0, float s0, float c1, float s1,
+                                          const TableParams& p) {
+  const float d0 = fmaxf(fmaf(-2.0f, c0, s0), 0.0f);
+  const float d1 = fmaxf(fmaf(-2.0f, c1, s1), 0.0f);
+  if constexpr (KIND == RATIONAL_QUADRATIC_BF16) {
+    return make_float2(powf(1.0f + d0 * p.inv_bw2, -p.beta), powf(1.0f + d1 * p.inv_bw2, -p.beta));
+  } else {
+    const float y0 = KIND == GAUSSIAN_BF16 ? -d0 * p.inv_bw2 : -sqrtf(d0) * p.inv_bw;
+    const float y1 = KIND == GAUSSIAN_BF16 ? -d1 * p.inv_bw2 : -sqrtf(d1) * p.inv_bw;
+    const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+    return make_float2(__ldg(p.table + __bfloat16_as_ushort(y.x)),
+                       __ldg(p.table + __bfloat16_as_ushort(y.y)));
+  }
+}
+
+// rs[r] += the kernel values of the chunk's columns for rows gid + 8 r of
+// the warp: xb the chunk's bf16 columns, xn their norms; MASK: only the
+// first `valid` columns count.
+template <int KIND, int KS, int HS, bool MASK>
+__device__ __forceinline__ void mma_chunk(float (&rs)[2], const uint32_t (&af)[KS][4],
+                                          const float (&qv)[2], const __nv_bfloat16* xb,
+                                          const float* xn, int valid, const TableParams& p) {
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+#pragma unroll
+  for (int jp = 0; jp < 8; ++jp) {
+    if (MASK && jp * 16 >= valid) break;   // warp-uniform
+    // matrix i of a load: columns jp 16 + 8 (i >> 1), k 8 (i & 1) of the
+    // k-step, so (r0, r1) and (r2, r3) are the b fragments of the two
+    // 8-column tiles
+    float cf[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t bf[4];
+      ldsm_x4(bf, xb + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * HS + ks * 16 +
+                      ((lane >> 3) & 1) * 8);
+      mma_bf16(cf[0], af[ks], bf[0], bf[1]);
+      mma_bf16(cf[1], af[ks], bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = jp * 16 + h * 8 + 2 * tig;
+      const float2 xv = *reinterpret_cast<const float2*>(xn + col);
+      const float2 v0 = finish2<KIND>(cf[h][0], qv[0] + xv.x, cf[h][1], qv[0] + xv.y, p);
+      const float2 v1 = finish2<KIND>(cf[h][2], qv[1] + xv.x, cf[h][3], qv[1] + xv.y, p);
+      if (MASK) {
+        const bool ok0 = col < valid, ok1 = col + 1 < valid;
+        rs[0] += ok0 ? v0.x : 0.0f;
+        rs[0] += ok1 ? v0.y : 0.0f;
+        rs[1] += ok0 ? v1.x : 0.0f;
+        rs[1] += ok1 ? v1.y : 0.0f;
+      } else {
+        rs[0] += v0.x;
+        rs[0] += v0.y;
+        rs[1] += v1.x;
+        rs[1] += v1.y;
+      }
+    }
+  }
+}
+
+// The mma sweep: blocks [blockIdx.x group, + group) of query tile
+// blockIdx.y, as wide_block_sums.  smem holds Mma<DK>::BYTES.
+template <int KIND, int DK, class Store, class A>
+__device__ __forceinline__ void mma_block_sums(float* smem, const A& a) {
+  using M = Mma<DK>;
+  static_assert(is_bf16(KIND) && DK % 16 == 0, "the mma tile takes the bf16 kinds");
+  constexpr int KS = DK / 16;                       // k-steps of the cross term
+  float* qs = smem + M::QS;
+  float* qn = smem + M::QN;
+  float* xn = smem + M::XN;
+  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(smem + M::QB);
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(smem + M::XB);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wr = (tid >> 5) * 16;                   // the warp's first query row
+  const int gid = lane >> 2, tig = lane & 3;
+  const int i0 = blockIdx.y * M::BM;
+  int b = blockIdx.x * a.group;
+  const int b1 = min(a.nb, b + a.group);
+  int c = 0;
+
+  stage<DK, M::BM>(qs, a.q + (size_t)i0 * a.d, a.m - i0, a.d);
+  stage<DK, M::BN>(smem + M::XS, a.x + (size_t)b * a.bn * a.d, min(a.n - b * a.bn, a.bn), a.d);
+  cp_async_commit();
+
+  uint32_t af[KS][4];          // A fragments of the warp's 16 rows
+  float qv[2] = {0.0f, 0.0f};  // ||q||^2 of rows wr + gid and wr + gid + 8
+  float rs[2] = {0.0f, 0.0f};  // their partial sums of block b
+
+  for (int step = 0;; ++step) {
+    const int jend = min(a.n, (b + 1) * a.bn);          // end of block b
+    const int j0 = b * a.bn + c * M::BN;
+    int nb_ = b, nc = c + 1;
+    if (j0 + M::BN >= jend) { nb_ = b + 1; nc = 0; }
+    const bool more = nb_ < b1;
+    const float* xs = smem + M::XS + (step & 1) * M::BN * M::RS;
+    cp_async_wait_all();
+    __syncthreads();          // this chunk (and q) landed; xb's last reads are done
+    if (more) {
+      const int nj0 = nb_ * a.bn + nc * M::BN;
+      stage<DK, M::BN>(smem + M::XS + ((step + 1) & 1) * M::BN * M::RS,
+                       a.x + (size_t)nj0 * a.d, min(a.n, (nb_ + 1) * a.bn) - nj0, a.d);
+      cp_async_commit();
+    }
+    {
+      const float s = round_half<DK>(xs, xb, tid >> 1, tid & 1);
+      if (!(tid & 1)) xn[tid >> 1] = s;
+    }
+    if (step == 0) {
+      const float s = round_half<DK>(qs, qb, tid >> 1, tid & 1);
+      if (!(tid & 1)) qn[tid >> 1] = s;
+    }
+    __syncthreads();          // the bf16 tiles and the norms visible
+    if (step == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(af[ks], qb + (wr + (lane & 15)) * M::HS + ks * 16 + (lane >> 4) * 8);
+      qv[0] = qn[wr + gid];
+      qv[1] = qn[wr + gid + 8];
+    }
+    const int valid = min(M::BN, jend - j0);        // columns of block b in the chunk
+    if (valid == M::BN) mma_chunk<KIND, KS, M::HS, false>(rs, af, qv, xb, xn, valid, a.p);
+    else mma_chunk<KIND, KS, M::HS, true>(rs, af, qv, xb, xn, valid, a.p);
+    if (nc == 0) {            // block b is complete: the quad's sums, fixed order
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        const int gi = i0 + wr + gid + 8 * r;
+        if (tig == 0 && gi < a.m) Store::put(a, rs[r], gi, b);
+        rs[r] = 0.0f;
+      }
+    }
+    if (!more) break;
+    b = nb_;
+    c = nc;
   }
 }
 

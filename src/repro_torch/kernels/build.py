@@ -67,7 +67,8 @@ class KdeTileShape(ctypes.Structure):
 
 class KdeWeightedShape(ctypes.Structure):
     """``struct KdeWeightedShape`` of csrc/kde_hash.cu: the static
-    arguments of a weighted-kv(-sum) launch."""
+    arguments of a weighted-kv(-sum) launch (``instance`` carries
+    ``kde_hash.kernel.BF16_ROWS`` for a bf16 x)."""
     _fields_ = [(n, _I) for n in ("m", "n", "d", "t", "instance", "kind")] + \
         [(n, _F) for n in ("inv_bw", "inv_bw2", "beta")]
 

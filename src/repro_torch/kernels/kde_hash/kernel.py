@@ -15,7 +15,10 @@ devices, layout, kernel arguments) and keep the launch's static arguments
 as a ``build.KdeWeightedShape``, so a call is one allocation and one
 ctypes call of eight arguments.  ``precision="bf16"`` launches the bf16
 instances (``kde_rowsum.kernel``'s kind ids and exp table), counted under
-``<name>_bf16``.
+``<name>_bf16``.  At ``precision="bf16"`` x may be the dataset's
+bf16-resident copy (``round_bf16(x).to(torch.bfloat16)``, made once per
+dataset by the hashed estimator): the plan then takes the instances that
+gather bf16 rows, half the bytes, with outputs bitwise those of the f32 x.
 """
 from __future__ import annotations
 
@@ -42,18 +45,39 @@ def reset_launches() -> None:
 _INT_MAX = 2 ** 31 - 1
 
 
+#: ``KdeWeightedShape::instance`` flag of the instances on a bf16 x
+BF16_ROWS = 16
+#: the dtypes x may have
+X_DTYPES = (torch.float32, torch.bfloat16)
+
+
 class WeightedPlan(NamedTuple):
-    instance: int   # 0: scalar; 4 / 8: vector, float4 per row padded to it
+    instance: int   # 0: scalar; 4 / 8: vector, float4 per row padded to it;
+    #                 + BF16_ROWS: the same gathering bf16 rows
     lanes: int      # lanes that read one gathered row (1 on the scalar path)
 
 
+def check_rows(x_dtype: torch.dtype, precision: str) -> None:
+    """Refuse an x the weighted kernels do not take: a dtype other than f32
+    or bf16, and a bf16 x at ``precision="f32"`` (its rows are rounded)."""
+    if x_dtype not in X_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x_dtype}")
+    if x_dtype == torch.bfloat16 and precision == "f32":
+        raise ValueError("a bfloat16 x needs precision='bf16': its rows "
+                         "are already rounded")
+
+
 def weighted_kv_plan(m: int, n: int, d: int, t: int,
-                     aligned: bool = True) -> WeightedPlan:
+                     aligned: bool = True, x_dtype=torch.float32,
+                     precision: str = "f32") -> WeightedPlan:
     """The instance an (m, n, d, t) call of either weighted kernel runs:
     the vector instance (4 lanes read a gathered row at d <= 16, 8 at
-    d <= 32, a 16-byte piece each) when d % 4 == 0, d <= 32 and x starts
-    on 16 bytes (``aligned``), else the scalar one (a lane a row).  Raises ValueError for what the
-    kernel does not take: an empty dataset, d below 1, sizes past int32."""
+    d <= 32, 4 coordinates each) when d % 4 == 0, d <= 32 and x starts on
+    16 bytes (8 for a bf16 x; ``aligned``), else the scalar one (a lane a
+    row); + ``BF16_ROWS`` for a bf16 x (``x_dtype``).  Raises ValueError
+    for what the kernel does not take: an empty dataset, d below 1, sizes
+    past int32, and ``check_rows``'s x."""
+    check_rows(x_dtype, precision)
     if n < 1:
         raise ValueError("empty dataset")
     if d < 1:
@@ -61,9 +85,10 @@ def weighted_kv_plan(m: int, n: int, d: int, t: int,
     if max(m, n, d, t) > _INT_MAX:
         raise ValueError(f"(m, n, d, t) = ({m}, {n}, {d}, {t}) exceed the "
                          f"kernel's int32 sizes")
+    rows = BF16_ROWS if x_dtype == torch.bfloat16 else 0
     if not (aligned and d % 4 == 0 and d <= 32):
-        return WeightedPlan(0, 1)
-    return WeightedPlan(4, 4) if d <= 16 else WeightedPlan(8, 8)
+        return WeightedPlan(rows, 1)
+    return WeightedPlan(rows + 4, 4) if d <= 16 else WeightedPlan(rows + 8, 8)
 
 
 #: build.KdeWeightedShape per validated call signature
@@ -73,7 +98,7 @@ _PLANS: dict = {}
 def _plan(q, x, cols, wgt, kind, inv_bw, beta, aligned, precision):
     """Check a call once; the launch's static arguments."""
     check_operand(q, "q", torch.float32, 2, q.device)
-    check_operand(x, "x", torch.float32, 2, q.device)
+    check_operand(x, "x", x.dtype, 2, q.device)   # the plan checks the dtype
     m, d = q.shape
     n = x.shape[0]
     if x.shape[1] != d:
@@ -84,14 +109,14 @@ def _plan(q, x, cols, wgt, kind, inv_bw, beta, aligned, precision):
         raise ValueError(f"cols {tuple(cols.shape)} and wgt "
                          f"{tuple(wgt.shape)} must both be ({m}, t)")
     t = cols.shape[1]
-    plan = weighted_kv_plan(m, n, d, t, aligned)
+    plan = weighted_kv_plan(m, n, d, t, aligned, x.dtype, precision)
     return _build.KdeWeightedShape(m, n, d, t, plan.instance,
                                    *kind_args(kind, inv_bw, beta, precision))
 
 
 def _launch(name: str, q, x, cols, wgt, kind, inv_bw, beta, precision):
     xp = x.data_ptr()
-    aligned = xp % 16 == 0
+    aligned = xp % (16 if x.dtype == torch.float32 else 8) == 0
     # (shape, strides) pins contiguity; the checks run once per key
     key = (q.shape, q.stride(), x.shape, x.stride(), cols.shape,
            cols.stride(), wgt.shape, wgt.stride(), q.dtype, x.dtype,
@@ -123,7 +148,8 @@ def weighted_kv_cuda(q, x, cols, wgt, kind: str, inv_bw: float,
                      beta: float = 1.0, precision: str = "f32"):
     """out[i, j] = wgt[i, j] k(q_i, x[cols[i, j]]) by the weighted-kv
     kernel: q (m, d), x (n, d), wgt (m, t) f32 and cols (m, t) int32 CUDA
-    tensors -> (m, t) f32.  Columns outside [0, n) are clamped."""
+    tensors -> (m, t) f32.  Columns outside [0, n) are clamped.  x may be
+    bf16 at ``precision="bf16"`` (``check_rows``)."""
     return _launch("weighted_kv", q, x, cols, wgt, kind, inv_bw, beta,
                    precision)
 
@@ -140,7 +166,9 @@ def weighted_kv_plain(q, x, cols, wgt, kind: str, inv_bw: float,
                       beta: float = 1.0, pairwise=None,
                       precision: str = "f32"):
     """Plain torch version of ``weighted_kv_cuda`` (also takes the custom
-    kinds' ``pairwise`` callable)."""
+    kinds' ``pairwise`` callable).  A bf16 x gives the same values as the
+    f32 x it was rounded from."""
+    check_rows(x.dtype, precision)
     return weighted_kv_ref(q, x, cols, wgt, kind, inv_bw, beta, pairwise,
                            precision)
 

@@ -163,6 +163,22 @@ def _weighted_pass(q, x, cols, wgt, *, kind, inv_bw, beta, pairwise,
     return fn(q, x, cols, wgt, kind, inv_bw, beta, pairwise, precision)
 
 
+def _rows(x, state, precision):
+    """The dataset the weighted pass gathers: the state's bf16-resident
+    copy at ``precision="bf16"`` where the estimator made one, else x.
+    Raises ValueError when the copy cannot be x's: another shape or
+    another device."""
+    if precision == "bf16" and state.x_bf16 is not None:
+        xb = state.x_bf16
+        if xb.shape != x.shape or xb.device != x.device:
+            raise ValueError(
+                f"the state's bf16 copy of the dataset is {tuple(xb.shape)} "
+                f"on {xb.device}, but x is {tuple(x.shape)} on {x.device}: "
+                f"the state was built for another dataset")
+        return xb
+    return x
+
+
 def _widths(state):
     """(max_bucket, overflow capacity) -- the static gather widths."""
     ov = int(state.overflow.shape[0]) if state.overflow is not None else 0
@@ -174,11 +190,14 @@ def hashed_query(x, y, state, fidx, *, kind, inv_bw, beta, pairwise=None,
     """(m,) row-sum estimates + (m,) realized NEAR eval counts + a counter
     word -- the Definition 1.1 read at O(max_bucket + num_far) evals per
     query.  The word's status flags bucket truncation, out-of-range member
-    indices and (statically, see the module note) a heavy HT weight."""
+    indices and (statically, see the module note) a heavy HT weight.  At
+    ``precision="bf16"`` the weighted pass gathers ``state.x_bf16`` where
+    the state has it (the same values as x rounded)."""
     cols, wgt, cnt, trunc = _ref.query_gather(y, state, fidx, cell_width,
                                               num_far, n)
     corrupt = torch.any((cols < 0) | (cols >= n))
-    est = _weighted_pass(y, x, cols, wgt, kind=kind, inv_bw=inv_bw,
+    est = _weighted_pass(y, _rows(x, state, precision), cols, wgt,
+                         kind=kind, inv_bw=inv_bw,
                          beta=beta, pairwise=pairwise, reduce_sum=True,
                          precision=precision)
     heavy = num_far > 0 and float(n) / num_far > _g.ht_bound()
@@ -199,7 +218,8 @@ def _hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
     programs of ``kde_sampler.ops``).  Returns ``(block sums, status)``."""
     cols, wgt, _, trunc = _ref.frontier_gather(src, state, off, num_far,
                                                block_size, num_blocks, n)
-    kv = _weighted_pass(x[src], x, cols, wgt, kind=kind, inv_bw=inv_bw,
+    kv = _weighted_pass(x[src], _rows(x, state, precision), cols, wgt,
+                        kind=kind, inv_bw=inv_bw,
                         beta=beta, pairwise=pairwise, reduce_sum=False,
                         precision=precision)
     bs = _ref.scatter_block_sums(kv, cols, src, state, num_far, block_size,
@@ -216,7 +236,9 @@ def hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
                       precision="f32"):
     """(w, B) level-1 estimates of a dataset frontier from O(max_bucket +
     B num_far) evals per row: exact NEAR scatter + ``num_far`` stratified
-    FAR slots per block.  Returns ``(block sums, counter word)``."""
+    FAR slots per block.  Returns ``(block sums, counter word)``.  The
+    queries are x[src]; at ``precision="bf16"`` the rows are gathered from
+    ``state.x_bf16`` where the state has it."""
     bs, st = _hashed_block_sums(x, src, state, off, kind=kind, inv_bw=inv_bw,
                                 beta=beta, pairwise=pairwise,
                                 num_far=num_far, block_size=block_size,

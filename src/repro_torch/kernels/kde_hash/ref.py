@@ -64,6 +64,10 @@ class HashState(NamedTuple):
     truncated: Optional[torch.Tensor] = None  # (U,) bool bucket overflowed
     overflow: Optional[torch.Tensor] = None   # (ov_cap,) streaming region;
     #                                           None = static dataset
+    # port only: (n, d) bf16, the dataset rounded to bf16 -- the bf16
+    # weighted pass gathers it (half the bytes of the f32 rows); made once
+    # per dataset by ``HashedKDE(precision="bf16")``, None otherwise
+    x_bf16: Optional[torch.Tensor] = None
 
 
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ refuses what the kernel does not take.  Each wrapper validates a call's
 operands once per (shapes, dtypes, devices, layout, kernel arguments) and
 keeps the launch's static arguments as a ``build.KdeTileShape``.
 ``precision="bf16"`` launches the bf16 instances (``kde_rowsum.kernel``'s
-kind ids and exp table), counted under ``<name>_bf16``.
+kind ids and exp table), counted under ``<name>_bf16``: the tensor-core
+tile where the wide tile's conditions hold, the generic tile elsewhere.
 """
 from __future__ import annotations
 
@@ -45,8 +46,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+#: ``KdeTileShape::instance`` of the bf16 tensor-core tile is MMA + 16 or
+#: MMA + 32 (``kde::MMA``, the padded d)
+MMA = 64
+
+
 class TilePlan(NamedTuple):
-    instance: int   # 0: generic tile; 16 / 32: wide tile, d padded to it
+    instance: int   # 0: generic tile; 16 / 32: wide tile, d padded to it;
+    #                 MMA + 16 / MMA + 32: the bf16 tensor-core tile
     bm: int         # query rows per tile
     tiles: int      # query tiles (one arrival counter each)
     nb: int         # level-1 blocks
@@ -54,13 +61,16 @@ class TilePlan(NamedTuple):
 
 
 def sample_block_plan(m: int, n: int, d: int, bn: int,
-                      aligned: bool = True, sms: int = 132) -> TilePlan:
+                      aligned: bool = True, sms: int = 132,
+                      precision: str = "f32") -> TilePlan:
     """The instance an (m, n, d, bn) call of either sampler kernel runs:
     the wide tile when d % 4 == 0, d <= 32 and q and x start on 16 bytes
-    (``aligned``), else the generic tile; and the level-1 blocks a CTA
-    sums in a row (``group_for`` on a card of ``sms`` SMs).  Raises
-    ValueError for what the kernel does not take: an empty dataset, d or
-    bn below 1, sizes past int32, more than 65535 query tiles."""
+    (``aligned``), its tensor-core twin (``MMA`` + the padded d) under the
+    same conditions at ``precision="bf16"``, else the generic tile; and
+    the level-1 blocks a CTA sums in a row (``group_for`` on a card of
+    ``sms`` SMs).  Raises ValueError for what the kernel does not take: an
+    empty dataset, d or bn below 1, sizes past int32, more than 65535
+    query tiles."""
     if n < 1:
         raise ValueError("empty dataset")
     if d < 1 or bn < 1:
@@ -70,6 +80,8 @@ def sample_block_plan(m: int, n: int, d: int, bn: int,
                          f"int32 sizes")
     wide = aligned and d % 4 == 0 and d <= MAX_WIDE_D
     instance = (16 if d <= 16 else 32) if wide else 0
+    if wide and precision == "bf16":
+        instance += MMA
     bm = WIDE_BM if wide else GENERIC_BM
     tiles = -(-m // bm)
     if tiles > MAX_TILES:
@@ -112,7 +124,8 @@ def _plan(q, x, own, gumbel, kind, inv_bw, beta, bn, aligned, precision):
     check_operand(own, "own", own.dtype, 1, q.device)
     if own.shape[0] != m:
         raise ValueError(f"own has {own.shape[0]} rows, q has {m}")
-    plan = sample_block_plan(m, n, d, int(bn), aligned, _sms(q.device))
+    plan = sample_block_plan(m, n, d, int(bn), aligned, _sms(q.device),
+                             precision)
     if gumbel is not None:
         check_operand(gumbel, "gumbel", torch.float32, 2, q.device)
         if tuple(gumbel.shape) != (m, plan.nb):

@@ -194,7 +194,25 @@ def _pair_slack(q, x, kind: str, inv_bw: float) -> torch.Tensor:
     exp(-(y - err - 2 ulp)) expm1(2 err + 4 ulp), 0 elsewhere (near y = 0,
     as for a point against itself, err is larger than the step).  The
     rational quadratic reads no table (its values differ by f32 rounding
-    alone): all 0."""
+    alone): all 0.
+
+    The bf16 sampler kernels form the cross term on the tensor cores
+    (``mma.sync`` m16n8k16, bf16 in, f32 accumulate), which do not round
+    each addition: the 16 products of a k-step are exact, and the tensor
+    core adds them (and the accumulator) after aligning them to the
+    largest exponent, dropping the bits below f32's precision there
+    (truncation), and rounds once to f32.  Each dropped tail is smaller
+    than one f32 unit of the largest term, so a k-step errs by less than
+    a few units of max |q_k x_k| <= sum |q_k x_k|: a handful of
+    truncations, each within 2u of sum |q_k x_k|, where the model above
+    allows (d + 2) roundings of u each on the cross term's 2 sum |q_k x_k|
+    share and as many again on qq + xx >= 2 sum |q_k x_k|.  d <= 16 is one
+    k-step, 17 <= d <= 32 two (the second adds the first's f32 result as
+    its accumulator).  The norms stay the f32 FMA chains of the other
+    tiles.  ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold those
+    kernels to this slack on inputs built for cancellation: a common
+    offset large against the spread (qq + xx - 2c cancels all but a few
+    bits) and points against themselves (d2 = 0)."""
     qf, xf = round_bf16(q).double(), round_bf16(x).double()
     if xf.dim() == 3:
         cross = torch.einsum("wd,wtd->wt", qf, xf)

@@ -587,6 +587,165 @@ def test_bf16_paths_run_on_the_bf16_kernels(cuda):
                            "weighted_kv_sum_bf16": 1, "weighted_kv_bf16": 1}
 
 
+# the tensor-core sample-block tile and the bf16-row weighted kernels:
+# (m, n, d, bn) with m around the 16-row warp slices and the 128-row tile,
+# ragged (70) and full (256) block sizes, and every padded width (d = 8 in
+# one zero-padded k-step, 16, 32 in two)
+MMA_SHAPES = [(m, 3000, d, bn) for m in (1, 15, 17, 129) for bn in (70, 256)
+              for d in (8, 16, 32)]
+
+
+def _mma_against_plain(q, x, own, g, kind, inv_bw, bn):
+    """The bf16 masked-blocksum and sample-block kernels on the tensor-core
+    tile vs their plain versions within the flip slack (sums, totals, p),
+    drawn blocks equal but at near-ties; two calls bitwise equal."""
+    m, d = q.shape
+    plan = sk.sample_block_plan(m, x.shape[0], d, bn, precision="bf16")
+    assert plan.instance == sk.MMA + (16 if d <= 16 else 32)
+    bslack = sref.bf16_flip_slack(q, x, kind, inv_bw, bn)
+    _bf16_close(sk.masked_blocksum_cuda(q, x, own, kind, inv_bw, 0.7, bn,
+                                        "bf16"),
+                sk.masked_blocksum_plain(q, x, own, kind, inv_bw, 0.7, bn,
+                                         "bf16"), bslack)
+    got = sk.sample_block_cuda(q, x, own, g, kind, inv_bw, 0.7, bn, "bf16")
+    blk, pb, tot, bs = got
+    _, _, rtot, rbs = sk.sample_block_plain(q, x, own, g, kind, inv_bw, 0.7,
+                                            bn, "bf16")
+    _bf16_close(bs, rbs, bslack)
+    _bf16_close(tot, rtot, bslack.sum(1))
+    if rbs.shape[1] > 1:
+        score = torch.log(rbs) + g
+        top2 = torch.topk(score, 2, dim=1).values
+        widen = 2.0 * torch.log1p(bslack / rbs.double()).max(1).values
+        tie = (top2[:, 0] - top2[:, 1]).double() <= 1e-5 + widen
+        assert bool(((blk == torch.argmax(score, 1)) | tie).all())
+    _bf16_close(pb, torch.gather(rbs, 1, blk[:, None])[:, 0] / rtot,
+                (bslack.sum(1) + torch.gather(bslack, 1, blk[:, None])[:, 0])
+                / rtot.double())
+    again = sk.sample_block_cuda(q, x, own, g, kind, inv_bw, 0.7, bn, "bf16")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MMA_SHAPES)
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_mma_sampler_kernels_match_plain(cuda, kind, shape):
+    """The tensor-core instance of the bf16 sampler kernels (plan MMA + the
+    padded d) at ragged m and bn, every padded width, every L2 kind."""
+    q, x, own, g, inv_bw, bn = _inputs(kind, shape, cuda)
+    _mma_against_plain(q, x, own, g, kind, inv_bw, bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [4.0, 30.0, 300.0])
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_mma_sampler_kernels_on_cancelling_inputs(cuda, kind, d, offset):
+    """Inputs built for cancellation: every point sits at a common offset
+    large against its spread (qq + xx - 2c cancels all but a few bits of
+    the norms), and the queries are dataset rows (each meets itself at d2
+    = 0).  The tensor cores' truncating accumulation stays within the flip
+    slack's error model (``ref._pair_slack``): no slack is widened."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 7 + int(offset))
+    n, m, bn = 2000, 150, 70
+    x = offset + torch.randn(n, d, generator=gen, device=cuda) * 0.5
+    src = torch.randint(0, n, (m,), generator=gen, device=cuda)
+    q = x[src].contiguous()
+    g = gumbel((m, -(-n // bn)), gen, cuda)
+    _mma_against_plain(q, x, src // bn, g, kind, 1.0 / (0.5 * d ** 0.5), bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_mma_sampler_ties_go_to_the_lower_block(cuda, kind, d):
+    """Dyadic points (exact in bf16 and in f32 in any order, so no slack)
+    at the widths the other dyadic test leaves out: the tensor-core tile
+    equals the plain sums at the kernel tolerance, two equal blocks with
+    equal Gumbel noise give bitwise equal sums and the lower block on
+    every row, and repeated calls are bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + d)
+    n, bn, m = 2048, 128, 200
+    x = torch.randint(-4, 5, (n, d), generator=gen, device=cuda) / 8.0
+    x[7 * bn:8 * bn] = x[2 * bn:3 * bn]
+    q = torch.randint(-4, 5, (m, d), generator=gen, device=cuda) / 8.0
+    own = torch.randint(-1, 16, (m,), generator=gen, device=cuda)
+    own[(own == 2) | (own == 7)] = -1
+    g = gumbel((m, 16), gen, cuda)
+    g[:, 2] = g[:, 7] = 30.0
+    args = (kind, 1.0 / (0.5 * d ** 0.5), 0.7, bn, "bf16")
+    got = sk.sample_block_cuda(q, x, own, g, *args)
+    want = sk.sample_block_plain(q, x, own, g, *args)
+    torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[3][:, 2], got[3][:, 7])
+    assert bool((got[0] == 2).all())
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, sk.sample_block_cuda(q, x, own, g, *args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HASH_SHAPES)
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_weighted_kv_on_bf16_rows_is_bitwise_the_f32_rows(cuda, kind, shape):
+    """Both kde_hash kernels on the dataset's bf16-resident copy (the
+    bf16-row instances: vector at d = 8 / 16 / 32, scalar at 19 / 784)
+    give bitwise what their bf16 instances give on the f32 rows (the
+    lanes add the same values in the same order), within the flip slack
+    of the plain version, counted under the bf16 keys."""
+    m, n, t, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(m * 1000 + d + 1)
+    q = torch.randn(m, d, generator=gen, device=cuda) * 0.3
+    x = torch.randn(n, d, generator=gen, device=cuda) * 0.3
+    x16 = sref.round_bf16(x).to(torch.bfloat16)
+    cols = torch.randint(-2, n + 3, (m, t), generator=gen, dtype=torch.int32,
+                         device=cuda)
+    wgt = torch.rand((m, t), generator=gen, device=cuda) * 256.0
+    a = (cols, wgt, kind, 1.0 / (0.4 * d ** 0.5), 0.7)
+    plan = hk.weighted_kv_plan(m, n, d, t, x16.data_ptr() % 8 == 0,
+                               torch.bfloat16, "bf16")
+    assert plan.instance >= hk.BF16_ROWS
+    hk.reset_launches()
+    kv = hk.weighted_kv_cuda(q, x16, *a, precision="bf16")
+    kv_sum = hk.weighted_kv_sum_cuda(q, x16, *a, precision="bf16")
+    assert hk.LAUNCHES == {"weighted_kv_sum": 0, "weighted_kv": 0,
+                           "weighted_kv_sum_bf16": 1, "weighted_kv_bf16": 1}
+    assert torch.equal(kv, hk.weighted_kv_cuda(q, x, *a, precision="bf16"))
+    assert torch.equal(kv_sum, hk.weighted_kv_sum_cuda(q, x, *a,
+                                                       precision="bf16"))
+    slack = sref.bf16_flip_slack(q, x[cols.long().clamp(0, n - 1)], kind,
+                                 a[3]) * wgt.double()
+    want = hk.weighted_kv_plain(q, x16, *a, precision="bf16")
+    _bf16_close(kv, want, slack + 1e-6 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="needs precision='bf16'"):
+        hk.weighted_kv_cuda(q, x16, *a)
+
+
+@pytest.mark.cuda
+def test_hashed_bf16_paths_gather_the_copy(cuda, monkeypatch):
+    """On the card, a bf16 hashed sampler's level-1 reads, its walks and
+    its estimator's queries launch the weighted kernels on the one bf16
+    copy the estimator made (the same tensor every call)."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 0.5, (3000, 16)).astype(np.float32)
+    nbr = NeighborSampler(x, gaussian(1.0), level1="hash", precision="bf16",
+                          device=cuda)
+    copy = nbr.hash_estimator.state.x_bf16
+    assert copy.dtype == torch.bfloat16 and copy.is_cuda
+    seen = []
+    for name in ("weighted_kv_cuda", "weighted_kv_sum_cuda"):
+        real = getattr(hk, name)
+
+        def spy(q, xx, *a, _real=real, **kw):
+            seen.append(xx.data_ptr())
+            return _real(q, xx, *a, **kw)
+
+        monkeypatch.setattr(hk, name, spy)
+    nbr.sample(rng.integers(0, 3000, 500))
+    nbr.walk(np.zeros(64, np.int64), 3)
+    nbr.hash_estimator.query(x[:64])
+    assert len(seen) == 5 and set(seen) == {copy.data_ptr()}
+
+
 # (b, hq, hkv, sq, skv, dh): the reference's flash sweep, the (5, 37)
 # offset case, rows with no valid key (negative offsets), head dim 128
 # (over 48 KB of dynamic shared memory) with ragged tiles, head dims that

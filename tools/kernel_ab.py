@@ -21,7 +21,15 @@ drawn from a fixed seed on the card:
 - kde_decode / kde_decode_bf16: the serve shape, q (4, 32, 128), cache (4,
   4, 544, 128), top_p 4, bk 32, stride 4, kv_valid 527, f32 and bf16;
 - kde_decode_long: the long_500k cell on one layer's 1.07 GB bf16 cache,
-  q (1, 32, 128), cache (1, 4, 524288, 128), top_p 16, bk 512, stride 16.
+  q (1, 32, 128), cache (1, 4, 524288, 128), top_p 16, bk 512, stride 16;
+- <name>_bf16 for rowsum (m 64, n 1,048,576, d 16, gaussian at bandwidth
+  4, N(0, 0.5) data: the bench_kde sweep's largest batch), blocksum,
+  sample_block, masked_blocksum, weighted_kv and weighted_kv_sum: their
+  f32 shapes (gaussian at bandwidth 1) at precision="bf16"; the two
+  weighted kernels gather the dataset's bf16-resident copy where the tree
+  takes one (``kde_hash.kernel.BF16_ROWS``), as the hashed estimator hands
+  it, else the f32 rows; weighted_kv_bf16_f32x times the f32 rows at
+  bf16 in any tree.
 
 Prints one JSON line: for each wrapper ``ms`` (CUDA events around
 back-to-back calls, host cost included), ``device_ms`` (torch.profiler:
@@ -126,6 +134,33 @@ def main() -> int:
         calls[name] = (
             lambda a=(q, k, v), kw=kw: kk.kde_decode_cuda(*a, **kw),
             lambda a=(q, k, v), kw=kw: kk.kde_decode_plain(*a, **kw))
+    xs = torch.randn(1048576, 16, generator=gen, device=dev) * 0.5
+    qs = torch.randn(64, 16, generator=gen, device=dev) * 0.5
+    bf = dict(precision="bf16")
+    calls["rowsum_bf16"] = (
+        lambda: rk.rowsum_cuda(qs, xs, "gaussian", 0.25, 1.0, **bf),
+        lambda: rk.rowsum_plain(qs, xs, "gaussian", 0.25, 1.0, **bf))
+    for name in ("blocksum", "sample_block", "masked_blocksum"):
+        a = {"blocksum": bargs, "sample_block": sargs,
+             "masked_blocksum": margs}[name]
+        calls[name + "_bf16"] = (
+            lambda n=name, a=a: getattr(sk if n != "blocksum" else rk,
+                                        n + "_cuda")(*a, **bf),
+            lambda n=name, a=a: getattr(sk if n != "blocksum" else rk,
+                                        n + "_plain")(*a, **bf))
+    xh16 = xh.to(torch.bfloat16) if hasattr(hk, "BF16_ROWS") else xh
+    for name, t in (("weighted_kv", 1152), ("weighted_kv_sum", 192),
+                    ("weighted_kv_f32x", 1152)):
+        fn = name.replace("_f32x", "")
+        rows = xh if name.endswith("f32x") else xh16
+        cols = torch.randint(0, 262144, (1024, t), generator=gen,
+                             dtype=torch.int32, device=dev)
+        wgt = torch.rand((1024, t), generator=gen, device=dev) * 256.0
+        wargs = (qh, rows, cols, wgt, "gaussian", 1.0)
+        plain = (qh, xh, cols, wgt, "gaussian", 1.0)
+        calls[fn + "_bf16" + name[len(fn):]] = (
+            lambda n=fn, a=wargs: getattr(hk, n + "_cuda")(*a, **bf),
+            lambda n=fn, a=plain: getattr(hk, n + "_plain")(*a, **bf))
     if args.only:
         calls = {n: calls[n] for n in args.only.split(",")}
 
@@ -143,7 +178,7 @@ def main() -> int:
     for name, (fn, plain) in calls.items():
         got, want = fn(), plain()
         err = {}
-        if name == "sample_block":
+        if name.startswith("sample_block"):
             err["blk_equal"] = float((got[0] == want[0]).float().mean())
             got, want = got[3], want[3]
         err["max_abs_err"] = float((got.float() - want.float()).abs().max())
