@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; no phase catches and continues):
                the build seconds and ptxas register / spill lines; the
                library's SASS (``cuobjdump``) must show tensor-core HMMA
                instructions in every bf16 flash instance and every
-               tensor-core sampler instance (the bf16 sample_block /
-               masked_blocksum tile), and none in the f32 flash instances
-               or the f32 sampler tiles.
+               tensor-core KDE instance (the bf16 sample_block /
+               masked_blocksum tile, ``sampler_mma_kernel``, and the bf16
+               rowsum / blocksum tile, ``blocksum_mma_kernel``), and none
+               in the f32 flash instances or the other sampler and rowsum
+               tiles (the wide ones built for the f32 kinds only).
 2. kernels  -- every kernel against its plain PyTorch version on the card:
                all four kernel kinds on ragged shapes (m=37, n=301, d=19,
                bn=70; the kde_hash kernels at m=37, t=45, d=19; laplacian
@@ -135,8 +137,13 @@ Phases (any failure exits non-zero; no phase catches and continues):
                holds the sampler kernels' tensor-core tile to the
                flip slack on inputs built for cancellation (a common
                offset large against the spread; queries that are dataset
-               rows), and the weighted kernels on the bf16 copy bitwise to
-               their bf16 instances on the f32 rows.
+               rows), the rowsum / blocksum tensor-core tile at m = 64
+               (one short query tile: two warps a row slice split the
+               columns) and m = 65 (full and short), with two calls
+               bitwise equal, and the weighted kernels on the bf16 copy
+               bitwise to their bf16 instances on the f32 rows.  The
+               rowsum and blocksum rows print their plan's instance, and
+               the rowsum row the reduce's share of its device time.
 9. graph    -- walks (Algorithm 4.16) and the Table-1 applications through
                the public entry points, each configuration's wall time and
                rate printed beside the card line.  (a) stratified walks on
@@ -546,11 +553,12 @@ def phase_build():
 
 def sass_check(build) -> None:
     """The built library's SASS (``cuobjdump --dump-sass``): every bf16
-    instance of the flash kernel (``flash_mma_kernel``) and of the
-    sampler's tensor-core tile (``sampler_mma_kernel``, the bf16 kinds
-    4-6) contains tensor-core ``HMMA`` instructions, and no f32 flash
-    instance (``flash_fwd_kernel``) and no other sampler tile (the wide
-    and generic tiles, every f32 kind among them) does."""
+    instance of the flash kernel (``flash_mma_kernel``) and of the KDE
+    tensor-core tile (``sampler_mma_kernel`` and ``blocksum_mma_kernel``,
+    the bf16 kinds 4-6) contains tensor-core ``HMMA`` instructions, and no
+    f32 flash instance (``flash_fwd_kernel``) and no other sampler or
+    rowsum tile (the wide, deep and generic tiles, every f32 kind among
+    them) does; the wide tiles are built for the f32 kinds 0-3 only."""
     import re
     from repro_torch.kernels.flash_attention import kernel as fk
     import torch
@@ -574,22 +582,36 @@ def sass_check(build) -> None:
         assert all((c > 0) == tensor for c in hits.values()), (name, hits)
         log(f"[build] SASS of {name} ({body}): HMMA instructions per "
             f"instance {sorted(hits.values())}")
-    mma = {f: c for f, c in counts.items() if "sampler_mma_kernel" in f}
-    other = {f: c for f, c in counts.items()
-             if "sampler_wide_kernel" in f or "sampler_generic_kernel" in f}
-    # instances are sampler_mma_kernel<KIND, DK, DRAW>: 3 kinds x 2 x 2
-    assert len(mma) == 12 and all(c > 0 for c in mma.values()), mma
-    assert all(re.search(r"mma_kernelILi[456]E", f) for f in mma), mma
-    # sampler_wide_kernel<KIND, DK, DRAW> for the 4 f32 kinds (0-3) x 2 x 2,
-    # sampler_generic_kernel<KIND, DRAW> for all 7 kinds x 2
-    wide = [f for f in other if "sampler_wide_kernel" in f]
-    assert len(wide) == 16 and len(other) == 30, sorted(other)
-    assert all(re.search(r"wide_kernelILi[0-3]E", f) for f in wide), wide
-    assert not any(other.values()), other
-    log(f"[build] SASS of sampler_mma_kernel (bf16 sample_block / "
-        f"masked_blocksum): HMMA instructions per instance "
-        f"{sorted(mma.values())}; {len(other)} wide / generic sampler "
-        f"instances (the f32 kinds' among them): none")
+
+    def named(*names):
+        return {f: c for f, c in counts.items()
+                if any(f"{n}I" in f for n in names)}
+
+    # (mma kernel, instances: 3 bf16 kinds x 2 DK [x 2 DRAW]; the other
+    # tiles of its source: {name: instances}, wide ones of kinds 0-3 only)
+    for mma_name, n_mma, others in (
+            ("sampler_mma_kernel", 12,
+             # <KIND, DK, DRAW> for the 4 f32 kinds x 2 x 2; <KIND, DRAW>
+             # for all 7 kinds x 2
+             {"sampler_wide_kernel": 16, "sampler_generic_kernel": 14}),
+            ("blocksum_mma_kernel", 6,
+             # <KIND, DK> for the 4 f32 kinds x 2; <KIND> for all 7 kinds
+             {"blocksum_wide_kernel": 8, "blocksum_deep_kernel": 7,
+              "blocksum_kernel": 7})):
+        mma = named(mma_name)
+        assert len(mma) == n_mma and all(c > 0 for c in mma.values()), mma
+        assert all(re.search(r"mma_kernelILi[456]E", f) for f in mma), mma
+        other = named(*others)
+        for name, n in others.items():
+            got = named(name)
+            assert len(got) == n, (name, sorted(got))
+            if "wide" in name:
+                assert all(re.search(r"wide_kernelILi[0-3]E", f)
+                           for f in got), got
+        assert not any(other.values()), other
+        log(f"[build] SASS of {mma_name}: HMMA instructions per instance "
+            f"{sorted(mma.values())}; its source's {len(other)} wide / deep "
+            f"/ generic instances (the f32 kinds' among them): none")
 
 
 def phase_kernels(data, gen):
@@ -2499,6 +2521,44 @@ def bf16_kernel_checks(gen):
             f"the f32 error of a bf16 midpoint; one-column blocks equal off "
             f"them)")
 
+    # the tensor-core rowsum / blocksum at the short tile's edge: m = 64
+    # (one short tile: two warps a row slice split each chunk's columns)
+    # and m = 65 (one full tile, one short); ragged, full and one-column
+    # blocks; two calls bitwise equal
+    for m, d, bn in ((64, 16, 70), (65, 16, 70), (64, 32, 256),
+                     (65, 32, 256), (64, 8, 1), (65, 8, 1)):
+        n = 3000
+        q = torch.randn(m, d, generator=gen, device=dev) * 0.3
+        x = torch.randn(n, d, generator=gen, device=dev) * 0.3
+        inv_bw = 1.0 / (0.4 * d ** 0.5)
+        for kind in L2_KINDS:
+            a = (kind, inv_bw, 0.7)
+            slack = bf16_flip_slack(q, x, kind, inv_bw)
+            for b in (None, bn):
+                inst = rk._cached_plan(q, x, *a, b, "bf16")[0].instance
+                assert inst == sk.MMA + (16 if d <= 16 else 32), (m, d, inst)
+            tag = f"{kind} m={m} d={d} bn={bn} (tensor-core tile)"
+            got = rk.rowsum_cuda(q, x, *a, "bf16")
+            note("rowsum_bf16", close(got, rk.rowsum_plain(q, x, *a, "bf16"),
+                                      f"rowsum bf16 {tag}",
+                                      slack=slack.sum(1)))
+            assert torch.equal(got, rk.rowsum_cuda(q, x, *a, "bf16")), \
+                f"rowsum bf16 {tag}: two calls differ"
+            got = rk.blocksum_cuda(q, x, *a, bn, "bf16")
+            want = rk.blocksum_plain(q, x, *a, bn, "bf16")
+            note("blocksum_bf16", close(
+                got, want, f"blocksum bf16 {tag}",
+                slack=bf16_flip_slack(q, x, kind, inv_bw, bn)))
+            assert torch.equal(got, rk.blocksum_cuda(q, x, *a, bn, "bf16")), \
+                f"blocksum bf16 {tag}: two calls differ"
+            if bn == 1 and kind != "rational_quadratic":
+                assert torch.equal(got[slack == 0], want[slack == 0]), \
+                    f"blocksum bf16 one-column {tag}: values differ off the slack"
+        log(f"[bf16] rowsum / blocksum m={m} n={n} d={d} bn={bn} on the "
+            f"tensor-core tile ({'short' if m <= 64 else 'full + short'} "
+            f"query tiles): every L2 kind within the flip slack, two calls "
+            f"bitwise equal")
+
     for kind, d, aligned in [(k, 19, True) for k in L2_KINDS] + [
             ("gaussian", 8, True), ("exponential", 16, True),
             ("rational_quadratic", 32, True), ("gaussian", 784, True),
@@ -2694,6 +2754,20 @@ def bf16_main_rows(data, gen, errs):
                    + table_bytes(qr, xr, inv)),
         lambda: exp_bf16(torch.cdist(qb, xb).square_().mul_(-inv * inv))
         .sum(1), "")
+    plan, kshape = rk._cached_plan(qr, xr, *a, None, "bf16")
+    rows[-1]["instance"] = plan.instance
+    # one trace of both launches: the block sums' and the reduce's device ms
+    traced = device_kernels(lambda: rk.rowsum_cuda(qr, xr, *a, "bf16"), 20)
+    split = {k: next((us / 20 / 1e3 for name, (_, us) in traced.items()
+                      if k in name and us is not None), None)
+             for k in ("blocksum_mma_kernel", "rowsum_reduce_kernel")}
+    share = None if None in split.values() \
+        else split["rowsum_reduce_kernel"] / sum(split.values())
+    rows[-1]["reduce_share"] = share
+    log(f"[bf16] rowsum main: instance {plan.instance} (MMA + "
+        f"{plan.instance - sk.MMA}), {plan.nb} splits of {kshape.bn} "
+        f"columns; device ms {split}; the reduce's share of the row "
+        f"{'not measured' if share is None else repr(share)}")
     del xr, xb
 
     x, bn = data["sp_x"], data["sp_bs"]
@@ -2722,6 +2796,8 @@ def bf16_main_rows(data, gen, errs):
         bf16_bound(m * n, d, 4 * (m * d + n * d + m * nb)
                    + table_bytes(q, x, inv)),
         lambda: cdist_blocks(q), "blocksum")
+    rows[-1]["instance"] = rk._cached_plan(q, x, *a, bn, "bf16")[0].instance
+    log(f"[bf16] blocksum main: instance {rows[-1]['instance']}")
 
     src = data["ns_src"]
     qm = x[src].contiguous()
@@ -3893,7 +3969,8 @@ def main() -> int:
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
-                                  "ctas", "graph_launches")
+                                  "ctas", "instance", "reduce_share",
+                                  "graph_launches")
          if k in r}
         for r in rows]}))
     log(card_line())

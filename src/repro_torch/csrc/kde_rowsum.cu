@@ -11,28 +11,39 @@
 // one transcendental, against d * 8 bytes of operands that the tiles reuse
 // 128 times.  The LRA call (m = 1024, n = 16384, d = 784, laplacian) issues
 // at least 1024 * 16384 * 784 * 2 = 26.3 G lane instructions: ~0.79 ms at
-// 132 SMs x 128 lanes x 1.98 GHz.
+// 132 SMs x 128 lanes x 1.98 GHz.  The bf16 kinds at d <= 32 move the
+// cross term to the tensor cores, and the per-pair epilogue (~8
+// instructions) sets the pace.
 //
 // Design: the TPU rowsum carries a row accumulator across its sequential j
 // grid axis.  Hopper runs blocks in no order, so the rowsum is a blocksum
 // over `splits` blocks of `cols` columns into an (m, splits) partial buffer,
-// and a second small kernel sums each row in split order: deterministic, no
-// atomics.  The blocksum has no carry.  Both run one of three tiles, chosen
-// by the host-side plan (kernels/kde_rowsum/kernel.py ``blocksum_plan`` /
-// ``rowsum_plan``; the shape struct's `instance`):
-// - wide (d % 4 == 0, d <= 32, q and x 16-byte aligned) and deep (the same
-//   for d > 32): kde_wide.cuh's 128-row tiles with a raw store, a CTA summing
-//   `group` consecutive blocks (the plan sizes the group, or the rowsum's
-//   split width, so the grid is one wave of 2 CTAs an SM);
+// and a second small kernel sums each row, a warp a row in a fixed order:
+// deterministic, no atomics.  The blocksum has no carry.  Both run one of
+// four tiles, chosen by the host-side plan (kernels/kde_rowsum/kernel.py
+// ``blocksum_plan`` / ``rowsum_plan``; the shape struct's `instance`):
+// - wide (the f32 kinds; d % 4 == 0, d <= 32, q and x 16-byte aligned) and
+//   deep (any kind; the same for d > 32): kde_wide.cuh's 128-row tiles with
+//   a raw store, a CTA summing `group` consecutive blocks (the plan sizes
+//   the group, or the rowsum's split width, so the grid is one wave of 2
+//   CTAs an SM);
+// - mma (the bf16 kinds under wide's conditions, instance MMA + 16 or MMA
+//   + 32): kde_wide.cuh's tensor-core tile, mma.sync bf16 with f32
+//   accumulation, with the same raw store and grid.  A query tile of at most
+//   64 valid rows (the bench_kde sweep's m = 64) splits each chunk's columns
+//   between two warps a row slice, so no warp runs on padding;
 // - generic (any other d or alignment): kde_tile.cuh's 64-row tile, one CTA
 //   per (block, query tile).
 // Any semantic block size bn works (not a power of two, e.g. 70); the
 // ragged last block is masked in the kernels.
 //
 // precision="bf16" (the Pallas kernels' bf16 specialisation with its
-// exp-table operand) is the same tiles at the bf16 kind ids of
-// kde_tile.cuh: operands rounded where they are staged, the table passed in
-// `table`.  Only the three L2 kinds have bf16 instances.
+// exp-table operand) runs the mma, deep and generic tiles at the bf16 kind
+// ids of kde_tile.cuh: operands rounded to bf16 where they are staged (the
+// mma tile: into its bf16 tiles), the table passed in `table`.  Only the
+// three L2 kinds have bf16 instances.  The wide tile is built for the f32
+// kinds only: at a bf16 kind, instance 16 / 32 returns
+// cudaErrorInvalidValue.
 #include "kde_wide.cuh"
 
 namespace {
@@ -54,13 +65,24 @@ struct RawStore {
   }
 };
 
-__global__ void rowsum_reduce_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ out, int m, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+// out[i] = the sum of row i's split sums, a warp a row: lane l sums splits
+// l, l + 32, ... in order, then a fixed xor tree (deterministic).  A few
+// rows with many splits (the bench_kde sweep's 64 rows of 256) still
+// spread over 32 lanes a row.
+constexpr int REDUCE_THREADS = 256;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+rowsum_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int m,
+                     int splits) {
+  const int i = blockIdx.x * (REDUCE_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= m) return;                       // warp-uniform
+  const float* row = partial + (size_t)i * splits;
   float acc = 0.0f;
-  for (int s = 0; s < splits; ++s) acc += partial[(size_t)i * splits + s];
-  out[i] = acc;
+  for (int s = lane; s < splits; s += 32) acc += row[s];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[i] = acc;
 }
 
 template <int KIND>
@@ -98,33 +120,46 @@ blocksum_deep_kernel(SumArgs a) {
   kde::deep_block_sums<KIND, kde::DEEP_DK, RawStore>(smem, a);
 }
 
-// Launch the wide tile padded to INST coordinates, or the deep tile (INST ==
-// kde::DEEP), raising its dynamic shared memory once (above 48 KB).
-template <int KIND, int INST>
+template <int KIND, int DK>
+__global__ void __launch_bounds__(THREADS, 2)
+blocksum_mma_kernel(SumArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  kde::mma_block_sums<KIND, DK, RawStore>(smem, a);
+}
+
+// A launch of a 128-row tile kernel with SMEM bytes of dynamic shared
+// memory, raised once (above 48 KB) at its first launch.
+template <void (*KERNEL)(SumArgs), int SMEM>
 int launch_tiled(const SumArgs& a, cudaStream_t st) {
-  constexpr bool deep = INST == kde::DEEP;
-  constexpr int smem =
-      deep ? kde::Deep<kde::DEEP_DK>::BYTES : kde::Wide<deep ? 16 : INST>::BYTES;
-  void (*kernel)(SumArgs);
-  if constexpr (deep) kernel = blocksum_deep_kernel<KIND>;
-  else kernel = blocksum_wide_kernel<KIND, INST>;
   static bool raised = false;
   if (!raised) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     raised = true;
   }
   const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + 127) / 128);
-  kernel<<<grid, THREADS, smem, st>>>(a);
+  KERNEL<<<grid, THREADS, SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KIND>
 int blocksum_kind(const SumArgs& a, int instance, cudaStream_t st) {
-  if (instance == 16) return launch_tiled<KIND, 16>(a, st);
-  if (instance == 32) return launch_tiled<KIND, 32>(a, st);
-  if (instance == kde::DEEP) return launch_tiled<KIND, kde::DEEP>(a, st);
+  using kde::Mma;
+  using kde::Wide;
+  if constexpr (kde::is_bf16(KIND)) {
+    if (instance == kde::MMA + 16)
+      return launch_tiled<blocksum_mma_kernel<KIND, 16>, Mma<16>::BYTES>(a, st);
+    if (instance == kde::MMA + 32)
+      return launch_tiled<blocksum_mma_kernel<KIND, 32>, Mma<32>::BYTES>(a, st);
+  } else {
+    if (instance == 16)
+      return launch_tiled<blocksum_wide_kernel<KIND, 16>, Wide<16>::BYTES>(a, st);
+    if (instance == 32)
+      return launch_tiled<blocksum_wide_kernel<KIND, 32>, Wide<32>::BYTES>(a, st);
+  }
+  if (instance == kde::DEEP)
+    return launch_tiled<blocksum_deep_kernel<KIND>, kde::Deep<kde::DEEP_DK>::BYTES>(a, st);
   if (instance != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.nb, (a.m + kde::BM - 1) / kde::BM);
   blocksum_kernel<KIND><<<grid, kde::THREADS, 0, st>>>(a);
@@ -162,7 +197,9 @@ int kde_rowsum_launch(const float* q, const float* x, float* partial, float* out
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = blocksum(q, x, partial, table, *s, st);
   if (err != 0) return err;
-  rowsum_reduce_kernel<<<(s->m + 255) / 256, 256, 0, st>>>(partial, out, s->m, s->nb);
+  constexpr int rows = REDUCE_THREADS / 32;
+  rowsum_reduce_kernel<<<(s->m + rows - 1) / rows, REDUCE_THREADS, 0, st>>>(partial, out, s->m,
+                                                                            s->nb);
   return static_cast<int>(cudaGetLastError());
 }
 

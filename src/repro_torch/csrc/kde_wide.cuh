@@ -45,18 +45,19 @@
 //   One barrier a step; the L2 kinds sum the norms of every step in
 //   registers (two threads a row) and publish them once a column chunk.
 //   Shared memory (4 DK 132 + 256) floats: 34,816 B.
-// - mma (the bf16 kinds at d <= 32, same conditions as wide; the sampler's
-//   plan takes it, instance MMA + DK): the wide tile's staging, with the
+// - mma (the bf16 kinds at d <= 32, same conditions as wide; every plan
+//   takes it there, instance MMA + DK): the wide tile's staging, with the
 //   cross term on the tensor cores.  See mma_block_sums below.
 //
-// The bf16 kinds (kde_tile.cuh): cp.async copies raw bytes, so nothing is
-// rounded in flight.  After its cp_async_wait_all() each thread rounds, in
-// place, exactly the pieces it copied itself (round_staged /
-// round_staged_kmajor walk the staging loops' own index pattern), before
-// the barrier that already precedes the norms and the FMAs: a thread's own
-// cp.async writes are visible to it after its wait, and the barrier
-// publishes the rounded values.  So the bf16 tiles add no barrier and no
-// instruction to the inner loop; the f32 kinds compile none of it.
+// The wide tile is built for the f32 kinds only.  The deep tile's bf16 kinds
+// (kde_tile.cuh): cp.async copies raw bytes, so nothing is rounded in
+// flight.  After its cp_async_wait_all() each thread rounds, in place,
+// exactly the coordinates it copied itself (round_staged_kmajor walks the
+// staging loop's own index pattern), before the barrier that already
+// precedes the norms and the FMAs: a thread's own cp.async writes are
+// visible to it after its wait, and the barrier publishes the rounded
+// values.  So the bf16 deep tile adds no barrier and no instruction to the
+// inner loop; the f32 kinds compile none of it.
 #pragma once
 
 #include <stdint.h>
@@ -155,22 +156,6 @@ __device__ __forceinline__ void stage_kmajor(float* dst, const float* src, int v
     const int r = r0 + i * STEP;
     const bool ok = kin && r < valid;
     cp_async4(dst + k * Deep<DK>::LD + r, ok ? s + (size_t)i * STEP * d : src, ok ? 4 : 0);
-  }
-}
-
-// Round to bf16, in place, the pieces this thread staged with
-// stage<DK, ROWS>(dst, ...) (the same index pattern).
-template <int DK, int ROWS>
-__device__ __forceinline__ void round_staged(float* dst) {
-  constexpr int V = DK / 4;
-  for (int e = threadIdx.x; e < ROWS * V; e += WIDE_THREADS) {
-    float4* p = reinterpret_cast<float4*>(dst + (e / V) * Wide<DK>::RS + 4 * (e % V));
-    float4 v = *p;
-    v.x = round_bf16(v.x);
-    v.y = round_bf16(v.y);
-    v.z = round_bf16(v.z);
-    v.w = round_bf16(v.w);
-    *p = v;
   }
 }
 
@@ -330,6 +315,7 @@ __device__ __forceinline__ void tile_store(const A& a, float (&rs)[8], int tx, i
 template <int KIND, int DK, class Store, class A>
 __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
   using W = Wide<DK>;
+  static_assert(!is_bf16(KIND), "the bf16 kinds take the mma tile");
   constexpr bool L2 = KIND != LAPLACIAN;
   float* qs = smem + W::QS;
   float* qn = smem + W::QN;
@@ -361,10 +347,6 @@ __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
     const bool more = nb_ < b1;
     const float* xs = smem + W::XS + (step & 1) * W::BN * W::RS;
     cp_async_wait_all();
-    if (is_bf16(KIND)) {      // each thread rounds what it staged
-      if (step == 0) round_staged<DK, W::BM>(qs);
-      round_staged<DK, W::BN>(smem + W::XS + (step & 1) * W::BN * W::RS);
-    }
     __syncthreads();          // this chunk (and q) landed; the last one is done
     if (more) {
       const int nj0 = nb_ * a.bn + nc * W::BN;
@@ -487,8 +469,9 @@ __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
 }
 
 // ------------------------------------------------------------------ mma
-// The bf16 kinds' tensor-core sweep (instance MMA + DK; the sampler's plan
-// takes it for the bf16 kinds where the wide tile's conditions hold).
+// The bf16 kinds' tensor-core sweep (instance MMA + DK; the sampler's,
+// blocksum's and rowsum's plans take it for the bf16 kinds where the wide
+// tile's conditions hold).
 // Replaces the cross term of _tile_kernel_values(precision="bf16")
 // (kde_rowsum/kernel.py:62-77): dot_general of the rounded operands with
 // preferred_element_type=f32.  Products of two bf16 values are exact in
@@ -523,7 +506,17 @@ __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
 // last tile past it are masked, so every bn works (bn = 70: a 70-column
 // chunk, 5 column pairs, the last half masked).  A row's block sum lives
 // in the 4 lanes of a quad: two xor shuffles in a fixed order when the
-// block is complete.  The exp table is read from global memory through
+// block is complete.
+//
+// A short query tile (at most 64 valid rows: the last tile of a ragged m,
+// or the whole of the bench_kde sweep's m = 64) would leave warps 4-7 on
+// zero rows.  There warps w and w + 4 share rows 16 w .. 16 w + 15 and
+// split every chunk's 16-column pairs, w the even ones and w + 4 the odd
+// ones; when a block is complete, warp w + 4 hands its quad sums over
+// through shared memory (the query landing buffer, dead after the first
+// chunk) and warp w adds them after its own, a fixed order, so two calls
+// stay bitwise equal.  One barrier more a block; a full tile's sweep has
+// neither the barrier nor the hand-over.  The exp table is read from global memory through
 // the read-only path, as the other tiles read it: a copy of its reachable
 // patterns in shared memory (68,416 B, 2 CTAs an SM) measured slower on
 // the H100, its bank conflicts and the range test of the patterns it does
@@ -614,14 +607,17 @@ __device__ __forceinline__ float2 finish2(float c0, float s0, float c1, float s1
 
 // rs[r] += the kernel values of the chunk's columns for rows gid + 8 r of
 // the warp: xb the chunk's bf16 columns, xn their norms; MASK: only the
-// first `valid` columns count.
-template <int KIND, int KS, int HS, bool MASK>
+// first `valid` columns count; SPLIT: only the 16-column pairs jp of
+// parity `half` (a short tile's warp halves), else all eight.
+template <int KIND, int KS, int HS, bool MASK, bool SPLIT>
 __device__ __forceinline__ void mma_chunk(float (&rs)[2], const uint32_t (&af)[KS][4],
                                           const float (&qv)[2], const __nv_bfloat16* xb,
-                                          const float* xn, int valid, const TableParams& p) {
+                                          const float* xn, int valid, int half,
+                                          const TableParams& p) {
   const int lane = threadIdx.x & 31, tig = lane & 3;
 #pragma unroll
-  for (int jp = 0; jp < 8; ++jp) {
+  for (int t = 0; t < (SPLIT ? 4 : 8); ++t) {
+    const int jp = SPLIT ? 2 * t + half : t;
     if (MASK && jp * 16 >= valid) break;   // warp-uniform
     // matrix i of a load: columns jp 16 + 8 (i >> 1), k 8 (i & 1) of the
     // k-step, so (r0, r1) and (r2, r3) are the b fragments of the two
@@ -657,20 +653,20 @@ __device__ __forceinline__ void mma_chunk(float (&rs)[2], const uint32_t (&af)[K
   }
 }
 
-// The mma sweep: blocks [blockIdx.x group, + group) of query tile
-// blockIdx.y, as wide_block_sums.  smem holds Mma<DK>::BYTES.
-template <int KIND, int DK, class Store, class A>
-__device__ __forceinline__ void mma_block_sums(float* smem, const A& a) {
+// The mma sweep over a full (SPLIT false) or short (SPLIT true: at most 64
+// valid rows) query tile.  smem holds Mma<DK>::BYTES.
+template <int KIND, int DK, class Store, bool SPLIT, class A>
+__device__ __forceinline__ void mma_sweep(float* smem, const A& a) {
   using M = Mma<DK>;
-  static_assert(is_bf16(KIND) && DK % 16 == 0, "the mma tile takes the bf16 kinds");
   constexpr int KS = DK / 16;                       // k-steps of the cross term
   float* qs = smem + M::QS;
   float* qn = smem + M::QN;
   float* xn = smem + M::XN;
   __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(smem + M::QB);
   __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(smem + M::XB);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wr = (tid >> 5) * 16;                   // the warp's first query row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = (SPLIT ? warp & 3 : warp) * 16;    // the warp's first query row
+  const int half = SPLIT ? warp >> 2 : 0;           // its column pairs' parity
   const int gid = lane >> 2, tig = lane & 3;
   const int i0 = blockIdx.y * M::BM;
   int b = blockIdx.x * a.group;
@@ -717,15 +713,32 @@ __device__ __forceinline__ void mma_block_sums(float* smem, const A& a) {
       qv[1] = qn[wr + gid + 8];
     }
     const int valid = min(M::BN, jend - j0);        // columns of block b in the chunk
-    if (valid == M::BN) mma_chunk<KIND, KS, M::HS, false>(rs, af, qv, xb, xn, valid, a.p);
-    else mma_chunk<KIND, KS, M::HS, true>(rs, af, qv, xb, xn, valid, a.p);
+    if (valid == M::BN)
+      mma_chunk<KIND, KS, M::HS, false, SPLIT>(rs, af, qv, xb, xn, valid, half, a.p);
+    else
+      mma_chunk<KIND, KS, M::HS, true, SPLIT>(rs, af, qv, xb, xn, valid, half, a.p);
     if (nc == 0) {            // block b is complete: the quad's sums, fixed order
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
         rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      }
+      if (SPLIT) {            // the odd pairs' sums (warp w + 4) after the even ones'
+        float* odd = qs;      // 64 floats; q landed here, dead since step 0
+        if (half && tig == 0) {
+          odd[wr + gid] = rs[0];
+          odd[wr + gid + 8] = rs[1];
+        }
+        __syncthreads();      // block completion is CTA-uniform
+        if (!half) {
+          rs[0] += odd[wr + gid];
+          rs[1] += odd[wr + gid + 8];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
         const int gi = i0 + wr + gid + 8 * r;
-        if (tig == 0 && gi < a.m) Store::put(a, rs[r], gi, b);
+        if (!half && tig == 0 && gi < a.m) Store::put(a, rs[r], gi, b);
         rs[r] = 0.0f;
       }
     }
@@ -733,6 +746,18 @@ __device__ __forceinline__ void mma_block_sums(float* smem, const A& a) {
     b = nb_;
     c = nc;
   }
+}
+
+// The mma sweep: blocks [blockIdx.x group, + group) of query tile
+// blockIdx.y, as wide_block_sums; a tile of at most 64 valid rows takes the
+// split sweep (CTA-uniform).  smem holds Mma<DK>::BYTES.
+template <int KIND, int DK, class Store, class A>
+__device__ __forceinline__ void mma_block_sums(float* smem, const A& a) {
+  static_assert(is_bf16(KIND) && DK % 16 == 0, "the mma tile takes the bf16 kinds");
+  if (a.m - (int)blockIdx.y * Mma<DK>::BM <= Mma<DK>::BM / 2)
+    mma_sweep<KIND, DK, Store, true>(smem, a);
+  else
+    mma_sweep<KIND, DK, Store, false>(smem, a);
 }
 
 }  // namespace kde

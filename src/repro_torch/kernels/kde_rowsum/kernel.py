@@ -10,16 +10,20 @@ constants of ``csrc/kde_tile.cuh`` and ``csrc/kde_wide.cuh``.
 
 ``blocksum_plan`` / ``rowsum_plan`` are the host-side plans of both kernels,
 built on ``kde_sampler.kernel.sample_block_plan``: the wide 128-row tile
-(d % 4 == 0, d <= 32, q and x on 16 bytes), the deep 128-row tile (the same
-for d > 32), or the generic 64-row tile; the rowsum's split of n into
-blocks.  Each wrapper validates a call's operands once per (shapes, dtypes,
+(d % 4 == 0, d <= 32, q and x on 16 bytes) at f32, its tensor-core twin
+under the same conditions at bf16, the deep 128-row tile (the same for d >
+32), or the generic 64-row tile; the rowsum's split of n into blocks.
+Each wrapper validates a call's operands once per (shapes, dtypes,
 devices, layout, kernel arguments) and keeps the launch's static arguments
 as a ``build.KdeTileShape``.
 
 Every wrapper takes ``precision`` ("f32" or "bf16", DESIGN.md §14).  bf16
-launches the same tiles at the bf16 kind ids (``kind_args``), with the
-bf16 exp table (``exp_table_ptr``: one copy a device) for the gaussian and
-exponential kinds, and counts under ``<name>_bf16`` in ``LAUNCHES``.
+launches the tensor-core tile where the wide tile's conditions hold, else
+the same deep and generic tiles, at the bf16 kind ids (``kind_args``),
+with the bf16 exp table (``exp_table_ptr``: one copy a device) for the
+gaussian and exponential kinds, and counts under ``<name>_bf16`` in
+``LAUNCHES``.  ``mma_sums_model`` is a plain model of the tensor-core
+tile's summation order for the CPU tests.
 """
 from __future__ import annotations
 
@@ -117,15 +121,16 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def blocksum_plan(m: int, n: int, d: int, bn: int, aligned: bool = True,
-                  sms: int = 132):
+                  sms: int = 132, precision: str = "f32"):
     """The tile an (m, n, d, bn) blocksum runs, as a ``TilePlan``:
     ``sample_block_plan``'s wide tile (d % 4 == 0, d <= 32, q and x on 16
-    bytes: ``aligned``), the deep tile for d > 32 under the same
-    conditions (``instance`` DEEP; ``group`` blocks a CTA from
+    bytes: ``aligned``) at f32 and its tensor-core twin (``MMA`` + the
+    padded d) at ``precision="bf16"``, the deep tile for d > 32 under the
+    same conditions (``instance`` DEEP; ``group`` blocks a CTA from
     ``group_for``), else the generic tile, one block a CTA.  Raises
     ValueError for what the kernels do not take (``sample_block_plan``)."""
     from repro_torch.kernels.kde_sampler import kernel as sk
-    plan = sk.sample_block_plan(m, n, d, bn, aligned, sms)
+    plan = sk.sample_block_plan(m, n, d, bn, aligned, sms, precision)
     if plan.instance:
         return plan
     if aligned and d % 4 == 0:
@@ -136,13 +141,13 @@ def blocksum_plan(m: int, n: int, d: int, bn: int, aligned: bool = True,
 
 
 def rowsum_plan(m: int, n: int, d: int, aligned: bool = True,
-                sms: int = 132):
+                sms: int = 132, precision: str = "f32"):
     """(plan, cols): the rowsum's first pass is a blocksum over ``plan.nb``
     splits of ``cols`` columns (a multiple of the tile's chunk), one split
-    a CTA, so the grid fills the card: 2 CTAs an SM on the 128-row tiles,
-    4 on the generic one (its 64-row tiles)."""
+    a CTA, so the grid fills the card: 2 CTAs an SM on the 128-row tiles
+    (the mma tile among them), 4 on the generic one (its 64-row tiles)."""
     from repro_torch.kernels.kde_sampler import kernel as sk
-    base = blocksum_plan(m, n, d, max(n, 1), aligned, sms)
+    base = blocksum_plan(m, n, d, max(n, 1), aligned, sms, precision)
     chunk, per_sm = ((GENERIC_BN, GENERIC_CTAS_PER_SM) if base.instance == 0
                      else (TILE_BN, sk.CTAS_PER_SM))
     chunks = -(-n // chunk)
@@ -169,9 +174,10 @@ def _cached_plan(q, x, kind, inv_bw, beta, bn, precision="f32"):
         n = x.shape[0]
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         if bn is None:
-            plan, cols = rowsum_plan(m, n, d, aligned, sms)
+            plan, cols = rowsum_plan(m, n, d, aligned, sms, precision)
         else:
-            plan, cols = blocksum_plan(m, n, d, int(bn), aligned, sms), int(bn)
+            plan = blocksum_plan(m, n, d, int(bn), aligned, sms, precision)
+            cols = int(bn)
         shape = _build.KdeTileShape(m, n, d, cols, plan.nb, 0, plan.instance,
                                     plan.group,
                                     *kind_args(kind, inv_bw, beta, precision))
@@ -223,6 +229,95 @@ def blocksum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
         _build.check(err, "kde_blocksum")
     LAUNCHES[launch_key("blocksum", precision)] += 1
     return out
+
+
+def mma_sums_model(q, x, kind: str, inv_bw: float, beta: float = 1.0,
+                   bn: int | None = None, sms: int = 132):
+    """Plain torch model of the bf16 tensor-core tile's arithmetic and
+    summation order (``csrc/kde_wide.cuh`` ``mma_block_sums`` with the raw
+    store, then ``rowsum_reduce_kernel``); the CPU tests hold it to the
+    reference, no CUDA path calls it.
+
+    The norms in ``round_half``'s order (each half of the padded width
+    summed in f32, then the two halves); the cross term a k-step of 16
+    exact products at a time, each step added to the accumulator and
+    rounded once to f32 (the tensor cores truncate inside a step instead,
+    which ``kde_sampler.ref._pair_slack`` bounds); ``finish2``'s epilogue.
+    A row's block sum: each of its quad's four lanes sums its columns in
+    the chunk order (128-column chunks from the block's start; in a chunk,
+    16-column pairs, then their two 8-column halves, then the lane's two
+    columns), then the quad's xor sums; in a short tile (at most 64 valid
+    rows) the even and the odd 16-column pairs are summed apart and the
+    odd sum is added after the even one.  ``bn`` None gives the rowsum:
+    the plan's splits (``rowsum_plan`` on ``sms`` SMs) as blocks, then a
+    row's split sums by 32 lanes strided and a fixed xor tree.  Returns
+    (m,) or (m, ceil(n / bn)) float32."""
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    from repro_torch.kernels.kde_sampler.ref import exp_bf16, round_bf16
+    check_precision("bf16", kind)
+    pad = torch.nn.functional.pad
+    m, d = q.shape
+    n = x.shape[0]
+    dk = 16 if d <= 16 else 32
+    qf, xf = pad(round_bf16(q), (0, dk - d)), pad(round_bf16(x), (0, dk - d))
+
+    def norms(a):
+        halves = []
+        for lo in (0, dk // 2):
+            s = torch.zeros(a.shape[0], dtype=torch.float32)
+            for k in range(lo, lo + dk // 2):
+                s = s + a[:, k] * a[:, k]        # exact products: fmaf's rounding
+            halves.append(s)
+        return halves[0] + halves[1]
+
+    c = torch.zeros((m, n), dtype=torch.float32)
+    for k0 in range(0, dk, 16):
+        step = qf[:, k0:k0 + 16].double() @ xf[:, k0:k0 + 16].double().T
+        c = (c.double() + step).float()
+    d2 = torch.clamp(norms(qf)[:, None] + norms(xf)[None, :] - 2.0 * c,
+                     min=0.0)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    if kind == "gaussian":
+        kv = exp_bf16(-d2 * f32(inv_bw * inv_bw))
+    elif kind == "exponential":
+        kv = exp_bf16(-torch.sqrt(d2) * f32(inv_bw))
+    else:
+        kv = torch.pow(1.0 + d2 * f32(inv_bw * inv_bw), -f32(beta))
+
+    cols = bn if bn is not None else rowsum_plan(m, n, d, True, sms,
+                                                 "bf16")[1]
+    nb, chunks = -(-n // cols), -(-cols // TILE_BN)
+    kv = pad(pad(kv, (0, nb * cols - n)).view(m, nb, cols),
+             (0, chunks * TILE_BN - cols))
+    # column jp 16 + h 8 + tig 2 + e of chunk c: (c, jp as (t, parity), h,
+    # tig, e); lane tig's order is (c, jp, h, e), or (c, t, h, e) a parity
+    kv = kv.view(m, nb, chunks, 4, 2, 2, 4, 2)
+
+    def lane_sums(v):               # (..., L) -> (...): in order, in f32
+        acc = torch.zeros(v.shape[:-1], dtype=torch.float32)
+        for i in range(v.shape[-1]):
+            acc = acc + v[..., i]
+        return acc
+
+    def quad(r):                    # (..., 4 lanes): xor 1, then xor 2
+        return (r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])
+
+    full = quad(lane_sums(kv.permute(0, 1, 6, 2, 3, 4, 5, 7)
+                          .reshape(m, nb, 4, -1)))
+    halves = lane_sums(kv.permute(0, 1, 4, 6, 2, 3, 5, 7)
+                       .reshape(m, nb, 2, 4, -1))
+    split = quad(halves[:, :, 0]) + quad(halves[:, :, 1])
+    tile = torch.arange(m) // sk.WIDE_BM
+    short = (m - tile * sk.WIDE_BM <= sk.WIDE_BM // 2)[:, None]
+    sums = torch.where(short, split, full)
+    if bn is not None:
+        return sums
+    lanes = lane_sums(pad(sums, (0, -nb % 32)).view(m, -1, 32)
+                      .transpose(1, 2))
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[:, 0]
 
 
 def blocksum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,

@@ -76,7 +76,8 @@ def test_sample_block_plan_picks_the_tensor_core_tile(kind, precision, d,
     wherever the wide tile's conditions hold, the wide tile at f32, the
     generic tile at d = 19 / 784 and off 16 bytes at either precision; the
     laplacian has no bf16 instance (``kind_args`` refuses it before any
-    plan).  The rowsum and blocksum plans never take it."""
+    plan).  At f32 the rowsum and blocksum plans never take it (their bf16
+    plans do: ``tests/test_torch_rowsum_mma.py``)."""
     if kind == "laplacian" and precision == "bf16":
         with pytest.raises(ValueError, match="L2 kernels only"):
             trk.kind_args(kind, 1.0, 1.0, precision)
@@ -92,8 +93,10 @@ def test_sample_block_plan_picks_the_tensor_core_tile(kind, precision, d,
     # the same shape at f32 is the wide / generic plan, block groups equal
     assert plan._replace(instance=_sample_block_instance(d, "f32", aligned)) \
         == tsk.sample_block_plan(300, 5000, d, 70, aligned)
-    assert trk.blocksum_plan(300, 5000, d, 70, aligned).instance < tsk.MMA
-    assert trk.rowsum_plan(300, 5000, d, aligned)[0].instance < tsk.MMA
+    assert trk.blocksum_plan(300, 5000, d, 70, aligned,
+                             precision="f32").instance < tsk.MMA
+    assert trk.rowsum_plan(300, 5000, d, aligned,
+                           precision="f32")[0].instance < tsk.MMA
 
 
 def _weighted_instance(d, dtype, aligned):

@@ -683,6 +683,99 @@ def test_mma_sampler_ties_go_to_the_lower_block(cuda, kind, d):
         got, sk.sample_block_cuda(q, x, own, g, *args)))
 
 
+# the bf16 rowsum and blocksum on the tensor-core tile: m around the 64-row
+# short tile (1, 37, 64 split; 65 full; 129 a full tile and a short one;
+# 1024 eight full ones), one-column, ragged and full blocks, every padded
+# width
+ROWSUM_MMA_SHAPES = [(m, 3000, d, bn) for m in (1, 37, 64, 65, 129, 1024)
+                     for bn in (1, 70, 256) for d in (8, 16, 32)]
+
+
+def _rowsum_mma_against_plain(q, x, kind, inv_bw, bn, instance):
+    """The bf16 rowsum and blocksum at plan ``instance`` vs their plain
+    versions within the flip slack; one-column blocks equal the plain
+    values off the slack; two calls bitwise equal."""
+    m, d = q.shape
+    for b in (None, bn):
+        assert rk._cached_plan(q, x, kind, inv_bw, 0.7, b,
+                               "bf16")[0].instance == instance
+    args = (kind, inv_bw, 0.7)
+    slack = sref.bf16_flip_slack(q, x, kind, inv_bw)
+    got = rk.rowsum_cuda(q, x, *args, "bf16")
+    _bf16_close(got, rk.rowsum_plain(q, x, *args, "bf16"), slack.sum(1))
+    assert torch.equal(got, rk.rowsum_cuda(q, x, *args, "bf16"))
+    got = rk.blocksum_cuda(q, x, *args, bn, "bf16")
+    want = rk.blocksum_plain(q, x, *args, bn, "bf16")
+    _bf16_close(got, want, sref.bf16_flip_slack(q, x, kind, inv_bw, bn))
+    assert torch.equal(got, rk.blocksum_cuda(q, x, *args, bn, "bf16"))
+    if bn == 1 and kind != "rational_quadratic":
+        assert torch.equal(got[slack == 0], want[slack == 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ROWSUM_MMA_SHAPES)
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_mma_rowsum_blocksum_match_plain(cuda, kind, shape):
+    """The bf16 rowsum and blocksum take the tensor-core tile (plan MMA +
+    the padded d) wherever the wide tile's conditions hold, and match
+    their plain versions within the flip slack at short tiles (m <= 64,
+    the warp halves split the columns), full ones and both in one call;
+    two calls are bitwise equal."""
+    q, x, _, _, inv_bw, bn = _inputs(kind, shape, cuda)
+    d = q.shape[1]
+    _rowsum_mma_against_plain(q, x, kind, inv_bw, bn,
+                              sk.MMA + (16 if d <= 16 else 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64, 129])
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_mma_rowsum_blocksum_views_off_16_bytes_take_the_generic_tile(
+        cuda, kind, m):
+    """A view off 16 bytes takes the generic tile at bf16, as at f32, and
+    still matches the plain version within the flip slack."""
+    q, x, _, _, inv_bw, bn = _inputs(kind, (m, 3000, 16, 70, "misaligned"),
+                                     cuda)
+    _rowsum_mma_against_plain(q, x, kind, inv_bw, bn, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [37, 64, 300])
+@pytest.mark.parametrize("offset", [4.0, 300.0])
+@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_mma_rowsum_blocksum_on_cancelling_inputs(cuda, kind, d, offset, m):
+    """Cancelling inputs (a common offset large against a 0.5 spread,
+    queries that are dataset rows) on the tensor-core rowsum and blocksum,
+    short and full tiles: within the flip slack, no slack widened."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 11 + int(offset) + m)
+    n, bn = 2000, 70
+    x = offset + torch.randn(n, d, generator=gen, device=cuda) * 0.5
+    q = x[torch.randint(0, n, (m,), generator=gen, device=cuda)].contiguous()
+    _rowsum_mma_against_plain(q, x, kind, 1.0 / (0.5 * d ** 0.5), bn,
+                              sk.MMA + (16 if d <= 16 else 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 1024])
+def test_mma_blocksum_is_one_launch_and_rowsum_two(cuda, m):
+    """On the tensor-core tile a bf16 blocksum call is one launch of
+    ``blocksum_mma_kernel`` and a rowsum call two (the split's block sums,
+    then the reduce), counted under the bf16 keys."""
+    q, x, _, _, inv_bw, bn = _inputs("gaussian", (m, 65536, 16, 256), cuda)
+    rk.reset_launches()
+    got = _device_kernels_per_call(
+        lambda: rk.blocksum_cuda(q, x, "gaussian", inv_bw, 1.0, bn, "bf16"))
+    assert sum(got.values()) == 1, got
+    assert all("blocksum_mma_kernel" in k for k in got), got
+    got = _device_kernels_per_call(
+        lambda: rk.rowsum_cuda(q, x, "gaussian", inv_bw, 1.0, "bf16"))
+    assert sum(got.values()) == 2, got
+    assert any("blocksum_mma_kernel" in k for k in got), got
+    assert any("rowsum_reduce_kernel" in k for k in got), got
+    assert rk.LAUNCHES["rowsum"] == rk.LAUNCHES["blocksum"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", HASH_SHAPES)
 @pytest.mark.parametrize("kind", L2_KINDS)

@@ -34,7 +34,9 @@ drawn from a fixed seed on the card:
 Prints one JSON line: for each wrapper ``ms`` (CUDA events around
 back-to-back calls, host cost included), ``device_ms`` (torch.profiler:
 every device activity of a call, summed), ``launches`` (device activities
-a call), ``host_us`` (host clock per call, no synchronize inside) and
+a call), ``split`` (``device_ms`` by kernel name, e.g. a rowsum's block
+sums and its reduce), ``host_us`` (host clock per call, no synchronize
+inside) and
 ``max_abs_err`` against the plain version (for sample_block, of the block
 sums, with ``blk_equal``, the share of rows drawing the plain version's
 block; for bf16 outputs also ``max_bf16_steps``, beyond atol 1e-5); and
@@ -216,10 +218,17 @@ def main() -> int:
         dev_us = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
                      for e in ev)
+        split = {}
+        for e in ev:
+            key = e.key.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0].split("<")[0].split("::")[-1]
+            split[key] = split.get(key, 0.0) + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0)) / args.reps / 1e3
         out[name] = dict(ms=start.elapsed_time(end) / args.reps,
                          device_ms=dev_us / args.reps / 1e3 if ev else None,
                          launches=sum(e.count for e in ev) / args.reps,
-                         host_us=host, **err)
+                         split=split, host_us=host, **err)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
