@@ -253,10 +253,67 @@ Phases (any failure exits non-zero; no phase catches and continues):
                pipeline (est; out within one bf16 step); then 2 dense
                ``impl="xla"`` steps on the same cache (their wall, the
                kde-vs-xla logit correlation: reported, not gated).
-13. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
-               the graph phase's paths, ``graph_launches``; the bf16 flash
-               row with ``max_bf16_steps`` from its plain version), the card line from
-               nvidia-smi, and a last line ``{"ok": true, "device": ...}``.
+13. streaming -- the streaming engine (DESIGN.md §12) at the reference's
+               streaming bench (benchmarks/bench_streaming.py:65-80: x ~
+               N(0, 0.5^2), d 8, gaussian at bandwidth 2.0, batches of m =
+               n0 / 100 rows a third each insert / delete / update, a
+               64-row frontier, block size 512) scaled to n0 = 262,144,
+               capacity n0 + 5 m + 64, journal 16.  (a) exact level 1:
+               ``DynamicDataset`` + ``NeighborSampler(dataset=,
+               exact_blocks=True)`` + ``DegreeSampler(nbr.blocks,
+               dataset=)``; one warm-up batch and 4 timed (streaming
+               rows/s) against the bench's rebuild baseline (rows/s, the
+               speedup), after each batch the patched degrees against a
+               fresh blocksum recompute (rtol 5e-4 / atol 5e-5, dead slots
+               exactly 0) and ``prob_of`` of the patched cache against a
+               fresh sampler's (masked-blocksum kernel, rtol 2e-5 / atol
+               1e-7); then ``edge_batches`` (4096 edges: sources by block
+               against the live degrees, destinations by ``neighbor_law``),
+               a walk and ``prob_of`` on a fresh frontier, every draw on a
+               live slot; a torch.profiler busy / idle split of one
+               batch.  (b) hashed: the patched layout against a fresh
+               ``build_hash_state(live=, overflow_cap=)`` after deletes and
+               same-cell updates (every row's bucket bitwise, the same FAR
+               draw's NEAR counts equal and estimates within rtol 1e-6; on
+               cells of 0.5, where no bucket is truncated); then
+               ``StreamingKernelGraph(level1="hash")`` (f32, 5 batches) and
+               the same parts with ``precision="bf16"`` (3 batches): after
+               each batch vertices, neighbors, edges and walks on live slots
+               only, the layout's invariants (device state = the patcher's
+               mirrors, no dead slot stored, every live self-stored slot in
+               its bucket or the overflow region), the eval and overflow
+               counters at the overflow width, no flag but the benign ones
+               and ``OVERFLOW_SATURATED`` (the region fills in ~3 batches
+               of this plan and compacts: these reads run with
+               ``REPRO_CHECKS=0``, under which saturation compacts instead
+               of raising), bf16: the bf16 copy bitwise the rounded current
+               rows; the weighted kernels timed at the overflow width
+               beside their plain versions and bounds.  (c) journal gaps:
+               6 batches unread past the journal (the exact consumers
+               rebuild: the degree estimator as a ``StratifiedKDE`` of the
+               exact-block one's block size and samples, degrees and
+               ``prob_of`` against fresh ones) and ``compact`` (the hash
+               layout rebuilds).
+14. estimators -- ``GridHBE`` on phase 3's data (256 queries, 128 FAR
+               samples: mean relative error against the rowsum kernel
+               under 0.15, tests/test_kde.py:59-70, evals under m n, no
+               kernel launch); ``RobustEstimator`` on phase 6's data: 1024
+               clean queries build only the hash stage (one
+               weighted-kv-sum launch), 64 planted queries far from every
+               bucket with a NEAR-only hash stage escalate hash ->
+               stratified -> exact (counts asserted) and the exact rows
+               equal the rowsum kernel's; tree-mode sampling over a
+               ``MultiLevelKDE`` of ``ExactKDE`` nodes (n 4096, leaf 32,
+               256 sources x 4 draws): the destinations by
+               ``neighbor_law``, exactly 2 (depth - 1) rowsum launches a
+               draw.  Each path's first call of each kernel wrapper is held
+               against its plain version (``tapped``), as in phase 9.
+15. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+               the graph phase's paths, ``graph_launches``, and on the
+               streaming and estimator paths, ``stream_launches``; the bf16
+               flash row with ``max_bf16_steps`` from its plain version),
+               the card line from nvidia-smi, and a last line ``{"ok":
+               true, "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
 (``phase_lm_kernels``): flash at the reference's ragged sweep and (5, 37),
@@ -297,7 +354,11 @@ from the run of its own path (the bf16 rows: rowsum_bf16 from (b),
 blocksum, masked_blocksum and sample_block from (c), the kde_hash pair
 from (d)).  Phase 9 sets every counter to 0 just before each walk,
 triangle batch and application call it counts, reads them just after, and
-reports them under ``graph_launches`` by path.
+reports them under ``graph_launches`` by path; phases 13 and 14 do the same
+around each streaming and estimator path (build, batches, reads, the
+reads after a journal gap) and report them under ``stream_launches``, and
+every f32 KDE kernel and both bf16 weighted kernels must have been
+launched there.
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -324,6 +385,7 @@ the 256 KB exp table for the gaussian kind they run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -445,6 +507,32 @@ TRI_BOUND = {(200, 8): 0.2889835512015297, (600, 24): 0.2083896524466553}
 # stalls on the plateau of a two-cluster graph (the reference's own solve
 # there stops at 5.88e-3 |b| on the CPU), 2e-2 |b|
 CG_RTOL, CG_PLATEAU = 1e-4, 2e-2
+# the streaming phase: the reference's streaming benchmark
+# (benchmarks/bench_streaming.py:65-80: x ~ N(0, 0.5^2), d 8, gaussian at
+# bandwidth 2.0, batches of n / 100 rows a third each insert / delete /
+# update, deletes clear of the frontier rows [0, 64), a 64-row frontier,
+# capacity n + batches m + 64, journal 4 x batches) scaled from n = 16,384
+# to the hashed sparsifier phase's n; one warm-up batch and 4 timed, then 2
+# profiled and 6 past the journal (the gap)
+ST_N0, ST_D, ST_BW = 262144, 8, 2.0
+ST_M = ST_N0 // 100
+ST_BATCHES, ST_FRONT, ST_BS = 4, 64, 512
+ST_CAP = ST_N0 + (ST_BATCHES + 1) * ST_M + 64
+ST_JOURNAL = 4 * ST_BATCHES
+ST_EDGES = 4096
+# patched against fresh state: the reference streaming test's tolerances
+# (tests/test_streaming.py: prob_of :132, degrees :157)
+ST_PROB_TOL = dict(rtol=2e-5, atol=1e-7)
+ST_DEG_TOL = dict(rtol=5e-4, atol=5e-5)
+# the estimators phase: GridHBE as tests/test_kde.py:59-70 runs it (128
+# FAR samples, mean relative error under 0.15), on phase 3's data; the
+# robust chain on phase 6's data; tree mode at n 4096, leaf 32
+HBE_QUERIES, HBE_FAR, HBE_REL = 256, 128, 0.15
+ROBUST_CLEAN, ROBUST_PLANTED = 1024, 64
+TREE_N, TREE_D, TREE_LEAF, TREE_SRC, TREE_DRAWS = 4096, 16, 32, 256, 4
+# hash cells narrow enough that no bucket of the streaming data is
+# truncated: the patched layout's bitwise contract with a fresh build
+PARITY_CELL = 0.5
 
 
 def log(*a):
@@ -3264,12 +3352,13 @@ def tapped(fn, *targets):
 
 
 def kernel_mods():
-    """The module of each f32 kernel phase 9 checks, by kernel."""
+    """The module of each f32 kernel phases 9, 13 and 14 check, by
+    kernel."""
     from repro_torch.kernels.kde_hash import kernel as hk
     from repro_torch.kernels.kde_rowsum import kernel as rk
     from repro_torch.kernels.kde_sampler import kernel as sk
-    return {"blocksum": rk, "masked_blocksum": sk, "sample_block": sk,
-            "weighted_kv": hk}
+    return {"rowsum": rk, "blocksum": rk, "masked_blocksum": sk,
+            "sample_block": sk, "weighted_kv": hk, "weighted_kv_sum": hk}
 
 
 def kernel_taps(*names):
@@ -3278,7 +3367,7 @@ def kernel_taps(*names):
     return [(mods[name], f"{name}_cuda") for name in names]
 
 
-def path_kernel_checks(taps, what: str, errs) -> None:
+def path_kernel_checks(taps, what: str, errs, phase: str = "graph") -> None:
     """Every kernel call ``tapped`` recorded on a path against its plain
     version on the same inputs (bound by parameter name: the plain
     versions take more parameters), at phase 2's tolerances; each max abs
@@ -3295,14 +3384,14 @@ def path_kernel_checks(taps, what: str, errs) -> None:
         tag = f"{name} on the {what}"
         if name == "sample_block":
             err = sample_block_err(got, want, a["gumbel"], tag)
-        elif name == "weighted_kv":
+        elif name.startswith("weighted_kv"):
             err = close_scaled(got, want, tag)
         else:
             err = close(got, want, tag)
         errs[name] = max(errs.get(name, 0.0), err)
-        width = f"t={a['cols'].shape[1]}" if name == "weighted_kv" else \
-            f"bn={a['bn']}"
-        log(f"[graph] {tag}: m={a['q'].shape[0]} n={a['x'].shape[0]} "
+        width = f"t={a['cols'].shape[1]}" if "cols" in a else \
+            f"bn={a['bn']}" if "bn" in a else "rows"
+        log(f"[{phase}] {tag}: m={a['q'].shape[0]} n={a['x'].shape[0]} "
             f"d={a['x'].shape[1]} {width}, the path's own inputs against the "
             f"plain version: max abs err {err:.3e}")
 
@@ -3808,6 +3897,622 @@ def phase_graph(data, gen):
     return launches, secs, errs
 
 
+# --------------------------------------------------------------------- #
+# phase 13: streaming (DESIGN.md §12)
+# --------------------------------------------------------------------- #
+def counted(launches, path: str, fn):
+    """``fn()``, every kernel launch it made -- the f32 and the bf16
+    instances -- added to ``launches[path]`` by name: every counter is set
+    to 0 just before the call."""
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    mods = (rk, sk, hk)
+    for mod in mods:
+        mod.reset_launches()
+    out = fn()
+    acc = launches.setdefault(path, {})
+    for mod in mods:
+        for k, v in mod.LAUNCHES.items():
+            if v:
+                acc[k] = acc.get(k, 0) + v
+    return out
+
+
+def stream_plan(rng, n, d, m, batches):
+    """bench_streaming._mutation_plan: the identical mutation sequence for
+    every path -- a third of m inserts, deletes and updates a batch;
+    deletes clear of the frontier rows [0, 64) and of each other."""
+    import numpy as np
+    mi = md = m // 3
+    mu = m - mi - md
+    dead_pool = rng.permutation(np.arange(64, n))[: md * batches]
+    return [dict(ins=rng.normal(0, 0.5, (mi, d)).astype(np.float32),
+                 dele=np.sort(dead_pool[b * md:(b + 1) * md]),
+                 upd_rows=rng.normal(0, 0.5, (mu, d)).astype(np.float32))
+            for b in range(batches)]
+
+
+def stream_apply(ds, batch, rng):
+    """bench_streaming._apply: insert, delete, then update live rows >= 64
+    drawn by ``rng``."""
+    ds.insert_rows(batch["ins"])
+    ds.delete_rows(batch["dele"])
+    live = ds.live_slots()
+    upd = rng.choice(live[live >= 64], size=len(batch["upd_rows"]),
+                     replace=False)
+    ds.update_rows(upd, batch["upd_rows"])
+
+
+@contextlib.contextmanager
+def checks_off():
+    """A context in which fatal status flags are advisory (REPRO_CHECKS=0):
+    the hashed streaming paths saturate their overflow region by design,
+    which raises under checks; their callers assert the status instead."""
+    old = os.environ.get("REPRO_CHECKS")
+    os.environ["REPRO_CHECKS"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_CHECKS"]
+        else:
+            os.environ["REPRO_CHECKS"] = old
+
+
+def assert_live(ds, *arrays, what: str) -> None:
+    import numpy as np
+    for a in arrays:
+        a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        assert ds.is_live(a.reshape(-1)), f"{what}: a draw on a dead slot"
+
+
+def fresh_degrees(ds, ker):
+    """Degrees of the live rows of ``ds`` recomputed from scratch through
+    the blocksum kernel (a fresh exact-block estimator), dead slots 0."""
+    from repro_torch.core.kde.base import ExactBlockKDE
+    from repro_torch.core.sampling.vertex import streaming_degrees
+    return streaming_degrees(ExactBlockKDE(ds.x_pad, ker, block_size=ST_BS,
+                                           device=ds.device), ds)
+
+
+def stream_edge_law(ds, bs, u, v, deg) -> str:
+    """Chi-square checks (alpha 1e-3) of streaming edges: sources per
+    level-1 block against the live degrees' block mass (dead slots carry
+    none), destinations by ``neighbor_law`` over the padded rows (dead
+    columns carry no kernel mass)."""
+    import torch
+    dev = ds.device
+    x = ds.x_pad
+    n = x.shape[0]
+    nb = -(-n // bs)
+    d = torch.as_tensor(deg, dtype=torch.float64, device=dev)
+    blk_mass = torch.zeros(nb, dtype=torch.float64, device=dev)
+    blk_mass.index_add_(0, torch.arange(n, device=dev) // bs, d)
+    src = torch.as_tensor(u, device=dev)
+    dst = torch.as_tensor(v, device=dev)
+    got = torch.bincount(src // bs, minlength=nb).double()
+    keep = blk_mass > 0
+    texts = [chi2_test(got[keep], src.numel() * blk_mass[keep]
+                       / blk_mass.sum(), "sources")]
+    return "; ".join(texts + neighbor_law(x, src, dst, 1.0 / ST_BW))
+
+
+def stream_exact(x0, plan, dev, launches, errs, secs, profiles):
+    """(a) and (c), exact level 1: ``DynamicDataset`` + ``NeighborSampler(
+    dataset=, exact_blocks=True)`` + ``DegreeSampler(nbr.blocks,
+    dataset=)``, the bench's streaming loop timed against its rebuild
+    baseline, each batch checked, then a journal gap."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dataset import DynamicDataset
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.core.sampling.vertex import DegreeSampler
+    ker = gaussian(ST_BW)
+    src = np.arange(ST_FRONT)
+
+    def build():
+        ds = DynamicDataset(x0, capacity=ST_CAP, journal_limit=ST_JOURNAL,
+                            device=dev)
+        nbr = NeighborSampler(ds.x_pad, ker, dataset=ds, exact_blocks=True,
+                              block_size=ST_BS, seed=0)
+        deg = DegreeSampler(nbr.blocks, seed=1, dataset=ds)
+        deg.sample(8)             # builds the initial CDF outside the clock
+        nbr.sample(src)
+        return ds, nbr, deg
+
+    t0 = time.perf_counter()
+    (ds, nbr, deg), taps = counted(launches, "streaming exact: build",
+                                   lambda: tapped(build, *kernel_taps(
+                                       "blocksum", "sample_block")))
+    path_kernel_checks(taps, "streaming build", errs, "streaming")
+    secs["streaming (a) build"] = time.perf_counter() - t0
+    mrng = np.random.default_rng(7)
+
+    def stream_batch(batch):
+        stream_apply(ds, batch, mrng)
+        deg.sample(8)             # folds the coalesced degree / CDF patch in
+        return nbr.sample(src)    # folds the level-1 patch in
+
+    walls = []
+    for i, batch in enumerate(plan[:ST_BATCHES + 1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, p = counted(launches, "streaming exact: batches",
+                       lambda: stream_batch(batch))
+        torch.cuda.synchronize()
+        if i:                     # batch 0 is the bench's warm-up
+            walls.append(time.perf_counter() - t0)
+        # checks, off the clock: patched against fresh state
+        fresh = fresh_degrees(ds, ker)
+        np.testing.assert_allclose(deg.degrees, fresh, **ST_DEG_TOL)
+        assert np.all(deg.degrees[~ds.live_host] == 0.0)
+        assert_live(ds, v, what="sample")
+        p_patch = nbr.prob_of(src, v)
+        p_fresh = NeighborSampler(ds.x_pad, ker, exact_blocks=True,
+                                  block_size=ST_BS, seed=0,
+                                  device=dev).prob_of(src, v)
+        np.testing.assert_allclose(p_patch, p_fresh, **ST_PROB_TOL)
+        np.testing.assert_allclose(p_patch, p, **ST_PROB_TOL)
+    assert deg.rebuilds == 0, "journal gap hit -- the phase is mis-sized"
+    t_stream = sum(walls)
+    log(f"[streaming] (a) {ST_BATCHES} timed batches of {ST_M} rows at "
+        f"n0={ST_N0} (capacity {ST_CAP}, {ds.num_live} live): patched "
+        f"degrees within rtol {ST_DEG_TOL['rtol']} / atol "
+        f"{ST_DEG_TOL['atol']} of a fresh blocksum recompute after every "
+        f"batch, dead slots exactly 0; prob_of of the patched cache within "
+        f"rtol {ST_PROB_TOL['rtol']} / atol {ST_PROB_TOL['atol']} of a fresh "
+        f"sampler's (masked-blocksum kernel); walls {walls}")
+
+    def more():
+        e = nbr.edge_batches(deg.cdf_device, deg.degrees_device, deg.total,
+                             ST_EDGES)
+        end, path = nbr.walk(src, 4, record_path=True)
+        other = ds.live_slots()[1000:1256]
+        q = nbr.prob_of(other, np.roll(other, 1))
+        return e, end, path, q
+
+    ((u, v, wgt, quv, qvu), end, path, q), taps = counted(
+        launches, "streaming exact: edges, walk, prob_of",
+        lambda: tapped(more, *kernel_taps("sample_block",
+                                          "masked_blocksum")))
+    path_kernel_checks(taps, "streaming edges / prob_of", errs, "streaming")
+    assert_live(ds, u, v, end, path, what="edge_batches / walk")
+    assert np.all(np.isfinite(wgt)) and np.all(q > 0) and np.all(
+        np.isfinite(q))
+    log(f"[streaming] (a) edge_batches ({ST_EDGES} edges) after the "
+        f"patches: {stream_edge_law(ds, ST_BS, u, v, deg.degrees)} "
+        f"(alpha 1e-3); walk {ST_FRONT} x 4 and prob_of on a fresh "
+        f"frontier: every draw on a live slot")
+
+    # the rebuild baseline: frozen engines over the compacted live rows
+    ds2 = DynamicDataset(x0, capacity=ST_CAP, journal_limit=ST_JOURNAL,
+                         device=dev)
+    mrng2 = np.random.default_rng(7)
+
+    def rebuild_batch(batch):
+        stream_apply(ds2, batch, mrng2)
+        x_live, _ = ds2.live_x()
+        nbr2 = NeighborSampler(x_live, ker, exact_blocks=True,
+                               block_size=ST_BS, seed=0, device=dev)
+        deg2 = DegreeSampler(nbr2.blocks, seed=1)
+        deg2.sample(8)
+        nbr2.sample(src)
+
+    rwalls = []
+    for i, batch in enumerate(plan[:ST_BATCHES + 1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuild_batch(batch)
+        torch.cuda.synchronize()
+        if i:
+            rwalls.append(time.perf_counter() - t0)
+    rows = ST_M * ST_BATCHES
+    new_rps, old_rps = rows / t_stream, rows / sum(rwalls)
+    log(f"[streaming] (a) update throughput at n0={ST_N0}, m={ST_M} "
+        f"({100 * ST_M / ST_N0:.1f}% of the rows a batch): streaming "
+        f"{new_rps:.1f} rows/s ({t_stream / ST_BATCHES:.4f} s a batch), "
+        f"rebuild {old_rps:.1f} rows/s ({sum(rwalls) / ST_BATCHES:.4f} s a "
+        f"batch), speedup {new_rps / old_rps:.2f}x (bench_streaming's "
+        f"speedup); rebuild walls {rwalls}")
+    secs["streaming (a)"] = t_stream + sum(rwalls)
+    del ds2
+    it = iter(plan[ST_BATCHES + 1:ST_BATCHES + 3])
+    profiles["streaming batch (exact)"] = device_profile(
+        lambda: stream_batch(next(it)))
+
+    # (c) past the journal: 6 batches unread, then every consumer rebuilds
+    for batch in plan[ST_BATCHES + 3:ST_BATCHES + 9]:
+        stream_apply(ds, batch, mrng)
+    assert ds.mutations_since(deg._ds_epoch) is None
+    v, p = counted(launches, "streaming exact: after a journal gap",
+                   lambda: (deg.sample(8), nbr.sample(src))[1])
+    est = deg._estimator
+    assert deg.rebuilds == 1 and type(est).__name__ == "StratifiedKDE"
+    assert (est.block_size, est.samples_per_block) == (ST_BS, ST_BS)
+    np.testing.assert_allclose(deg.degrees, fresh_degrees(ds, ker),
+                               **ST_DEG_TOL)
+    assert_live(ds, v, deg.sample(4096), what="after the gap")
+    p_fresh = NeighborSampler(ds.x_pad, ker, exact_blocks=True,
+                              block_size=ST_BS, seed=0,
+                              device=dev).prob_of(src, v)
+    np.testing.assert_allclose(nbr.prob_of(src, v), p_fresh, **ST_PROB_TOL)
+    log(f"[streaming] (c) exact: {len(plan[ST_BATCHES + 3:ST_BATCHES + 9])} "
+        f"batches past the journal ({ST_JOURNAL} entries): the degree "
+        f"sampler rebuilt its estimator as a StratifiedKDE (block size "
+        f"{est.block_size}, {est.samples_per_block} samples a block -- the "
+        f"reference's outcome for an exact-block estimator), degrees "
+        f"within the fresh recompute's tolerance, the neighbor sampler "
+        f"rebuilt (prob_of as a fresh one's), every draw live")
+    return ds
+
+
+def hash_consistent(est, ds) -> None:
+    """The patched layout's invariants on the card and on the host: the
+    device state equals the patcher's mirrors, no dead slot is stored
+    (bucket or overflow), every live self-stored slot is in its bucket or
+    in the overflow region."""
+    import numpy as np
+    p, st = est._patcher, est.state
+    for name in ("members", "counts", "point_bucket", "self_stored",
+                 "overflow"):
+        assert np.array_equal(getattr(st, name).cpu().numpy(),
+                              getattr(p, name)), name
+    cnt = p.counts
+    valid = np.arange(p.members.shape[1])[None, :] < cnt[:, None]
+    stored = np.zeros(len(p.self_stored), bool)
+    stored[p.members[valid]] = True
+    stored[p.overflow[p.overflow >= 0]] = True
+    live = ds.live_host
+    assert not stored[~live].any(), "a dead slot is stored"
+    assert np.all(stored[live & (p.self_stored > 0)]), \
+        "a self-stored live slot is missing"
+
+
+def hash_patch_parity(x0, plan, dev) -> str:
+    """tests/test_streaming.py:177-202 at this size: deletes and in-place
+    updates (same cells) patched into a ``HashedKDE(dataset=)`` layout
+    equal a fresh ``build_hash_state(live=, overflow_cap=)``, and
+    the same FAR draw gives the same NEAR counts and estimates (rtol 1e-6)
+    through the weighted-kv-sum kernel.  Bucket ids are compared through
+    the rows: a delete that empties a cell leaves its key in the frozen
+    key set, where a rebuild drops it.  The contract holds for untruncated
+    buckets only (``HashPatcher.exact_parity``; a truncated bucket is a
+    seeded subsample a rebuild redraws), so the cells are ``PARITY_CELL``
+    wide: at the default (2 bandwidths) this data falls in ~76 buckets,
+    nearly all truncated."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dataset import DynamicDataset
+    from repro_torch.core.kde.hashed import HashedKDE
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.kernels.kde_hash import ops as hops
+    ker = gaussian(ST_BW)
+    ds = DynamicDataset(x0, capacity=ST_CAP, device=dev)
+    est = HashedKDE(None, ker, seed=5, dataset=ds,
+                    cell_width=PARITY_CELL)
+    assert not bool(est.state.truncated.any())
+    ds.delete_rows(plan[0]["dele"])
+    upd = ds.live_slots()[64:64 + ST_M // 3]
+    ds.update_rows(upd, ds.x_pad[torch.as_tensor(upd.astype(np.int64),
+                                                 device=dev)].cpu().numpy())
+    est._sync()
+    assert est.rebuilds == 0 and est._patcher.exact_parity
+    cap = est.state.overflow.shape[0]
+    fresh, _ = hops.build_hash_state(ds.x_pad, ker, seed=5,
+                                     cell_width=PARITY_CELL,
+                                     live=ds.live_host, overflow_cap=cap,
+                                     device=dev)
+    # bucket ids shift where a delete empties a cell (the frozen key set
+    # keeps it, a rebuild drops it), so compare each row's bucket
+    live = torch.as_tensor(ds.live_slots().astype(np.int64), device=dev)
+    dead = torch.as_tensor(np.flatnonzero(~ds.live_host), device=dev)
+
+    def layout(st):
+        b = st.point_bucket[live]
+        cnt = st.counts[b]
+        rows = st.members[b]
+        valid = torch.arange(rows.shape[1], device=dev)[None, :] \
+            < cnt[:, None]
+        return cnt, torch.where(valid, rows, -1), st.point_bucket[dead]
+
+    for a, b in zip(layout(est.state), layout(fresh)):
+        assert torch.equal(a, b)
+    assert torch.equal(est.state.self_stored, fresh.self_stored)
+    assert torch.equal(est.state.overflow, fresh.overflow)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    y = ds.x_pad[torch.as_tensor(ds.live_slots()[:BATCH].astype(np.int64),
+                                 device=dev)]
+    fidx = hops.draw_query_noise(BATCH, est._cfg["num_far"], ds.n, gen, dev)
+    cfg = {k: v for k, v in est._cfg.items() if k != "pairwise"}
+    e1, c1, _ = hops.hashed_query(ds.x_pad, y, est.state, fidx, **cfg)
+    e2, c2, _ = hops.hashed_query(ds.x_pad, y, fresh, fidx, **cfg)
+    assert torch.equal(c1, c2)
+    close(e1, e2, "patched hash state against a fresh build", atol=0.0,
+          rtol=1e-6)
+    return (f"cell width {PARITY_CELL} ({est.state.keys.numel()} buckets, "
+            f"none truncated), {len(plan[0]['dele'])} deletes + {len(upd)} "
+            f"same-cell updates: every live row's bucket (count, members in "
+            f"slot order), dead rows unbucketed, self_stored and overflow "
+            f"bitwise a fresh build's; {BATCH} queries under one FAR draw: "
+            f"NEAR counts equal, estimates within rtol 1e-6")
+
+
+def stream_hash_run(x0, plan, dev, launches, precision: str, batches: int):
+    """(b): the hashed streaming engine on the plan -- f32 through
+    ``StreamingKernelGraph(level1="hash")``, bf16 from the same parts with
+    ``precision="bf16"``.  After each batch: vertices, neighbors, edges and
+    walks on live slots only, the patched layout's invariants, the counter
+    formula at the overflow width, the status (only the benign flags and
+    the overflow region's saturation, which compacts); bf16: the bf16 copy
+    bitwise the rounded current rows, bf16 instances only.  Returns the
+    graph-like (dataset, neighbor sampler, degree sampler)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dataset import DynamicDataset
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.core.sampling.vertex import DegreeSampler
+    from repro_torch.core.streaming import StreamingKernelGraph
+    from repro_torch.ft import guards as tg
+    from repro_torch.kernels.kde_sampler.ref import round_bf16
+    ker = gaussian(ST_BW)
+    tag = f"streaming hash {precision}"
+
+    def build():
+        if precision == "f32":
+            g = StreamingKernelGraph(x0, ker, capacity=ST_CAP, level1="hash",
+                                     seed=0, block_size=ST_BS, device=dev)
+            return g.dataset, g.nbr, g.deg
+        ds = DynamicDataset(x0, capacity=ST_CAP, device=dev)
+        nbr = NeighborSampler(ds.x_pad, ker, dataset=ds, level1="hash",
+                              block_size=ST_BS, seed=0, precision="bf16")
+        return ds, nbr, DegreeSampler(nbr.hash_estimator, seed=1,
+                                      dataset=ds)
+
+    ds, nbr, deg = counted(launches, f"{tag}: build", build)
+    est = nbr.hash_estimator
+    mb, ov = est.state.members.shape[1], est.state.overflow.shape[0]
+    cols1 = mb + ov + nbr.num_blocks * nbr._far_per_block
+    assert nbr._level1_evals(1) == cols1
+    mrng = np.random.default_rng(7)
+    benign = tg.BUCKET_OVERFLOW | tg.HT_HEAVY | tg.REJECT_EXHAUSTED \
+        | tg.OVERFLOW_SATURATED
+    fills = []
+    for batch in plan[:batches]:
+        stream_apply(ds, batch, mrng)
+        before = nbr.evals
+        ov_before = nbr.device_counters["overflow"]
+
+        def reads():
+            u = deg.sample(BATCH)
+            v, q = nbr.sample(u)
+            e = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
+                                 deg.total, ST_EDGES, batch=BATCH)
+            end, path = nbr.walk(u[:256], 4, record_path=True)
+            return u, v, q, e, end, path
+
+        with checks_off():
+            u, v, q, e, end, path = counted(launches, f"{tag}: batches",
+                                            reads)
+        fills.append(est._patcher.overflow_fill)
+        assert_live(ds, u, v, e[0], e[1], end, path, what=tag)
+        assert np.all(np.isfinite(q)) and np.all(np.isfinite(e[2]))
+        assert (nbr.status | est.status) & ~benign == 0, \
+            tg.decode_status(nbr.status | est.status)
+        hash_consistent(est, ds)
+        bs, ww = nbr.block_size, len(u[:256])
+        drawn = -(-ST_EDGES // BATCH) * BATCH
+        want = (BATCH * cols1 + BATCH * bs) \
+            + (drawn * cols1 + drawn * bs + drawn) \
+            + 4 * (ww * cols1 + ww * bs)
+        assert nbr.evals - before == want, (nbr.evals - before, want)
+        assert nbr.device_counters["overflow"] - ov_before \
+            == (BATCH + drawn + 4 * ww) * ov
+        if precision == "bf16":
+            fresh = round_bf16(ds.x_pad).to(torch.bfloat16)
+            assert torch.equal(est.state.x_bf16.view(torch.int16),
+                               fresh.view(torch.int16)), \
+                "the bf16 copy is stale"
+    log(f"[streaming] (b) {precision}: {batches} batches, draws live, "
+        f"layout invariants held, counters at the overflow width "
+        f"(level-1 read {cols1} columns a row: max_bucket {mb} + overflow "
+        f"{ov} + {nbr.num_blocks} blocks x {nbr._far_per_block} FAR), "
+        f"overflow fill after each batch {fills}, {est.rebuilds} "
+        f"compactions (saturation: {tg.decode_status(est.status)})")
+    return ds, nbr, deg
+
+
+def weighted_overflow_timing(ds, nbr, dev, card) -> None:
+    """The weighted-kv kernels at the overflow width, timed (CUDA events,
+    profiler device time) beside their plain versions and bounds: the
+    degree query (t = max_bucket + overflow + num_far) and the level-1
+    frontier read (t = max_bucket + overflow + B far_per_block)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.kde_hash import kernel as hk
+    from repro_torch.kernels.kde_hash import ops as hops
+    from repro_torch.kernels.kde_hash import ref as href
+    est = nbr.hash_estimator
+    state, x, n = est.state, ds.x_pad, ds.n
+    gen = torch.Generator(device=dev).manual_seed(11)
+    live = torch.as_tensor(ds.live_slots().astype(np.int64), device=dev)
+    src = live[torch.randint(0, live.numel(), (BATCH,), generator=gen,
+                             device=dev)]
+    q = x[src].contiguous()
+    nf = est._cfg["num_far"]
+    fidx = hops.draw_query_noise(BATCH, nf, n, gen, dev)
+    qcols, qwgt, _, _ = href.query_gather(q, state, fidx, est.cell_width,
+                                          nf, n)
+    nb, fpb = nbr.num_blocks, nbr._far_per_block
+    off = hops.draw_frontier_noise(BATCH, nb, fpb, nbr.block_size, gen, dev)
+    fcols, fwgt, _, _ = href.frontier_gather(src, state, off, fpb,
+                                             nbr.block_size, nb, n)
+    d = x.shape[1]
+    for name, cols, wgt, sum_out in (("weighted_kv_sum", qcols, qwgt, True),
+                                     ("weighted_kv", fcols, fwgt, False)):
+        kern = hk.weighted_kv_sum_cuda if sum_out else hk.weighted_kv_cuda
+        plain = hk.weighted_kv_sum_plain if sum_out else hk.weighted_kv_plain
+        args = (q, x, cols, wgt, "gaussian", 1.0 / ST_BW)
+        err = close_scaled(kern(*args), plain(*args),
+                           f"{name} at the overflow width")
+        m, t = cols.shape
+        uniq = torch.unique(cols).numel()
+        b_ms, b_by = bound(m * t * (pair_ops("gaussian", d) + 1),
+                           4 * (m * d + 2 * m * t + (m if sum_out else m * t)
+                                + uniq * d))
+        ms = timed(lambda: kern(*args), 50)
+        dms = kernel_device_ms(lambda: kern(*args), "weighted_kv", 50)
+        log(f"[streaming] {name} at the overflow width: m={m} t={t} d={d} "
+            f"({uniq} distinct rows) {hk.weighted_kv_plan(m, n, d, t)}: "
+            f"{ms:.4f} ms (device {dms}), plain "
+            f"{timed(lambda: plain(*args), 5):.4f} ms, bound {b_ms:.5f} ms "
+            f"by {b_by}, max abs err {err:.3e}; {card}")
+
+
+def phase_streaming(dev):
+    """Phase 13: the streaming engine at the reference's streaming bench,
+    scaled to n0 = 262,144.  Returns (launches by path, seconds by part,
+    errors by kernel)."""
+    import numpy as np
+    card = card_line()
+    launches, secs, errs, profiles = {}, {}, {}, {}
+    rng = np.random.default_rng(0)
+    x0 = rng.normal(0, 0.5, (ST_N0, ST_D)).astype(np.float32)
+    plan = stream_plan(rng, ST_N0, ST_D, ST_M, ST_BATCHES + 9)
+    t0 = time.perf_counter()
+    stream_exact(x0, plan, dev, launches, errs, secs, profiles)
+    secs["streaming (a, c)"] = time.perf_counter() - t0
+    free_cuda()
+    t0 = time.perf_counter()
+    log(f"[streaming] (b) patch parity: {hash_patch_parity(x0, plan, dev)}")
+    ds, nbr, _ = stream_hash_run(x0, plan, dev, launches, "f32",
+                                 ST_BATCHES + 1)
+    weighted_overflow_timing(ds, nbr, dev, card)
+    builds = nbr.hash_estimator.rebuilds
+    ds.compact()              # (c), hashed: a structural journal gap
+    g_reads = counted(launches, "streaming hash f32: after compact",
+                      lambda: nbr.sample(ds.live_slots()[:BATCH]))
+    assert_live(ds, g_reads[0], what="after compact")
+    assert nbr.hash_estimator.rebuilds == builds + 1
+    log(f"[streaming] (c) hash: compact (slot ids change: the journal "
+        f"cannot bridge it) -> the hash layout rebuilt "
+        f"({nbr.hash_estimator.rebuilds} layout builds since the start), "
+        f"draws live")
+    del ds, nbr
+    free_cuda()
+    stream_hash_run(x0, plan, dev, launches, "bf16", 3)
+    secs["streaming (b)"] = time.perf_counter() - t0
+    free_cuda()
+    for what, prof in profiles.items():
+        log(f"[streaming] profile of one {what}: {profile_text(*prof)}")
+    log(f"[streaming] launches by path: {launches}; {card}")
+    return launches, secs, errs
+
+
+# --------------------------------------------------------------------- #
+# phase 14: the remaining estimators
+# --------------------------------------------------------------------- #
+def phase_estimators(data, dev):
+    """Phase 14: ``GridHBE`` on phase 3's data, ``RobustEstimator`` on
+    phase 6's (clean and planted paths), tree-mode sampling over a
+    ``MultiLevelKDE`` of ``ExactKDE`` nodes.  Returns (launches by path,
+    seconds, errors by kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import MultiLevelKDE
+    from repro_torch.core.kde.base import ExactKDE, make_estimator
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sampling.edge import NeighborSampler
+    from repro_torch.ft.guards import RobustEstimator
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    launches, errs = {}, {}
+    t0 = time.perf_counter()
+    # GridHBE (the host oracle of the hashed family): pairwise on the card
+    x = torch.as_tensor(data["sp_x_np"], device=dev)
+    n = x.shape[0]
+    q = x[::n // HBE_QUERIES][:HBE_QUERIES].contiguous()
+    ker = gaussian(SP_BW)
+    hbe = counted(launches, "grid_hbe", lambda: make_estimator(
+        "grid_hbe", x, ker, seed=0, num_far_samples=HBE_FAR, device=dev))
+    vals = counted(launches, "grid_hbe", lambda: hbe.query(q))
+    truth = rk.rowsum_cuda(q, x, "gaussian", 1.0 / SP_BW)
+    rel = (vals.double() / truth.double() - 1.0).abs()
+    assert float(rel.mean()) < HBE_REL and hbe.evals < HBE_QUERIES * n, \
+        (float(rel.mean()), hbe.evals)
+    log(f"[estimators] GridHBE (num_far_samples {HBE_FAR}) on phase 3's "
+        f"data (n {n}, d {x.shape[1]}), {HBE_QUERIES} queries: mean rel err "
+        f"{float(rel.mean()):.4f} (bound {HBE_REL}), max "
+        f"{float(rel.max()):.4f}; evals {hbe.evals} < m n = "
+        f"{HBE_QUERIES * n}; launches {launches.get('grid_hbe', {})}")
+    assert not launches.get("grid_hbe"), "GridHBE launched a kernel"
+    # RobustEstimator on phase 6's data
+    hx = torch.as_tensor(data["hs_x_np"], device=dev)
+    hn = hx.shape[0]
+    rob = RobustEstimator(hx, gaussian(HS_BW), seed=0, device=dev)
+    qc = hx[::hn // ROBUST_CLEAN][:ROBUST_CLEAN].contiguous()
+    (vc, taps) = counted(launches, "robust clean", lambda: tapped(
+        lambda: rob.query(qc), *kernel_taps("weighted_kv_sum")))
+    path_kernel_checks(taps, "robust clean path", errs, "estimators")
+    assert bool((vc > 0).all()) and bool(torch.isfinite(vc).all())
+    assert set(rob._stages) == {"hash"} and rob.retries == 0
+    assert sum(rob.escalations.values()) == 0
+    assert launches["robust clean"] == {"weighted_kv_sum": 1}, \
+        launches["robust clean"]
+    far = (hx[:ROBUST_PLANTED] + 100.0).contiguous()
+    rob2 = RobustEstimator(hx, gaussian(HS_BW), seed=0, device=dev,
+                           stage_kw={"hash": {"num_far_samples": 0}})
+    (vp, taps) = counted(launches, "robust planted", lambda: tapped(
+        lambda: rob2.query(far), *kernel_taps("rowsum")))
+    path_kernel_checks(taps, "robust planted path", errs, "estimators")
+    assert rob2.escalations == {"stratified": ROBUST_PLANTED,
+                                "exact": ROBUST_PLANTED}, rob2.escalations
+    assert rob2.retries == 2 * ROBUST_PLANTED, rob2.retries
+    want = rk.rowsum_cuda(far, hx, "gaussian", 1.0 / HS_BW)
+    assert torch.equal(vp, want), "the exact stage is not the rowsum's"
+    assert launches["robust planted"] == {"weighted_kv_sum": 2,
+                                          "rowsum": 1}, \
+        launches["robust planted"]
+    log(f"[estimators] RobustEstimator on phase 6's data (n {hn}): "
+        f"{ROBUST_CLEAN} clean queries built only the hash stage "
+        f"(launches {launches['robust clean']}, evals {rob.evals}); "
+        f"{ROBUST_PLANTED} planted queries far from every bucket (hash "
+        f"NEAR-only): 0 at the hash stage, retried, escalated "
+        f"{rob2.escalations}, retries {rob2.retries}, the exact stage's "
+        f"rows equal to the rowsum kernel's (launches "
+        f"{launches['robust planted']})")
+    secs = {"estimators (grid_hbe, robust)": time.perf_counter() - t0}
+    # tree mode: the paper's literal descent, a rowsum launch a segment
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    xt = torch.as_tensor(rng.normal(0, 0.5, (TREE_N, TREE_D)).astype(
+        np.float32), device=dev)
+    tk = gaussian(SP_BW)
+    tree = MultiLevelKDE(xt, tk, lambda xs, s: ExactKDE(xs, tk, device=dev),
+                         leaf_size=TREE_LEAF, seed=0, device=dev)
+    nbr = NeighborSampler(xt, tk, mode="tree", tree=tree, seed=0, device=dev)
+    # TREE_DRAWS draws from each source, for the law's chi-square
+    src = np.repeat(rng.choice(TREE_N, TREE_SRC, replace=False), TREE_DRAWS)
+    (v, p), taps = counted(launches, "tree mode", lambda: tapped(
+        lambda: nbr.sample(src), *kernel_taps("rowsum")))
+    path_kernel_checks(taps, "tree descent", errs, "estimators")
+    levels = tree.depth - 1
+    assert launches["tree mode"] == {"rowsum": 2 * levels * len(src)}, \
+        (launches["tree mode"], levels)
+    assert np.all(v != src) and np.all(p > 0)
+    law = neighbor_law(xt, torch.as_tensor(src, device=dev),
+                       torch.as_tensor(v, device=dev), 1.0 / SP_BW)
+    secs["estimators (tree)"] = time.perf_counter() - t0
+    log(f"[estimators] tree mode (n {TREE_N}, leaf {TREE_LEAF}, depth "
+        f"{tree.depth}, ExactKDE nodes), {TREE_SRC} sources x {TREE_DRAWS} "
+        f"draws: "
+        f"{'; '.join(law)} (alpha 1e-3); rowsum launches 2 x {levels} a "
+        f"source = {launches['tree mode']['rowsum']}; tree evals "
+        f"{tree.evals}, {secs['estimators (tree)']:.2f} s")
+    return launches, secs, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3933,6 +4638,7 @@ def main() -> int:
     phases.update(bf16_secs)
     graph_launches, graph_secs, graph_errs = phase_graph(data, gen)
     phases.update(graph_secs)
+    est_data = {k: data[k] for k in ("sp_x_np", "hs_x_np")}
     del data
     free_cuda()
 
@@ -3958,19 +4664,36 @@ def main() -> int:
     del m16
     free_cuda()
 
+    stream_launches, st_secs, st_errs = phase_streaming(dev)
+    phases.update(st_secs)
+    est_launches, est_secs, est_errs = phase_estimators(est_data, dev)
+    phases.update(est_secs)
+    stream_launches.update(est_launches)
+    free_cuda()
+    ran = {k for c in stream_launches.values() for k in c}
+    for name in ("rowsum", "blocksum", "masked_blocksum", "sample_block",
+                 "weighted_kv_sum", "weighted_kv", "weighted_kv_sum_bf16",
+                 "weighted_kv_bf16"):
+        assert name in ran, f"kernel {name} was not launched on the " \
+            f"streaming / estimator paths"
+
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"],
-                               graph_errs.get(r["name"], 0.0))
+                               graph_errs.get(r["name"], 0.0),
+                               st_errs.get(r["name"], 0.0),
+                               est_errs.get(r["name"], 0.0))
         r["graph_launches"] = {path: c[r["name"]] for path, c in
                                graph_launches.items() if r["name"] in c}
+        r["stream_launches"] = {path: c[r["name"]] for path, c in
+                                stream_launches.items() if r["name"] in c}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
                                   "ctas", "instance", "reduce_share",
-                                  "graph_launches")
+                                  "graph_launches", "stream_launches")
          if k in r}
         for r in rows]}))
     log(card_line())

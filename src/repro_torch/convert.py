@@ -44,9 +44,9 @@ def degrees_from_numpy(weights, seed: int = 0, device=None) -> PrefixCDF:
 
 def hash_state_from_reference(state, device=None) -> HashState:
     """The reference's ``HashState`` (arrays read with ``np.asarray``) as
-    the port's: ``members`` as int32, the other integer arrays as int64
-    (uint32 keys keep their value), ``shift`` / ``self_stored`` as
-    float32, on ``device``."""
+    the port's: ``members`` and ``overflow`` as int32 (the kernels' column
+    type), the other integer arrays as int64 (uint32 keys keep their
+    value), ``shift`` / ``self_stored`` as float32, on ``device``."""
     dev = resolve_device(device)
 
     def conv(name):
@@ -55,7 +55,8 @@ def hash_state_from_reference(state, device=None) -> HashState:
             return None
         a = np.array(a)
         if a.dtype.kind in "iu":
-            a = a.astype(np.int32 if name == "members" else np.int64)
+            a = a.astype(np.int32 if name in ("members", "overflow")
+                         else np.int64)
         return torch.as_tensor(a).to(dev)
 
     return HashState(**{name: conv(name) for name in HashState._fields})

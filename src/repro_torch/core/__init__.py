@@ -1,5 +1,5 @@
 """Public API of the port: the paper's algorithms over black-box KDE
-queries, as ``repro.core`` exports them, for every name the port has.
+queries, as ``repro.core`` exports them.
 
     from repro_torch.core import (gaussian, spectral_sparsify, fkv_lowrank,
                                   top_eigenvalue, approximate_spectrum, ...)
@@ -10,6 +10,7 @@ from repro_torch.core.kernels_fn import (Kernel, exponential, gaussian,
                                          rational_quadratic)
 from repro_torch.core.kde.base import (ExactBlockKDE, ExactKDE, RSKDE,
                                        StratifiedKDE, make_estimator)
+from repro_torch.core.kde.multilevel import MultiLevelKDE
 from repro_torch.core.sampling.vertex import (DegreeSampler, PrefixCDF,
                                               approximate_degrees)
 from repro_torch.core.sampling.edge import EdgeSampler, NeighborSampler

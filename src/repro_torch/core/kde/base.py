@@ -14,8 +14,13 @@ A KDE structure over a fixed dataset ``X`` answers queries
 * ``ExactBlockKDE`` -- exact per-block sums (the level-1 read of the
                        depth-2 sampler): the blocksum CUDA kernel on a CUDA
                        dataset.
+* ``GridHBE``       -- (``hbe.py``) the host-loop hashed estimator of
+                       Section 3.1, the oracle of
 * ``HashedKDE``     -- (``hashed.py``) the sub-linear hashed estimator of
                        Section 3.1.
+
+``make_estimator("robust")`` wraps them in ``ft.guards.RobustEstimator``'s
+staged hash -> stratified -> exact chain (DESIGN.md §11).
 
 All estimators count kernel evaluations (``.evals``) -- the paper's
 headline cost metric in Section 7 -- and fold the counter words of the
@@ -36,8 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import (as_f32, no_switch, not_in_slice,
-                                resolve_device, tile_size)
+from repro_torch.device import as_f32, no_switch, resolve_device, tile_size
 from repro_torch.kernels.kde_sampler.ref import (check_precision,
                                                  static_pairwise)
 from repro_torch.obs import counters as _c
@@ -212,10 +216,10 @@ class ExactBlockKDE(KDEBase):
 
 def make_estimator(name: str, x, kernel: Kernel, seed: int = 0,
                    tau: float = 0.05, eps: float = 0.5, **kw) -> KDEBase:
-    """Factory over the ported estimators (``exact``, ``rs``,
-    ``stratified``, ``exact_block``, ``hash``).  The ``rs`` budget defaults
-    to ceil(1/(tau eps^2)); ``device=`` and ``precision=`` are forwarded
-    through ``kw``."""
+    """Factory over the estimators (``exact``, ``rs``, ``stratified``,
+    ``exact_block``, ``grid_hbe``, ``hash``, ``robust``).  The ``rs``
+    budget defaults to ceil(1/(tau eps^2)); ``device=`` and ``precision=``
+    are forwarded through ``kw``."""
     if name == "exact":
         return ExactKDE(x, kernel, **kw)
     if name == "rs":
@@ -225,9 +229,13 @@ def make_estimator(name: str, x, kernel: Kernel, seed: int = 0,
         return StratifiedKDE(x, kernel, seed=seed, **kw)
     if name == "exact_block":
         return ExactBlockKDE(x, kernel, **kw)
+    if name == "grid_hbe":
+        from repro_torch.core.kde.hbe import GridHBE
+        return GridHBE(x, kernel, seed=seed, **kw)
     if name == "hash":
         from repro_torch.core.kde.hashed import HashedKDE
         return HashedKDE(x, kernel, seed=seed, **kw)
-    if name in ("grid_hbe", "robust"):
-        raise not_in_slice(f"estimator={name!r}", 6)
+    if name == "robust":
+        from repro_torch.ft.guards import RobustEstimator
+        return RobustEstimator(x, kernel, seed=seed, **kw)
     raise ValueError(f"unknown estimator {name!r}")

@@ -12,10 +12,16 @@ of the dataset, ``state.x_bf16``, made once here (half the gathered bytes;
 the same values as the rounded f32 rows); the bucket layout, the FAR draws
 and the HT weights are the same at either precision.
 
-This slice covers static datasets on one device: ``mesh=``,
-``data_axes=`` other than ``("data",)`` and ``dataset=`` raise
-``NotImplementedError``; ``use_pallas`` / ``interpret`` must be None (the
-dataset's device chooses the kernel).
+With ``dataset=`` (a ``DynamicDataset``) the estimator builds over the
+padded capacity, hashes the live rows only, keeps an overflow region of
+``overflow_cap`` columns (default ``max(64, n // 64)``) and patches its
+layout at the next query after a mutation (``kde_hash.ops.HashPatcher``),
+rebuilding when the journal cannot bridge the gap or the region fills.
+The bf16 copy is re-rounded at the mutated rows on every patch.
+
+This slice covers one device: ``mesh=`` and ``data_axes=`` other than
+``("data",)`` raise ``NotImplementedError``; ``use_pallas`` /
+``interpret`` must be None (the dataset's device chooses the kernel).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from repro_torch.core.dataset import attach_device
 from repro_torch.core.kde.base import KDEBase
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import as_f32, no_switch, not_in_slice
@@ -59,12 +66,11 @@ class HashedKDE(KDEBase):
                                10)
         if mesh is not None:
             raise not_in_slice("HashedKDE(mesh=)", 10)
-        if dataset is not None or overflow_cap:
-            raise not_in_slice("HashedKDE(dataset=, overflow_cap=)",
-                               8)
+        if dataset is not None:
+            device = attach_device(dataset, device)
+            x = dataset.x_pad      # engines build over the padded capacity
         super().__init__(x, kernel, precision=precision, device=device)
         from repro_torch.kernels.kde_hash import ops as _ops
-        from repro_torch.kernels.kde_sampler.ref import static_pairwise
         self._ops = _ops
         self.num_far_samples = int(num_far_samples)
         self.max_bucket = int(max_bucket)
@@ -74,19 +80,90 @@ class HashedKDE(KDEBase):
         self.last_status = 0
         self.status = 0
         self.flag_counts: Counter = Counter()
-        self.state, self.cell_width = _ops.build_hash_state(
-            self.x, kernel, cell_width=cell_width,
-            num_hash_dims=int(num_hash_dims), max_bucket=self.max_bucket,
-            seed=int(seed), device=self.device)
+        # streaming attach (DESIGN.md §12): derived state is keyed on the
+        # dataset's (id, epoch); queries transparently patch-or-rebuild
+        self._dataset = dataset
+        self._ds_epoch = int(dataset.epoch) if dataset is not None else 0
+        self._patcher = None
+        self.rebuilds = 0
+        if overflow_cap is None:
+            overflow_cap = max(64, self.n // 64) if dataset is not None \
+                else 0
+        self._build_kw = dict(cell_width=cell_width,
+                              num_hash_dims=int(num_hash_dims),
+                              max_bucket=self.max_bucket, seed=int(seed),
+                              overflow_cap=int(overflow_cap))
+        self._build()
+
+    def _build(self) -> None:
+        """(Re)build the bucket layout at the current dataset epoch; also
+        the compaction path of the streaming contract."""
+        from repro_torch.kernels.kde_sampler.ref import static_pairwise
+        live = None
+        if self._dataset is not None:
+            live = self._dataset.live_host
+            self.x = self._dataset.x_pad
+            self.x_sq = self._dataset.x_sq_pad
+            self.n = int(self.x.shape[0])
+        self.state, self.cell_width = self._ops.build_hash_state(
+            self.x, self.kernel, live=live, device=self.device,
+            **self._build_kw)
         if self.precision == "bf16":
             self.state = self.state._replace(
                 x_bf16=round_bf16(self.x).to(torch.bfloat16))
+        self._patcher = (self._ops.HashPatcher(self.state, self.cell_width)
+                         if self._dataset is not None else None)
+        kernel = self.kernel
         self._cfg = dict(kind=kernel.name, inv_bw=1.0 / kernel.bandwidth,
                          beta=getattr(kernel, "beta", 1.0),
                          pairwise=static_pairwise(kernel),
                          cell_width=self.cell_width,
                          num_far=min(self.num_far_samples, self.n), n=self.n,
                          precision=self.precision)
+
+    def compact(self) -> None:
+        """Fold the overflow region back into a fresh bucket layout at the
+        current epoch (the lazy compaction of DESIGN.md §12)."""
+        self._build()
+        self.rebuilds += 1
+        if self._dataset is not None:
+            self._ds_epoch = int(self._dataset.epoch)
+
+    def _sync(self) -> None:
+        """Epoch check at query entry: patch the bucket layout by the
+        coalesced mutation delta, or rebuild when the journal cannot
+        bridge the gap or the overflow region saturated.  Saturation sets
+        ``guards.OVERFLOW_SATURATED`` (an ``EstimationError`` under
+        ``REPRO_CHECKS=1``; otherwise an automatic compaction)."""
+        ds = self._dataset
+        if ds is None or self._ds_epoch == int(ds.epoch):
+            return
+        from repro_torch.core.dataset import coalesce_mutations
+        batches = ds.mutations_since(self._ds_epoch)
+        if batches is None:        # journal overflow / compact / grow
+            self.compact()
+            return
+        self.x = ds.x_pad
+        self.x_sq = ds.x_sq_pad
+        slots, old_x, new_x, old_live, new_live = \
+            coalesce_mutations(batches)
+        self.state = self._patcher.apply(self.state, slots, old_x, new_x,
+                                         old_live, new_live)
+        if self._patcher.needs_rebuild:
+            s = _g.OVERFLOW_SATURATED
+            self.last_status = s
+            self.status |= s
+            _g.count_flags(self.flag_counts, s)
+            _g.raise_on_status(s, context="HashedKDE.sync",
+                               allow=_g.BUCKET_OVERFLOW | _g.HT_HEAVY)
+            self.compact()
+            return
+        if self.state.x_bf16 is not None:
+            # the bf16 copy follows the mutated rows (sentinels included)
+            idx = torch.as_tensor(slots.astype(np.int64)).to(self.device)
+            self.state.x_bf16.index_copy_(
+                0, idx, round_bf16(self.x[idx]).to(torch.bfloat16))
+        self._ds_epoch = int(ds.epoch)
 
     def _note(self, word) -> int:
         """Fold one program's counter word into the guard state and
@@ -104,6 +181,7 @@ class HashedKDE(KDEBase):
         device program per batch.  The batch's status lands in
         ``last_status`` (or-folded into ``status``)."""
         y = as_f32(y, self.device)
+        self._sync()
         num_far = self._cfg["num_far"]
         fidx = self._ops.draw_query_noise(y.shape[0], num_far, self.n,
                                           self._gen, self.device)
@@ -116,6 +194,19 @@ class HashedKDE(KDEBase):
     def degrees(self, batch: int = 1024) -> np.ndarray:
         """Algorithm 4.3 over the hashed structure: n queries of the
         dataset against itself minus the self kernel --
-        O(n (max_bucket + num_far_samples)) kernel evals in all."""
+        O(n (max_bucket + num_far_samples)) kernel evals in all.  With a
+        streaming dataset attached only the LIVE rows are queried (a
+        sentinel query against a sentinel FAR sample would evaluate
+        ``inf - inf``); dead slots report degree exactly 0."""
         from repro_torch.core.sampling.vertex import host_degree_loop
-        return host_degree_loop(self, batch)
+        if self._dataset is None:
+            return host_degree_loop(self, batch)
+        self._sync()
+        ls = self._dataset.live_slots()
+        out = np.zeros(self.n, np.float64)
+        for lo in range(0, len(ls), batch):
+            sel = ls[lo:lo + batch]
+            idx = torch.as_tensor(sel.astype(np.int64)).to(self.device)
+            out[sel] = self.query(self.x[idx]).cpu().numpy()
+        out[ls] -= 1.0           # k(x, x) = 1 for the Table-1 kernels
+        return out

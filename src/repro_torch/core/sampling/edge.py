@@ -36,6 +36,20 @@ the dataset, which makes ``prob_of`` exactly consistent with the
 (random, on the stratified and hashed reads) estimates ``sample``
 realized.
 
+``mode="tree"`` is the paper's literal dyadic descent over a
+``MultiLevelKDE`` (``tree=``): two child-segment queries a level (one
+rowsum kernel call each with ``ExactKDE`` nodes on the card), then the
+exact leaf row, all on the host, drawing from a numpy generator seeded by
+``seed`` in the reference's order.
+
+With ``dataset=`` (a ``DynamicDataset``, DESIGN.md §12) the blocked
+engine builds over the padded capacity and every public entry brings it
+to the dataset's current epoch: the cached level-1 sums are patched by
+the mutation delta (``ops.patch_block_sums``) or dropped when a frontier
+row itself mutated, a hashed level-1 patches its bucket layout, and a
+journal gap rebuilds the block structure.  A caller's frontier holding a
+dead slot raises ``EPOCH_STALE``.
+
 Randomness comes from one ``torch.Generator`` on the sampler's device,
 seeded from ``seed``.  Every program's counter word folds into
 ``device_counters`` and ``status``; under ``REPRO_CHECKS=1`` fatal flags
@@ -49,10 +63,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dataset import attach_device
 from repro_torch.core.kde.base import (ExactBlockKDE, StratifiedKDE,
                                        make_estimator)
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import no_switch, not_in_slice, resolve_device
+from repro_torch.device import (as_f32, no_switch, not_in_slice,
+                                resolve_device)
 from repro_torch.ft import guards as _g
 from repro_torch.kernels.kde_sampler import ops as _ops
 from repro_torch.kernels.kde_sampler import ref as _ref
@@ -85,12 +101,10 @@ class NeighborSampler:
                  precision: str = "f32", device=None):
         no_switch("use_pallas", use_pallas)
         no_switch("interpret", interpret)
-        if tree is not None:
-            raise not_in_slice("NeighborSampler(tree=)", 6)
         if tuple(data_axes) != ("data",):
             raise not_in_slice(f"data_axes={data_axes!r}", 10)
-        if mode != "blocked":
-            raise not_in_slice(f"mode={mode!r}", 6)
+        if mode not in ("blocked", "tree"):
+            raise ValueError(mode)
         if level1 not in ("blocked", "hash"):
             raise ValueError(f"unknown level1 {level1!r}")
         if level1 == "hash" and exact_blocks:
@@ -100,8 +114,15 @@ class NeighborSampler:
                              "-- pick one")
         if mesh is not None:
             raise not_in_slice("mesh=", 10)
+        # streaming attach (DESIGN.md §12): engines build over the padded
+        # capacity; every public entry epoch-checks and patches or rebuilds
+        self._dataset = dataset
+        self._ds_epoch = int(dataset.epoch) if dataset is not None else 0
         if dataset is not None:
-            raise not_in_slice("dataset=", 8)
+            if mode != "blocked":
+                raise ValueError("dataset= needs the blocked engine")
+            device = attach_device(dataset, device)
+            x = dataset.x_pad
         # the level-1 sweep's dtype policy (DESIGN.md §14), checked against
         # the kernel kind before anything is built
         check_precision(precision, kernel.name, static_pairwise(kernel))
@@ -110,31 +131,34 @@ class NeighborSampler:
         self.mode = mode
         self.level1 = level1
         self.precision = precision
+        self._seed0 = seed
+        self._spb0 = samples_per_block
+        self._rng = np.random.default_rng(seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.status = 0
+        self.flag_counts: Counter = Counter()
+        self.device_counters = _c.HostTotals()
+        self._extra_evals = 0
+        self.exact_draws = 0
+        self.exact_fallbacks = 0
+        self._hash = None
+        self._hstate = None
+        if mode == "tree":
+            if tree is None:
+                raise ValueError("tree mode needs a MultiLevelKDE")
+            self.x = as_f32(x, self.device)
+            self.x_sq = torch.sum(self.x * self.x, dim=-1)
+            self.n = int(self.x.shape[0])
+            self._tree = tree
+            return
         n = int(x.shape[0])
         bs = block_size or max(int(np.sqrt(n)), 16)
+        self.exact_blocks = exact_blocks
         # ONE device dataset + one precomputed-norms sweep, shared with the
         # block KDE structure (and, through ``blocks``, with any degree
         # sampler built on top of it -- DESIGN.md §6).
-        if exact_blocks:
-            self._blocks = ExactBlockKDE(x, kernel, block_size=bs,
-                                         precision=precision,
-                                         device=self.device)
-        else:
-            self._blocks = StratifiedKDE(x, kernel, block_size=bs,
-                                         samples_per_block=samples_per_block,
-                                         seed=seed, precision=precision,
-                                         device=self.device)
-        self.x = self._blocks.x
-        self.x_sq = self._blocks.x_sq
-        self.n = self._blocks.n
-        self.block_size = self._blocks.block_size
-        self.num_blocks = self._blocks.num_blocks
-        self.exact_blocks = exact_blocks
-        self.exact_draws = 0
-        self.exact_fallbacks = 0
+        self._build_blocks(x, bs)
         self._far_per_block = 1
-        self._hash = None
-        self._hstate = None
         if level1 == "hash":
             # Hashed level-1 (DESIGN.md §10), with the reference's defaults:
             # ``far_per_block`` stratified FAR slots per block, buckets of
@@ -145,13 +169,8 @@ class NeighborSampler:
             hopts.setdefault("max_bucket", 128)
             self._hash = HashedKDE(self.x, kernel, seed=seed + 7919,
                                    precision=precision, device=self.device,
-                                   **hopts)
+                                   dataset=dataset, **hopts)
             self._hstate = self._hash.state
-        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        self.status = 0
-        self.flag_counts: Counter = Counter()
-        self.device_counters = _c.HostTotals()
-        self._extra_evals = 0
         self._cfg = dict(kind=kernel.name, inv_bw=1.0 / kernel.bandwidth,
                          beta=getattr(kernel, "beta", 1.0),
                          block_size=self.block_size,
@@ -163,16 +182,41 @@ class NeighborSampler:
                         ("kind", "inv_bw", "beta", "block_size", "n")}
         self._noise_cfg = {k: self._cfg[k] for k in
                            ("level1", "exact", "num_far", "block_size")}
-        self._views = _ref.block_views(self.x, self.x_sq, self.block_size)
-        # (digest, block sums, frontier indices) of the cached frontier
+        # (digest, block sums, frontier indices) of the cached frontier;
+        # the indices let the streaming sync decide patch-vs-drop
         self._l1_cache: Optional[
             Tuple[bytes, torch.Tensor, np.ndarray]] = None
+
+    def _build_blocks(self, x, bs: int) -> None:
+        """The level-1 block structure over ``x`` (also the streaming
+        rebuild: the block size is kept, the block count follows the
+        capacity) and the dataset views every read shares."""
+        if self.exact_blocks:
+            self._blocks = ExactBlockKDE(x, self.kernel, block_size=bs,
+                                         precision=self.precision,
+                                         device=self.device)
+        else:
+            self._blocks = StratifiedKDE(x, self.kernel, block_size=bs,
+                                         samples_per_block=self._spb0,
+                                         seed=self._seed0,
+                                         precision=self.precision,
+                                         device=self.device)
+        if self._dataset is not None:
+            # the dataset's tensors themselves: mutations scatter into them
+            self._blocks.x_sq = self._dataset.x_sq_pad
+        self.x = self._blocks.x
+        self.x_sq = self._blocks.x_sq
+        self.n = self._blocks.n
+        self.block_size = self._blocks.block_size
+        self.num_blocks = self._blocks.num_blocks
+        self._views = _ref.block_views(self.x, self.x_sq, self.block_size)
 
     # ------------------------------------------------------------------ #
     @property
     def blocks(self):
-        """The level-1 KDE structure, shared with the sparsifier's degree
-        preprocessing."""
+        """The level-1 KDE structure (blocked mode), shared with the
+        sparsifier's degree preprocessing."""
+        self._blocked("blocks")
         return self._blocks
 
     @property
@@ -186,12 +230,18 @@ class NeighborSampler:
 
     @property
     def evals(self) -> int:
-        """Total kernel evaluations across the level-1 structure and every
-        sampling call -- the paper's Section 7 cost metric."""
-        return self._blocks.evals + self._extra_evals
+        """Total kernel evaluations across the level-1 structure (the tree
+        in tree mode) and every sampling call -- the paper's Section 7
+        cost metric."""
+        base = self._tree if self.mode == "tree" else self._blocks
+        return base.evals + self._extra_evals
 
     def _count(self, k: int) -> None:
         self._extra_evals += int(k)
+
+    def _blocked(self, what: str) -> None:
+        if self.mode != "blocked":
+            raise ValueError(f"{what} needs the blocked engine")
 
     def _level1_evals(self, w: int) -> int:
         """Kernel evals of one level-1 read of a w-frontier: the bucket
@@ -215,6 +265,88 @@ class NeighborSampler:
         _g.count_flags(self.flag_counts, s)
         _g.raise_on_status(s, context=context, allow=_BENIGN)
         return s
+
+    def _flag(self, status: int, context: str) -> None:
+        """Fold a host-raised status bit (no program word) into the
+        counters and apply the ``REPRO_CHECKS`` policy."""
+        self.status |= status
+        _g.count_flags(self.flag_counts, status)
+        _g.raise_on_status(status, context=context, allow=_BENIGN)
+
+    # ------------------------------------------------------------------ #
+    # streaming contract (DESIGN.md §12)
+    def _rebuild(self) -> None:
+        """Full level-1 rebuild over the dataset's current padded tensor --
+        the journal-gap / capacity-growth path of the streaming contract.
+        Block size and precision are kept; the block count follows the new
+        capacity."""
+        self._build_blocks(self._dataset.x_pad, self.block_size)
+        self._cfg.update(n=self.n, num_blocks=self.num_blocks)
+        self._l2_cfg["n"] = self.n
+        self._l1_cache = None
+
+    def _sync(self) -> None:
+        """Epoch check at every public entry: refresh the dataset views,
+        patch the cached level-1 read by the coalesced mutation delta
+        (O(w m) evals; dropped instead when a cached frontier row itself
+        mutated), and let a hashed level-1 run its own patch-or-rebuild.
+        A journal gap falls back to ``_rebuild``.  The mutations scattered
+        into the dataset's tensors in place, so only the block views (a
+        padded copy) and the norms binding need refreshing."""
+        ds = self._dataset
+        if ds is None or self._ds_epoch == int(ds.epoch):
+            return
+        from repro_torch.core.dataset import coalesce_mutations
+        batches = ds.mutations_since(self._ds_epoch)
+        if batches is None:
+            self._rebuild()
+        else:
+            slots, old_x, new_x, _, _ = coalesce_mutations(batches)
+            self.x = self._blocks.x = ds.x_pad
+            self.x_sq = self._blocks.x_sq = ds.x_sq_pad
+            self._views = _ref.block_views(self.x, self.x_sq,
+                                           self.block_size)
+            if self._l1_cache is not None:
+                dig, bs, src32 = self._l1_cache
+                if np.intersect1d(src32, np.asarray(slots, np.int64)).size:
+                    self._l1_cache = None   # frontier row itself mutated
+                else:
+                    dev = self.device
+                    bs, cw = _ops.patch_block_sums(
+                        bs, self.x,
+                        torch.as_tensor(src32.astype(np.int64)).to(dev),
+                        torch.as_tensor(slots.astype(np.int64)).to(dev),
+                        torch.as_tensor(old_x).to(dev),
+                        torch.as_tensor(new_x).to(dev),
+                        kind=self._cfg["kind"], inv_bw=self._cfg["inv_bw"],
+                        beta=self._cfg["beta"],
+                        pairwise=static_pairwise(self.kernel),
+                        block_size=self.block_size)
+                    self._count(2 * len(src32) * len(slots))
+                    self._note(cw, "NeighborSampler.sync")
+                    self._l1_cache = (dig, bs, src32)
+        if self._hash is not None:
+            self._hash._sync()
+            self._hstate = self._hash.state
+        self._ds_epoch = int(ds.epoch)
+
+    def _check_frontier(self, src, context: str) -> None:
+        """Liveness gate for caller-supplied frontiers: referencing a
+        deleted slot folds ``EPOCH_STALE`` into the status (an
+        ``EstimationError`` under ``REPRO_CHECKS=1`` -- the flag is not
+        benign)."""
+        ds = self._dataset
+        if ds is not None and not ds.is_live(np.asarray(src)):
+            self._flag(_g.EPOCH_STALE, context)
+
+    def _enter(self, context: str, *frontiers) -> None:
+        """A blocked public entry: sync to the dataset's epoch, then check
+        the caller's frontiers are live."""
+        self._blocked(context)
+        self._sync()
+        if frontiers:
+            self._check_frontier(np.concatenate(
+                [np.asarray(f).reshape(-1) for f in frontiers]), context)
 
     @staticmethod
     def _digest(src32: np.ndarray) -> bytes:
@@ -242,6 +374,9 @@ class NeighborSampler:
 
     def sample(self, src: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Sample one neighbor per source.  Returns (neighbors, probs)."""
+        if self.mode == "tree":
+            return self._sample_tree(np.asarray(src))
+        self._enter("NeighborSampler.sample", src)
         src32, src_dev = self._frontier(src)
         w = len(src32)
         dig = self._digest(src32)
@@ -263,6 +398,9 @@ class NeighborSampler:
 
     def prob_of(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
         """Probability the sampler assigns to edge (src -> dst)."""
+        if self.mode == "tree":
+            return self._prob_of_tree(np.asarray(src), np.asarray(dst))
+        self._enter("NeighborSampler.prob_of", src, dst)
         src32, src_dev = self._frontier(src)
         bs = self._level1(src32, src_dev)
         dst_dev = torch.as_tensor(np.asarray(dst, np.int64)).to(self.device)
@@ -284,7 +422,11 @@ class NeighborSampler:
         whose rounds all reject keeps its round-0 proposal (probability
         (1-1/c)^rounds), counted in ``exact_fallbacks``.  The level-1 read
         happens once (cached per frontier); every round and Z_hat share
-        it."""
+        it.  Tree mode runs the same rounds on the host over its own
+        draws."""
+        if self.mode == "tree":
+            return self._sample_exact_host(np.asarray(src), rounds, slack)
+        self._enter("NeighborSampler.sample_exact", src)
         src32, src_dev = self._frontier(src)
         w = len(src32)
         bs = self._level1(src32, src_dev)
@@ -301,6 +443,84 @@ class NeighborSampler:
                               context="NeighborSampler.sample_exact")
         return cur.cpu().numpy()
 
+    def _sample_exact_host(self, src: np.ndarray, rounds: int,
+                           slack: float) -> np.ndarray:
+        cur, _ = self.sample(src)
+        xs = self.x[torch.as_tensor(src.astype(np.int64)).to(self.device)]
+        zs = np.maximum(self._tree.segment_query(xs, 0, self._tree.n)
+                        .cpu().numpy() - 1.0, 1e-12)
+        accepted = np.zeros(len(src), bool)
+        for _ in range(rounds):
+            cand, q = self.sample(src)
+            xc = self.x[torch.as_tensor(cand).to(self.device)]
+            kuv = self.kernel.pairs(xs, xc).cpu().numpy()
+            self._count(len(src))
+            ratio = kuv / np.maximum(slack * q * zs, 1e-30)
+            acc = (~accepted) & (self._rng.uniform(size=len(src))
+                                 < np.minimum(ratio, 1.0))
+            cur = np.where(acc, cand, cur)
+            accepted |= acc
+        return cur
+
+    # ------------------------------------------------------------------ #
+    # tree mode (faithful Algorithm 4.11)
+    def _descend(self, s: int, q: torch.Tensor, target=None):
+        """Walk the tree from the root for source ``s``: at each internal
+        node the two child-segment estimates (own segment corrected by
+        k(x, x) = 1) split the mass; the branch is drawn from ``_rng``, or
+        forced towards ``target``.  Returns the leaf and the probability
+        of reaching it."""
+        tree = self._tree
+        lo, hi, p = 0, tree.n, 1.0
+        while not tree.is_leaf(lo, hi):
+            (l0, l1), (r0, r1) = tree.children(lo, hi)
+            a = float(tree.segment_query(q, l0, l1)[0])
+            b = float(tree.segment_query(q, r0, r1)[0])
+            if l0 <= s < l1:
+                a = max(a - 1.0, 1e-12)
+            if r0 <= s < r1:
+                b = max(b - 1.0, 1e-12)
+            pa = a / max(a + b, 1e-30)
+            left = (self._rng.uniform() <= pa) if target is None \
+                else (l0 <= target < l1)
+            if left:
+                lo, hi, p = l0, l1, p * pa
+            else:
+                lo, hi, p = r0, r1, p * (1.0 - pa)
+        return lo, hi, p
+
+    def _leaf_row(self, s: int, q: torch.Tensor, lo: int, hi: int):
+        """Exact kernel row of the source over its leaf, self edge at 0."""
+        kv = self.kernel.pairwise(q, self.x[lo:hi])[0].cpu().numpy() \
+            .astype(np.float32)
+        self._count(hi - lo)
+        kv[np.arange(lo, hi) == s] = 0.0
+        return kv
+
+    def _sample_tree(self, src: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        out = np.zeros(len(src), np.int64)
+        probs = np.ones(len(src), np.float64)
+        for i, s in enumerate(src):
+            s = int(s)
+            q = self.x[s][None, :]
+            lo, hi, p = self._descend(s, q)
+            kv = self._leaf_row(s, q, lo, hi)
+            pin = kv / max(kv.sum(), 1e-30)
+            j = self._rng.choice(len(pin), p=pin / pin.sum())
+            out[i] = lo + j
+            probs[i] = p * pin[j]
+        return out, probs
+
+    def _prob_of_tree(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        out = np.zeros(len(src), np.float64)
+        for i, (s, t) in enumerate(zip(src, dst)):
+            s, t = int(s), int(t)
+            q = self.x[s][None, :]
+            lo, hi, p = self._descend(s, q, target=t)
+            kv = self._leaf_row(s, q, lo, hi)
+            out[i] = p * kv[t - lo] / max(kv.sum(), 1e-30)
+        return out
+
     # ------------------------------------------------------------------ #
     def edge_batches(self, cdf_device: torch.Tensor,
                      degs_device: torch.Tensor, total_degree: float, t: int,
@@ -313,6 +533,7 @@ class NeighborSampler:
         ``k(u,v) / (t q_e)`` -- returning the first t edges as (u, v,
         weight, q_uv, q_vu) numpy arrays.  Extra draws of the final
         partial batch are discarded (edges are iid)."""
+        self._enter("NeighborSampler.edge_batches")
         t = int(t)
         num_batches = max((t + batch - 1) // batch, 1)
         gen = self._gen if generator is None else generator
@@ -343,6 +564,7 @@ class NeighborSampler:
         exact level-2 rows and m aligned k(u, w) pairs -- ``m*(B*s + 1) +
         num_draws*m*(bs + 1)`` kernel evals for stratified reads
         (``m*(n + 1) + ...`` exact)."""
+        self._enter("NeighborSampler.triangle_batches", u, v)
         m = len(np.asarray(u))
         gen = self._gen if generator is None else generator
         l1 = _ops._level1_noise(m, self.num_blocks, gen, self.device,
@@ -373,6 +595,7 @@ class NeighborSampler:
         ``record_path=False`` (default) the path is not kept and None is
         returned in its place -- the endpoints are the same either way
         (same noise)."""
+        self._enter("NeighborSampler.walk", starts)
         w = len(np.asarray(starts))
         gen = self._gen if generator is None else generator
         rounds_k = rounds if exact else 0
@@ -413,20 +636,25 @@ def shared_level1_estimator(nbr: NeighborSampler, estimator: str,
     it implements the requested one (DESIGN.md §6/§7): one device dataset,
     one ``x_sq`` sweep, one eval counter for the whole pipeline -- the
     stratified or exact block structure of a blocked sampler, the hashed
-    bucket layout of a ``level1="hash"`` one.  ``rs`` and the mismatched
-    pairings (exact on a stratified sampler, stratified on an exact one,
-    hash on a blocked one) get a standalone ``make_estimator`` over the
-    sampler's device dataset, seeded by ``seed``."""
-    if estimator in ("grid_hbe", "robust"):
-        raise not_in_slice(f"shared_level1_estimator(estimator="
-                           f"{estimator!r})", 6)
+    bucket layout of a ``level1="hash"`` one.  ``robust`` builds its own
+    staged chain; ``rs``, ``grid_hbe`` and the mismatched pairings (exact
+    on a stratified sampler, stratified on an exact one, hash on a blocked
+    one) get a standalone ``make_estimator`` over the sampler's device
+    dataset, seeded by ``seed``."""
+    if estimator == "robust":
+        # the staged-fallback wrapper builds its own hash -> stratified ->
+        # exact chain; sharing nbr's level-1 would tie its degradation
+        # policy to the sampler's cache, so it gets a standalone build
+        return make_estimator("robust", nbr.x, nbr.kernel, seed=seed,
+                              device=nbr.device)
     if estimator == "hash":
         if nbr.level1 == "hash":
             return nbr.hash_estimator
         return make_estimator("hash", nbr.x, nbr.kernel, seed=seed,
                               device=nbr.device)
     wants_exact = estimator in ("exact", "exact_block")
-    if wants_exact == nbr.exact_blocks and estimator != "rs":
+    if wants_exact == nbr.exact_blocks and estimator not in ("rs",
+                                                             "grid_hbe"):
         return nbr.blocks
     return make_estimator("exact" if estimator == "exact_block"
                           else estimator, nbr.x, nbr.kernel, seed=seed,

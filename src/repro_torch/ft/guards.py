@@ -6,6 +6,11 @@ reductions over values a program already holds, so building a status
 costs no kernel evaluations and no host synchronisation.  Flags are
 advisory by default; with ``REPRO_CHECKS=1`` :func:`raise_on_status`
 turns them into :class:`EstimationError`.
+
+:class:`RobustEstimator` is the degradation policy on top of the flags: a
+Definition 1.1 estimator that retries flagged draws with a fresh draw and
+escalates hash -> stratified -> exact per query row, recording the cost in
+the ordinary ``.evals`` counters.
 """
 from __future__ import annotations
 
@@ -146,6 +151,189 @@ def sums_status(bs: torch.Tensor, floor: float) -> torch.Tensor:
 def result_status(*arrays) -> torch.Tensor:
     """NONFINITE_RESULT if any program output element is NaN/Inf."""
     return nonfinite_status(*arrays, flag=NONFINITE_RESULT)
+
+
+# -------------------------------------------------------- staged fallback
+def _rekeys(stage) -> bool:
+    """True for the stages the reference retries with a re-keyed draw (its
+    ``hasattr(stage, "_split")``): the stratified and hashed estimators,
+    whose torch generators advance on every call, and the exact-block one
+    (a ``StratifiedKDE`` subclass there; its retry repeats its values)."""
+    from repro_torch.core.kde.base import ExactBlockKDE
+    return hasattr(stage, "_gen") or isinstance(stage, ExactBlockKDE)
+
+
+class RobustEstimator:
+    """Definition 1.1 estimator with staged degradation (DESIGN.md §11).
+
+    Wraps the ordinary ``make_estimator`` backends in the escalation chain
+    ``hash -> stratified -> exact``.  Per query batch it
+
+    1. runs the cheapest stage and reads its ``last_status`` word,
+    2. retries rows whose estimate is non-finite / non-positive (or whose
+       batch raised a retryable flag) once with a fresh draw -- the
+       randomized stages advance their generators on every call,
+    3. escalates still-bad rows to the next stage; the final exact stage
+       is always accepted.
+
+    Every stage charges the shared ``.evals`` counter, so the cost of
+    degradation stays auditable.  The chain is built lazily: a clean
+    workload never pays for the exact oracle.  ``x`` may be a
+    ``DynamicDataset`` (duck-typed: ``live_x`` / ``epoch``): the wrapper
+    then answers over the live rows at the dataset's current epoch,
+    dropping its built stages on a mutation.  The stages live on
+    ``device`` (the dataset's own when one is attached).
+    """
+
+    def __init__(self, x, kernel, seed: int = 0,
+                 stages=("hash", "stratified", "exact"), max_retries: int = 1,
+                 stage_kw: dict | None = None, device=None, **kw):
+        from repro_torch.device import as_f32, resolve_device
+        self._dataset = x if hasattr(x, "live_x") and hasattr(x, "epoch") \
+            else None
+        if self._dataset is not None:
+            from repro_torch.core.dataset import attach_device
+            self.device = attach_device(self._dataset, device)
+            self.x, self.x_sq = self._dataset.live_x()
+            self._ds_epoch = int(self._dataset.epoch)
+        else:
+            self.device = resolve_device(device)
+            self.x = as_f32(x, self.device)
+            self.x_sq = torch.sum(self.x * self.x, dim=-1)
+            self._ds_epoch = 0
+        self.stage_rebuilds = 0
+        self.kernel = kernel
+        self.n = int(self.x.shape[0])
+        self.d = int(self.x.shape[1])
+        self.stage_names = tuple(stages)
+        self.max_retries = int(max_retries)
+        self._seed = int(seed)
+        self._kw = dict(kw)
+        self._stage_kw = dict(stage_kw or {})
+        self._stages = {}
+        self.status = 0
+        self.flag_counts: dict = {}
+        self.retries = 0
+        self.escalations = {name: 0 for name in self.stage_names[1:]}
+
+    def _sync(self) -> None:
+        """Epoch check at stage entry: if the attached dataset mutated
+        since the stages were built, refresh the row arrays and drop every
+        built stage -- serving them would escalate against stale data."""
+        ds = self._dataset
+        if ds is None or self._ds_epoch == int(ds.epoch):
+            return
+        self.x, self.x_sq = ds.live_x()
+        self.n = int(self.x.shape[0])
+        self.stage_rebuilds += len(self._stages)
+        self._stages.clear()
+        self._ds_epoch = int(ds.epoch)
+
+    def _stage(self, name: str):
+        self._sync()
+        if name not in self._stages:
+            from repro_torch.core.kde.base import make_estimator
+            kw = dict(self._kw)
+            kw.update(self._stage_kw.get(name, {}))
+            kw.setdefault("device", self.device)
+            self._stages[name] = make_estimator(name, self.x, self.kernel,
+                                                seed=self._seed, **kw)
+        return self._stages[name]
+
+    @property
+    def evals(self) -> int:
+        """Total kernel evaluations across every stage touched so far."""
+        return sum(int(s.evals) for s in self._stages.values())
+
+    @evals.setter
+    def evals(self, value: int):
+        # consumers reset counters by assignment; push the reset down
+        for s in self._stages.values():
+            s.evals = 0
+        if int(value) != 0:
+            raise ValueError("RobustEstimator.evals can only be reset to 0")
+
+    @staticmethod
+    def _bad_rows(vals) -> np.ndarray:
+        v = np.asarray(vals, np.float64)
+        return ~np.isfinite(v) | (v <= 0.0)
+
+    @staticmethod
+    def _host(vals: torch.Tensor) -> np.ndarray:
+        return vals.detach().cpu().numpy().astype(np.float64)
+
+    def query(self, y) -> torch.Tensor:
+        """(m, d) -> (m,) row-sum estimates, degraded per row as needed.
+
+        A non-final stage that *raises* ``EstimationError`` (its own
+        ``REPRO_CHECKS`` policy firing) is treated like an all-bad batch
+        and escalated -- the wrapper IS the recovery path, so only a
+        failure of the final stage propagates."""
+        from repro_torch.device import as_f32
+        y = as_f32(y, self.device)
+        m = int(y.shape[0])
+        out = np.full((m,), np.nan, np.float64)
+        pending = np.arange(m)
+        for depth, name in enumerate(self.stage_names):
+            if pending.size == 0:
+                break
+            stage = self._stage(name)
+            if depth > 0:
+                self.escalations[name] += int(pending.size)
+            last = depth == len(self.stage_names) - 1
+            sub = y[torch.as_tensor(pending).to(self.device)]
+            try:
+                vals = self._host(stage.query(sub))
+            except EstimationError:
+                if last:
+                    raise
+                status = host_status(getattr(stage, "status", 0))
+                self.status |= status
+                count_flags(self.flag_counts, status)
+                continue                    # escalate every pending row
+            status = host_status(getattr(stage, "last_status", 0))
+            bad = self._bad_rows(vals)
+            if (status & FATAL) and not last:
+                # batch-level corruption: per-row values may LOOK sane, so
+                # no row from this batch is trustworthy -- escalate them all
+                bad = np.ones_like(bad)
+            retryable = ((status & RETRYABLE) or bad.any()) \
+                and not (status & FATAL)
+            if retryable and not last and self.max_retries > 0 \
+                    and _rekeys(stage):
+                redo = np.where(bad)[0] if bad.any() else np.arange(len(vals))
+                self.retries += int(redo.size)
+                try:
+                    rows = torch.as_tensor(pending[redo]).to(self.device)
+                    vals[redo] = self._host(stage.query(y[rows]))
+                    status |= host_status(getattr(stage, "last_status", 0))
+                except EstimationError:
+                    pass                    # retry failed too -> escalate
+                bad = self._bad_rows(vals)
+            self.status |= status
+            count_flags(self.flag_counts, status)
+            if last:
+                bad = np.zeros_like(bad)
+            good = ~bad
+            out[pending[good]] = vals[good]
+            pending = pending[bad]
+        # the wrapper's own check point: flags a stage recovered from are
+        # history, so only an unrecovered (non-finite) OUTPUT is fatal
+        if checks_enabled() and not np.all(np.isfinite(out)):
+            raise EstimationError(
+                "RobustEstimator.query: non-finite output survived the "
+                f"final '{self.stage_names[-1]}' stage "
+                f"(accumulated flags {decode_status(self.status)})")
+        return torch.as_tensor(out, dtype=torch.float32).to(self.device)
+
+    def query1(self, y) -> float:
+        """Single-point convenience wrapper around ``query``."""
+        return float(self.query(y[None, :])[0])
+
+    def degrees(self, batch: int = 1024) -> np.ndarray:
+        """Algorithm 4.3 degree sweep through the staged chain."""
+        from repro_torch.core.sampling.vertex import host_degree_loop
+        return host_degree_loop(self, batch)
 
 
 def warn_fallback_rate(fallbacks: int, draws: int, rounds: int,

@@ -14,6 +14,13 @@ program:
   frontier of dataset indices (the ``level1="hash"`` read of the depth-2
   sampler).  Its weighted pass is the weighted-kv CUDA kernel.
 
+A mutating dataset (DESIGN.md §12) builds over its live rows with an
+overflow region (``build_hash_state(live=, overflow_cap=)``), and
+``HashPatcher`` keeps that layout current in O(m) host work a mutation
+batch plus one device scatter; both reads sweep the overflow region as
+exact columns, so the weighted kernels run at t = max_bucket +
+overflow_cap (+ the FAR columns).
+
 Both take their FAR noise explicitly (``draw_query_noise`` /
 ``draw_frontier_noise`` draw it from a ``torch.Generator``) and return the
 reference's counter word for the same static shapes.  ``hashed_query``
@@ -28,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.device import not_in_slice, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.ft import guards as _g
 from repro_torch.kernels.kde_hash import kernel as _k
 from repro_torch.kernels.kde_hash import ref as _ref
@@ -95,10 +102,13 @@ def build_hash_state(x, kernel, cell_width: float | None = None,
     """Host-side layout build (once per dataset): returns ``(HashState on
     device, cell_width)``.  The RNG call order (hash-dim choice, shift,
     per-bucket overflow subsampling) is the reference's, so the same
-    data, seed and width give the same layout bit for bit."""
-    if live is not None or overflow_cap:
-        raise not_in_slice("build_hash_state(live=, overflow_cap=)",
-                           8)
+    data, seed and width give the same layout bit for bit.
+
+    Streaming extensions (DESIGN.md §12): ``live`` masks the padded rows
+    actually hashed -- dead (sentinel) slots get ``point_bucket = -1`` and
+    never enter a bucket; ``overflow_cap > 0`` attaches an (empty)
+    overflow region of that static capacity, the landing zone
+    :class:`HashPatcher` appends mutated rows into between compactions."""
     dev = resolve_device(device)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
@@ -108,13 +118,17 @@ def build_hash_state(x, kernel, cell_width: float | None = None,
     w = float(cell_width if cell_width is not None
               else default_cell_width(kernel))
     dims, shift = draw_grid(rng, d, num_hash_dims, w)
-    rows = np.arange(n, dtype=np.int64)
-    keys = grid_keys(xn, dims, shift, w)
+    if live is None:
+        rows = np.arange(n, dtype=np.int64)
+    else:
+        rows = np.where(np.asarray(live, bool))[0].astype(np.int64)
+    keys = grid_keys(xn[rows], dims, shift, w)
     uniq, members, counts, stored_rows, truncated = bucket_table(
         keys, rows, max_bucket, rng)
     stored = np.zeros(n, np.float32)
     stored[stored_rows] = 1.0
-    point_bucket = np.searchsorted(uniq, keys)
+    point_bucket = np.full(n, -1, np.int64)
+    point_bucket[rows] = np.searchsorted(uniq, keys)
 
     def dev_i64(a):
         return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
@@ -124,7 +138,9 @@ def build_hash_state(x, kernel, cell_width: float | None = None,
         keys=dev_i64(uniq), members=torch.as_tensor(members).to(dev),
         counts=dev_i64(counts), point_bucket=dev_i64(point_bucket),
         self_stored=torch.as_tensor(stored).to(dev),
-        truncated=torch.as_tensor(truncated).to(dev), overflow=None)
+        truncated=torch.as_tensor(truncated).to(dev),
+        overflow=(torch.full((int(overflow_cap),), -1, dtype=torch.int32,
+                             device=dev) if overflow_cap else None))
     return state, w
 
 
@@ -250,3 +266,169 @@ def hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
     cw = _c.word(status=st, evals=w * (mb + ov + far), l1_reads=w,
                  far_samples=w * far, overflow=w * ov)
     return bs, cw
+
+
+# --------------------------------------------------------------------- #
+# streaming patches (DESIGN.md §12)
+# --------------------------------------------------------------------- #
+def _apply_hash_patch(state, bidx, brows, bcnt, pidx, pb, ss, ovidx, ovval):
+    """Scatter a host-computed hash patch into the state's tensors in
+    place: rewrite the touched bucket rows wholesale (the host already
+    deduplicated them) plus the touched per-point and overflow entries.
+    O(touched) device work, no rehash, no sort."""
+    dev = state.members.device
+
+    def put(t, idx, val):
+        t.index_copy_(0, torch.as_tensor(np.asarray(idx, np.int64)).to(dev),
+                      torch.as_tensor(np.asarray(val)).to(dev, t.dtype))
+
+    put(state.members, bidx, brows)
+    put(state.counts, bidx, bcnt)
+    put(state.point_bucket, pidx, pb)
+    put(state.self_stored, pidx, ss)
+    put(state.overflow, ovidx, ovval)
+
+
+class HashPatcher:
+    """Incremental ``HashState`` maintenance for a mutating dataset.
+
+    Keeps host numpy mirrors of the (host-built anyway) bucket tables and
+    patches them in O(m) per mutation batch, in the reference's order, so
+    a patched state is bitwise the reference's; the device state is
+    updated by one scatter over the touched entries.  The placement policy
+    (DESIGN.md §12):
+
+    * insert whose grid cell exists in the frozen ``keys`` and whose
+      bucket has free slots -> splice into the bucket at its slot-sorted
+      position (rows arrive tail-first from ``DynamicDataset``, so the
+      patched member table stays bitwise equal to a fresh rebuild);
+    * otherwise -> append to the **overflow region**, which every query /
+      frontier read sweeps exactly (weight 1) until :attr:`needs_rebuild`
+      tells the owner to compact (rebuild via ``build_hash_state``);
+    * delete -> left-shift out of its bucket (or clear its overflow slot).
+
+    Saturated overflow sets ``guards.OVERFLOW_SATURATED`` in :attr:`flags`
+    and forces :attr:`needs_rebuild`; touching an RNG-subsampled
+    (truncated) bucket stays *correct* but loses bitwise rebuild parity,
+    which :attr:`exact_parity` records.
+    """
+
+    def __init__(self, state, cell_width: float):
+        if state.overflow is None:
+            raise ValueError("HashPatcher needs a state built with "
+                             "overflow_cap > 0")
+
+        def host(t, dtype):
+            return np.array(t.cpu().numpy(), dtype, copy=True)
+
+        self.cell_width = float(cell_width)
+        self.dims = host(state.dims, np.int32)
+        self.shift = host(state.shift, np.float32)
+        self.keys = host(state.keys, np.uint32)      # frozen, sorted
+        self.members = host(state.members, np.int32)
+        self.counts = host(state.counts, np.int32)
+        self.point_bucket = host(state.point_bucket, np.int32)
+        self.self_stored = host(state.self_stored, np.float32)
+        self.truncated = (host(state.truncated, bool)
+                          if state.truncated is not None
+                          else np.zeros(len(self.keys), bool))
+        self.overflow = host(state.overflow, np.int32)
+        self.max_bucket = int(self.members.shape[1])
+        self.flags = 0
+        self.needs_rebuild = False
+        self.exact_parity = True
+
+    @property
+    def overflow_fill(self) -> int:
+        """Occupied overflow slots (monitoring / compaction policy)."""
+        return int((self.overflow >= 0).sum())
+
+    def _remove(self, slot: int, touched_b: set, touched_ov: set) -> None:
+        b = int(self.point_bucket[slot])
+        if self.self_stored[slot] > 0.0:
+            if b >= 0:                      # stored in its bucket's slots
+                cnt = int(self.counts[b])
+                row = self.members[b]
+                pos = np.where(row[:cnt] == slot)[0]
+                if pos.size:
+                    p = int(pos[0])
+                    row[p:cnt - 1] = row[p + 1:cnt]
+                    row[cnt - 1] = 0
+                    self.counts[b] = cnt - 1
+                    touched_b.add(b)
+                    if self.truncated[b]:
+                        self.exact_parity = False
+            pos = np.where(self.overflow == slot)[0]
+            if pos.size:                    # stored in the overflow region
+                self.overflow[pos[0]] = -1
+                touched_ov.add(int(pos[0]))
+        elif b >= 0 and self.truncated[b]:
+            # an unstored member of a truncated bucket: nothing to remove,
+            # but a rebuild would resample the smaller bucket
+            self.exact_parity = False
+        self.point_bucket[slot] = -1
+        self.self_stored[slot] = 0.0
+
+    def _insert(self, slot: int, row_x: np.ndarray, touched_b: set,
+                touched_ov: set) -> None:
+        key = grid_keys(row_x[None, :], self.dims, self.shift,
+                        self.cell_width)[0]
+        pos = int(np.searchsorted(self.keys, key))
+        hit = pos < len(self.keys) and self.keys[pos] == key
+        b = pos if hit else -1
+        if hit and int(self.counts[b]) < self.max_bucket \
+                and not self.truncated[b]:
+            cnt = int(self.counts[b])
+            row = self.members[b]
+            at = int(np.searchsorted(row[:cnt], slot))
+            row[at + 1:cnt + 1] = row[at:cnt]
+            row[at] = slot
+            self.counts[b] = cnt + 1
+            self.point_bucket[slot] = b
+            self.self_stored[slot] = 1.0
+            touched_b.add(b)
+            return
+        free = np.where(self.overflow < 0)[0]
+        if free.size == 0:
+            self.flags |= _g.OVERFLOW_SATURATED
+            self.needs_rebuild = True
+            return
+        self.overflow[free[0]] = slot
+        touched_ov.add(int(free[0]))
+        # NEAR reads of this row still see its cell's exact members (if
+        # the cell has a frozen bucket); the row itself is swept via the
+        # overflow region, so its self kernel IS stored exactly
+        self.point_bucket[slot] = b
+        self.self_stored[slot] = 1.0
+        self.exact_parity = False
+
+    def apply(self, state, slots, old_x, new_x, old_live, new_live):
+        """Patch the mirrors for one coalesced mutation batch and scatter
+        the touched entries into the device ``state`` (its tensors are
+        updated in place and the state is returned); when the overflow
+        region saturates, ``state`` is returned untouched with
+        :attr:`needs_rebuild` set -- the caller must compact before serving
+        another query."""
+        slots = np.asarray(slots, np.int64)
+        old_live = np.asarray(old_live, bool)
+        new_live = np.asarray(new_live, bool)
+        new_x = np.asarray(new_x, np.float32)
+        touched_b: set = set()
+        touched_ov: set = set()
+        for i, s in enumerate(slots):
+            s = int(s)
+            if old_live[i]:
+                self._remove(s, touched_b, touched_ov)
+            if new_live[i]:
+                self._insert(s, new_x[i], touched_b, touched_ov)
+        if self.needs_rebuild:
+            return state
+        bidx = np.fromiter(sorted(touched_b), np.int64,
+                           count=len(touched_b))
+        ovidx = np.fromiter(sorted(touched_ov), np.int64,
+                            count=len(touched_ov))
+        _apply_hash_patch(state, bidx, self.members[bidx],
+                          self.counts[bidx], slots, self.point_bucket[slots],
+                          self.self_stored[slots], ovidx,
+                          self.overflow[ovidx])
+        return state

@@ -62,8 +62,8 @@ class HashState(NamedTuple):
     self_stored: torch.Tensor   # (n,)  f32    1.0 iff the row is stored in
     #                                          its own bucket's slots
     truncated: Optional[torch.Tensor] = None  # (U,) bool bucket overflowed
-    overflow: Optional[torch.Tensor] = None   # (ov_cap,) streaming region;
-    #                                           None = static dataset
+    overflow: Optional[torch.Tensor] = None   # (ov_cap,) int32 streaming
+    #                                  region (-1 = free); None = static dataset
     # port only: (n, d) bf16, the dataset rounded to bf16 -- the bf16
     # weighted pass gathers it (half the bytes of the f32 rows); made once
     # per dataset by ``HashedKDE(precision="bf16")``, None otherwise

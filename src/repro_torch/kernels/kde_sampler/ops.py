@@ -873,3 +873,59 @@ def triangle_edge_scan(x, x_sq, u, v, degs, noise, hstate=None, *, kind,
                  l1_reads=m, draws=num_draws * m, far_samples=m * far,
                  overflow=m * ov)
     return uu, vv, w_hat, cw
+
+
+# --------------------------------------------------------------------- #
+# streaming patches (DESIGN.md §12)
+# --------------------------------------------------------------------- #
+#: elements of one (m, chunk) value matrix of ``degree_delta`` (128 MiB of
+#: f32): the column chunk is this over m, so no call forms the (m, n)
+#: matrix of a large dataset
+DELTA_BUDGET = 1 << 25
+
+
+def patch_block_sums(bs, x, src, slots, old_x, new_x, *, kind, inv_bw, beta,
+                     pairwise=None, block_size):
+    """Incrementally update a cached (w, B) level-1 read after a dataset
+    mutation batch: O(w m) kernel evals instead of the O(w n) rebuild
+    (``ref.patch_block_sums_ref``, plain torch on every device: the
+    reference has no kernel for it).  Frontier rows that mutated must not
+    be patched -- the consumer drops the cache instead (``src`` is only
+    read for the frontier coordinates).  Returns ``(patched sums, counter
+    word)``."""
+    out = _ref.patch_block_sums_ref(bs, x[src], slots, old_x, new_x, kind,
+                                    inv_bw, beta, block_size, pairwise)
+    # old + new kernel values per (frontier row, mutated slot) pair
+    return out, _c.word(status=_g.nonfinite_status(out),
+                        evals=2 * src.shape[0] * slots.shape[0])
+
+
+def degree_delta(degs, x, x_sq, slots, old_x, new_x, old_live, new_live, *,
+                 kind, inv_bw, beta, pairwise=None):
+    """Incremental Algorithm 4.3 degree update after a mutation batch:
+    O(n m) evals against the post-mutation padded arrays (column deltas
+    for untouched rows, exact recompute for the mutated slots), replacing
+    the O(n^2 / estimator-budget) degree rebuild.  The function of
+    ``ref.degree_delta_ref``, swept over column chunks of
+    ``DELTA_BUDGET // m`` in a fixed order, so it never forms the (m, n)
+    value matrix and two calls are bitwise equal (plain torch on every
+    device: the reference has no kernel for it).  Returns ``(degrees,
+    counter word)``."""
+    m, n = slots.shape[0], degs.shape[0]
+    old_q = torch.where(old_live[:, None], old_x, 0.0)
+    new_q = torch.where(new_live[:, None], new_x, 0.0)
+    chunk = max(DELTA_BUDGET // max(m, 1), 1)
+    out = torch.empty_like(degs)
+    row_new = torch.zeros(m, dtype=degs.dtype, device=degs.device)
+    for lo in range(0, n, chunk):
+        xc, sc = x[lo:lo + chunk], x_sq[lo:lo + chunk]
+        a_new = _ref.kv_matrix(new_q, xc, sc, kind, inv_bw, beta,
+                               pairwise) * new_live[:, None]
+        a_old = _ref.kv_matrix(old_q, xc, sc, kind, inv_bw, beta,
+                               pairwise) * old_live[:, None]
+        out[lo:lo + chunk] = degs[lo:lo + chunk] + (a_new - a_old).sum(dim=0)
+        row_new += a_new.sum(dim=1)
+    row_new = torch.where(new_live, row_new - 1.0, 0.0)
+    out.index_copy_(0, slots.long(), row_new)
+    # old + new kernel column per mutated slot against all n rows
+    return out, _c.word(status=_g.nonfinite_status(out), evals=2 * m * n)

@@ -602,3 +602,58 @@ def triangle_batch_ref(x, x_sq, u, v, degs, u_blk, u_in, kind: str,
         kuw = kv_pairs(x[uu], x[w], kind, inv_bw, beta, pairwise)
         acc = acc + torch.where(valid, kuv * kuw, 0.0)
     return uu, vv, acc * degs[vv] / u_blk.shape[0]
+
+
+# --------------------------------------------------------------------- #
+# streaming patches (DESIGN.md §12)
+# --------------------------------------------------------------------- #
+def patch_block_sums_ref(bs, q, slots, old_x, new_x, kind: str,
+                         inv_bw: float, beta: float, bn: int, pairwise=None):
+    """Oracle of ``ops.patch_block_sums``: incremental §2 level-1 update.
+
+    Subtracts the mutated slots' *old* kernel contributions from the
+    cached (w, B) block sums and adds the *new* ones -- O(w m) evals for an
+    m-row mutation batch instead of the O(w n) rebuild.  Sentinel
+    coordinates (dead side of inserts / deletes) evaluate to exactly 0.0,
+    so one delta formula covers insert, delete and update.  The stored
+    sums are post-floor, so a block clamped at BLOCK_SUM_FLOOR cannot be
+    un-clamped exactly; the consumer drops the cache when the frontier
+    itself mutates.
+    """
+    old_sq = torch.sum(old_x * old_x, dim=-1)
+    new_sq = torch.sum(new_x * new_x, dim=-1)
+    kv_new = kv_matrix(q, new_x, new_sq, kind, inv_bw, beta, pairwise)
+    kv_old = kv_matrix(q, old_x, old_sq, kind, inv_bw, beta, pairwise)
+    blk = torch.div(slots, bn, rounding_mode="floor").long()
+    out = bs.index_add(1, blk, kv_new - kv_old)
+    return torch.clamp(out, min=BLOCK_SUM_FLOOR)
+
+
+def live_degrees_ref(x, x_sq, live, kind: str, inv_bw: float, beta: float,
+                     pairwise=None):
+    """Exact degrees of a live-masked padded dataset (the rebuild oracle
+    for ``ops.degree_delta``): dead slots get degree 0 and contribute no
+    mass; live rows get the row sum minus the self kernel k(x, x) = 1."""
+    q = torch.where(live[:, None], x, 0.0)     # dead-vs-dead would be NaN
+    kv = kv_matrix(q, x, x_sq, kind, inv_bw, beta, pairwise)
+    return torch.where(live, kv.sum(dim=1) - 1.0, 0.0)
+
+
+def degree_delta_ref(degs, x, x_sq, slots, old_x, new_x, old_live, new_live,
+                     kind: str, inv_bw: float, beta: float, pairwise=None):
+    """Oracle of ``ops.degree_delta``: O(n m) incremental degree update.
+
+    ``x`` / ``x_sq`` are the *post-mutation* padded arrays.  Unmutated rows
+    receive the exact column delta sum_j [k(x_i, new_j) - k(x_i, old_j)];
+    the mutated slots' own degrees are recomputed exactly from their new
+    rows (dead slots get 0).  Forms the (m, n) value matrices whole.
+    """
+    old_q = torch.where(old_live[:, None], old_x, 0.0)
+    new_q = torch.where(new_live[:, None], new_x, 0.0)
+    a_new = kv_matrix(new_q, x, x_sq, kind, inv_bw, beta, pairwise) \
+        * new_live[:, None]
+    a_old = kv_matrix(old_q, x, x_sq, kind, inv_bw, beta, pairwise) \
+        * old_live[:, None]
+    out = degs + (a_new - a_old).sum(dim=0)
+    row_new = torch.where(new_live, a_new.sum(dim=1) - 1.0, 0.0)
+    return out.index_copy(0, slots.long(), row_new)

@@ -1589,3 +1589,165 @@ def test_graph_step_and_triangle_scan_on_the_card(cuda, read):
     off = ~torch.isclose(got[2].cpu(), want[2], rtol=RTOL, atol=1e-7)
     assert int(off.sum()) <= m // 1000 + 1, int(off.sum())
     assert torch.equal(got[3].cpu()[1:4], want[3][1:4])
+
+
+# --------------------------------------------------------------------- #
+# streaming (DESIGN.md §12): dead slots in the middle of the data and the
+# hashed overflow region
+# --------------------------------------------------------------------- #
+def _dead_mid(n, d, dev, seed=0):
+    """A ``DynamicDataset`` of n rows (capacity n + 100) whose deleted
+    slots sit in the middle: the whole block [512, 768) at bn 256 and
+    every 17th row elsewhere; returns (dataset, dead mask)."""
+    from repro_torch.core.dataset import DynamicDataset
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=gen) * 0.4
+    ds = DynamicDataset(x, capacity=n + 100, device=dev)
+    dead = np.union1d(np.arange(512, 768), np.arange(3, n, 17))
+    ds.delete_rows(dead)
+    return ds, torch.as_tensor(~ds.live_host, device=dev)
+
+
+def _live_queries(ds, m):
+    """m queries near live rows (each row plus N(0, 0.05^2) noise, so no
+    pair is a point against itself: there the exponential kind's sqrt of
+    the cancelled d2 differs between any two summation orders) and the
+    rows' slots."""
+    idx = torch.as_tensor(ds.live_slots()[::7][:m].astype(np.int64),
+                          device=ds.device)
+    gen = torch.Generator(device=ds.device).manual_seed(m)
+    q = ds.x_pad[idx] + 0.05 * torch.randn(
+        (m, ds.d), generator=gen, device=ds.device)
+    return q.contiguous(), idx
+
+
+def _dead_slot_checks(ds, dead, kind, precision, bn=256):
+    """Every rowsum / blocksum / sampler kernel on queries near live rows
+    against ``ds.x_pad``: dead columns give exactly 0 (one-column
+    blocksums), no
+    output is NaN, a block of dead slots sums to exactly 0 (masked: the
+    floor) and is never drawn, and each kernel equals its plain version
+    (bf16: within the flip slack of the live pairs)."""
+    x = ds.x_pad
+    q, idx = _live_queries(ds, 130)
+    inv_bw = 1.5 / q.shape[1] ** 0.5 if kind != "laplacian" else 0.5
+    args = (kind, inv_bw, 0.7)
+    bf16 = precision == "bf16"
+    slack = None
+    if bf16:
+        slack = torch.where(dead[None, :], 0.0, torch.nan_to_num(
+            sref.bf16_flip_slack(q, x, kind, inv_bw), nan=0.0))
+    close = ((lambda got, want, s: _bf16_close(got, want, s)) if bf16 else
+             (lambda got, want, s: torch.testing.assert_close(
+                 got, want, rtol=RTOL, atol=ATOL)))
+    cols = rk.blocksum_cuda(q, x, *args, 1, precision)
+    assert bool(torch.isfinite(cols).all())
+    assert float(cols[:, dead].abs().max()) == 0.0
+    close(cols, rk.blocksum_plain(q, x, *args, 1, precision), slack)
+    rows = rk.rowsum_cuda(q, x, *args, precision)
+    assert bool(torch.isfinite(rows).all())
+    close(rows, rk.rowsum_plain(q, x, *args, precision),
+          None if slack is None else slack.sum(1))
+    bslack = None if slack is None else torch.nn.functional.pad(
+        slack, (0, -x.shape[0] % bn)).view(q.shape[0], -1, bn).sum(-1)
+    bsum = rk.blocksum_cuda(q, x, *args, bn, precision)
+    assert float(bsum[:, 2].abs().max()) == 0.0        # the dead block
+    close(bsum, rk.blocksum_plain(q, x, *args, bn, precision), bslack)
+    own = idx // bn
+    msum = sk.masked_blocksum_cuda(q, x, own, *args, bn, precision)
+    assert bool(torch.isfinite(msum).all())
+    floor = torch.tensor(sref.BLOCK_SUM_FLOOR, dtype=torch.float32)
+    assert torch.equal(msum[:, 2].cpu(), floor.expand(q.shape[0]))
+    close(msum, sk.masked_blocksum_plain(q, x, own, *args, bn, precision),
+          bslack)
+    g = gumbel(msum.shape, torch.Generator(device=x.device).manual_seed(1),
+               x.device)
+    blk, pb, tot, bs = sk.sample_block_cuda(q, x, own, g, *args, bn,
+                                            precision)
+    assert not bool((blk == 2).any()) and bool(torch.isfinite(pb).all())
+    close(bs, msum, bslack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 19, 32, 36])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dead_slots_in_the_middle_give_zero_mass(cuda, kind, d):
+    """Deleted slots (the sentinel: +1e30 in every coordinate, squared
+    norm inf) in the middle of the data and of a block, in every tile of
+    the f32 kernels: the wide tile (d = 8, 16, 32), the generic one (d =
+    19) and the deep one (d = 36)."""
+    ds, dead = _dead_mid(3000, d, cuda)
+    _dead_slot_checks(ds, dead, kind, "f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 19, 32, 36])
+@pytest.mark.parametrize("kind", L2_KINDS)
+def test_dead_slots_in_the_middle_give_zero_mass_bf16(cuda, kind, d):
+    """The same in the bf16 instances: the tensor-core tile (d = 8, 16,
+    32), the generic and deep bf16 tiles (d = 19, 36); the exp table's
+    read at -inf is exactly 0."""
+    ds, dead = _dead_mid(3000, d, cuda, seed=1)
+    _dead_slot_checks(ds, dead, kind, "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_weighted_kv_at_the_overflow_width(cuda, precision):
+    """The weighted kernels at a streaming hash state's width (t = 256
+    NEAR slots + a 4,301-column overflow region + 64 FAR, the streaming
+    phase's capacity): against their plain versions, with columns on dead
+    slots in the middle reading exactly 0 (f32 rows, and the bf16 copy)."""
+    ds, dead = _dead_mid(275313 - 100, 8, cuda, seed=2)
+    x = ds.x_pad
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    m, t = 64, 256 + 4301 + 64
+    q, _ = _live_queries(ds, m)
+    cols = torch.randint(0, x.shape[0], (m, t), generator=gen,
+                         dtype=torch.int32, device=cuda)
+    wgt = torch.rand((m, t), generator=gen, device=cuda) * 64.0
+    rows = x if precision == "f32" else \
+        sref.round_bf16(x).to(torch.bfloat16)
+    for name in ("weighted_kv", "weighted_kv_sum"):
+        args = (q, rows, cols, wgt, "gaussian", 1.0, 1.0)
+        got = getattr(hk, name + "_cuda")(*args, precision=precision)
+        want = getattr(hk, name + "_plain")(*args, precision=precision)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=RTOL,
+                                   atol=1e-6 * float(want.abs().max()))
+        if name == "weighted_kv":
+            assert float(got[dead[cols.long()]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_bf16_streaming_hash_copy_follows_updates(cuda):
+    """A bf16 streaming hash estimator after updates, deletes and
+    inserts: its bf16 copy equals the rounded current rows bitwise, and a
+    query through the kernel equals the same query on a freshly rounded
+    copy, bitwise (a stale copy would read the moved rows' old
+    coordinates)."""
+    from repro_torch.core.dataset import DynamicDataset
+    from repro_torch.core.kde.hashed import HashedKDE
+    gen = torch.Generator().manual_seed(5)
+    x0 = torch.randn(4096, 16, generator=gen) * 0.5
+    ds = DynamicDataset(x0, capacity=4500, device=cuda)
+    est = HashedKDE(None, gaussian(1.0), seed=3, dataset=ds,
+                    precision="bf16")
+    ds.update_rows(np.arange(0, 400, 2), (x0[1:401:2] + 0.3).numpy())
+    ds.delete_rows(np.arange(1000, 1100))
+    ds.insert_rows((x0[:50] - 0.2).numpy())
+    y = ds.x_pad[:64].contiguous()
+    hk.reset_launches()
+    est.query(y)
+    assert hk.LAUNCHES["weighted_kv_sum_bf16"] == 1
+    fresh = sref.round_bf16(ds.x_pad).to(torch.bfloat16)
+    assert torch.equal(est.state.x_bf16.view(torch.int16),
+                       fresh.view(torch.int16))
+    fidx = torch.randint(0, ds.n, (64, 64), generator=torch.Generator(
+        device=cuda).manual_seed(6), dtype=torch.int32, device=cuda)
+    cfg = {k: v for k, v in est._cfg.items() if k != "pairwise"}
+    a, _, _ = hops.hashed_query(ds.x_pad, y, est.state, fidx, **cfg)
+    b, _, _ = hops.hashed_query(ds.x_pad, y,
+                                est.state._replace(x_bf16=fresh), fidx,
+                                **cfg)
+    assert torch.equal(a, b)

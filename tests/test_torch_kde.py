@@ -410,21 +410,21 @@ def test_status_bits_and_helpers_match_reference(monkeypatch):
 
 def test_device_defaults_to_the_card_and_slice_limits():
     """``device=None`` means CUDA and never drops to the CPU; options the
-    port does not cover yet raise NotImplementedError (``rs``,
-    ``stratified``, ``hash`` and ``precision="bf16"`` are ported: bf16
-    constructs, and bf16 with the laplacian raises the reference's
-    ValueError)."""
+    port does not cover yet raise NotImplementedError (every estimator
+    name is ported, ``grid_hbe`` and ``robust`` since the remaining
+    estimators' slice, and ``precision="bf16"``: bf16 constructs, and bf16
+    with the laplacian raises the reference's ValueError)."""
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
     x = np.zeros((4, 2), np.float32)
-    for name in ("robust", "grid_hbe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbase.make_estimator(name, x, tmake("gaussian"), device="cpu")
-    for kw in (dict(mesh=object()), dict(dataset=object()),
-               dict(overflow_cap=8)):
+    for name, cls in (("robust", "RobustEstimator"),
+                      ("grid_hbe", "GridHBE")):
+        est = tbase.make_estimator(name, x, tmake("gaussian"), device="cpu")
+        assert type(est).__name__ == cls and est.device.type == "cpu"
+    for kw in (dict(mesh=object()), dict(data_axes=("data", "model"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
                                  **kw)

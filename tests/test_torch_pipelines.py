@@ -182,8 +182,7 @@ def test_pipelines_reject_options_outside_the_slice():
         spectral_sparsify(x, gaussian(), num_edges=10, mesh=object(),
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fkv_lowrank(x, laplacian(), rank=2, estimator="grid_hbe",
-                    device="cpu")
+        fkv_lowrank(x, laplacian(), rank=2, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RowNormSampler(torch.zeros(4, 2), laplacian(), mesh=object(),
                        device="cpu")

@@ -274,11 +274,15 @@ def test_inverse_cdf_and_zero_row_guard_match_reference():
 
 def test_sampler_rejects_options_outside_the_slice():
     x = np.zeros((20, 2), np.float32)
-    for kw in (dict(exact_blocks=True, mode="tree"),
-               dict(level1="hash", mesh=object()),
-               dict(exact_blocks=True, mesh=object())):
+    for kw in (dict(level1="hash", mesh=object()),
+               dict(exact_blocks=True, mesh=object()),
+               dict(data_axes=("data", "model"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NeighborSampler(x, gaussian(), device="cpu", **kw)
+    # tree mode is ported; as in the reference it needs its tree
+    with pytest.raises(ValueError, match="MultiLevelKDE"):
+        NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,
+                        mode="tree")
     # the bf16 policy is ported: it constructs on the L2 kinds, and the
     # laplacian raises the reference's ValueError at construction
     assert NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,

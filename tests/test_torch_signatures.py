@@ -327,9 +327,11 @@ PLACEHOLDERS = {
     "HashedKDE.data_axes": (
         lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, None, None, None,
                           ("x",), device="cpu"), NotImplementedError),
+    # tree mode is ported: the 7th positional is its tree, which the
+    # reference's tree mode requires (ValueError, its assert's message)
     "NeighborSampler.tree": (
-        lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, object(),
-                                device="cpu"), NotImplementedError),
+        lambda: NeighborSampler(_x(), K, "tree", None, 16, True, None,
+                                device="cpu"), ValueError),
     "NeighborSampler.use_pallas": (
         lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, None, 0,
                                 True, device="cpu"), ValueError),
