@@ -308,12 +308,41 @@ Phases (any failure exits non-zero; no phase catches and continues):
                ``neighbor_law``, exactly 2 (depth - 1) rowsum launches a
                draw.  Each path's first call of each kernel wrapper is held
                against its plain version (``tapped``), as in phase 9.
-15. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
-               the graph phase's paths, ``graph_launches``, and on the
-               streaming and estimator paths, ``stream_launches``; the bf16
-               flash row with ``max_bf16_steps`` from its plain version),
-               the card line from nvidia-smi, and a last line ``{"ok":
-               true, "device": ...}``.
+15. serve    -- the multi-tenant servable (``core.serving``) and the
+               serve CLI's graph-serving modes.  (a) bench_serve.py's own
+               plan (n 1024, d 8, gaussian 1.0, blocks of 32, 4 tenants, 32
+               mixed requests a tick -- sample w 16, query q 8, walk w 8
+               length 4, prob_of w 16 -- 16 timed ticks after a warm-up):
+               all tenants blocked (stratified: no kernel launch,
+               asserted), then the hash mix (odd tenants hashed); p50 / p99
+               latency, served and sequential req/s and their ratio, and a
+               torch.profiler busy / idle split of one tick; ``failed ==
+               0`` in every tick.  (b) 4 exact tenants of
+               ``gaussian_clusters(n=65536, d=16)`` (seeds 0-3), blocks of
+               256, 8 ticks of the same mix: each group one launch of each
+               tenant-axis kernel (sample_block, masked_blocksum, blocksum;
+               the walk group one a step); the tapped tenant-axis launches
+               bitwise equal to per-tenant launches on the same rows and
+               within phase 2's tolerances of their plain versions, timed
+               against the group's single-request launches; every request
+               against the single-request program fed its noise (sample
+               neighbors equal, probabilities, prob_of and query within
+               rtol 1e-6); the draws by ``neighbor_law``; then
+               ``max_resident`` 2: admissions and evictions by the LRU
+               rule.  (c) ``serve --serve-tenants 4 --requests 32 --ticks
+               8 --level1 hash --telemetry --metrics-format prometheus``
+               and ``--graph-stream 262144 --ticks 4`` (blocked, hash):
+               exit 0, metrics lines valid, the dump holds
+               ``serve.tick.us``.  Every serve path's launches are counted
+               (``serve_launches``); the five kernels of the serving path
+               must all have run.
+16. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+               the graph phase's paths, ``graph_launches``, on the
+               streaming and estimator paths, ``stream_launches``, and on
+               the serve paths, ``serve_launches``; the bf16 flash row with
+               ``max_bf16_steps`` from its plain version), the card line
+               from nvidia-smi, and a last line ``{"ok": true, "device":
+               ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
 (``phase_lm_kernels``): flash at the reference's ragged sweep and (5, 37),
@@ -358,7 +387,8 @@ reports them under ``graph_launches`` by path; phases 13 and 14 do the same
 around each streaming and estimator path (build, batches, reads, the
 reads after a journal gap) and report them under ``stream_launches``, and
 every f32 KDE kernel and both bf16 weighted kernels must have been
-launched there.
+launched there; phase 15 does the same around each timed serving tick and
+CLI run (``serve_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -533,6 +563,14 @@ TREE_N, TREE_D, TREE_LEAF, TREE_SRC, TREE_DRAWS = 4096, 16, 32, 256, 4
 # hash cells narrow enough that no bucket of the streaming data is
 # truncated: the patched layout's bitwise contract with a fresh build
 PARITY_CELL = 0.5
+# the serving phase: (a) bench_serve.py's plan (n 1024, d 8, 4 tenants, 32
+# mixed requests a tick, 16 timed ticks, blocks of 32); (b) 4 exact tenants
+# of phase 3's data shape (blocks of 256, 8 ticks of the same mix); (c) the
+# CLI's graph-stream mode at the streaming phase's n
+SV_N, SV_D, SV_BW, SV_S, SV_R, SV_TICKS, SV_BS = 1024, 8, 1.0, 4, 32, 16, 32
+SV_SAMPLE_W, SV_QUERY_Q, SV_WALK_W, SV_WALK_LEN = 16, 8, 8, 4
+SVB_N, SVB_D, SVB_BS, SVB_TICKS = 65536, 16, 256, 8
+SV_STREAM_N = 262144
 
 
 def log(*a):
@@ -676,16 +714,19 @@ def sass_check(build) -> None:
                 if any(f"{n}I" in f for n in names)}
 
     # (mma kernel, instances: 3 bf16 kinds x 2 DK [x 2 DRAW]; the other
-    # tiles of its source: {name: instances}, wide ones of kinds 0-3 only)
+    # tiles of its source: {name: instances}, wide ones of kinds 0-3 only;
+    # the f32 kinds' wide, deep and generic tiles twice: with and without
+    # the tenant axis)
     for mma_name, n_mma, others in (
             ("sampler_mma_kernel", 12,
-             # <KIND, DK, DRAW> for the 4 f32 kinds x 2 x 2; <KIND, DRAW>
-             # for all 7 kinds x 2
-             {"sampler_wide_kernel": 16, "sampler_generic_kernel": 14}),
+             # <KIND, DK, DRAW, TENANT> for the 4 f32 kinds x 2 x 2 x 2;
+             # <KIND, DRAW, TENANT> for all 7 kinds x 2, the f32 ones x 2
+             {"sampler_wide_kernel": 32, "sampler_generic_kernel": 22}),
             ("blocksum_mma_kernel", 6,
-             # <KIND, DK> for the 4 f32 kinds x 2; <KIND> for all 7 kinds
-             {"blocksum_wide_kernel": 8, "blocksum_deep_kernel": 7,
-              "blocksum_kernel": 7})):
+             # <KIND, DK, TENANT> for the 4 f32 kinds x 2 x 2; <KIND,
+             # TENANT> for all 7 kinds, the f32 ones x 2
+             {"blocksum_wide_kernel": 16, "blocksum_deep_kernel": 11,
+              "blocksum_kernel": 11})):
         mma = named(mma_name)
         assert len(mma) == n_mma and all(c > 0 for c in mma.values()), mma
         assert all(re.search(r"mma_kernelILi[456]E", f) for f in mma), mma
@@ -1104,11 +1145,31 @@ def neighbor_law(x, src, dst, inv_bw):
     """Chi-square checks (alpha 1e-3) of destinations ``dst`` against v ~
     k(u, .) / deg(u) over v != u for sources ``src`` (gaussian kernel), by
     the two randomized PITs of ``edge_law``, in the plain version on the
-    card; returns the log texts."""
+    card; returns the log texts.  ``x``, ``src`` and ``dst`` may be lists
+    (draws on several datasets: one test over all their PITs)."""
+    import torch
+    if isinstance(x, (list, tuple)):
+        gen = torch.Generator(device=x[0].device).manual_seed(1)
+        pit = torch.cat([neighbor_pits(xi, si, di, inv_bw, gen)
+                         for xi, si, di in zip(x, src, dst)], dim=1)
+    else:
+        gen = torch.Generator(device=x.device).manual_seed(1)
+        pit = neighbor_pits(x, src, dst, inv_bw, gen)
+    t = pit.shape[1]
+    texts = []
+    for row, what in zip(pit, ("destinations, index order",
+                               "destinations, value order")):
+        got = torch.histc(row, bins=PIT_BINS, min=0.0, max=1.0).double()
+        texts.append(chi2_test(got, torch.full_like(got, t / PIT_BINS),
+                               what))
+    return texts
+
+
+def neighbor_pits(x, src, dst, inv_bw, gen):
+    """The (2, t) randomized PITs of ``neighbor_law`` on one dataset."""
     import torch
     from repro_torch.kernels.kde_rowsum.ref import kernel_values
     t, dev = src.numel(), x.device
-    gen = torch.Generator(device=dev).manual_seed(1)
     pit = torch.empty((2, t), dtype=torch.float64, device=dev)
     for lo in range(0, t, BATCH):
         u, v = src[lo:lo + BATCH], dst[lo:lo + BATCH]
@@ -1124,13 +1185,7 @@ def neighbor_law(x, src, dst, inv_bw):
         ties = torch.where(kv == kuv, kv, 0.0).sum(1)
         pit[0, lo:lo + BATCH] = (below_idx + r[0] * kuv[:, 0]) / tot
         pit[1, lo:lo + BATCH] = (below_val + r[1] * ties) / tot
-    texts = []
-    for row, what in zip(pit, ("destinations, index order",
-                               "destinations, value order")):
-        got = torch.histc(row, bins=PIT_BINS, min=0.0, max=1.0).double()
-        texts.append(chi2_test(got, torch.full_like(got, t / PIT_BINS),
-                               what))
-    return texts
+    return pit
 
 
 def phase_sampler(data):
@@ -3391,8 +3446,10 @@ def path_kernel_checks(taps, what: str, errs, phase: str = "graph") -> None:
         errs[name] = max(errs.get(name, 0.0), err)
         width = f"t={a['cols'].shape[1]}" if "cols" in a else \
             f"bn={a['bn']}" if "bn" in a else "rows"
-        log(f"[{phase}] {tag}: m={a['q'].shape[0]} n={a['x'].shape[0]} "
-            f"d={a['x'].shape[1]} {width}, the path's own inputs against the "
+        x = a["x"]
+        arena = f" x {x.shape[0]} tenants" if x.dim() == 3 else ""
+        log(f"[{phase}] {tag}: m={a['q'].shape[0]} n={x.shape[-2]}{arena} "
+            f"d={x.shape[-1]} {width}, the path's own inputs against the "
             f"plain version: max abs err {err:.3e}")
 
 
@@ -4513,6 +4570,413 @@ def phase_estimators(data, dev):
     return launches, secs, errs
 
 
+# --------------------------------------------------------------------- #
+# phase 15: serving
+# --------------------------------------------------------------------- #
+def serve_plan(rng, n, d, S, R, ticks, near=None):
+    """bench_serve._request_plan: one (tenant, op, payload, seed) entry a
+    request, the same (op, tenant) mix every tick, payloads drawn anew.
+    ``near`` (the tenants' datasets): query points are tenant rows plus
+    N(0, 0.1) noise instead of N(0, 0.6) points (clustered data far from
+    the origin would give them no kernel mass: ZERO_MASS)."""
+    import numpy as np
+    plan = []
+    for t in range(ticks):
+        tick = []
+        for r in range(R):
+            tenant = (r // 4) % S
+            op = ("sample", "query", "walk", "prob_of")[r % 4]
+            seed = 10_000 * t + r
+            if op == "sample":
+                payload = dict(src=rng.integers(0, n, size=SV_SAMPLE_W))
+            elif op == "query" and near is not None:
+                rows = near[tenant][rng.integers(0, n, size=SV_QUERY_Q)]
+                payload = dict(y=(rows + rng.normal(0, 0.1, size=rows.shape))
+                               .astype(np.float32))
+            elif op == "query":
+                payload = dict(y=rng.normal(0, 0.6, size=(SV_QUERY_Q, d))
+                               .astype(np.float32))
+            elif op == "walk":
+                payload = dict(starts=rng.integers(0, n, size=SV_WALK_W),
+                               length=SV_WALK_LEN)
+            else:
+                payload = dict(src=rng.integers(0, n, size=SV_SAMPLE_W),
+                               dst=rng.integers(0, n, size=SV_SAMPLE_W))
+            tick.append((tenant, op, payload, seed))
+        plan.append(tick)
+    return plan
+
+
+def submit_tick(srv, tick):
+    return [srv.submit(f"t{tenant}", op, seed=seed, **payload)
+            for tenant, op, payload, seed in tick]
+
+
+def serve_bench(datasets, ker, level1s, dev, launches, path, exact=False,
+                block_size=SV_BS, ticks=SV_TICKS, rng_seed=0):
+    """bench_serve._measure on the card: the servable over ``ticks`` timed
+    ticks after one warm-up tick (``failed == 0`` in every tick), then the
+    sequential driver (one engine call a request, each ending on the host)
+    over the same requests, then a profiled tick.  Returns a dict: the
+    servable, p50 / p99 ms, served and sequential req/s, the per-tick
+    launch counts, tick stats and requests, the plan, the profile."""
+    import numpy as np
+    import torch
+    from repro_torch.core.serving import KernelGraphServable
+    S = len(datasets)
+    n, d = datasets[0].shape
+    rng = np.random.default_rng(rng_seed)
+    plan = serve_plan(rng, n, d, S, SV_R, ticks + 3,
+                      near=datasets if exact else None)
+    warmup, plan, extra = plan[0], plan[1:ticks + 1], plan[ticks + 1:]
+    srv = KernelGraphServable(max_resident=S, device=dev)
+    for i, x in enumerate(datasets):
+        srv.add_tenant(f"t{i}", x, ker, block_size=block_size,
+                       level1=level1s[i], exact_blocks=exact, seed=i)
+    rs = submit_tick(srv, warmup)
+    st = srv.tick()
+    assert st["failed"] == 0, (path, st, [
+        repr(r.error) for r in rs if r.error is not None][:4])
+    torch.cuda.synchronize()
+    lat, per_tick, stats, reqs = [], [], [], []
+    t0 = time.perf_counter()
+    for tick in plan:
+        rs = submit_tick(srv, tick)
+        before = {k: dict(v) for k, v in launches.items()}
+        st = counted(launches, path, srv.tick)
+        assert st["failed"] == 0, (path, st, [
+            repr(r.error) for r in rs if r.error is not None])
+        per_tick.append({k: launches[path].get(k, 0)
+                         - before.get(path, {}).get(k, 0)
+                         for k in launches.get(path, {})})
+        stats.append(st)
+        reqs.append(rs)
+        lat.extend(r.latency for r in rs)
+    t_served = time.perf_counter() - t0
+    samplers = [srv.tenant(f"t{i}").admit() for i in range(S)]
+
+    def run_one(tenant, op, payload):
+        nbr = samplers[tenant]
+        if op == "sample":
+            return nbr.sample(payload["src"])
+        if op == "walk":
+            return nbr.walk(payload["starts"], payload["length"])
+        if op == "prob_of":
+            return nbr.prob_of(payload["src"], payload["dst"])
+        if nbr.level1 == "hash":
+            return nbr.hash_estimator.query(payload["y"]).cpu()
+        return nbr.blocks.query(payload["y"]).cpu()
+
+    for tenant, op, payload, _ in warmup:
+        run_one(tenant, op, payload)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tick in plan:
+        for tenant, op, payload, _ in tick:
+            run_one(tenant, op, payload)
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    lat_ms = 1e3 * np.asarray(lat)
+    it = iter(extra)
+
+    def one_tick():
+        submit_tick(srv, next(it))
+        st = srv.tick()
+        assert st["failed"] == 0, st
+    prof = device_profile(one_tick)
+    return dict(srv=srv, p50=float(np.percentile(lat_ms, 50)),
+                p99=float(np.percentile(lat_ms, 99)),
+                rps=ticks * SV_R / t_served, seq_rps=ticks * SV_R / t_seq,
+                per_tick=per_tick, stats=stats, reqs=reqs, plan=plan,
+                profile=prof)
+
+
+def serve_bench_line(tag, res, card):
+    return (f"[serve] ({tag}) p50 {res['p50']:.4f} ms, p99 "
+            f"{res['p99']:.4f} ms, served {res['rps']:.1f} req/s, "
+            f"sequential {res['seq_rps']:.1f} req/s, ratio "
+            f"{res['rps'] / res['seq_rps']:.3f}; one tick: "
+            f"{profile_text(*res['profile'])}; {card}")
+
+
+def serve_exact_checks(res, dev, errs):
+    """(b)'s per-request checks: each group one launch of each tenant-axis
+    kernel (the walk group one a step); the tenant-axis launches bitwise
+    the per-tenant launches on the same rows and within phase 2's
+    tolerances of their plain versions; each served ``sample`` the
+    single-request program fed its noise (neighbors and block draws
+    equal, probabilities within rtol 1e-6), each ``prob_of`` and
+    ``query`` within rtol 1e-6 of it; the draws by ``neighbor_law``."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from repro_torch.core.serving import _host_gen, _pad_idx, shape_bucket
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import kernel as sk
+    from repro_torch.kernels.kde_sampler import ops as sops
+    srv = res["srv"]
+    want = {"sample_block": 1 + SV_WALK_LEN, "masked_blocksum": 1,
+            "blocksum": 1}
+    for st, per in zip(res["stats"], res["per_tick"]):
+        assert st["groups"] == 4, st
+        assert {k: v for k, v in per.items() if v} == want, (per, want)
+    # one more tick with every kernel wrapper tapped
+    submit_tick(srv, res["plan"][0])
+    st, taps = tapped(srv.tick, *kernel_taps(
+        "sample_block", "masked_blocksum", "blocksum"))
+    assert st["failed"] == 0 and sorted(taps) == sorted(
+        f"{k}_cuda" for k in want), sorted(taps)
+    path_kernel_checks(taps, "serve (b) tenant-axis launch", errs, "serve")
+    for attr, (args, kw, got) in taps.items():
+        fn = getattr(kernel_mods()[attr[:-5]], attr)
+        a = inspect.signature(fn).bind(*args, **kw).arguments
+        base = a.pop("tile_base")
+        xa = a.pop("x")
+        n, d = xa.shape[1], xa.shape[2]
+        bm = rk.blocksum_tile_rows(d) if attr == "blocksum_cuda" \
+            else sk.tile_rows(d)
+        row_base = base.long().repeat_interleave(bm)[:len(a["q"])]
+        singles = []
+        for b in torch.unique(row_base).tolist():
+            rows = torch.nonzero(row_base == b)[:, 0]
+            sub = {k: (v[rows] if torch.is_tensor(v) and v.dim() and
+                       v.shape[0] == len(a["q"]) else v)
+                   for k, v in a.items()}
+            one = fn(x=xa[b // n], **sub)
+            gots = got if isinstance(got, tuple) else (got,)
+            ones = one if isinstance(one, tuple) else (one,)
+            for g, o in zip(gots, ones):
+                assert torch.equal(g[rows], o), (attr, b)
+            singles.append((sub, b // n))
+        log(f"[serve] (b) {attr[:-5]}: the tenant-axis launch "
+            f"(m {len(a['q'])}, {len(base)} tiles of {bm} rows, "
+            f"{len(singles)} tenants) bitwise equal to the per-tenant "
+            f"launches on the same rows")
+        # the tenant-axis launch against R single-request launches (one a
+        # request of the group, each on its tenant's rows)
+        grp = [r for r in res["reqs"][0] if r.op == {
+            "sample_block_cuda": "sample", "masked_blocksum_cuda": "prob_of",
+            "blocksum_cuda": "query"}[attr]]
+        w = SV_QUERY_Q if attr == "blocksum_cuda" else SV_SAMPLE_W
+        one_req = {k: (v[:w] if torch.is_tensor(v) and v.dim() and
+                       v.shape[0] == len(a["q"]) else v)
+                   for k, v in a.items()}
+        tenant_call = lambda: fn(x=xa, tile_base=base, **a)   # noqa: E731
+        single_calls = lambda: [fn(x=xa[0], **one_req)        # noqa: E731
+                                for _ in grp]
+        name = {"sample_block_cuda": "sampler_", "masked_blocksum_cuda":
+                "sampler_", "blocksum_cuda": "blocksum"}[attr]
+        t_ms, s_ms = timed(tenant_call, 50), timed(single_calls, 50)
+        t_dev = kernel_device_ms(tenant_call, name, 20)
+        s_dev = kernel_device_ms(single_calls, name, 20)
+        fmt = lambda v: "not measured" if v is None else f"{v:.5f}"  # noqa
+        log(f"[serve] (b) {attr[:-5]} at (b)'s group shape: one tenant-axis "
+            f"launch {t_ms:.5f} ms (device {fmt(t_dev)}) against "
+            f"{len(grp)} single-request launches of {w} rows "
+            f"{s_ms:.5f} ms (device {fmt(s_dev)}); {card_line()}")
+    # each request against the single-request program fed its noise
+    nb_all, mismatches = {}, 0
+    for rs in res["reqs"]:
+        for r in rs:
+            nbr, i = srv.tenant(r.tenant).admit(), int(r.tenant[1:])
+            gen = _host_gen(r.seed)
+            if r.op == "sample":
+                src = np.asarray(r.payload["src"])
+                wb = shape_bucket(len(src))
+                noise = tuple(u.to(dev) for u in sops.draw_sample_noise(
+                    wb, nbr.num_blocks, gen, "cpu", **nbr._noise_cfg))
+                nb, p, _, _ = sops.fused_sample(
+                    nbr.x, nbr.x_sq, torch.as_tensor(_pad_idx(src, wb),
+                                                     device=dev),
+                    *noise, views=nbr._views, **nbr._cfg)
+                nb, p = nb.cpu().numpy()[:len(src)], p.cpu().numpy()
+                assert np.array_equal(nb, r.result[0]), r.tenant
+                np.testing.assert_allclose(r.result[1], p[:len(src)],
+                                           rtol=1e-6)
+                s, v = nb_all.setdefault(i, ([], []))
+                s.append(src)
+                v.append(nb)
+            elif r.op == "prob_of":
+                src = torch.as_tensor(np.asarray(r.payload["src"]),
+                                      device=dev)
+                bs, _ = sops.masked_block_sums(nbr.x, nbr.x_sq, src,
+                                               **nbr._cfg)
+                p, _ = sops.prob_of_from_block_sums(
+                    nbr.x, nbr.x_sq, src, torch.as_tensor(
+                        np.asarray(r.payload["dst"]), device=dev), bs,
+                    nbr._views, **nbr._l2_cfg)
+                np.testing.assert_allclose(r.result, p.cpu().numpy(),
+                                           rtol=1e-6)
+            elif r.op == "query":
+                est = nbr.blocks.query(torch.as_tensor(r.payload["y"],
+                                                       device=dev))
+                np.testing.assert_allclose(r.result, est.cpu().numpy(),
+                                           rtol=1e-6)
+    laws = neighbor_law(
+        [srv.tenant(f"t{i}").nbr.x for i in sorted(nb_all)],
+        [torch.as_tensor(np.concatenate(nb_all[i][0]), device=dev)
+         for i in sorted(nb_all)],
+        [torch.as_tensor(np.concatenate(nb_all[i][1]), device=dev)
+         for i in sorted(nb_all)], 1.0 / SV_BW)
+    log(f"[serve] (b) every sample request's neighbors equal the "
+        f"single-request program's on its noise (probabilities within "
+        f"rtol 1e-6), every prob_of and query within rtol 1e-6; "
+        f"{sum(len(np.concatenate(v[0])) for v in nb_all.values())} "
+        f"draws of {len(nb_all)} tenants: {'; '.join(laws)} (alpha 1e-3)")
+
+
+def serve_lru_check(datasets, dev, launches):
+    """(b) with ``max_resident`` 2: each tick touches tenants in a planned
+    order; admissions, evictions and the resident set follow the LRU rule
+    (a Python model of it), and every request is served."""
+    import numpy as np
+    from collections import OrderedDict
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.serving import KernelGraphServable
+    srv = KernelGraphServable(max_resident=2, device=dev)
+    for i, x in enumerate(datasets):
+        srv.add_tenant(f"t{i}", x, gaussian(SV_BW), block_size=SVB_BS,
+                       exact_blocks=True, seed=i)
+    lru, adm, ev = OrderedDict(), 0, 0
+    order = [[0, 1], [2], [0], [1, 3], [3], [2, 0, 1]]
+    rng = np.random.default_rng(5)
+    for k, touched in enumerate(order):
+        for t in touched:
+            srv.submit(f"t{t}", "sample", seed=k,
+                       src=rng.integers(0, SVB_N, SV_SAMPLE_W))
+        st = counted(launches, "serve (b) lru", srv.tick)
+        assert st["failed"] == 0, st
+        needed = {f"t{t}" for t in touched}
+        for name in sorted(needed):
+            if name not in lru:
+                adm += 1
+            lru[name] = True
+            lru.move_to_end(name)
+            while len(lru) > 2:
+                victim = next((c for c in lru if c not in needed), None)
+                if victim is None:
+                    break
+                lru.pop(victim)
+                ev += 1
+        rep = srv.report()
+        assert (rep["admissions"], rep["evictions"], rep["resident"]) == \
+            (adm, ev, list(lru)), (k, rep, adm, ev, list(lru))
+        assert all(srv.tenant(n).resident == (n in lru)
+                   for n in (f"t{i}" for i in range(len(datasets))))
+    log(f"[serve] (b) max_resident 2 over {len(order)} ticks touching "
+        f"{order}: admissions {adm}, evictions {ev}, resident {list(lru)} "
+        f"as the LRU rule gives them")
+
+
+def serve_cli(launches):
+    """(c) the CLI on the card: the multi-tenant mode with hashed tenants
+    and a Prometheus dump, the graph-stream mode at the streaming cell's
+    n with each level-1 read; every metrics line validated.  The hashed
+    graph stream runs with ``REPRO_CHECKS=0``: its random mutations fill
+    the overflow region (cap 5,120 at this capacity) by the second tick,
+    and under checks ``OVERFLOW_SATURATED`` is an error (exit 3, as the
+    reference's driver) where without them it compacts, as phase 13's
+    hashed reads do."""
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch.ft import guards
+    from repro_torch.launch import serve
+    from repro_torch.obs import export, metrics
+    runs = [("multi-tenant hash", ["--serve-tenants", "4", "--requests",
+                                   "32", "--ticks", "8", "--level1", "hash",
+                                   "--telemetry", "--metrics-format",
+                                   "prometheus"])] + [
+        (f"graph-stream {lv}", ["--graph-stream", str(SV_STREAM_N),
+                                "--ticks", "4", "--level1", lv])
+        for lv in ("blocked", "hash")]
+    secs = {}
+    for tag, argv in runs:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        metrics.reset()
+        checks = os.environ["REPRO_CHECKS"]
+        if tag == "graph-stream hash":
+            os.environ["REPRO_CHECKS"] = "0"
+        try:
+            with redirect_stdout(buf):
+                rc = counted(launches, f"serve (c) {tag}",
+                             lambda: serve.main(argv))
+        finally:
+            os.environ["REPRO_CHECKS"] = checks
+        secs[f"serve (c) {tag}"] = time.perf_counter() - t0
+        metrics.disable()
+        out = buf.getvalue()
+        lines = [json.loads(ln[len(export.METRICS_PREFIX):])
+                 for ln in out.splitlines()
+                 if ln.startswith(export.METRICS_PREFIX)]
+        assert rc == 0 and len(lines) == 1, (tag, rc, out[-2000:])
+        export.validate_metrics_line(lines[0])
+        m = lines[0]
+        if tag.startswith("multi"):
+            assert m["failed"] == 0 and "repro_serve_tick_us" in out, m
+            log(f"[serve] (c) serve {' '.join(argv)}: exit 0, metrics line "
+                f"valid: p50 {m['p50_ms']} ms, p99 {m['p99_ms']} ms, "
+                f"{m['throughput_rps']} req/s, served {m['served']}, "
+                f"evals {m['realized_evals']}; the Prometheus dump holds "
+                f"repro_serve_tick_us")
+        else:
+            fatal = set(guards.decode_status(guards.FATAL))
+            assert m["error"] is None and not fatal & set(m["flags"]), m
+            log(f"[serve] (c) serve {' '.join(argv)}: exit 0, metrics line "
+                f"valid: {m['mutation_ms_per_tick']} ms mutation, "
+                f"{m['query_ms_per_tick']} ms queries a tick, epoch "
+                f"{m['epoch']}, live {m['live']}, flags {m['flags']}, "
+                f"hash rebuilds {m['hash_rebuilds']}")
+    return secs
+
+
+def phase_serve(dev):
+    """Phase 15: (a) bench_serve's own plan, blocked and hash mix; (b)
+    exact tenants at phase 3's size; (c) the serve CLI.  Returns (launches
+    by path, seconds by part, errors by kernel)."""
+    import numpy as np
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.data.synthetic_points import gaussian_clusters
+    card = card_line()
+    launches, secs, errs = {}, {}, {}
+    # (a) bench_serve.py:120-158 -- n 1024, d 8, S 4, R 32, 16 ticks
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    datasets = [rng.normal(0, 0.6, (SV_N, SV_D)).astype(np.float32)
+                + 0.1 * i for i in range(SV_S)]
+    ker = gaussian(SV_BW)
+    for tag, level1s in (("a: blocked", ["blocked"] * SV_S),
+                         ("a: hash mix", ["hash" if i % 2 else "blocked"
+                                          for i in range(SV_S)])):
+        res = serve_bench(datasets, ker, level1s, dev, launches,
+                          f"serve ({tag})")
+        log(serve_bench_line(tag, res, card))
+        if tag.endswith("blocked"):
+            assert not launches.get(f"serve ({tag})"), launches
+    secs["serve (a)"] = time.perf_counter() - t0
+    free_cuda()
+    # (b) exact tenants at a real size
+    t0 = time.perf_counter()
+    big = [gaussian_clusters(n=SVB_N, d=SVB_D, seed=i)[0]
+           for i in range(SV_S)]
+    res = serve_bench(big, ker, ["blocked"] * SV_S, dev, launches,
+                      "serve (b) exact", exact=True, block_size=SVB_BS,
+                      ticks=SVB_TICKS, rng_seed=1)
+    log(serve_bench_line("b: exact, n 65536 x 4 tenants", res, card))
+    serve_exact_checks(res, dev, errs)
+    del res
+    free_cuda()
+    serve_lru_check(big, dev, launches)
+    secs["serve (b)"] = time.perf_counter() - t0
+    del big
+    free_cuda()
+    secs.update(serve_cli(launches))
+    free_cuda()
+    log(f"[serve] launches by path: {launches}; {card}")
+    return launches, secs, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4676,24 +5140,35 @@ def main() -> int:
                  "weighted_kv_bf16"):
         assert name in ran, f"kernel {name} was not launched on the " \
             f"streaming / estimator paths"
+    serve_launches, sv_secs, sv_errs = phase_serve(dev)
+    phases.update(sv_secs)
+    ran = {k for c in serve_launches.values() for k in c}
+    for name in ("sample_block", "masked_blocksum", "blocksum",
+                 "weighted_kv_sum", "weighted_kv"):
+        assert name in ran, f"kernel {name} was not launched on the " \
+            f"serve paths"
 
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = max(r["max_abs_err"],
                                graph_errs.get(r["name"], 0.0),
                                st_errs.get(r["name"], 0.0),
-                               est_errs.get(r["name"], 0.0))
+                               est_errs.get(r["name"], 0.0),
+                               sv_errs.get(r["name"], 0.0))
         r["graph_launches"] = {path: c[r["name"]] for path, c in
                                graph_launches.items() if r["name"] in c}
         r["stream_launches"] = {path: c[r["name"]] for path, c in
                                 stream_launches.items() if r["name"] in c}
+        r["serve_launches"] = {path: c[r["name"]] for path, c in
+                               serve_launches.items() if r["name"] in c}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
     log(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
                                   "ctas", "instance", "reduce_share",
-                                  "graph_launches", "stream_launches")
+                                  "graph_launches", "stream_launches",
+                                  "serve_launches")
          if k in r}
         for r in rows]}))
     log(card_line())

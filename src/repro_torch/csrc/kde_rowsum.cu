@@ -44,6 +44,8 @@
 // three L2 kinds have bf16 instances.  The wide tile is built for the f32
 // kinds only: at a bf16 kind, instance 16 / 32 returns
 // cudaErrorInvalidValue.
+#include <type_traits>
+
 #include "kde_wide.cuh"
 
 namespace {
@@ -57,6 +59,16 @@ struct SumArgs {
   int m, n, d, bn, nb, group;
   kde::TableParams p;
 };
+
+// The tenant axis's launch arguments (kde_wide.cuh): SumArgs and each query
+// tile's arena row offset, a struct of its own as kde_sampler.cu's
+// TenantArgs, so the single-dataset kernels keep SumArgs as it was.
+struct TenantSumArgs : SumArgs {
+  const int* tile_base;
+};
+
+template <bool TENANT>
+using SumArgsOf = std::conditional_t<TENANT, TenantSumArgs, SumArgs>;
 
 // The 128-row tiles' store: the raw block sum.
 struct RawStore {
@@ -85,16 +97,16 @@ rowsum_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
   if (lane == 0) out[i] = acc;
 }
 
-template <int KIND>
+template <int KIND, bool TENANT>
 __global__ void __launch_bounds__(kde::THREADS)
-blocksum_kernel(SumArgs a) {
+blocksum_kernel(SumArgsOf<TENANT> a) {
   __shared__ kde::TileSmem sm;
   const int b = blockIdx.x;
   const int i0 = blockIdx.y * kde::BM;
   const int jlo = b * a.bn;
   const int jhi = min(a.n, jlo + a.bn);
   float rs[kde::TM] = {0.0f, 0.0f, 0.0f, 0.0f};
-  kde::tile_row_sums<KIND>(a.q, a.x, a.m, a.d, i0, jlo, jhi, a.p, rs, sm);
+  kde::tile_row_sums<KIND>(a.q, kde::tile_x<TENANT>(a), a.m, a.d, i0, jlo, jhi, a.p, rs, sm);
   kde::row_reduce(rs);
   const int tx = threadIdx.x % kde::TX, ty = threadIdx.x / kde::TX;
   if (tx == 0) {
@@ -106,18 +118,18 @@ blocksum_kernel(SumArgs a) {
   }
 }
 
-template <int KIND, int DK>
+template <int KIND, int DK, bool TENANT>
 __global__ void __launch_bounds__(THREADS, 2)
-blocksum_wide_kernel(SumArgs a) {
+blocksum_wide_kernel(SumArgsOf<TENANT> a) {
   extern __shared__ __align__(16) float smem[];
-  kde::wide_block_sums<KIND, DK, RawStore>(smem, a);
+  kde::wide_block_sums<KIND, DK, RawStore, TENANT>(smem, a);
 }
 
-template <int KIND>
+template <int KIND, bool TENANT>
 __global__ void __launch_bounds__(THREADS, 2)
-blocksum_deep_kernel(SumArgs a) {
+blocksum_deep_kernel(SumArgsOf<TENANT> a) {
   extern __shared__ __align__(16) float smem[];
-  kde::deep_block_sums<KIND, kde::DEEP_DK, RawStore>(smem, a);
+  kde::deep_block_sums<KIND, kde::DEEP_DK, RawStore, TENANT>(smem, a);
 }
 
 template <int KIND, int DK>
@@ -129,8 +141,8 @@ blocksum_mma_kernel(SumArgs a) {
 
 // A launch of a 128-row tile kernel with SMEM bytes of dynamic shared
 // memory, raised once (above 48 KB) at its first launch.
-template <void (*KERNEL)(SumArgs), int SMEM>
-int launch_tiled(const SumArgs& a, cudaStream_t st) {
+template <class A, void (*KERNEL)(A), int SMEM>
+int launch_tiled(const A& a, cudaStream_t st) {
   static bool raised = false;
   if (!raised) {
     const cudaError_t err =
@@ -143,46 +155,65 @@ int launch_tiled(const SumArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KIND>
-int blocksum_kind(const SumArgs& a, int instance, cudaStream_t st) {
+template <int KIND, bool TENANT>
+int blocksum_kind(const SumArgsOf<TENANT>& a, int instance, cudaStream_t st) {
+  using A = SumArgsOf<TENANT>;
   using kde::Mma;
   using kde::Wide;
   if constexpr (kde::is_bf16(KIND)) {
+    static_assert(!TENANT, "the tenant axis runs the f32 kinds only");
     if (instance == kde::MMA + 16)
-      return launch_tiled<blocksum_mma_kernel<KIND, 16>, Mma<16>::BYTES>(a, st);
+      return launch_tiled<A, blocksum_mma_kernel<KIND, 16>, Mma<16>::BYTES>(a, st);
     if (instance == kde::MMA + 32)
-      return launch_tiled<blocksum_mma_kernel<KIND, 32>, Mma<32>::BYTES>(a, st);
+      return launch_tiled<A, blocksum_mma_kernel<KIND, 32>, Mma<32>::BYTES>(a, st);
   } else {
     if (instance == 16)
-      return launch_tiled<blocksum_wide_kernel<KIND, 16>, Wide<16>::BYTES>(a, st);
+      return launch_tiled<A, blocksum_wide_kernel<KIND, 16, TENANT>, Wide<16>::BYTES>(a, st);
     if (instance == 32)
-      return launch_tiled<blocksum_wide_kernel<KIND, 32>, Wide<32>::BYTES>(a, st);
+      return launch_tiled<A, blocksum_wide_kernel<KIND, 32, TENANT>, Wide<32>::BYTES>(a, st);
   }
   if (instance == kde::DEEP)
-    return launch_tiled<blocksum_deep_kernel<KIND>, kde::Deep<kde::DEEP_DK>::BYTES>(a, st);
+    return launch_tiled<A, blocksum_deep_kernel<KIND, TENANT>,
+                        kde::Deep<kde::DEEP_DK>::BYTES>(a, st);
   if (instance != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.nb, (a.m + kde::BM - 1) / kde::BM);
-  blocksum_kernel<KIND><<<grid, kde::THREADS, 0, st>>>(a);
+  blocksum_kernel<KIND, TENANT><<<grid, kde::THREADS, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int blocksum(const float* q, const float* x, float* out, const float* table,
-             const KdeTileShape& s, cudaStream_t st) {
+// Every kind without the tenant axis; the f32 kinds with it.
+template <bool TENANT>
+int blocksum_any(const SumArgsOf<TENANT>& a, int kind, int instance, cudaStream_t st) {
+  switch (kind) {
+    case kde::GAUSSIAN: return blocksum_kind<kde::GAUSSIAN, TENANT>(a, instance, st);
+    case kde::EXPONENTIAL: return blocksum_kind<kde::EXPONENTIAL, TENANT>(a, instance, st);
+    case kde::RATIONAL_QUADRATIC:
+      return blocksum_kind<kde::RATIONAL_QUADRATIC, TENANT>(a, instance, st);
+    case kde::LAPLACIAN: return blocksum_kind<kde::LAPLACIAN, TENANT>(a, instance, st);
+    default: break;
+  }
+  if constexpr (!TENANT) {
+    switch (kind) {
+      case kde::GAUSSIAN_BF16: return blocksum_kind<kde::GAUSSIAN_BF16, false>(a, instance, st);
+      case kde::EXPONENTIAL_BF16:
+        return blocksum_kind<kde::EXPONENTIAL_BF16, false>(a, instance, st);
+      case kde::RATIONAL_QUADRATIC_BF16:
+        return blocksum_kind<kde::RATIONAL_QUADRATIC_BF16, false>(a, instance, st);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int blocksum(const float* q, const float* x, float* out, const int* tile_base,
+             const float* table, const KdeTileShape& s, cudaStream_t st) {
   const SumArgs a{q, x, out, s.m, s.n, s.d, s.bn, s.nb, s.group,
                   kde::TableParams{s.inv_bw, s.inv_bw2, s.beta, table}};
-  switch (s.kind) {
-    case kde::GAUSSIAN: return blocksum_kind<kde::GAUSSIAN>(a, s.instance, st);
-    case kde::EXPONENTIAL: return blocksum_kind<kde::EXPONENTIAL>(a, s.instance, st);
-    case kde::RATIONAL_QUADRATIC:
-      return blocksum_kind<kde::RATIONAL_QUADRATIC>(a, s.instance, st);
-    case kde::LAPLACIAN: return blocksum_kind<kde::LAPLACIAN>(a, s.instance, st);
-    case kde::GAUSSIAN_BF16: return blocksum_kind<kde::GAUSSIAN_BF16>(a, s.instance, st);
-    case kde::EXPONENTIAL_BF16:
-      return blocksum_kind<kde::EXPONENTIAL_BF16>(a, s.instance, st);
-    case kde::RATIONAL_QUADRATIC_BF16:
-      return blocksum_kind<kde::RATIONAL_QUADRATIC_BF16>(a, s.instance, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (tile_base == nullptr) return blocksum_any<false>(a, s.kind, s.instance, st);
+  TenantSumArgs t;
+  static_cast<SumArgs&>(t) = a;
+  t.tile_base = tile_base;
+  return blocksum_any<true>(t, s.kind, s.instance, st);
 }
 
 }  // namespace
@@ -195,7 +226,7 @@ extern "C" {
 int kde_rowsum_launch(const float* q, const float* x, float* partial, float* out,
                       const float* table, void* stream, const KdeTileShape* s) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = blocksum(q, x, partial, table, *s, st);
+  const int err = blocksum(q, x, partial, nullptr, table, *s, st);
   if (err != 0) return err;
   constexpr int rows = REDUCE_THREADS / 32;
   rowsum_reduce_kernel<<<(s->m + rows - 1) / rows, REDUCE_THREADS, 0, st>>>(partial, out, s->m,
@@ -203,9 +234,12 @@ int kde_rowsum_launch(const float* q, const float* x, float* partial, float* out
   return static_cast<int>(cudaGetLastError());
 }
 
-int kde_blocksum_launch(const float* q, const float* x, float* out, const float* table,
-                        void* stream, const KdeTileShape* s) {
-  return blocksum(q, x, out, table, *s, static_cast<cudaStream_t>(stream));
+// tile_base: null, or with a tenant axis (the f32 kinds) one int32 arena
+// row offset per query tile (x then holds the stacked tenants, s->n rows
+// each).
+int kde_blocksum_launch(const float* q, const float* x, float* out, const int* tile_base,
+                        const float* table, void* stream, const KdeTileShape* s) {
+  return blocksum(q, x, out, tile_base, table, *s, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -68,6 +68,8 @@
 // no own block; own is int32 or int64 (a flag in the shape struct).
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "kde_wide.cuh"
 
 namespace {
@@ -92,6 +94,20 @@ struct Args {
   int m, n, d, bn, nb, own64, group;
   kde::TableParams p;
 };
+
+// The tenant axis's launch arguments (kde_wide.cuh): Args and each query
+// tile's arena row offset.  A struct of its own, so the single-dataset
+// kernels keep Args as it was: with the offset a field of Args (after
+// `counter`, or last) the single-dataset wide tile compiled to other SASS
+// (6,586 -> 5,826 instructions) at the same 128 registers and ran 25-30%
+// slower on the H100 (tools/kernel_ab.py, parent and change in turns); as
+// now, its SASS is the parent's line for line.
+struct TenantArgs : Args {
+  const int* tile_base;
+};
+
+template <bool TENANT>
+using ArgsOf = std::conditional_t<TENANT, TenantArgs, Args>;
 
 __device__ __forceinline__ void store_sum(const Args& a, float s, int gi, int b) {
   const long long own = a.own64 ? static_cast<const long long*>(a.own)[gi]
@@ -180,9 +196,9 @@ __device__ void draw_if_last(const Args& a, int i0) {
 }
 
 // ---------------------------------------------------------------- generic
-template <int KIND, bool DRAW>
+template <int KIND, bool DRAW, bool TENANT>
 __global__ void __launch_bounds__(kde::THREADS)
-sampler_generic_kernel(Args a) {
+sampler_generic_kernel(ArgsOf<TENANT> a) {
   static_assert(kde::THREADS == THREADS, "draw_if_last assumes 256 threads");
   __shared__ kde::TileSmem sm;
   const int i0 = blockIdx.y * kde::BM;
@@ -192,7 +208,8 @@ sampler_generic_kernel(Args a) {
     const int jlo = b * a.bn;
     const int jhi = min(a.n, jlo + a.bn);
     float rs[kde::TM] = {0.0f, 0.0f, 0.0f, 0.0f};
-    kde::tile_row_sums<KIND>(a.q, a.x, a.m, a.d, i0, jlo, jhi, a.p, rs, sm);
+    kde::tile_row_sums<KIND>(a.q, kde::tile_x<TENANT>(a), a.m, a.d, i0, jlo, jhi, a.p, rs,
+                             sm);
     kde::row_reduce(rs);
     if (tx == 0) {
 #pragma unroll
@@ -206,11 +223,11 @@ sampler_generic_kernel(Args a) {
 }
 
 // ------------------------------------------------------------------- wide
-template <int KIND, int DK, bool DRAW>
+template <int KIND, int DK, bool DRAW, bool TENANT>
 __global__ void __launch_bounds__(THREADS, 2)
-sampler_wide_kernel(Args a) {
+sampler_wide_kernel(ArgsOf<TENANT> a) {
   extern __shared__ __align__(16) float smem[];
-  kde::wide_block_sums<KIND, DK, MaskedStore>(smem, a);
+  kde::wide_block_sums<KIND, DK, MaskedStore, TENANT>(smem, a);
   if (DRAW) draw_if_last<kde::Wide<DK>::BM>(a, blockIdx.y * kde::Wide<DK>::BM);
 }
 
@@ -226,8 +243,8 @@ sampler_mma_kernel(Args a) {
 // A launch of a 128-row tile kernel (wide or mma) with SMEM bytes of
 // dynamic shared memory: above 48 KB (DK = 32) it needs the attribute,
 // set at the kernel's first launch.
-template <void (*KERNEL)(Args), int SMEM>
-int launch_tile(const Args& a, cudaStream_t st) {
+template <class A, void (*KERNEL)(A), int SMEM>
+int launch_tile(const A& a, cudaStream_t st) {
   constexpr int BM = kde::Wide<16>::BM;
   static_assert(kde::Mma<16>::BM == BM, "both tiles take 128 query rows");
   static bool raised = false;
@@ -242,46 +259,66 @@ int launch_tile(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KIND, bool DRAW>
-int launch_kind(const Args& a, int instance, cudaStream_t st) {
+template <int KIND, bool DRAW, bool TENANT>
+int launch_kind(const ArgsOf<TENANT>& a, int instance, cudaStream_t st) {
+  using A = ArgsOf<TENANT>;
   using kde::Mma;
   using kde::Wide;
   if constexpr (kde::is_bf16(KIND)) {
+    static_assert(!TENANT, "the tenant axis runs the f32 kinds only");
     if (instance == kde::MMA + 16)
-      return launch_tile<sampler_mma_kernel<KIND, 16, DRAW>, Mma<16>::BYTES>(a, st);
+      return launch_tile<A, sampler_mma_kernel<KIND, 16, DRAW>, Mma<16>::BYTES>(a, st);
     if (instance == kde::MMA + 32)
-      return launch_tile<sampler_mma_kernel<KIND, 32, DRAW>, Mma<32>::BYTES>(a, st);
+      return launch_tile<A, sampler_mma_kernel<KIND, 32, DRAW>, Mma<32>::BYTES>(a, st);
   } else {
     if (instance == 16)
-      return launch_tile<sampler_wide_kernel<KIND, 16, DRAW>, Wide<16>::BYTES>(a, st);
+      return launch_tile<A, sampler_wide_kernel<KIND, 16, DRAW, TENANT>, Wide<16>::BYTES>(a,
+                                                                                       st);
     if (instance == 32)
-      return launch_tile<sampler_wide_kernel<KIND, 32, DRAW>, Wide<32>::BYTES>(a, st);
+      return launch_tile<A, sampler_wide_kernel<KIND, 32, DRAW, TENANT>, Wide<32>::BYTES>(a,
+                                                                                       st);
   }
   if (instance != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.nb + a.group - 1) / a.group, (a.m + kde::BM - 1) / kde::BM);
-  sampler_generic_kernel<KIND, DRAW><<<grid, kde::THREADS, 0, st>>>(a);
+  sampler_generic_kernel<KIND, DRAW, TENANT><<<grid, kde::THREADS, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every kind without the tenant axis; the f32 kinds with it.
+template <bool DRAW, bool TENANT>
+int launch_any(const ArgsOf<TENANT>& a, int kind, int instance, cudaStream_t st) {
+  switch (kind) {
+    case kde::GAUSSIAN: return launch_kind<kde::GAUSSIAN, DRAW, TENANT>(a, instance, st);
+    case kde::EXPONENTIAL: return launch_kind<kde::EXPONENTIAL, DRAW, TENANT>(a, instance, st);
+    case kde::RATIONAL_QUADRATIC:
+      return launch_kind<kde::RATIONAL_QUADRATIC, DRAW, TENANT>(a, instance, st);
+    case kde::LAPLACIAN: return launch_kind<kde::LAPLACIAN, DRAW, TENANT>(a, instance, st);
+    default: break;
+  }
+  if constexpr (!TENANT) {
+    switch (kind) {
+      case kde::GAUSSIAN_BF16:
+        return launch_kind<kde::GAUSSIAN_BF16, DRAW, false>(a, instance, st);
+      case kde::EXPONENTIAL_BF16:
+        return launch_kind<kde::EXPONENTIAL_BF16, DRAW, false>(a, instance, st);
+      case kde::RATIONAL_QUADRATIC_BF16:
+        return launch_kind<kde::RATIONAL_QUADRATIC_BF16, DRAW, false>(a, instance, st);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool DRAW>
-int launch(Args a, const KdeTileShape& s, cudaStream_t st) {
+int launch(Args a, const KdeTileShape& s, const int* tile_base, cudaStream_t st) {
   a.m = s.m; a.n = s.n; a.d = s.d; a.bn = s.bn; a.nb = s.nb; a.own64 = s.own64;
   a.group = s.group;
   a.p.inv_bw = s.inv_bw; a.p.inv_bw2 = s.inv_bw2; a.p.beta = s.beta;
-  switch (s.kind) {
-    case kde::GAUSSIAN: return launch_kind<kde::GAUSSIAN, DRAW>(a, s.instance, st);
-    case kde::EXPONENTIAL: return launch_kind<kde::EXPONENTIAL, DRAW>(a, s.instance, st);
-    case kde::RATIONAL_QUADRATIC:
-      return launch_kind<kde::RATIONAL_QUADRATIC, DRAW>(a, s.instance, st);
-    case kde::LAPLACIAN: return launch_kind<kde::LAPLACIAN, DRAW>(a, s.instance, st);
-    case kde::GAUSSIAN_BF16:
-      return launch_kind<kde::GAUSSIAN_BF16, DRAW>(a, s.instance, st);
-    case kde::EXPONENTIAL_BF16:
-      return launch_kind<kde::EXPONENTIAL_BF16, DRAW>(a, s.instance, st);
-    case kde::RATIONAL_QUADRATIC_BF16:
-      return launch_kind<kde::RATIONAL_QUADRATIC_BF16, DRAW>(a, s.instance, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (tile_base == nullptr) return launch_any<DRAW, false>(a, s.kind, s.instance, st);
+  TenantArgs t;
+  static_cast<Args&>(t) = a;
+  t.tile_base = tile_base;
+  return launch_any<DRAW, true>(t, s.kind, s.instance, st);
 }
 
 }  // namespace
@@ -289,23 +326,27 @@ int launch(Args a, const KdeTileShape& s, cudaStream_t st) {
 extern "C" {
 
 // table: the (65536,) bf16 exp table for the bf16 gaussian and exponential
-// kinds, else null.
+// kinds, else null.  tile_base: null, or with a tenant axis (the f32 kinds)
+// one int32 arena row offset per query tile (x then holds the stacked
+// tenants, s->n rows each).
 int kde_masked_blocksum_launch(const float* q, const float* x, const void* own, float* out,
-                               const float* table, void* stream, const KdeTileShape* s) {
+                               const int* tile_base, const float* table, void* stream,
+                               const KdeTileShape* s) {
   Args a{};
   a.q = q; a.x = x; a.own = own; a.bs = out; a.p.table = table;
-  return launch<false>(a, *s, static_cast<cudaStream_t>(stream));
+  return launch<false>(a, *s, tile_base, static_cast<cudaStream_t>(stream));
 }
 
-// counter: one int per query tile of the plan, all 0 (the kernel leaves them 0).
+// counter: one int per query tile of the plan (over every tenant's tiles),
+// all 0 (the kernel leaves them 0).
 int kde_sample_block_launch(const float* q, const float* x, const void* own,
                             const float* gumbel, float* bs, long long* blk, float* pb,
-                            float* tot, int* counter, const float* table, void* stream,
-                            const KdeTileShape* s) {
+                            float* tot, int* counter, const int* tile_base,
+                            const float* table, void* stream, const KdeTileShape* s) {
   Args a{};
   a.q = q; a.x = x; a.own = own; a.g = gumbel; a.bs = bs; a.blk = blk; a.pb = pb;
   a.tot = tot; a.counter = counter; a.p.table = table;
-  return launch<true>(a, *s, static_cast<cudaStream_t>(stream));
+  return launch<true>(a, *s, tile_base, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -11,7 +11,27 @@
 // hands each finished (row, block) sum to the caller's Store::put(a, s, gi,
 // b) -- the masked, floored store of the sampler kernels or the raw store of
 // blocksum / rowsum's partial pass.  `a` is the caller's launch-argument
-// struct; the sweeps read its fields q, x, m, n, d, bn, nb, group and p.
+// struct; the sweeps read its fields q, x, tile_base, m, n, d, bn, nb, group
+// and p.
+//
+// The tenant axis (the serving layer's batched groups, DESIGN.md §13; the
+// counterpart of jax.vmap adding a grid axis over the requests): with a
+// non-null `tile_base`, x is T stacked datasets of n rows each (the arena,
+// (T n, d)) and query tile blockIdx.y reads its own tenant's rows, x +
+// tile_base[blockIdx.y] d (tile_x below).  The caller orders the query rows
+// by tenant, each tenant's run padded to whole tiles, so a tile holds one
+// tenant's rows; block indices and the sampler's `own` stay tenant-relative
+// because the pointer moves.  The axis is a template parameter of the wide
+// and deep sweeps (TENANT), and `tile_base` lives in an argument struct of
+// its own (kde_sampler.cu's TenantArgs, kde_rowsum.cu's TenantSumArgs): a
+// null `tile_base` launches the TENANT = false instances on the old
+// argument structs, whose SASS is the single-dataset launch's instruction
+// for instruction.  (With `tile_base` a field of the sampler's Args, its
+// single-dataset wide tile compiled to other SASS at the same 128
+// registers and ran 25-30% slower.)  The f32 kinds only: the servable is
+// f32, and the mma tile takes no tenant axis.  Tiles of one tenant give
+// each row the same sums as a launch on that tenant's rows alone: a row's
+// sums never depend on the other rows of its tile.
 // On the wide and deep tiles each thread keeps an 8 x 8 register tile
 // (the mma tile: C fragments); rows past the valid range and
 // coordinates past d are staged as zeros, which adds 0 to the L2 cross term,
@@ -77,6 +97,14 @@ struct KdeTileShape {
 };
 
 namespace kde {
+
+// The dataset rows query tile blockIdx.y sweeps: x itself, or with the
+// tenant axis its tenant's n rows of the stacked arena.
+template <bool TENANT, class A>
+__device__ __forceinline__ const float* tile_x(const A& a) {
+  if constexpr (TENANT) return a.x + (size_t)__ldg(a.tile_base + blockIdx.y) * a.d;
+  return a.x;
+}
 
 constexpr int WIDE_THREADS = 256;
 constexpr int DEEP = 1;        // KdeTileShape::instance of the deep tile
@@ -312,7 +340,7 @@ __device__ __forceinline__ void tile_store(const A& a, float (&rs)[8], int tx, i
 
 // The wide sweep (d <= DK): blocks [blockIdx.x group, + group) of query tile
 // blockIdx.y.  smem holds Wide<DK>::BYTES.
-template <int KIND, int DK, class Store, class A>
+template <int KIND, int DK, class Store, bool TENANT = false, class A>
 __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
   using W = Wide<DK>;
   static_assert(!is_bf16(KIND), "the bf16 kinds take the mma tile");
@@ -330,7 +358,7 @@ __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
   int c = 0;
 
   stage<DK, W::BM>(qs, a.q + (size_t)i0 * a.d, a.m - i0, a.d);
-  stage<DK, W::BN>(smem + W::XS, a.x + (size_t)b * a.bn * a.d,
+  stage<DK, W::BN>(smem + W::XS, tile_x<TENANT>(a) + (size_t)b * a.bn * a.d,
                    min(a.n - b * a.bn, a.bn), a.d);
   cp_async_commit();
 
@@ -351,7 +379,8 @@ __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
     if (more) {
       const int nj0 = nb_ * a.bn + nc * W::BN;
       stage<DK, W::BN>(smem + W::XS + ((step + 1) & 1) * W::BN * W::RS,
-                       a.x + (size_t)nj0 * a.d, min(a.n, (nb_ + 1) * a.bn) - nj0, a.d);
+                       tile_x<TENANT>(a) + (size_t)nj0 * a.d,
+                       min(a.n, (nb_ + 1) * a.bn) - nj0, a.d);
       cp_async_commit();
     }
     if (L2) {
@@ -381,7 +410,7 @@ __device__ __forceinline__ void wide_block_sums(float* smem, const A& a) {
 // The deep sweep (the plans take it for d > 32): blocks [blockIdx.x group,
 // + group) of query tile blockIdx.y, coordinates streamed DK at a time
 // k-major.  smem holds Deep<DK>::BYTES.
-template <int KIND, int DK, class Store, class A>
+template <int KIND, int DK, class Store, bool TENANT = false, class A>
 __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
   using D = Deep<DK>;
   constexpr bool L2 = KIND != LAPLACIAN;
@@ -399,7 +428,7 @@ __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
   int c = 0, k = 0;
 
   stage_kmajor<DK, D::BM>(smem + D::QT, qrows, a.m - i0, a.d, 0);
-  stage_kmajor<DK, D::BN>(smem + D::XT, a.x + (size_t)b * a.bn * a.d,
+  stage_kmajor<DK, D::BN>(smem + D::XT, tile_x<TENANT>(a) + (size_t)b * a.bn * a.d,
                           min(a.n - b * a.bn, a.bn), a.d, 0);
   cp_async_commit();
 
@@ -436,7 +465,7 @@ __device__ __forceinline__ void deep_block_sums(float* smem, const A& a) {
       const int nbuf = ((step + 1) & 1) * DK * D::LD;
       const int nj0 = nb_ * a.bn + nc * D::BN;
       stage_kmajor<DK, D::BM>(smem + D::QT + nbuf, qrows, a.m - i0, a.d, nk_ * DK);
-      stage_kmajor<DK, D::BN>(smem + D::XT + nbuf, a.x + (size_t)nj0 * a.d,
+      stage_kmajor<DK, D::BN>(smem + D::XT + nbuf, tile_x<TENANT>(a) + (size_t)nj0 * a.d,
                               min(a.n, (nb_ + 1) * a.bn) - nj0, a.d, nk_ * DK);
       cp_async_commit();
     }

@@ -14,6 +14,7 @@ the ordinary ``.evals`` counters.
 """
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 
@@ -107,6 +108,36 @@ def raise_on_status(status, context: str = "", allow: int = 0) -> int:
     return s
 
 
+def raise_per_request(statuses, contexts, allow: int = 0):
+    """Per-request fan-out of :func:`raise_on_status` for the serving
+    layer's batched status words (DESIGN.md §13): ONE host copy of the
+    (R,) status vector, then the ordinary checks policy applied per
+    request.  ``contexts`` is one string or a sequence aligned with the
+    requests.  Returns ``(statuses, errors)`` -- python ints plus, aligned,
+    the ``EstimationError`` built for each flagged request (None when the
+    request is clean or checks are off).  Never raises itself: one
+    poisoned request must not take down the other lanes of a serving
+    tick.  Accepts an (R,) status vector or an (R, obs.WIDTH) stack of
+    counter words (slot 0 is the per-request status)."""
+    if isinstance(statuses, torch.Tensor):
+        statuses = statuses.detach().cpu().numpy()
+    arr = np.asarray(statuses).astype(np.int64) % (1 << 32)
+    if arr.ndim == 2:                       # (R, WIDTH) counter words
+        arr = arr[:, 0]
+    on = checks_enabled()
+    out, errors = [], []
+    for i, s in enumerate(arr.reshape(-1).tolist()):
+        s = int(s)
+        ctx = contexts if isinstance(contexts, str) else contexts[i]
+        bad = s & ~allow
+        errors.append(EstimationError(
+            f"{ctx or 'serving request'}: status flags "
+            f"{decode_status(bad)} (status=0x{s:x})")
+            if bad and on else None)
+        out.append(s)
+    return out, errors
+
+
 def count_flags(counter: dict, status) -> dict:
     """Accumulate per-flag event counts into ``counter`` (name -> int)."""
     s = host_status(status)
@@ -148,12 +179,52 @@ def sums_status(bs: torch.Tensor, floor: float) -> torch.Tensor:
     return flag_if(nf, NONFINITE) | flag_if(zero, ZERO_MASS)
 
 
+def totals_status(tot, num_blocks: int, floor: float) -> torch.Tensor:
+    """Status from row *totals* instead of the blocks: NONFINITE for
+    NaN/Inf, ZERO_MASS when some row total sits at the floor of all its
+    ``num_blocks`` blocks -- :func:`sums_status`'s contract without the
+    (m, B) sums."""
+    tot = torch.as_tensor(tot)
+    nf = ~torch.isfinite(tot).all()
+    zero = (tot <= 2.0 * floor * num_blocks).any()
+    return flag_if(nf, NONFINITE) | flag_if(zero, ZERO_MASS)
+
+
 def result_status(*arrays) -> torch.Tensor:
     """NONFINITE_RESULT if any program output element is NaN/Inf."""
     return nonfinite_status(*arrays, flag=NONFINITE_RESULT)
 
 
 # -------------------------------------------------------- staged fallback
+def checked(fn):
+    """Wrap a program so that a NaN or Inf in any floating tensor it
+    returns (nested in tuples, lists and dicts) raises
+    ``FloatingPointError`` naming the output: the debug mode in which the
+    float faults the status bits summarize become hard errors (the
+    reference's ``checkify`` float checks; torch has no in-program check,
+    so the outputs are checked on return, one host read a call)."""
+    def walk(out, path):
+        if isinstance(out, torch.Tensor):
+            if out.is_floating_point() and not bool(torch.isfinite(
+                    out).all()):
+                raise FloatingPointError(
+                    f"{getattr(fn, '__name__', 'program')}: non-finite "
+                    f"value in output {path or '0'}")
+        elif isinstance(out, (tuple, list)):
+            for i, o in enumerate(out):
+                walk(o, f"{path}[{i}]")
+        elif isinstance(out, dict):
+            for k, o in out.items():
+                walk(o, f"{path}[{k!r}]")
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        walk(out, "")
+        return out
+    return run
+
+
 def _rekeys(stage) -> bool:
     """True for the stages the reference retries with a re-keyed draw (its
     ``hasattr(stage, "_split")``): the stratified and hashed estimators,

@@ -75,15 +75,18 @@ class KdeWeightedShape(ctypes.Structure):
 
 # C signatures of every exported function (all return an int: cudaError_t,
 # or kde_decode_plan's status).  The KDE launchers take the bf16
-# exp table (or null) just before the stream.
+# exp table (or null) just before the stream; the blocksum, masked-blocksum
+# and sample-block launchers take the tenant axis's per-tile arena offsets
+# (or null) just before the table.
 SIGNATURES = {
     "kde_rowsum_launch": (_P, _P, _P, _P, _P, _P,
                           ctypes.POINTER(KdeTileShape)),
-    "kde_blocksum_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(KdeTileShape)),
-    "kde_masked_blocksum_launch": (_P, _P, _P, _P, _P, _P,
+    "kde_blocksum_launch": (_P, _P, _P, _P, _P, _P,
+                            ctypes.POINTER(KdeTileShape)),
+    "kde_masked_blocksum_launch": (_P, _P, _P, _P, _P, _P, _P,
                                    ctypes.POINTER(KdeTileShape)),
     "kde_sample_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                ctypes.POINTER(KdeTileShape)),
+                                _P, ctypes.POINTER(KdeTileShape)),
     "kde_weighted_kv_launch": (_P, _P, _P, _P, _P, _P, _P,
                                ctypes.POINTER(KdeWeightedShape)),
     "kde_weighted_kv_sum_launch": (_P, _P, _P, _P, _P, _P, _P,

@@ -181,7 +181,8 @@ def _weighted_pass(q, x, cols, wgt, *, kind, inv_bw, beta, pairwise,
 
 def _rows(x, state, precision):
     """The dataset the weighted pass gathers: the state's bf16-resident
-    copy at ``precision="bf16"`` where the estimator made one, else x.
+    copy at ``precision="bf16"`` where the estimator made one, else x (or
+    the stacked copies of a ``stack_hash_states`` layout and the arena).
     Raises ValueError when the copy cannot be x's: another shape or
     another device."""
     if precision == "bf16" and state.x_bf16 is not None:
@@ -196,9 +197,10 @@ def _rows(x, state, precision):
 
 
 def _widths(state):
-    """(max_bucket, overflow capacity) -- the static gather widths."""
-    ov = int(state.overflow.shape[0]) if state.overflow is not None else 0
-    return int(state.members.shape[1]), ov
+    """(max_bucket, overflow capacity) -- the static gather widths (of one
+    layout or of a ``stack_hash_states`` stack)."""
+    ov = int(state.overflow.shape[-1]) if state.overflow is not None else 0
+    return int(state.members.shape[-1]), ov
 
 
 def hashed_query(x, y, state, fidx, *, kind, inv_bw, beta, pairwise=None,
@@ -266,6 +268,105 @@ def hashed_block_sums(x, src, state, off, *, kind, inv_bw, beta,
     cw = _c.word(status=st, evals=w * (mb + ov + far), l1_reads=w,
                  far_samples=w * far, overflow=w * ov)
     return bs, cw
+
+
+# --------------------------------------------------------------------- #
+# batched multi-tenant serving entry points (DESIGN.md §13)
+# --------------------------------------------------------------------- #
+def stack_hash_states(states):
+    """Stack equal-shape ``HashState`` layouts along a new leading tenant
+    axis for the batched multi-tenant paths.  All layouts must agree in
+    every tensor's shape and dtype (bucket count, ``max_bucket``, padded
+    row count, overflow capacity, hash dims), and a field absent from one
+    (``overflow``, ``x_bf16``: None) must be absent from all -- the serving
+    layer keys its batch groups by exactly this signature.  Raises
+    ``ValueError`` on a mismatch rather than padding: phantom padded
+    buckets would change the FAR complement every Horvitz-Thompson draw
+    sees."""
+    if not states:
+        raise ValueError("stack_hash_states needs at least one state")
+    s0 = states[0]
+    for st in states[1:]:
+        for a, b in zip(st, s0):
+            if (a is None) != (b is None) or (
+                    a is not None and (a.shape != b.shape
+                                       or a.dtype != b.dtype)):
+                raise ValueError(
+                    "HashState layouts differ in shape/dtype -- serve "
+                    "these tenants in separate batch groups")
+    return _ref.HashState(*(None if f[0] is None else torch.stack(f)
+                            for f in zip(*states)))
+
+
+def _lane_any(mask, lanes: int) -> torch.Tensor:
+    """(lanes,) bool: any element of each lane's rows of ``mask``."""
+    return mask.reshape(lanes, -1).any(dim=1)
+
+
+def _lane_flag(mask, lanes: int, flag: int) -> torch.Tensor:
+    return _lane_any(mask, lanes).to(torch.int64) * flag
+
+
+def batched_hashed_query(xa, tidx, y, state, fidx, *, kind, inv_bw, beta,
+                         pairwise=None, cell_width, num_far, n,
+                         precision="f32"):
+    """R hashed Definition 1.1 query requests across stacked tenants in
+    ONE weighted-kv-sum launch: ``xa`` (T, n, d) the stacked tenant rows
+    (the arena), ``state`` a ``stack_hash_states`` layout, ``tidx`` (R,)
+    each request's tenant, ``y`` (R, q, d) its query points and ``fidx``
+    (R, q, num_far) its FAR draws (``draw_query_noise`` per request; None
+    when ``num_far == 0``).  Each row's columns come from its own tenant's
+    layout and are offset into the flattened arena.  Returns (estimates
+    (R, q), NEAR eval counts (R, q), per-request counter words (R,
+    obs.WIDTH)) -- each lane is ``hashed_query`` on its tenant with its
+    noise."""
+    r, q, d = y.shape
+    dev = y.device
+    tidx = torch.as_tensor(tidx, dtype=torch.int64).to(dev)
+    trow = tidx.repeat_interleave(q)
+    yr = y.reshape(r * q, d)
+    fr = fidx.reshape(r * q, -1) if fidx is not None else None
+    cols, wgt, cnt, trunc = _ref.stacked_query_gather(
+        yr, state, trow, fr, cell_width, num_far, n)
+    corrupt = (cols < 0) | (cols >= n)
+    arena = _rows(xa, state, precision)
+    acols = (cols.to(torch.int64) + (trow * n)[:, None]).to(torch.int32)
+    est = _weighted_pass(yr, arena.reshape(-1, d), acols, wgt, kind=kind,
+                         inv_bw=inv_bw, beta=beta, pairwise=pairwise,
+                         reduce_sum=True, precision=precision).reshape(r, q)
+    heavy = num_far > 0 and float(n) / num_far > _g.ht_bound()
+    st = (_lane_flag(corrupt, r, _g.STATE_CORRUPT)
+          | _lane_flag(trunc, r, _g.BUCKET_OVERFLOW)
+          | (_g.HT_HEAVY if heavy else 0)
+          | _lane_flag(~torch.isfinite(est), r, _g.NONFINITE_RESULT))
+    mb, ov = _widths(state)
+    cw = _c.lane_words(st, evals=q * (mb + ov + num_far), l1_reads=q,
+                       far_samples=q * num_far, overflow=q * ov)
+    return est, cnt.reshape(r, q), cw
+
+
+def stacked_hashed_block_sums(xa, src, trow, state, off, *, kind, inv_bw,
+                              beta, pairwise=None, num_far, block_size,
+                              num_blocks, n, precision="f32"):
+    """The hashed level-1 read of frontier rows of stacked tenants in one
+    weighted-kv launch: ``src`` (rows,) tenant-relative, ``trow`` (rows,)
+    each row's tenant, ``off`` (rows, B, num_far) its FAR offsets.
+    Returns (block sums (rows, B), corrupt (rows,), truncated (rows,))
+    for the callers' per-lane status words."""
+    d = xa.shape[-1]
+    cols, wgt, _, trunc = _ref.stacked_frontier_gather(
+        src, state, trow, off, num_far, block_size, num_blocks, n)
+    arena = _rows(xa, state, precision)
+    rows = trow * n + src
+    acols = (cols.to(torch.int64) + (trow * n)[:, None]).to(torch.int32)
+    flat = arena.reshape(-1, d)
+    kv = _weighted_pass(xa.reshape(-1, d)[rows], flat, acols, wgt,
+                        kind=kind, inv_bw=inv_bw, beta=beta,
+                        pairwise=pairwise, reduce_sum=False,
+                        precision=precision)
+    bs = _ref.stacked_scatter_block_sums(kv, cols, src, state, trow,
+                                         num_far, block_size, num_blocks)
+    return bs, ((cols < 0) | (cols >= n)).any(dim=1), trunc
 
 
 # --------------------------------------------------------------------- #

@@ -130,25 +130,33 @@ def _far_collide(fidx, mem, mvalid):
                      & mvalid[:, None, :], dim=-1)
 
 
-def _overflow_cols(state: HashState, w: int):
-    """Broadcast the (global) overflow region to per-row exact columns:
-    (w, ov_cap) clipped row ids + (w, ov_cap) validity.  ``(None, None)``
-    for static (overflow-free) states."""
-    if state.overflow is None:
+def _ov_cols(ov, w: int):
+    """Per-row exact columns of an overflow region: (w, ov_cap) clipped
+    row ids + (w, ov_cap) validity.  ``ov`` is the state's (ov_cap,)
+    region, broadcast to every row, or (w, ov_cap) regions of each row's
+    own tenant (the stacked gathers); ``(None, None)`` for None."""
+    if ov is None:
         return None, None
-    ov = state.overflow
-    ovc = torch.clamp(ov, min=0)[None, :].expand(w, ov.shape[0])
-    return ovc, (ov >= 0)[None, :].expand(w, ov.shape[0])
+    if ov.dim() == 1:
+        ov = ov[None, :].expand(w, ov.shape[0])
+    return torch.clamp(ov, min=0), ov >= 0
+
+
+def _ov_hits(fidx, ov):
+    """(w, s) mask: far sample hits a live row of the overflow region
+    ``ov`` ((ov_cap,) or per row (w, ov_cap); None: no region)."""
+    if ov is None:
+        return torch.zeros(fidx.shape, dtype=torch.bool, device=fidx.device)
+    if ov.dim() == 1:
+        ov = ov[None, :]
+    return torch.any((fidx[:, :, None] == ov[:, None, :])
+                     & (ov >= 0)[:, None, :], dim=-1)
 
 
 def _far_hits_overflow(fidx, state: HashState):
     """(w, s) mask: far sample hits a live overflow row (those are already
     counted exactly by the overflow sweep)."""
-    if state.overflow is None:
-        return torch.zeros(fidx.shape, dtype=torch.bool, device=fidx.device)
-    ov = state.overflow
-    return torch.any((fidx[:, :, None] == ov[None, None, :])
-                     & (ov >= 0)[None, None, :], dim=-1)
+    return _ov_hits(fidx, state.overflow)
 
 
 def num_exact_cols(state: HashState) -> int:
@@ -159,11 +167,12 @@ def num_exact_cols(state: HashState) -> int:
                  if state.overflow is not None else 0)
 
 
-def _exact_cols(state: HashState, mem, cnt, w: int):
-    """(members + overflow columns, their 0/1 validity)."""
+def _exact_cols(ov, mem, cnt, w: int):
+    """(members + overflow columns, their 0/1 validity); ``ov`` as
+    ``_ov_cols`` takes it."""
     mb = mem.shape[1]
     mvalid = torch.arange(mb, device=mem.device)[None, :] < cnt[:, None]
-    ovc, ovvalid = _overflow_cols(state, w)
+    ovc, ovvalid = _ov_cols(ov, w)
     if ovc is not None:
         mem = torch.cat([mem, ovc], dim=1)
         mvalid = torch.cat([mvalid, ovvalid], dim=1)
@@ -189,17 +198,26 @@ def query_gather(y, state: HashState, fidx, cell_width: float,
     bucket-truncation flag.  ``fidx`` (w, num_far) holds the FAR draws,
     uniform on [0, n); None when ``num_far == 0``."""
     b, hit = lookup_buckets(y, state, cell_width)
-    cnt = torch.where(hit, state.counts[b], 0)
-    mem = state.members[b]
+    return _query_cols(state.members[b], state.counts[b], hit,
+                       state.truncated[b] if state.truncated is not None
+                       else None, state.overflow, fidx, num_far, n)
+
+
+def _query_cols(mem, counts, hit, truncated, ov, fidx, num_far: int,
+                n: int):
+    """``query_gather`` after the bucket lookup: each row's bucket members
+    ``mem``, their stored ``counts``, the ``hit`` flags, the buckets'
+    ``truncated`` flags (or None) and the overflow region ``ov``."""
+    cnt = torch.where(hit, counts, 0)
     mb = mem.shape[1]
-    trunc = (hit & state.truncated[b] if state.truncated is not None
+    trunc = (hit & truncated if truncated is not None
              else torch.zeros_like(hit))
-    w = y.shape[0]
-    mem, mvalid = _exact_cols(state, mem, cnt, w)
+    w = mem.shape[0]
+    mem, mvalid = _exact_cols(ov, mem, cnt, w)
     if num_far == 0:                       # static: NEAR-only estimate
         return mem, mvalid.to(torch.float32), cnt, trunc
     collide = (_far_collide(fidx, mem[:, :mb], mvalid[:, :mb])
-               | _far_hits_overflow(fidx, state))
+               | _ov_hits(fidx, ov))
     cols = torch.cat([mem, fidx.to(mem.dtype)], dim=1)
     wgt = torch.cat([mvalid.to(torch.float32),
                      (float(n) / num_far)
@@ -216,21 +234,31 @@ def frontier_gather(src, state: HashState, off, num_far: int,
     out-of-range tail slots and collisions with stored NEAR members or the
     row itself get weight 0.  Returns (cols, wgt, NEAR counts, truncation
     flags)."""
-    w = src.shape[0]
     b = state.point_bucket[src]
-    nohit = b < 0
     bc = torch.clamp(b, min=0)
-    cnt = torch.where(nohit, 0, state.counts[bc])
-    mem = state.members[bc]
+    return _frontier_cols(src, b, state.members[bc], state.counts[bc],
+                          state.truncated[bc] if state.truncated is not None
+                          else None, state.overflow, off, num_far,
+                          block_size, num_blocks, n)
+
+
+def _frontier_cols(src, b, mem, counts, truncated, ov, off, num_far: int,
+                   block_size: int, num_blocks: int, n: int):
+    """``frontier_gather`` after the bucket lookup: each row's bucket id
+    ``b`` (-1: none), its members, stored counts and truncation flag (or
+    None), and the overflow region ``ov``."""
+    w = src.shape[0]
+    nohit = b < 0
+    cnt = torch.where(nohit, 0, counts)
     mb = mem.shape[1]
-    trunc = (state.truncated[bc] & ~nohit if state.truncated is not None
+    trunc = (truncated & ~nohit if truncated is not None
              else torch.zeros_like(nohit))
-    mem, mvalid = _exact_cols(state, mem, cnt, w)
+    mem, mvalid = _exact_cols(ov, mem, cnt, w)
     base = torch.arange(num_blocks, dtype=off.dtype,
                         device=src.device) * block_size
     fidx = (base[None, :, None] + off).reshape(w, num_blocks * num_far)
     dead = (_far_collide(fidx, mem[:, :mb], mvalid[:, :mb])
-            | _far_hits_overflow(fidx, state) | (fidx == src[:, None])
+            | _ov_hits(fidx, ov) | (fidx == src[:, None])
             | (fidx >= n))
     fidx = torch.clamp(fidx, max=n - 1)
     cols = torch.cat([mem, fidx.to(mem.dtype)], dim=1)
@@ -281,12 +309,87 @@ def scatter_block_sums(kv, cols, src, state: HashState, num_far: int,
     into their blocks, reshape-reduce the block-indexed FAR values,
     subtract the self kernel from the own block iff stored, floor every
     block at 1e-12."""
-    nex = num_exact_cols(state)
+    return _scatter_sums(kv, cols, src, state.self_stored[src],
+                         num_exact_cols(state), num_far, block_size,
+                         num_blocks)
+
+
+def _scatter_sums(kv, cols, src, self_st, nex: int, num_far: int,
+                  block_size: int, num_blocks: int):
+    """``scatter_block_sums`` with each row's self-stored weight
+    ``self_st`` and the exact column count ``nex`` given."""
     w = src.shape[0]
     bs = kv[:, nex:].reshape(w, num_blocks, num_far).sum(-1)
     bs = bs.scatter_add(1, (cols[:, :nex] // block_size).long(), kv[:, :nex])
     own = src // block_size
     corr = torch.arange(num_blocks, device=src.device)[None, :] \
         == own[:, None]
-    bs = torch.where(corr, bs - state.self_stored[src][:, None], bs)
+    bs = torch.where(corr, bs - self_st[:, None], bs)
     return torch.clamp(bs, min=BLOCK_SUM_FLOOR)
+
+
+# --------------------------------------------------------------------- #
+# stacked tenants (the serving layer's batched groups, DESIGN.md §13)
+#
+# ``stack`` is a HashState whose every tensor has a leading tenant axis of
+# T equal-shape layouts (``ops.stack_hash_states``); ``trow`` (rows,)
+# int64 is each row's tenant.  The gathers below return the columns of the
+# single-state gathers, tenant-relative, row for row: each row reads only
+# its own tenant's layout.
+# --------------------------------------------------------------------- #
+def stacked_lookup(y, stack: HashState, trow, cell_width: float):
+    """``lookup_buckets`` of each query row in its own tenant's layout:
+    the row's grid codes under its tenant's dims and shift (the same f32
+    add, divide and floor), then one ``searchsorted`` over the T sorted
+    key tables laid end to end with the tenant index in bits 32+ (each
+    table stays sorted and below the next).  Returns (tenant-relative
+    bucket id, hit)."""
+    t, u = stack.keys.shape
+    shift = stack.shift[trow]
+    yh = torch.gather(y, 1, stack.dims[trow]) + shift
+    cw = torch.full_like(shift, float(cell_width))
+    qkey = pack_codes(torch.floor(yh / cw).to(torch.int32)) + (trow << 32)
+    tenant = torch.arange(t, device=y.device)
+    keys = (stack.keys + (tenant << 32)[:, None]).reshape(-1)
+    first = trow * u
+    b = torch.minimum(torch.maximum(torch.searchsorted(keys, qkey), first),
+                      first + u - 1)
+    return b - first, keys[b] == qkey
+
+
+def stacked_query_gather(y, stack: HashState, trow, fidx, cell_width: float,
+                         num_far: int, n: int):
+    """``query_gather`` of rows of stacked tenants: (cols, wgt, NEAR
+    counts, truncation flags), cols tenant-relative."""
+    b, hit = stacked_lookup(y, stack, trow, cell_width)
+    return _query_cols(stack.members[trow, b], stack.counts[trow, b], hit,
+                       stack.truncated[trow, b]
+                       if stack.truncated is not None else None,
+                       stack.overflow[trow]
+                       if stack.overflow is not None else None,
+                       fidx, num_far, n)
+
+
+def stacked_frontier_gather(src, stack: HashState, trow, off, num_far: int,
+                            block_size: int, num_blocks: int, n: int):
+    """``frontier_gather`` of frontier rows of stacked tenants (``src``
+    tenant-relative): (cols, wgt, NEAR counts, truncation flags)."""
+    b = stack.point_bucket[trow, src]
+    bc = torch.clamp(b, min=0)
+    return _frontier_cols(src, b, stack.members[trow, bc],
+                          stack.counts[trow, bc],
+                          stack.truncated[trow, bc]
+                          if stack.truncated is not None else None,
+                          stack.overflow[trow]
+                          if stack.overflow is not None else None,
+                          off, num_far, block_size, num_blocks, n)
+
+
+def stacked_scatter_block_sums(kv, cols, src, stack: HashState, trow,
+                               num_far: int, block_size: int,
+                               num_blocks: int):
+    """``scatter_block_sums`` of frontier rows of stacked tenants."""
+    nex = int(stack.members.shape[-1]) + (
+        int(stack.overflow.shape[-1]) if stack.overflow is not None else 0)
+    return _scatter_sums(kv, cols, src, stack.self_stored[trow, src], nex,
+                         num_far, block_size, num_blocks)

@@ -160,24 +160,34 @@ def rowsum_plan(m: int, n: int, d: int, aligned: bool = True,
 _PLANS: dict = {}
 
 
-def _cached_plan(q, x, kind, inv_bw, beta, bn, precision="f32"):
+def _cached_plan(q, x, kind, inv_bw, beta, bn, precision="f32",
+                 tile_base=None):
     """Check a call once; its plan and the launch's static arguments.
     ``bn`` None plans the rowsum."""
     aligned = q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
     key = (q.shape, q.stride(), x.shape, x.stride(), q.dtype, x.dtype,
            q.get_device(), x.get_device(), kind, inv_bw, beta, bn, aligned,
            precision)
+    if tile_base is not None:
+        key += (tile_base.shape, tile_base.stride(), tile_base.dtype,
+                tile_base.get_device())
     entry = _PLANS.get(key)
     if entry is None:
-        check_qx(q, x)
+        from repro_torch.kernels.kde_sampler import kernel as sk
+        n = x.shape[-2] if tile_base is not None else x.shape[0]
+        if tile_base is not None:
+            check_operand(tile_base, "tile_base", torch.int32, 1, q.device)
+            check_operand(x, "x", torch.float32, 3, q.device)
+        check_qx(q, x.reshape(-1, x.shape[-1]))
         m, d = q.shape
-        n = x.shape[0]
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         if bn is None:
             plan, cols = rowsum_plan(m, n, d, aligned, sms, precision)
         else:
             plan = blocksum_plan(m, n, d, int(bn), aligned, sms, precision)
             cols = int(bn)
+        if tile_base is not None:
+            sk.check_arena(x, tile_base, m, plan.bm, precision)
         shape = _build.KdeTileShape(m, n, d, cols, plan.nb, 0, plan.instance,
                                     plan.group,
                                     *kind_args(kind, inv_bw, beta, precision))
@@ -213,17 +223,21 @@ def rowsum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
 
 
 def blocksum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
-                  bn: int = 256, precision: str = "f32"):
+                  bn: int = 256, precision: str = "f32", tile_base=None):
     """out[i, b] = sum_{j in block b} k(q_i, x_j) by the blocksum kernel:
     blocks of ``bn`` consecutive rows of x, the last one ragged ->
-    (m, ceil(n / bn)) f32.  One launch."""
-    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, int(bn), precision)
+    (m, ceil(n / bn)) f32.  One launch.  With ``tile_base`` (the tenant
+    axis of ``kde_sampler.kernel``'s module note) x is the (T, n, d) arena
+    and query tile i sums its tenant's rows."""
+    plan, shape = _cached_plan(q, x, kind, inv_bw, beta, int(bn), precision,
+                               tile_base)
     m = q.shape[0]
     out = torch.empty((m, plan.nb), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
     err = _build.library().kde_blocksum_launch(
         q.data_ptr(), x.data_ptr(), out.data_ptr(),
+        None if tile_base is None else tile_base.data_ptr(),
         exp_table_ptr(kind, precision, q.device), stream_of(q), shape)
     if err:
         _build.check(err, "kde_blocksum")
@@ -320,10 +334,25 @@ def mma_sums_model(q, x, kind: str, inv_bw: float, beta: float = 1.0,
     return lanes[:, 0]
 
 
+def blocksum_tile_rows(d: int, aligned: bool = True,
+                       precision: str = "f32") -> int:
+    """Query rows a blocksum tile holds for width ``d`` (``blocksum_plan``'s
+    ``bm``): what a tenant-axis call pads each tenant's rows to."""
+    return blocksum_plan(1, 1, d, 1, aligned, precision=precision).bm
+
+
 def blocksum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
-                   bn: int = 256, precision: str = "f32"):
+                   bn: int = 256, precision: str = "f32", tile_base=None):
     """Plain torch version of ``blocksum_cuda``: the (m, n) values,
     zero-padded to a block multiple, summed per block."""
+    if tile_base is not None:
+        from repro_torch.kernels.kde_sampler import kernel as sk
+        bm = blocksum_tile_rows(q.shape[1], precision=precision)
+        sk.check_arena(x, tile_base, q.shape[0], bm, precision)
+        return sk.per_tenant(
+            lambda qq, xt: blocksum_plain(qq, xt, kind, inv_bw, beta, bn,
+                                          precision),
+            q, x, tile_base, bm)
     kv = kernel_values(q, x, kind, inv_bw, beta, precision)
     pad = -kv.shape[1] % bn
     if pad:

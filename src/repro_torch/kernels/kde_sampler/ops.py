@@ -146,18 +146,20 @@ def stratified_columns(u, *, block_size, num_blocks, n, s):
     (B, block_size): each block's ``s`` slots of smallest ``u`` (top-k
     without replacement; slots past n sort last).  Returns ``(rows (B s,)
     dataset indices, valid (B, s) real-sample mask, scale (B,))`` with
-    scale = size_b / s_b, ``s_b`` the block's count of real samples."""
+    scale = size_b / s_b, ``s_b`` the block's count of real samples.
+    Leading axes of ``u`` (one subsample a request) carry through."""
     dev = u.device
     base = torch.arange(num_blocks, device=dev) * block_size
     pos = base[:, None] + torch.arange(block_size, device=dev)[None, :]
     valid_pos = pos < n
     u = torch.where(valid_pos, u, torch.inf)      # invalid slots sort last
-    order = torch.topk(-u, s, dim=1).indices      # (B, s) w/o replacement
-    idx = torch.clamp(torch.gather(pos, 1, order), max=n - 1)
-    valid = torch.gather(valid_pos, 1, order)
+    order = torch.topk(-u, s, dim=-1).indices     # (B, s) w/o replacement
+    idx = torch.clamp(torch.gather(pos.expand(u.shape), -1, order),
+                      max=n - 1)
+    valid = torch.gather(valid_pos.expand(u.shape), -1, order)
     sizes = torch.clamp(n - base, max=block_size).to(torch.float32)
     s_b = torch.clamp(sizes, max=float(s))
-    return idx.reshape(-1), valid, sizes / torch.clamp(s_b, min=1.0)
+    return idx.flatten(-2), valid, sizes / torch.clamp(s_b, min=1.0)
 
 
 def stratified_block_sums(y, x, x_sq, u, *, kind, inv_bw, beta,
@@ -192,6 +194,14 @@ def exact_block_sums(y, x, x_sq, *, kind, inv_bw, beta, block_size,
                        l1_reads=m)
 
 
+def _own_correct(bs, src, block_size: int, num_blocks: int):
+    """Own block less k(x, x) = 1, floored (the masked reads' finish)."""
+    own = src // block_size
+    corr = torch.arange(num_blocks, device=src.device)[None, :] \
+        == own[:, None]
+    return torch.clamp(torch.where(corr, bs - 1.0, bs), min=FLOOR)
+
+
 def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
                             block_size, num_blocks, n, s, precision="f32"):
     """Stratified level-1 sums of a frontier, own block corrected by
@@ -202,11 +212,7 @@ def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
                                   block_size=block_size,
                                   num_blocks=num_blocks, n=n, s=s,
                                   precision=precision)
-    own = src // block_size
-    corr = torch.arange(num_blocks, device=src.device)[None, :] \
-        == own[:, None]
-    bs = torch.where(corr, bs - 1.0, bs)
-    return torch.clamp(bs, min=FLOOR)
+    return _own_correct(bs, src, block_size, num_blocks)
 
 
 def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
@@ -343,10 +349,20 @@ def prob_of_from_block_sums(x, x_sq, src, dst, bs, views=None, *, kind,
     drawn uniformly over its live columns).  Returns ``(probs, word)``."""
     if views is None:
         views = _ref.block_views(x, x_sq, block_size)
+    prob = _prob_core(x, x_sq, views, src, dst, bs, kind=kind,
+                      inv_bw=inv_bw, beta=beta, block_size=block_size, n=n)
+    st = _g.sums_status(bs, FLOOR) | _g.result_status(prob)
+    return prob, _c.word(status=st, evals=src.shape[0] * block_size)
+
+
+def _prob_core(x, x_sq, views, src, dst, bs, *, kind, inv_bw, beta,
+               block_size, n, off=None):
+    """The probabilities of ``prob_of_from_block_sums`` (``off``: the
+    stacked tenants' offsets of ``ref.level2_row``)."""
     blk = dst // block_size
     pb = torch.gather(bs, 1, blk[:, None])[:, 0] / bs.sum(dim=1)
     kv, live, _ = _ref.level2_row(x, x_sq, views, src, blk, kind, inv_bw,
-                                  beta, block_size, n)
+                                  beta, block_size, n, off=off)
     col = (dst - blk * block_size)[:, None]
     kd = torch.gather(kv, 1, col)[:, 0]
     rowsum = kv.sum(dim=1)
@@ -355,35 +371,41 @@ def prob_of_from_block_sums(x, x_sq, src, dst, bs, views=None, *, kind,
                                         min=1.0)
     pin = torch.where(rowsum > 0.0, kd / torch.clamp(rowsum, min=1e-30),
                       pin_fallback)
-    prob = pb * pin
-    st = _g.sums_status(bs, FLOOR) | _g.result_status(prob)
-    return prob, _c.word(status=st, evals=src.shape[0] * block_size)
+    return pb * pin
 
 
 def _sample_exact_core(x, x_sq, views, src, bs, u_blk, u_in, u_acc, *,
-                       kind, inv_bw, beta, block_size, n, rounds, slack):
+                       kind, inv_bw, beta, block_size, n, rounds, slack,
+                       off=None, lanes=None):
     """Theorem 4.12 accept/reject rounds on cached level-1 sums: propose
     from ``bs`` and accept v with probability min(1, k(u, v) / (slack q(v)
     Z_hat)), Z_hat = sum of the (own-block corrected, floored) sums.
     Returns (neighbors, status tensor, fallback count tensor); a row whose
-    rounds all reject keeps the round-0 proposal."""
+    rounds all reject keeps the round-0 proposal.  ``off``: the stacked
+    tenants' offsets of ``ref.level2_row``; ``lanes``: the status and
+    fallbacks come per lane of that many equal row runs."""
     zs = bs.sum(dim=1)
     cur, _ = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk[0],
                                    u_in[0], kind, inv_bw, beta, block_size,
-                                   n)
+                                   n, off=off)
     accepted = torch.zeros(src.shape[0], dtype=torch.bool,
                            device=src.device)
-    xs = x[src]
+    base = 0 if off is None else off[0]
+    xs = x[base + src]
     for r in range(rounds):
         cand, q = _ref.sample_from_sums(x, x_sq, views, src, bs,
                                         u_blk[r + 1], u_in[r + 1], kind,
-                                        inv_bw, beta, block_size, n)
-        kuv = _ref.kv_pairs(xs, x[cand], kind, inv_bw, beta)
+                                        inv_bw, beta, block_size, n,
+                                        off=off)
+        kuv = _ref.kv_pairs(xs, x[base + cand], kind, inv_bw, beta)
         ratio = kuv / torch.clamp(slack * q * zs, min=1e-30)
         acc = ~accepted & (u_acc[r] < torch.clamp(ratio, max=1.0))
         cur = torch.where(acc, cand, cur)
         accepted |= acc
-    fallbacks = torch.sum(~accepted)
+    if lanes is not None:
+        fallbacks = (~accepted).reshape(lanes, -1).sum(dim=1)
+    else:
+        fallbacks = torch.sum(~accepted)
     return cur, _g.flag_if(fallbacks > 0, _g.REJECT_EXHAUSTED), fallbacks
 
 
@@ -572,21 +594,17 @@ def _cached_block_sums(cache, x, src, *, kind, inv_bw, beta, block_size,
     kv = _ref.kv_matrix(x[src], xs, xs_sq, kind, inv_bw, beta, None,
                         precision) * valid[None, :]
     bs = kv.reshape(src.shape[0], s, num_blocks).sum(1) * scale[None, :]
-    own = src // block_size
-    corr = torch.arange(num_blocks, device=src.device)[None, :] \
-        == own[:, None]
-    bs = torch.where(corr, bs - 1.0, bs)
-    return torch.clamp(bs, min=FLOOR)
+    return _own_correct(bs, src, block_size, num_blocks)
 
 
 def _walk_sample_core(x, x_sq, views, src, bs, u_blk, u_in, *, kind, inv_bw,
-                      beta, block_size, n, num_blocks):
+                      beta, block_size, n, num_blocks, off=None):
     """``sample_from_sums`` with the two-level inverse-CDF draws at both
     depths (``ref.grouped_inverse_cdf``): the walk-resident step.  Returns
     (neighbors, realized probabilities)."""
     blk, pb = _ref.choose_block_grouped(bs, u_blk, _ref.cdf_group(num_blocks))
     kv, live, cols_c = _ref.level2_row(x, x_sq, views, src, blk, kind,
-                                       inv_bw, beta, block_size, n)
+                                       inv_bw, beta, block_size, n, off=off)
     nb, pin = _ref.level2_draw_grouped(kv, live, cols_c, u_in,
                                        _ref.cdf_group(block_size))
     return nb, pb * pin
@@ -873,6 +891,381 @@ def triangle_edge_scan(x, x_sq, u, v, degs, noise, hstate=None, *, kind,
                  l1_reads=m, draws=num_draws * m, far_samples=m * far,
                  overflow=m * ov)
     return uu, vv, w_hat, cw
+
+
+# --------------------------------------------------------------------- #
+# batched multi-tenant entry points (DESIGN.md §13)
+#
+# One serving tick aggregates R concurrent requests -- possibly from
+# different tenants -- into ONE padded batch: ``tidx`` (R,) indexes the
+# stacked tenant arena ``xa`` (T, n, d) / ``xa_sq`` (T, n) (and, for
+# hashed level-1 tenants, a ``kde_hash.ops.stack_hash_states`` layout),
+# every request carries its OWN noise, stacked along a leading request
+# axis (the single-request program's noise for each lane), and every
+# program returns a PER-REQUEST counter word.  Each stage is one pass over
+# the group's R w rows: the exact level-1 reads are one launch of the
+# tenant-axis kernels (the rows ordered by tenant, each tenant's run padded
+# to whole tiles), the hashed reads one launch of the weighted-kv kernels
+# over the flattened arena, the stratified reads one batched plain sweep;
+# level 2 and the draws are torch ops with each row's tenant offset
+# gathered (``ref.level2_row``'s ``off``).  Lane r computes what the
+# single-request program computes on tenant ``tidx[r]`` with lane r's
+# noise: the same level-1 sums (each row's sums never depend on the other
+# rows of a launch), indices and draws.
+# --------------------------------------------------------------------- #
+class _Lanes:
+    """The row layout of one batched call: R lanes of w rows, each row's
+    tenant, arena offsets and tenant-relative frontier index."""
+
+    def __init__(self, xa, xa_sq, tidx, src, block_size: int):
+        self.t, self.n, self.d = xa.shape
+        self.r, self.w = src.shape
+        dev = xa.device
+        self.tidx_host = torch.as_tensor(tidx).to("cpu", torch.int64)
+        self.tidx = self.tidx_host.to(dev)
+        self.trow = self.tidx.repeat_interleave(self.w)
+        self.src = src.reshape(-1).to(dev, torch.int64)
+        self.xa, self.xa_sq = xa, xa_sq
+        self.x = xa.reshape(-1, self.d)
+        self.x_sq = xa_sq.reshape(-1)
+        self.views, self.off = self.block_layout(block_size)
+
+    def block_layout(self, block_size: int):
+        """Every tenant's ``ref.block_views`` end to end, and each row's
+        (arena row offset, view offset)."""
+        pad = -self.n % block_size
+        xa, xa_sq = self.xa, self.xa_sq
+        if pad:                  # whole blocks need no padded copy
+            xa = torch.nn.functional.pad(xa, (0, 0, 0, pad))
+            xa_sq = torch.nn.functional.pad(xa_sq, (0, pad))
+        xb = xa.reshape(-1, block_size, self.d)
+        xbs = xa_sq.reshape(-1, block_size)
+        per = (self.n + pad) // block_size
+        return (xb, xbs), (self.trow * self.n, self.trow * per)
+
+    def rows(self, a):
+        """A lane-stacked (R, w, ...) noise tensor as (R w, ...)."""
+        return a.reshape((self.r * self.w,) + tuple(a.shape[2:]))
+
+    def queries(self):
+        """The frontier rows' coordinates (R w, d)."""
+        return self.x[self.off[0] + self.src]
+
+
+def _lane_status(bs, lanes: int):
+    """``guards.sums_status`` of each lane's rows of ``bs``: (lanes,)."""
+    b = bs.reshape(lanes, -1, bs.shape[-1])
+    nf = ~torch.isfinite(b).reshape(lanes, -1).all(dim=1)
+    zero = (b <= 2.0 * FLOOR).all(dim=-1).any(dim=-1)
+    return nf.to(torch.int64) * _g.NONFINITE \
+        | zero.to(torch.int64) * _g.ZERO_MASS
+
+
+def _lane_result(lanes: int, *arrays):
+    """``guards.result_status`` of each lane's rows: (lanes,)."""
+    st = 0
+    for a in arrays:
+        bad = ~torch.isfinite(a).reshape(lanes, -1).all(dim=1)
+        st = st | bad.to(torch.int64) * _g.NONFINITE_RESULT
+    return st
+
+
+def tenant_launch(fn, q, xa, trow_host, *row_args, bm: int, **kw):
+    """One tenant-axis launch of a level-1 kernel wrapper ``fn`` (the CUDA
+    wrapper or its plain version): the rows ``q`` ordered by tenant
+    (``trow_host``, on the host) and padded to whole tiles of ``bm``
+    (``kernel.tenant_layout``), the per-row operands ``row_args`` with
+    them, then the outputs in the callers' row order."""
+    pos, base, inv = _k.tenant_layout(trow_host.numpy(), xa.shape[1], bm)
+    dev = q.device
+    pos = torch.as_tensor(pos).to(dev)
+    inv = torch.as_tensor(inv).to(dev)
+    out = fn(q[pos], xa, *[a[pos] for a in row_args], **kw,
+             tile_base=torch.as_tensor(base).to(dev))
+    return tuple(o[inv] for o in out) if isinstance(out, tuple) \
+        else out[inv]
+
+
+def _lane_kv(q, xr, xr_sq, *, kind, inv_bw, beta, pairwise=None,
+             precision="f32"):
+    """``ref.kv_matrix`` of each lane's rows ``q`` (R, w, d) against its own
+    columns ``xr`` (R, C, d): (R, w, C), one batched sweep."""
+    return torch.vmap(lambda a, b, c: _ref.kv_matrix(
+        a, b, c, kind, inv_bw, beta, pairwise, precision))(q, xr, xr_sq)
+
+
+def _lane_stratified(lay, q, u, *, kind, inv_bw, beta, pairwise,
+                     block_size, num_blocks, n, s, precision):
+    """``stratified_block_sums`` of each lane's query rows ``q`` (R w, d)
+    against its own subsample (uniforms ``u`` (R, B, block_size)) of its
+    tenant: (R w, B), unfloored."""
+    rows, valid, scale = stratified_columns(u, block_size=block_size,
+                                            num_blocks=num_blocks, n=n, s=s)
+    ti = lay.tidx[:, None]
+    kv = _lane_kv(q.reshape(lay.r, -1, lay.d), lay.xa[ti, rows],
+                  lay.xa_sq[ti, rows], kind=kind, inv_bw=inv_bw, beta=beta,
+                  pairwise=pairwise, precision=precision)
+    kv = kv.reshape(lay.r, -1, num_blocks, s) * valid[:, None]
+    return (kv.sum(-1) * scale).reshape(-1, num_blocks)
+
+
+def _lane_masked_sums(lay, l1_noise, hstate, *, kind, inv_bw, beta,
+                      pairwise, block_size, num_blocks, n, s, exact,
+                      level1, num_far, precision):
+    """``_masked_sums_any`` of every lane's frontier in one pass: the
+    tenant-axis masked-blocksum launch (exact), the hashed read's one
+    weighted-kv launch (hash), or the batched stratified sweep.  Returns
+    (bs (R w, B), per-lane status (R,))."""
+    if level1 == "hash":
+        bs, corrupt, trunc = _hops.stacked_hashed_block_sums(
+            lay.xa, lay.src, lay.trow, hstate, lay.rows(l1_noise),
+            kind=kind, inv_bw=inv_bw, beta=beta, pairwise=pairwise,
+            num_far=num_far, block_size=block_size, num_blocks=num_blocks,
+            n=n, precision=precision)
+        st = (_hops._lane_flag(corrupt, lay.r, _g.STATE_CORRUPT)
+              | _hops._lane_flag(trunc, lay.r, _g.BUCKET_OVERFLOW))
+        return bs, st | _lane_status(bs, lay.r)
+    if exact:
+        q = lay.queries()
+        fn = _k.masked_blocksum_cuda if q.is_cuda \
+            else _k.masked_blocksum_plain
+        bs = tenant_launch(fn, q, lay.xa, lay.tidx_host.repeat_interleave(
+            lay.w), lay.src // block_size, kind=kind, inv_bw=inv_bw,
+            beta=beta, bn=block_size, precision=precision,
+            bm=_k.tile_rows(lay.d, precision=precision))
+    else:
+        bs = _own_correct(_lane_stratified(
+            lay, lay.queries(), l1_noise, kind=kind, inv_bw=inv_bw,
+            beta=beta, pairwise=pairwise, block_size=block_size,
+            num_blocks=num_blocks, n=n, s=s, precision=precision),
+            lay.src, block_size, num_blocks)
+    return bs, _lane_status(bs, lay.r)
+
+
+def _lane_step(lay, noise, hstate, *, kind, inv_bw, beta, pairwise,
+               block_size, num_blocks, n, s, exact, level1, num_far,
+               precision):
+    """``_fused_sample_core`` of every lane in one pass: (neighbors (R w,),
+    probs (R w,), level-1 sums (R w, B), per-lane status (R,))."""
+    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta)
+    if level1 == "hash" or not exact:
+        l1_noise, u_blk, u_in = noise
+        bs, st = _lane_masked_sums(
+            lay, l1_noise, hstate, pairwise=pairwise, block_size=block_size,
+            num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
+            num_far=num_far, precision=precision, **l2)
+        nb, prob = _ref.sample_from_sums(
+            lay.x, lay.x_sq, lay.views, lay.src, bs, lay.rows(u_blk),
+            lay.rows(u_in), block_size=block_size, n=n, pairwise=pairwise,
+            off=lay.off, **l2)
+        return nb, prob, bs, st | _lane_result(lay.r, prob)
+    gumbel_noise, u_in = noise
+    q = lay.queries()
+    fn = _k.sample_block_cuda if q.is_cuda else _k.sample_block_plain
+    blk, pb, _, bs = tenant_launch(
+        fn, q, lay.xa, lay.tidx_host.repeat_interleave(lay.w),
+        lay.src // block_size, lay.rows(gumbel_noise), bn=block_size,
+        precision=precision, bm=_k.tile_rows(lay.d, precision=precision),
+        **l2)
+    kv, live, cols_c = _ref.level2_row(lay.x, lay.x_sq, lay.views, lay.src,
+                                       blk, block_size=block_size, n=n,
+                                       pairwise=pairwise, off=lay.off, **l2)
+    nb, pin = _ref.level2_draw(kv, live, cols_c, lay.rows(u_in))
+    prob = pb * pin
+    return nb, prob, bs, _lane_status(bs, lay.r) | _lane_result(lay.r, prob)
+
+
+def batched_fused_sample(xa, xa_sq, tidx, src, noise, hstate=None, *, kind,
+                         inv_bw, beta, pairwise=None, block_size, num_blocks,
+                         n, s, exact, level1="blocked", num_far=64,
+                         precision="f32"):
+    """One serving tick's depth-2 draws for R requests across T tenants in
+    one pass: ``src`` (R, w) padded frontiers, ``tidx`` (R,) tenant
+    indices (read on the host), ``noise`` the lanes' ``draw_sample_noise``
+    stacked along a leading request axis.  Returns (neighbors (R, w),
+    probs (R, w), level-1 sums (R, w, B), per-request counter words (R,
+    obs.WIDTH)).  Lane r is ``fused_sample`` on tenant ``tidx[r]`` with
+    lane r's noise."""
+    lay = _Lanes(xa, xa_sq, tidx, src, block_size)
+    nb, prob, bs, st = _lane_step(
+        lay, noise, hstate, kind=kind, inv_bw=inv_bw, beta=beta,
+        pairwise=pairwise, block_size=block_size, num_blocks=num_blocks,
+        n=n, s=s, exact=exact, level1=level1, num_far=num_far,
+        precision=precision)
+    w = lay.w
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
+    cw = _c.lane_words(st, evals=w * (cols + block_size), l1_reads=w,
+                       draws=w, far_samples=w * far, overflow=w * ov)
+    return (nb.reshape(lay.r, w), prob.reshape(lay.r, w),
+            bs.reshape(lay.r, w, -1), cw)
+
+
+def _lane_walk_cache(lay, cache_u, *, block_size, num_blocks, n, s):
+    """``_walk_level1_cache`` of every lane (its own uniforms ``cache_u``
+    (R, B, block_size) over its tenant): (xs (R, B s, d), xs_sq, valid,
+    scale (B,))."""
+    rows, valid, scale = stratified_columns(cache_u, block_size=block_size,
+                                            num_blocks=num_blocks, n=n, s=s)
+    flat = rows.reshape(lay.r, num_blocks, s).transpose(1, 2).reshape(
+        lay.r, -1)
+    ti = lay.tidx[:, None]
+    return (lay.xa[ti, flat], lay.xa_sq[ti, flat],
+            valid.transpose(1, 2).reshape(lay.r, -1), scale)
+
+
+def _lane_cached_sums(lay, cache, cur, *, kind, inv_bw, beta, block_size,
+                      num_blocks, s, precision):
+    """``_cached_block_sums`` of every lane against its own cache."""
+    xs, xs_sq, valid, scale = cache
+    q = lay.x[lay.off[0] + cur].reshape(lay.r, lay.w, lay.d)
+    kv = _lane_kv(q, xs, xs_sq, kind=kind, inv_bw=inv_bw, beta=beta,
+                  precision=precision) * valid[:, None, :]
+    bs = kv.reshape(lay.r, lay.w, s, num_blocks).sum(2) * scale
+    return _own_correct(bs.reshape(-1, num_blocks), cur, block_size,
+                        num_blocks)
+
+
+def batched_walk_scan(xa, xa_sq, tidx, starts, noise, hstate=None, *, kind,
+                      inv_bw, beta, pairwise=None, block_size, num_blocks, n,
+                      s, exact, rounds, slack, record_path=False,
+                      level1="blocked", num_far=64, precision="f32"):
+    """R independent walks (``starts`` (R, w)) across stacked tenants, one
+    batched step a walk step: ``noise`` is ``(cache_u, steps)`` as
+    ``draw_walk_noise`` gives it, every tensor stacked along a leading
+    request axis (``cache_u`` None off the walk-resident layout).  Returns
+    (endpoints (R, w), path ((R, T, w) or None), counter words (R,
+    obs.WIDTH), rejection fallbacks (R,)) -- lane r is ``walk_scan`` on its
+    tenant with its own noise."""
+    cache_u, steps = noise
+    lay = _Lanes(xa, xa_sq, tidx, starts, block_size)
+    r, w = lay.r, lay.w
+    wbs, w_blocks, s_eff = block_size, num_blocks, s
+    cache = None
+    views, off = lay.views, lay.off
+    if walk_cached(level1, exact):
+        wbs, w_blocks, s_eff = walk_layout(n, block_size, num_blocks, s)
+        cache = _lane_walk_cache(lay, cache_u, block_size=wbs,
+                                 num_blocks=w_blocks, n=n, s=s_eff)
+        views, off = lay.block_layout(wbs)
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
+    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta)
+    cfg = dict(pairwise=pairwise, block_size=block_size,
+               num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
+               num_far=num_far, precision=precision, **l2)
+    st = torch.zeros(r, dtype=torch.int64, device=xa.device)
+    fb = torch.zeros(r, dtype=torch.int64, device=xa.device)
+    path = []
+    for step in steps:
+        if rounds > 0:
+            l1, u_blk, u_in, u_acc = step
+            if cache is not None:
+                bs = _lane_cached_sums(lay, cache, lay.src, block_size=wbs,
+                                       num_blocks=w_blocks, s=s_eff,
+                                       precision=precision, **l2)
+                st1 = _lane_status(bs, r)
+            else:
+                bs, st1 = _lane_masked_sums(lay, l1, hstate, **cfg)
+            cur, st2, fb_k = _sample_exact_core(
+                lay.x, lay.x_sq, views, lay.src, bs,
+                *(u.transpose(0, 1).reshape(u.shape[1], -1)
+                  for u in (u_blk, u_in, u_acc)),
+                block_size=wbs, n=n, rounds=rounds, slack=slack, off=off,
+                lanes=r, **l2)
+            st, fb = st1 | st2 | st, fb + fb_k
+        elif cache is not None:
+            u_blk, u_in = step
+            bs = _lane_cached_sums(lay, cache, lay.src, block_size=wbs,
+                                   num_blocks=w_blocks, s=s_eff,
+                                   precision=precision, **l2)
+            cur, prob = _walk_sample_core(
+                lay.x, lay.x_sq, views, lay.src, bs, lay.rows(u_blk),
+                lay.rows(u_in), block_size=wbs, n=n, num_blocks=w_blocks,
+                off=off, **l2)
+            st = _lane_status(bs, r) | _lane_result(r, prob) | st
+        else:
+            cur, _, _, st_k = _lane_step(lay, step, hstate, **cfg)
+            st = st_k | st
+        lay.src = cur
+        if record_path:
+            path.append(cur.reshape(r, w))
+    l1_evals = w * w_blocks * s_eff if cache is not None else w * cols
+    evals, draws = l1_evals + w * wbs, w
+    if rounds > 0:
+        evals += rounds * (w * wbs + w)
+        draws = (rounds + 1) * w
+    if cache is not None:
+        far = ov = 0
+    word = _c.scale(_c.lane_words(st, evals=evals, l1_reads=w, draws=draws,
+                                  far_samples=w * far, overflow=w * ov),
+                    len(steps))
+    word[:, _c.RETRIES] = fb
+    if record_path:
+        path = torch.stack(path, dim=1) if path else \
+            starts.new_empty((r, 0, w))
+    return (lay.src.reshape(r, w), path if record_path else None, word, fb)
+
+
+def batched_prob_of(xa, xa_sq, tidx, src, dst, noise=None, hstate=None, *,
+                    kind, inv_bw, beta, pairwise=None, block_size,
+                    num_blocks, n, s, exact, level1="blocked", num_far=64,
+                    precision="f32"):
+    """q(dst | src) for R requests (``src`` / ``dst`` (R, w)) in one pass:
+    every lane's masked level-1 read of its src frontier (``noise`` the
+    lanes' level-1 noise stacked, None on the exact read) then the exact
+    level-2 probability.  Returns (probs (R, w), counter words (R,
+    obs.WIDTH))."""
+    lay = _Lanes(xa, xa_sq, tidx, src, block_size)
+    bs, st = _lane_masked_sums(
+        lay, noise, hstate, kind=kind, inv_bw=inv_bw, beta=beta,
+        pairwise=pairwise, block_size=block_size, num_blocks=num_blocks,
+        n=n, s=s, exact=exact, level1=level1, num_far=num_far,
+        precision=precision)
+    prob = _prob_core(lay.x, lay.x_sq, lay.views, lay.src,
+                      dst.reshape(-1).to(xa.device, torch.int64), bs,
+                      kind=kind, inv_bw=inv_bw, beta=beta,
+                      block_size=block_size, n=n, off=lay.off)
+    wq = lay.w
+    cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
+                             hstate)
+    cw = _c.lane_words(st | _lane_result(lay.r, prob),
+                       evals=wq * (cols + block_size), l1_reads=wq,
+                       far_samples=wq * far, overflow=wq * ov)
+    return prob.reshape(lay.r, wq), cw
+
+
+def batched_kde_query(xa, xa_sq, tidx, y, noise=None, *, kind, inv_bw, beta,
+                      pairwise=None, block_size, num_blocks, n, s, exact,
+                      precision="f32"):
+    """Definition 1.1 row-sum estimates for R query requests (``y`` (R, q,
+    d) external points) in one pass: one tenant-axis blocksum launch
+    (exact) or one batched stratified sweep (``noise`` the lanes' (R, B,
+    block_size) subsample uniforms).  Hash tenants are served by
+    ``kde_hash.ops.batched_hashed_query``.  Returns (estimates (R, q),
+    counter words (R, obs.WIDTH))."""
+    r, q, d = y.shape
+    lay = _Lanes(xa, xa_sq, tidx, torch.zeros((r, q), dtype=torch.int64),
+                 block_size)
+    yr = y.reshape(r * q, d)
+    if exact:
+        fn = _rk.blocksum_cuda if yr.is_cuda else _rk.blocksum_plain
+        bs = tenant_launch(fn, yr, xa, lay.tidx_host.repeat_interleave(q),
+                           kind=kind, inv_bw=inv_bw, beta=beta,
+                           bn=block_size, precision=precision,
+                           bm=_rk.blocksum_tile_rows(d, precision=precision))
+        evals = q * n
+    else:
+        bs = _lane_stratified(lay, yr, noise, kind=kind, inv_bw=inv_bw,
+                              beta=beta, pairwise=pairwise,
+                              block_size=block_size, num_blocks=num_blocks,
+                              n=n, s=s, precision=precision)
+        evals = q * num_blocks * s
+    est = bs.sum(-1)
+    nf = ~torch.isfinite(bs).reshape(r, -1).all(dim=1)
+    st = (nf.to(torch.int64) * _g.NONFINITE | _lane_status(bs, r)
+          | _lane_result(r, est))
+    return est.reshape(r, q), _c.lane_words(st, evals=evals, l1_reads=q)
 
 
 # --------------------------------------------------------------------- #

@@ -338,13 +338,19 @@ def block_views(x, x_sq, block_size: int):
 
 
 def level2_row(x, x_sq, views, src, blk, kind: str, inv_bw: float,
-               beta: float, block_size: int, n: int, pairwise=None):
+               beta: float, block_size: int, n: int, pairwise=None,
+               off=None):
     """Exact kernel row of each source against its chosen block, with the
-    self edge and out-of-range tail columns masked to 0."""
+    self edge and out-of-range tail columns masked to 0.  ``off`` (the
+    serving layer's stacked tenants): ``(row offset (w,), view offset
+    (w,))`` of each row's tenant in x / x_sq (T datasets of n rows) and in
+    the views (T datasets' blocks); ``src``, ``blk`` and the returned
+    columns stay tenant-relative."""
     xb_all, xb_sq_all = views
     lo = blk * block_size
     cols = lo[:, None] + torch.arange(block_size, device=blk.device)[None, :]
-    kv = kv_rows(x[src], xb_all[blk], x_sq[src], xb_sq_all[blk], kind,
+    rows, vblk = (src, blk) if off is None else (off[0] + src, off[1] + blk)
+    kv = kv_rows(x[rows], xb_all[vblk], x_sq[rows], xb_sq_all[vblk], kind,
                  inv_bw, beta, pairwise)
     if n % block_size == 0:
         live = cols != src[:, None]
@@ -433,13 +439,14 @@ def level2_draw_grouped(kv, live, cols_c, u2, group: int):
 
 def sample_from_sums(x, x_sq, views, src, bs, u_blk, u_in, kind: str,
                      inv_bw: float, beta: float, block_size: int, n: int,
-                     pairwise=None):
+                     pairwise=None, off=None):
     """One depth-2 draw from given level-1 sums ``bs``: inverse-CDF block
     draw (uniforms ``u_blk``) -> exact level-2 row -> in-block draw
-    (uniforms ``u_in``).  Returns (neighbors, realized probabilities)."""
+    (uniforms ``u_in``).  Returns (neighbors, realized probabilities).
+    ``off``: ``level2_row``'s tenant offsets."""
     blk, pb = choose_block(bs, u_blk)
     kv, live, cols_c = level2_row(x, x_sq, views, src, blk, kind, inv_bw,
-                                  beta, block_size, n, pairwise)
+                                  beta, block_size, n, pairwise, off)
     nb, pin = level2_draw(kv, live, cols_c, u_in)
     return nb, pb * pin
 

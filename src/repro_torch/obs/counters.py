@@ -68,6 +68,15 @@ def word(status=0, evals=0, l1_reads=0, draws=0, retries=0, far_samples=0,
                                          device=dev)])
 
 
+def lane_words(status: torch.Tensor, **counts) -> torch.Tensor:
+    """(R, WIDTH) words of R lanes of one batched program: each lane's
+    own status (an (R,) int tensor, on its device) and the same static
+    counts (``word``'s keywords) in every lane."""
+    w = word(device=status.device, **counts).repeat(status.shape[0], 1)
+    w[:, STATUS] = status.to(torch.int64) % _MOD
+    return w
+
+
 def fold(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fold two counter words: status bits or, counters add mod 2^32."""
     b = b.to(a.device)
@@ -75,11 +84,53 @@ def fold(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                       (a[..., 1:] + b[..., 1:]) % _MOD], dim=-1)
 
 
+def fold_status(w: torch.Tensor, status) -> torch.Tensor:
+    """Or extra status bits (a python int or a tensor broadcasting
+    against the words' slot 0) into a word's slot 0, counters untouched."""
+    out = w.clone()
+    st = status.to(torch.int64).to(w.device) \
+        if isinstance(status, torch.Tensor) else int(status) % _MOD
+    out[..., STATUS] = w[..., STATUS] | st
+    return out
+
+
 def scale(w: torch.Tensor, k: int) -> torch.Tensor:
     """``k`` repetitions of the same program: status unchanged, counters
     multiplied mod 2^32."""
     return torch.cat([w[..., :1], (w[..., 1:] * (int(k) % _MOD)) % _MOD],
                      dim=-1)
+
+
+def status_of(w):
+    """The status bitmask of a scalar status OR a counter word: python
+    ints pass through, 0-d tensors pass through, words read slot 0 and
+    batched ``(R, WIDTH)`` words read column 0."""
+    if isinstance(w, (int, np.integer)):
+        return w
+    if not isinstance(w, torch.Tensor):
+        w = torch.as_tensor(np.asarray(w))
+    if w.dim() == 0:
+        return w
+    return w[..., STATUS]
+
+
+def is_word(w) -> bool:
+    """True when ``w`` is a counter word (trailing dim == WIDTH)."""
+    if isinstance(w, (int, np.integer)):
+        return False
+    shape = tuple(w.shape) if isinstance(w, torch.Tensor) \
+        else np.shape(w)
+    return len(shape) > 0 and int(shape[-1]) == WIDTH
+
+
+def counter(w, slot) -> int:
+    """Host-side read of one counter slot (name or index) of a word --
+    batched words sum over the batch axis, the status slot or-folds."""
+    idx = COUNTER_SLOTS[slot] if isinstance(slot, str) else int(slot)
+    arr = _host(w)
+    if idx == STATUS:
+        return int(np.bitwise_or.reduce(arr[:, STATUS] % _MOD))
+    return int(arr[:, idx].sum())
 
 
 def _host(w) -> np.ndarray:

@@ -1751,3 +1751,215 @@ def test_bf16_streaming_hash_copy_follows_updates(cuda):
                                 est.state._replace(x_bf16=fresh), fidx,
                                 **cfg)
     assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# the tenant axis of the level-1 kernels (the serving layer's groups)
+# --------------------------------------------------------------------- #
+TENANT_KERNELS = {
+    "sample_block": (sk.sample_block_cuda, sk.tile_rows),
+    "masked_blocksum": (sk.masked_blocksum_cuda, sk.tile_rows),
+    "blocksum": (rk.blocksum_cuda, rk.blocksum_tile_rows),
+}
+
+
+def _tenant_inputs(dev, tenants, d, n=3000, bn=256, seed=0):
+    """A (T, n, d) arena and ragged tenant runs of query rows (tenant t
+    has 37 + 61 t rows, interleaved), with own blocks and Gumbel noise."""
+    gen = torch.Generator(device=dev).manual_seed(seed * 100 + d)
+    xa = torch.randn(tenants, n, d, generator=gen, device=dev) * 0.4
+    t = np.concatenate([np.full(37 + 61 * i, i) for i in range(tenants)])
+    t = np.random.default_rng(seed).permutation(t)
+    src = torch.randint(0, n, (len(t),), generator=gen, device=dev)
+    q = xa[torch.as_tensor(t, device=dev), src]
+    nb = -(-n // bn)
+    return xa, t, q, src // bn, gumbel((len(t), nb), gen, dev), bn
+
+
+def _tenant_call(name, xa, t, q, own, g, bn):
+    fn, rows = TENANT_KERNELS[name]
+    extra = {"sample_block": (own, g), "masked_blocksum": (own,),
+             "blocksum": ()}[name]
+    return sops.tenant_launch(fn, q, xa, torch.as_tensor(t), *extra,
+                              bm=rows(xa.shape[2]), kind="gaussian",
+                              inv_bw=1.0, beta=1.0, bn=bn), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tenants", [1, 2, 4])
+@pytest.mark.parametrize("d", [8, 19, 36])
+@pytest.mark.parametrize("name", sorted(TENANT_KERNELS))
+def test_tenant_axis_equals_per_tenant_launches(cuda, name, d, tenants):
+    """One tenant-axis launch over ragged tenant runs is bitwise the
+    launches on each tenant's rows alone (d 8: the wide tile; 19: the
+    generic tile; 36: blocksum's deep tile), and within phase 2's
+    tolerances of the plain version on the same operands."""
+    xa, t, q, own, g, bn = _tenant_inputs(cuda, tenants, d)
+    fn, rows = TENANT_KERNELS[name]
+    got, extra = _tenant_call(name, xa, t, q, own, g, bn)
+    got = got if isinstance(got, tuple) else (got,)
+    for ti in range(tenants):
+        idx = torch.as_tensor(np.where(t == ti)[0], device=cuda)
+        want = fn(q[idx], xa[ti], *[a[idx] for a in extra], "gaussian",
+                  1.0, 1.0, bn)
+        for a, b in zip(got, want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a[idx], b), (name, ti)
+    plain = {"sample_block": sk.sample_block_plain,
+             "masked_blocksum": sk.masked_blocksum_plain,
+             "blocksum": rk.blocksum_plain}[name]
+    want = sops.tenant_launch(plain, q, xa, torch.as_tensor(t), *extra,
+                              bm=rows(d), kind="gaussian", inv_bw=1.0,
+                              beta=1.0, bn=bn)
+    if name == "sample_block":
+        # the sums and totals against plain, the draws except at near
+        # ties, p_blk the kernel's own sum of the drawn block over its own
+        # total (the ratio of two values each within rtol of plain may
+        # differ from plain's ratio by twice that)
+        blk, pb, tot, bs = got
+        torch.testing.assert_close(bs, want[3], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(tot, want[2], rtol=RTOL, atol=ATOL)
+        top2 = torch.topk(torch.log(want[3]) + g, 2, dim=1).values
+        assert bool(((blk == want[0]) | (top2[:, 0] - top2[:, 1] <= 1e-5))
+                    .all())
+        torch.testing.assert_close(
+            pb, torch.gather(bs, 1, blk[:, None])[:, 0] / tot, rtol=1e-6,
+            atol=0.0)
+    else:
+        torch.testing.assert_close(got[0], want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TENANT_KERNELS))
+def test_tenant_axis_group_is_one_launch(cuda, name):
+    """A tenant-axis call over 4 tenants is one kernel launch (the
+    wrapper's count and the profiler's kernel events)."""
+    from repro_torch.kernels.profiling import device_kernels
+    xa, t, q, own, g, bn = _tenant_inputs(cuda, 4, 16)
+    mod = sk if name != "blocksum" else rk
+    mod.reset_launches()
+    _tenant_call(name, xa, t, q, own, g, bn)
+    assert mod.LAUNCHES[name] == 1
+    ks = device_kernels(lambda: _tenant_call(name, xa, t, q, own, g, bn), 4)
+    tag = "sampler_" if name != "blocksum" else "blocksum"
+    assert sum(c for k, (c, _) in ks.items() if tag in k) == 4, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TENANT_KERNELS))
+def test_null_offset_launch_is_the_single_dataset_launch(cuda, name):
+    """A launch without ``tile_base`` is the single-dataset launch: equal
+    to a one-tenant arena launch with every offset 0, and to itself."""
+    fn, rows = TENANT_KERNELS[name]
+    xa, t, q, own, g, bn = _tenant_inputs(cuda, 1, 16)
+    extra = {"sample_block": (own, g), "masked_blocksum": (own,),
+             "blocksum": ()}[name]
+    one = fn(q, xa[0], *extra, "gaussian", 1.0, 1.0, bn)
+    tiles = -(-q.shape[0] // rows(16))
+    zero = torch.zeros(tiles, dtype=torch.int32, device=cuda)
+    axis = fn(q, xa, *extra, "gaussian", 1.0, 1.0, bn, tile_base=zero)
+    again = fn(q, xa[0], *extra, "gaussian", 1.0, 1.0, bn)
+    for a, b, c in zip(*(o if isinstance(o, tuple) else (o,)
+                         for o in (one, axis, again))):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_tenant_axis_sample_block_on_two_streams_at_once(cuda):
+    """Two streams launching tenant-axis sample-block groups concurrently:
+    each stream's arrival counters cover its own groups' tiles, so every
+    draw and sum equals the stream's first launch bitwise and the plain
+    version within tolerance."""
+    calls = [_tenant_inputs(cuda, 3, 16, seed=s) for s in (1, 2)]
+    wants = [_tenant_call("sample_block", *c)[0] for c in calls]
+    plains = [sops.tenant_launch(sk.sample_block_plain, c[2], c[0],
+                                 torch.as_tensor(c[1]), c[3], c[4],
+                                 bm=sk.tile_rows(16), kind="gaussian",
+                                 inv_bw=1.0, beta=1.0, bn=c[5])
+              for c in calls]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, c) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(st):
+                gots[i].append(_tenant_call("sample_block", *c)[0])
+    torch.cuda.synchronize()
+    for got, want, plain, c in zip(gots, wants, plains, calls):
+        _assert_sample_block(want, plain, c[4])
+        for gt in got:
+            for a, b in zip(gt, want):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_served_group_launches_each_kernel_once(cuda):
+    """A tick of three exact tenants (one sample, query, walk and prob_of
+    request each) is one group an op, and each group launches its
+    tenant-axis kernel once (the walk once a step); every request is
+    served and each sample equals the single-request program on its
+    noise."""
+    from repro_torch.core.serving import KernelGraphServable, _host_gen
+    srv = KernelGraphServable(device=cuda)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        srv.add_tenant(f"t{i}", rng.normal(0, 0.5, (4096, 16)).astype(
+            np.float32) + 0.2 * i, gaussian(1.0), block_size=256,
+            exact_blocks=True, seed=i)
+    reqs = []
+    for i in range(3):
+        reqs.append(srv.submit(f"t{i}", "sample", seed=10 + i,
+                               src=rng.integers(0, 4096, 16)))
+        srv.submit(f"t{i}", "query", seed=20 + i,
+                   y=rng.normal(0, 0.5, (8, 16)).astype(np.float32))
+        srv.submit(f"t{i}", "walk", seed=30 + i, length=3,
+                   starts=rng.integers(0, 4096, 8))
+        srv.submit(f"t{i}", "prob_of", seed=40 + i,
+                   src=rng.integers(0, 4096, 16),
+                   dst=rng.integers(0, 4096, 16))
+    sk.reset_launches()
+    rk.reset_launches()
+    st = srv.tick()
+    assert st["failed"] == 0 and st["groups"] == 4, st
+    assert (sk.LAUNCHES["sample_block"], sk.LAUNCHES["masked_blocksum"],
+            rk.LAUNCHES["blocksum"]) == (1 + 3, 1, 1)
+    for r in reqs:
+        nbr = srv.tenant(r.tenant).nbr
+        noise = tuple(u.to(cuda) for u in sops.draw_sample_noise(
+            16, nbr.num_blocks, _host_gen(r.seed), "cpu",
+            **nbr._noise_cfg))
+        nb, p, _, _ = sops.fused_sample(
+            nbr.x, nbr.x_sq, torch.as_tensor(r.payload["src"], device=cuda),
+            *noise, **nbr._cfg)
+        assert np.array_equal(nb.cpu().numpy(), r.result[0])
+        np.testing.assert_allclose(r.result[1], p.cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TENANT_KERNELS))
+def test_tenant_axis_refuses_bf16(cuda, name):
+    """The bf16 instances take no tenant axis: a bf16 call with
+    ``tile_base`` raises ValueError before any launch."""
+    xa, t, q, own, g, bn = _tenant_inputs(cuda, 2, 16)
+    fn, rows = TENANT_KERNELS[name]
+    extra = {"sample_block": (own, g), "masked_blocksum": (own,),
+             "blocksum": ()}[name]
+    base = torch.zeros(-(-q.shape[0] // rows(16)), dtype=torch.int32,
+                       device=cuda)
+    with pytest.raises(ValueError, match="f32 instances only"):
+        fn(q, xa, *extra, "gaussian", 1.0, 1.0, bn, "bf16", tile_base=base)
+
+
+@pytest.mark.cuda
+def test_timer_fences_on_the_card(cuda, monkeypatch):
+    """obs.metrics.Timer synchronizes the device that holds the returned
+    tensors."""
+    from repro_torch.obs import metrics
+    seen = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda dev=None: (seen.append(dev), real(dev)))
+    t = metrics.Timer("card")
+    out = t.time(lambda: (torch.ones(256, 256, device=cuda) @
+                          torch.ones(256, 256, device=cuda), 3))
+    assert seen == [cuda.index or 0] and out[0].is_cuda
+    assert t.wall_us >= t.dispatch_us > 0

@@ -251,9 +251,10 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_out_of_slice_options_raise():
-    """The other families, the unported serve modes and a CUDA default
-    without a card raise (the bf16 config builds and serves:
-    ``tests/test_torch_lm_bf16.py``)."""
+    """The other families, the unported serve mode (``--robust``) and a
+    CUDA default without a card raise (the bf16 config builds and serves:
+    ``tests/test_torch_lm_bf16.py``; the graph-serving modes are ported:
+    ``tests/test_torch_serving.py``)."""
     f32 = dataclasses.replace(tbase.get_reduced("yi_6b"), dtype="float32")
     for bad in (dict(num_experts=4, experts_per_token=2),
                 dict(ssm_kind="mamba2"), dict(encoder_layers=2),
@@ -262,12 +263,10 @@ def test_out_of_slice_options_raise():
             TT.init_params(dataclasses.replace(f32, **bad), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         tbase.get_config("rwkv6_3b")
-    for flag in (["--robust"], ["--graph-stream", "64"],
-                 ["--serve-tenants", "2"]):
-        args = tserve.parser().parse_args(["--device", "cpu", "--reduced",
-                                           *flag])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.run_lm(args)
+    args = tserve.parser().parse_args(["--device", "cpu", "--reduced",
+                                       "--robust"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.run_lm(args)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TT.init_params(f32)

@@ -106,6 +106,37 @@ ENTRY_POINTS = [
     ("core.cluster.spectral", "kmeans"),
     ("core.cluster.spectral", "spectral_cluster"),
     ("core.cluster.spectral", "cluster_accuracy"),
+    ("core.serving", "shape_bucket"),
+    ("core.serving", "Request"),
+    ("core.serving", "ServedTenant"),
+    ("core.serving", "KernelGraphServable"),
+    ("kernels.kde_hash.ops", "stack_hash_states"),
+    ("obs.counters", "counter"),
+    ("obs.counters", "fold_status"),
+    ("obs.counters", "status_of"),
+    ("obs.counters", "is_word"),
+    ("obs.metrics", "Histogram"),
+    ("obs.metrics", "histogram"),
+    ("obs.metrics", "observe"),
+    ("obs.metrics", "span"),
+    ("obs.metrics", "Timer"),
+    ("obs.metrics", "event"),
+    ("obs.export", "emit_jsonl"),
+    ("obs.export", "telemetry_block"),
+    ("obs.export", "validate_metrics_line"),
+    ("obs.export", "validate_telemetry_block"),
+    ("obs.export", "prometheus_text"),
+    ("ft.guards", "raise_per_request"),
+    ("ft.guards", "totals_status"),
+    ("ft.guards", "checked"),
+    ("ft.watchdog", "HostStats"),
+    ("ft.watchdog", "Watchdog"),
+    ("ft.chaos", "corrupt_hash_state"),
+    ("ft.chaos", "silent_hosts"),
+    ("ft.chaos", "run_scenario"),
+    ("ft.chaos", "run_all"),
+    ("launch.serve", "run_graph_stream"),
+    ("launch.serve", "run_multi_tenant"),
 ]
 
 
@@ -133,7 +164,9 @@ def test_reference_parameters_are_a_prefix(module, name):
 #: so they are held by their keywords
 NOISE_PROGRAMS = [("kernels.kde_sampler.ops", n) for n in (
     "masked_block_sums", "fused_sample", "fused_edge_batch",
-    "edge_batch_scan", "walk_scan", "triangle_edge_scan")]
+    "edge_batch_scan", "walk_scan", "triangle_edge_scan",
+    "batched_fused_sample", "batched_walk_scan", "batched_prob_of",
+    "batched_kde_query")] + [("kernels.kde_hash.ops", "batched_hashed_query")]
 #: the reference's implementation switches, which the noise programs drop:
 #: the port chooses the kernel by the tensor's device and sizes its tiles
 SWITCHES = ("pairwise", "use_pallas", "interpret", "bm")
@@ -186,7 +219,11 @@ def _ported_modules():
 
 
 def _same_default(ref, port):
-    """Defaults equal, a JAX dtype matching the torch dtype of its name."""
+    """Defaults equal, a JAX dtype matching the torch dtype of its name,
+    NaN matching NaN (``chaos.nan_rows(value=np.nan)``)."""
+    if isinstance(ref, float) and isinstance(port, float) \
+            and np.isnan(ref) and np.isnan(port):
+        return True
     if isinstance(port, torch.dtype):
         return np.dtype(ref).name == str(port).removeprefix("torch.")
     try:
@@ -506,14 +543,23 @@ def test_every_refusal_names_a_listed_item():
 
 @pytest.mark.parametrize("flag", [["--robust"], ["--graph-stream", "64"],
                                   ["--serve-tenants", "2"]])
-def test_serve_help_names_the_item_its_refusal_names(flag):
-    """serve's help text for an unported mode is built from
+def test_serve_help_names_the_item_its_refusal_names(flag, monkeypatch):
+    """serve's help text for an unported mode (``--robust``) is built from
     ``ROADMAP_ITEMS`` and names the item (number and title) that the
-    mode's refusal names."""
+    mode's refusal names.  The graph-serving modes are ported (queue 1
+    item 9): their help names no item and ``main`` runs the mode."""
     from repro_torch.launch import serve
     ap = serve.parser()
     helps = {a.option_strings[0]: a.help for a in ap._actions
              if a.option_strings}
+    if flag[0] != "--robust":
+        assert "ROADMAP" not in helps[flag[0]], helps[flag[0]]
+        mode = {"--graph-stream": "run_graph_stream",
+                "--serve-tenants": "run_multi_tenant"}[flag[0]]
+        ran = []
+        monkeypatch.setattr(serve, mode, lambda args: ran.append(args) or 7)
+        assert serve.main(["--device", "cpu", *flag]) == 7 and len(ran) == 1
+        return
     with pytest.raises(NotImplementedError) as err:
         serve.run_lm(ap.parse_args(["--device", "cpu", "--reduced", *flag]))
     msg = str(err.value)
