@@ -336,13 +336,46 @@ Phases (any failure exits non-zero; no phase catches and continues):
                ``serve.tick.us``.  Every serve path's launches are counted
                (``serve_launches``); the five kernels of the serving path
                must all have run.
-16. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+16. train    -- training on the card (``phase_train``).  (a)
+               granite-3-2b at full width and depth (40 layers, d 2048, 32
+               / 8 heads, head dim 64, d_ff 8192, vocab 49,155; random f32
+               weights drawn on the card from seed 0), one ``make_batch``
+               batch of 4096 tokens (the reference's train_4k shape, 4096 x
+               256, cut in batch): ``loss_fn`` and its gradients with
+               ``impl="flash"`` -- exactly 80 flash launches with
+               ``remat=True`` (the forward and the recompute), 40 without
+               -- against ``impl="xla"`` on the same weights: the loss at
+               rtol 1e-5, the global gradient norm at rtol 1e-4, layers 0,
+               19 and 39's wq / wk / wv / wo gradients within 1e-3 of the
+               xla gradient's largest entry.  (b) four steps of
+               ``make_train_step(impl="flash")`` (peak lr 1e-5, the
+               reference's warmup of 100 steps, the same batch): the loss
+               falls at every step, every metric
+               finite, 80 flash launches a step; ms a step, tokens/s,
+               model FLOP/s (6 N T plus the causal attention) against the
+               67 TFLOP/s FP32 peak, a torch.profiler busy / idle split of
+               one step; the path's first flash launch against the plain
+               version on its own inputs.  (c) ``cast_params`` to bf16 and
+               two steps: every flash launch on bf16 operands in the
+               tensor-core body (the tapped launch's instance), finite
+               metrics, the step-1 loss within 1% of the f32 loss on the
+               same weights and batch.  Then the flash kernel at the
+               training shape (1, 32, 4096, 64), 8 kv-heads, f32 and bf16:
+               against its plain version, its device ms beside its bound
+               and SDPA's time (the rows' ``train_*`` keys).  (d)
+               ``python -m repro_torch.launch.train --arch granite_3_2b
+               --reduced --steps 6 --ckpt-every 2 --fail-at-step 3`` on the
+               card exits 17, the rerun exits 0 "resumed from step 2", and
+               its losses equal an unbroken run's at rtol 1e-6.  Prints
+               ``memory_allocated`` at the start and each part's peak.
+17. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
                the graph phase's paths, ``graph_launches``, on the
-               streaming and estimator paths, ``stream_launches``, and on
-               the serve paths, ``serve_launches``; the bf16 flash row with
-               ``max_bf16_steps`` from its plain version), the card line
-               from nvidia-smi, and a last line ``{"ok": true, "device":
-               ...}``.
+               streaming and estimator paths, ``stream_launches``, on the
+               serve paths, ``serve_launches``, and the two flash rows on
+               the training paths, ``train_launches``; the bf16 flash row
+               with ``max_bf16_steps`` from its plain version), the card
+               line from nvidia-smi, and a last line ``{"ok": true,
+               "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
 (``phase_lm_kernels``): flash at the reference's ragged sweep and (5, 37),
@@ -388,7 +421,8 @@ around each streaming and estimator path (build, batches, reads, the
 reads after a journal gap) and report them under ``stream_launches``, and
 every f32 KDE kernel and both bf16 weighted kernels must have been
 launched there; phase 15 does the same around each timed serving tick and
-CLI run (``serve_launches``).
+CLI run (``serve_launches``); phase 16 around each loss-and-gradient
+call and each run of train steps (``train_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -571,6 +605,26 @@ SV_N, SV_D, SV_BW, SV_S, SV_R, SV_TICKS, SV_BS = 1024, 8, 1.0, 4, 32, 16, 32
 SV_SAMPLE_W, SV_QUERY_Q, SV_WALK_W, SV_WALK_LEN = 16, 8, 8, 4
 SVB_N, SVB_D, SVB_BS, SVB_TICKS = 65536, 16, 256, 8
 SV_STREAM_N = 262144
+
+
+# phase 16: granite-3-2b trained at full width and depth on one batch of
+# 4096 tokens (the reference's train_4k shape, 4096 x 256, cut in batch)
+TRAIN_ARCH = "granite_3_2b"
+TRAIN_SEQ, TRAIN_BATCH = 4096, 1
+TRAIN_STEPS = 4
+# peak lr of the reference's AdamWConfig (warmup 100 steps): 1e-7 a
+# parameter at step 1, rising by 1e-7 a step.  Adam's first steps move
+# every parameter by about lr, and 2.5 B of them at 3e-6 a step already
+# overshoot this batch's minimum by step 2 (PERF.md §6, training)
+TRAIN_LR = 1e-5
+TRAIN_GRAD_LAYERS = (0, 19, 39)
+TRAIN_LOSS_RTOL = 1e-5       # flash vs xla loss on the same weights
+TRAIN_GNORM_RTOL = 1e-4      # flash vs xla global gradient norm
+TRAIN_GRAD_REL = 1e-3        # a layer's wq/wk/wv/wo grads: max |diff| <=
+#                              1e-3 max |xla grad| (the prefill's rule)
+TRAIN_BF16_REL = 1e-2        # bf16 step-1 loss vs the f32 loss, relative
+TRAIN_CLI = ["--arch", "granite_3_2b", "--reduced", "--steps", "6",
+             "--ckpt-every", "2", "--log-every", "1"]
 
 
 def log(*a):
@@ -2461,9 +2515,9 @@ def hash_breakdown(data):
     noise = sops.draw_edge_noise(BATCH, nb, gen, dev, level1="hash",
                                  exact=False, num_far=HS_FAR_PER_BLOCK,
                                  block_size=bn)
-    cfg = dict(kind="gaussian", inv_bw=1.0 / HS_BW, beta=1.0, block_size=bn,
-               num_blocks=nb, n=n, s=16, exact=False, level1="hash",
-               num_far=HS_FAR_PER_BLOCK)
+    cfg = dict(kind="gaussian", inv_bw=1.0 / HS_BW, beta=1.0, pairwise=None,
+               block_size=bn, num_blocks=nb, n=n, s=16, exact=False,
+               level1="hash", num_far=HS_FAR_PER_BLOCK)
     stages = {
         "frontier_gather": lambda: href.frontier_gather(
             src, state, off, HS_FAR_PER_BLOCK, bn, nb, n),
@@ -2547,7 +2601,8 @@ def strat_breakdown(data):
     shape = dict(block_size=bn, num_blocks=nb, n=n, s=ST_S)
     cfg = dict(kind="gaussian", inv_bw=inv, beta=1.0, **shape)
     q = x[src]
-    bs, _ = sops.masked_block_sums(x, x_sq, src, u, exact=False, **cfg)
+    bs, _ = sops.masked_block_sums(x, x_sq, src, u, exact=False,
+                                   pairwise=None, **cfg)
     u_blk = torch.rand(BATCH, generator=gen, device=dev)
     u_in = torch.rand(BATCH, generator=gen, device=dev)
     blk, _ = sref.choose_block(bs, u_blk)
@@ -2565,7 +2620,7 @@ def strat_breakdown(data):
             x, x_sq, views, src, blk, "gaussian", inv, 1.0, bn, n), u_in),
         "fused edge batch": lambda: sops.fused_edge_batch(
             x, x_sq, cdf, degs, 1.0 / n, 1.0 / n, *noise, views=views,
-            exact=False, **cfg),
+            exact=False, pairwise=None, **cfg),
     }
     return {k: timed(fn, 20) for k, fn in stages.items()}
 
@@ -4977,6 +5032,335 @@ def phase_serve(dev):
     return launches, secs, errs
 
 
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N T for the weight products
+    (forward, and the backward's two products of each; the tied embedding
+    counted once, as the head) plus the causal attention, 3 (4 b hq dh
+    s^2 / 2) a layer (forward and backward).  The recompute of ``remat``
+    and the backward's dense (not causal-halved) attention products are
+    work the step does, not model FLOPs."""
+    attn = 3 * cfg.num_layers * 4 * batch * cfg.num_heads * cfg.hd \
+        * seq * seq / 2
+    return 6.0 * n_params * batch * seq + attn
+
+
+def train_flash_rows(errs):
+    """The flash kernel at the training shape (b, hq, s, dh) = (1, 32,
+    4096, 64) with 8 kv-heads, causal, in f32 and bf16: against its plain
+    version (f32 at RTOL / ATOL, bf16 within one bf16 step), its device ms
+    (torch.profiler), its bound and SDPA's time on the same inputs.
+    Returns {row name: keys for the row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.testing import assert_bf16_close
+    cfg = get_config(TRAIN_ARCH)
+    b, hq, hkv, s, dh = (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                         TRAIN_SEQ, cfg.hd)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for name, dtype in (("flash_attention", torch.float32),
+                        ("flash_attention_bf16", torch.bfloat16)):
+        q, k, v = (torch.randn((b, h, s, dh), generator=gen,
+                               device="cuda").to(dtype)
+                   for h in (hq, hkv, hkv))
+        kp, vp, kw = fops.flash_args(q, k, v)
+        got, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
+        want, want_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+        if dtype == torch.float32:
+            e = max(close(got, want, "train-shape flash out"),
+                    close(lse, want_lse, "train-shape flash lse"))
+            b_ms, b_by = bound(4 * b * hq * dh * s * s / 2,
+                               4 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh
+                                    + b * hq * s))
+        else:
+            e, steps = assert_bf16_close(got, want, ATOL,
+                                         "train-shape flash bf16 out")
+            e = max(e, close(lse, want_lse, "train-shape flash bf16 lse"))
+            b_ms, b_by = bound(0.0, 2 * (2 * b * hq * s * dh
+                                         + 2 * b * hkv * s * dh)
+                               + 4 * b * hq * s,
+                               bf16_flops=4 * b * hq * dh * s * s / 2)
+        errs[name] = max(errs.get(name, 0.0), e)
+        del got, lse, want, want_lse
+        out[name] = dict(
+            train_shape=f"b={b} hq={hq} hkv={hkv} s={s} dh={dh} causal "
+                        f"{str(dtype)[6:]} [{fk.instantiation(q, kp, vp)}, "
+                        f"{fk.BODIES[dtype][0]}]",
+            train_ms=timed(lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
+                           5),
+            train_device_ms=kernel_device_ms(
+                lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
+                fk.BODIES[dtype][1], 3),
+            train_bound_ms=b_ms, train_bound_by=b_by,
+            train_library_ms=timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 3))
+        r = out[name]
+        log(f"[train] flash at the training shape {r['train_shape']}: "
+            f"max_abs_err {e:.3e}, ms {r['train_ms']:.4f}, device_ms "
+            f"{r['train_device_ms']!r}, bound {b_ms:.4f} ms ({b_by}), SDPA "
+            f"{r['train_library_ms']:.4f} ms")
+        del q, k, v, kp, vp
+        free_cuda()
+    return out
+
+
+def train_cli():
+    """Phase 16 (d): the training CLI on the card with a failure injected
+    before step 3 (exit 17), the rerun resuming from the step-2
+    checkpoint (exit 0), and an unbroken run: the resumed run's losses
+    equal the unbroken run's at rtol 1e-6.  Returns the printed text."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI]
+
+    def run(*extra):
+        return subprocess.run(cmd + list(extra), env=env, cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+
+    def losses(out):
+        return {int(ln.split("step=")[1].split()[0]):
+                float(ln.split("loss=")[1].split()[0])
+                for ln in out.splitlines() if ln.startswith("[train] step=")}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        p = run("--ckpt-dir", ck, "--fail-at-step", "3")
+        assert p.returncode == 17, (p.returncode, p.stderr[-2000:])
+        assert "INJECTED FAILURE at step 3" in p.stdout, p.stdout
+        p = run("--ckpt-dir", ck)
+        assert p.returncode == 0, (p.returncode, p.stderr[-2000:])
+        assert "resumed from step 2" in p.stdout, p.stdout
+        whole = run("--ckpt-dir", os.path.join(tmp, "whole"))
+        assert whole.returncode == 0, whole.stderr[-2000:]
+    resumed, unbroken = losses(p.stdout), losses(whole.stdout)
+    assert sorted(resumed) == [2, 3, 4, 5], resumed
+    for s_, loss in resumed.items():
+        assert abs(loss - unbroken[s_]) <= 1e-6 * abs(unbroken[s_]), \
+            (s_, loss, unbroken[s_])
+    return (f"exit 17 at step 3, then 0 (resumed from step 2); losses of "
+            f"steps 2-5 {[resumed[i] for i in range(2, 6)]} = the unbroken "
+            f"run's (rtol 1e-6)")
+
+
+def phase_train():
+    """Phase 16: training on the card.  (a) granite-3-2b at full width and
+    depth (random f32 weights drawn on the card from seed 0), one
+    ``make_batch`` batch of 4096 tokens: ``loss_fn`` and its gradients with
+    ``impl="flash"`` (``remat=True``: exactly 2 L flash launches, the
+    forward and the recompute; ``remat=False``: exactly L) against
+    ``impl="xla"`` on the same weights (loss, global gradient norm, layers
+    0 / 19 / 39's wq / wk / wv / wo gradients).  (b) four steps of
+    ``make_train_step(impl="flash")`` (peak lr 1e-5, the reference's
+    warmup of 100 steps, the same batch):
+    the loss falls at every step, every metric finite, exactly 2 L flash
+    launches a step; ms a step, tokens/s, model FLOP/s against the FP32
+    peak, a torch.profiler busy / idle split of one step, the path's first
+    flash launch against the plain version on its own inputs.  (c) the
+    weights cast to bf16 (``cast_params``), two steps: the flash launches
+    take the tensor-core bf16 body (the tapped launch's operands and
+    instance), finite metrics, the step-1 loss within ``TRAIN_BF16_REL``
+    of the f32 loss on the same batch.  (d) the training CLI's failure and
+    resume (``train_cli``).  Returns (train_launches by row, the rows'
+    training-shape keys, seconds by part, errors by row)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import assert_bf16_close
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_fn, make_train_step
+    import numpy as np
+    secs, errs, launches = {}, {}, {"flash_attention": {},
+                                    "flash_attention_bf16": {}}
+    log(f"[train] memory_allocated at the start "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    nl = cfg.num_layers
+    model = T.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    b, hq, s = TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ
+    scores = 4 * b * hq * s * s
+    log(f"[train] {cfg.name} f32 at full width and depth ({nl} layers, d "
+        f"{cfg.d_model}, {hq} / {cfg.num_kv_heads} heads, head dim "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): {n_params} "
+        f"parameters ({4 * n_params / 1e9:.2f} GB); reckoned peak of a step: "
+        f"parameters, gradients, AdamW m and v {16 * n_params / 1e9:.1f} GB "
+        f"+ the attention backward's recompute ~3 x {scores / 1e9:.2f} GB")
+    batch = make_batch(cfg, ShapeConfig("train_4k", s, b, "train"), 0, 0)
+    tokens = b * s
+    names = [n for n, _ in model.named_parameters()]
+    watch = [f"layers.{i}.attn.{w}" for i in TRAIN_GRAD_LAYERS
+             for w in ("wq", "wk", "wv", "wo")]
+
+    # (a) loss and gradients, flash against xla
+    def loss_and_grad(impl, remat):
+        fk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tot, (loss, _) = loss_fn(model, cfg, batch, impl=impl, remat=remat)
+        grads = torch.autograd.grad(tot, list(model.parameters()))
+        gn = float(opt.global_norm(grads))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        keep = {k: g for k, g in zip(names, grads) if k in watch}
+        count = fk.LAUNCHES["flash_attention"]
+        del grads, tot
+        free_cuda()
+        return float(loss.detach()), gn, keep, count, wall
+
+    t0 = time.perf_counter()
+    fl = loss_and_grad("flash", True)
+    assert fl[3] == 2 * nl, fl[3]
+    xl = loss_and_grad("xla", True)
+    assert xl[3] == 0, xl[3]
+    fl0 = loss_and_grad("flash", False)
+    assert fl0[3] == nl, fl0[3]
+    launches["flash_attention"].update({"loss_grad remat": fl[3],
+                                        "loss_grad": fl0[3]})
+    assert abs(fl[0] - xl[0]) <= TRAIN_LOSS_RTOL * abs(xl[0]), (fl[0], xl[0])
+    assert abs(fl[1] - xl[1]) <= TRAIN_GNORM_RTOL * xl[1], (fl[1], xl[1])
+    assert abs(fl0[0] - fl[0]) <= 1e-6 * abs(fl[0]), (fl0[0], fl[0])
+    assert abs(fl0[1] - fl[1]) <= 1e-5 * fl[1], (fl0[1], fl[1])
+    worst = 0.0
+    for k in watch:
+        ref = xl[2][k]
+        rel = float((fl[2][k] - ref).abs().max() / ref.abs().max())
+        assert rel <= TRAIN_GRAD_REL, (k, rel)
+        worst = max(worst, rel)
+    log(f"[train] (a) loss_fn + gradients, batch {b} x seq {s}: flash "
+        f"(remat) loss {fl[0]:.6f}, grad norm {fl[1]:.6f}, {fl[3]} flash "
+        f"launches, {fl[4]:.3f} s; xla (remat) loss {xl[0]:.6f}, grad norm "
+        f"{xl[1]:.6f}, {xl[4]:.3f} s; flash without remat loss {fl0[0]:.6f}"
+        f", {fl0[3]} flash launches, {fl0[4]:.3f} s; |loss diff| "
+        f"{abs(fl[0] - xl[0]):.3e} (rtol {TRAIN_LOSS_RTOL}), |norm diff| "
+        f"{abs(fl[1] - xl[1]):.3e} (rtol {TRAIN_GNORM_RTOL}); layers "
+        f"{TRAIN_GRAD_LAYERS} wq/wk/wv/wo grads: max |diff| / max |xla| "
+        f"{worst:.3e} (bound {TRAIN_GRAD_REL}); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del fl, xl, fl0
+    free_cuda()
+    secs["train (a)"] = time.perf_counter() - t0
+
+    # (b) four train steps
+    t0 = time.perf_counter()
+    state = opt.init_adamw(model)
+    step = make_train_step(cfg, opt.AdamWConfig(lr=TRAIN_LR), impl="flash")
+    fk.reset_launches()
+    metrics, walls = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == 0:
+            (model, state, m), taps = tapped(
+                lambda: step(model, state, batch),
+                (fk, "flash_attention_cuda"))
+        else:
+            model, state, m = step(model, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    count = fk.LAUNCHES["flash_attention"]
+    assert count == TRAIN_STEPS * 2 * nl, count
+    launches["flash_attention"][f"train_step x{TRAIN_STEPS}"] = count
+    for mt in metrics:
+        assert all(map(np.isfinite, mt.values())), metrics
+    losses = [mt["loss"] for mt in metrics]
+    assert all(b_ < a for a, b_ in zip(losses, losses[1:])), losses
+    args, kw, (out, lse) = taps["flash_attention_cuda"]
+    want, want_lse = fk.flash_attention_plain(*args, **kw)
+    e = max(close(out, want, "train path flash out"),
+            close(lse, want_lse, "train path flash lse"))
+    errs["flash_attention"] = e
+    inst = fk.instantiation(*args[:3])
+    del taps, args, kw, out, lse, want, want_lse
+    free_cuda()
+    step_s = float(np.mean(walls[1:]))
+    flops = train_flops(cfg, n_params, b, s)
+    log(f"[train] (b) {TRAIN_STEPS} steps of make_train_step(impl=\"flash\")"
+        f", lr {TRAIN_LR}, warmup 100, the same batch: losses {losses}, "
+        f"grad norms "
+        f"{[mt['grad_norm'] for mt in metrics]}; step walls "
+        f"{[round(w, 4) for w in walls]} s; {step_s * 1e3:.1f} ms a step "
+        f"(steps 2-{TRAIN_STEPS}), {tokens / step_s:.1f} tokens/s; model "
+        f"FLOPs a step {flops:.4e} (6 N T + causal attention), "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s = {flops / step_s / PEAK_FLOPS:.1%}"
+        f" of the FP32 peak; {count} flash launches ({2 * nl} a step) "
+        f"[{inst}]; the path's first launch against the plain version: "
+        f"max_abs_err {e:.3e}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("[train] one train step, where the time goes: " + profile_text(
+        *device_profile(lambda: step(model, state, batch), top=6)))
+    with torch.no_grad():
+        _, (f32_loss, _) = loss_fn(model, cfg, batch, impl="flash")
+    f32_loss = float(f32_loss)
+    secs["train (b)"] = time.perf_counter() - t0
+    del state, step
+    free_cuda()
+
+    # (c) bf16
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    m16 = T.cast_params(model, torch.bfloat16)
+    del model
+    free_cuda()
+    st16 = opt.init_adamw(m16)
+    step16 = make_train_step(cfg16, opt.AdamWConfig(lr=TRAIN_LR),
+                             impl="flash")
+    fk.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (m16, st16, m1), taps = tapped(lambda: step16(m16, st16, batch),
+                                   (fk, "flash_attention_cuda"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    m16, st16, m2 = step16(m16, st16, batch)
+    torch.cuda.synchronize()
+    walls16 = [t2 - t1, time.perf_counter() - t2]
+    count = fk.LAUNCHES["flash_attention"]
+    assert count == 2 * 2 * nl, count
+    launches["flash_attention_bf16"]["train_step x2"] = count
+    args, kw, (out, _) = taps["flash_attention_cuda"]
+    assert args[0].dtype == torch.bfloat16 and out.dtype == torch.bfloat16
+    inst = f"{fk.instantiation(*args[:3])}, {fk.BODIES[args[0].dtype][0]}"
+    assert inst.startswith("bfloat16") and "tensor-core" in inst, inst
+    want, _ = fk.flash_attention_plain(*args, **kw)
+    e, steps = assert_bf16_close(out, want, ATOL, "train path flash bf16")
+    errs["flash_attention_bf16"] = e
+    del taps, args, kw, out, want
+    mm = [{k: float(v) for k, v in m.items()} for m in (m1, m2)]
+    assert all(np.isfinite(v) for mt in mm for v in mt.values()), mm
+    rel = abs(mm[0]["loss"] - f32_loss) / abs(f32_loss)
+    assert rel <= TRAIN_BF16_REL, (mm[0]["loss"], f32_loss)
+    log(f"[train] (c) cast_params to bf16, 2 steps: walls "
+        f"{[round(w, 4) for w in walls16]} s (the first with the tapped "
+        f"launch's copies; {tokens / walls16[1]:.1f} tokens/s in the "
+        f"second), losses {[mt['loss'] for mt in mm]}, grad norms "
+        f"{[mt['grad_norm'] for mt in mm]}; step-1 loss against the f32 "
+        f"loss on the same batch {f32_loss:.6f}: rel {rel:.3e} (bound "
+        f"{TRAIN_BF16_REL}); {count} flash launches [{inst}], the first "
+        f"against the plain version: max_abs_err {e:.3e}, max bf16 steps "
+        f"{steps}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del m16, st16, step16, m1, m2
+    free_cuda()
+    secs["train (c)"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = train_flash_rows(errs)
+    secs["train flash shape"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[train] (d) python -m repro_torch.launch.train "
+        + " ".join(TRAIN_CLI) + " on the card: " + train_cli())
+    secs["train (d)"] = time.perf_counter() - t0
+    log(f"[train] phase 16 took {time.perf_counter() - t_phase:.2f} s")
+    return launches, rows, secs, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5147,6 +5531,9 @@ def main() -> int:
                  "weighted_kv_sum", "weighted_kv"):
         assert name in ran, f"kernel {name} was not launched on the " \
             f"serve paths"
+    free_cuda()
+    train_launches, train_rows, tr_secs, tr_errs = phase_train()
+    phases.update(tr_secs)
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -5154,13 +5541,17 @@ def main() -> int:
                                graph_errs.get(r["name"], 0.0),
                                st_errs.get(r["name"], 0.0),
                                est_errs.get(r["name"], 0.0),
-                               sv_errs.get(r["name"], 0.0))
+                               sv_errs.get(r["name"], 0.0),
+                               tr_errs.get(r["name"], 0.0))
         r["graph_launches"] = {path: c[r["name"]] for path, c in
                                graph_launches.items() if r["name"] in c}
         r["stream_launches"] = {path: c[r["name"]] for path, c in
                                 stream_launches.items() if r["name"] in c}
         r["serve_launches"] = {path: c[r["name"]] for path, c in
                                serve_launches.items() if r["name"] in c}
+        if r["name"] in train_launches:
+            r["train_launches"] = train_launches[r["name"]]
+            r.update(train_rows[r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
@@ -5168,7 +5559,10 @@ def main() -> int:
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
                                   "ctas", "instance", "reduce_share",
                                   "graph_launches", "stream_launches",
-                                  "serve_launches")
+                                  "serve_launches", "train_launches",
+                                  "train_shape", "train_ms",
+                                  "train_device_ms", "train_bound_ms",
+                                  "train_bound_by", "train_library_ms")
          if k in r}
         for r in rows]}))
     log(card_line())

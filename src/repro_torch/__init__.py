@@ -13,10 +13,13 @@ Covered so far:
   (Alg 5.15);
 - the hashed-KDE path -- ``HashedKDE``, ``NeighborSampler(level1="hash")``
   and ``spectral_sparsify(estimator="hash")``;
-- the LM serving path of the dense GQA configs (yi-6b, granite-3-2b,
-  qwen2.5-14b, chatglm3-6b), forward only in f32 -- ``configs``,
-  ``data.pipeline``, ``models.{layers,transformer}``,
-  ``train.train_step.make_{prefill,decode}_step`` and ``launch.serve``,
-  with flash attention for prefill and the paper's KDE decode attention.
+- the LM path of the dense GQA configs (yi-6b, granite-3-2b,
+  qwen2.5-14b, chatglm3-6b) in f32 and bf16 -- ``configs``,
+  ``data.pipeline``, ``models.{layers,transformer}``, the prefill,
+  decode and train steps of ``train.train_step``, ``train.optimizer``
+  (AdamW), ``ckpt.checkpoint``, ``launch.serve`` and ``launch.train``,
+  with flash attention for prefill and training and the paper's KDE
+  decode attention;
+- every estimator, the streaming engine and the multi-tenant servable.
 See ROADMAP.md for what remains.
 """

@@ -100,3 +100,99 @@ def params_from_reference(tree, cfg, device=None) -> "T.Transformer":
     head = tree.get("lm_head")
     return T.Transformer(cfg, t(tree["embed"]), layers, t(tree["final_norm"]),
                          None if head is None else t(head))
+
+
+# ------------------------------------------------------------------ #
+# the reference's stacked parameter tree <-> the port's parameter names
+def _tree_paths(cfg):
+    """(port name template, reference path) of every parameter of a dense
+    config; a template with ``{i}`` is a layer parameter, stacked on the
+    reference's leading L axis."""
+    paths = [("embed", ("embed",)), ("final_norm", ("final_norm",))]
+    if not cfg.tie_embeddings:
+        paths.append(("lm_head", ("lm_head",)))
+    layer = ["ln1", "ln2"] + [f"attn.{n}" for n in ("wq", "wk", "wv", "wo")]
+    if cfg.qkv_bias:
+        layer += [f"attn.{n}" for n in ("bq", "bk", "bv")]
+    layer += [f"mlp.{n}" for n in ("w1", "w3", "w2")]
+    paths += [("layers.{i}." + n, ("layers",) + tuple(n.split(".")))
+              for n in layer]
+    return paths
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array: bf16 as float32 (every bf16 value
+    is a float32 value), anything else in its own dtype."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def named_to_tree(named, cfg) -> dict:
+    """A dict keyed by the port's parameter names (tensors or arrays) as
+    the reference's tree: numpy arrays, layer parameters stacked on a
+    leading L axis."""
+    tree: dict = {}
+    for tmpl, path in _tree_paths(cfg):
+        if "{i}" in tmpl:
+            leaf = np.stack([_numpy(torch.as_tensor(named[tmpl.format(i=i)]))
+                             for i in range(cfg.num_layers)])
+        else:
+            leaf = _numpy(torch.as_tensor(named[tmpl]))
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def tree_to_named(tree, cfg) -> dict:
+    """The reference's tree (arrays) as numpy arrays (copies) keyed by the
+    port's parameter names, layer parameters unstacked."""
+    out = {}
+    for tmpl, path in _tree_paths(cfg):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if "{i}" in tmpl:
+            for i in range(cfg.num_layers):
+                out[tmpl.format(i=i)] = np.array(leaf[i])
+        else:
+            out[tmpl] = np.array(leaf)
+    return out
+
+
+def params_to_reference(model) -> dict:
+    """The port's ``Transformer`` as the reference's ``init_params`` tree of
+    numpy arrays (bf16 parameters as float32 arrays of the same values)."""
+    return named_to_tree(dict(model.named_parameters()), model.cfg)
+
+
+def adamw_state_from_reference(state, model):
+    """The reference's ``AdamWState`` (``step``, ``m``, ``v``: arrays read
+    with ``np.asarray``, or the dict ``adamw_state_to_reference`` gives)
+    as the port's, on the model's device: f32 moments keyed by the
+    model's parameter names."""
+    from repro_torch.train.optimizer import AdamWState
+    get = state.get if isinstance(state, dict) else \
+        (lambda k: getattr(state, k))
+    dev = model.embed.device
+
+    def moments(tree):
+        return {k: as_f32(np.array(a, dtype=np.float32), dev)
+                for k, a in tree_to_named(tree, model.cfg).items()}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32,
+                          device=dev),
+        m=moments(get("m")), v=moments(get("v")))
+
+
+def adamw_state_to_reference(state, cfg) -> dict:
+    """The port's ``AdamWState`` as the reference's layout: {"step": int32
+    array, "m": tree, "v": tree} of numpy arrays (``repro.train.
+    optimizer.AdamWState(**...)`` takes it after ``jnp.asarray``)."""
+    return {"step": np.asarray(int(state.step), np.int32),
+            "m": named_to_tree(state.m, cfg),
+            "v": named_to_tree(state.v, cfg)}

@@ -77,12 +77,22 @@ class KDEBase:
         return float(self.query(y[None, :])[0])
 
 
+def _pairwise_rowsum(kernel: Kernel, y, x, chunk: int = 8192):
+    """sum_j k(y_i, x_j) by ``kernel.pairwise`` over chunks of ``chunk``
+    dataset rows (the reference's ``ExactKDE`` loop)."""
+    out = torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
+    for lo in range(0, x.shape[0], chunk):
+        out = out + torch.sum(kernel.pairwise(y, x[lo:lo + chunk]), dim=1)
+    return out
+
+
 class ExactKDE(KDEBase):
     """Brute-force oracle: the rowsum CUDA kernel on the card.
 
-    ``chunk`` is the reference's query chunk: checked to be a positive int
-    and otherwise ignored (the kernel's plan sizes its own tiles), so the
-    answers are the same whatever its value.  ``use_pallas`` must be None:
+    ``chunk`` is the reference's query chunk: checked to be a positive int;
+    the kernel's plan sizes its own tiles, so a built-in kind's answers are
+    the same whatever its value (a custom kind sums in chunks of it).
+    ``use_pallas`` must be None:
     the dataset's device chooses the kernel or its plain version."""
 
     def __init__(self, x, kernel: Kernel, chunk: int = 8192,
@@ -91,12 +101,17 @@ class ExactKDE(KDEBase):
         tile_size("chunk", chunk)
         no_switch("use_pallas", use_pallas)
         super().__init__(x, kernel, precision=precision, device=device)
+        self.chunk = chunk
 
     def query(self, y: torch.Tensor) -> torch.Tensor:
-        """Exact row sums; m*n kernel evals per call."""
+        """Exact row sums; m*n kernel evals per call.  A custom kind sums
+        its ``kernel.pairwise`` over chunks of ``chunk`` rows, as the
+        reference does (no kernel: ``kde_sampler.ops.custom_kind``)."""
         from repro_torch.kernels.kde_rowsum import ops as rs_ops
         y = as_f32(y, self.device)
         self.evals += y.shape[0] * self.n
+        if static_pairwise(self.kernel) is not None:
+            return _pairwise_rowsum(self.kernel, y, self.x, self.chunk)
         return rs_ops.kde_rowsum(y, self.x, self.kernel,
                                  precision=self.precision)
 
@@ -123,6 +138,9 @@ class RSKDE(KDEBase):
         idx = self._rng.integers(0, self.n, size=self.num_samples)
         self.evals += y.shape[0] * self.num_samples
         sub = self.x[torch.as_tensor(idx).to(self.device)]
+        if static_pairwise(self.kernel) is not None:
+            return _pairwise_rowsum(self.kernel, y, sub, sub.shape[0]) \
+                * (self.n / self.num_samples)
         return rs_ops.kde_rowsum(y, sub, self.kernel,
                                  precision=self.precision) \
             * (self.n / self.num_samples)
@@ -196,6 +214,7 @@ class ExactBlockKDE(KDEBase):
     def _static_cfg(self) -> dict:
         return dict(kind=self.kernel.name, inv_bw=1.0 / self.kernel.bandwidth,
                     beta=getattr(self.kernel, "beta", 1.0),
+                    pairwise=static_pairwise(self.kernel),
                     block_size=self.block_size, num_blocks=self.num_blocks,
                     n=self.n, precision=self.precision)
 

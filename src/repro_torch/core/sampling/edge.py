@@ -173,13 +173,15 @@ class NeighborSampler:
             self._hstate = self._hash.state
         self._cfg = dict(kind=kernel.name, inv_bw=1.0 / kernel.bandwidth,
                          beta=getattr(kernel, "beta", 1.0),
+                         pairwise=static_pairwise(kernel),
                          block_size=self.block_size,
                          num_blocks=self.num_blocks, n=self.n,
                          s=self._blocks.samples_per_block,
                          exact=exact_blocks, level1=level1,
                          num_far=self._far_per_block, precision=precision)
         self._l2_cfg = {k: self._cfg[k] for k in
-                        ("kind", "inv_bw", "beta", "block_size", "n")}
+                        ("kind", "inv_bw", "beta", "pairwise", "block_size",
+                         "n")}
         self._noise_cfg = {k: self._cfg[k] for k in
                            ("level1", "exact", "num_far", "block_size")}
         # (digest, block sums, frontier indices) of the cached frontier;
@@ -319,8 +321,7 @@ class NeighborSampler:
                         torch.as_tensor(old_x).to(dev),
                         torch.as_tensor(new_x).to(dev),
                         kind=self._cfg["kind"], inv_bw=self._cfg["inv_bw"],
-                        beta=self._cfg["beta"],
-                        pairwise=static_pairwise(self.kernel),
+                        beta=self._cfg["beta"], pairwise=self._cfg["pairwise"],
                         block_size=self.block_size)
                     self._count(2 * len(src32) * len(slots))
                     self._note(cw, "NeighborSampler.sync")

@@ -70,8 +70,10 @@ class RowNormSampler:
                               device=self.device)
         self.total = self._cdf.total          # ~= ||K||_F^2
         self._row_evals = 0
+        from repro_torch.kernels.kde_sampler.ref import static_pairwise
         self._row_cfg = dict(kind=kernel.name, inv_bw=1.0 / kernel.bandwidth,
-                             beta=getattr(kernel, "beta", 1.0))
+                             beta=getattr(kernel, "beta", 1.0),
+                             pairwise=static_pairwise(kernel))
 
     def _init_probs(self, xs: torch.Tensor) -> np.ndarray:
         """n KDE queries against cX -> squared row norms, diagonal

@@ -192,8 +192,8 @@ class ServedTenant:
             hq = nbr.hash_estimator
             return ("hash-query", tuple(sorted(hq._cfg.items())),
                     tuple(nbr.x.shape), self._state_sig())
-        keys = ("kind", "inv_bw", "beta", "block_size", "num_blocks", "n",
-                "s", "exact")
+        keys = ("kind", "inv_bw", "beta", "pairwise", "block_size",
+                "num_blocks", "n", "s", "exact")
         return ("dense-query", tuple((k, nbr._cfg[k]) for k in keys),
                 tuple(nbr.x.shape))
 
@@ -609,7 +609,7 @@ class KernelGraphServable:
                 noise = None if cfg["exact"] else _stack(
                     [torch.rand((nblk, cfg["block_size"]), generator=g)
                      for g in gens], dev)
-                qkeys = ("kind", "inv_bw", "beta", "block_size",
+                qkeys = ("kind", "inv_bw", "beta", "pairwise", "block_size",
                          "num_blocks", "n", "s", "exact", "precision")
                 est, st = _ops.batched_kde_query(
                     xa, xa_sq, tidx, y, noise,

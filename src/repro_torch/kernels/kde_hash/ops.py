@@ -171,8 +171,9 @@ def draw_frontier_noise(w: int, num_blocks: int, num_far: int,
 def _weighted_pass(q, x, cols, wgt, *, kind, inv_bw, beta, pairwise,
                    reduce_sum, precision="f32"):
     """One weighted kernel-value pass: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
-    if q.is_cuda:
+    the plain version on a CPU tensor or for a custom kind (its
+    ``pairwise``, on every device: ``kde_sampler.ops.custom_kind``)."""
+    if q.is_cuda and pairwise is None:
         fn = _k.weighted_kv_sum_cuda if reduce_sum else _k.weighted_kv_cuda
         return fn(q, x, cols, wgt, kind, inv_bw, beta, precision)
     fn = _k.weighted_kv_sum_plain if reduce_sum else _k.weighted_kv_plain
@@ -308,7 +309,7 @@ def _lane_flag(mask, lanes: int, flag: int) -> torch.Tensor:
 
 
 def batched_hashed_query(xa, tidx, y, state, fidx, *, kind, inv_bw, beta,
-                         pairwise=None, cell_width, num_far, n,
+                         pairwise, cell_width, num_far, n,
                          precision="f32"):
     """R hashed Definition 1.1 query requests across stacked tenants in
     ONE weighted-kv-sum launch: ``xa`` (T, n, d) the stacked tenant rows

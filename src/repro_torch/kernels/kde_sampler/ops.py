@@ -71,6 +71,16 @@ from repro_torch.obs import counters as _c
 FLOOR = _ref.BLOCK_SUM_FLOOR
 
 
+def custom_kind(pairwise) -> bool:
+    """Whether a read evaluates a custom kind: ``pairwise`` is the
+    kernel's own callable (``ref.static_pairwise``; None for the built-in
+    kinds).  No CUDA kernel can evaluate a Python closure, so such a read
+    runs the plain version on every device, the card included, and
+    launches no kernel: a dispatch by kind, as the reference's Pallas
+    kernels take the built-in kinds only (ROADMAP.md section 3)."""
+    return pairwise is not None
+
+
 # --------------------------------------------------------------------- #
 # noise
 # --------------------------------------------------------------------- #
@@ -182,14 +192,21 @@ def stratified_block_sums(y, x, x_sq, u, *, kind, inv_bw, beta,
                        evals=m * num_blocks * s, l1_reads=m)
 
 
-def exact_block_sums(y, x, x_sq, *, kind, inv_bw, beta, block_size,
-                     num_blocks, n, precision="f32"):
+def exact_block_sums(y, x, x_sq, *, kind, inv_bw, beta, pairwise=None,
+                     block_size, num_blocks, n, precision="f32"):
     """Exact (m, B) block sums; returns ``(block sums, counter word)``.
     A CUDA tensor goes through the blocksum kernel (its bf16 instance at
-    ``precision="bf16"``) and never forms the (m, n) matrix."""
+    ``precision="bf16"``) and never forms the (m, n) matrix; a custom
+    kind sums its ``pairwise`` values (``custom_kind``)."""
     m = y.shape[0]
-    fn = _rk.blocksum_cuda if y.is_cuda else _rk.blocksum_plain
-    bs = fn(y, x, kind, inv_bw, beta, block_size, precision)
+    if custom_kind(pairwise):
+        kv = _ref.kv_matrix(y, x, x_sq, kind, inv_bw, beta, pairwise,
+                            precision)
+        bs = torch.nn.functional.pad(kv, (0, -n % block_size)).reshape(
+            m, -1, block_size).sum(-1)
+    else:
+        fn = _rk.blocksum_cuda if y.is_cuda else _rk.blocksum_plain
+        bs = fn(y, x, kind, inv_bw, beta, block_size, precision)
     return bs, _c.word(status=_g.nonfinite_status(bs), evals=m * n,
                        l1_reads=m)
 
@@ -203,21 +220,23 @@ def _own_correct(bs, src, block_size: int, num_blocks: int):
 
 
 def _stratified_masked_sums(x, x_sq, src, u, *, kind, inv_bw, beta,
-                            block_size, num_blocks, n, s, precision="f32"):
+                            pairwise=None, block_size, num_blocks, n, s,
+                            precision="f32"):
     """Stratified level-1 sums of a frontier, own block corrected by
     k(x, x) = 1 and floored (the reference's ``_masked_block_sums(exact=
     False)``)."""
     bs, _ = stratified_block_sums(x[src], x, x_sq, u, kind=kind,
                                   inv_bw=inv_bw, beta=beta,
-                                  block_size=block_size,
+                                  pairwise=pairwise, block_size=block_size,
                                   num_blocks=num_blocks, n=n, s=s,
                                   precision=precision)
     return _own_correct(bs, src, block_size, num_blocks)
 
 
 def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
-                     inv_bw, beta, block_size, num_blocks, n, s, exact,
-                     level1="blocked", num_far=64, precision="f32"):
+                     inv_bw, beta, pairwise=None, block_size, num_blocks, n,
+                     s, exact, level1="blocked", num_far=64,
+                     precision="f32"):
     """Masked level-1 sums of a frontier: the masked-blocksum kernel on the
     exact read, ``s`` subsampled rows a block on the stratified read
     (uniforms ``l1_noise``), the hashed estimator's read (weighted-kv
@@ -226,9 +245,13 @@ def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
     if level1 == "hash":
         return _hops._hashed_block_sums(
             x, src, hstate, l1_noise, kind=kind, inv_bw=inv_bw, beta=beta,
-            num_far=num_far, block_size=block_size, num_blocks=num_blocks,
-            n=n, precision=precision)
-    if exact:
+            pairwise=pairwise, num_far=num_far, block_size=block_size,
+            num_blocks=num_blocks, n=n, precision=precision)
+    if exact and custom_kind(pairwise):
+        bs = _ref.masked_exact_sums_ref(x[src], x, x_sq, src // block_size,
+                                        kind, inv_bw, beta, block_size, n,
+                                        pairwise, precision)
+    elif exact:
         fn = (_k.masked_blocksum_cuda if x.is_cuda
               else _k.masked_blocksum_plain)
         bs = fn(x[src], x, src // block_size, kind, inv_bw, beta, block_size,
@@ -236,22 +259,22 @@ def _masked_sums_any(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
     else:
         bs = _stratified_masked_sums(x, x_sq, src, l1_noise, kind=kind,
                                      inv_bw=inv_bw, beta=beta,
-                                     block_size=block_size,
+                                     pairwise=pairwise, block_size=block_size,
                                      num_blocks=num_blocks, n=n, s=s,
                                      precision=precision)
     return bs, _g.sums_status(bs, FLOOR)
 
 
 def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
-                      inv_bw, beta, block_size, num_blocks, n, s, exact,
-                      level1="blocked", num_far=64, precision="f32"):
+                      inv_bw, beta, pairwise, block_size, num_blocks, n, s,
+                      exact, level1="blocked", num_far=64, precision="f32"):
     """Level-1 read of a frontier ``src`` of dataset indices: block sums,
     own block corrected by k(x, x) = 1, floored at 1e-12 -- exact through
     the masked-blocksum kernel, stratified (``exact=False``: ``s`` rows a
     block, subsample uniforms ``l1_noise``), or hashed (``level1="hash"``,
     FAR offsets ``l1_noise``).  Returns ``(bs, counter word)``."""
     bs, st = _masked_sums_any(x, x_sq, src, l1_noise, hstate, kind=kind,
-                              inv_bw=inv_bw, beta=beta,
+                              inv_bw=inv_bw, beta=beta, pairwise=pairwise,
                               block_size=block_size, num_blocks=num_blocks,
                               n=n, s=s, exact=exact, level1=level1,
                               num_far=num_far, precision=precision)
@@ -263,9 +286,15 @@ def masked_block_sums(x, x_sq, src, l1_noise=None, hstate=None, *, kind,
 
 
 def sample_block(q, x, own, gumbel_noise, *, kind, inv_bw, beta,
-                 block_size, precision="f32"):
+                 pairwise=None, block_size, precision="f32"):
     """Masked block sums plus the Gumbel-max block draw: (blk, p_blk, tot,
-    bs), through the sample-block kernel on CUDA."""
+    bs), through the sample-block kernel on CUDA (a custom kind: its
+    ``pairwise`` sums and the same draw, on every device)."""
+    if custom_kind(pairwise):
+        bs = _ref.masked_exact_sums_ref(q, x, None, own, kind, inv_bw, beta,
+                                        block_size, x.shape[0], pairwise,
+                                        precision)
+        return (*_ref.argmax_draw(bs, gumbel_noise), bs)
     fn = _k.sample_block_cuda if q.is_cuda else _k.sample_block_plain
     return fn(q, x, own, gumbel_noise, kind, inv_bw, beta, block_size,
               precision)
@@ -275,8 +304,9 @@ def sample_block(q, x, own, gumbel_noise, *, kind, inv_bw, beta,
 # depth-2 draws
 # --------------------------------------------------------------------- #
 def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
-                       inv_bw, beta, block_size, num_blocks, n, s, exact,
-                       level1="blocked", num_far=64, precision="f32"):
+                       inv_bw, beta, pairwise=None, block_size, num_blocks,
+                       n, s, exact, level1="blocked", num_far=64,
+                       precision="f32"):
     """(neighbors, realized probs, level-1 sums, status tensor) of one
     depth-2 step with explicit ``noise`` (see the module note); no host
     traffic (the counter word is built by the callers from static
@@ -285,28 +315,28 @@ def _fused_sample_core(x, x_sq, views, src, noise, hstate=None, *, kind,
         l1_noise, u_blk, u_in = noise
         bs, st = _masked_sums_any(x, x_sq, src, l1_noise, hstate, kind=kind,
                                   inv_bw=inv_bw, beta=beta,
-                                  block_size=block_size,
+                                  pairwise=pairwise, block_size=block_size,
                                   num_blocks=num_blocks, n=n, s=s,
                                   exact=exact, level1=level1,
                                   num_far=num_far, precision=precision)
         nb, prob = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk,
                                          u_in, kind, inv_bw, beta,
-                                         block_size, n)
+                                         block_size, n, pairwise)
         return nb, prob, bs, st | _g.result_status(prob)
     gumbel_noise, u_in = noise
     blk, pb, _, bs = sample_block(x[src], x, src // block_size,
                                   gumbel_noise, kind=kind, inv_bw=inv_bw,
-                                  beta=beta, block_size=block_size,
-                                  precision=precision)
+                                  beta=beta, pairwise=pairwise,
+                                  block_size=block_size, precision=precision)
     kv, live, cols_c = _ref.level2_row(x, x_sq, views, src, blk, kind,
-                                       inv_bw, beta, block_size, n)
+                                       inv_bw, beta, block_size, n, pairwise)
     nb, pin = _ref.level2_draw(kv, live, cols_c, u_in)
     prob = pb * pin
     return nb, prob, bs, _g.sums_status(bs, FLOOR) | _g.result_status(prob)
 
 
 def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
-                 inv_bw, beta, block_size, num_blocks, n, s, exact,
+                 inv_bw, beta, pairwise, block_size, num_blocks, n, s, exact,
                  level1="blocked", num_far=64, precision="f32"):
     """One depth-2 sampling step with explicit noise: the level-1 read and
     block draw (one sample-block kernel call on the exact read; the
@@ -318,8 +348,9 @@ def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
     w = src.shape[0]
     nb, prob, bs, st = _fused_sample_core(
         x, x_sq, views, src, noise, hstate, kind=kind, inv_bw=inv_bw,
-        beta=beta, block_size=block_size, num_blocks=num_blocks, n=n, s=s,
-        exact=exact, level1=level1, num_far=num_far, precision=precision)
+        beta=beta, pairwise=pairwise, block_size=block_size,
+        num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
+        num_far=num_far, precision=precision)
     # one level-1 read of the w-frontier + w exact level-2 rows
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
                              hstate)
@@ -329,40 +360,42 @@ def fused_sample(x, x_sq, src, *noise, views=None, hstate=None, kind,
 
 
 def sample_from_block_sums(x, x_sq, src, bs, u_blk, u_in, views=None, *,
-                           kind, inv_bw, beta, block_size, n):
+                           kind, inv_bw, beta, pairwise=None, block_size, n):
     """Depth-2 step reusing cached level-1 sums (no dataset re-sweep):
     inverse-CDF block draw with uniforms ``u_blk``.  Returns (neighbors,
     realized probs, counter word)."""
     if views is None:
         views = _ref.block_views(x, x_sq, block_size)
     nb, prob = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk, u_in,
-                                     kind, inv_bw, beta, block_size, n)
+                                     kind, inv_bw, beta, block_size, n,
+                                     pairwise)
     st = _g.sums_status(bs, FLOOR) | _g.result_status(prob)
     w = src.shape[0]
     return nb, prob, _c.word(status=st, evals=w * block_size, draws=w)
 
 
 def prob_of_from_block_sums(x, x_sq, src, dst, bs, views=None, *, kind,
-                            inv_bw, beta, block_size, n):
+                            inv_bw, beta, pairwise=None, block_size, n):
     """q(dst | src) the sampler assigns, from cached level-1 sums; mirrors
     ``ref.level2_draw``'s zero-row guard (an underflowed block row is
     drawn uniformly over its live columns).  Returns ``(probs, word)``."""
     if views is None:
         views = _ref.block_views(x, x_sq, block_size)
     prob = _prob_core(x, x_sq, views, src, dst, bs, kind=kind,
-                      inv_bw=inv_bw, beta=beta, block_size=block_size, n=n)
+                      inv_bw=inv_bw, beta=beta, pairwise=pairwise,
+                      block_size=block_size, n=n)
     st = _g.sums_status(bs, FLOOR) | _g.result_status(prob)
     return prob, _c.word(status=st, evals=src.shape[0] * block_size)
 
 
 def _prob_core(x, x_sq, views, src, dst, bs, *, kind, inv_bw, beta,
-               block_size, n, off=None):
+               pairwise=None, block_size, n, off=None):
     """The probabilities of ``prob_of_from_block_sums`` (``off``: the
     stacked tenants' offsets of ``ref.level2_row``)."""
     blk = dst // block_size
     pb = torch.gather(bs, 1, blk[:, None])[:, 0] / bs.sum(dim=1)
     kv, live, _ = _ref.level2_row(x, x_sq, views, src, blk, kind, inv_bw,
-                                  beta, block_size, n, off=off)
+                                  beta, block_size, n, pairwise, off)
     col = (dst - blk * block_size)[:, None]
     kd = torch.gather(kv, 1, col)[:, 0]
     rowsum = kv.sum(dim=1)
@@ -375,8 +408,8 @@ def _prob_core(x, x_sq, views, src, dst, bs, *, kind, inv_bw, beta,
 
 
 def _sample_exact_core(x, x_sq, views, src, bs, u_blk, u_in, u_acc, *,
-                       kind, inv_bw, beta, block_size, n, rounds, slack,
-                       off=None, lanes=None):
+                       kind, inv_bw, beta, pairwise=None, block_size, n,
+                       rounds, slack, off=None, lanes=None):
     """Theorem 4.12 accept/reject rounds on cached level-1 sums: propose
     from ``bs`` and accept v with probability min(1, k(u, v) / (slack q(v)
     Z_hat)), Z_hat = sum of the (own-block corrected, floored) sums.
@@ -387,7 +420,7 @@ def _sample_exact_core(x, x_sq, views, src, bs, u_blk, u_in, u_acc, *,
     zs = bs.sum(dim=1)
     cur, _ = _ref.sample_from_sums(x, x_sq, views, src, bs, u_blk[0],
                                    u_in[0], kind, inv_bw, beta, block_size,
-                                   n, off=off)
+                                   n, pairwise, off)
     accepted = torch.zeros(src.shape[0], dtype=torch.bool,
                            device=src.device)
     base = 0 if off is None else off[0]
@@ -396,8 +429,9 @@ def _sample_exact_core(x, x_sq, views, src, bs, u_blk, u_in, u_acc, *,
         cand, q = _ref.sample_from_sums(x, x_sq, views, src, bs,
                                         u_blk[r + 1], u_in[r + 1], kind,
                                         inv_bw, beta, block_size, n,
-                                        off=off)
-        kuv = _ref.kv_pairs(xs, x[base + cand], kind, inv_bw, beta)
+                                        pairwise, off)
+        kuv = _ref.kv_pairs(xs, x[base + cand], kind, inv_bw, beta,
+                            pairwise)
         ratio = kuv / torch.clamp(slack * q * zs, min=1e-30)
         acc = ~accepted & (u_acc[r] < torch.clamp(ratio, max=1.0))
         cur = torch.where(acc, cand, cur)
@@ -410,7 +444,8 @@ def _sample_exact_core(x, x_sq, views, src, bs, u_blk, u_in, u_acc, *,
 
 
 def fused_sample_exact(x, x_sq, src, bs, u_blk, u_in, u_acc, views=None, *,
-                       kind, inv_bw, beta, block_size, n, rounds, slack):
+                       kind, inv_bw, beta, pairwise=None, block_size, n,
+                       rounds, slack):
     """Theorem 4.12 rejection rounds with explicit noise (see the module
     note).  The cached level-1 sums ``bs`` of the frontier serve every
     proposal round and the degree estimate.  Returns (neighbors, counter
@@ -428,8 +463,8 @@ def fused_sample_exact(x, x_sq, src, bs, u_blk, u_in, u_acc, views=None, *,
         views = _ref.block_views(x, x_sq, block_size)
     cur, st, fallbacks = _sample_exact_core(
         x, x_sq, views, src, bs, u_blk, u_in, u_acc, kind=kind,
-        inv_bw=inv_bw, beta=beta, block_size=block_size, n=n, rounds=rounds,
-        slack=slack)
+        inv_bw=inv_bw, beta=beta, pairwise=pairwise, block_size=block_size,
+        n=n, rounds=rounds, slack=slack)
     # (rounds + 1) level-2 rows + rounds aligned accept pairs
     cw = _c.word(status=st | _g.sums_status(bs, FLOOR),
                  evals=(rounds + 1) * w * block_size + rounds * w,
@@ -442,9 +477,9 @@ def fused_sample_exact(x, x_sq, src, bs, u_blk, u_in, u_acc, views=None, *,
 # fused Algorithm 5.1 edge batches + LRA sketch rows
 # --------------------------------------------------------------------- #
 def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
-                     noise, hstate=None, *, kind, inv_bw, beta, block_size,
-                     num_blocks, n, s, exact, level1="blocked", num_far=64,
-                     precision="f32"):
+                     noise, hstate=None, *, kind, inv_bw, beta,
+                     pairwise=None, block_size, num_blocks, n, s, exact,
+                     level1="blocked", num_far=64, precision="f32"):
     """Algorithm 5.1 steps (a)-(d) for one batch with explicit noise:
     u ~ degrees (inverse CDF over the device prefix array), v | u by the
     depth-2 engine, the collapsed reverse probability q(u | v) =
@@ -453,9 +488,10 @@ def _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t, u_vert,
     u = _ref.inverse_cdf_index(cdf, u_vert)
     v, q_uv, _, st = _fused_sample_core(
         x, x_sq, views, u, noise, hstate, kind=kind, inv_bw=inv_bw,
-        beta=beta, block_size=block_size, num_blocks=num_blocks, n=n, s=s,
-        exact=exact, level1=level1, num_far=num_far, precision=precision)
-    kuv = _ref.kv_pairs(x[u], x[v], kind, inv_bw, beta)
+        beta=beta, pairwise=pairwise, block_size=block_size,
+        num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
+        num_far=num_far, precision=precision)
+    kuv = _ref.kv_pairs(x[u], x[v], kind, inv_bw, beta, pairwise)
     q_vu = kuv / torch.clamp(degs[v], min=FLOOR)
     # q_e = p_u q_uv + p_v q_vu with p_i = deg_i / sum(deg); the second
     # term telescopes to k(u,v) / sum(deg).
@@ -474,7 +510,7 @@ def _edge_batch_word(status, batch: int, cols: int, far: int, ov: int,
 
 
 def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
-                     views=None, hstate=None, kind, inv_bw, beta,
+                     views=None, hstate=None, kind, inv_bw, beta, pairwise,
                      block_size, num_blocks, n, s, exact, level1="blocked",
                      num_far=64, precision="f32"):
     """One fused Algorithm 5.1 edge batch with explicit noise ``u_vert``
@@ -484,7 +520,7 @@ def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
         views = _ref.block_views(x, x_sq, block_size)
     *out, st = _edge_batch_core(x, x_sq, views, cdf, degs, inv_total, inv_t,
                                 u_vert, noise, hstate, kind=kind,
-                                inv_bw=inv_bw, beta=beta,
+                                inv_bw=inv_bw, beta=beta, pairwise=pairwise,
                                 block_size=block_size,
                                 num_blocks=num_blocks, n=n, s=s, exact=exact,
                                 level1=level1, num_far=num_far,
@@ -497,7 +533,7 @@ def fused_edge_batch(x, x_sq, cdf, degs, inv_total, inv_t, u_vert, *noise,
 
 def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
                     num_batches: int, hstate=None, *, batch, kind, inv_bw,
-                    beta, block_size, num_blocks, n, s, exact,
+                    beta, pairwise, block_size, num_blocks, n, s, exact,
                     level1="blocked", num_far=64, precision="f32"):
     """All ``num_batches`` edge batches of a sparsifier call: a device
     loop whose body is one fused edge batch, noise drawn per batch from
@@ -520,6 +556,7 @@ def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
         *res, s_i = _edge_batch_core(x, x_sq, views, cdf, degs, inv_total,
                                      inv_t, u_vert, noise, hstate, kind=kind,
                                      inv_bw=inv_bw, beta=beta,
+                                     pairwise=pairwise,
                                      block_size=block_size,
                                      num_blocks=num_blocks, n=n, s=s,
                                      exact=exact, level1=level1,
@@ -534,11 +571,11 @@ def edge_batch_scan(x, x_sq, cdf, degs, inv_total, inv_t, generator,
     return (*outs, word)
 
 
-def kernel_rows(q, x, x_sq, *, kind, inv_bw, beta):
+def kernel_rows(q, x, x_sq, *, kind, inv_bw, beta, pairwise=None):
     """Exact (m, n) kernel rows -- the FKV sketch rows and the CP17 column
     reads of Section 5.2 (plain torch on every device, as the reference
     leaves them outside any kernel).  Returns ``(rows, counter word)``."""
-    kv = _ref.kv_matrix(q, x, x_sq, kind, inv_bw, beta)
+    kv = _ref.kv_matrix(q, x, x_sq, kind, inv_bw, beta, pairwise)
     return kv, _c.word(status=_g.nonfinite_status(kv),
                        evals=q.shape[0] * x.shape[0])
 
@@ -585,26 +622,28 @@ def _walk_level1_cache(x, x_sq, u, *, block_size, num_blocks, n, s):
     return x[flat], x_sq[flat], valid.T.reshape(-1), scale
 
 
-def _cached_block_sums(cache, x, src, *, kind, inv_bw, beta, block_size,
-                       num_blocks, s, precision="f32"):
+def _cached_block_sums(cache, x, src, *, kind, inv_bw, beta, pairwise=None,
+                       block_size, num_blocks, s, precision="f32"):
     """Masked level-1 read against the walk-resident cache: one compact
     (w, B * s) kernel evaluation, the per-stratum sum and rescale, then the
     own-block correction and the floor."""
     xs, xs_sq, valid, scale = cache
-    kv = _ref.kv_matrix(x[src], xs, xs_sq, kind, inv_bw, beta, None,
+    kv = _ref.kv_matrix(x[src], xs, xs_sq, kind, inv_bw, beta, pairwise,
                         precision) * valid[None, :]
     bs = kv.reshape(src.shape[0], s, num_blocks).sum(1) * scale[None, :]
     return _own_correct(bs, src, block_size, num_blocks)
 
 
 def _walk_sample_core(x, x_sq, views, src, bs, u_blk, u_in, *, kind, inv_bw,
-                      beta, block_size, n, num_blocks, off=None):
+                      beta, pairwise=None, block_size, n, num_blocks,
+                      off=None):
     """``sample_from_sums`` with the two-level inverse-CDF draws at both
     depths (``ref.grouped_inverse_cdf``): the walk-resident step.  Returns
     (neighbors, realized probabilities)."""
     blk, pb = _ref.choose_block_grouped(bs, u_blk, _ref.cdf_group(num_blocks))
     kv, live, cols_c = _ref.level2_row(x, x_sq, views, src, blk, kind,
-                                       inv_bw, beta, block_size, n, off=off)
+                                       inv_bw, beta, block_size, n, pairwise,
+                                       off)
     nb, pin = _ref.level2_draw_grouped(kv, live, cols_c, u_in,
                                        _ref.cdf_group(block_size))
     return nb, pb * pin
@@ -645,7 +684,7 @@ def draw_walk_noise(length: int, w: int, num_blocks: int, generator,
 
 
 def walk_scan(x, x_sq, starts, noise, hstate=None, *, kind, inv_bw, beta,
-              block_size, num_blocks, n, s, exact, rounds, slack,
+              pairwise, block_size, num_blocks, n, s, exact, rounds, slack,
               record_path=True, level1="blocked", num_far=64,
               precision="f32"):
     """``len(steps)``-step random walk on the device with explicit noise
@@ -675,7 +714,7 @@ def walk_scan(x, x_sq, starts, noise, hstate=None, *, kind, inv_bw, beta,
         views = _ref.block_views(x, x_sq, wbs)
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
                              hstate)
-    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta)
+    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta, pairwise=pairwise)
     cur, st = starts, 0
     fb = torch.zeros((), dtype=torch.int64, device=starts.device)
     path = []
@@ -851,8 +890,8 @@ def signed_endpoint_stat(ends, signs, *, n):
 
 
 def triangle_edge_scan(x, x_sq, u, v, degs, noise, hstate=None, *, kind,
-                       inv_bw, beta, block_size, num_blocks, n, s, exact,
-                       level1="blocked", num_far=64, precision="f32"):
+                       inv_bw, beta, pairwise, block_size, num_blocks, n, s,
+                       exact, level1="blocked", num_far=64, precision="f32"):
     """Theorem 6.17's per-edge inner loop with explicit noise ``(l1, u_blk
     (D, m), u_in (D, m))``: degree-ordered orientation of the (u, v)
     pairs, ONE masked level-1 read of the oriented v frontier (noise
@@ -866,18 +905,18 @@ def triangle_edge_scan(x, x_sq, u, v, degs, noise, hstate=None, *, kind,
     prec = _ref.degree_precedes(degs, u, v)
     uu = torch.where(prec, u, v)
     vv = torch.where(prec, v, u)
-    kuv = _ref.kv_pairs(x[uu], x[vv], kind, inv_bw, beta)
+    kuv = _ref.kv_pairs(x[uu], x[vv], kind, inv_bw, beta, pairwise)
     bs, st = _masked_sums_any(x, x_sq, vv, l1, hstate, kind=kind,
-                              inv_bw=inv_bw, beta=beta,
+                              inv_bw=inv_bw, beta=beta, pairwise=pairwise,
                               block_size=block_size, num_blocks=num_blocks,
                               n=n, s=s, exact=exact, level1=level1,
                               num_far=num_far, precision=precision)
     acc = torch.zeros_like(kuv)
     for ub, ui in zip(u_blk, u_in):
         w, _ = _ref.sample_from_sums(x, x_sq, views, vv, bs, ub, ui, kind,
-                                     inv_bw, beta, block_size, n)
+                                     inv_bw, beta, block_size, n, pairwise)
         valid = _ref.degree_precedes(degs, vv, w) & (w != uu)
-        kuw = _ref.kv_pairs(x[uu], x[w], kind, inv_bw, beta)
+        kuw = _ref.kv_pairs(x[uu], x[w], kind, inv_bw, beta, pairwise)
         acc = acc + torch.where(valid, kuv * kuw, 0.0)
     num_draws = u_blk.shape[0]
     w_hat = acc * degs[vv] / num_draws
@@ -1009,6 +1048,19 @@ def _lane_stratified(lay, q, u, *, kind, inv_bw, beta, pairwise,
     return (kv.sum(-1) * scale).reshape(-1, num_blocks)
 
 
+def _lane_exact_custom(lay, q, *, kind, inv_bw, beta, pairwise, block_size,
+                       precision):
+    """Exact block sums of each lane's query rows ``q`` (R w, d) over its
+    whole tenant by the custom kind's ``pairwise`` (``custom_kind``):
+    (R w, B), unmasked."""
+    ti = lay.tidx
+    kv = _lane_kv(q.reshape(lay.r, -1, lay.d), lay.xa[ti], lay.xa_sq[ti],
+                  kind=kind, inv_bw=inv_bw, beta=beta, pairwise=pairwise,
+                  precision=precision)
+    kv = torch.nn.functional.pad(kv, (0, -lay.n % block_size))
+    return kv.reshape(q.shape[0], -1, block_size).sum(-1)
+
+
 def _lane_masked_sums(lay, l1_noise, hstate, *, kind, inv_bw, beta,
                       pairwise, block_size, num_blocks, n, s, exact,
                       level1, num_far, precision):
@@ -1025,7 +1077,12 @@ def _lane_masked_sums(lay, l1_noise, hstate, *, kind, inv_bw, beta,
         st = (_hops._lane_flag(corrupt, lay.r, _g.STATE_CORRUPT)
               | _hops._lane_flag(trunc, lay.r, _g.BUCKET_OVERFLOW))
         return bs, st | _lane_status(bs, lay.r)
-    if exact:
+    if exact and custom_kind(pairwise):
+        bs = _own_correct(_lane_exact_custom(
+            lay, lay.queries(), kind=kind, inv_bw=inv_bw, beta=beta,
+            pairwise=pairwise, block_size=block_size, precision=precision),
+            lay.src, block_size, num_blocks)
+    elif exact:
         q = lay.queries()
         fn = _k.masked_blocksum_cuda if q.is_cuda \
             else _k.masked_blocksum_plain
@@ -1061,12 +1118,19 @@ def _lane_step(lay, noise, hstate, *, kind, inv_bw, beta, pairwise,
         return nb, prob, bs, st | _lane_result(lay.r, prob)
     gumbel_noise, u_in = noise
     q = lay.queries()
-    fn = _k.sample_block_cuda if q.is_cuda else _k.sample_block_plain
-    blk, pb, _, bs = tenant_launch(
-        fn, q, lay.xa, lay.tidx_host.repeat_interleave(lay.w),
-        lay.src // block_size, lay.rows(gumbel_noise), bn=block_size,
-        precision=precision, bm=_k.tile_rows(lay.d, precision=precision),
-        **l2)
+    if custom_kind(pairwise):
+        bs, _ = _lane_masked_sums(
+            lay, None, hstate, pairwise=pairwise, block_size=block_size,
+            num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
+            num_far=num_far, precision=precision, **l2)
+        blk, pb, _ = _ref.argmax_draw(bs, lay.rows(gumbel_noise))
+    else:
+        fn = _k.sample_block_cuda if q.is_cuda else _k.sample_block_plain
+        blk, pb, _, bs = tenant_launch(
+            fn, q, lay.xa, lay.tidx_host.repeat_interleave(lay.w),
+            lay.src // block_size, lay.rows(gumbel_noise), bn=block_size,
+            precision=precision, bm=_k.tile_rows(lay.d, precision=precision),
+            **l2)
     kv, live, cols_c = _ref.level2_row(lay.x, lay.x_sq, lay.views, lay.src,
                                        blk, block_size=block_size, n=n,
                                        pairwise=pairwise, off=lay.off, **l2)
@@ -1076,7 +1140,7 @@ def _lane_step(lay, noise, hstate, *, kind, inv_bw, beta, pairwise,
 
 
 def batched_fused_sample(xa, xa_sq, tidx, src, noise, hstate=None, *, kind,
-                         inv_bw, beta, pairwise=None, block_size, num_blocks,
+                         inv_bw, beta, pairwise, block_size, num_blocks,
                          n, s, exact, level1="blocked", num_far=64,
                          precision="f32"):
     """One serving tick's depth-2 draws for R requests across T tenants in
@@ -1114,20 +1178,20 @@ def _lane_walk_cache(lay, cache_u, *, block_size, num_blocks, n, s):
             valid.transpose(1, 2).reshape(lay.r, -1), scale)
 
 
-def _lane_cached_sums(lay, cache, cur, *, kind, inv_bw, beta, block_size,
-                      num_blocks, s, precision):
+def _lane_cached_sums(lay, cache, cur, *, kind, inv_bw, beta, pairwise=None,
+                      block_size, num_blocks, s, precision):
     """``_cached_block_sums`` of every lane against its own cache."""
     xs, xs_sq, valid, scale = cache
     q = lay.x[lay.off[0] + cur].reshape(lay.r, lay.w, lay.d)
     kv = _lane_kv(q, xs, xs_sq, kind=kind, inv_bw=inv_bw, beta=beta,
-                  precision=precision) * valid[:, None, :]
+                  pairwise=pairwise, precision=precision) * valid[:, None, :]
     bs = kv.reshape(lay.r, lay.w, s, num_blocks).sum(2) * scale
     return _own_correct(bs.reshape(-1, num_blocks), cur, block_size,
                         num_blocks)
 
 
 def batched_walk_scan(xa, xa_sq, tidx, starts, noise, hstate=None, *, kind,
-                      inv_bw, beta, pairwise=None, block_size, num_blocks, n,
+                      inv_bw, beta, pairwise, block_size, num_blocks, n,
                       s, exact, rounds, slack, record_path=False,
                       level1="blocked", num_far=64, precision="f32"):
     """R independent walks (``starts`` (R, w)) across stacked tenants, one
@@ -1150,10 +1214,10 @@ def batched_walk_scan(xa, xa_sq, tidx, starts, noise, hstate=None, *, kind,
         views, off = lay.block_layout(wbs)
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
                              hstate)
-    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta)
-    cfg = dict(pairwise=pairwise, block_size=block_size,
-               num_blocks=num_blocks, n=n, s=s, exact=exact, level1=level1,
-               num_far=num_far, precision=precision, **l2)
+    l2 = dict(kind=kind, inv_bw=inv_bw, beta=beta, pairwise=pairwise)
+    cfg = dict(block_size=block_size, num_blocks=num_blocks, n=n, s=s,
+               exact=exact, level1=level1, num_far=num_far,
+               precision=precision, **l2)
     st = torch.zeros(r, dtype=torch.int64, device=xa.device)
     fb = torch.zeros(r, dtype=torch.int64, device=xa.device)
     path = []
@@ -1208,7 +1272,7 @@ def batched_walk_scan(xa, xa_sq, tidx, starts, noise, hstate=None, *, kind,
 
 
 def batched_prob_of(xa, xa_sq, tidx, src, dst, noise=None, hstate=None, *,
-                    kind, inv_bw, beta, pairwise=None, block_size,
+                    kind, inv_bw, beta, pairwise, block_size,
                     num_blocks, n, s, exact, level1="blocked", num_far=64,
                     precision="f32"):
     """q(dst | src) for R requests (``src`` / ``dst`` (R, w)) in one pass:
@@ -1224,7 +1288,7 @@ def batched_prob_of(xa, xa_sq, tidx, src, dst, noise=None, hstate=None, *,
         precision=precision)
     prob = _prob_core(lay.x, lay.x_sq, lay.views, lay.src,
                       dst.reshape(-1).to(xa.device, torch.int64), bs,
-                      kind=kind, inv_bw=inv_bw, beta=beta,
+                      kind=kind, inv_bw=inv_bw, beta=beta, pairwise=pairwise,
                       block_size=block_size, n=n, off=lay.off)
     wq = lay.w
     cols, far, ov = _l1_cols(level1, exact, num_blocks, s, n, num_far,
@@ -1236,7 +1300,7 @@ def batched_prob_of(xa, xa_sq, tidx, src, dst, noise=None, hstate=None, *,
 
 
 def batched_kde_query(xa, xa_sq, tidx, y, noise=None, *, kind, inv_bw, beta,
-                      pairwise=None, block_size, num_blocks, n, s, exact,
+                      pairwise, block_size, num_blocks, n, s, exact,
                       precision="f32"):
     """Definition 1.1 row-sum estimates for R query requests (``y`` (R, q,
     d) external points) in one pass: one tenant-axis blocksum launch
@@ -1248,7 +1312,12 @@ def batched_kde_query(xa, xa_sq, tidx, y, noise=None, *, kind, inv_bw, beta,
     lay = _Lanes(xa, xa_sq, tidx, torch.zeros((r, q), dtype=torch.int64),
                  block_size)
     yr = y.reshape(r * q, d)
-    if exact:
+    if exact and custom_kind(pairwise):
+        bs = _lane_exact_custom(lay, yr, kind=kind, inv_bw=inv_bw, beta=beta,
+                                pairwise=pairwise, block_size=block_size,
+                                precision=precision)
+        evals = q * n
+    elif exact:
         fn = _rk.blocksum_cuda if yr.is_cuda else _rk.blocksum_plain
         bs = tenant_launch(fn, yr, xa, lay.tidx_host.repeat_interleave(q),
                            kind=kind, inv_bw=inv_bw, beta=beta,

@@ -1,4 +1,4 @@
-"""Transformer building blocks of the dense LM (forward only): the port of
+"""Transformer building blocks of the dense LM: the port of
 ``repro.models.layers``.
 
 Weights keep the reference's layout, ``(in, out)``, and are applied as
@@ -70,8 +70,9 @@ def f32_accumulation():
 
 # ------------------------------------------------------------------ init
 def _param(t: torch.Tensor) -> nn.Parameter:
-    """A forward-only weight: no gradient (the training slice waits)."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable weight: it takes a gradient (the serving steps run under
+    ``torch.inference_mode`` and build no graph)."""
+    return nn.Parameter(t)
 
 
 def _dense_init(gen: torch.Generator, shape, scale=None) -> torch.Tensor:
@@ -121,12 +122,41 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> MLP:
 
 
 # ------------------------------------------------------------------ norms
-def rmsnorm(x, gain, eps):
-    """Forward of the reference's rmsnorm (its custom VJP is the training
-    slice's)."""
+def _rmsnorm_fwd_impl(x, gain, eps):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * gain).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's rmsnorm custom VJP: it saves (x, gain) and does the
+    gradient math in f32, and the returned x-cotangent is cast back to x's
+    dtype (in bf16 the backward residual stream stays bf16, as the
+    reference's does)."""
+
+    @staticmethod
+    def forward(ctx, x, gain, eps):
+        ctx.save_for_backward(x, gain)
+        ctx.eps = eps
+        return _rmsnorm_fwd_impl(x, gain, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gain = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + ctx.eps)
+        xhat = x32 * rstd
+        dgain = torch.sum(g32 * xhat, dim=tuple(range(x.dim() - 1)))
+        gg = g32 * gain
+        dx = rstd * (gg - xhat * torch.mean(gg * xhat, dim=-1, keepdim=True))
+        return dx.to(x.dtype), dgain.to(gain.dtype), None
+
+
+def rmsnorm(x, gain, eps):
+    """The reference's rmsnorm: f32 statistics, the result in x's dtype;
+    its backward is ``_RMSNorm``'s."""
+    return _RMSNorm.apply(x, gain, eps)
 
 
 # ------------------------------------------------------------------ rope

@@ -1,4 +1,4 @@
-"""Dense decoder-only model (forward only): the port of the dense branch of
+"""Dense decoder-only model: the port of the dense branch of
 ``repro.models.transformer``.
 
 The reference stacks every layer's parameters on a leading L axis and
@@ -54,7 +54,7 @@ class DenseLayer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense LM's parameters (forward only: none needs a gradient)."""
+    """The dense LM's parameters, each a trainable ``nn.Parameter``."""
 
     def __init__(self, cfg: ArchConfig, embed, layers, final_norm,
                  lm_head=None):
@@ -99,6 +99,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
                        head)
 
 
+def stacked_ndim(name: str, p: torch.Tensor) -> int:
+    """Dims of parameter ``name`` (``model.named_parameters()``) in the
+    reference's tree, which stacks every layer's parameters on a leading L
+    axis: one more than its own for a layer parameter.  The reference's
+    rules of "two or more dims" (``cast_params``, AdamW's weight decay)
+    read this: every layer parameter qualifies (its norm gains and QKV
+    biases too), of the rest embed and lm_head, never ``final_norm``."""
+    return p.dim() + name.startswith("layers.")
+
+
 def cast_params(model: Transformer, dtype: torch.dtype) -> Transformer:
     """The reference's ``cast_params``: a new model whose parameters of two
     or more dims in the reference's tree are in ``dtype``.  That tree
@@ -141,28 +151,58 @@ def _embed_inputs(model: Transformer, cfg: ArchConfig,
     return tok.to(L.dtype_of(cfg)), 0
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots"``: the
+    reference's ``checkpoint_dots_with_no_batch_dims`` saves the results of
+    the dot products without batch dimensions, which in the port are the
+    2-D weight products (``aten.mm`` / ``aten.addmm``); the attention
+    scores (``aten.bmm``, batched) and everything else are recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, x, remat_policy):
+    """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, all of them, or all but
+    the weight products with ``remat_policy="dots"`` (``_dots_policy``)."""
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
+            _dots_policy)
+    return ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
+
+
 def forward(model: Transformer, cfg: ArchConfig, batch, *,
             impl: str = "xla", remat: bool = True, seq_mixer: str = "chunked",
             remat_policy: Optional[str] = "none"
-            ) -> Tuple[torch.Tensor, float]:
-    """Prefill forward.  Returns (logits (b, s, V_pad), aux_loss = 0.0).
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train / prefill forward.  Returns (logits (b, s, V_pad), aux_loss),
+    aux_loss a 0 f32 scalar (the dense family has no MoE loss).
 
-    ``remat``, ``seq_mixer`` and ``remat_policy`` are the reference's
-    training and SSM options, placeholders here: accepted at the
-    reference's defaults (they change nothing in a dense forward without
-    gradients), refused otherwise."""
-    for name, value, default in (("remat", remat, True),
-                                 ("seq_mixer", seq_mixer, "chunked"),
-                                 ("remat_policy", remat_policy, "none")):
-        if value != default or type(value) is not type(default):
-            raise not_in_slice(f"forward({name}={value!r})", 12)
+    ``remat`` checkpoints each layer when a gradient is being taken (the
+    reference's ``jax.checkpoint`` of its scanned layer body):
+    ``remat_policy="dots"`` keeps the weight products (``_dots_policy``),
+    any other value recomputes the whole layer, as the reference reads it.
+    Under ``torch.no_grad`` / ``inference_mode`` there is nothing to
+    recompute and the layers run as they are.  ``seq_mixer`` is the SSM
+    families' option: a placeholder accepted at its default, refused
+    otherwise."""
+    if seq_mixer != "chunked":
+        raise not_in_slice(f"forward(seq_mixer={seq_mixer!r})", 12)
     x, _ = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    checkpointed = bool(remat) and torch.is_grad_enabled()
     with L.f32_accumulation():
         for layer in model.layers:
-            x = layer(cfg, x, positions, impl=impl)
+            def body(h, layer=layer):
+                return layer(cfg, h, positions, impl=impl)
+            x = _remat(body, x, remat_policy) if checkpointed else body(x)
         x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
-        return _logits(model, cfg, x), 0.0
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _logits(model, cfg, x), aux
 
 
 def _logits(model: Transformer, cfg: ArchConfig, x):

@@ -142,12 +142,24 @@ def test_flash_plain_strided_operands():
 
 
 def test_flash_raises_on_requires_grad():
-    q, k, v = (_t(a) for a in _qkv(1, 1, 2, 1, 8, 8, 8))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tfa.flash_attention(q, k, v)
+    """A flash input that needs a gradient no longer raises (the training
+    slice ported the reference's custom VJP): the gradients of sum(out)
+    through q, k and v equal ``jax.vjp`` of the reference's flash
+    (interpret mode) at rtol 2e-5 / atol 1e-6, and under ``no_grad`` the
+    same call returns the same out."""
+    arrays = _qkv(1, 1, 2, 1, 8, 8, 8)
+    q, k, v = (_t(a).requires_grad_(True) for a in arrays)
+    out = tfa.flash_attention(q, k, v)
+    got = torch.autograd.grad(out.sum(), (q, k, v))
+    _, vjp = jax.vjp(lambda a, b, c: _jflash(a, b, c, True, 128, 128, True,
+                                             False),
+                     *map(jnp.asarray, arrays))
+    want = vjp(jnp.ones(out.shape, jnp.float32))
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-5,
+                                   atol=1e-6)
     with torch.no_grad():
-        tfa.flash_attention(q, k, v)
+        assert torch.equal(tfa.flash_attention(q, k, v), out.detach())
 
 
 def test_flash_cuda_wrapper_rejects_cpu_tensors():

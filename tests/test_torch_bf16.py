@@ -624,7 +624,8 @@ def test_masked_block_sums_bf16_match_reference(read):
     tx = torch.as_tensor(x)
     got, w = tops.masked_block_sums(tx, (tx * tx).sum(-1),
                                     torch.as_tensor(src.astype(np.int64)),
-                                    noise, tstate, precision="bf16", **cfg)
+                                    noise, tstate, precision="bf16",
+                                    pairwise=None, **cfg)
     _close(got.numpy(), want)
     assert _word(w) == _word(rw)
 

@@ -298,13 +298,15 @@ def test_hashed_level1_read_with_the_copy_matches_reference(kind):
     tx = torch.as_tensor(x)
     got, w = tops.masked_block_sums(tx, (tx * tx).sum(-1),
                                     torch.as_tensor(src.astype(np.int64)),
-                                    off, est.state, precision="bf16", **cfg)
+                                    off, est.state, precision="bf16",
+                                    pairwise=None, **cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert _word(w) == _word(rw)
     f32_rows, _ = tops.masked_block_sums(
         tx, (tx * tx).sum(-1), torch.as_tensor(src.astype(np.int64)), off,
-        est.state._replace(x_bf16=None), precision="bf16", **cfg)
+        est.state._replace(x_bf16=None), precision="bf16",
+        pairwise=None, **cfg)
     assert torch.equal(got, f32_rows)
 
 

@@ -1423,8 +1423,8 @@ def test_stratified_fused_sample_on_the_card(cuda, kind):
     noise = sops.draw_sample_noise(w, nb, gen, "cpu", exact=False,
                                    block_size=bs)
     inv = 1.0 / (0.3 * d) if kind == "laplacian" else 1.0 / (0.5 * d ** 0.5)
-    cfg = dict(kind=kind, inv_bw=inv, beta=1.0, block_size=bs,
-               num_blocks=nb, n=n, s=16, exact=False)
+    cfg = dict(kind=kind, inv_bw=inv, beta=1.0, pairwise=None,
+               block_size=bs, num_blocks=nb, n=n, s=16, exact=False)
     want = sops.fused_sample(x, (x * x).sum(-1), src, *noise, **cfg)
     xc = x.to(cuda)
     got = sops.fused_sample(xc, (xc * xc).sum(-1), src.to(cuda),
@@ -1471,7 +1471,8 @@ def test_sample_exact_on_the_card(cuda):
     nb = -(-n // bs)
     x = torch.randn(n, d, generator=gen) * 0.5
     src = torch.randint(0, n, (w,), generator=gen)
-    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, block_size=bs, n=n)
+    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, pairwise=None,
+               block_size=bs, n=n)
     sums, _ = sops.masked_block_sums(
         x, (x * x).sum(-1), src, torch.rand((nb, bs), generator=gen),
         num_blocks=nb, s=16, exact=False, **cfg)
@@ -1551,9 +1552,9 @@ def test_graph_step_and_triangle_scan_on_the_card(cuda, read):
         states = {dev: hops.build_hash_state(x, gaussian(1.0), max_bucket=64,
                                              seed=11, device=dev)[0]
                   for dev in ("cpu", cuda)}
-    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, block_size=bs,
-               num_blocks=nb, n=n, s=16, exact=exact, level1=level1,
-               num_far=nf)
+    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, pairwise=None,
+               block_size=bs, num_blocks=nb, n=n, s=16, exact=exact,
+               level1=level1, num_far=nf)
     noise = sops.draw_walk_noise(1, w, nb, gen, "cpu", n=n, rounds=rounds,
                                  exact=exact, level1=level1, num_far=nf,
                                  block_size=bs, s=16)
@@ -1963,3 +1964,124 @@ def test_timer_fences_on_the_card(cuda, monkeypatch):
                           torch.ones(256, 256, device=cuda), 3))
     assert seen == [cuda.index or 0] and out[0].is_cuda
     assert t.wall_us >= t.dispatch_us > 0
+
+
+# ------------------------------------------------------------------ #
+# the training slice on the card
+#: (b, hq, hkv, s, dh): a ragged GQA shape and the train phase's head dim
+#: at 512 keys (granite-3-2b's heads)
+FLASH_GRAD_SHAPES = [(2, 4, 2, 77, 32), (1, 32, 8, 512, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradients_on_the_kernel_match_plain(cuda, shape, dtype):
+    """Gradients through the flash ``autograd.Function`` on the card (the
+    kernel's forward: one launch; the backward through ``attention_ref``)
+    against the same call on the CPU's plain path: out as the forward
+    tests hold it, dq / dk / dv at rtol 2e-4 / atol 1e-5 (f32).  In bf16
+    out and dq lie within one bf16 step; dk and dv within twice the plain
+    path's own bf16 error, max |plain - f32 path| (the f32 path: the same
+    gradients of the bf16 inputs taken in f32 and rounded once), since the
+    reference's VJP rounds each head's k / v gradient to bf16 before the
+    GQA group's sum (``repeat`` on bf16 k / v), so two f32 summation
+    orders may differ by a step a head."""
+    b, hq, hkv, s, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(s * 10 + dh)
+    q = _randn(gen, (b, hq, s, dh), cuda, dtype)
+    k = _randn(gen, (b, hkv, s, dh), cuda, dtype)
+    v = _randn(gen, (b, hkv, s, dh), cuda, dtype)
+    w = _randn(gen, (b, hq, s, dh), cuda)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        args = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
+        fk.reset_launches()
+        out = fops.flash_attention(*args, True)
+        grads = torch.autograd.grad((out.float() * w.to(dev)).sum(), args)
+        outs[dev.type] = (out.detach().cpu(), [g.cpu() for g in grads])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fk.LAUNCHES["flash_attention"] == 1
+    (got, gg), (want, wg) = outs["cuda"], outs["cpu"]
+    if dtype == torch.bfloat16:
+        args = [t.detach().cpu().float().requires_grad_() for t in (q, k, v)]
+        out32 = fops.flash_attention(*args, True)
+        # out's cotangent as the bf16 path sees it: w rounded to bf16
+        g32 = torch.autograd.grad(
+            (out32 * w.cpu().to(dtype).float()).sum(), args)
+    for i, (name, a, c) in enumerate([("out", got, want)] + list(zip(
+            ("dq", "dk", "dv"), gg, wg))):
+        assert a.dtype == dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, c, rtol=RTOL, atol=ATOL, msg=name)
+        elif name in ("out", "dq"):
+            assert_bf16_close(a, c, ATOL, name)
+        else:
+            own = float((c.float() - g32[i - 1]).abs().max())
+            diff = float((a.float() - c.float()).abs().max())
+            assert diff <= 2 * own + ATOL, (name, diff, own)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ``make_train_step(impl="flash")`` step of the reduced yi-6b on
+    the card against the same step on the CPU, from the same weights and
+    batch: 2 flash launches (remat: forward and recompute), loss and grad
+    norm at rtol 1e-5, and parameters within 10x the CPU's own xla-vs-flash
+    difference after the step (the train-step tests' rule)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(get_reduced("yi_6b"), dtype="float32")
+    batch = make_batch(cfg, ShapeConfig("t", 64, 2, "train"), 0)
+    adamw = topt.AdamWConfig(lr=1e-3, warmup_steps=1)
+
+    def run(dev, impl):
+        model = T.init_params(cfg, seed=0, device="cpu").to(dev)
+        step = make_train_step(cfg, adamw, impl=impl)
+        model, _, m = step(model, topt.init_adamw(model), batch)
+        return {k: p.detach().cpu() for k, p in model.named_parameters()}, m
+
+    fk.reset_launches()
+    got, m = run(cuda, "flash")
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    want, mw = run("cpu", "flash")
+    other, _ = run("cpu", "xla")
+    gap = max(float((want[k] - other[k]).abs().max()) for k in want)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m[key].cpu(), mw[key], rtol=1e-5, atol=0)
+    diff = max(float((got[k] - want[k]).abs().max()) for k in want)
+    assert diff <= 10 * max(gap, 1e-7), (diff, gap)
+
+
+@pytest.mark.cuda
+def test_custom_kind_sampler_on_the_card_launches_no_kernel(cuda):
+    """A custom kind's ``NeighborSampler`` (exact level 1) on the card
+    runs its ``pairwise`` closure: every kernel counter reads 0 after
+    sample / prob_of / a walk, and ``prob_of`` equals the CPU sampler's at
+    rtol 2e-4 (ROADMAP.md section 3)."""
+    def pairwise(a, b):
+        d2 = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2 * a @ b.T
+        return torch.exp(-torch.clamp(d2, min=0.0))
+
+    kern = dataclasses.replace(gaussian(1.0), name="mykind",
+                               pairwise=pairwise)
+    x = np.random.default_rng(0).standard_normal((256, 4)).astype(np.float32)
+    src = np.arange(0, 256, 8)
+    dst = (src * 7 + 3) % 256
+    want = NeighborSampler(x, kern, seed=0, exact_blocks=True,
+                           device="cpu").prob_of(src, dst)
+    nbr = NeighborSampler(x, kern, seed=0, exact_blocks=True, device=cuda)
+    for mod in (rk, sk, hk, fk):
+        mod.reset_launches()
+    nb, p = nbr.sample(src)
+    got = nbr.prob_of(src, dst)
+    nbr.walk(src, 2)
+    torch.cuda.synchronize()
+    counts = {**rk.LAUNCHES, **sk.LAUNCHES, **hk.LAUNCHES, **fk.LAUNCHES}
+    assert not any(counts.values()), counts
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    assert np.isfinite(p).all() and (nb != src).all()

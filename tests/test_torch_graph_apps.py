@@ -141,7 +141,7 @@ def test_triangle_edge_scan_matches_reference(cloud, read):
     tu, tv = torch.as_tensor(u), torch.as_tensor(v)
     uu, vv, w_hat, word = tops.triangle_edge_scan(
         tx, (tx * tx).sum(-1), tu, tv, torch.as_tensor(deg),
-        (l1, u_blk, u_in), tstate, **cfg)
+        (l1, u_blk, u_in), tstate, pairwise=None, **cfg)
     want = [(ju, jv, jw)]
     if exact:
         want.append(jref.triangle_batch_ref(

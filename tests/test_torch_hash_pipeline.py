@@ -113,7 +113,7 @@ def test_hash_edge_batch_matches_reference():
     *got, word = tops.fused_edge_batch(
         tx, (tx * tx).sum(-1), torch.as_tensor(cdf), torch.as_tensor(degs),
         1.0 / prefix[-1], 1e-3, *noise, hstate=tstate, s=16, exact=False,
-        **cfg)
+        pairwise=None, **cfg)
     for name, a, b in zip(("u", "v"), got[:2], want[:2]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
     for a, b in zip(got[2:], want[2:]):

@@ -80,7 +80,8 @@ def _models(arch):
 
 
 def _tensors(model):
-    return dict(model.named_parameters())
+    """The model's parameters by name, detached (they take gradients)."""
+    return {k: p.detach() for k, p in model.named_parameters()}
 
 
 def _bits(t):

@@ -88,7 +88,8 @@ def test_fused_edge_batch_matches_ref_oracle(kind):
     *got, word = tops.fused_edge_batch(
         tx, tx_sq, torch.as_tensor(g["cdf"]), torch.as_tensor(g["degs"]),
         1.0 / g["total"], 1.0 / 1000, *noise, kind=kind, inv_bw=g["inv_bw"],
-        beta=1.0, block_size=bs, num_blocks=nb, n=n, s=16, exact=True)
+        beta=1.0, block_size=bs, num_blocks=nb, n=n, s=16, exact=True,
+        pairwise=None)
     u, v, w, q_uv, q_vu = [a.numpy() for a in got]
     ru, rv, rw, rq_uv, rq_vu = [np.asarray(a) for a in want]
     np.testing.assert_array_equal(u, ru)
@@ -153,7 +154,7 @@ def test_masked_sums_and_prob_of_programs_match_reference():
         num_blocks=nb, s=bs, exact=True, **cfg)
     tsrc = torch.as_tensor(src.astype(np.int64))
     bsum, w = tops.masked_block_sums(tx, tx_sq, tsrc, num_blocks=nb, s=bs,
-                                     exact=True, **cfg)
+                                     exact=True, pairwise=None, **cfg)
     np.testing.assert_allclose(bsum.numpy(), np.asarray(rbs), rtol=RTOL,
                                atol=1e-5)
     assert w.tolist() == np.asarray(rw).astype(np.int64).tolist()

@@ -303,8 +303,8 @@ def test_batched_query_is_the_single_program(read):
     noises = None if exact else [
         torch.rand((cfg["num_blocks"], BS), generator=g)
         for g in _gens(range(40, 45))]
-    keys = ("kind", "inv_bw", "beta", "block_size", "num_blocks", "n", "s",
-            "exact", "precision")
+    keys = ("kind", "inv_bw", "beta", "pairwise", "block_size",
+            "num_blocks", "n", "s", "exact", "precision")
     est, cw = tops.batched_kde_query(
         xa, xa_sq, TIDX, y, None if exact else _stack(noises),
         **{k: cfg[k] for k in keys})
@@ -420,8 +420,8 @@ def test_batched_kde_query_against_the_reference(read):
     cfg, jcfg = tn[0]._cfg, jn[0]._cfg
     y = np.stack([_data(f"rq{r}", 0.3 * t, n=8)
                   for r, t in enumerate(TIDX)])
-    qk = ("kind", "inv_bw", "beta", "block_size", "num_blocks", "n", "s",
-          "exact", "precision")
+    qk = ("kind", "inv_bw", "beta", "pairwise", "block_size", "num_blocks",
+          "n", "s", "exact", "precision")
     noise = None if read == "exact" else _stack(
         [torch.rand((cfg["num_blocks"], BS), generator=g)
          for g in _gens(range(5))])
@@ -429,7 +429,7 @@ def test_batched_kde_query_against_the_reference(read):
                                      noise, **{k: cfg[k] for k in qk})
     jest, jw = jops.batched_kde_query(
         jxa, jxa_sq, TIDX, y, _jkeys(range(5)),
-        **{k: jcfg[k] for k in qk + ("pairwise",)})
+        **{k: jcfg[k] for k in qk})
     _words_equal(cw, jw)
     if read == "exact":
         np.testing.assert_allclose(est.numpy(), np.asarray(jest),

@@ -51,7 +51,8 @@ from repro_torch.kernels.kde_hash.ref import rowwise_kv
 from repro_torch.kernels.kde_sampler.ref import (exp_table_on,
                                                  kv_block_sums_bf16)
 from repro_torch.models.transformer import forward, init_cache, init_params
-from repro_torch.train.train_step import make_prefill_step
+from repro_torch.ckpt.checkpoint import restore as ckpt_restore
+from repro_torch.train.train_step import make_prefill_step, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -137,6 +138,20 @@ ENTRY_POINTS = [
     ("ft.chaos", "run_all"),
     ("launch.serve", "run_graph_stream"),
     ("launch.serve", "run_multi_tenant"),
+    ("train.train_step", "cross_entropy"),
+    ("train.train_step", "loss_fn"),
+    ("train.train_step", "make_train_step"),
+    ("train.optimizer", "AdamWConfig"),
+    ("train.optimizer", "init_adamw"),
+    ("train.optimizer", "adamw_update"),
+    ("train.optimizer", "global_norm"),
+    ("train.optimizer", "compress"),
+    ("train.optimizer", "decompress"),
+    ("train.optimizer", "compressed_psum"),
+    ("ckpt.checkpoint", "save"),
+    ("ckpt.checkpoint", "restore"),
+    ("ckpt.checkpoint", "latest_step"),
+    ("launch.train", "main"),
 ]
 
 
@@ -168,8 +183,10 @@ NOISE_PROGRAMS = [("kernels.kde_sampler.ops", n) for n in (
     "batched_fused_sample", "batched_walk_scan", "batched_prob_of",
     "batched_kde_query")] + [("kernels.kde_hash.ops", "batched_hashed_query")]
 #: the reference's implementation switches, which the noise programs drop:
-#: the port chooses the kernel by the tensor's device and sizes its tiles
-SWITCHES = ("pairwise", "use_pallas", "interpret", "bm")
+#: the port chooses the kernel by the tensor's device and sizes its tiles.
+#: ``pairwise`` is not one: it is a custom kernel's function, a required
+#: keyword of every noise program (ROADMAP.md section 3, F3)
+SWITCHES = ("use_pallas", "interpret", "bm")
 #: keywords a program reads off its explicit noise instead
 NOISE_SHAPED = {"fused_edge_batch": ("batch",)}
 
@@ -199,7 +216,9 @@ def test_noise_programs_take_the_reference_keywords(module, name):
 #: default: the implementation switches are None in the port
 #: (``device.no_switch``: the device chooses), and ``pairwise`` (the
 #: reference's jnp pair function, required there) is an optional argument
-#: of the port's programs
+#: of the port's helper programs (``hashed_query``,
+#: ``sample_from_block_sums``, ...); the noise programs require it, as the
+#: reference does (``test_noise_programs_take_the_reference_keywords``)
 DEFAULT_EXCEPTIONS = {("use_pallas", None), ("interpret", None),
                       ("pairwise", None)}
 
@@ -226,6 +245,10 @@ def _same_default(ref, port):
         return True
     if isinstance(port, torch.dtype):
         return np.dtype(ref).name == str(port).removeprefix("torch.")
+    if dataclasses.is_dataclass(ref) and dataclasses.is_dataclass(port):
+        # ``make_train_step(adamw=AdamWConfig())``: each package's class
+        return type(ref).__name__ == type(port).__name__ \
+            and dataclasses.asdict(ref) == dataclasses.asdict(port)
     try:
         return bool(ref == port)
     except (TypeError, ValueError):
@@ -280,12 +303,13 @@ def test_hashed_level1_read_counts_as_the_reference_by_default():
     import jax
     x = np.random.default_rng(0).normal(size=(1024, 4)).astype(np.float32)
     src = np.arange(0, 1024, 64)
-    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, block_size=32,
-               num_blocks=32, n=1024, s=16, exact=False, level1="hash")
+    cfg = dict(kind="gaussian", inv_bw=1.0, beta=1.0, pairwise=None,
+               block_size=32, num_blocks=32, n=1024, s=16, exact=False,
+               level1="hash")
     jstate, _ = jhops.build_hash_state(x, jgaussian(1.0), seed=0)
     _, jword = jops.masked_block_sums(
         jnp.asarray(x), None, jnp.asarray(src.astype(np.int32)),
-        jax.random.PRNGKey(0), jstate, pairwise=None, **cfg)
+        jax.random.PRNGKey(0), jstate, **cfg)
     tstate, _ = thops.build_hash_state(x, gaussian(1.0), seed=0,
                                        device="cpu")
     noise, _, _ = tops.draw_sample_noise(
@@ -400,11 +424,13 @@ PLACEHOLDERS = {
     "init_cache.enc_len": (
         lambda: init_cache(CFG, 1, 8, torch.float32, 4,
                            device="cpu"), NotImplementedError),
-    "forward.remat": (lambda: _forward(remat=False), NotImplementedError),
     "forward.seq_mixer": (lambda: _forward(seq_mixer="scan"),
                           NotImplementedError),
-    "forward.remat_policy": (lambda: _forward(remat_policy="dots"),
-                             NotImplementedError),
+    "make_train_step.seq_mixer": (
+        lambda: make_train_step(CFG, seq_mixer="scan"), NotImplementedError),
+    "restore.shardings": (
+        lambda: ckpt_restore("/nonexistent", None, 1, {}),
+        NotImplementedError),
     "make_prefill_step.seq_mixer": (
         lambda: make_prefill_step(CFG, seq_mixer="scan"),
         NotImplementedError),
@@ -412,6 +438,50 @@ PLACEHOLDERS = {
         lambda: kv_block_sums_bf16(_t(_x()), _t(_x()), "gaussian", 1.0, 1.0,
                                    16, 0), ValueError),
 }
+
+
+#: former placeholders the training slice ported: (keywords, the
+#: reference's keywords) of one ``forward`` call each
+FORMER_PLACEHOLDERS = {
+    "forward.remat": dict(remat=False),
+    "forward.remat_policy": dict(remat=True, remat_policy="dots"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORMER_PLACEHOLDERS))
+def test_former_placeholder_matches_the_reference(case):
+    """``forward(remat=False)`` and ``forward(remat_policy="dots")`` no
+    longer refuse: the logits equal the reference's ``forward`` with the
+    same keywords (the reference's own weights, rtol 1e-5 of the largest
+    logit), under ``torch.enable_grad`` so the checkpointed path runs."""
+    import jax
+    from repro.configs.base import get_reduced as jreduced
+    from repro.models import transformer as JT
+    from repro_torch import convert
+    kw = FORMER_PLACEHOLDERS[case]
+    jc = dataclasses.replace(jreduced("yi_6b"), dtype="float32")
+    params = JT.init_params(jax.random.PRNGKey(0), jc)
+    model = convert.params_from_reference(jax.tree.map(np.asarray, params),
+                                          CFG, device="cpu")
+    toks = np.random.default_rng(0).integers(0, CFG.vocab_size, (1, 8))
+    want = np.asarray(JT.forward(params, jc, {"tokens": jnp.asarray(toks)},
+                                 **kw)[0])
+    with torch.enable_grad():
+        got = forward(model, CFG, {"tokens": toks}, **kw)[0]
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_forward_keeps_the_reference_keywords():
+    """``forward``'s parameters after the first (the reference's
+    ``params``, the port's ``model``: the module note's swap) are the
+    reference's, with its kinds and defaults."""
+    from repro.models import transformer as JT
+    ref = list(inspect.signature(JT.forward).parameters.values())[1:]
+    port = list(inspect.signature(forward).parameters.values())[1:]
+    assert [(p.name, p.kind, p.default) for p in port[:len(ref)]] == \
+        [(p.name, p.kind, p.default) for p in ref]
 
 
 @pytest.mark.parametrize("case", sorted(PLACEHOLDERS))

@@ -138,7 +138,7 @@ def test_masked_stratified_sums_match_reference(kind, layout):
                                      pairwise=None, s=S, exact=False, **cfg)
     bs, w = tops.masked_block_sums(
         tx, tx_sq, _t(src, torch.int64), _u(key, (cfg["num_blocks"], BS)),
-        s=S, exact=False, **cfg)
+        s=S, exact=False, pairwise=None, **cfg)
     np.testing.assert_allclose(bs.numpy(), np.asarray(rbs), rtol=RTOL,
                                atol=1e-5)
     assert _word(w) == _word(rw)
@@ -161,7 +161,8 @@ def test_stratified_fused_sample_matches_reference(kind):
         use_pallas=False, interpret=False, bm=128, **cfg)
     noise = _step_noise(key, w, cfg["num_blocks"], BS)
     nb, p, bs, word = tops.fused_sample(tx, tx_sq, _t(src, torch.int64),
-                                        *noise, s=S, exact=False, **cfg)
+                                        *noise, s=S, exact=False,
+                                        pairwise=None, **cfg)
     keep = ~_near_tie(rbs, noise[1].numpy())
     assert keep.sum() > w - 3
     np.testing.assert_array_equal(nb.numpy()[keep], np.asarray(rnb)[keep])
@@ -197,7 +198,7 @@ def test_stratified_fused_edge_batch_matches_reference(kind):
     *got, word = tops.fused_edge_batch(
         tx, tx_sq, torch.as_tensor(cdf), torch.as_tensor(degs),
         1.0 / prefix[-1], 1e-3, _u(k_u, (batch,)), *noise, s=S, exact=False,
-        **cfg)
+        pairwise=None, **cfg)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     # the forward step's block draw reads the sums of the u frontier
     rbs, _ = jops.masked_block_sums(xj, xj_sq, want[0], jax.random.split(

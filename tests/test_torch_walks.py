@@ -243,7 +243,7 @@ def test_walk_scan_matches_reference(case):
     args = (tx, (tx * tx).sum(-1), torch.as_tensor(starts),
             (cache_u, steps), tstate)
     t_end, t_path, t_word, t_fb = tops.walk_scan(*args, record_path=True,
-                                                 **cfg)
+                                                 pairwise=None, **cfg)
     if exact and not rounds:
         end, path = _gumbel_walk_oracle(xj, starts, keys, bs=bs, n=n)
     np.testing.assert_array_equal(t_path.numpy(), np.asarray(path))
@@ -252,7 +252,7 @@ def test_walk_scan_matches_reference(case):
                                   np.asarray(word).astype(np.int64))
     assert int(t_fb) == int(fb) == int(t_word[4])
     t_end2, no_path, t_word2, _ = tops.walk_scan(*args, record_path=False,
-                                                 **cfg)
+                                                 pairwise=None, **cfg)
     assert no_path is None
     np.testing.assert_array_equal(t_end2.numpy(), t_end.numpy())
     np.testing.assert_array_equal(t_word2.numpy(), t_word.numpy())
@@ -388,7 +388,7 @@ def test_walk_scan_reads_nothing_on_the_host(case, monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, refuse)
     end, path, word, fb = tops.walk_scan(x, (x * x).sum(-1), starts, noise,
                                          state, rounds=rounds, slack=2.0,
-                                         **cfg)
+                                         pairwise=None, **cfg)
     monkeypatch.undo()
     assert path.shape == (T_STEPS, W) and torch.equal(path[-1], end)
     assert int(word[4]) == int(fb)
