@@ -368,13 +368,42 @@ Phases (any failure exits non-zero; no phase catches and continues):
                card exits 17, the rerun exits 0 "resumed from step 2", and
                its losses equal an unbroken run's at rtol 1e-6.  Prints
                ``memory_allocated`` at the start and each part's peak.
-17. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+17. families -- the non-dense LM families (``phase_families``), one
+               config at a time, each freed before the next, at full width
+               and depth in f32 with random weights drawn on the card from
+               seed 0: granite-moe-1b-a400m, qwen3-moe-235b-a22b **cut to
+               its first 4 of 94 layers** (45 GB), rwkv6-3b, zamba2-7b,
+               seamless-m4t-medium, internvl2-1b (parameters beside
+               ``param_count()``, peak memory).  (a) the flash prefill
+               against xla on one ``make_batch`` batch of 4 x 512 (the
+               frontend configs: 128 embeddings + 384 tokens): exactly
+               24 / 4 / 0 / 14 / 12 / 24 flash launches; last-position
+               logits within 1e-3 x max |logit|, the same argmax -- for
+               MoE only when no (row, position, layer) router top-k set
+               differs between the two runs (a tap on ``layers._top_k``),
+               and at most 1% may.  (b) ``launch.serve.run_lm`` at batch
+               4, **prompt cut to 256** (64 embeddings + 192 tokens for
+               the frontend configs), gen 16, xla then kde (top_p 4, bk
+               32, stride 4): finite logits, exactly (attention layers or
+               shared-block applications) x (prompt tokens + 15)
+               kde_decode launches, the kde_attention kernel path against
+               its plain pipeline on the final cache's first and last
+               attention layer, rwkv6's replay against the forward's scan
+               over the same prompts within 1e-3 x max |logit| (the
+               chunked forward's gap from the scan printed: the
+               reference's one-sided -30 clamp); decode tok/s, a busy /
+               idle split of 4 decode steps of each attention and the
+               kde-vs-xla first-step logit correlation printed.
+18. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
                the graph phase's paths, ``graph_launches``, on the
                streaming and estimator paths, ``stream_launches``, on the
-               serve paths, ``serve_launches``, and the two flash rows on
-               the training paths, ``train_launches``; the bf16 flash row
-               with ``max_bf16_steps`` from its plain version), the card
-               line from nvidia-smi, and a last line ``{"ok": true,
+               serve paths, ``serve_launches``, the two flash rows on
+               the training paths, ``train_launches``, and the f32 flash
+               and kde_decode rows on the family phase's, by arch,
+               ``family_launches``, with their device ms at each family's
+               shape beside its bound, ``family_shapes``; the bf16 flash
+               row with ``max_bf16_steps`` from its plain version), the
+               card line from nvidia-smi, and a last line ``{"ok": true,
                "device": ...}``.
 
 Phase 2 also holds the two LM kernels against their plain versions
@@ -392,7 +421,11 @@ bench_attention's planted keys) and at a 131072-key cache at the serve
 settings; its bf16 instance (q, k, v in bf16) at the serve shape, at S =
 32768 and at the long_500k shape, each bitwise the f32 instance on the
 upcast inputs (out rounded to bf16, est equal) and against the plain
-pipeline (est at rtol 2e-4 / atol 1e-5, out within one bf16 step).  The
+pipeline (est at rtol 2e-4 / atol 1e-5, out within one bf16 step); and
+both kernels at the family phase's shapes (``family_kernel_checks``: flash
+f32 / bf16 at (4, hq, hkv, 512, 512, dh) and the decode kernel at (4, hq,
+hkv, 544, dh) over kv_valid 1 / 399 / 527 / 544, for head dim 112 at group
+1, group 7, group 16 at head dim 128, 16 / 16 and 16 / 8 heads).  The
 decode plan picks a kernel by shape (``kernel.decode_grid``): the cluster
 kernel at the serve shape (16 (batch, kv-head) groups: 128 CTAs), the
 spread kernel (every SM: 132 CTAs on the H100) at batch 1; each bf16 row
@@ -422,7 +455,8 @@ reads after a journal gap) and report them under ``stream_launches``, and
 every f32 KDE kernel and both bf16 weighted kernels must have been
 launched there; phase 15 does the same around each timed serving tick and
 CLI run (``serve_launches``); phase 16 around each loss-and-gradient
-call and each run of train steps (``train_launches``).
+call and each run of train steps (``train_launches``); phase 17 around
+each family's flash prefill and kde serve run (``family_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -625,6 +659,23 @@ TRAIN_GRAD_REL = 1e-3        # a layer's wq/wk/wv/wo grads: max |diff| <=
 TRAIN_BF16_REL = 1e-2        # bf16 step-1 loss vs the f32 loss, relative
 TRAIN_CLI = ["--arch", "granite_3_2b", "--reduced", "--steps", "6",
              "--ckpt-every", "2", "--log-every", "1"]
+# phase 17: the non-dense families served at full width (qwen3-moe cut to
+# its first 4 of 94 layers: 45 GB of f32 weights), one at a time, each at
+# the lm-serve shape (batch 4, prompt 512, gen 16; the frontend configs
+# split the 512 into 128 embeddings and 384 tokens)
+FAMILY_ARCHS = ("granite_moe_1b_a400m", "qwen3_moe_235b_a22b", "rwkv6_3b",
+                "zamba2_7b", "seamless_m4t_medium", "internvl2_1b")
+FAMILY_CUTS = {"qwen3_moe_235b_a22b": {"num_layers": 4}}
+# flash launches of one prefill = the causal self-attention layers (the
+# hybrid's 14 shared-block applications; none in rwkv6)
+FAMILY_FLASH = {"granite_moe_1b_a400m": 24, "qwen3_moe_235b_a22b": 4,
+                "rwkv6_3b": 0, "zamba2_7b": 14, "seamless_m4t_medium": 12,
+                "internvl2_1b": 24}
+FAMILY_FLIP_SHARE = 0.01    # MoE: top-k sets differing flash vs xla, at most
+# the serve runs' prompt cut from lm-serve's 512 to 256 (the frontend
+# configs: 64 embeddings + 192 tokens): the teacher-forced replay is
+# host-bound, 2-4 ms a layer a step, and at 512 the phase took ~7 minutes
+FAMILY_SERVE_ARGS = ["--batch", "4", "--prompt-len", "256", "--gen", "16"]
 
 
 def log(*a):
@@ -1777,6 +1828,8 @@ def phase_lm_kernels(gen):
         del q, k, v, q32, k32, v32
         free_cuda()
     rows.append(row)
+    family_kernel_checks(rows, flash_check, decode_check, decode_inputs,
+                         qkv, steps)
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
         log(f"[kernels] {r['name']} main {r['shape']}: max_abs_err "
@@ -1787,6 +1840,81 @@ def phase_lm_kernels(gen):
     log("[kernels] kde_decode library_ms null: no PyTorch call computes "
         "KDE block selection with attention over the selected blocks")
     return rows
+
+
+def family_heads():
+    """(arch, hq, hkv, dh) of every family phase's config with attention."""
+    from repro_torch.configs.base import get_config
+    out = []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        if not cfg.attention_free:
+            out.append((arch, cfg.num_heads, cfg.num_kv_heads, cfg.hd))
+    return out
+
+
+def family_kernel_checks(rows, flash_check, decode_check, decode_inputs,
+                         qkv, steps) -> None:
+    """Phase 2 at the family phase's attention shapes, before phase 17
+    runs them: the flash kernel (f32 and bf16 operands) at each family's
+    prefill, (4, hq, hkv, 512, 512, dh), and the fused KDE decode kernel at
+    its serve shape, (4, hq, hkv, 544, dh), bk 32, stride 4, top_p 4, over
+    kv_valid 1 / 399 / 527 / 544, each against its plain version; each
+    shape's device ms beside its bound goes into the f32 rows'
+    ``family_shapes``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.kde_attention import kernel as kk
+    by_name = {r["name"]: r for r in rows}
+    for r in ("flash_attention", "kde_decode"):
+        by_name[r]["family_shapes"] = {}
+    for arch, hq, hkv, dh in family_heads():
+        shape = (4, hq, hkv, 512, 512, dh)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{arch} {str(dtype)[6:]}"
+            q, k, v = qkv(*shape, dtype=dtype)
+            e, inst = flash_check(q, k, v, 128, 128, tag)
+            extra = (f", max bf16 steps {steps[tag]}"
+                     if dtype == torch.bfloat16 else "")
+            log(f"[kernels] flash {arch} prefill shape {shape} "
+                f"{str(dtype)[6:]} [{inst}]: max_abs_err {e:.3e}{extra}")
+        q, k, v = qkv(*shape)
+        kp, vp, kw = fops.flash_args(q, k, v)
+        b, s = shape[0], shape[3]
+        b_ms, b_by = bound(4 * b * hq * dh * s * s / 2,
+                           4 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh
+                                + b * hq * s))
+        dms = kernel_device_ms(lambda: fk.flash_attention_cuda(
+            q, kp, vp, **kw), fk.BODIES[torch.float32][1], 10)
+        by_name["flash_attention"]["family_shapes"][arch] = dict(
+            shape=f"b={b} hq={hq} hkv={hkv} s={s} dh={dh} f32",
+            device_ms=dms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[kernels] flash {arch} f32 prefill shape: device {dms} ms, "
+            f"bound {b_ms:.5f} by {b_by}")
+        del q, k, v, kp, vp
+        q, k, v = decode_inputs(4, hq, hkv, 544, dh)
+        for kv_valid in (1, 399, 527, 544):
+            kw = dict(top_p=KDE_SERVE_TOP_P, bk=32, stride=4,
+                      kv_valid=kv_valid)
+            e = decode_check(q, k, v, kw, f"{arch} kv={kv_valid}")
+        kw["kv_valid"] = 527
+        grid = kk.decode_grid(q, k, v, top_p=KDE_SERVE_TOP_P, bk=32,
+                              stride=4)
+        b_ms, b_by = decode_bound(q, k, kw, kk.kde_decode_plain(
+            q, k, v, with_est=True, **kw)[1])
+        dms = kernel_device_ms(lambda: kk.kde_decode_cuda(q, k, v, **kw),
+                               KDE_KERNELS, 100)
+        by_name["kde_decode"]["family_shapes"][arch] = dict(
+            shape=f"b=4 hq={hq} hkv={hkv} S=544 dh={dh} bk=32 stride=4 "
+                  f"top_p={KDE_SERVE_TOP_P} kv_valid=527 ({grid_text(grid)})",
+            device_ms=dms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[kernels] kde_decode {arch} serve shape (4, {hq}, {hkv}, 544, "
+            f"{dh}), {grid_text(grid)}: kernel = plain pipeline over "
+            f"kv_valid 1 / 399 / 527 / 544 (max_abs_err {e:.3e}); device "
+            f"{dms} ms a launch at kv_valid 527, bound {b_ms:.5f} by {b_by}")
+        del q, k, v
+        free_cuda()
 
 
 def planted_keys(q, hkv, s, gen):
@@ -5361,6 +5489,231 @@ def phase_train():
     return launches, rows, secs, errs
 
 
+# phase 17: the non-dense LM families
+# --------------------------------------------------------------------- #
+def router_taps():
+    """A tap on ``layers._top_k`` recording every MoE router's top-k
+    indices (one (b, s, k) tensor a layer, in call order); returns (the
+    list, a function restoring the original)."""
+    from repro_torch.models import layers as L
+    orig = L._top_k
+    calls = []
+
+    def tapped(logits, k):
+        vals, idx = orig(logits, k)
+        calls.append(idx.clone())
+        return vals, idx
+
+    L._top_k = tapped
+    return calls, lambda: setattr(L, "_top_k", orig)
+
+
+def router_flips(a, b) -> tuple:
+    """(differing, total) (row, position, layer) top-k sets between two
+    runs' router taps."""
+    import torch
+    assert len(a) == len(b), (len(a), len(b))
+    diff = total = 0
+    for x, y in zip(a, b):
+        same = (torch.sort(x, -1).values == torch.sort(y, -1).values).all(-1)
+        diff += int((~same).sum())
+        total += same.numel()
+    return diff, total
+
+
+def family_prefill(cfg, model, batch):
+    """(a): ``make_prefill_step(impl="flash")`` against ``impl="xla"``:
+    exactly FAMILY_FLASH flash launches; the MoE router's top-k sets
+    compared (at most FAMILY_FLIP_SHARE differ; the logits gate only when
+    none do); else last-position logits within LM_LOGIT_REL of max |logit|
+    over the real vocab, the same argmax.  Returns (flash launches,
+    seconds flash / xla, the log text)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.train.train_step import make_prefill_step
+    taps = {}
+    out = {}
+    walls = {}
+    launches = None
+    for impl in ("flash", "xla"):
+        calls, restore = router_taps()
+        fk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out[impl] = make_prefill_step(cfg, impl=impl)(model, batch)[:, -1]
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        walls[impl] = time.perf_counter() - t0
+        taps[impl] = calls
+        if impl == "flash":
+            launches = fk.LAUNCHES["flash_attention"]
+    want = FAMILY_FLASH[cfg.name]
+    assert launches == want, (cfg.name, launches, want)
+    text = ""
+    if cfg.is_moe:
+        diff, total = router_flips(taps["flash"], taps["xla"])
+        assert len(taps["flash"]) == cfg.num_layers
+        text = (f"router top-k sets differing flash vs xla: {diff} of "
+                f"{total} (row, position, layer) decisions (bound "
+                f"{FAMILY_FLIP_SHARE:.0%}); ")
+        assert diff <= FAMILY_FLIP_SHARE * total, (cfg.name, diff, total)
+        if diff:
+            return launches, walls, text + (
+                "logits gate not applied (a flipped expert moves the "
+                "logits)")
+    return launches, walls, text + "last-position logits " + \
+        logit_check(out["flash"], out["xla"], cfg.vocab_size,
+                    f"{cfg.name} prefill flash vs xla")
+
+
+def family_serve(cfg, model, gen):
+    """(b): ``launch.serve.run_lm`` xla then kde (the CLI's KDE defaults)
+    at ``FAMILY_SERVE_ARGS``: finite logits; exactly (attention layers or
+    applications) x (prompt tokens + gen - 1) kde_decode launches; on the
+    final kde cache the kde_attention kernel path against its plain
+    pipeline on the first and last attention layer; rwkv6: the replay's
+    last prompt step (the scan, a step at a time) against the forward's
+    scan over the same prompts within LM_LOGIT_REL, and the chunked
+    forward's gap from the scan reported (the reference's chunked form
+    clamps its log decays one-sidedly at -30: ROADMAP.md section 3); a
+    torch.profiler busy / idle split of 4 decode steps of each attention.
+    Returns (kde_decode launches, decode tok/s by attention, the log
+    lines)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.kde_attention import kernel as kk
+    from repro_torch.kernels.kde_attention import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.train.train_step import make_prefill_step
+    lines, res, toks = [], {}, {}
+    for att in ("xla", "kde"):
+        args = serve.parser().parse_args(
+            ["--arch", cfg.name] + FAMILY_SERVE_ARGS + ["--attention", att])
+        kk.reset_launches()
+        res[att] = serve.run_lm(args, model=model)
+        if att == "kde":
+            launches = kk.LAUNCHES["kde_decode"]
+        r = res[att]
+        v = cfg.vocab_size
+        for key in ("prompt_logits", "first_decode_logits"):
+            assert bool(torch.isfinite(r[key][:, :v]).all()), (cfg.name, att,
+                                                                key)
+        assert ((r["tokens"] >= 0) & (r["tokens"] < v)).all()
+        toks[att] = args.gen * args.batch / r["decode_s"]
+        lines.append(f"{att}: prompt {r['prompt_tokens']} tokens replayed "
+                     f"in {r['prefill_s']:.3f} s, decode {r['decode_s']:.3f} "
+                     f"s ({toks[att]:.1f} tok/s), logits finite")
+        if att == "xla":
+            if cfg.attention_free:
+                sb = make_batch(cfg, ShapeConfig(
+                    "serve", args.prompt_len, args.batch, "prefill"), 0,
+                    args.seed)
+                scan = make_prefill_step(cfg, seq_mixer="scan")(model, sb)
+                chunked = make_prefill_step(cfg)(model, sb)
+                lines.append(
+                    "replay's last prompt step vs the forward's scan: "
+                    + logit_check(r["prompt_logits"], scan[:, -1], v,
+                                  f"{cfg.name} replay vs scan forward")
+                    + "; the chunked forward vs the scan: max |diff| "
+                    f"{float((chunked - scan)[..., :v].abs().max()):.3e} "
+                    "(reported, not gated: the reference's clamp)")
+            del r["cache"]
+            free_cuda()
+    steps = res["kde"]["prompt_tokens"] + 15
+    cache = res["kde"]["cache"]
+    apps = 0 if cfg.attention_free else len(cache["k"])
+    assert launches == apps * steps, (cfg.name, launches, apps, steps)
+    if apps:
+        kcfg = dict(top_p=KDE_SERVE_TOP_P, bk=32, stride=4, kv_valid=steps)
+        for layer in sorted({0, apps - 1}):
+            ck, cv = cache["k"][layer], cache["v"][layer]
+            q = torch.randn((ck.shape[0], cfg.num_heads, cfg.hd),
+                            generator=gen, device=ck.device)
+            e = close(kops.kde_attention(q, ck, cv, **kcfg),
+                      kops.kde_attention_ref(q, ck, cv, **kcfg),
+                      f"{cfg.name} kde_attention layer {layer}")
+            lines.append(f"kde final cache, attention {layer}: kernel path "
+                         f"vs plain pipeline max_abs_err {e:.3e}")
+    # where a decode step's time goes: 4 steps past the run's last
+    # position on its cache, each attention once
+    from repro_torch.train.train_step import make_decode_step
+    cur = torch.as_tensor(res["kde"]["tokens"][:, -1:],
+                          device=model.embed.device)
+    kcfg = dict(top_p=KDE_SERVE_TOP_P, bk=32, stride=4)
+    for att in ("xla", "kde"):
+        step = make_decode_step(cfg, impl=att, kde_cfg=kcfg)
+
+        def steps4():
+            for pos in range(steps, steps + 4):
+                step(model, cache, cur, pos)
+
+        lines.append(f"4 {att} decode steps (batch 4, cache "
+                     f"{res['kde']['max_len']}), where the time goes: "
+                     + profile_text(*device_profile(steps4)))
+    a = res["xla"]["first_decode_logits"][:, :cfg.vocab_size].double()
+    k = res["kde"]["first_decode_logits"][:, :cfg.vocab_size].double()
+    corr = float(np.mean([np.corrcoef(x1, x2)[0, 1] for x1, x2 in
+                          zip(a.cpu().numpy(), k.cpu().numpy())]))
+    lines.append(f"kde: {launches} kde_decode launches = {apps} x {steps} "
+                 f"steps; first decode step's logits, Pearson correlation "
+                 f"kde vs xla {corr:.6f} (reported, not gated)")
+    return launches, toks, lines
+
+
+def phase_families(gen):
+    """Phase 17: each non-dense family at full width (``FAMILY_CUTS``: the
+    listed depth cut), f32, random weights drawn on the card from seed 0,
+    one config at a time, each freed before the next: (a)
+    ``family_prefill`` on one ``make_batch`` batch of 4 x 512 (the
+    frontend split of ``token_split``), (b) ``family_serve`` at
+    ``FAMILY_SERVE_ARGS``.  Returns
+    (flash launches by arch, kde_decode launches by arch, seconds by
+    arch)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch, token_split
+    from repro_torch.models import transformer as T
+    flash, kde, secs = {}, {}, {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  **FAMILY_CUTS.get(arch, {}))
+        torch.cuda.reset_peak_memory_stats()
+        model = T.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        cut = FAMILY_CUTS.get(arch)
+        log(f"[families] {arch} ({cfg.family}) f32 random init on the card"
+            f"{f', cut to {cut}' if cut else ''}: {n_params} parameters "
+            f"(cfg.param_count() {cfg.param_count()}; the port counts the "
+            f"padded vocab rows and the final norms), "
+            f"{4 * n_params / 1e9:.2f} GB, memory_allocated "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+            f"{time.perf_counter() - t0:.2f} s")
+        shape = ShapeConfig("serve", 512, 4, "prefill")
+        batch = make_batch(cfg, shape, 0, 0)
+        split = token_split(cfg, shape)
+        flash[arch], walls, text = family_prefill(cfg, model, batch)
+        log(f"[families] {arch} (a) prefill 4 x 512 (frontend "
+            f"{split['frontend']}, tokens {split['tokens']}): flash "
+            f"{walls['flash']:.3f} s ({flash[arch]} flash launches), xla "
+            f"{walls['xla']:.3f} s; {text}")
+        kde[arch], toks, lines = family_serve(cfg, model, gen)
+        for line in lines:
+            log(f"[families] {arch} (b) {line}")
+        secs[arch] = time.perf_counter() - t0
+        log(f"[families] {arch}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+            f"{secs[arch]:.2f} s")
+        del model
+        free_cuda()
+    return flash, kde, secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5534,6 +5887,10 @@ def main() -> int:
     free_cuda()
     train_launches, train_rows, tr_secs, tr_errs = phase_train()
     phases.update(tr_secs)
+    free_cuda()
+    fam_flash, fam_kde, fam_secs = phase_families(gen)
+    phases.update({f"families {k}": v for k, v in fam_secs.items()})
+    family_launches = {"flash_attention": fam_flash, "kde_decode": fam_kde}
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -5549,6 +5906,8 @@ def main() -> int:
                                 stream_launches.items() if r["name"] in c}
         r["serve_launches"] = {path: c[r["name"]] for path, c in
                                serve_launches.items() if r["name"] in c}
+        if r["name"] in family_launches:
+            r["family_launches"] = family_launches[r["name"]]
         if r["name"] in train_launches:
             r["train_launches"] = train_launches[r["name"]]
             r.update(train_rows[r["name"]])
@@ -5562,7 +5921,8 @@ def main() -> int:
                                   "serve_launches", "train_launches",
                                   "train_shape", "train_ms",
                                   "train_device_ms", "train_bound_ms",
-                                  "train_bound_by", "train_library_ms")
+                                  "train_bound_by", "train_library_ms",
+                                  "family_launches", "family_shapes")
          if k in r}
         for r in rows]}))
     log(card_line())

@@ -13,9 +13,11 @@ Covered so far:
   (Alg 5.15);
 - the hashed-KDE path -- ``HashedKDE``, ``NeighborSampler(level1="hash")``
   and ``spectral_sparsify(estimator="hash")``;
-- the LM path of the dense GQA configs (yi-6b, granite-3-2b,
-  qwen2.5-14b, chatglm3-6b) in f32 and bf16 -- ``configs``,
-  ``data.pipeline``, ``models.{layers,transformer}``, the prefill,
+- the LM path of every config of the reference -- the dense GQA ones
+  (yi-6b, granite-3-2b, qwen2.5-14b, chatglm3-6b), the MoE ones, RWKV6,
+  the Mamba2 hybrid, enc-dec and the vision frontend -- in f32 and bf16:
+  ``configs``, ``data.pipeline``, ``models.{layers,ssm,transformer}``,
+  the prefill,
   decode and train steps of ``train.train_step``, ``train.optimizer``
   (AdamW), ``ckpt.checkpoint``, ``launch.serve`` and ``launch.train``,
   with flash attention for prefill and training and the paper's KDE

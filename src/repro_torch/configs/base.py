@@ -2,17 +2,15 @@
 ``repro.configs.base``; it imports nothing of the JAX package).
 
 One ``ArchConfig`` per architecture (``repro_torch/configs/<id>.py``), a
-``ShapeConfig`` per input shape.  The port carries the dense GQA
-configurations that run its LM serving path; ``get_config`` /
-``get_reduced`` of any other architecture raise ``not_in_slice``.
+``ShapeConfig`` per input shape, and the registry the launchers read
+(``--arch <id>``): every architecture of the reference, each config equal
+field for field to the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Dict
-
-from repro_torch.device import not_in_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +99,14 @@ class ArchConfig:
             total += v * d
         return int(total)
 
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (6 N_active D)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense = self.param_count() - self.num_layers * self.num_experts * 3 * d * f
+        return int(dense + self.num_layers * self.experts_per_token * 3 * d * f)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -117,22 +123,18 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-#: the dense GQA architectures whose configs the port carries
-PORTED_ARCHS = ("yi_6b", "granite_3_2b", "qwen2_5_14b", "chatglm3_6b")
-
-
-def _module(name: str):
-    arch = name.replace("-", "_")
-    if arch not in PORTED_ARCHS:
-        raise not_in_slice(f"architecture {name!r} (the port carries "
-                           f"{', '.join(PORTED_ARCHS)})",
-                           12)
-    return importlib.import_module(f"repro_torch.configs.{arch}")
+ARCH_IDS = [
+    "yi_6b", "qwen2_5_14b", "granite_3_2b", "chatglm3_6b", "rwkv6_3b",
+    "internvl2_1b", "zamba2_7b", "seamless_m4t_medium", "qwen3_moe_235b_a22b",
+    "granite_moe_1b_a400m",
+]
 
 
 def get_config(name: str) -> ArchConfig:
-    return _module(name).CONFIG
+    mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+    return mod.CONFIG
 
 
 def get_reduced(name: str) -> ArchConfig:
-    return _module(name).reduced()
+    mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+    return mod.reduced()

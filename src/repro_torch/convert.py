@@ -17,6 +17,7 @@ from repro_torch.core.sampling.vertex import PrefixCDF
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.kde_hash.ref import HashState
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
 
@@ -76,47 +77,116 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 
 
 def params_from_reference(tree, cfg, device=None) -> "T.Transformer":
-    """The reference's dense ``init_params`` tree (numpy arrays: ``embed``,
-    ``layers`` stacked on a leading L axis, ``final_norm``, ``lm_head``
-    unless tied) as the port's ``Transformer`` on ``device``.  A tree from
-    the reference's ``cast_params`` (bfloat16 leaves beside the f32
-    ``final_norm``) keeps its dtypes bit for bit.  Weights keep the reference's
-    (in, out) layout: the port applies them as ``x @ w``, so nothing is
+    """The reference's ``init_params`` tree of any family (numpy arrays:
+    ``embed``, ``layers`` stacked on a leading L axis, ``final_norm``,
+    ``lm_head`` unless tied, the hybrid's ``shared_attn``, the enc-dec
+    ``encoder``) as the port's ``Transformer`` on ``device``.  A tree from
+    the reference's ``cast_params`` (bfloat16 leaves beside the f32 ones)
+    keeps its dtypes bit for bit.  Weights keep the reference's (in, out)
+    layout: the port applies them as ``x @ w``, so nothing is
     transposed."""
     dev = resolve_device(device)
+    named = {k: _leaf(a, dev) for k, a in tree_to_named(tree, cfg).items()}
+    return model_from_named(cfg, named)
 
-    def t(a):
-        return _leaf(a, dev)
 
-    lt = tree["layers"]
-    attn, mlp = lt["attn"], lt["mlp"]
-    bias = ("bq", "bk", "bv") if cfg.qkv_bias else ()
-    layers = []
-    for i in range(cfg.num_layers):
-        a = L.Attention(*(t(attn[n][i]) for n in ("wq", "wk", "wv", "wo")),
-                        *(t(attn[n][i]) for n in bias))
-        m = L.MLP(*(t(mlp[n][i]) for n in ("w1", "w3", "w2")))
-        layers.append(T.DenseLayer(t(lt["ln1"][i]), t(lt["ln2"][i]), a, m))
-    head = tree.get("lm_head")
-    return T.Transformer(cfg, t(tree["embed"]), layers, t(tree["final_norm"]),
-                         None if head is None else t(head))
+def model_from_named(cfg, named) -> "T.Transformer":
+    """The port's ``Transformer`` of ``cfg`` holding ``named``'s tensors
+    (parameter name -> tensor, the names ``_tree_paths`` lists)."""
+    def attn(pre):
+        bias = ("bq", "bk", "bv") if cfg.qkv_bias else ()
+        return L.Attention(*(named[pre + n] for n in ("wq", "wk", "wv", "wo")),
+                           *(named[pre + n] for n in bias))
+
+    def mlp(pre, moe=cfg.is_moe):
+        if moe:
+            return L.MoE(*(named[pre + n] for n in ("router", "w1", "w3",
+                                                    "w2")))
+        return L.MLP(*(named[pre + n] for n in ("w1", "w3", "w2")))
+
+    def dense(pre, encdec=False, moe=cfg.is_moe):
+        extra = dict(ln_x=named[pre + "ln_x"],
+                     xattn=attn(pre + "xattn.")) if encdec else {}
+        return T.DenseLayer(named[pre + "ln1"], named[pre + "ln2"],
+                            attn(pre + "attn."), mlp(pre + "mlp.", moe),
+                            **extra)
+
+    def layer(i):
+        pre = f"layers.{i}."
+        if cfg.ssm_kind == "rwkv6":
+            return T.RwkvLayer(named[pre + "ln1"], named[pre + "ln2"],
+                               S.RWKV6(*(named[pre + "mix." + n]
+                                         for n in _RWKV6)),
+                               mlp(pre + "mlp."))
+        if cfg.ssm_kind == "mamba2":
+            mix = S.Mamba2(*(named[pre + "mix." + n] for n in _MAMBA2))
+            if cfg.hybrid_attn_every:
+                return T.MambaLayer(named[pre + "ln1"], mix)
+            return T.MambaLayer(named[pre + "ln1"], mix, named[pre + "ln2"],
+                                mlp(pre + "mlp."))
+        return dense(pre, cfg.is_encdec)
+
+    shared = encoder = None
+    if "shared_attn.ln" in named:
+        shared = T.SharedAttn(named["shared_attn.ln"],
+                              attn("shared_attn.attn."),
+                              named["shared_attn.ln2"],
+                              mlp("shared_attn.mlp.", False))
+    if cfg.is_encdec:
+        encoder = T.Encoder([dense(f"encoder.layers.{i}.", moe=False)
+                             for i in range(cfg.encoder_layers)],
+                            named["encoder.final_norm"])
+    return T.Transformer(cfg, named["embed"],
+                         [layer(i) for i in range(cfg.num_layers)],
+                         named["final_norm"], named.get("lm_head"), shared,
+                         encoder)
 
 
 # ------------------------------------------------------------------ #
 # the reference's stacked parameter tree <-> the port's parameter names
+_RWKV6 = ("mu", "wr", "wk", "wv", "wg", "ww", "w0", "u", "wo")
+_MAMBA2 = ("in_proj", "bc_proj", "dt_proj", "dt_bias", "a_log", "d_skip",
+           "out_proj")
+
+
 def _tree_paths(cfg):
-    """(port name template, reference path) of every parameter of a dense
-    config; a template with ``{i}`` is a layer parameter, stacked on the
-    reference's leading L axis."""
-    paths = [("embed", ("embed",)), ("final_norm", ("final_norm",))]
+    """(port name template, reference path, count) of every parameter of
+    ``cfg``'s model: a template with ``{i}`` is a stacked layer parameter,
+    ``count`` layers on the reference's leading axis (None for the
+    others)."""
+    def attn(pre):
+        names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"]
+                                            if cfg.qkv_bias else [])
+        return [f"{pre}.{n}" for n in names]
+
+    def mlp(moe):
+        return [f"mlp.{n}" for n in (("router",) if moe else ())
+                + ("w1", "w3", "w2")]
+
+    dense = ["ln1", "ln2"] + attn("attn")
+    if cfg.ssm_kind == "rwkv6":
+        layer = ["ln1", "ln2"] + [f"mix.{n}" for n in _RWKV6] + mlp(False)
+    elif cfg.ssm_kind == "mamba2":
+        layer = ["ln1"] + [f"mix.{n}" for n in _MAMBA2]
+        if not cfg.hybrid_attn_every:
+            layer += ["ln2"] + mlp(False)
+    else:
+        layer = dense + (["ln_x"] + attn("xattn") if cfg.is_encdec else []) \
+            + mlp(cfg.is_moe)
+    paths = [("embed", ("embed",), None),
+             ("final_norm", ("final_norm",), None)]
     if not cfg.tie_embeddings:
-        paths.append(("lm_head", ("lm_head",)))
-    layer = ["ln1", "ln2"] + [f"attn.{n}" for n in ("wq", "wk", "wv", "wo")]
-    if cfg.qkv_bias:
-        layer += [f"attn.{n}" for n in ("bq", "bk", "bv")]
-    layer += [f"mlp.{n}" for n in ("w1", "w3", "w2")]
-    paths += [("layers.{i}." + n, ("layers",) + tuple(n.split(".")))
-              for n in layer]
+        paths.append(("lm_head", ("lm_head",), None))
+    paths += [("layers.{i}." + n, ("layers",) + tuple(n.split(".")),
+               cfg.num_layers) for n in layer]
+    if cfg.ssm_kind == "mamba2" and cfg.hybrid_attn_every:
+        paths += [("shared_attn." + n, ("shared_attn",) + tuple(n.split(".")),
+                   None) for n in ["ln", "ln2"] + attn("attn") + mlp(False)]
+    if cfg.is_encdec:
+        paths.append(("encoder.final_norm", ("encoder", "final_norm"), None))
+        paths += [("encoder.layers.{i}." + n,
+                   ("encoder", "layers") + tuple(n.split(".")),
+                   cfg.encoder_layers) for n in dense + mlp(False)]
     return paths
 
 
@@ -134,10 +204,10 @@ def named_to_tree(named, cfg) -> dict:
     the reference's tree: numpy arrays, layer parameters stacked on a
     leading L axis."""
     tree: dict = {}
-    for tmpl, path in _tree_paths(cfg):
-        if "{i}" in tmpl:
+    for tmpl, path, count in _tree_paths(cfg):
+        if count is not None:
             leaf = np.stack([_numpy(torch.as_tensor(named[tmpl.format(i=i)]))
-                             for i in range(cfg.num_layers)])
+                             for i in range(count)])
         else:
             leaf = _numpy(torch.as_tensor(named[tmpl]))
         node = tree
@@ -151,12 +221,12 @@ def tree_to_named(tree, cfg) -> dict:
     """The reference's tree (arrays) as numpy arrays (copies) keyed by the
     port's parameter names, layer parameters unstacked."""
     out = {}
-    for tmpl, path in _tree_paths(cfg):
+    for tmpl, path, count in _tree_paths(cfg):
         leaf = tree
         for key in path:
             leaf = leaf[key]
-        if "{i}" in tmpl:
-            for i in range(cfg.num_layers):
+        if count is not None:
+            for i in range(count):
                 out[tmpl.format(i=i)] = np.array(leaf[i])
         else:
             out[tmpl] = np.array(leaf)

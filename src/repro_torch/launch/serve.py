@@ -8,11 +8,16 @@ Example (CPU, reduced config):
   python -m repro_torch.launch.serve --device cpu --reduced --attention kde
 
 On the card (the default device) without ``--reduced`` it serves the full
-configuration with random weights drawn on the card.  As in the reference,
-the cache is built by replaying the prompt through the decode step
-(teacher-forced), so the "prefill" time is that replay; the model runs in
-float32 whatever the config says, as the reference's driver does.
-``--robust`` raises (ROADMAP.md queue 1 item 12).
+configuration with random weights drawn on the card.  Every family serves
+(``--arch granite_moe_1b_a400m``, ``rwkv6_3b``, ``zamba2_7b``,
+``seamless_m4t_medium``, ``internvl2_1b``, ...).  As in the reference,
+the cache is built by replaying the prompt's tokens through the decode
+step (teacher-forced), so the "prefill" time is that replay (a frontend's
+embeddings are not replayed; the enc-dec encoder runs once over them and
+its memory goes into the cache); the model runs in float32 whatever the
+config says, as the reference's driver does.  ``--robust`` screens each
+decode step's logits and recomputes a step with non-finite logits with
+dense xla attention from the pre-step cache (DESIGN.md §11).
 
 ``--graph-stream N`` serves the OTHER side of the repo instead: an online
 kernel-graph service over a mutating point set (DESIGN.md §12).  Each tick
@@ -45,7 +50,7 @@ import torch
 
 from repro_torch.configs.base import ShapeConfig, get_config, get_reduced
 from repro_torch.data.pipeline import make_batch, token_split
-from repro_torch.device import not_in_slice, resolve_device, roadmap_item
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.obs import export as _export
 from repro_torch.obs import metrics as _metrics
@@ -68,7 +73,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--robust", action="store_true",
-                    help=f"not ported ({roadmap_item(12)})")
+                    help="screen decode logits; recompute flagged steps "
+                         "with dense xla attention from the pre-step cache")
     ap.add_argument("--graph-stream", type=int, default=0,
                     help="serve an online kernel graph over N points "
                          "instead of the LLM path (DESIGN.md §12)")
@@ -305,21 +311,56 @@ def serve_config(args):
     return cfg, max_len
 
 
+#: cache entries a decode step overwrites in place besides K/V slots: the
+#: SSM recurrences' states, which a retried step must start again from
+_STATE_KEYS = ("ssm", "shift")
+
+
+def robust_step(step, dense_step):
+    """The reference's staged fallback (DESIGN.md §11) around a decode
+    ``step``: a step whose logits are not all finite is recomputed by
+    ``dense_step`` (the dense xla twin, built lazily: ``dense_step()``
+    returns it) from the pre-step cache.  The port's decode writes the
+    cache in place: a K/V slot is simply rewritten by the retry, but the
+    SSM / shift states are snapshotted before each step and restored for
+    the retry, so the recurrence runs once.  Returns ``guarded(model,
+    cache, tokens, pos)`` -> (next, logits, cache) with a ``fallbacks``
+    attribute counting the recomputed steps."""
+    twin = []
+
+    def guarded(model, cache, cur, pos):
+        snap = {k: cache[k].clone() for k in _STATE_KEYS if k in cache}
+        nxt, logits, cache = step(model, cache, cur, pos)
+        if not bool(torch.isfinite(logits).all()):
+            if not twin:
+                twin.append(dense_step())
+            guarded.fallbacks += 1
+            for k, t in snap.items():
+                cache[k].copy_(t)
+            nxt, logits, cache = twin[0](model, cache, cur, pos)
+        return nxt, logits, cache
+
+    guarded.fallbacks = 0
+    return guarded
+
+
 def run_lm(args, model=None) -> dict:
-    """Serve one batch.  ``model`` (a ``Transformer`` of the served config)
-    replaces the random init drawn from ``--seed``.  Returns the
-    generations (b, gen) int32, the logits of the last prompt step (the
-    first generated token's; (b, V_pad) f32) and of the first decode step,
-    the prefill and decode seconds (host clock, each ending in a
-    synchronize on the card), the final KV cache, the config and the cache
-    length."""
-    if args.robust:
-        raise not_in_slice("serve --robust", 12)
+    """Serve one batch.  ``model`` (a ``Transformer``) replaces the random
+    init drawn from ``--seed``, and its config (in float32) the ``--arch``
+    one (a model cut in depth serves at its own depth).  Returns the generations (b,
+    gen) int32, the logits of the last prompt step (the first generated
+    token's; (b, V_pad) f32) and of the first decode step, the prefill and
+    decode seconds (host clock, each ending in a synchronize on the card),
+    the final cache, the config, the cache length, the prompt's token
+    count and ``fallbacks`` (the steps ``--robust`` recomputed; None
+    without it)."""
     dev = resolve_device(args.device)
     cfg, max_len = serve_config(args)
     shape = ShapeConfig("serve", args.prompt_len, args.batch, "prefill")
     if model is None:
         model = T.init_params(cfg, seed=args.seed, device=dev)
+    else:
+        cfg = dataclasses.replace(model.cfg, dtype="float32")
     batch = make_batch(cfg, shape, 0, args.seed)
     split = token_split(cfg, shape)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
@@ -328,12 +369,21 @@ def run_lm(args, model=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    # prefill: replay the prompt into the cache (teacher-forced, as the
-    # reference builds it)
-    cache = T.init_cache(cfg, args.batch, max_len, torch.float32, device=dev)
+    # prefill: replay the prompt's tokens into the cache (teacher-forced,
+    # as the reference builds it); the enc-dec memory is the encoder's
+    # output over the frontend embeddings
+    cache = T.init_cache(cfg, args.batch, max_len, torch.float32,
+                         enc_len=split["frontend"] or 1, device=dev)
+    if cfg.is_encdec:
+        with torch.inference_mode():
+            cache["memory"] = T._run_encoder(model, cfg, batch["frontend"],
+                                             "xla")
     kde_cfg = {"top_p": args.kde_top_p, "bk": args.kde_bk,
                "stride": args.kde_stride} if args.attention == "kde" else None
     step = make_decode_step(cfg, impl=args.attention, kde_cfg=kde_cfg)
+    robust = bool(args.robust) and args.attention != "xla"
+    if robust:
+        step = robust_step(step, lambda: make_decode_step(cfg, impl="xla"))
     t0 = time.perf_counter()
     for pos in range(split["tokens"]):
         nxt, logits, cache = step(model, cache, tokens[:, pos:pos + 1], pos)
@@ -359,7 +409,8 @@ def run_lm(args, model=None) -> dict:
     return dict(tokens=gen.cpu().numpy(), prompt_logits=prompt_logits,
                 first_decode_logits=first_logits, prefill_s=prefill_t,
                 decode_s=decode_t, cache=cache, cfg=cfg, max_len=max_len,
-                prompt_tokens=split["tokens"])
+                prompt_tokens=split["tokens"],
+                fallbacks=step.fallbacks if robust else None)
 
 
 def main(argv=None) -> int:
@@ -375,6 +426,9 @@ def main(argv=None) -> int:
     print(f"[serve] prefill {res['prefill_s']:.2f}s, decode "
           f"{res['decode_s']:.2f}s "
           f"({args.gen * args.batch / max(res['decode_s'], 1e-9):.1f} tok/s)")
+    if res["fallbacks"] is not None:
+        print(f"[serve] robust: {res['fallbacks']} step(s) recomputed with "
+              f"dense attention")
     print(f"[serve] sample generations: {np.asarray(gen[:2]).tolist()}")
     return 0
 

@@ -1,5 +1,4 @@
-"""Transformer building blocks of the dense LM: the port of
-``repro.models.layers``.
+"""Transformer building blocks: the port of ``repro.models.layers``.
 
 Weights keep the reference's layout, ``(in, out)``, and are applied as
 ``x @ w`` (no ``nn.Linear``, so nothing is transposed).  Attention has the
@@ -14,9 +13,11 @@ reference's implementations, selected at call time:
                ``kde_attention.ops.kde_attention``, the same function
                (ROADMAP.md section 3), so every KDE decode step runs the
                fused decode kernel, one launch per layer.
-The mesh helpers (``constrain``, ``activation_sharding``, the shard_map
-decode) have no counterpart (ROADMAP.md queue 1 item 10), nor do the MoE
-blocks and cross attention (queue 1 item 12).
+The MoE block is the reference's single-device dispatch
+(``_moe_block_gspmd``: grouped capacity slots, over-capacity tokens
+dropped), ``cross_attention_block`` the enc-dec decoder's.  The mesh
+helpers (``constrain``, ``activation_sharding``, the shard_map MoE and
+decode) have no counterpart (ROADMAP.md queue 1 item 10).
 
 Dtypes follow the reference: activations in the config's dtype
 (``dtype_of``: bf16 for "bfloat16", else f32), weights cast to it at use
@@ -44,7 +45,6 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import not_in_slice
 
 _NEG_INF = -1.0e30
 
@@ -101,6 +101,16 @@ class MLP(nn.Module):
         self.w1, self.w3, self.w2 = map(_param, (w1, w3, w2))
 
 
+class MoE(nn.Module):
+    """Top-k mixture of SwiGLU experts: router (d, e), w1 / w3 (e, d,
+    d_ff), w2 (e, d_ff, d)."""
+
+    def __init__(self, router, w1, w3, w2):
+        super().__init__()
+        self.router, self.w1, self.w3, self.w2 = map(_param,
+                                                     (router, w1, w3, w2))
+
+
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Attention:
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     w = [_dense_init(gen, (d, hq * hd)), _dense_init(gen, (d, hkv * hd)),
@@ -113,10 +123,17 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Attention:
     return Attention(*w)
 
 
-def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> MLP:
-    if cfg.is_moe:
-        raise not_in_slice("the MoE family", 12)
+def init_mlp(gen: torch.Generator, cfg: ArchConfig):
+    """SwiGLU weights, or a MoE config's router and stacked experts (each
+    expert's matrices at 1/sqrt(fan_in), as the reference's per-expert
+    init)."""
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.is_moe:
+        e = cfg.num_experts
+        return MoE(_dense_init(gen, (d, e)),
+                   _dense_init(gen, (e, d, f), scale=d ** -0.5),
+                   _dense_init(gen, (e, d, f), scale=d ** -0.5),
+                   _dense_init(gen, (e, f, d), scale=f ** -0.5))
     return MLP(_dense_init(gen, (d, f)), _dense_init(gen, (d, f)),
                _dense_init(gen, (f, d)))
 
@@ -340,6 +357,20 @@ def attention_block(p: Attention, cfg: ArchConfig, x, positions,
     return out, cache
 
 
+def cross_attention_block(p: Attention, cfg: ArchConfig, x, memory):
+    """Encoder-decoder cross attention (no RoPE, no bias, no mask): queries
+    from x, keys and values from ``memory`` (b, s_enc, d).  A memory of
+    another dtype than x is promoted as the reference's matmul promotes
+    it."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    mt = torch.promote_types(memory.dtype, x.dtype)
+    q = _split_heads(x @ p.wq.to(x.dtype), hq, hd)
+    k = _split_heads(memory.to(mt) @ p.wk.to(x.dtype).to(mt), hkv, hd)
+    v = _split_heads(memory.to(mt) @ p.wv.to(x.dtype).to(mt), hkv, hd)
+    o = xla_attention(q, k, v, causal=False)
+    return _merge_heads(o) @ p.wo.to(x.dtype)
+
+
 # ------------------------------------------------------------------ mlp
 def silu(x):
     """The reference's ``jax.nn.silu``, ``x * (1 / (1 + exp(-x)))``.  XLA
@@ -355,3 +386,86 @@ def silu(x):
 def swiglu(p: MLP, x):
     h = silu(x @ p.w1.to(x.dtype)) * (x @ p.w3.to(x.dtype))
     return h @ p.w2.to(x.dtype)
+
+
+def _top_k(logits, k: int):
+    """(values, indices) of the k largest entries of the last dim, the
+    larger first and ties to the lower index, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` promises no order among equal values)."""
+    idx = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return torch.gather(logits, -1, idx), idx
+
+
+def _one_hot(idx, e: int, dtype):
+    """``jax.nn.one_hot(idx, e, dtype)`` by comparison with arange(e):
+    ``torch.nn.functional.one_hot`` checks its indices' range on the host,
+    a device synchronisation in every MoE layer of a decode step."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)).to(dtype)
+
+
+def _experts(p: MoE, x, eq: str):
+    """Every expert's gated hidden ``silu(x w1) * (x w3)`` on ``x``;
+    ``eq`` names x's axes and the output's around the weights' (e, d, f)."""
+    xin, out = eq.split("->")
+    h = silu(torch.einsum(f"{xin},edf->{out}", x, p.w1.to(x.dtype)))
+    h = h * torch.einsum(f"{xin},edf->{out}", x, p.w3.to(x.dtype))
+    return h
+
+
+def moe_block_dense(p: MoE, cfg: ArchConfig, x):
+    """The reference's oracle: every expert runs on every token, the outputs
+    combined by the gate matrix.  O(e) cost.  Returns (out, aux)."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    logits = x.float() @ p.router.float()                  # (b, s, e)
+    gates, idx = _top_k(logits, k)                          # (b, s, k)
+    gates = torch.softmax(gates, dim=-1)
+    onehot = _one_hot(idx, e, torch.float32)               # (b, s, k, e)
+    combine = (gates[..., None] * onehot).sum(2).to(x.dtype)
+    h = _experts(p, x, "bsd->ebsf")
+    outs = torch.einsum("ebsf,efd->ebsd", h, p.w2.to(x.dtype))
+    out = torch.einsum("ebsd,bse->bsd", outs, combine)
+    return out, _load_balance_loss(logits, idx, e)
+
+
+def moe_block(p: MoE, cfg: ArchConfig, x, capacity_factor: float = 1.25):
+    """Top-k MoE by grouped capacity dispatch: the reference's
+    ``_moe_block_gspmd`` (the port has no mesh, so no shard_map branch).
+
+    Tokens are grouped along the batch dim; each group's s k requests take
+    slots in their expert's buffer in token-major order, ``cap = max(int(
+    capacity_factor s k / e), 1)`` slots an expert, and a request past
+    ``cap`` is dropped (its token passes through the residual only).  The
+    gates are the softmax over the top-k logits alone; the aux loss is the
+    Switch loss of the top-1 choices.  Returns (out (b, s, d), aux)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = max(int(capacity_factor * s * k / e), 1)
+    logits = x.float() @ p.router.float()                   # (b, s, e)
+    gates, idx = _top_k(logits, k)                           # (b, s, k)
+    gates = torch.softmax(gates, dim=-1)
+    eid = idx.reshape(b, s * k)                              # expert a request
+    gate = gates.reshape(b, s * k).to(x.dtype)
+    onehot = _one_hot(eid, e, torch.int32)                   # (b, s k, e)
+    slot = (torch.cumsum(onehot, dim=1) * onehot).amax(-1) - 1
+    keep = (slot >= 0) & (slot < cap)
+    slot_c = torch.clamp(slot, 0, cap - 1)
+    x_rep = torch.repeat_interleave(x, k, dim=1)             # (b, s k, d)
+    grp = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((grp, eid, slot_c), x_rep * keep[..., None].to(
+        x.dtype), accumulate=True)                           # (b, e, cap, d)
+    h = _experts(p, buf, "becd->becf")
+    yb = torch.einsum("becf,efd->becd", h, p.w2.to(x.dtype))
+    y = yb[grp, eid, slot_c] * (keep.to(x.dtype) * gate)[..., None]
+    y = y.reshape(b, s, k, d).sum(2)
+    return y, _load_balance_loss(logits, idx, e)
+
+
+def _load_balance_loss(logits, idx, e):
+    """Switch-style aux loss: e * sum_i f_i * p_i."""
+    probs = torch.softmax(logits, dim=-1)
+    frac_tokens = torch.mean(_one_hot(idx[..., 0], e, torch.float32),
+                             dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=(0, 1)).float()
+    return e * torch.sum(frac_tokens * frac_probs)

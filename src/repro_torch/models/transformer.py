@@ -1,139 +1,314 @@
-"""Dense decoder-only model: the port of the dense branch of
-``repro.models.transformer``.
+"""Model assembly -- decoder-only dense / MoE, the SSM families (RWKV6,
+Mamba2), the Mamba2 hybrid with one shared attention block, enc-dec and
+the frontend families: the port of ``repro.models.transformer``.
 
 The reference stacks every layer's parameters on a leading L axis and
 scans over them; here a ``Transformer`` module holds ``embed`` (V_pad, D),
-``layers`` (an ``nn.ModuleList`` of ``DenseLayer``), ``final_norm`` (D,)
-and ``lm_head`` (D, V_pad) (``None`` when tied), and a Python loop walks
-the layers.  Decode caches keep the reference's stacked layout, ``k`` / ``v``
-of shape (L, b, hkv, max_len, hd), bf16 by default as the reference's.
-``init_params`` draws f32 weights whatever the config's dtype, and
-``cast_params`` casts them to the compute dtype, as the reference does.
-The MoE, SSM, hybrid, enc-dec and frontend families raise (ROADMAP.md
-queue 1 item 12).
+``layers`` (an ``nn.ModuleList``: ``DenseLayer``, ``RwkvLayer`` or
+``MambaLayer``), ``final_norm`` (D,), ``lm_head`` (D, V_pad) (``None`` when
+tied), zamba2's ``shared_attn`` (one ``SharedAttn``, not stacked) and the
+enc-dec ``encoder`` (``Encoder``: its own stacked ``layers`` and
+``final_norm``); Python loops walk the layers.  Decode caches keep the
+reference's stacked layout: ``k`` / ``v`` (L, b, hkv, max_len, hd), bf16 by
+default as the reference's; the hybrid's ``k`` / ``v`` over its ceil(L / k)
+shared-attention applications and its f32 ``ssm`` states; RWKV6's ``ssm``
+and ``shift``; the enc-dec ``memory``.  ``init_params`` draws f32 weights
+whatever the config's dtype, and ``cast_params`` casts them to the compute
+dtype, as the reference does.
+
+Two reference behaviours are mirrored as they are (ROADMAP.md section 3):
+the hybrid's forward applies the shared block after layers 0, k, 2k, ...
+while its decode applies it before each segment [0, k), [k, 2k), ...; and
+the MoE block drops tokens over capacity, which a long forward does and a
+one-token decode step never does.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import not_in_slice, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder-only config."""
-    for flag, what in ((cfg.is_moe, "the MoE family"),
-                       (cfg.ssm_kind != "none", "the SSM / hybrid families"),
-                       (cfg.is_encdec, "the enc-dec family"),
-                       (cfg.frontend != "none", "the frontend families")):
-        if flag:
-            raise not_in_slice(f"{what} ({cfg.name})", 12)
+def _ffn(p, cfg: ArchConfig, x):
+    """The layer's feed-forward: (SwiGLU, 0) or (MoE block, aux)."""
+    if cfg.is_moe:
+        return L.moe_block(p, cfg, x)
+    return L.swiglu(p, x), 0.0
 
 
 class DenseLayer(nn.Module):
-    """ln1 / ln2 gains (D,), the attention and SwiGLU weights."""
+    """ln1 / ln2 gains (D,), the attention and the SwiGLU or MoE weights;
+    the enc-dec decoder's layer adds ``ln_x`` and the cross attention
+    ``xattn``."""
 
-    def __init__(self, ln1, ln2, attn: L.Attention, mlp: L.MLP):
+    def __init__(self, ln1, ln2, attn: L.Attention, mlp, ln_x=None,
+                 xattn: Optional[L.Attention] = None):
+        super().__init__()
+        self.ln1 = L._param(ln1)
+        if ln_x is not None:
+            self.ln_x = L._param(ln_x)
+        self.ln2 = L._param(ln2)
+        self.attn = attn
+        if xattn is not None:
+            self.xattn = xattn
+        self.mlp = mlp
+
+    def forward(self, cfg: ArchConfig, x, positions, impl: str = "xla",
+                cache: Optional[Tuple] = None, cache_pos=None,
+                kde_cfg: Optional[Dict] = None, memory=None):
+        """Returns (x, aux): aux the MoE block's loss, else 0."""
+        h, _ = L.attention_block(self.attn, cfg,
+                                 L.rmsnorm(x, self.ln1, cfg.norm_eps),
+                                 positions, impl=impl, cache=cache,
+                                 cache_pos=cache_pos, kde_cfg=kde_cfg)
+        x = x + h
+        if memory is not None:
+            x = x + L.cross_attention_block(
+                self.xattn, cfg, L.rmsnorm(x, self.ln_x, cfg.norm_eps),
+                memory)
+        h, aux = _ffn(self.mlp, cfg, L.rmsnorm(x, self.ln2, cfg.norm_eps))
+        return x + h, aux
+
+
+class RwkvLayer(nn.Module):
+    """ln1 / ln2, the RWKV6 time mix ``mix`` and the SwiGLU channel mix."""
+
+    def __init__(self, ln1, ln2, mix: S.RWKV6, mlp: L.MLP):
         super().__init__()
         self.ln1, self.ln2 = L._param(ln1), L._param(ln2)
-        self.attn, self.mlp = attn, mlp
+        self.mix, self.mlp = mix, mlp
+
+    def forward(self, cfg: ArchConfig, x, seq_mixer: str = "chunked",
+                state=None, shift_state=None):
+        """Returns (x, state, shift_state); the chunked form (any
+        ``seq_mixer`` but "chunked" runs the scan) returns no states."""
+        inner = L.rmsnorm(x, self.ln1, cfg.norm_eps)
+        if seq_mixer == "chunked" and state is None:
+            h, state, shift = S.rwkv6_chunked(self.mix, cfg, inner), None, None
+        else:
+            h, state, shift = S.rwkv6_scan(self.mix, cfg, inner, state=state,
+                                           shift_state=shift_state)
+        x = x + h
+        x = x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
+        return x, state, shift
+
+
+class MambaLayer(nn.Module):
+    """ln1 and the Mamba2 mixer ``mix``; a standalone Mamba2 layer also has
+    ln2 and a SwiGLU MLP (the hybrid keeps its MLP in the shared block)."""
+
+    def __init__(self, ln1, mix: S.Mamba2, ln2=None,
+                 mlp: Optional[L.MLP] = None):
+        super().__init__()
+        self.ln1 = L._param(ln1)
+        self.mix = mix
+        if mlp is not None:
+            self.ln2 = L._param(ln2)
+            self.mlp = mlp
+
+    def forward(self, cfg: ArchConfig, x, seq_mixer: str = "chunked",
+                state=None):
+        """Returns (x, state); the chunked form returns no state."""
+        inner = L.rmsnorm(x, self.ln1, cfg.norm_eps)
+        if seq_mixer == "chunked" and state is None:
+            h, state = S.mamba2_chunked(self.mix, cfg, inner), None
+        else:
+            h, state = S.mamba2_scan(self.mix, cfg, inner, state=state)
+        x = x + h
+        if hasattr(self, "mlp"):
+            x = x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
+        return x, state
+
+
+class SharedAttn(nn.Module):
+    """zamba2's one shared attention block: ``ln``, ``attn``, ``ln2`` and
+    a SwiGLU ``mlp`` (not stacked: its gains stay 1-D)."""
+
+    def __init__(self, ln, attn: L.Attention, ln2, mlp: L.MLP):
+        super().__init__()
+        self.ln = L._param(ln)
+        self.attn = attn
+        self.ln2 = L._param(ln2)
+        self.mlp = mlp
 
     def forward(self, cfg: ArchConfig, x, positions, impl: str = "xla",
                 cache: Optional[Tuple] = None, cache_pos=None,
                 kde_cfg: Optional[Dict] = None):
         h, _ = L.attention_block(self.attn, cfg,
-                                 L.rmsnorm(x, self.ln1, cfg.norm_eps),
+                                 L.rmsnorm(x, self.ln, cfg.norm_eps),
                                  positions, impl=impl, cache=cache,
                                  cache_pos=cache_pos, kde_cfg=kde_cfg)
         x = x + h
         return x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
 
 
+class Encoder(nn.Module):
+    """The enc-dec encoder: dense ``layers`` (stacked in the reference's
+    tree) and ``final_norm``."""
+
+    def __init__(self, layers, final_norm):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = L._param(final_norm)
+
+
 class Transformer(nn.Module):
-    """The dense LM's parameters, each a trainable ``nn.Parameter``."""
+    """The LM's parameters, each a trainable ``nn.Parameter``."""
 
     def __init__(self, cfg: ArchConfig, embed, layers, final_norm,
-                 lm_head=None):
+                 lm_head=None, shared_attn: Optional[SharedAttn] = None,
+                 encoder: Optional[Encoder] = None):
         super().__init__()
-        check_dense(cfg)
-        if (lm_head is None) != cfg.tie_embeddings:
-            raise ValueError(f"{cfg.name}: tie_embeddings is "
-                             f"{cfg.tie_embeddings}, so lm_head must be "
-                             f"{'None' if cfg.tie_embeddings else 'given'}")
+        for name, given, want in (
+                ("lm_head", lm_head is not None, not cfg.tie_embeddings),
+                ("shared_attn", shared_attn is not None, _hybrid(cfg)),
+                ("encoder", encoder is not None, cfg.is_encdec)):
+            if given != want:
+                raise ValueError(f"{cfg.name}: {name} must be "
+                                 f"{'given' if want else 'None'}")
         self.cfg = cfg
         self.embed = L._param(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = L._param(final_norm)
         self.register_parameter(
             "lm_head", None if lm_head is None else L._param(lm_head))
+        if shared_attn is not None:
+            self.shared_attn = shared_attn
+        if encoder is not None:
+            self.encoder = encoder
+
+
+def _hybrid(cfg: ArchConfig) -> bool:
+    return cfg.ssm_kind == "mamba2" and bool(cfg.hybrid_attn_every)
 
 
 # ------------------------------------------------------------------ init
+def _ones(cfg: ArchConfig, dev) -> torch.Tensor:
+    return torch.ones(cfg.d_model, device=dev)
+
+
 def _init_dense_layer(gen: torch.Generator, cfg: ArchConfig) -> DenseLayer:
     dev = gen.device
-    return DenseLayer(torch.ones(cfg.d_model, device=dev),
-                      torch.ones(cfg.d_model, device=dev),
+    return DenseLayer(_ones(cfg, dev), _ones(cfg, dev),
                       L.init_attention(gen, cfg), L.init_mlp(gen, cfg))
+
+
+def _init_rwkv_layer(gen: torch.Generator, cfg: ArchConfig) -> RwkvLayer:
+    dev = gen.device
+    return RwkvLayer(_ones(cfg, dev), _ones(cfg, dev), S.init_rwkv6(gen, cfg),
+                     L.init_mlp(gen, cfg))
+
+
+def _init_mamba_layer(gen: torch.Generator, cfg: ArchConfig) -> MambaLayer:
+    dev = gen.device
+    mix = S.init_mamba2(gen, cfg)
+    if cfg.hybrid_attn_every:   # hybrid: the MLP lives in the shared block
+        return MambaLayer(_ones(cfg, dev), mix)
+    return MambaLayer(_ones(cfg, dev), mix, _ones(cfg, dev),
+                      L.init_mlp(gen, cfg))
+
+
+def _init_encdec_decoder_layer(gen: torch.Generator,
+                               cfg: ArchConfig) -> DenseLayer:
+    dev = gen.device
+    return DenseLayer(_ones(cfg, dev), _ones(cfg, dev),
+                      L.init_attention(gen, cfg), L.init_mlp(gen, cfg),
+                      ln_x=_ones(cfg, dev), xattn=L.init_attention(gen, cfg))
+
+
+def _layer_init_fn(cfg: ArchConfig):
+    if cfg.ssm_kind == "rwkv6":
+        return _init_rwkv_layer
+    if cfg.ssm_kind == "mamba2":
+        return _init_mamba_layer
+    if cfg.is_encdec:
+        return _init_encdec_decoder_layer
+    return _init_dense_layer
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """Random-init model drawn on ``device`` (the card by default) from a
-    ``torch.Generator`` seeded with ``seed``: embed and lm_head N(0, 0.02^2),
-    weights N(0, 1/fan_in), norms 1, biases 0 -- the reference's scales
-    (its numbers differ: JAX and torch streams do not match)."""
-    check_dense(cfg)
+    ``torch.Generator`` seeded with ``seed``, with the reference's scales
+    and constants: embed and lm_head N(0, 0.02^2), weights N(0, 1/fan_in),
+    norms 1, biases 0, the SSM constants of ``ssm.init_*`` (its numbers
+    differ: JAX and torch streams do not match)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    layers = [_init_dense_layer(gen, cfg) for _ in range(cfg.num_layers)]
+    init_one = _layer_init_fn(cfg)
+    layers = [init_one(gen, cfg) for _ in range(cfg.num_layers)]
     embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                         device=dev).mul_(0.02)
     head = None
     if not cfg.tie_embeddings:
         head = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen,
                            device=dev).mul_(0.02)
-    return Transformer(cfg, embed, layers, torch.ones(cfg.d_model, device=dev),
-                       head)
+    shared = encoder = None
+    if _hybrid(cfg):
+        shared = SharedAttn(_ones(cfg, dev), L.init_attention(gen, cfg),
+                            _ones(cfg, dev), L.init_mlp(gen, cfg))
+    if cfg.is_encdec:
+        encoder = Encoder([_init_dense_layer(gen, cfg)
+                           for _ in range(cfg.encoder_layers)],
+                          _ones(cfg, dev))
+    return Transformer(cfg, embed, layers, _ones(cfg, dev), head, shared,
+                       encoder)
+
+
+#: parameter-name prefixes of the layers the reference stacks on a leading
+#: axis: the decoder's and the encoder's (zamba2's shared block is one
+#: block, not stacked)
+STACKED_PREFIXES = ("layers.", "encoder.layers.")
 
 
 def stacked_ndim(name: str, p: torch.Tensor) -> int:
     """Dims of parameter ``name`` (``model.named_parameters()``) in the
-    reference's tree, which stacks every layer's parameters on a leading L
-    axis: one more than its own for a layer parameter.  The reference's
-    rules of "two or more dims" (``cast_params``, AdamW's weight decay)
-    read this: every layer parameter qualifies (its norm gains and QKV
-    biases too), of the rest embed and lm_head, never ``final_norm``."""
-    return p.dim() + name.startswith("layers.")
+    reference's tree, which stacks every decoder and encoder layer's
+    parameters on a leading axis: one more than its own for a stacked
+    parameter.  The reference's rules of "two or more dims"
+    (``cast_params``, AdamW's weight decay) read this: every stacked
+    parameter qualifies (norm gains, QKV biases and the SSM vectors ``w0``,
+    ``u``, ``dt_bias``, ``a_log``, ``d_skip`` too), of the rest embed,
+    lm_head and the shared block's matrices, never ``final_norm``,
+    ``encoder.final_norm`` or the shared block's ``ln`` / ``ln2``."""
+    return p.dim() + name.startswith(STACKED_PREFIXES)
+
+
+def map_params(module: nn.Module, fn, prefix: str = "") -> nn.Module:
+    """A new module of ``module``'s structure whose parameter ``name`` (its
+    ``named_parameters()`` name) is ``fn(name, p)``, one tensor at a time;
+    other attributes (the config) are shared."""
+    new = module.__class__.__new__(module.__class__)
+    nn.Module.__init__(new)
+    for k, v in vars(module).items():
+        if not k.startswith("_"):
+            new.__dict__[k] = v
+    for name, p in module._parameters.items():
+        new.register_parameter(
+            name, None if p is None else L._param(fn(prefix + name, p)))
+    for name, child in module._modules.items():
+        new.add_module(name, map_params(child, fn, f"{prefix}{name}."))
+    return new
 
 
 def cast_params(model: Transformer, dtype: torch.dtype) -> Transformer:
     """The reference's ``cast_params``: a new model whose parameters of two
-    or more dims in the reference's tree are in ``dtype``.  That tree
-    stacks each layer's parameters on a leading L axis, so every layer
-    parameter is cast (its norm gains and QKV biases too), and of the rest
-    embed and lm_head; ``final_norm`` (one dim) stays the same f32 tensor.
-    The casts are made one tensor at a time, so a cast from f32 holds the
-    f32 model and the new weights, never a second f32 copy."""
-    def cast(p, stacked=True):
+    or more dims in the reference's tree (``stacked_ndim``) are in
+    ``dtype``; the others (``final_norm``, ``encoder.final_norm``, the
+    shared block's gains) stay the same f32 tensors.  The casts are made
+    one tensor at a time, so a cast from f32 holds the f32 model and the
+    new weights, never a second f32 copy."""
+    def cast(name, p):
         t = p.detach()
-        return t.to(dtype) if t.dim() + stacked >= 2 else t
+        return t.to(dtype) if stacked_ndim(name, t) >= 2 else t
 
-    def attn(a):
-        bias = [cast(getattr(a, n)) for n in ("bq", "bk", "bv")
-                if getattr(a, n) is not None]
-        return L.Attention(*(cast(getattr(a, n))
-                             for n in ("wq", "wk", "wv", "wo")), *bias)
-
-    layers = [DenseLayer(cast(ly.ln1), cast(ly.ln2), attn(ly.attn),
-                         L.MLP(*(cast(getattr(ly.mlp, n))
-                                 for n in ("w1", "w3", "w2"))))
-              for ly in model.layers]
-    head = None if model.lm_head is None else cast(model.lm_head, False)
-    return Transformer(model.cfg, cast(model.embed, False), layers,
-                       cast(model.final_norm, False), head)
+    return map_params(model, cast)
 
 
 # ------------------------------------------------------------------ forward
@@ -143,12 +318,30 @@ def _tokens(model: Transformer, tokens) -> torch.Tensor:
 
 def _embed_inputs(model: Transformer, cfg: ArchConfig,
                   batch) -> Tuple[torch.Tensor, int]:
-    """Returns (x (b, s, d), n_prefix = 0): the dense family has no
-    frontend embeddings."""
-    if "frontend" in batch:
-        raise not_in_slice("frontend embeddings", 12)
-    tok = model.embed[_tokens(model, batch["tokens"])]
-    return tok.to(L.dtype_of(cfg)), 0
+    """Returns (x (b, s, d), n_prefix) where the first n_prefix positions are
+    the frontend embeddings (a frontend config given ``batch["frontend"]``;
+    no loss there)."""
+    dtype = L.dtype_of(cfg)
+    tok = model.embed[_tokens(model, batch["tokens"])].to(dtype)
+    if cfg.frontend != "none" and "frontend" in batch:
+        fe = torch.as_tensor(batch["frontend"]).to(tok.device, dtype)
+        return torch.cat([fe, tok], dim=1), fe.shape[1]
+    return tok, 0
+
+
+def _run_encoder(model: Transformer, cfg: ArchConfig, enc_embeds, impl):
+    """The enc-dec encoder over the frontend embeddings: bidirectional
+    (non-causal ``xla_attention``, whatever ``impl``), RoPE on the encoder
+    positions, then its final norm."""
+    x = torch.as_tensor(enc_embeds).to(model.embed.device, L.dtype_of(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in model.encoder.layers:
+        q, k, v = L._qkv(lp.attn, cfg, L.rmsnorm(x, lp.ln1, cfg.norm_eps),
+                         positions)
+        o = L.xla_attention(q, k, v, causal=False)
+        x = x + L._merge_heads(o) @ lp.attn.wo.to(x.dtype)
+        x = x + L.swiglu(lp.mlp, L.rmsnorm(x, lp.ln2, cfg.norm_eps))
+    return L.rmsnorm(x, model.encoder.final_norm, cfg.norm_eps)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -175,33 +368,59 @@ def _remat(fn, x, remat_policy):
     return ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
 
 
+def _layer_body(model: Transformer, cfg: ArchConfig, idx: int, positions,
+                impl: str, seq_mixer: str, memory):
+    """The forward of layer ``idx`` as a function of x -> (x, aux): the
+    reference's scanned layer body (the hybrid's shared block after the
+    layers whose index is a multiple of k included)."""
+    layer = model.layers[idx]
+
+    def body(x):
+        if cfg.ssm_kind == "rwkv6":
+            return layer(cfg, x, seq_mixer)[0], 0.0
+        if cfg.ssm_kind == "mamba2":
+            x = layer(cfg, x, seq_mixer)[0]
+            if cfg.hybrid_attn_every and idx % cfg.hybrid_attn_every == 0:
+                x = model.shared_attn(cfg, x, positions, impl=impl)
+            return x, 0.0
+        return layer(cfg, x, positions, impl=impl, memory=memory)
+
+    return body
+
+
 def forward(model: Transformer, cfg: ArchConfig, batch, *,
             impl: str = "xla", remat: bool = True, seq_mixer: str = "chunked",
             remat_policy: Optional[str] = "none"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train / prefill forward.  Returns (logits (b, s, V_pad), aux_loss),
-    aux_loss a 0 f32 scalar (the dense family has no MoE loss).
+    """Train / prefill forward.  Returns (logits (b, s_tok, V_pad), aux_loss
+    (f32 scalar: the MoE layers' summed load-balance loss, else 0)).
 
-    ``remat`` checkpoints each layer when a gradient is being taken (the
-    reference's ``jax.checkpoint`` of its scanned layer body):
-    ``remat_policy="dots"`` keeps the weight products (``_dots_policy``),
-    any other value recomputes the whole layer, as the reference reads it.
-    Under ``torch.no_grad`` / ``inference_mode`` there is nothing to
-    recompute and the layers run as they are.  ``seq_mixer`` is the SSM
-    families' option: a placeholder accepted at its default, refused
-    otherwise."""
-    if seq_mixer != "chunked":
-        raise not_in_slice(f"forward(seq_mixer={seq_mixer!r})", 12)
-    x, _ = _embed_inputs(model, cfg, batch)
+    ``batch`` holds ``tokens`` (b, s) and, for a frontend config,
+    ``frontend`` (b, n, d): the decoder's prefix (its positions get no
+    logits) and, for enc-dec, the encoder's input.  ``seq_mixer`` selects
+    the SSM mixer: "chunked", or any other value for the scan, as the
+    reference reads it.  ``remat`` checkpoints each layer when a gradient
+    is being taken (the reference's ``jax.checkpoint`` of its scanned layer
+    body): ``remat_policy="dots"`` keeps the weight products
+    (``_dots_policy``), any other value recomputes the whole layer.  Under
+    ``torch.no_grad`` / ``inference_mode`` there is nothing to recompute and
+    the layers run as they are."""
+    x, n_prefix = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     checkpointed = bool(remat) and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     with L.f32_accumulation():
-        for layer in model.layers:
-            def body(h, layer=layer):
-                return layer(cfg, h, positions, impl=impl)
-            x = _remat(body, x, remat_policy) if checkpointed else body(x)
+        memory = None
+        if cfg.is_encdec:
+            memory = _run_encoder(model, cfg, batch["frontend"], impl)
+        for idx in range(len(model.layers)):
+            body = _layer_body(model, cfg, idx, positions, impl, seq_mixer,
+                               memory)
+            x, a = _remat(body, x, remat_policy) if checkpointed else body(x)
+            aux = aux + a
         x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if n_prefix:
+            x = x[:, n_prefix:]
         return _logits(model, cfg, x), aux
 
 
@@ -219,32 +438,74 @@ def _logits(model: Transformer, cfg: ArchConfig, x):
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, enc_len: int = 0,
                device=None) -> Dict[str, Any]:
-    """Zero KV cache ``k`` / ``v`` of shape (L, b, hkv, max_len, hd), bf16
-    by default as the reference's.  ``enc_len`` (the enc-dec memory) must
-    be 0."""
-    if enc_len != 0:
-        raise not_in_slice(f"init_cache(enc_len={enc_len!r})",
-                           12)
-    check_dense(cfg)
+    """The zero decode cache in the reference's layout: RWKV6 ``ssm`` (L, b,
+    h, hd, hd) f32 and ``shift`` (L, b, d); Mamba2 ``ssm`` (L, b, 2d / 64,
+    n, 64) f32, plus the hybrid's ``k`` / ``v`` over its ceil(L / k)
+    shared-attention applications; else ``k`` / ``v`` (L, b, hkv, max_len,
+    hd) and, for enc-dec, ``memory`` (b, enc_len, d).  K/V, ``shift`` and
+    ``memory`` in ``dtype`` (bf16 by default, as the reference's)."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    hkv, hd, lcount = cfg.num_kv_heads, cfg.hd, cfg.num_layers
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.ssm_kind == "rwkv6":
+        h = cfg.num_heads
+        return {"ssm": zeros((lcount, batch_size, h, hd, hd), torch.float32),
+                "shift": zeros((lcount, batch_size, cfg.d_model))}
+    if cfg.ssm_kind == "mamba2":
+        hm = (2 * cfg.d_model) // 64
+        cache = {"ssm": zeros((lcount, batch_size, hm, cfg.ssm_state, 64),
+                              torch.float32)}
+        if cfg.hybrid_attn_every:
+            napp = math.ceil(lcount / cfg.hybrid_attn_every)
+            cache["k"] = zeros((napp, batch_size, hkv, max_len, hd))
+            cache["v"] = zeros((napp, batch_size, hkv, max_len, hd))
+        return cache
+    cache = {"k": zeros((lcount, batch_size, hkv, max_len, hd)),
+             "v": zeros((lcount, batch_size, hkv, max_len, hd))}
+    if cfg.is_encdec:
+        cache["memory"] = zeros((batch_size, enc_len, cfg.d_model))
+    return cache
 
 
 def decode_step(model: Transformer, cfg: ArchConfig, tokens, cache, pos, *,
                 impl: str = "xla", kde_cfg: Optional[Dict] = None):
     """One decode step.  tokens (b, s) ints; pos: int (current write
-    offset).  Returns (logits (b, s, V_pad), cache).  The new keys and
-    values are written into ``cache`` in place (the reference returns an
-    updated copy); the returned cache is the same dict."""
+    offset).  Returns (logits (b, s, V_pad), cache).  The cache is updated
+    IN PLACE (the reference returns an updated copy): the new keys and
+    values at ``pos``, the SSM and shift states overwritten with the
+    step's; the returned cache is the same dict.  The hybrid applies its
+    shared block before each segment of k Mamba2 layers (ROADMAP.md
+    section 3)."""
     tok = _tokens(model, tokens)
     x = model.embed[tok].to(L.dtype_of(cfg))
     pos = int(pos)
     positions = pos + torch.arange(tok.shape[1], device=x.device)
     with L.f32_accumulation():
-        for layer, ck, cv in zip(model.layers, cache["k"], cache["v"]):
-            x = layer(cfg, x, positions, impl=impl, cache=(ck, cv),
-                      cache_pos=pos, kde_cfg=kde_cfg)
+        if cfg.ssm_kind == "rwkv6":
+            for i, layer in enumerate(model.layers):
+                x, ssm, shift = layer(cfg, x, state=cache["ssm"][i],
+                                      shift_state=cache["shift"][i])
+                cache["ssm"][i] = ssm
+                cache["shift"][i] = shift
+        elif cfg.ssm_kind == "mamba2":
+            k = cfg.hybrid_attn_every or cfg.num_layers
+            for app, lo in enumerate(range(0, cfg.num_layers, k)):
+                if cfg.hybrid_attn_every:
+                    # the reference's _shared_attn_decode: one position
+                    x = model.shared_attn(
+                        cfg, x, positions[:1], impl=impl,
+                        cache=(cache["k"][app], cache["v"][app]),
+                        cache_pos=pos, kde_cfg=kde_cfg)
+                for i in range(lo, min(lo + k, cfg.num_layers)):
+                    x, cache["ssm"][i] = model.layers[i](
+                        cfg, x, state=cache["ssm"][i])
+        else:
+            memory = cache.get("memory") if cfg.is_encdec else None
+            for layer, ck, cv in zip(model.layers, cache["k"], cache["v"]):
+                x, _ = layer(cfg, x, positions, impl=impl, cache=(ck, cv),
+                             cache_pos=pos, kde_cfg=kde_cfg, memory=memory)
         x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
         return _logits(model, cfg, x), cache

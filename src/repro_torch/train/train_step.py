@@ -2,11 +2,11 @@
 ``repro.train.train_step``.
 
 ``make_train_step`` builds the train step: forward (checkpointed layers
-with ``remat``), next-token cross entropy (+ the MoE aux loss, 0 for the
-dense family), gradients by autograd (the flash and rmsnorm backward
-passes are the reference's custom VJPs), AdamW in place.  ``microbatch >
-1`` accumulates f32 gradients over the split batch, as the reference's
-``lax.scan`` does.  The whole step runs under ``layers.f32_accumulation``:
+with ``remat``), next-token cross entropy (+ ``aux_weight`` times the
+MoE aux loss, 0 for the other families), gradients by autograd (the
+flash and rmsnorm backward passes are the reference's custom VJPs), AdamW
+in place.  ``microbatch > 1`` accumulates f32 gradients over the split
+batch, as the reference's ``lax.scan`` does.  The whole step runs under ``layers.f32_accumulation``:
 the backward's bf16 GEMMs and a checkpointed layer's recompute run after
 the forward has returned, so the forward's own scope would not cover them.
 
@@ -23,7 +23,6 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import not_in_slice
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as opt
@@ -40,8 +39,9 @@ def cross_entropy(logits: torch.Tensor, targets) -> torch.Tensor:
 def loss_fn(params, cfg: ArchConfig, batch, *, impl="xla", remat=True,
             seq_mixer="chunked", aux_weight=0.01, remat_policy="none"):
     """(loss + aux_weight * aux, (loss, aux)) of the model ``params`` on
-    ``batch`` (``tokens`` (b, s)): the next-token cross entropy of the
-    forward's logits."""
+    ``batch`` (``tokens`` (b, s), and ``frontend`` for a frontend config):
+    the next-token cross entropy of the forward's logits, aux the MoE
+    layers' load-balance loss (0 for the other families)."""
     tokens = T._tokens(params, batch["tokens"])
     logits, aux = T.forward(params, cfg, batch, impl=impl, remat=remat,
                             seq_mixer=seq_mixer, remat_policy=remat_policy)
@@ -60,8 +60,6 @@ def make_train_step(cfg: ArchConfig,
     in place whatever ``donate`` says: the port keeps one copy of the
     weights, as the reference's donated step does (ROADMAP.md section
     3)."""
-    if seq_mixer != "chunked":
-        raise not_in_slice(f"make_train_step(seq_mixer={seq_mixer!r})", 12)
 
     def grads_of(model, names, batch):
         tot, (loss, aux) = loss_fn(model, cfg, batch, impl=impl,
@@ -102,14 +100,13 @@ def make_train_step(cfg: ArchConfig,
 
 def make_prefill_step(cfg: ArchConfig, *, impl: str = "xla",
                       seq_mixer: str = "chunked"):
-    """Prefill: forward pass returning last-position logits (no loss).
-    ``seq_mixer`` (the reference's SSM mixer) must stay at its default."""
-    if seq_mixer != "chunked":
-        raise not_in_slice(f"make_prefill_step(seq_mixer={seq_mixer!r})", 12)
+    """Prefill: forward pass returning last-position logits (no loss);
+    ``seq_mixer`` selects the SSM families' mixer, as ``forward``."""
 
     @torch.inference_mode()
     def prefill_step(model, batch):
-        logits, _ = T.forward(model, cfg, batch, impl=impl)
+        logits, _ = T.forward(model, cfg, batch, impl=impl, remat=False,
+                              seq_mixer=seq_mixer)
         return logits[:, -1:]
 
     return prefill_step

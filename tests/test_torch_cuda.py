@@ -2085,3 +2085,90 @@ def test_custom_kind_sampler_on_the_card_launches_no_kernel(cuda):
     assert not any(counts.values()), counts
     np.testing.assert_allclose(got, want, rtol=RTOL)
     assert np.isfinite(p).all() and (nb != src).all()
+
+
+#: the non-dense families' attention shapes (b, hq, hkv, s, dh): zamba2's
+#: head dim 112 at group 1 (inside the 128 bucket), internvl2's group 7 at
+#: head dim 64, qwen3-moe's group 16 at head dim 128, seamless's 16 / 16
+#: and granite-moe's 16 / 8 at head dim 64
+FAMILY_SHAPES = [(2, 32, 32, 300, 112), (2, 14, 2, 300, 64),
+                 (1, 64, 4, 300, 128), (2, 16, 16, 300, 64),
+                 (2, 16, 8, 300, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAMILY_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_at_family_shapes(cuda, shape, dtype):
+    """The flash kernel at the families' heads (causal, ragged s = 300, v a
+    transposed view) vs the plain version: f32 out and lse at rtol 2e-4 /
+    atol 1e-5, a bf16 out within one bf16 step; one launch a call."""
+    b, hq, hkv, s, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(hq * 1000 + dh)
+    q = _randn(gen, (b, hq, s, dh), cuda, dtype)
+    k = _randn(gen, (b, hkv, s, dh), cuda, dtype)
+    v = _randn(gen, (b, s, hkv, dh), cuda, dtype).transpose(1, 2)
+    kp, vp, kw = fops.flash_args(q, k, v)
+    fk.reset_launches()
+    out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == 1
+    want, want_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert_bf16_close(out, want, ATOL, f"flash out {shape}")
+    torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAMILY_SHAPES)
+def test_kde_decode_kernel_matches_plain_at_family_shapes(cuda, shape):
+    """The fused decode kernel at the families' heads, at the serve
+    settings (batch 4, cache 544, bk 32, stride 4, top_p 4: up to 128
+    (batch, kv-head) groups, zamba2's) vs the plain pipeline, at a full
+    and a partial cache."""
+    _, hq, hkv, _, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(hq + dh)
+    q = _randn(gen, (4, hq, dh), cuda)
+    k = _randn(gen, (4, hkv, 544, dh), cuda, scale=0.3)
+    v = _randn(gen, (4, hkv, 544, dh), cuda)
+    for kv_valid in (544, 399, 1):
+        _decode_check(q, k, v, 4, 32, 4, kv_valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "zamba2_7b"])
+def test_full_width_family_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """Two layers of the full-width config (random f32 weights from seed 0,
+    drawn on the CPU and copied): 8 kde decode steps (top_p 4, bk 32,
+    stride 4) at batch 2 on the card -- the fused decode kernel once a
+    layer (zamba2: once a shared-block application) and step -- against
+    the same steps on the CPU (the plain pipeline): every step's logits
+    within 1e-4 of the largest, the same next tokens, the caches
+    (zamba2's SSM states too) within 1e-4 of their largest entry."""
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32")
+    cpu_model = T.init_params(cfg, seed=0, device="cpu")
+    card_model = T.init_params(cfg, seed=0, device="cpu").to(cuda)
+    kde = {"top_p": 4, "bk": 32, "stride": 4}
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    caches = {d: T.init_cache(cfg, 2, 64, torch.float32, device=d)
+              for d in ("cpu", cuda)}
+    step = make_decode_step(cfg, impl="kde", kde_cfg=kde)
+    kk.reset_launches()
+    for pos in range(8):
+        tok = toks[:, pos:pos + 1]
+        want_next, want, _ = step(cpu_model, caches["cpu"], tok, pos)
+        got_next, got, _ = step(card_model, caches[cuda], tok, pos)
+        top = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * top)
+        assert torch.equal(got_next.cpu(), want_next)
+    torch.cuda.synchronize()
+    apps = len(caches["cpu"]["k"])
+    assert kk.LAUNCHES == {"kde_decode": apps * 8}
+    for name, t in caches["cpu"].items():
+        top = max(float(t.abs().max()), 1e-30)
+        torch.testing.assert_close(caches[cuda][name].cpu(), t, rtol=0,
+                                   atol=1e-4 * top)

@@ -251,22 +251,24 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_out_of_slice_options_raise():
-    """The other families, the unported serve mode (``--robust``) and a
-    CUDA default without a card raise (the bf16 config builds and serves:
+    """A CUDA default without a card raises, and the mesh options the LM
+    path still lacks (queue 1 item 10) refuse (the other families, their
+    configs and ``serve --robust`` run since the families slice:
+    ``tests/test_torch_families*.py``; the bf16 config builds and serves:
     ``tests/test_torch_lm_bf16.py``; the graph-serving modes are ported:
     ``tests/test_torch_serving.py``)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import optimizer as topt
     f32 = dataclasses.replace(tbase.get_reduced("yi_6b"), dtype="float32")
-    for bad in (dict(num_experts=4, experts_per_token=2),
-                dict(ssm_kind="mamba2"), dict(encoder_layers=2),
-                dict(frontend="vision")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            TT.init_params(dataclasses.replace(f32, **bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tbase.get_config("rwkv6_3b")
-    args = tserve.parser().parse_args(["--device", "cpu", "--reduced",
-                                       "--robust"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.run_lm(args)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        ttrain.main(["--device", "cpu", "--reduced", "--data", "2"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        ckpt.restore("/nonexistent", None, 1, {})
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        topt.compressed_psum({}, {}, "data")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TT.init_params(f32)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TT.init_params(tbase.get_reduced("rwkv6_3b"))

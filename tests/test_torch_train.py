@@ -232,7 +232,8 @@ def test_forward_remat_options_match_reference_logits():
     """``forward`` with every (remat, remat_policy) and the reference's
     SSM default ``seq_mixer`` gives the reference's logits (rtol 1e-5 of
     the largest) and the same logits as the default call, bit for bit;
-    a non-default ``seq_mixer`` still raises."""
+    a non-default ``seq_mixer`` (the SSM families' scan, ported since the
+    families slice) changes nothing on a dense model, in either package."""
     jc, tc, params, batch = _setup("yi_6b")
     model = _model(tc, params)
     want = np.asarray(JT.forward(params, jc, {"tokens": jnp.asarray(
@@ -244,8 +245,11 @@ def test_forward_remat_options_match_reference_logits():
         assert torch.equal(got.detach(), base)
         np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
                                    atol=1e-5 * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="seq_mixer"):
-        TT.forward(model, tc, batch, seq_mixer="scan")
+    got = TT.forward(model, tc, batch, seq_mixer="scan")[0]
+    assert torch.equal(got.detach(), base)
+    np.testing.assert_array_equal(np.asarray(JT.forward(
+        params, jc, {"tokens": jnp.asarray(batch["tokens"])},
+        seq_mixer="scan")[0]), want)
 
 
 def test_dots_policy_saves_the_weight_products_only():
