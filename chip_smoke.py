@@ -394,10 +394,41 @@ Phases (any failure exits non-zero; no phase catches and continues):
                reference's one-sided -30 clamp); decode tok/s, a busy /
                idle split of 4 decode steps of each attention and the
                kde-vs-xla first-step logit correlation printed.
-18. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+18. mesh     -- the multi-device engines on ``torch.distributed``
+               (``phase_mesh``): 4 spawned ranks time-share the one card
+               (each selects device 0) in a **gloo** group with a 300 s
+               timeout -- NCCL refuses two ranks on one device
+               (``tools/nccl_one_card_probe.py``) -- and a rank's failure
+               fails the phase.  (a) ``spectral_sparsify(estimator=
+               "exact", exact_blocks=True, mesh=)`` on a (4,) ("data",)
+               mesh with phase 3's data and configuration: kernel_evals
+               and kde_queries equal phase 3's, every rank's edge list the
+               same, phase 3's edge law on rank 0's edges, per rank one
+               masked-blocksum launch and one all-reduce an edge batch
+               (640), the ring's 4 rowsum launches (3 exchanges, one
+               all-gather), no sample-block launch; the wall, edges/s and
+               the share of the wall inside the collectives (gloo stages a
+               CUDA tensor through the host) -- correctness numbers, not a
+               speed-up, the ranks sharing one card.  (b) on a (2, 2)
+               ("pod", "data") mesh with both axes as ``data_axes``:
+               ``degree_preprocessing`` within rtol 1e-3 of the exact
+               degrees (4 rowsum launches a rank) and
+               ``sharded_block_sums`` (one blocksum launch a rank) against
+               the plain block sums.  (c) ``HashedKDE(mesh=)`` degrees on
+               phase 6's data: the sum within 2% of the exact one, one
+               weighted-kv-sum launch and one all-reduce a query batch.
+               (d) a mesh serving tenant (n 8192, exact blocks): 3 ticks of
+               2 sample + 2 prob_of requests, one all-reduce and one
+               masked-blocksum launch a group, no failure.  (e) the (a)
+               sparsifier at P = 1 on NCCL and on gloo, run at once: edge
+               lists bitwise equal.  Rank 0 holds the first launch of each
+               kernel on each path against its plain version
+               (``tapped``); the counts are reported as ``mesh_launches``.
+19. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
                the graph phase's paths, ``graph_launches``, on the
                streaming and estimator paths, ``stream_launches``, on the
-               serve paths, ``serve_launches``, the two flash rows on
+               serve paths, ``serve_launches``, on the mesh paths (per
+               rank), ``mesh_launches``, the two flash rows on
                the training paths, ``train_launches``, and the f32 flash
                and kde_decode rows on the family phase's, by arch,
                ``family_launches``, with their device ms at each family's
@@ -456,7 +487,8 @@ every f32 KDE kernel and both bf16 weighted kernels must have been
 launched there; phase 15 does the same around each timed serving tick and
 CLI run (``serve_launches``); phase 16 around each loss-and-gradient
 call and each run of train steps (``train_launches``); phase 17 around
-each family's flash prefill and kde serve run (``family_launches``).
+each family's flash prefill and kde serve run (``family_launches``);
+every rank of phase 18 around each of its paths (``mesh_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -5714,6 +5746,297 @@ def phase_families(gen):
     return flash, kde, secs
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the multi-device engines on torch.distributed
+# --------------------------------------------------------------------- #
+MESH_P = 4                  # gloo ranks time-sharing the one card
+MESH_TIMEOUT = 300          # seconds: every rank's process-group timeout
+MESH_WALL = 900             # seconds a spawned group may take in all
+MESH_DEG_RTOL = 1e-3        # (b): the ring's degrees against exact ones
+MESH_BLOCK = 256            # (b): the functional block sums' block size
+MESH_SERVE_N = 8192         # (d): the serving tenant's rows
+MESH_SERVE_TICKS = 3
+MESH_SERVE_W = 64
+MESH_DEVICE = "cuda"
+MESH_SOLO = ("nccl", "gloo")   # (e): P = 1 on each backend, compared
+
+
+def mesh_card() -> None:
+    """Every rank's card is device 0; its context exists before the mesh
+    (so ``init_device_mesh`` keeps it), and no matmul takes TF32."""
+    import torch
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def mesh_rank(rank, world, backend, store, out, job):
+    """One spawned rank of phase 18: the card is device 0 for every rank,
+    the group has a timeout, the rank's result goes to ``out``.  A rank
+    that raises exits non-zero and fails the phase."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    mesh_card()
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    res = {"mesh_main": mesh_job_main, "mesh_solo": mesh_job_solo}[job](
+        rank, world)
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_start(job: str, world: int, backend: str, tag: str):
+    """Spawn ``world`` ranks of ``job`` on ``backend``; returns a callable
+    that waits for them (at most ``MESH_WALL`` s), kills any rank still
+    running on failure, and returns the ranks' results."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    out = ROOT / "build" / "mesh" / tag
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.start_processes(
+        mesh_rank, args=(world, backend, str(out / "store"), str(out), job),
+        nprocs=world, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+
+    def wait():
+        try:
+            while not ctx.join(timeout=1.0):
+                assert time.perf_counter() - t0 < MESH_WALL, \
+                    f"mesh group {tag} ran past {MESH_WALL} s"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(out / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+    return wait
+
+
+def mesh_sparsify(mesh):
+    """The (a) sparsifier on ``mesh``: phase 3's data and configuration.
+    Returns its edges, counters, launches, collectives and wall."""
+    import torch
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.sparsify import spectral_sparsify
+    from repro_torch.data.synthetic_points import gaussian_clusters
+    from repro_torch.kernels.kde_sampler import sharded as sh
+    x_np, _ = gaussian_clusters(n=SP_N, d=SP_D, seed=0)
+    sh.reset_collectives()
+    t0 = time.perf_counter()
+    g, launches = kernel_launches(lambda: spectral_sparsify(
+        x_np, gaussian(SP_BW), num_edges=10 * SP_N, estimator="exact",
+        exact_blocks=True, seed=0, batch=BATCH, mesh=mesh))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return dict(src=g.src, dst=g.dst, weight=g.weight,
+                evals=g.kernel_evals, queries=g.kde_queries,
+                status=g.status, launches=launches,
+                cc=dict(sh.COLLECTIVES), coll_secs=sh.COLLECTIVE_SECONDS[0],
+                secs=secs, backend=sh.mesh_group(mesh).backend)
+
+
+def mesh_job_main(rank, world):
+    """(a)-(d) on ``world`` gloo ranks; rank 0 also holds every kernel's
+    first launch on each path against its plain version."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.kde.distributed import (degree_preprocessing,
+                                                  make_sharded_dataset,
+                                                  sharded_block_sums)
+    from repro_torch.core.kde.hashed import HashedKDE
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.serving import KernelGraphServable
+    from repro_torch.data.synthetic_points import gaussian_clusters
+    from repro_torch.kernels.kde_rowsum import kernel as rk
+    from repro_torch.kernels.kde_sampler import sharded as sh
+    errs, res = {}, {}
+    mesh = init_device_mesh(MESH_DEVICE, (world,), mesh_dim_names=("data",))
+
+    def checked(what, fn, *names):
+        out, taps = tapped(fn, *kernel_taps(*names))
+        if rank == 0:
+            path_kernel_checks(taps, what, errs, "mesh")
+        return out
+    # (a) the exact sparsifier
+    res["sparsify"] = checked("mesh sparsifier",
+                              lambda: mesh_sparsify(mesh),
+                              "masked_blocksum", "rowsum")
+    # (b) the degree ring and the block sums on a (2, 2) mesh, both axes
+    mesh2 = init_device_mesh(MESH_DEVICE, (2, world // 2),
+                             mesh_dim_names=("pod", "data"))
+    axes = ("pod", "data")
+    ker = gaussian(SP_BW)
+    x_np, _ = gaussian_clusters(n=SP_N, d=SP_D, seed=0)
+    x = torch.as_tensor(x_np, device=MESH_DEVICE)
+    xs = make_sharded_dataset(mesh2, x, data_axes=axes)
+    deg, l_deg = kernel_launches(lambda: checked(
+        "2 x 2 mesh degree ring",
+        lambda: degree_preprocessing(mesh2, ker, data_axes=axes)(xs),
+        "rowsum"))
+    y = x[:BATCH].contiguous()
+    nbs = SP_N // world // MESH_BLOCK
+    bsum, l_blk = kernel_launches(lambda: checked(
+        "2 x 2 mesh block sums",
+        lambda: sharded_block_sums(mesh2, ker, nbs, data_axes=axes)(y, xs),
+        "blocksum"))
+    res["degrees"] = dict(launches=l_deg, block_launches=l_blk)
+    if rank == 0:
+        want = exact_degrees(x, 1.0 / SP_BW)
+        rel = float(((deg.double() - want).abs() / want).max())
+        assert rel <= MESH_DEG_RTOL, rel
+        errs["blocksum"] = max(errs.get("blocksum", 0.0), close(
+            bsum, rk.blocksum_plain(y, x, "gaussian", 1.0 / SP_BW, 1.0,
+                                    MESH_BLOCK), "2 x 2 mesh block sums"))
+        res["degrees"]["max_rel"] = rel
+    # (c) the hashed degrees on phase 6's data
+    hs = torch.as_tensor(gaussian_clusters(n=HS_N, d=HS_D, seed=0)[0],
+                         device=MESH_DEVICE)
+    est = HashedKDE(hs, gaussian(HS_BW), max_bucket=HS_MAX_BUCKET,
+                    num_far_samples=HS_NUM_FAR, seed=HS_LAYOUT_SEED,
+                    mesh=mesh)
+    sh.reset_collectives()
+    deg_h, l_hash = kernel_launches(lambda: checked(
+        "mesh hashed degrees", est.degrees, "weighted_kv_sum"))
+    res["hash"] = dict(launches=l_hash, cc=dict(sh.COLLECTIVES),
+                       deg_sum=float(deg_h.sum()))
+    if rank == 0:
+        res["hash"]["exact_sum"] = float(hs_exact_degrees(
+            {"hs_x": hs, "hs_bs": max(int(np.sqrt(HS_N)), 16)}).sum())
+    # (d) a mesh serving tenant: sample and prob_of groups
+    srv = KernelGraphServable(device=MESH_DEVICE)
+    srv.add_tenant("m", x_np[:MESH_SERVE_N], ker, exact_blocks=True,
+                   mesh=mesh, seed=0)
+    rng = np.random.default_rng(0)
+    ticks = []
+    for t in range(MESH_SERVE_TICKS):
+        reqs = []
+        for i in range(2):
+            src = rng.integers(0, MESH_SERVE_N, MESH_SERVE_W)
+            reqs.append(srv.submit("m", "sample", src=src, seed=10 * t + i))
+            reqs.append(srv.submit(
+                "m", "prob_of", src=src,
+                dst=rng.integers(0, MESH_SERVE_N, MESH_SERVE_W),
+                seed=10 * t + i + 5))
+        sh.reset_collectives()
+        stats, launches = kernel_launches(srv.tick)
+        assert stats["failed"] == 0, stats
+        for r in reqs:
+            vals = r.result[1] if r.op == "sample" else r.result
+            assert np.isfinite(vals).all() and (vals >= 0).all(), r.op
+        ticks.append(dict(launches=launches, cc=dict(sh.COLLECTIVES),
+                          ms=stats["tick_ms"]))
+    res["serve"] = ticks
+    res["errs"] = errs
+    return res
+
+
+def mesh_job_solo(rank, world):
+    """(e): the (a) sparsifier at P = 1 on this group's backend."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return mesh_sparsify(init_device_mesh(MESH_DEVICE, (1,),
+                                          mesh_dim_names=("data",)))
+
+
+def phase_mesh(sp_counts):
+    """Phase 18: the multi-device engines (``kde_sampler.sharded``,
+    ``kde_hash.sharded``, ``core.kde.distributed``) through the public
+    entry points, ``MESH_P`` gloo ranks time-sharing the one card (NCCL
+    refuses two ranks on one device), then P = 1 on NCCL against P = 1 on
+    gloo.  Returns (launches by path, secs, max abs errors)."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic_points import gaussian_clusters
+    secs = {}
+    t0 = time.perf_counter()
+    res = mesh_start("mesh_main", MESH_P, "gloo", "main")()
+    secs["mesh (a)-(d)"] = time.perf_counter() - t0
+    r0 = res[0]
+    a = r0["sparsify"]
+    batches = -(-10 * SP_N // BATCH)
+    assert (a["evals"], a["queries"]) == sp_counts, (a["evals"], sp_counts)
+    for r in res:
+        s = r["sparsify"]
+        for k in ("src", "dst", "weight"):
+            np.testing.assert_array_equal(s[k], a[k])
+        assert s["launches"] == {"masked_blocksum": batches,
+                                 "rowsum": MESH_P}, s["launches"]
+        assert (s["cc"]["psum"], s["cc"]["ppermute"],
+                s["cc"]["all_gather"]) == (batches, MESH_P - 1, 1), s["cc"]
+        assert s["backend"] == "gloo"
+    dev = torch.device(MESH_DEVICE)
+    data = {"sp_x": torch.as_tensor(
+                gaussian_clusters(n=SP_N, d=SP_D, seed=0)[0], device=dev),
+            "sp_bs": max(int(np.sqrt(SP_N)), 16)}
+    deg = exact_degrees(data["sp_x"], 1.0 / SP_BW)
+    g = types.SimpleNamespace(src=a["src"], dst=a["dst"])
+    log(f"[mesh] (a) the exact sparsifier on a ({MESH_P},) mesh, rank 0's "
+        f"edges: {edge_law(data, g, deg)} (alpha 1e-3)")
+    del data, deg
+    share = a["coll_secs"] / a["secs"]
+    log(f"[mesh] (a) spectral_sparsify(mesh=) n={SP_N} t={10 * SP_N} on "
+        f"{MESH_P} gloo ranks: {a['secs']:.2f} s, "
+        f"{10 * SP_N / a['secs']:.0f} edges/s, {share:.1%} of the wall in "
+        f"the collectives ({a['cc']}, gloo staged through the host); "
+        f"kernel_evals {a['evals']} and kde_queries {a['queries']} equal "
+        f"phase 3's; per rank {a['launches']}, every rank's edge list the "
+        f"same.  {MESH_P} ranks time-share one card: correctness numbers, "
+        f"not a speed-up")
+    for r in res:
+        d = r["degrees"]
+        assert d["launches"] == {"rowsum": MESH_P}, d["launches"]
+        assert d["block_launches"] == {"blocksum": 1}, d["block_launches"]
+        h = r["hash"]
+        assert h["launches"] == {"weighted_kv_sum": HS_N // BATCH}, \
+            h["launches"]
+        assert h["cc"]["psum"] == HS_N // BATCH, h["cc"]
+        assert h["deg_sum"] == r0["hash"]["deg_sum"]
+        for t in r["serve"]:
+            assert t["launches"] == {"masked_blocksum": 2}, t["launches"]
+            assert t["cc"]["psum"] == 2, t["cc"]
+    rel = abs(r0["hash"]["deg_sum"] - r0["hash"]["exact_sum"]) \
+        / r0["hash"]["exact_sum"]
+    assert rel <= HS_DEG_RTOL, rel
+    log(f"[mesh] (b) degree_preprocessing on a (2, 2) ('pod', 'data') mesh: "
+        f"max rel err {r0['degrees']['max_rel']:.3e} (bound "
+        f"{MESH_DEG_RTOL}), {MESH_P} rowsum launches a rank; "
+        f"sharded_block_sums one blocksum launch a rank")
+    log(f"[mesh] (c) HashedKDE(mesh=) degrees at n={HS_N}: sum "
+        f"{r0['hash']['deg_sum']:.6e} vs exact {r0['hash']['exact_sum']:.6e}"
+        f", rel err {rel:.3e} (bound {HS_DEG_RTOL}); one weighted_kv_sum "
+        f"launch and one all-reduce a query batch")
+    log(f"[mesh] (d) mesh serving tenant: {MESH_SERVE_TICKS} ticks of 2 "
+        f"sample + 2 prob_of requests (w {MESH_SERVE_W}): one all-reduce "
+        f"and one masked_blocksum launch a group; tick ms "
+        + ", ".join(f"{t['ms']:.2f}" for t in r0["serve"]))
+    t0 = time.perf_counter()
+    waits = [mesh_start("mesh_solo", 1, b, f"solo_{i}_{b}")
+             for i, b in enumerate(MESH_SOLO)]
+    nccl, gloo = (w()[0] for w in waits)
+    secs["mesh (e)"] = time.perf_counter() - t0
+    assert (nccl["backend"], gloo["backend"]) == MESH_SOLO
+    for k in ("src", "dst", "weight"):
+        np.testing.assert_array_equal(nccl[k], gloo[k])
+    assert nccl["launches"] == gloo["launches"] == {
+        "masked_blocksum": batches, "rowsum": 1}, nccl["launches"]
+    log(f"[mesh] (e) P = 1: the NCCL run's edge list bitwise the gloo run's "
+        f"({nccl['secs']:.2f} s vs {gloo['secs']:.2f} s)")
+    launches = {"sparsify (a)": a["launches"],
+                "degrees (b)": r0["degrees"]["launches"],
+                "block sums (b)": r0["degrees"]["block_launches"],
+                "hashed degrees (c)": r0["hash"]["launches"],
+                "serve tick (d)": r0["serve"][0]["launches"]}
+    return launches, secs, r0["errs"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5830,6 +6153,7 @@ def main() -> int:
     log("[stratified] one edge batch, ms by stage (CUDA events): "
         + ", ".join(f"{k} {v:.4f}"
                     for k, v in strat_breakdown(data).items()))
+    sp_counts = (g.kernel_evals, g.kde_queries)
     del g, g_hash, g_strat, res, lra_est, runs, deg
     free_cuda()
 
@@ -5891,6 +6215,9 @@ def main() -> int:
     fam_flash, fam_kde, fam_secs = phase_families(gen)
     phases.update({f"families {k}": v for k, v in fam_secs.items()})
     family_launches = {"flash_attention": fam_flash, "kde_decode": fam_kde}
+    free_cuda()
+    mesh_launches, mesh_secs, mesh_errs = phase_mesh(sp_counts)
+    phases.update(mesh_secs)
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -5899,7 +6226,10 @@ def main() -> int:
                                st_errs.get(r["name"], 0.0),
                                est_errs.get(r["name"], 0.0),
                                sv_errs.get(r["name"], 0.0),
-                               tr_errs.get(r["name"], 0.0))
+                               tr_errs.get(r["name"], 0.0),
+                               mesh_errs.get(r["name"], 0.0))
+        r["mesh_launches"] = {path: c[r["name"]] for path, c in
+                              mesh_launches.items() if r["name"] in c}
         r["graph_launches"] = {path: c[r["name"]] for path, c in
                                graph_launches.items() if r["name"] in c}
         r["stream_launches"] = {path: c[r["name"]] for path, c in
@@ -5918,7 +6248,8 @@ def main() -> int:
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
                                   "ctas", "instance", "reduce_share",
                                   "graph_launches", "stream_launches",
-                                  "serve_launches", "train_launches",
+                                  "serve_launches", "mesh_launches",
+                                  "train_launches",
                                   "train_shape", "train_ms",
                                   "train_device_ms", "train_bound_ms",
                                   "train_bound_by", "train_library_ms",

@@ -12,8 +12,8 @@ to ``0/embed``, ``0/layers/attn/wq`` (layer parameters stacked on a
 leading L axis), ``1/.step``, ``1/.m/...``, ``1/.v/...``, so each package
 restores a checkpoint the other wrote.  bf16 parameters are stored as
 float32 arrays of the same values (a restore casts each array to its
-template's dtype).  ``restore(shardings=)`` needs a mesh (ROADMAP.md
-queue 1 item 10).
+template's dtype).  ``restore(shardings=)`` needs the sharded LM state (ROADMAP.md
+queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -187,7 +187,7 @@ def restore(directory: str, template: Any, step: Optional[int] = None,
     parameters are overwritten in place), or a tree of tensors.
     ``shardings`` (the reference's re-shard onto a mesh) must be None."""
     if shardings is not None:
-        raise not_in_slice("restore(shardings=...)", 10)
+        raise not_in_slice("restore(shardings=...)", 12)
     if step is None:
         step = latest_step(directory)
         assert step is not None, f"no checkpoint in {directory}"

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.sampling.edge import NeighborSampler
-from repro_torch.device import not_in_slice
 from repro_torch.kernels.kde_sampler import ops as _ops
 
 
@@ -57,18 +56,18 @@ def same_cluster_test(x, kernel, u: int, w: int, walk_length: int,
     from ``np.random.default_rng(seed)``, as the reference draws them.
 
     Cost: (r_u + r_w) * walk_length walk steps; per step one level-1 read
-    (w*n exact / w*B*s stratified) plus w exact level-2 rows.
+    (w*n exact / w*B*s stratified) plus w exact level-2 rows.  With
+    ``mesh=`` the walks run on the sharded engine (one all-reduce a step).
 
     >>> res = same_cluster_test(x, gaussian(1.0), 0, 5, walk_length=6,
     ...                         num_walks=400)
     """
-    if mesh is not None:
-        raise not_in_slice("same_cluster_test(mesh=)", 10)
     n = int(x.shape[0])
     rng = np.random.default_rng(seed)
     if sampler is None:
         sampler = NeighborSampler(x, kernel, mode="blocked", seed=seed,
-                                  exact_blocks=True, device=device)
+                                  exact_blocks=True, mesh=mesh,
+                                  device=device)
     # Poissonize the sample sizes so the collision statistic is unbiased.
     r_u = max(int(rng.poisson(num_walks)), 1)
     r_w = max(int(rng.poisson(num_walks)), 1)

@@ -28,9 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import as_f32, not_in_slice, resolve_device
+from repro_torch.device import as_f32, resolve_device
 from repro_torch.ft import guards as _g
 from repro_torch.kernels.kde_sampler import ops as _ops
+from repro_torch.kernels.kde_sampler.sharded import (mesh_device,
+                                                     sharded_noisy_power)
 
 
 @dataclasses.dataclass
@@ -73,19 +75,26 @@ def noisy_power_method(ksub: torch.Tensor, iters: int, num_samples: int,
     ``generator`` (on ksub's device), then ``ops.noisy_power_scan``.
     Returns (eigenvalue, vector, matvec_sampled_evals) where the last is
     the sampled-pair lookup count ``iters * t * num_samples`` (not fresh
-    kernel evaluations -- the submatrix is already materialized).
+    kernel evaluations -- the submatrix is already materialized).  With
+    ``mesh=`` the submatrix is sharded over columns and each iteration's
+    sampled matvec is a local masked gather plus one all-reduce
+    (``kde_sampler.sharded.sharded_noisy_power``); the noise and the math
+    are the same, and every rank of the mesh calls it.
 
     >>> lam, v, _ = noisy_power_method(ksub, 12, 32, torch.Generator())
     """
-    if mesh is not None:
-        raise not_in_slice("noisy_power_method(mesh=)", 10)
     t = int(ksub.shape[0])
     v0 = torch.randn(t, generator=generator, device=ksub.device,
                      dtype=ksub.dtype)
     v0 = v0 / torch.linalg.norm(v0)
     us = torch.rand((iters, num_samples), generator=generator,
                     device=ksub.device)
-    lam, v, st = _ops.noisy_power_scan(ksub, v0, us, num_samples=num_samples)
+    if mesh is not None:
+        lam, v, st = sharded_noisy_power(mesh, ksub, v0, us,
+                                         num_samples=num_samples)
+    else:
+        lam, v, st = _ops.noisy_power_scan(ksub, v0, us,
+                                           num_samples=num_samples)
     # stalled iterations (ZERO_MASS) keep the previous iterate -- benign;
     # NaN/Inf anywhere in the loop is fatal under REPRO_CHECKS=1
     _g.raise_on_status(st, context="noisy_power_method", allow=_g.ZERO_MASS)
@@ -106,11 +115,17 @@ def top_eigenvalue(x, kernel: Kernel, eps: float = 0.25, tau: float = 0.1,
     ``method="noisy_power"`` additionally ``iters * t * num_samples``
     sampled pair lookups, reported in ``matvec_sampled_evals``.
 
+    With ``mesh=`` (``method="noisy_power"`` only) the noisy power
+    iteration runs sharded on the mesh's device.
+
     >>> res = top_eigenvalue(x, gaussian(1.0), t=180, method="noisy_power")
     """
-    if mesh is not None:
-        raise not_in_slice("top_eigenvalue(mesh=)", 10)
-    dev = resolve_device(device)
+    if mesh is not None and method != "noisy_power":
+        raise ValueError("mesh= shards the noisy power iteration; use "
+                         "method='noisy_power' (the plain power method is "
+                         "a host post-processing step)")
+    dev = (mesh_device(mesh, device) if mesh is not None
+           else resolve_device(device))
     n = int(x.shape[0])
     rng = np.random.default_rng(seed)
     t = int(t if t is not None
@@ -124,7 +139,8 @@ def top_eigenvalue(x, kernel: Kernel, eps: float = 0.25, tau: float = 0.1,
     if method == "noisy_power":
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         lam, v, sampled = noisy_power_method(
-            ksub_dev, iters, num_samples=max(t // 2, 8), generator=gen)
+            ksub_dev, iters, num_samples=max(t // 2, 8), generator=gen,
+            mesh=mesh)
     else:
         ksub = ksub_dev.cpu().numpy().astype(np.float64)
         lam, v = power_method(ksub, iters, rng)

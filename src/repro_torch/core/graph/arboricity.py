@@ -26,7 +26,7 @@ from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.vertex import DegreeSampler
 from repro_torch.core.sparsify import SparseGraph
-from repro_torch.device import as_f32, not_in_slice, resolve_device
+from repro_torch.device import as_f32, resolve_device
 
 
 def greedy_densest_subgraph(n: int, src: np.ndarray, dst: np.ndarray,
@@ -80,24 +80,25 @@ def estimate_arboricity(x, kernel: Kernel, num_edges: int,
                         mesh=None, device=None) -> ArboricityResult:
     """Algorithm 6.14 / Theorem 6.15 with the weighted edge sampler of
     Section 4.3: all ``num_edges`` draws and their importance weights come
-    from one device edge-batch loop.
+    from one device edge-batch loop (sharded over ``mesh`` when given: one
+    all-reduce a batch, DESIGN.md §9).
 
     Cost (stratified, m = num_edges rounded up to a batch multiple):
     ``n*B*s`` degree preprocessing + ``m*(B*s + bs + 1)`` edge draws.
 
     >>> res = estimate_arboricity(x, gaussian(1.0), num_edges=8 * len(x))
     """
-    if mesh is not None:
-        raise not_in_slice("estimate_arboricity(mesh=)", 10)
     n = int(x.shape[0])
     m = int(num_edges)
     nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
                           exact_blocks=(estimator in ("exact",
                                                       "exact_block")),
+                          mesh=mesh,
                           level1="hash" if estimator == "hash"
-                          else "blocked", device=device)
+                          and mesh is None else "blocked", device=device)
     est = shared_level1_estimator(nbr, estimator, seed=seed)
-    deg = DegreeSampler(est, seed=seed + 1)
+    deg = DegreeSampler(est, seed=seed + 1,
+                        mesh=mesh if est is nbr.blocks else None)
     # edge_batches reweights by k(u,v) / (m (p_u q_uv + p_v q_vu)) -- the
     # Theorem-6.15 estimator X_i = w_e / (p_e m) with the Section 4.3 law.
     u, v, w, _, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,

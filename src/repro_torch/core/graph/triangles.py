@@ -27,7 +27,7 @@ from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.vertex import approximate_degrees
-from repro_torch.device import as_f32, not_in_slice, resolve_device
+from repro_torch.device import as_f32, resolve_device
 
 
 @dataclasses.dataclass
@@ -53,17 +53,19 @@ def estimate_triangle_weight(x, kernel: Kernel, num_edges: int,
     ``n*B*s`` degree preprocessing + ``m*(B*s + 1)`` frontier read and
     k(u,v) pairs + ``ns*m*(bs + 1)`` draw/reweight evals.
 
+    With ``mesh=`` the draws run on the sharded engine (one all-reduce a
+    draw batch); the hashed estimator then covers the degrees only.
+
     >>> res = estimate_triangle_weight(x, gaussian(1.0), 400, 24)
     """
-    if mesh is not None:
-        raise not_in_slice("estimate_triangle_weight(mesh=)", 10)
     n = int(x.shape[0])
     rng = np.random.default_rng(seed)
     nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 1,
                           exact_blocks=(estimator in ("exact",
                                                       "exact_block")),
+                          mesh=mesh,
                           level1="hash" if estimator == "hash"
-                          else "blocked", device=device)
+                          and mesh is None else "blocked", device=device)
     est = shared_level1_estimator(nbr, estimator, seed=seed)
     deg = approximate_degrees(est)
 

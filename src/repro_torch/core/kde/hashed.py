@@ -19,8 +19,11 @@ layout at the next query after a mutation (``kde_hash.ops.HashPatcher``),
 rebuilding when the journal cannot bridge the gap or the region fills.
 The bf16 copy is re-rounded at the mutated rows on every patch.
 
-This slice covers one device: ``mesh=`` and ``data_axes=`` other than
-``("data",)`` raise ``NotImplementedError``; ``use_pallas`` /
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, f32 only) the
+bucket tables live sharded over the mesh's ``data_axes``
+(``kde_hash.sharded.ShardedHashTable``): each rank sweeps its own shard's
+NEAR and FAR columns in one weighted-kv-sum launch and a query batch is one
+all-reduce; every rank calls each entry point (SPMD).  ``use_pallas`` /
 ``interpret`` must be None (the dataset's device chooses the kernel).
 """
 from __future__ import annotations
@@ -33,9 +36,11 @@ import torch
 from repro_torch.core.dataset import attach_device
 from repro_torch.core.kde.base import KDEBase
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import as_f32, no_switch, not_in_slice
+from repro_torch.device import as_f32, no_switch
 from repro_torch.ft import guards as _g
+from repro_torch.kernels.kde_hash.sharded import ShardedHashTable
 from repro_torch.kernels.kde_sampler.ref import round_bf16
+from repro_torch.kernels.kde_sampler.sharded import mesh_device
 
 
 class HashedKDE(KDEBase):
@@ -61,11 +66,11 @@ class HashedKDE(KDEBase):
                  device=None):
         no_switch("use_pallas", use_pallas)
         no_switch("interpret", interpret)
-        if tuple(data_axes) != ("data",):
-            raise not_in_slice(f"HashedKDE(data_axes={data_axes!r})",
-                               10)
         if mesh is not None:
-            raise not_in_slice("HashedKDE(mesh=)", 10)
+            if precision != "f32":
+                raise ValueError("precision='bf16' is single-device for "
+                                 "now: the sharded hash table is f32")
+            device = mesh_device(mesh, device)
         if dataset is not None:
             device = attach_device(dataset, device)
             x = dataset.x_pad      # engines build over the padded capacity
@@ -93,6 +98,9 @@ class HashedKDE(KDEBase):
                               num_hash_dims=int(num_hash_dims),
                               max_bucket=self.max_bucket, seed=int(seed),
                               overflow_cap=int(overflow_cap))
+        self._mesh = mesh
+        self._data_axes = tuple(data_axes)
+        self.engine = None
         self._build()
 
     def _build(self) -> None:
@@ -105,6 +113,15 @@ class HashedKDE(KDEBase):
             self.x = self._dataset.x_pad
             self.x_sq = self._dataset.x_sq_pad
             self.n = int(self.x.shape[0])
+        if self._mesh is not None:
+            self.engine = ShardedHashTable(
+                self._mesh, self.x, self.kernel, live=live,
+                num_far_samples=self.num_far_samples,
+                data_axes=self._data_axes, device=self.device,
+                **self._build_kw)
+            self.state = None
+            self.cell_width = self.engine.cell_width
+            return
         self.state, self.cell_width = self._ops.build_hash_state(
             self.x, self.kernel, live=live, device=self.device,
             **self._build_kw)
@@ -147,9 +164,14 @@ class HashedKDE(KDEBase):
         self.x_sq = ds.x_sq_pad
         slots, old_x, new_x, old_live, new_live = \
             coalesce_mutations(batches)
-        self.state = self._patcher.apply(self.state, slots, old_x, new_x,
-                                         old_live, new_live)
-        if self._patcher.needs_rebuild:
+        if self.engine is not None:
+            saturated = not self.engine.patch_rows(slots, old_x, new_x,
+                                                   old_live, new_live)
+        else:
+            self.state = self._patcher.apply(self.state, slots, old_x,
+                                             new_x, old_live, new_live)
+            saturated = self._patcher.needs_rebuild
+        if saturated:
             s = _g.OVERFLOW_SATURATED
             self.last_status = s
             self.status |= s
@@ -158,7 +180,7 @@ class HashedKDE(KDEBase):
                                allow=_g.BUCKET_OVERFLOW | _g.HT_HEAVY)
             self.compact()
             return
-        if self.state.x_bf16 is not None:
+        if self.state is not None and self.state.x_bf16 is not None:
             # the bf16 copy follows the mutated rows (sentinels included)
             idx = torch.as_tensor(slots.astype(np.int64)).to(self.device)
             self.state.x_bf16.index_copy_(
@@ -182,6 +204,14 @@ class HashedKDE(KDEBase):
         ``last_status`` (or-folded into ``status``)."""
         y = as_f32(y, self.device)
         self._sync()
+        if self.engine is not None:
+            eng = self.engine
+            est, cnt, cw = eng.query(y, eng.draw_noise(y.shape[0],
+                                                       self._gen))
+            self.evals += int(cnt.sum()) \
+                + y.shape[0] * eng.num_far * eng.num_shards
+            self._note(cw)
+            return est
         num_far = self._cfg["num_far"]
         fidx = self._ops.draw_query_noise(y.shape[0], num_far, self.n,
                                           self._gen, self.device)

@@ -42,6 +42,15 @@ rowsum kernel call each with ``ExactKDE`` nodes on the card), then the
 exact leaf row, all on the host, drawing from a numpy generator seeded by
 ``seed`` in the reference's order.
 
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``; blocked mode,
+``level1="blocked"``, f32 only) the level-1 block structure lives sharded
+over the mesh's ``data_axes`` inside a ``ShardedKDE`` and every draw is the
+two-stage collective program of DESIGN.md §9 (one all-reduce a draw batch,
+``kde_sampler.sharded``): the same law as the flat draw, the same §4
+caching contract and the same eval counters.  Every rank of the mesh calls
+each entry point with the same arguments (SPMD); the noise comes from the
+sampler's generator, in step on every rank.
+
 With ``dataset=`` (a ``DynamicDataset``, DESIGN.md §12) the blocked
 engine builds over the padded capacity and every public entry brings it
 to the dataset's current epoch: the cached level-1 sums are patched by
@@ -66,12 +75,13 @@ import torch
 from repro_torch.core.dataset import attach_device
 from repro_torch.core.kde.base import (ExactBlockKDE, StratifiedKDE,
                                        make_estimator)
+from repro_torch.core.kde.distributed import ShardedKDE
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.device import (as_f32, no_switch, not_in_slice,
-                                resolve_device)
+from repro_torch.device import as_f32, no_switch, resolve_device
 from repro_torch.ft import guards as _g
 from repro_torch.kernels.kde_sampler import ops as _ops
 from repro_torch.kernels.kde_sampler import ref as _ref
+from repro_torch.kernels.kde_sampler.sharded import mesh_device
 from repro_torch.kernels.kde_sampler.ref import (check_precision,
                                                  static_pairwise)
 from repro_torch.obs import counters as _c
@@ -101,8 +111,6 @@ class NeighborSampler:
                  precision: str = "f32", device=None):
         no_switch("use_pallas", use_pallas)
         no_switch("interpret", interpret)
-        if tuple(data_axes) != ("data",):
-            raise not_in_slice(f"data_axes={data_axes!r}", 10)
         if mode not in ("blocked", "tree"):
             raise ValueError(mode)
         if level1 not in ("blocked", "hash"):
@@ -113,7 +121,20 @@ class NeighborSampler:
                              "reproducible exact read) cannot be honored "
                              "-- pick one")
         if mesh is not None:
-            raise not_in_slice("mesh=", 10)
+            if mode != "blocked":
+                raise ValueError("mesh= needs the blocked engine")
+            if level1 == "hash":
+                raise ValueError("level1='hash' is single-device for now; "
+                                 "the sharded hash table covers queries "
+                                 "(kde_hash.sharded), not draws")
+            if precision != "f32":
+                raise ValueError(
+                    "precision='bf16' is single-device for now: the "
+                    "sharded one-all-reduce schedule is pinned f32 (see "
+                    "DESIGN.md §14)")
+        self._mesh = mesh
+        self._axes = tuple(data_axes)
+        self._engine = None
         # streaming attach (DESIGN.md §12): engines build over the padded
         # capacity; every public entry epoch-checks and patches or rebuilds
         self._dataset = dataset
@@ -126,7 +147,8 @@ class NeighborSampler:
         # the level-1 sweep's dtype policy (DESIGN.md §14), checked against
         # the kernel kind before anything is built
         check_precision(precision, kernel.name, static_pairwise(kernel))
-        self.device = resolve_device(device)
+        self.device = (mesh_device(mesh, device) if mesh is not None
+                       else resolve_device(device))
         self.kernel = kernel
         self.mode = mode
         self.level1 = level1
@@ -192,7 +214,21 @@ class NeighborSampler:
     def _build_blocks(self, x, bs: int) -> None:
         """The level-1 block structure over ``x`` (also the streaming
         rebuild: the block size is kept, the block count follows the
-        capacity) and the dataset views every read shares."""
+        capacity) and the dataset views every read shares; on a mesh the
+        ``ShardedKDE`` whose engine every draw runs on."""
+        if self._mesh is not None:
+            self._blocks = ShardedKDE(
+                self._mesh, x, self.kernel, block_size=bs,
+                samples_per_block=self._spb0, exact=self.exact_blocks,
+                data_axes=self._axes, seed=self._seed0, device=self.device)
+            self._engine = self._blocks.engine
+            self.x = self._blocks.x
+            self.x_sq = self._blocks.x_sq
+            self.n = self._blocks.n
+            self.block_size = self._blocks.block_size
+            self.num_blocks = self._blocks.num_blocks
+            self._views = None
+            return
         if self.exact_blocks:
             self._blocks = ExactBlockKDE(x, self.kernel, block_size=bs,
                                          precision=self.precision,
@@ -302,6 +338,12 @@ class NeighborSampler:
         batches = ds.mutations_since(self._ds_epoch)
         if batches is None:
             self._rebuild()
+        elif self._engine is not None:
+            # mesh path: patch the engine's copies (zero collectives); the
+            # cached level-1 sums are sharded, so they are dropped
+            slots, _, new_x, _, _ = coalesce_mutations(batches)
+            self._blocks.patch_rows(slots, new_x)
+            self._l1_cache = None
         else:
             slots, old_x, new_x, _, _ = coalesce_mutations(batches)
             self.x = self._blocks.x = ds.x_pad
@@ -363,11 +405,16 @@ class NeighborSampler:
         dig = self._digest(src32)
         if self._l1_cache is not None and self._l1_cache[0] == dig:
             return self._l1_cache[1]
-        l1_noise = _ops._level1_noise(len(src32), self.num_blocks,
-                                      self._gen, self.device,
-                                      **self._noise_cfg)
-        bs, cw = _ops.masked_block_sums(self.x, self.x_sq, src_dev, l1_noise,
-                                        self._hstate, **self._cfg)
+        if self._engine is not None:
+            bs, cw = self._engine.masked_block_sums(
+                src_dev, self._engine.draw_level1_noise(self._gen))
+        else:
+            l1_noise = _ops._level1_noise(len(src32), self.num_blocks,
+                                          self._gen, self.device,
+                                          **self._noise_cfg)
+            bs, cw = _ops.masked_block_sums(self.x, self.x_sq, src_dev,
+                                            l1_noise, self._hstate,
+                                            **self._cfg)
         self._count(self._level1_evals(len(src32)))
         self._note(cw, "NeighborSampler.level1")
         self._l1_cache = (dig, bs, src32)
@@ -381,7 +428,18 @@ class NeighborSampler:
         src32, src_dev = self._frontier(src)
         w = len(src32)
         dig = self._digest(src32)
-        if self._l1_cache is not None and self._l1_cache[0] == dig:
+        eng = self._engine
+        if eng is not None and self._l1_cache is not None \
+                and self._l1_cache[0] == dig:
+            nb, prob, st = eng.sample_from_block_sums(
+                src_dev, self._l1_cache[1], eng.draw_noise(w, self._gen))
+        elif eng is not None:
+            nb, prob, bs, st = eng.fused_sample(
+                src_dev, eng.draw_level1_noise(self._gen),
+                eng.draw_noise(w, self._gen))
+            self._count(self._level1_evals(w))
+            self._l1_cache = (dig, bs, src32)
+        elif self._l1_cache is not None and self._l1_cache[0] == dig:
             u_blk = torch.rand(w, generator=self._gen, device=self.device)
             u_in = torch.rand(w, generator=self._gen, device=self.device)
             nb, prob, st = _ops.sample_from_block_sums(
@@ -405,9 +463,13 @@ class NeighborSampler:
         src32, src_dev = self._frontier(src)
         bs = self._level1(src32, src_dev)
         dst_dev = torch.as_tensor(np.asarray(dst, np.int64)).to(self.device)
-        out, cw = _ops.prob_of_from_block_sums(self.x, self.x_sq, src_dev,
-                                               dst_dev, bs, self._views,
-                                               **self._l2_cfg)
+        if self._engine is not None:
+            out, cw = self._engine.prob_of_from_block_sums(src_dev, dst_dev,
+                                                           bs)
+        else:
+            out, cw = _ops.prob_of_from_block_sums(
+                self.x, self.x_sq, src_dev, dst_dev, bs, self._views,
+                **self._l2_cfg)
         self._count(len(src32) * self.block_size)
         self._note(cw, "NeighborSampler.prob_of")
         return out.cpu().numpy()
@@ -431,10 +493,17 @@ class NeighborSampler:
         src32, src_dev = self._frontier(src)
         w = len(src32)
         bs = self._level1(src32, src_dev)
-        noise = _ops.draw_exact_noise(w, rounds, self._gen, self.device)
-        cur, cw, fb = _ops.fused_sample_exact(
-            self.x, self.x_sq, src_dev, bs, *noise, self._views,
-            rounds=rounds, slack=slack, **self._l2_cfg)
+        if self._engine is not None:
+            eng = self._engine
+            cur, cw, fb = eng.sample_exact(
+                src_dev, bs, eng.draw_noise(w, self._gen, rounds + 1),
+                torch.rand((rounds, w), generator=self._gen,
+                           device=self.device), rounds=rounds, slack=slack)
+        else:
+            noise = _ops.draw_exact_noise(w, rounds, self._gen, self.device)
+            cur, cw, fb = _ops.fused_sample_exact(
+                self.x, self.x_sq, src_dev, bs, *noise, self._views,
+                rounds=rounds, slack=slack, **self._l2_cfg)
         self._count((rounds + 1) * w * self.block_size + rounds * w)
         self._note(cw, "NeighborSampler.sample_exact")
         self.exact_draws += w
@@ -538,10 +607,20 @@ class NeighborSampler:
         t = int(t)
         num_batches = max((t + batch - 1) // batch, 1)
         gen = self._gen if generator is None else generator
-        *data, word = _ops.edge_batch_scan(
-            self.x, self.x_sq, cdf_device.to(self.device),
-            degs_device.to(self.device), 1.0 / float(total_degree), 1.0 / t,
-            gen, num_batches, self._hstate, batch=int(batch), **self._cfg)
+        if self._engine is not None:
+            eng = self._engine
+            noise = ((torch.rand(batch, generator=gen, device=self.device),
+                      eng.draw_level1_noise(gen), eng.draw_noise(batch, gen))
+                     for _ in range(num_batches))
+            *data, word = eng.edge_batch_scan(
+                cdf_device, degs_device, 1.0 / float(total_degree), 1.0 / t,
+                noise, batch=int(batch))
+        else:
+            *data, word = _ops.edge_batch_scan(
+                self.x, self.x_sq, cdf_device.to(self.device),
+                degs_device.to(self.device), 1.0 / float(total_degree),
+                1.0 / t, gen, num_batches, self._hstate, batch=int(batch),
+                **self._cfg)
         drawn = num_batches * batch
         # per edge: one level-1 read of the u frontier, one exact level-2
         # row, and one aligned k(u, v) pair
@@ -568,14 +647,21 @@ class NeighborSampler:
         self._enter("NeighborSampler.triangle_batches", u, v)
         m = len(np.asarray(u))
         gen = self._gen if generator is None else generator
-        l1 = _ops._level1_noise(m, self.num_blocks, gen, self.device,
-                                **self._noise_cfg)
-        u_blk, u_in = (torch.rand((int(num_draws), m), generator=gen,
-                                  device=self.device) for _ in range(2))
-        uu, vv, w_hat, cw = _ops.triangle_edge_scan(
-            self.x, self.x_sq, self._frontier(u)[1], self._frontier(v)[1],
-            degs_device.to(self.device), (l1, u_blk, u_in), self._hstate,
-            **self._cfg)
+        if self._engine is not None:
+            eng = self._engine
+            uu, vv, w_hat, cw = eng.triangle_edge_scan(
+                self._frontier(u)[1], self._frontier(v)[1], degs_device,
+                eng.draw_level1_noise(gen),
+                eng.draw_noise(m, gen, int(num_draws)))
+        else:
+            l1 = _ops._level1_noise(m, self.num_blocks, gen, self.device,
+                                    **self._noise_cfg)
+            u_blk, u_in = (torch.rand((int(num_draws), m), generator=gen,
+                                      device=self.device) for _ in range(2))
+            uu, vv, w_hat, cw = _ops.triangle_edge_scan(
+                self.x, self.x_sq, self._frontier(u)[1],
+                self._frontier(v)[1], degs_device.to(self.device),
+                (l1, u_blk, u_in), self._hstate, **self._cfg)
         self._count(self._level1_evals(m) + m
                     + int(num_draws) * (m * self.block_size + m))
         self._l1_cache = None  # frontier moved; cached sums are stale
@@ -600,14 +686,27 @@ class NeighborSampler:
         w = len(np.asarray(starts))
         gen = self._gen if generator is None else generator
         rounds_k = rounds if exact else 0
-        noise = _ops.draw_walk_noise(
-            int(length), w, self.num_blocks, gen, self.device,
-            n=self.n, s=self._cfg["s"], rounds=rounds_k, **self._noise_cfg)
-        end, path, word, fb = _ops.walk_scan(
-            self.x, self.x_sq, self._frontier(starts)[1], noise, self._hstate,
-            rounds=rounds_k, slack=slack, record_path=bool(record_path),
-            **self._cfg)
-        if _ops.walk_cached(self.level1, self.exact_blocks):
+        if self._engine is not None:
+            eng = self._engine
+            noise = ((eng.draw_level1_noise(gen),
+                      eng.draw_noise(w, gen, rounds_k + 1),
+                      torch.rand((rounds_k, w), generator=gen,
+                                 device=self.device))
+                     for _ in range(int(length)))
+            end, path, word, fb = eng.walk_scan(
+                self._frontier(starts)[1], noise, rounds=rounds_k,
+                slack=slack, record_path=bool(record_path))
+        else:
+            noise = _ops.draw_walk_noise(
+                int(length), w, self.num_blocks, gen, self.device,
+                n=self.n, s=self._cfg["s"], rounds=rounds_k,
+                **self._noise_cfg)
+            end, path, word, fb = _ops.walk_scan(
+                self.x, self.x_sq, self._frontier(starts)[1], noise,
+                self._hstate, rounds=rounds_k, slack=slack,
+                record_path=bool(record_path), **self._cfg)
+        if self._engine is None and _ops.walk_cached(self.level1,
+                                                     self.exact_blocks):
             # the walk-resident cache: B * s_eff cached columns a row and
             # level-2 rows (and rejection rows) wbs wide
             wbs, w_blocks, s_eff = _ops.walk_layout(

@@ -12,6 +12,10 @@ sketch rows ``K_{idx,*} / sqrt(s p_i)`` are one device program
 ``DynamicDataset``, DESIGN.md §12; dense estimators only) the squared row
 norms cover the padded capacity, dead slots at 0, and are patched by
 ``ops.degree_delta`` on the scaled rows at the next read after a mutation.
+With ``mesh=`` (exact, exact-block or stratified row norms) the row-norm
+structure over cX is a ``ShardedKDE`` and the sketch rows are the sharded
+engine's ``kernel_rows`` (the local column block, one all-gather); every
+rank of the mesh calls each entry point (SPMD).
 """
 from __future__ import annotations
 
@@ -20,9 +24,11 @@ import torch
 
 from repro_torch.core.dataset import attach_device
 from repro_torch.core.kde.base import KDEBase, make_estimator
+from repro_torch.core.kde.distributed import ShardedKDE
 from repro_torch.core.kernels_fn import Kernel, squared_kernel_dataset
 from repro_torch.core.sampling.vertex import PrefixCDF
-from repro_torch.device import as_f32, not_in_slice, resolve_device
+from repro_torch.device import as_f32, resolve_device
+from repro_torch.kernels.kde_sampler.sharded import ShardedBlocks, mesh_device
 
 
 class RowNormSampler:
@@ -37,14 +43,13 @@ class RowNormSampler:
     def __init__(self, x, kernel: Kernel, estimator: str = "exact",
                  seed: int = 0, mesh=None, data_axes=("data",),
                  dataset=None, device=None, **est_kw):
-        if tuple(data_axes) != ("data",):
-            raise not_in_slice(f"RowNormSampler(data_axes={data_axes!r})", 10)
-        if mesh is not None:
-            raise not_in_slice("RowNormSampler(mesh=)", 10)
         # streaming attach (DESIGN.md §12): dense estimators only -- the
         # row-norm structure lives over the SCALED padded tensor, which is
         # recomputed row-wise (cX) at every sync
         if dataset is not None:
+            if mesh is not None:
+                raise ValueError("RowNormSampler(dataset=) is single-"
+                                 "device; drop mesh= or the dataset")
             if estimator not in ("exact", "exact_block", "stratified"):
                 raise ValueError(
                     f"streaming row norms need a dense estimator "
@@ -57,13 +62,32 @@ class RowNormSampler:
         self._est_kw = dict(est_kw)
         self._seed = seed
         self.rebuilds = 0
-        self.device = resolve_device(device)
+        self.device = (mesh_device(mesh, device) if mesh is not None
+                       else resolve_device(device))
         self.x = as_f32(x, self.device)        # shared device dataset
         self.x_sq = torch.sum(self.x * self.x, dim=-1)
         self.kernel = kernel
         xs = squared_kernel_dataset(kernel, self.x)
-        self._est: KDEBase = make_estimator(estimator, xs, kernel, seed=seed,
-                                            device=self.device, **est_kw)
+        self._rows_engine = None
+        if mesh is not None:
+            # the row-norm KDE structure over cX and the sketch-row reads
+            # over X both live sharded; queries and rows are collective
+            # programs, the prefix CDF stays the float64 host accumulation
+            if estimator not in ("exact", "exact_block", "stratified"):
+                raise ValueError(
+                    f"mesh= supports exact/exact_block/stratified row-norm "
+                    f"estimators, got {estimator!r}")
+            self._est: KDEBase = ShardedKDE(
+                mesh, xs, kernel,
+                exact=(estimator in ("exact", "exact_block")),
+                data_axes=data_axes, seed=seed, device=self.device,
+                **est_kw)
+            self._rows_engine = ShardedBlocks(
+                mesh, self.x, kernel, block_size=self._est.block_size,
+                exact=True, data_axes=data_axes, device=self.device)
+        else:
+            self._est = make_estimator(estimator, xs, kernel, seed=seed,
+                                       device=self.device, **est_kw)
         self.n = int(xs.shape[0])
         self.row_norms_sq = self._init_probs(xs)
         self._cdf = PrefixCDF(self.row_norms_sq, seed=seed,
@@ -172,8 +196,11 @@ class RowNormSampler:
         self._sync()
         sel = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
         self._row_evals += len(idx) * self.n
-        out, cw = sampler_ops.kernel_rows(self.x[sel], self.x, self.x_sq,
-                                          **self._row_cfg)
+        if self._rows_engine is not None:
+            out, cw = self._rows_engine.kernel_rows(self.x[sel])
+        else:
+            out, cw = sampler_ops.kernel_rows(self.x[sel], self.x, self.x_sq,
+                                              **self._row_cfg)
         self._est.device_counters.note(cw)
         return out
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.kde.base import KDEBase
-from repro_torch.device import not_in_slice, resolve_device
+from repro_torch.device import resolve_device
 
 
 class PrefixCDF:
@@ -138,6 +138,12 @@ class DegreeSampler:
     """Algorithm 4.6: sample vertices proportional to (approximate) degree.
     The degree CDF lives on the estimator's device.
 
+    With ``mesh=`` the estimator must be mesh-resident (a ``ShardedKDE``,
+    or any estimator with a ``degrees()`` method) and the Algorithm 4.3
+    preprocessing runs as its collective program (the ring for exact
+    reads, batched collective queries for stratified ones) instead of a
+    host batch loop.
+
     With ``dataset=`` (a ``DynamicDataset`` the estimator was built over)
     the degrees cover the padded capacity, dead slots at exactly 0, and
     every public entry brings them to the dataset's current epoch: a
@@ -146,8 +152,9 @@ class DegreeSampler:
 
     def __init__(self, estimator: KDEBase, seed: int = 0, mesh=None,
                  dataset=None):
-        if mesh is not None:
-            raise not_in_slice("DegreeSampler(mesh=)", 10)
+        if mesh is not None and not hasattr(estimator, "degrees"):
+            raise ValueError("DegreeSampler(mesh=...) needs a mesh-resident"
+                             " estimator (core.kde.distributed.ShardedKDE)")
         self._estimator = estimator
         self._seed = seed
         self._dataset = dataset
@@ -215,7 +222,9 @@ class DegreeSampler:
         else:
             slots, old_x, new_x, old_live, new_live = \
                 coalesce_mutations(batches)
-            if getattr(est, "_dataset", None) is ds:
+            if hasattr(est, "patch_rows"):     # mesh adapter: idempotent
+                est.patch_rows(slots, new_x)
+            elif getattr(est, "_dataset", None) is ds:
                 est._sync()                    # self-syncing (HashedKDE)
             else:                              # dense: refresh the norms
                 est.x = ds.x_pad

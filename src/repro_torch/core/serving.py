@@ -42,7 +42,14 @@ section 3).  :meth:`~KernelGraphServable.tick` itself never raises:
 admission, grouping, and each group's program are fault-isolated,
 attaching failures to exactly the affected requests.
 
-Mesh tenants (``add_tenant(mesh=...)``) are not ported yet.
+* **mesh tenants** -- a tenant built with ``mesh=`` (a ``DeviceMesh``)
+  serves through its sharded engine (``kde_sampler.sharded``): a group's
+  ``sample`` / ``prob_of`` / ``query`` requests concatenate into ONE draw
+  or query batch (one all-reduce -- the §9 schedule; batching adds no
+  collective), walks run per request (each walk step is its own
+  collective batch either way).  The group shares one noise stream seeded
+  by all its requests' seeds in queue order (each walk: its own seed).
+  Every rank of the mesh submits the same requests and ticks (SPMD).
 
 >>> srv = KernelGraphServable(max_resident=2)
 >>> srv.add_tenant("a", xa, gaussian(1.0))
@@ -62,8 +69,9 @@ import torch
 from repro_torch.core.dataset import DynamicDataset
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.sampling.edge import _BENIGN, NeighborSampler
-from repro_torch.device import not_in_slice, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.ft import guards as _g
+from repro_torch.kernels.kde_sampler.sharded import mesh_device
 from repro_torch.obs import counters as _c
 from repro_torch.obs import metrics as _m
 
@@ -144,7 +152,7 @@ class ServedTenant:
 
     @property
     def mesh(self):
-        """The tenant's mesh (always None: mesh tenants are not ported)."""
+        """The tenant's mesh (None for flat single-device tenants)."""
         return self.opts.get("mesh")
 
     def admit(self) -> NeighborSampler:
@@ -290,14 +298,16 @@ class KernelGraphServable:
         servable's device (so the caller can mutate it between ticks) and
         records the estimator configuration; device state is built lazily
         at first admission."""
-        if mesh is not None or tuple(data_axes) != ("data",):
-            raise not_in_slice("add_tenant(mesh=, data_axes=)", 10)
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already registered")
+        if mesh is not None:
+            mesh_device(mesh, self.device)      # the servable's device
         ds = DynamicDataset(x, capacity=capacity, device=self.device)
         opts = dict(level1=level1, block_size=block_size,
                     samples_per_block=samples_per_block,
                     exact_blocks=exact_blocks, hash_opts=hash_opts)
+        if mesh is not None:
+            opts.update(mesh=mesh, data_axes=tuple(data_axes))
         t = ServedTenant(name, ds, kernel, seed, opts)
         self._tenants[name] = t
         return t
@@ -402,7 +412,10 @@ class KernelGraphServable:
             # dims, a failed launch) fails ITS requests only -- the other
             # groups of the tick still serve ("never poisons a batch")
             try:
-                self._serve_flat_group(key, grp)
+                if key[0] == "mesh":
+                    self._serve_mesh_group(key, grp)
+                else:
+                    self._serve_flat_group(key, grp)
             except Exception as e:     # noqa: BLE001 -- per-group isolation
                 for r in grp:
                     if r.finished is None:
@@ -484,7 +497,11 @@ class KernelGraphServable:
 
     def _group_key(self, r: Request, t: ServedTenant):
         """The static batch-group key: requests sharing a key run as one
-        padded pass (tenant signature + op + shape bucket)."""
+        padded pass (tenant signature + op + shape bucket); a mesh tenant's
+        requests group by (tenant, op[, walk length])."""
+        if t.mesh is not None:
+            extra = (int(r.payload["length"]),) if r.op == "walk" else ()
+            return ("mesh", r.tenant, r.op) + extra
         if r.op == "query":
             qb = shape_bucket(len(np.atleast_2d(r.payload["y"])),
                               self.buckets)
@@ -619,6 +636,66 @@ class KernelGraphServable:
         else:                                          # pragma: no cover
             raise ValueError(op)
         self._scatter(grp, res, st)
+
+    def _serve_mesh_group(self, key, grp) -> None:
+        """Serve a mesh tenant's group through its sharded engine: draws,
+        probability reads and queries concatenate the group's rows into
+        ONE batch (one all-reduce), walks run per request on their own
+        seed's noise.  The group's noise comes from one CPU generator
+        seeded by every request's seed in queue order (``SeedSequence``),
+        copied to the mesh's device: deterministic in the submitted seeds
+        and the co-batch composition, the same on every rank."""
+        op = key[2]
+        nbr = self._tenants[key[1]].nbr
+        eng = nbr._engine
+        dev = eng.device
+        if op == "walk":
+            length = key[3]
+            res, words = [], []
+            for r in grp:
+                g = _host_gen(r.seed)
+                starts = np.asarray(r.payload["starts"]).reshape(-1)
+                w = len(starts)
+                noise = [(eng.draw_level1_noise(g), eng.draw_noise(w, g),
+                          None) for _ in range(length)]
+                end, _, cw, _ = eng.walk_scan(starts, noise, rounds=0)
+                res.append((end.cpu().numpy(), None))
+                words.append(cw)
+            self._scatter(grp, res, torch.stack([w.cpu() for w in words]))
+            return
+        seeds = [int(r.seed) % (1 << 32) for r in grp]
+        g = torch.Generator().manual_seed(int(
+            np.random.SeedSequence(seeds).generate_state(1)[0]))
+        rows = [np.atleast_2d(np.asarray(r.payload["y"], np.float32))
+                if op == "query" else np.asarray(r.payload["src"])
+                .reshape(-1) for r in grp]
+        offs = np.cumsum([0] + [len(a) for a in rows])
+        cat = np.concatenate(rows)
+        l1 = eng.draw_level1_noise(g)
+        if op == "sample":
+            nb, prob, _, cw = eng.fused_sample(cat, l1,
+                                               eng.draw_noise(len(cat), g))
+            nb, prob = nb.cpu().numpy(), prob.cpu().numpy()
+            res = [(nb[offs[i]:offs[i + 1]], prob[offs[i]:offs[i + 1]])
+                   for i in range(len(grp))]
+        elif op == "prob_of":
+            dst = np.concatenate([np.asarray(r.payload["dst"]).reshape(-1)
+                                  for r in grp])
+            bs, cw = eng.masked_block_sums(cat, l1)
+            prob, cw2 = eng.prob_of_from_block_sums(cat, dst, bs)
+            cw = _c.fold(cw, cw2)
+            prob = prob.cpu().numpy()
+            res = [prob[offs[i]:offs[i + 1]] for i in range(len(grp))]
+        elif op == "query":
+            est, cw = eng.kde_query(torch.as_tensor(cat).to(dev), l1)
+            est = est.cpu().numpy()
+            res = [est[offs[i]:offs[i + 1]] for i in range(len(grp))]
+        else:                                          # pragma: no cover
+            raise ValueError(op)
+        # ONE counter word covers the whole concatenated batch: note it
+        # once and fan only its status bits out to the group
+        st = self.device_counters.note(cw)
+        self._scatter(grp, res, np.full(len(grp), st, np.int64))
 
     # ------------------------------------------------------------------ #
     def report(self) -> dict:

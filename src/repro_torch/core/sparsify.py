@@ -33,7 +33,7 @@ from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.vertex import DegreeSampler
-from repro_torch.device import as_f32, not_in_slice, resolve_device
+from repro_torch.device import as_f32, resolve_device
 
 
 @dataclasses.dataclass
@@ -95,22 +95,25 @@ def spectral_sparsify(x, kernel: Kernel, num_edges: int,
     edge list to the host.  With ``estimator="hash"`` both the degree
     preprocessing and the per-edge level-1 reads run on the hashed
     estimator (one shared bucket layout): total kernel evals drop from
-    O((n + t) B s) to O((n + t)(max_bucket + num_far)).  ``mesh=`` is not
-    ported and raises ``NotImplementedError``.
+    O((n + t) B s) to O((n + t)(max_bucket + num_far)).  With ``mesh=`` (a
+    ``DeviceMesh``, every rank calling) the same program runs sharded
+    (DESIGN.md §9): the level-1 state is mesh-resident and each edge batch
+    performs one all-reduce; there the hashed estimator covers the degrees
+    only (the draws stay on the blocked engine).
     """
-    if mesh is not None:
-        raise not_in_slice("spectral_sparsify(mesh=)", 10)
     n = int(x.shape[0])
     t = int(num_edges)
     nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
                           exact_blocks=exact_blocks,
-                          samples_per_block=samples_per_block,
-                          level1="hash" if estimator == "hash" else "blocked",
+                          samples_per_block=samples_per_block, mesh=mesh,
+                          level1="hash" if estimator == "hash"
+                          and mesh is None else "blocked",
                           device=device)
     # Degree preprocessing (Algorithm 4.3) against the sampler's own
     # level-1 structure whenever it implements the requested estimator.
     est = shared_level1_estimator(nbr, estimator, seed=seed)
-    deg = DegreeSampler(est, seed=seed + 1)
+    deg = DegreeSampler(est, seed=seed + 1,
+                        mesh=mesh if est is nbr.blocks else None)
     u, v, w, _, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
                                      deg.total, t, batch=batch)
     g = SparseGraph(n, u.astype(np.int64), v.astype(np.int64),

@@ -24,7 +24,6 @@ import numpy as np
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.laplacian import normalized_laplacian_dense
 from repro_torch.core.sampling.edge import NeighborSampler
-from repro_torch.device import not_in_slice
 
 
 @dataclasses.dataclass
@@ -93,16 +92,16 @@ def approximate_spectrum(x, kernel: Kernel, length: int = 10,
     """Theorem 5.17 (ApproxSpectralMoment): the normalized-Laplacian
     spectrum in EMD from walk-return moments -- walk budget independent of
     n.  Cost: ``num_sources * walks_per_source * length`` walk steps (each
-    one level-1 read plus exact level-2 rows).
+    one level-1 read plus exact level-2 rows); with ``mesh=`` the walks run
+    on the sharded engine, one all-reduce a step.
 
     >>> sp = approximate_spectrum(x, gaussian(1.0), length=8)
     """
-    if mesh is not None:
-        raise not_in_slice("approximate_spectrum(mesh=)", 10)
     n = int(x.shape[0])
     if sampler is None:
         sampler = NeighborSampler(x, kernel, mode="blocked", seed=seed,
-                                  exact_blocks=True, device=device)
+                                  exact_blocks=True, mesh=mesh,
+                                  device=device)
     moments = estimate_return_moments(sampler, n, length, num_sources,
                                       walks_per_source, seed=seed + 1)
     lams = invert_moments(moments, n)

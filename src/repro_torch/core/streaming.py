@@ -29,8 +29,8 @@ from repro_torch.core.dataset import DynamicDataset
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.sampling.edge import NeighborSampler
 from repro_torch.core.sampling.vertex import DegreeSampler
-from repro_torch.device import not_in_slice
 from repro_torch.ft import guards as _g
+from repro_torch.kernels.kde_sampler.sharded import mesh_device
 
 
 class StreamingKernelGraph:
@@ -42,7 +42,9 @@ class StreamingKernelGraph:
     construction (a stale externally-held frontier raises
     ``guards.EPOCH_STALE`` under ``REPRO_CHECKS=1`` instead of sampling
     from dead slots).  ``device=None`` places the dataset on the CUDA
-    card.
+    card; with ``mesh=`` (a ``DeviceMesh``) on the mesh's device, and the
+    neighbor sampler's level-1 structure lives sharded over its
+    ``data_axes`` (every rank calls each entry point).
     """
 
     def __init__(self, x, kernel: Kernel, capacity: Optional[int] = None,
@@ -52,13 +54,13 @@ class StreamingKernelGraph:
                  hash_opts: Optional[dict] = None, mesh=None,
                  data_axes=("data",), device=None):
         if mesh is not None:
-            raise not_in_slice("StreamingKernelGraph(mesh=)", 10)
+            device = mesh_device(mesh, device)
         self.dataset = DynamicDataset(x, capacity=capacity, device=device)
         self.kernel = kernel
         self.nbr = NeighborSampler(
             self.dataset.x_pad, kernel, mode="blocked",
             block_size=block_size, samples_per_block=samples_per_block,
-            seed=seed, level1=level1, hash_opts=hash_opts,
+            seed=seed, level1=level1, hash_opts=hash_opts, mesh=mesh,
             data_axes=data_axes, dataset=self.dataset)
         est = (self.nbr.hash_estimator if level1 == "hash"
                else self.nbr.blocks)

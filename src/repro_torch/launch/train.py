@@ -47,9 +47,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--data", type=int, default=1,
-                    help=f"data mesh axis (1 only: {roadmap_item(10)})")
+                    help=f"data mesh axis (1 only: {roadmap_item(12)})")
     ap.add_argument("--model", type=int, default=1,
-                    help=f"model mesh axis (1 only: {roadmap_item(10)})")
+                    help=f"model mesh axis (1 only: {roadmap_item(12)})")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--fail-at-step", type=int, default=-1,
@@ -65,7 +65,7 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     if args.data != 1 or args.model != 1:
-        raise not_in_slice(f"--data {args.data} --model {args.model}", 10)
+        raise not_in_slice(f"--data {args.data} --model {args.model}", 12)
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = dataclasses.replace(cfg, dtype=args.dtype)

@@ -17,7 +17,7 @@ The MoE block is the reference's single-device dispatch
 (``_moe_block_gspmd``: grouped capacity slots, over-capacity tokens
 dropped), ``cross_attention_block`` the enc-dec decoder's.  The mesh
 helpers (``constrain``, ``activation_sharding``, the shard_map MoE and
-decode) have no counterpart (ROADMAP.md queue 1 item 10).
+decode) have no counterpart (ROADMAP.md queue 1 item 12).
 
 Dtypes follow the reference: activations in the config's dtype
 (``dtype_of``: bf16 for "bfloat16", else f32), weights cast to it at use

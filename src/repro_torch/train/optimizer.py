@@ -10,7 +10,7 @@ under ``torch.no_grad`` -- the reference donates its parameter buffers to
 the jitted step, and the port keeps that one copy of the weights
 (ROADMAP.md section 3).  ``compress`` / ``decompress`` give the int8
 quantization with an error-feedback residual; ``compressed_psum`` needs a
-process group (ROADMAP.md queue 1 item 10).
+process group over the LM's mesh (ROADMAP.md queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -112,5 +112,5 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def compressed_psum(grads, residuals, axis_name: str):
     """Quantize -> all-reduce -> dequantize across a process group: not
-    ported (a mesh axis needs ROADMAP.md queue 1 item 10)."""
-    raise not_in_slice(f"compressed_psum(axis_name={axis_name!r})", 10)
+    ported (a mesh axis needs ROADMAP.md queue 1 item 12)."""
+    raise not_in_slice(f"compressed_psum(axis_name={axis_name!r})", 12)

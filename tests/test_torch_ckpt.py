@@ -1,6 +1,6 @@
 """The port's training loop, checkpoints and fault tolerance: the mirrors
 of ``tests/test_train_ckpt_ft.py`` (the reference's elastic-restore and
-watchdog tests have no twin here: the mesh is ROADMAP.md queue 1 item 10,
+watchdog tests have no twin here: the mesh is ROADMAP.md queue 1 item 12,
 and the watchdog is ported and tested in ``test_torch_chaos.py``), and a
 checkpoint written by either package restored by the other.
 
@@ -127,7 +127,7 @@ def test_restore_refuses_shardings(tmp_path):
     cfg, model = _setup()
     path = str(tmp_path / "ck")
     ckpt.save(path, 1, model)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         ckpt.restore(path, model, shardings={})
 
 
@@ -194,7 +194,7 @@ def test_failure_injection_and_resume(tmp_path, capsys):
 
 def test_launch_train_refuses_a_mesh():
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         train.main(["--device", "cpu", "--reduced", "--data", "2"])
 
 
@@ -219,7 +219,7 @@ def test_gradient_compression_error_feedback():
     acc_true = np.sum(g_true, axis=0)
     rel = np.abs(acc_comp - acc_true).max() / np.abs(acc_true).max()
     assert rel < 0.02, rel
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         opt.compressed_psum({}, {}, "pod")
 
 

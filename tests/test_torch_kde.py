@@ -413,7 +413,11 @@ def test_device_defaults_to_the_card_and_slice_limits():
     port does not cover yet raise NotImplementedError (every estimator
     name is ported, ``grid_hbe`` and ``robust`` since the remaining
     estimators' slice, and ``precision="bf16"``: bf16 constructs, and bf16
-    with the laplacian raises the reference's ValueError)."""
+    with the laplacian raises the reference's ValueError).  The mesh
+    options are ported (the mesh slice): ``mesh=`` takes a ``DeviceMesh``
+    (TypeError otherwise; ``tests/test_torch_mesh*.py`` run real ones),
+    and ``data_axes`` without a mesh changes nothing, as in the
+    reference."""
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
@@ -424,10 +428,12 @@ def test_device_defaults_to_the_card_and_slice_limits():
                       ("grid_hbe", "GridHBE")):
         est = tbase.make_estimator(name, x, tmake("gaussian"), device="cpu")
         assert type(est).__name__ == cls and est.device.type == "cpu"
-    for kw in (dict(mesh=object()), dict(data_axes=("data", "model"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
-                                 **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
+                             mesh=object())
+    est = tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
+                               data_axes=("data", "model"))
+    assert est.engine is None and est.state is not None
     est = tbase.make_estimator("hash", x, tmake("gaussian"), device="cpu",
                                precision="bf16")
     assert est.precision == "bf16"

@@ -252,7 +252,7 @@ def test_serve_main_on_cpu(capsys):
 
 def test_out_of_slice_options_raise():
     """A CUDA default without a card raises, and the mesh options the LM
-    path still lacks (queue 1 item 10) refuse (the other families, their
+    path still lacks (queue 1 item 12) refuse (the other families, their
     configs and ``serve --robust`` run since the families slice:
     ``tests/test_torch_families*.py``; the bf16 config builds and serves:
     ``tests/test_torch_lm_bf16.py``; the graph-serving modes are ported:
@@ -261,11 +261,11 @@ def test_out_of_slice_options_raise():
     from repro_torch.launch import train as ttrain
     from repro_torch.train import optimizer as topt
     f32 = dataclasses.replace(tbase.get_reduced("yi_6b"), dtype="float32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         ttrain.main(["--device", "cpu", "--reduced", "--data", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         ckpt.restore("/nonexistent", None, 1, {})
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         topt.compressed_psum({}, {}, "data")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

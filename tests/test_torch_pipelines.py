@@ -177,13 +177,16 @@ def test_fkv_lowrank_matches_reference(lowrank):
 
 
 def test_pipelines_reject_options_outside_the_slice():
+    """``mesh=`` is ported (the mesh slice; ``tests/
+    test_torch_mesh_pipelines.py`` runs every pipeline on gloo ranks): it
+    takes a ``DeviceMesh``, and anything else raises TypeError."""
     x = np.zeros((20, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         spectral_sparsify(x, gaussian(), num_edges=10, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fkv_lowrank(x, laplacian(), rank=2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         RowNormSampler(torch.zeros(4, 2), laplacian(), mesh=object(),
                        device="cpu")
 

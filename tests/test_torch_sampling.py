@@ -274,12 +274,22 @@ def test_inverse_cdf_and_zero_row_guard_match_reference():
 
 
 def test_sampler_rejects_options_outside_the_slice():
+    """The mesh options are ported (the mesh slice; ``tests/
+    test_torch_mesh*.py`` run them on gloo ranks): a mesh sampler refuses
+    the hashed level 1 and bf16 with the reference's ValueErrors, ``mesh=``
+    takes a ``DeviceMesh`` (TypeError otherwise), and ``data_axes`` without
+    a mesh changes nothing, as in the reference."""
     x = np.zeros((20, 2), np.float32)
-    for kw in (dict(level1="hash", mesh=object()),
-               dict(exact_blocks=True, mesh=object()),
-               dict(data_axes=("data", "model"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NeighborSampler(x, gaussian(), device="cpu", **kw)
+    for kw in (dict(level1="hash"), dict(exact_blocks=True,
+                                         precision="bf16")):
+        with pytest.raises(ValueError, match="single-device"):
+            NeighborSampler(x, gaussian(), device="cpu", mesh=object(), **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,
+                        mesh=object())
+    nbr = NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,
+                          data_axes=("data", "model"))
+    assert nbr._engine is None
     # tree mode is ported; as in the reference it needs its tree
     with pytest.raises(ValueError, match="MultiLevelKDE"):
         NeighborSampler(x, gaussian(), device="cpu", exact_blocks=True,

@@ -669,11 +669,18 @@ def test_group_failure_and_bad_payload_isolated_per_request():
 
 
 def test_mesh_tenants_are_not_in_this_slice():
+    """Mesh tenants are ported since the mesh slice
+    (``tests/test_torch_mesh_pipelines.py`` serves one on gloo ranks):
+    ``mesh=`` takes a ``DeviceMesh`` (TypeError for anything else), and
+    ``data_axes`` without a mesh changes nothing, as in the reference."""
     srv = KernelGraphServable(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         srv.add_tenant("m", _data("m"), gaussian(1.0), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        srv.add_tenant("m", _data("m"), gaussian(1.0), data_axes=("x",))
+    srv.add_tenant("m", _data("m"), gaussian(1.0), data_axes=("x",))
+    assert srv.tenant("m").mesh is None
+    r = srv.submit("m", "sample", src=np.arange(8), seed=3)
+    srv.tick()
+    assert r.error is None and np.isfinite(r.result[1]).all()
 
 
 def test_noise_depends_on_seed_and_shape_only():

@@ -30,18 +30,12 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa
 from repro_torch.configs.base import ShapeConfig, get_reduced
-from repro_torch.core.cluster.local import same_cluster_test
-from repro_torch.core.eigen import top_eigenvalue
-from repro_torch.core.graph.arboricity import estimate_arboricity
-from repro_torch.core.graph.triangles import estimate_triangle_weight
 from repro_torch.core.kde.base import ExactBlockKDE, ExactKDE
 from repro_torch.core.kde.hashed import HashedKDE
 from repro_torch.core.kernels_fn import make_kernel
 from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
-from repro_torch.core.sampling.rownorm import RowNormSampler
 from repro_torch.core.sparsify import spectral_sparsify
-from repro_torch.core.spectrum import approximate_spectrum
 from repro_torch.device import ROADMAP_ITEMS, not_in_slice
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.kde_attention.ops import kde_attention
@@ -397,9 +391,6 @@ PLACEHOLDERS = {
     "HashedKDE.interpret": (
         lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, None, True,
                           device="cpu"), ValueError),
-    "HashedKDE.data_axes": (
-        lambda: HashedKDE(_x(), K, None, 8, 64, 256, 0, None, None, None,
-                          ("x",), device="cpu"), NotImplementedError),
     # tree mode is ported: the 7th positional is its tree, which the
     # reference's tree mode requires (ValueError, its assert's message)
     "NeighborSampler.tree": (
@@ -411,28 +402,6 @@ PLACEHOLDERS = {
     "NeighborSampler.interpret": (
         lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, None, 0,
                                 None, True, device="cpu"), ValueError),
-    "NeighborSampler.data_axes": (
-        lambda: NeighborSampler(_x(), K, "blocked", None, 16, True, None, 0,
-                                None, None, None, ("model",), device="cpu"),
-        NotImplementedError),
-    "RowNormSampler.data_axes": (
-        lambda: RowNormSampler(_x(), K, "exact", 0, None, ("x", "y"),
-                               device="cpu"), NotImplementedError),
-    "same_cluster_test.mesh": (
-        lambda: same_cluster_test(_x(), K, 0, 1, 2, 4, 0, None, None, "m",
-                                  device="cpu"), NotImplementedError),
-    "estimate_triangle_weight.mesh": (
-        lambda: estimate_triangle_weight(_x(), K, 4, 2, "exact", 0, "m",
-                                         device="cpu"), NotImplementedError),
-    "estimate_arboricity.mesh": (
-        lambda: estimate_arboricity(_x(), K, 4, "exact", 0, 512, "m",
-                                    device="cpu"), NotImplementedError),
-    "top_eigenvalue.mesh": (
-        lambda: top_eigenvalue(_x(), K, 0.25, 0.1, 8, "noisy_power", 0, "m",
-                               device="cpu"), NotImplementedError),
-    "approximate_spectrum.mesh": (
-        lambda: approximate_spectrum(_x(), K, 4, 2, 2, 0, None, "m",
-                                     device="cpu"), NotImplementedError),
     "restore.shardings": (
         lambda: ckpt_restore("/nonexistent", None, 1, {}),
         NotImplementedError),
@@ -440,6 +409,35 @@ PLACEHOLDERS = {
         lambda: kv_block_sums_bf16(_t(_x()), _t(_x()), "gaussian", 1.0, 1.0,
                                    16, 0), ValueError),
 }
+
+
+#: former placeholders the mesh slice ported: each runs by position on a
+#: one-rank gloo group (``torch_mesh_ranks.signature_cases``) and must
+#: count the single-device call's kernel evaluations
+FORMER_MESH_PLACEHOLDERS = (
+    "HashedKDE.data_axes", "NeighborSampler.data_axes",
+    "RowNormSampler.data_axes", "same_cluster_test.mesh",
+    "estimate_triangle_weight.mesh", "estimate_arboricity.mesh",
+    "top_eigenvalue.mesh", "approximate_spectrum.mesh")
+
+
+@pytest.fixture(scope="module")
+def mesh_placeholder_run(tmp_path_factory):
+    import torch_mesh_ranks
+    return torch_mesh_ranks.spawn("signature_cases", 1,
+                                  tmp_path_factory.mktemp("sig"),
+                                  dict(x=_x()))[0]
+
+
+@pytest.mark.parametrize("case", FORMER_MESH_PLACEHOLDERS)
+def test_former_mesh_placeholder_runs_on_one_rank(case,
+                                                  mesh_placeholder_run):
+    """A former mesh placeholder's non-default value no longer refuses: on
+    a one-rank gloo group (a mesh with that dim, or ``data_axes`` naming
+    the mesh's dims) the call counts exactly the single-device call's
+    kernel evaluations."""
+    mesh_evals, flat_evals = mesh_placeholder_run[case]
+    assert mesh_evals == flat_evals > 0
 
 
 #: former placeholders the training and families slices ported: (arch,
@@ -636,7 +634,8 @@ def test_every_refusal_names_a_listed_item():
     """Every ``not_in_slice(what, item)`` call in the port passes an item
     number that ``ROADMAP_ITEMS`` lists (a literal, so the message can be
     built).  The floor on the count shows the scan sees the calls; it
-    falls as slices port the options (19 after the families slice)."""
+    falls as slices port the options (19 after the families slice, 3
+    after the mesh slice: the LM's sharded state, queue 1 item 12)."""
     calls = 0
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -646,7 +645,7 @@ def test_every_refusal_names_a_listed_item():
                 assert isinstance(item, ast.Constant) \
                     and item.value in ROADMAP_ITEMS, (path, node.lineno)
                 calls += 1
-    assert calls >= 15
+    assert calls >= 3
 
 
 @pytest.mark.parametrize("flag", [["--robust"], ["--graph-stream", "64"],
