@@ -370,14 +370,15 @@ Phases (any failure exits non-zero; no phase catches and continues):
                ``memory_allocated`` at the start and each part's peak.
 17. families -- the non-dense LM families (``phase_families``), one
                config at a time, each freed before the next, at full width
-               and depth in f32 with random weights drawn on the card from
-               seed 0: granite-moe-1b-a400m, qwen3-moe-235b-a22b **cut to
-               its first 4 of 94 layers** (45 GB), rwkv6-3b, zamba2-7b,
+               in f32 with random weights drawn on the card from seed 0:
+               granite-moe-1b-a400m **cut to 12 of 24 layers**,
+               qwen3-moe-235b-a22b **cut to its first 4 of 94 layers** (45
+               GB), rwkv6-3b **cut to 16 of 32**, zamba2-7b,
                seamless-m4t-medium, internvl2-1b (parameters beside
                ``param_count()``, peak memory).  (a) the flash prefill
                against xla on one ``make_batch`` batch of 4 x 512 (the
                frontend configs: 128 embeddings + 384 tokens): exactly
-               24 / 4 / 0 / 14 / 12 / 24 flash launches; last-position
+               12 / 4 / 0 / 14 / 12 / 24 flash launches; last-position
                logits within 1e-3 x max |logit|, the same argmax -- for
                MoE only when no (row, position, layer) router top-k set
                differs between the two runs (a tap on ``layers._top_k``),
@@ -424,11 +425,40 @@ Phases (any failure exits non-zero; no phase catches and continues):
                lists bitwise equal.  Rank 0 holds the first launch of each
                kernel on each path against its plain version
                (``tapped``); the counts are reported as ``mesh_launches``.
-19. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+19. lm-mesh  -- the LM's sharded state (``phase_lm_mesh``): 4 gloo ranks
+               on the card as in 18, a (2, 2) ("data", "model") mesh, each
+               model at full width with 2 layers in f32, seed-0 weights
+               drawn on the card, the state stored as each rank's shards
+               (``distributed.state.shard_model``).  (a) yi-6b's sharded
+               train step (batch 4 x 512, remat, flash on each rank's 16
+               heads and 2 rows, AdamW lr 1e-5) held by rank 0 to the
+               unsharded port step on the same card: loss and grad norm
+               (rtol 1e-4), every gradient leaf (1e-3 of its max |g|),
+               the parameters after 2 steps (2 lr steps); each rank's
+               parameter + AdamW bytes, flash launches a step (2 L), the
+               wall and its share inside the collective wrapper.  (b) the
+               long_500k cell: a 524,288-slot bf16 cache, kv heads over
+               "model" and the sequence over "data", seeded synthetic K/V
+               below the last 64 slots, a 56-token prefill into the cache
+               (one decode_step call; xla attention combined across the
+               sequence slices) then 8 decode steps through the shard_map
+               KDE decode, against the single-device steps (the fused
+               kernel; logits 1e-3 of max |logit|); per decode step one lse
+               all-gather and four reductions a layer.  (c) granite-moe-1b-a400m by expert
+               parallelism: the forward's logits (atol 1e-4) and aux
+               (1e-4), a train step's gradients (atol 2e-3) and metrics.
+               (d) ``compressed_psum`` over the "pod" axis of a (2, 2)
+               ("pod", "data") mesh, bitwise the plain sum of the codes at
+               the larger scale, residuals bitwise.  (e) (a) at P = 1 on
+               NCCL against the unsharded step: bitwise, or what differs.
+               Flash is held to its plain version at each rank's shapes
+               first; the launches are ``lm_mesh_launches``.
+20. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
                the graph phase's paths, ``graph_launches``, on the
                streaming and estimator paths, ``stream_launches``, on the
                serve paths, ``serve_launches``, on the mesh paths (per
-               rank), ``mesh_launches``, the two flash rows on
+               rank), ``mesh_launches``, on the lm-mesh paths,
+               ``lm_mesh_launches``, the two flash rows on
                the training paths, ``train_launches``, and the f32 flash
                and kde_decode rows on the family phase's, by arch,
                ``family_launches``, with their device ms at each family's
@@ -488,7 +518,9 @@ launched there; phase 15 does the same around each timed serving tick and
 CLI run (``serve_launches``); phase 16 around each loss-and-gradient
 call and each run of train steps (``train_launches``); phase 17 around
 each family's flash prefill and kde serve run (``family_launches``);
-every rank of phase 18 around each of its paths (``mesh_launches``).
+every rank of phase 18 around each of its paths (``mesh_launches``);
+phase 19 around its train steps and the single-device decode
+(``lm_mesh_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -694,13 +726,19 @@ TRAIN_CLI = ["--arch", "granite_3_2b", "--reduced", "--steps", "6",
 # phase 17: the non-dense families served at full width (qwen3-moe cut to
 # its first 4 of 94 layers: 45 GB of f32 weights), one at a time, each at
 # the lm-serve shape (batch 4, prompt 512, gen 16; the frontend configs
-# split the 512 into 128 embeddings and 384 tokens)
+# split the 512 into 128 embeddings and 384 tokens).  Since the lm-mesh
+# phase joined, two of the slowest families run at a cut depth too, so the
+# script stays near 1000 s on a slow host: granite-moe 12 of 24 layers,
+# rwkv6 16 of 32.  zamba2 keeps its 81: cut to 27 its random-weight
+# prefill's flash-vs-xla gap passes the 1e-3 gate (1.32e-3 of max |logit|)
 FAMILY_ARCHS = ("granite_moe_1b_a400m", "qwen3_moe_235b_a22b", "rwkv6_3b",
                 "zamba2_7b", "seamless_m4t_medium", "internvl2_1b")
-FAMILY_CUTS = {"qwen3_moe_235b_a22b": {"num_layers": 4}}
+FAMILY_CUTS = {"qwen3_moe_235b_a22b": {"num_layers": 4},
+               "granite_moe_1b_a400m": {"num_layers": 12},
+               "rwkv6_3b": {"num_layers": 16}}
 # flash launches of one prefill = the causal self-attention layers (the
 # hybrid's 14 shared-block applications; none in rwkv6)
-FAMILY_FLASH = {"granite_moe_1b_a400m": 24, "qwen3_moe_235b_a22b": 4,
+FAMILY_FLASH = {"granite_moe_1b_a400m": 12, "qwen3_moe_235b_a22b": 4,
                 "rwkv6_3b": 0, "zamba2_7b": 14, "seamless_m4t_medium": 12,
                 "internvl2_1b": 24}
 FAMILY_FLIP_SHARE = 0.01    # MoE: top-k sets differing flash vs xla, at most
@@ -5782,7 +5820,8 @@ def mesh_rank(rank, world, backend, store, out, job):
     dist.init_process_group(
         backend, store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
-    res = {"mesh_main": mesh_job_main, "mesh_solo": mesh_job_solo}[job](
+    res = {"mesh_main": mesh_job_main, "mesh_solo": mesh_job_solo,
+           "lm_mesh_main": lmm_job_main, "lm_mesh_solo": lmm_job_solo}[job](
         rank, world)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.barrier()
@@ -6037,6 +6076,498 @@ def phase_mesh(sp_counts):
     return launches, secs, r0["errs"]
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the LM's sharded state (lm-mesh)
+# --------------------------------------------------------------------- #
+LMM_LAYERS = 2              # every lm-mesh model: full width, 2 layers, f32
+LMM_SHAPE = (2, 2)          # ("data", "model") over MESH_P gloo ranks
+LMM_BATCH, LMM_SEQ = 4, 512  # (a): the train batch
+LMM_LR, LMM_STEPS = 1e-5, 2  # (a): AdamW at lr 1e-5 (no warmup), 2 steps
+LMM_RTOL = 1e-4             # (a): loss, grad norm vs the unsharded step
+LMM_GRAD_REL = 1e-3         # (a): a gradient leaf within 1e-3 max |g|
+LMM_PROMPT, LMM_GEN = 56, 8  # (b): the last 64 slots: a prefill, then decode
+LMM_LOGIT_REL = 1e-3        # (b): logits within 1e-3 max |logit|
+LMM_MOE = "granite_moe_1b_a400m"
+LMM_MOE_SEQ = 256           # (c): batch 4 x 256
+LMM_MOE_ATOL, LMM_AUX_ATOL, LMM_MOE_GRAD_ATOL = 1e-4, 1e-4, 2e-3
+LMM_SOLO = "nccl"           # (e): P = 1 on NCCL against the unsharded step
+#: flash at a rank's shapes: (a) yi-6b's 32 / 4 heads over 2 "model"
+#: ranks, 2 rows a "data" rank; (c) granite-moe's 16 / 8 heads likewise
+LMM_FLASH = ((LMM_BATCH // 2, 16, 2, LMM_SEQ, 128),
+             (LMM_BATCH // 2, 8, 4, LMM_MOE_SEQ, 64))
+
+
+def lmm_config(arch: str):
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(arch), num_layers=LMM_LAYERS,
+                               dtype="float32")
+
+
+def lmm_models(cfg, mesh, rank0: bool):
+    """Seed-0 weights drawn on the card, sharded onto ``mesh``; rank 0
+    also keeps an unsharded copy (the yardstick)."""
+    from repro_torch.distributed import state as D
+    from repro_torch.models import transformer as T
+    model = T.init_params(cfg, seed=0, device=MESH_DEVICE)
+    ref = T.map_params(model, lambda n, p: p.detach().clone()) \
+        if rank0 else None
+    return D.shard_model(model, mesh), ref
+
+
+def lmm_whole(model, named=None):
+    """Name -> whole tensor (on the card) of a sharded model's parameters
+    or of a dict of its gradients (counted all-gathers)."""
+    from repro_torch.distributed import state as D
+    named = dict(model.named_parameters()) if named is None else named
+    specs = {n: D.spec_of(p) for n, p in model.named_parameters()}
+    return D.full_named(named, specs, model._mesh)
+
+
+def lmm_train(mesh, rank0: bool, tag: str):
+    """(a) / (e): reduced-depth yi-6b's sharded train step on ``mesh``
+    (flash, remat) held by rank 0 to the unsharded port step on the same
+    card, weights and batches: the first step's gradients leaf by leaf,
+    then LMM_STEPS steps' loss, grad norm and parameters."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import state as D
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step, step_grads
+    cfg = lmm_config(LM_ARCH)
+    shape = ShapeConfig("lm-mesh", LMM_SEQ, LMM_BATCH, "train")
+    batches = [make_batch(cfg, shape, i, 0) for i in range(LMM_STEPS)]
+    adamw = opt.AdamWConfig(lr=LMM_LR, warmup_steps=1)
+    model, ref = lmm_models(cfg, mesh, rank0)
+    n_whole = sum(int(torch.Size(D.full_shape(p)).numel())
+                  for p in model.parameters())
+    ost = opt.init_adamw(model)
+    res = dict(params=sum(p.numel() for p in model.parameters()),
+               params_whole=n_whole, bytes=D.state_bytes(model, ost),
+               bytes_whole=3 * 4 * n_whole)
+    step = make_train_step(cfg, adamw, impl="flash", remat=True)
+    with L.activation_sharding(mesh, SH.batch_axes(mesh)):
+        g, _, _ = step_grads(model, cfg, batches[0], impl="flash",
+                             remat=True)
+        g = lmm_whole(model, g)
+        fk.reset_launches()
+        C.reset_collectives()
+        walls, mets = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, ost, m = step(model, ost, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+        res.update(walls=walls, metrics=mets, coll_secs=C.COLLECTIVE_SECONDS[0],
+                   cc=dict(C.COLLECTIVES), cbytes=dict(C.COLLECTIVE_BYTES),
+                   flash=fk.LAUNCHES["flash_attention"])
+        after = lmm_whole(model)
+    if not rank0:
+        return res
+    del model, ost
+    free_cuda()
+    g_ref, _, _ = step_grads(ref, cfg, batches[0], impl="flash", remat=True)
+    res["grad_rel"] = max(float((g[n] - g_ref[n]).abs().max()
+                                / g_ref[n].abs().max().clamp_min(1e-30))
+                          for n in g_ref)
+    res["grads_bitwise"] = all(torch.equal(g[n], g_ref[n]) for n in g_ref)
+    del g, g_ref
+    o_ref = opt.init_adamw(ref)
+    step = make_train_step(cfg, adamw, impl="flash", remat=True)
+    ref_mets, ref_walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, o_ref, m = step(ref, o_ref, b)
+        torch.cuda.synchronize()
+        ref_walls.append(time.perf_counter() - t0)
+        ref_mets.append({k: float(v) for k, v in m.items()})
+    named = {n: p.detach() for n, p in ref.named_parameters()}
+    res.update(ref_metrics=ref_mets, ref_walls=ref_walls,
+               param_diff=max(float((after[n] - named[n]).abs().max())
+                              for n in named),
+               params_bitwise=all(torch.equal(after[n], named[n])
+                                  for n in named))
+    return res
+
+
+def lmm_fill(cache_k, cache_v, cfg, specs, mesh):
+    """Seeded synthetic N(0, 1) K/V in positions [0, S - 64) of every
+    layer (the lm-bf16 phase's fill), each rank writing its slice of the
+    whole layer tensor (``specs`` None: the whole cache)."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    g = torch.Generator(device=MESH_DEVICE).manual_seed(500)
+    fill = LONG_S - LMM_PROMPT - LMM_GEN
+    for name, cache in (("k", cache_k), ("v", cache_v)):
+        for i in range(cfg.num_layers):
+            whole = torch.zeros((1, cfg.num_kv_heads, LONG_S, cfg.hd),
+                                dtype=torch.bfloat16, device=MESH_DEVICE)
+            whole[:, :, :fill].normal_(generator=g)
+            if specs is not None:
+                whole = SH.shard(whole, specs[name][1:], mesh)
+            cache[i].copy_(whole)
+            del whole
+
+
+def lmm_decode(mesh, rank0: bool):
+    """(b) the long_500k cell on ``mesh``: heads over "model", the
+    524,288-slot bf16 cache's sequence over "data"; a LMM_PROMPT-token
+    prefill into the cache (one ``decode_step`` call: xla attention over
+    the sequence slices, combined by their logsumexps), then LMM_GEN
+    decode steps through the shard_map KDE decode in every layer; rank 0
+    then runs the same tokens through the single-device steps (the fused
+    kde_decode kernel) on a whole copy of the cache."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels.kde_attention import kernel as kk
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_decode_step
+    cfg = lmm_config(LM_ARCH)
+    model, ref = lmm_models(cfg, mesh, rank0)
+    prompt = make_batch(cfg, ShapeConfig("long_500k", LMM_PROMPT, 1,
+                                         "prefill"), 0, 0)["tokens"]
+    step = make_decode_step(cfg, impl="kde", kde_cfg=LONG_KDE)
+    fill = LONG_S - LMM_PROMPT - LMM_GEN
+    res = {}
+    with L.activation_sharding(mesh, ("data",)):
+        cache = T.init_cache(cfg, 1, LONG_S)
+        res["specs"] = dict(cache.specs)
+        res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in cache.values())
+        lmm_fill(cache["k"], cache["v"], cfg, cache.specs, mesh)
+        kk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, lg, cache = step(model, cache, torch.as_tensor(prompt), fill)
+        torch.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        toks = [int(t) for t in prompt[0]] + [int(nxt[0])]
+        logits, walls, cc = [lg[0, -1, :cfg.vocab_size].float().cpu()], [], \
+            None
+        for i in range(LMM_GEN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cnt = {}
+            cc = C.collective_counts(lambda: cnt.setdefault("o", step(
+                model, cache, torch.tensor([[toks[LMM_PROMPT + i]]]),
+                fill + LMM_PROMPT + i)))
+            nxt, lg, cache = cnt["o"]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            logits.append(lg[0, -1, :cfg.vocab_size].float().cpu())
+            toks.append(int(nxt[0]))
+        res.update(walls=walls, cc=cc, sharded_launches=kk.LAUNCHES[
+            "kde_decode"], tokens=toks)
+    del cache
+    free_cuda()
+    if not rank0:
+        return res
+    del model
+    cache = T.init_cache(cfg, 1, LONG_S, device=MESH_DEVICE)
+    lmm_fill(cache["k"], cache["v"], cfg, None, None)
+    kk.reset_launches()
+    _, lg, cache = step(ref, cache, torch.as_tensor(prompt), fill)
+    ref_logits, ref_walls = [lg[0, -1, :cfg.vocab_size].float().cpu()], []
+    for i in range(LMM_GEN):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lg, cache = step(ref, cache,
+                            torch.tensor([[toks[LMM_PROMPT + i]]]),
+                            fill + LMM_PROMPT + i)
+        torch.cuda.synchronize()
+        ref_walls.append(time.perf_counter() - t0)
+        ref_logits.append(lg[0, -1, :cfg.vocab_size].float().cpu())
+    res.update(ref_walls=ref_walls, launches=kk.LAUNCHES["kde_decode"],
+               logit_rel=max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(logits, ref_logits)),
+               finite=all(bool(torch.isfinite(a).all()) for a in logits))
+    del cache, ref
+    free_cuda()
+    return res
+
+
+def lmm_moe(mesh, rank0: bool):
+    """(c) granite-moe-1b-a400m (2 layers) on ``mesh``: the forward's
+    logits and aux, then one train step's gradients and metrics, against
+    the unsharded port on rank 0."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step, step_grads
+    cfg = lmm_config(LMM_MOE)
+    model, ref = lmm_models(cfg, mesh, rank0)
+    batch = make_batch(cfg, ShapeConfig("lm-mesh-moe", LMM_MOE_SEQ,
+                                        LMM_BATCH, "train"), 0, 0)
+    adamw = opt.AdamWConfig(lr=LMM_LR, warmup_steps=1)
+    res = {"embed_spec": tuple(model.embed._repro_spec)}
+    dg = C.mesh_group(mesh, ("data",))
+    with L.activation_sharding(mesh, ("data",)):
+        with torch.inference_mode():
+            lg, aux = T.forward(model, cfg, batch, impl="flash")
+            lg = C.all_gather(lg, dg, 0)
+        fk.reset_launches()
+        g, _, _ = step_grads(model, cfg, batch, impl="flash", remat=True)
+        g = lmm_whole(model, g)
+        ost = opt.init_adamw(model)
+        _, _, m = make_train_step(cfg, adamw, impl="flash", remat=True)(
+            model, ost, batch)
+        res.update(flash=fk.LAUNCHES["flash_attention"], aux=float(aux),
+                   metrics={k: float(v) for k, v in m.items()})
+    if not rank0:
+        return res
+    del model, ost
+    free_cuda()
+    with torch.inference_mode():
+        lg_ref, aux_ref = T.forward(ref, cfg, batch, impl="flash")
+    g_ref, _, _ = step_grads(ref, cfg, batch, impl="flash", remat=True)
+    _, _, m_ref = make_train_step(cfg, adamw, impl="flash", remat=True)(
+        ref, opt.init_adamw(ref), batch)
+    v = cfg.vocab_size
+    res.update(logit_err=float((lg[..., :v] - lg_ref[..., :v]).abs().max()),
+               logit_max=float(lg_ref[..., :v].abs().max()),
+               aux_err=abs(float(aux) - float(aux_ref)),
+               grad_err=max(float((g[n] - g_ref[n]).abs().max())
+                            for n in g_ref),
+               ref_metrics={k: float(v) for k, v in m_ref.items()})
+    del ref, g, g_ref, lg, lg_ref
+    free_cuda()
+    return res
+
+
+def lmm_compressed(rank: int, world: int):
+    """(d) ``compressed_psum`` over the "pod" axis of a (2, 2) ("pod",
+    "data") mesh: the rank's leaves and residuals (seeded by rank) and
+    what came back."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    mesh = init_device_mesh(MESH_DEVICE, (2, world // 2),
+                            mesh_dim_names=("pod", "data"))
+    g = torch.Generator(device=MESH_DEVICE).manual_seed(100 + rank)
+    shapes = {"w": (1024, 1024), "b": (4096,), "odd": (33, 7)}
+    grads = {k: torch.randn(s, generator=g, device=MESH_DEVICE)
+             for k, s in shapes.items()}
+    resid = {k: torch.randn(s, generator=g, device=MESH_DEVICE) * 1e-3
+             for k, s in shapes.items()}
+    with L.activation_sharding(mesh, ("pod", "data")):
+        summed, new_r = opt.compressed_psum(grads, resid, "pod")
+    cpu = (lambda d: {k: v.cpu() for k, v in d.items()})
+    return dict(g=cpu(grads), r=cpu(resid), summed=cpu(summed),
+                resid=cpu(new_r))
+
+
+def lmm_job_main(rank, world):
+    """(a)-(d) on ``world`` gloo ranks sharing the card."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(*LMM_SHAPE, device_type=MESH_DEVICE)
+    res = {}
+    t0 = time.perf_counter()
+    res["a"] = lmm_train(mesh, rank == 0, "a")
+    t1 = time.perf_counter()
+    res["b"] = lmm_decode(mesh, rank == 0)
+    t2 = time.perf_counter()
+    res["c"] = lmm_moe(mesh, rank == 0)
+    t3 = time.perf_counter()
+    res["d"] = lmm_compressed(rank, world)
+    res["secs"] = dict(a=t1 - t0, b=t2 - t1, c=t3 - t2,
+                       d=time.perf_counter() - t3)
+    return res
+
+
+def lmm_job_solo(rank, world):
+    """(e): (a) at P = 1 on this group's backend."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    return lmm_train(make_debug_mesh(1, 1, device_type=MESH_DEVICE), True,
+                     "e")
+
+
+def phase_lm_mesh():
+    """Phase 19 (lm-mesh): the LM's sharded state through the public
+    entry points on MESH_P gloo ranks time-sharing the card (NCCL refuses
+    two ranks on one device), each model at full width with its depth cut
+    to LMM_LAYERS, f32, seed-0 weights drawn on the card; then (e) on one
+    NCCL rank.  Returns (launches by path, secs, max abs errors)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.train import optimizer as opt
+    secs = {}
+    errs = {"flash_attention": 0.0}
+    gen = torch.Generator(device=MESH_DEVICE).manual_seed(19)
+    for shape in LMM_FLASH:
+        b, hq, hkv, s, dh = shape
+        q = torch.randn((b, hq, s, dh), generator=gen, device=MESH_DEVICE)
+        k, v = (torch.randn((b, hkv, s, dh), generator=gen,
+                            device=MESH_DEVICE) for _ in range(2))
+        kp, vp, kw = fops.flash_args(q, k, v)
+        out, lse = fk.flash_attention_cuda(q, kp, vp, **kw)
+        p_out, p_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+        e = max(close(out, p_out, f"lm-mesh flash {shape}"),
+                close(lse, p_lse, f"lm-mesh flash lse {shape}"))
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        log(f"[lm-mesh] flash at a rank's shape (b, hq, hkv, s, dh) = "
+            f"{shape} f32 [{fk.instantiation(q, kp, vp)}]: kernel vs plain "
+            f"max_abs_err {e:.3e}")
+    del q, k, v, kp, vp, out, lse, p_out, p_lse
+    free_cuda()
+    t0 = time.perf_counter()
+    res = mesh_start("lm_mesh_main", MESH_P, "gloo", "lm_main")()
+    secs["lm-mesh (a)-(d)"] = time.perf_counter() - t0
+    r0 = res[0]
+    a = r0["a"]
+    L2 = 2 * LMM_LAYERS
+    for r in res:
+        ra = r["a"]
+        assert ra["metrics"] == a["metrics"], (ra["metrics"], a["metrics"])
+        assert ra["flash"] == L2 * LMM_STEPS, ra["flash"]
+    for m, w in zip(a["metrics"], a["ref_metrics"]):
+        for k in ("loss", "grad_norm"):
+            assert abs(m[k] - w[k]) <= LMM_RTOL * abs(w[k]), (k, m, w)
+    assert a["grad_rel"] <= LMM_GRAD_REL, a["grad_rel"]
+    assert a["param_diff"] <= 2 * LMM_LR * LMM_STEPS, a["param_diff"]
+    wall = sum(a["walls"]) / len(a["walls"])
+    log(f"[lm-mesh] (a) yi-6b ({LMM_LAYERS} layers, full width, f32) "
+        f"sharded train step on a {LMM_SHAPE} ('data', 'model') mesh of "
+        f"{MESH_P} gloo ranks, batch {LMM_BATCH} x {LMM_SEQ}, remat, flash, "
+        f"AdamW lr {LMM_LR}: per step loss "
+        + ", ".join(f"{m['loss']:.6f} (unsharded {w['loss']:.6f})"
+                    for m, w in zip(a["metrics"], a["ref_metrics"]))
+        + "; grad norm "
+        + ", ".join(f"{m['grad_norm']:.6f} (unsharded {w['grad_norm']:.6f})"
+                    for m, w in zip(a["metrics"], a["ref_metrics"]))
+        + f" (rtol {LMM_RTOL}); step-1 gradients max |diff| / max |g| "
+        f"{a['grad_rel']:.3e} over every leaf (bound {LMM_GRAD_REL}); "
+        f"parameters after {LMM_STEPS} steps max |diff| "
+        f"{a['param_diff']:.3e} (bound {2 * LMM_LR * LMM_STEPS:.0e})")
+    log(f"[lm-mesh] (a) state a rank: "
+        + ", ".join(f"rank {i} {r['a']['params']:,} of "
+                    f"{r['a']['params_whole']:,} parameters "
+                    f"({r['a']['params'] / r['a']['params_whole']:.2f}), "
+                    f"{r['a']['bytes'] / 1e9:.3f} GB parameters + AdamW of "
+                    f"{r['a']['bytes_whole'] / 1e9:.3f} GB unsharded"
+                    for i, r in enumerate(res))
+        + f"; flash {a['flash'] // LMM_STEPS} launches a rank a step "
+        f"(2 L with remat, each on its {32 // LMM_SHAPE[1]} heads and "
+        f"{LMM_BATCH // LMM_SHAPE[0]} rows)")
+    log(f"[lm-mesh] (a) step wall {', '.join(f'{w:.3f}' for w in a['walls'])}"
+        f" s (unsharded on the same card "
+        f"{', '.join(f'{w:.3f}' for w in a['ref_walls'])} s); "
+        f"{a['coll_secs'] / sum(a['walls']):.1%} of the sharded wall inside "
+        f"the collective wrapper (gloo staged through the host); rank 0's "
+        f"collectives over {LMM_STEPS} steps {a['cc']}, operand bytes "
+        f"{ {k: v for k, v in a['cbytes'].items() if v} }; {MESH_P} ranks "
+        f"time-share one card: correctness numbers, not a speed-up")
+    b = r0["b"]
+    L1 = LMM_LAYERS
+    assert b["specs"]["k"] == (None, None, "model", ("data",), None), \
+        b["specs"]
+    for r in res:
+        assert r["b"]["sharded_launches"] == 0, r["b"]["sharded_launches"]
+        assert r["b"]["tokens"] == b["tokens"]
+        cc = r["b"]["cc"]
+        assert (cc["all_gather"], cc["pmax"], cc["psum"]) == \
+            (8 * L1 + 1, L1, 5 * L1 + 1), cc
+    assert b["finite"] and b["logit_rel"] <= LMM_LOGIT_REL, b["logit_rel"]
+    assert b["launches"] == LMM_LAYERS * LMM_GEN, b["launches"]
+    log(f"[lm-mesh] (b) long_500k KDE decode (yi-6b, {LMM_LAYERS} layers, "
+        f"batch 1, a {LONG_S}-slot bf16 cache, top_p {LONG_KDE['top_p']}, "
+        f"bk {LONG_KDE['bk']}, stride {LONG_KDE['stride']}) on the same "
+        f"mesh: cache spec {b['specs']['k']} ({b['cache_bytes'] / 1e9:.3f} "
+        f"GB a rank), synthetic K/V below the last {LMM_PROMPT + LMM_GEN} "
+        f"slots, a {LMM_PROMPT}-token prefill into the cache "
+        f"({b['prefill_s']:.2f} s) then {LMM_GEN} decode steps: "
+        f"logits max |diff| / max |logit| {b['logit_rel']:.3e} against the "
+        f"single-device prefill and decode through the fused kernel (bound "
+        f"{LMM_LOGIT_REL}); a step {b['cc']['all_gather']} all-gathers "
+        f"({L1} lse tables, {L1} x 7 weights' 'data' shards, the logits), "
+        f"{b['cc']['pmax']} max and "
+        f"{b['cc']['psum']} sum all-reduces ({L1} x (1 max + 3 sums) of the "
+        f"KDE combine, {L1} x 2 row-parallel outputs, 1 embedding); step "
+        f"{sum(b['walls']) / len(b['walls']) * 1e3:.2f} ms sharded vs "
+        f"{sum(b['ref_walls']) / len(b['ref_walls']) * 1e3:.2f} ms single "
+        f"device ({b['launches']} kde_decode launches on the yardstick, 0 "
+        f"on the shard_map path)")
+    c = r0["c"]
+    for r in res:
+        assert r["c"]["metrics"] == c["metrics"]
+    assert c["logit_err"] <= LMM_MOE_ATOL, c["logit_err"]
+    assert c["aux_err"] <= LMM_AUX_ATOL, c["aux_err"]
+    assert c["grad_err"] <= LMM_MOE_GRAD_ATOL, c["grad_err"]
+    for k in ("loss", "grad_norm"):
+        assert abs(c["metrics"][k] - c["ref_metrics"][k]) \
+            <= LMM_RTOL * abs(c["ref_metrics"][k]), (c["metrics"],
+                                                     c["ref_metrics"])
+    log(f"[lm-mesh] (c) granite-moe-1b-a400m ({LMM_LAYERS} layers, 32 "
+        f"experts, top 8; embed spec {c['embed_spec']}: the padded vocab "
+        f"divides 'model') by expert parallelism on the mesh, batch "
+        f"{LMM_BATCH} x {LMM_MOE_SEQ}: logits max |diff| {c['logit_err']:.3e}"
+        f" (of max {c['logit_max']:.3f}; atol {LMM_MOE_ATOL}), aux "
+        f"{c['aux']:.6f} |diff| {c['aux_err']:.3e} (atol {LMM_AUX_ATOL}), "
+        f"gradients max |diff| {c['grad_err']:.3e} (atol "
+        f"{LMM_MOE_GRAD_ATOL}); train step loss {c['metrics']['loss']:.6f} "
+        f"(unsharded {c['ref_metrics']['loss']:.6f}), grad norm "
+        f"{c['metrics']['grad_norm']:.6f} (unsharded "
+        f"{c['ref_metrics']['grad_norm']:.6f})")
+    n_ok = 0
+    for rank, r in enumerate(res):
+        peer = res[rank ^ 2]["d"]          # the other "pod", same "data"
+        d = r["d"]
+        for k in d["g"]:
+            q0, s0, nr = opt.compress(d["g"][k], d["r"][k])
+            q1, s1, _ = opt.compress(peer["g"][k], peer["r"][k])
+            want = opt.decompress(q0.to(torch.int32) + q1.to(torch.int32),
+                                  torch.maximum(s0, s1))
+            assert torch.equal(d["summed"][k], want), (rank, k)
+            assert torch.equal(d["resid"][k], nr), (rank, k)
+            n_ok += 1
+    log(f"[lm-mesh] (d) compressed_psum over the 'pod' axis of a (2, 2) "
+        f"('pod', 'data') mesh: {n_ok} leaves on {MESH_P} ranks bitwise "
+        f"the plain sum of the int8 codes at the larger scale, residuals "
+        f"bitwise")
+    t0 = time.perf_counter()
+    e = mesh_start("lm_mesh_solo", 1, LMM_SOLO, "lm_solo")()[0]
+    secs["lm-mesh (e)"] = time.perf_counter() - t0
+    same = [k for k in ("grads", "params") if e[f"{k}_bitwise"]]
+    differ = [k for k in ("grads", "params") if not e[f"{k}_bitwise"]]
+    m_same = e["metrics"] == e["ref_metrics"]
+    assert e["grad_rel"] <= LMM_GRAD_REL and \
+        e["param_diff"] <= 2 * LMM_LR * LMM_STEPS, e
+    log(f"[lm-mesh] (e) P = 1 on {LMM_SOLO} ((1, 1) mesh) vs the unsharded "
+        f"step: metrics {'bitwise equal' if m_same else 'differ'} "
+        f"({e['metrics']} vs {e['ref_metrics']}); bitwise equal: "
+        f"{same or 'nothing'}; differ: {differ or 'nothing'} (step-1 "
+        f"gradients max rel {e['grad_rel']:.3e}, parameters max |diff| "
+        f"{e['param_diff']:.3e}); step wall "
+        f"{', '.join(f'{w:.3f}' for w in e['walls'])} s vs "
+        f"{', '.join(f'{w:.3f}' for w in e['ref_walls'])} s")
+    log(f"[lm-mesh] phase secs by part (rank 0): {r0['secs']}")
+    launches = {"flash_attention": {
+                    "(a) train a rank": a["flash"],
+                    "(c) moe grads + step a rank": c["flash"],
+                    "(e) P = 1": e["flash"]},
+                "kde_decode_bf16": {"(b) single-device yardstick":
+                                    b["launches"],
+                                    "(b) shard_map path": 0}}
+    return launches, secs, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6218,6 +6749,9 @@ def main() -> int:
     free_cuda()
     mesh_launches, mesh_secs, mesh_errs = phase_mesh(sp_counts)
     phases.update(mesh_secs)
+    free_cuda()
+    lmm_launches, lmm_secs, lmm_errs = phase_lm_mesh()
+    phases.update(lmm_secs)
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -6227,7 +6761,10 @@ def main() -> int:
                                est_errs.get(r["name"], 0.0),
                                sv_errs.get(r["name"], 0.0),
                                tr_errs.get(r["name"], 0.0),
-                               mesh_errs.get(r["name"], 0.0))
+                               mesh_errs.get(r["name"], 0.0),
+                               lmm_errs.get(r["name"], 0.0))
+        if r["name"] in lmm_launches:
+            r["lm_mesh_launches"] = lmm_launches[r["name"]]
         r["mesh_launches"] = {path: c[r["name"]] for path, c in
                               mesh_launches.items() if r["name"] in c}
         r["graph_launches"] = {path: c[r["name"]] for path, c in
@@ -6249,7 +6786,7 @@ def main() -> int:
                                   "ctas", "instance", "reduce_share",
                                   "graph_launches", "stream_launches",
                                   "serve_launches", "mesh_launches",
-                                  "train_launches",
+                                  "lm_mesh_launches", "train_launches",
                                   "train_shape", "train_ms",
                                   "train_device_ms", "train_bound_ms",
                                   "train_bound_by", "train_library_ms",

@@ -2,14 +2,17 @@
 ``repro.data.pipeline``; tokens are bit-identical to the reference's).
 
 Tokens are drawn from a Zipf-ish distribution with a learnable bigram
-structure.  Every batch is a pure function of (seed, step).  The dry-run's
-``input_specs`` is not ported (ROADMAP.md queue 1 item 11).
+structure.  Every batch is a pure function of (seed, step).
+
+``input_specs`` returns meta tensors for every model input of an (arch,
+shape) cell -- the dry run traces against these (no allocation).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 
@@ -45,3 +48,23 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig, step: int, seed: int = 0,
         out["frontend"] = rng.normal(
             0, 1, size=(b, split["frontend"], cfg.d_model)).astype(np.float32)
     return out
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins (shape and dtype, no storage) for every input
+    of the cell's step function: the reference's ``ShapeDtypeStruct``s."""
+    split = token_split(cfg, shape)
+    b = shape.global_batch
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": meta((b, split["tokens"]), torch.int32)}
+        if split["frontend"]:
+            specs["frontend"] = meta((b, split["frontend"], cfg.d_model),
+                                     dtype)
+        return specs
+    # decode: one new token against a max_len cache
+    return {"tokens": meta((b, 1), torch.int32)}

@@ -27,6 +27,7 @@ ROADMAP_ITEMS = {
     9: "serving and telemetry",
     10: "multi-device engines",
     12: "the rest of the LM stack",
+    14: "context-parallel prefill",
 }
 
 

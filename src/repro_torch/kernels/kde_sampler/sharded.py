@@ -46,7 +46,7 @@ A custom kind runs its ``pairwise`` closure on every device
 (``ops.custom_kind``).
 
 Collectives go through one wrapper (``all_reduce``, ``all_gather``,
-``ring_exchange``) that counts each realized call by kind
+``ring_exchange``; ``repro_torch.distributed.collectives``) that counts each realized call by kind
 (``COLLECTIVES``; ``collective_counts(fn, ...)`` reads the difference
 over one call) and times it (``COLLECTIVE_SECONDS``).  A gloo group stages
 a CUDA tensor through host memory (gloo's send and recv take CPU tensors
@@ -61,11 +61,9 @@ collective.  The ``PSUMS`` slot counts the all-reduces the call realizes.
 """
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.device import as_f32
 from repro_torch.ft import guards as _g
@@ -76,158 +74,14 @@ from repro_torch.kernels.kde_sampler import ops as _ops
 from repro_torch.kernels.kde_sampler import ref as _ref
 from repro_torch.obs import counters as _c
 
+# the collective wrapper and the mesh groups live in
+# ``repro_torch.distributed.collectives``; the engines' names stay here
+from repro_torch.distributed.collectives import (  # noqa: F401
+    COLLECTIVE_BYTES, COLLECTIVE_SECONDS, COLLECTIVES, MeshGroup,
+    all_gather, all_reduce, collective_counts, mesh_device, mesh_group,
+    reset_collectives, ring_exchange)
+
 FLOOR = _ref.BLOCK_SUM_FLOOR
-
-#: realized collectives by kind, under the reference's primitive names
-COLLECTIVES = {"psum": 0, "ppermute": 0, "all_gather": 0}
-#: wall seconds spent inside the collective wrapper (staging included)
-COLLECTIVE_SECONDS = [0.0]
-
-
-def reset_collectives() -> None:
-    """Zero the collective counts and the time spent in them."""
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
-    COLLECTIVE_SECONDS[0] = 0.0
-
-
-def collective_counts(fn, *args, **kwargs) -> dict:
-    """Run ``fn(*args, **kwargs)`` and count the collectives it realized,
-    by kind, with the reference's keys (``psum``, ``ppermute``,
-    ``all_gather``, ``psum_total``, ``ppermute_total``).  The reference
-    counts the binds in a jaxpr, where a scan body counts once; this counts
-    every call, so a scanned program realizes one all-reduce per step
-    (ROADMAP.md section 3)."""
-    before = dict(COLLECTIVES)
-    fn(*args, **kwargs)
-    acc = {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
-    acc["psum_total"] = acc["psum"]
-    acc["ppermute_total"] = acc["ppermute"]
-    return acc
-
-
-# --------------------------------------------------------------------- #
-# the mesh: flattened data groups
-# --------------------------------------------------------------------- #
-class MeshGroup:
-    """The flattened data group of one rank over ``axes`` of a mesh:
-    ``size`` shards, this rank's row-major shard ``index`` (the reference's
-    ``_flat_index``), the group's global ``ranks`` in shard order, the
-    mesh's ``device`` and whether collectives stage through the host."""
-
-    def __init__(self, mesh, axes):
-        names = tuple(mesh.mesh_dim_names or ())
-        for a in axes:
-            if a not in names:
-                raise ValueError(f"data axis {a!r} is not a dim of the mesh "
-                                 f"{names}")
-        if len(set(axes)) != len(axes):
-            raise ValueError(f"data axes {axes} repeat a dim")
-        self.mesh = mesh
-        self.axes = tuple(axes)
-        dims = [names.index(a) for a in axes]
-        rest = [i for i in range(len(names)) if i not in dims]
-        grid = mesh.mesh.permute(*rest, *dims)
-        self.size = 1
-        for a in axes:
-            self.size *= int(mesh.size(names.index(a)))
-        rows = grid.reshape(-1, self.size).tolist()
-        me = dist.get_rank()
-        row = next(r for r in rows if me in r)
-        self.ranks = [int(r) for r in row]
-        self.index = self.ranks.index(me)
-        self.device = mesh_device(mesh)
-        # a one-shard group too: its collectives run (and count) on the
-        # backend like any other
-        self.group = dist.new_group(ranks=self.ranks,
-                                    use_local_synchronization=True)
-        self.backend = dist.get_backend(self.group)
-        self.stage = self.device.type == "cuda" and self.backend == "gloo"
-
-
-_GROUPS: dict = {}
-
-
-def mesh_group(mesh, data_axes: Sequence[str] = ("data",)) -> MeshGroup:
-    """The rank's ``MeshGroup`` over ``data_axes`` of ``mesh``, made once
-    per (mesh, axes): every rank of a data group must ask for it (the
-    group is created collectively by its members)."""
-    axes = tuple(data_axes)
-    key = (id(mesh), axes)
-    hit = _GROUPS.get(key)
-    if hit is None or hit.mesh is not mesh:
-        hit = _GROUPS[key] = MeshGroup(mesh, axes)
-    return hit
-
-
-def mesh_device(mesh, device=None) -> torch.device:
-    """The device a mesh runs its shards on: the rank's current CUDA
-    device for a ``"cuda"`` mesh, the CPU for a ``"cpu"`` mesh.  A
-    ``device`` that disagrees with the mesh raises ValueError: nothing
-    drops to the CPU on its own."""
-    kind = getattr(mesh, "device_type", None)
-    if kind is None:
-        raise TypeError(f"mesh= takes a torch.distributed DeviceMesh, got "
-                        f"{type(mesh).__name__}")
-    if kind == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device())
-    elif kind == "cpu":
-        dev = torch.device("cpu")
-    else:
-        raise ValueError(f"unsupported mesh device type {kind!r}")
-    if device is not None and torch.device(device).type != dev.type:
-        raise ValueError(f"device={device!r} disagrees with the mesh, "
-                         f"whose shards run on {dev}")
-    return dev
-
-
-# --------------------------------------------------------------------- #
-# the collective wrapper: every collective of the engines goes through it
-# --------------------------------------------------------------------- #
-def _host(t: torch.Tensor, grp: MeshGroup) -> torch.Tensor:
-    return t.cpu() if grp.stage else t
-
-
-def all_reduce(t: torch.Tensor, grp: MeshGroup) -> torch.Tensor:
-    """Sum of ``t`` over the data group (one all-reduce), on t's device."""
-    COLLECTIVES["psum"] += 1
-    t0 = time.perf_counter()
-    buf = _host(t, grp).contiguous().clone()
-    dist.all_reduce(buf, group=grp.group)
-    out = buf.to(t.device)
-    COLLECTIVE_SECONDS[0] += time.perf_counter() - t0
-    return out
-
-
-def all_gather(t: torch.Tensor, grp: MeshGroup, dim: int = 0):
-    """The group's ``t`` concatenated along ``dim`` in shard order (one
-    all-gather; every shard's ``t`` has the same shape)."""
-    COLLECTIVES["all_gather"] += 1
-    t0 = time.perf_counter()
-    src = _host(t, grp).contiguous()
-    parts = [torch.empty_like(src) for _ in range(grp.size)]
-    dist.all_gather(parts, src, group=grp.group)
-    out = torch.cat(parts, dim=dim).to(t.device)
-    COLLECTIVE_SECONDS[0] += time.perf_counter() - t0
-    return out
-
-
-def ring_exchange(t: torch.Tensor, grp: MeshGroup) -> torch.Tensor:
-    """One step of the ring (the reference's ``ppermute`` i -> i + 1):
-    send ``t`` to the next shard, return the previous shard's."""
-    COLLECTIVES["ppermute"] += 1
-    t0 = time.perf_counter()
-    src = _host(t, grp).contiguous()
-    out = torch.empty_like(src)
-    nxt = grp.ranks[(grp.index + 1) % grp.size]
-    prv = grp.ranks[(grp.index - 1) % grp.size]
-    ops = [dist.P2POp(dist.isend, src, nxt, grp.group),
-           dist.P2POp(dist.irecv, out, prv, grp.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    out = out.to(t.device)
-    COLLECTIVE_SECONDS[0] += time.perf_counter() - t0
-    return out
 
 
 # --------------------------------------------------------------------- #

@@ -9,15 +9,24 @@ reference's implementations, selected at call time:
   * "flash" -- the flash-attention kernel (prefill),
   * "kde"   -- the paper's sub-quadratic decode attention.  The reference
                model calls the jnp mirror ``kde_attention_ref`` so GSPMD can
-               shard the cache; the port has no mesh and calls its own
+               shard the cache; the port calls its own
                ``kde_attention.ops.kde_attention``, the same function
-               (ROADMAP.md section 3), so every KDE decode step runs the
-               fused decode kernel, one launch per layer.
-The MoE block is the reference's single-device dispatch
-(``_moe_block_gspmd``: grouped capacity slots, over-capacity tokens
-dropped), ``cross_attention_block`` the enc-dec decoder's.  The mesh
-helpers (``constrain``, ``activation_sharding``, the shard_map MoE and
-decode) have no counterpart (ROADMAP.md queue 1 item 12).
+               (ROADMAP.md section 3), so every KDE decode step of a
+               whole cache runs the fused decode kernel, one launch per
+               layer.
+The MoE block dispatches as the reference's does: ``_moe_block_shardmap``
+under a mesh whose "model" axis divides the experts, else the grouped
+capacity dispatch (``_moe_block_gspmd``: capacity slots, over-capacity
+tokens dropped).  ``cross_attention_block`` is the enc-dec decoder's.
+
+Under ``activation_sharding(mesh, batch_axes)`` the blocks run as SPMD
+programs on one rank's share (the mesh section below): each parameter
+holds the rank's shard under ``distributed.sharding.param_spec`` (tagged
+by ``distributed.state.shard_model``), attention and the SwiGLU run
+tensor-parallel over "model" where the heads and d_ff divide (column-
+parallel wq / wk / wv / w1 / w3, row-parallel wo / w2 and one all-reduce),
+anything else gathers its weights and computes replicated over "model";
+every collective goes through ``distributed.collectives``.
 
 Dtypes follow the reference: activations in the config's dtype
 (``dtype_of``: bf16 for "bfloat16", else f32), weights cast to it at use
@@ -38,6 +47,8 @@ other batch or width.
 """
 from __future__ import annotations
 
+import math
+import types
 from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
@@ -45,8 +56,137 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import not_in_slice
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import SPEC_ATTR, entry_axes, mesh_shape
 
 _NEG_INF = -1.0e30
+
+# ------------------------------------------------------------- activation
+# sharding context: the launchers wrap a step in ``activation_sharding`` so
+# the model code knows the mesh and its batch axes without threading them
+# through every call.  The reference pins GSPMD layouts with it; the port's
+# blocks read it to run their rank's share (the mesh section below).
+_ACT = {"mesh": None, "batch_axes": (), "seq_mode": False,
+        "batch_sharded": False, "decode": None}
+
+
+@contextmanager
+def activation_sharding(mesh, batch_axes=("data",), seq_mode: bool = False):
+    """Run the model's blocks as SPMD programs on ``mesh`` (a
+    ``DeviceMesh``), the batch over ``batch_axes``.  seq_mode=True
+    (context-parallel prefill: the sequence over 'model') is not ported:
+    the flash kernel places queries at padded skv - padded sq, so a
+    sequence shard's queries need a kernel offset that does not exist
+    yet."""
+    if seq_mode:
+        raise not_in_slice("activation_sharding(seq_mode=True)", 14)
+    old = dict(_ACT)
+    _ACT.update(mesh=mesh, batch_axes=tuple(batch_axes), seq_mode=False)
+    try:
+        yield
+    finally:
+        _ACT.update(old)
+
+
+def _axes_size(mesh, axes) -> int:
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        n *= shape.get(a, 1)
+    return n
+
+
+def constrain(x, *tail):
+    """The reference's ``with_sharding_constraint`` of an activation.  The
+    port's programs hold every activation in its rank's layout already
+    (the batch rows of its batch shard, the heads or d_ff columns of its
+    "model" shard inside a tensor-parallel block), so this is the
+    identity."""
+    return x
+
+
+# ------------------------------------------------------------- mesh
+def _mesh_on() -> bool:
+    return _ACT["mesh"] is not None
+
+
+def group(axes) -> Optional[C.MeshGroup]:
+    """The active mesh's group over the ``axes`` it has (None without a
+    mesh or when it has none of them)."""
+    mesh = _ACT["mesh"]
+    if mesh is None:
+        return None
+    names = mesh_shape(mesh)
+    present = tuple(a for a in axes if a in names)
+    return C.mesh_group(mesh, present) if present else None
+
+
+def model_size() -> int:
+    g = group(("model",))
+    return 1 if g is None else g.size
+
+
+def _spec(p):
+    return getattr(p, SPEC_ATTR, None) if _mesh_on() else None
+
+
+def full(p, model_partial: bool = False):
+    """Parameter ``p`` gathered whole from its shards.  Over the batch-like
+    axes the gather's backward is a reduce-scatter (every rank's batch
+    adds its share); over "model" it is the rank's own slice (the compute
+    that reads it is replicated over "model"), or with ``model_partial``
+    a reduce-scatter (each "model" rank reads another part of it; a
+    weight replicated over "model" then sums its gradient over "model")."""
+    spec = _spec(p)
+    if spec is None or p is None:
+        return p
+    t, on_model = p, False
+    for d, e in enumerate(spec):
+        for a in entry_axes(e):
+            g = group((a,))
+            if a == "model":
+                on_model = True
+                t = (C.gather_partial if model_partial
+                     else C.gather_replicated)(t, g, d)
+            else:
+                t = C.gather_partial(t, g, d)
+    if model_partial and not on_model:
+        t = C.copy_to_partials(t, group(("model",)))
+    return t
+
+
+def local(p, dim: int):
+    """Parameter ``p`` gathered over its batch-like axes only: its "model"
+    shard along ``dim`` (a tensor-parallel block's own columns or rows; p
+    itself without a mesh or a "model" axis of size 1)."""
+    spec = _spec(p)
+    if spec is None or p is None:
+        return p
+    t = p
+    for d, e in enumerate(spec):
+        for a in entry_axes(e):
+            if a != "model":
+                t = C.gather_partial(t, group((a,)), d)
+    return t
+
+
+def model_sharded(p, dim: int) -> bool:
+    """Whether ``p`` is split over a "model" axis of size > 1 along
+    ``dim`` (or the mesh's "model" axis is one rank wide)."""
+    spec = _spec(p)
+    if spec is None:
+        return False
+    return model_size() == 1 or "model" in entry_axes(spec[dim])
+
+
+def module_full(m):
+    """``m``'s direct parameters gathered whole (``full``), as a namespace
+    the blocks read like the module."""
+    if not _mesh_on():
+        return m
+    return types.SimpleNamespace(**{n: full(p)
+                                    for n, p in m._parameters.items()})
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -215,8 +355,12 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
-def _qkv(p: Attention, cfg: ArchConfig, x, positions):
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+def _qkv(p: Attention, cfg: ArchConfig, x, positions, hq=None, hkv=None):
+    """q, k, v (b, h, s, hd) with RoPE; ``hq`` / ``hkv`` the heads ``p``'s
+    columns hold (the config's, or a tensor-parallel rank's own)."""
+    hq = cfg.num_heads if hq is None else hq
+    hkv = cfg.num_kv_heads if hkv is None else hkv
+    hd = cfg.hd
     q = x @ p.wq.to(x.dtype)
     k = x @ p.wk.to(x.dtype)
     v = x @ p.wv.to(x.dtype)
@@ -322,13 +466,86 @@ def kde_decode_attention(q, k, v, kv_valid, top_p: int, bk: int,
     return out[:, :, None, :]
 
 
+def _attn_plan(p: Attention, cfg: ArchConfig):
+    """How a rank runs ``p`` under the active mesh: None for replicated
+    compute (or no mesh), else the tensor-parallel plan (hq_l, kv_lo,
+    kv_hi, kv_local): the rank's hq / msize query heads, the kv heads
+    [kv_lo, kv_hi) they read, and whether wk / wv's own shard holds
+    exactly those (else they are gathered and sliced)."""
+    mg = group(("model",))
+    if mg is None:
+        return None
+    m, r = mg.size, mg.index
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if hq % m or not (model_sharded(p.wq, 1) and model_sharded(p.wo, 0)):
+        return None
+    hq_l, g = hq // m, hq // hkv
+    if hq_l % g and g % hq_l:
+        return None
+    kv_lo, kv_hi = (r * hq_l) // g, ((r + 1) * hq_l - 1) // g + 1
+    return hq_l, kv_lo, kv_hi, hkv % m == 0 and model_sharded(p.wk, 1)
+
+
+def _tp_weights(p: Attention, cfg: ArchConfig, plan):
+    """The rank's column-parallel wq / wk / wv (and biases) and
+    row-parallel wo under ``plan``."""
+    _, kv_lo, kv_hi, kv_local = plan
+    hd = cfg.hd
+    ns = types.SimpleNamespace(wq=local(p.wq, 1), wo=local(p.wo, 0),
+                               bq=local(p.bq, 0))
+    for w, b in (("wk", "bk"), ("wv", "bv")):
+        wt, bt = getattr(p, w), getattr(p, b)
+        if kv_local:
+            setattr(ns, w, local(wt, 1))
+            setattr(ns, b, local(bt, 0))
+        else:
+            cols = slice(kv_lo * hd, kv_hi * hd)
+            setattr(ns, w, full(wt, model_partial=True)[:, cols])
+            setattr(ns, b, None if bt is None
+                    else full(bt, model_partial=True)[cols])
+    return ns
+
+
+def _write_cache(ck, cv, k, v, cache_pos: int, off: int) -> None:
+    """Write the new keys and values at global positions [cache_pos,
+    cache_pos + s) into a cache slice holding [off, off + S_l)."""
+    s, s_l = k.shape[2], ck.shape[2]
+    lo, hi = max(cache_pos, off), min(cache_pos + s, off + s_l)
+    if lo < hi:
+        ck[:, :, lo - off:hi - off] = k[:, :, lo - cache_pos:
+                                        hi - cache_pos].to(ck.dtype)
+        cv[:, :, lo - off:hi - off] = v[:, :, lo - cache_pos:
+                                        hi - cache_pos].to(cv.dtype)
+
+
 def attention_block(p: Attention, cfg: ArchConfig, x, positions,
                     impl: str = "xla", cache: Optional[Tuple] = None,
                     cache_pos=None, kde_cfg: Optional[Dict] = None):
     """Returns (out (b, s, d), cache).  With a cache (the layer's (ck, cv)
     of shape (b, hkv, S, hd)) the new keys and values are written into it
-    in place at ``cache_pos`` -- the reference returns an updated copy."""
-    q, k, v = _qkv(p, cfg, x, positions)
+    in place at ``cache_pos`` -- the reference returns an updated copy.
+
+    Under a mesh the block runs tensor-parallel (``_attn_plan``; with a
+    cache: when the cache's kv heads are split over "model") or
+    replicated over "model" on gathered weights; a cache whose sequence
+    is split (``_ACT["decode"]``) attends over its slice and combines
+    across the slices."""
+    lay = _ACT["decode"] if cache is not None else None
+    plan = None
+    if _mesh_on():
+        plan = _attn_plan(p, cfg)
+        if lay is not None and not lay["heads_sharded"]:
+            plan = None
+        if plan is None:
+            p = module_full(p)
+    if plan is not None:
+        mg = group(("model",))
+        w = _tp_weights(p, cfg, plan)
+        q, k, v = _qkv(w, cfg, C.copy_to_partials(x, mg), positions,
+                       plan[0], plan[2] - plan[1])
+    else:
+        w = p
+        q, k, v = _qkv(p, cfg, x, positions)
     if cache is None:
         if impl == "flash":
             from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -341,20 +558,150 @@ def attention_block(p: Attention, cfg: ArchConfig, x, positions,
     else:
         ck, cv = cache                       # (b, hkv, S, hd)
         s = q.shape[2]
-        ck[:, :, cache_pos:cache_pos + s] = k.to(ck.dtype)
-        cv[:, :, cache_pos:cache_pos + s] = v.to(cv.dtype)
+        seq = lay["seq_grp"] if lay is not None else None
+        off = seq.index * ck.shape[2] if seq is not None else 0
+        _write_cache(ck, cv, k, v, cache_pos, off)
         kv_valid = cache_pos + s
         if impl == "kde" and s == 1:
             kc = kde_cfg or {}
-            o = kde_decode_attention(q, ck, cv, kv_valid,
-                                     top_p=kc.get("top_p", 16),
-                                     bk=kc.get("bk", 512),
-                                     stride=kc.get("stride", 16))
+            kw = dict(top_p=kc.get("top_p", 16), bk=kc.get("bk", 512),
+                      stride=kc.get("stride", 16))
+            o = None
+            if seq is not None:
+                o = _kde_decode_seq_sharded(q, ck, cv, kv_valid, grp=seq,
+                                            **kw)
+                if o is None:     # indivisible: the whole cache, counted
+                    ck, cv = (C.all_gather(t, seq, 2) for t in (ck, cv))
+            if o is None:
+                o = kde_decode_attention(q, ck, cv, kv_valid, **kw)
+        elif seq is not None:
+            o = _xla_decode_seq_sharded(q, ck, cv, cache_pos, kv_valid,
+                                        off, seq)
         else:
             o = xla_attention(q, ck, cv, causal=True, q_offset=cache_pos,
                               kv_valid=kv_valid)
-    out = _merge_heads(o) @ p.wo.to(x.dtype)
+    out = _merge_heads(o) @ w.wo.to(x.dtype)
+    if plan is not None:
+        out = C.sum_to_replicas(out, group(("model",)))
     return out, cache
+
+
+def _xla_decode_seq_sharded(q, ck, cv, cache_pos: int, kv_valid: int,
+                            off: int, grp):
+    """``xla_attention`` over a cache whose sequence is split across
+    ``grp``: this rank's slice holds global positions [off, off + S_l).
+    Each rank scores its keys, and the slices combine by the flash-decode
+    logsumexp rule: one max all-reduce of the rows' maxima m, then sum
+    all-reduces of l = sum exp(s - m) and of the unnormalised outputs."""
+    b, hq, sq, hd = q.shape
+    g = hq // ck.shape[1]
+    kk = torch.repeat_interleave(ck.float(), g, dim=1)
+    vv = torch.repeat_interleave(cv.float(), g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / (hd ** 0.5)
+    kpos = off + torch.arange(ck.shape[2], device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None] + cache_pos
+    mask = (kpos[None, :] < kv_valid) & (kpos[None, :] <= qpos)
+    s = torch.where(mask[None, None], s, _NEG_INF)
+    m = C.pmax(torch.amax(s, dim=-1), grp)
+    p = torch.exp(s - m[..., None])
+    l = C.all_reduce(p.sum(-1), grp)
+    o = C.all_reduce(torch.einsum("bhqk,bhkd->bhqd", p, vv), grp)
+    return (o / l[..., None]).to(q.dtype)
+
+
+def _kde_decode_seq_sharded(q, k, v, kv_valid: int, top_p: int, bk: int,
+                            stride: int, grp):
+    """The reference's four shard_map steps on this rank's cache slice:
+    ``k`` / ``v`` (b, hkv_l, S_l, hd) hold global positions [index S_l,
+    (index + 1) S_l) of a sequence split over ``grp``; q (b, hq_l, 1, hd)
+    the same heads' queries.  Returns None when S_l is not a whole number
+    of blocks (the reference's ``s_total % (bk nshards) != 0``)."""
+    b, hq_l, _, hd = q.shape
+    hkv_l, s_loc = k.shape[1], k.shape[2]
+    if s_loc % bk:
+        return None
+    g_l = hq_l // hkv_l
+    nb_loc = s_loc // bk
+    seq_off = grp.index * s_loc
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    q32 = q[:, :, 0, :].float()                               # (b, hq_l, hd)
+    # (1) local strided block-lse estimates
+    ks = torch.repeat_interleave(k[:, :, ::stride, :].float(), g_l, dim=1)
+    sc = torch.einsum("bhd,bhsd->bhs", q32, ks) * scale
+    pos = seq_off + torch.arange(0, s_loc, stride, device=dev)
+    sc = torch.where(pos[None, None, :] < kv_valid, sc, _NEG_INF)
+    sc = sc.reshape(b, hq_l, nb_loc, -1)
+    mloc = torch.amax(sc, dim=-1)
+    lse_loc = mloc + torch.log(torch.clamp(
+        torch.sum(torch.exp(sc - mloc[..., None]), -1), min=1e-30)) \
+        + math.log(float(stride))
+    # (2) the global lse table (tiny) + top-P selection per kv head
+    lse = C.all_gather(lse_loc, grp, 2)                      # (b, hq_l, nb)
+    e = lse.reshape(b, hkv_l, g_l, -1)
+    m_g = torch.amax(e, dim=2)
+    lse_kv = m_g + torch.log(torch.clamp(
+        torch.sum(torch.exp(e - m_g[:, :, None]), 2), min=1e-30))
+    sel = _top_k(lse_kv, top_p)[1]                           # (b, hkv_l, P)
+    # (3) exact attention over the selected blocks this rank owns
+    my_first = seq_off // bk
+    sel_local = sel - my_first
+    owned = (sel_local >= 0) & (sel_local < nb_loc)
+    sel_c = torch.clamp(sel_local, 0, nb_loc - 1)
+    kb = k.reshape(b, hkv_l, nb_loc, bk, hd)
+    vb = v.reshape(b, hkv_l, nb_loc, bk, hd)
+    idx = sel_c[:, :, :, None, None].expand(-1, -1, -1, bk, hd)
+    ksel = torch.repeat_interleave(torch.gather(kb, 2, idx).float(), g_l, 1)
+    vsel = torch.repeat_interleave(torch.gather(vb, 2, idx).float(), g_l, 1)
+    sc2 = torch.einsum("bhd,bhpkd->bhpk", q32, ksel) * scale
+    kpos = (seq_off + sel_c[:, :, :, None] * bk
+            + torch.arange(bk, device=dev)[None, None, None, :])
+    valid = (kpos < kv_valid) & owned[..., None]
+    valid = torch.repeat_interleave(valid, g_l, dim=1)
+    sc2 = torch.where(valid, sc2, _NEG_INF)
+    # (4) combine with a fixed global reference (pmax) + psums
+    m_ref = C.pmax(torch.amax(sc2, dim=(2, 3)), grp)          # (b, hq_l)
+    p = torch.exp(sc2 - m_ref[..., None, None])
+    l_loc = p.sum((2, 3))
+    acc_loc = torch.einsum("bhpk,bhpkd->bhd", p, vsel)
+    # residual: local unselected blocks' estimated mass
+    sel_q = torch.repeat_interleave(sel, g_l, dim=1) - my_first
+    chosen = torch.any(torch.arange(nb_loc, device=dev)[None, None, :, None]
+                       == sel_q[:, :, None, :], dim=-1)
+    resid_loc = torch.where(chosen, 0.0,
+                            torch.exp(lse_loc - m_ref[..., None])).sum(-1)
+    l = C.all_reduce(l_loc, grp)
+    acc = C.all_reduce(acc_loc, grp)
+    resid = C.all_reduce(resid_loc, grp)
+    out = acc / torch.clamp(l + resid, min=1e-30)[..., None]
+    return out[:, :, None, :].to(q.dtype)
+
+
+def kde_decode_attention_shardmap(q, k, v, kv_valid, top_p: int, bk: int,
+                                  stride: int, mesh, baxes, *,
+                                  num_kv_heads: int):
+    """Distributed KDE decode attention: the reference's shard_map program
+    as an SPMD one.  The GSPMD mirror's weakness: the top-P block gather
+    over a sequence-sharded cache moves the whole cache every layer.  Here
+    each rank
+      1. computes strided block-lse estimates for its LOCAL cache slice,
+      2. all-gathers only the (b, hq, nb) lse table,
+      3. attends exactly over the selected blocks it OWNS,
+      4. combines numerator / denominator (+ the estimated residual mass)
+         with one max all-reduce and three sum all-reduces.
+
+    q (b, hq_l, 1, hd), k, v (b, hkv_l, S_l, hd) are this rank's slices of
+    the reference's global operands: the kv heads over "model" when the
+    ``num_kv_heads`` divide it, the sequence over ``seq_axes = baxes (+
+    'model' when kv heads don't shard)``.  Returns None when the global
+    length does not split into whole blocks a shard (the caller then
+    gathers the cache and runs the fused decode)."""
+    msize = mesh_shape(mesh).get("model", 1)
+    heads_sharded = msize > 1 and num_kv_heads % msize == 0 \
+        and num_kv_heads >= msize
+    seq_axes = tuple(baxes) if heads_sharded else tuple(baxes) + ("model",)
+    return _kde_decode_seq_sharded(q, k, v, kv_valid, top_p, bk, stride,
+                                   C.mesh_group(mesh, seq_axes))
 
 
 def cross_attention_block(p: Attention, cfg: ArchConfig, x, memory):
@@ -363,6 +710,7 @@ def cross_attention_block(p: Attention, cfg: ArchConfig, x, memory):
     another dtype than x is promoted as the reference's matmul promotes
     it."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = module_full(p)
     mt = torch.promote_types(memory.dtype, x.dtype)
     q = _split_heads(x @ p.wq.to(x.dtype), hq, hd)
     k = _split_heads(memory.to(mt) @ p.wk.to(x.dtype).to(mt), hkv, hd)
@@ -384,6 +732,17 @@ def silu(x):
 
 
 def swiglu(p: MLP, x):
+    """silu(x w1) * (x w3) @ w2.  Under a mesh: tensor-parallel over
+    "model" when d_ff divides it (w1 / w3 column-parallel, w2
+    row-parallel, one all-reduce), else replicated on gathered weights."""
+    mg = group(("model",))
+    if mg is not None and model_sharded(p.w1, 1) \
+            and model_sharded(p.w3, 1) and model_sharded(p.w2, 0):
+        xin = C.copy_to_partials(x, mg)
+        h = silu(xin @ local(p.w1, 1).to(x.dtype)) \
+            * (xin @ local(p.w3, 1).to(x.dtype))
+        return C.sum_to_replicas(h @ local(p.w2, 0).to(x.dtype), mg)
+    p = module_full(p)
     h = silu(x @ p.w1.to(x.dtype)) * (x @ p.w3.to(x.dtype))
     return h @ p.w2.to(x.dtype)
 
@@ -429,8 +788,84 @@ def moe_block_dense(p: MoE, cfg: ArchConfig, x):
 
 
 def moe_block(p: MoE, cfg: ArchConfig, x, capacity_factor: float = 1.25):
+    """Top-k MoE dispatcher, the reference's: expert parallelism
+    (``_moe_block_shardmap``: one output all-reduce over "model" a layer)
+    under a mesh whose "model" axis divides the experts while the batch
+    is split over the batch axes, else the grouped capacity dispatch
+    (``_moe_block_gspmd``; replicated over "model" on gathered weights
+    under a mesh).  Returns (out (b, s, d), aux)."""
+    mesh = _ACT["mesh"]
+    if (mesh is not None and "model" in mesh_shape(mesh)
+            and cfg.num_experts % mesh_shape(mesh)["model"] == 0
+            and not _ACT["seq_mode"] and _ACT["batch_sharded"]):
+        return _moe_block_shardmap(p, cfg, x, mesh, _ACT["batch_axes"],
+                                   capacity_factor)
+    return _moe_block_gspmd(module_full(p), cfg, x, capacity_factor)
+
+
+def _moe_block_shardmap(p: MoE, cfg: ArchConfig, x, mesh, baxes,
+                        capacity_factor: float = 1.25):
+    """Expert-parallel MoE: each "model" rank owns e / msize experts,
+    routes its batch shard's tokens (replicated over "model") to its own
+    experts only, and the outputs combine with ONE all-reduce of (b_loc,
+    s, d).  The router columns are all-gathered over "model"; capacity
+    slots are counted per local batch row, as the grouped dispatch counts
+    them.  The aux loss takes its token and probability fractions' means
+    over the batch axes before the product (it is nonlinear in the
+    per-shard means); each "model" rank sums its own experts' terms and
+    one all-reduce adds them, so the gradient reaches the router once."""
+    e, topk = cfg.num_experts, cfg.experts_per_token
+    mg = group(("model",))
+    msize = mg.size
+    e_loc = e // msize
+    bl, s, d = x.shape
+    cap = max(int(capacity_factor * s * topk / e), 1)
+    xin = C.copy_to_partials(x, mg)
+    router = C.gather_partial(local(p.router, 1).float(), mg, 1) \
+        if model_sharded(p.router, 1) and msize > 1 \
+        else full(p.router, model_partial=True).float()
+    w1, w3, w2 = (local(w, 0) for w in (p.w1, p.w3, p.w2))
+    logits = xin.float() @ router                          # (bl, s, e)
+    gates, idx = _top_k(logits, topk)
+    gates = torch.softmax(gates, dim=-1)
+    eid = idx.reshape(bl, s * topk)
+    gate = gates.reshape(bl, s * topk).to(x.dtype)
+    onehot = _one_hot(eid, e, torch.int32)
+    slot = (torch.cumsum(onehot, dim=1) * onehot).amax(-1) - 1
+    keep = (slot >= 0) & (slot < cap)
+    off = mg.index * e_loc
+    el = eid - off
+    mine = keep & (el >= 0) & (el < e_loc)
+    el_c = torch.clamp(el, 0, e_loc - 1)
+    slot_c = torch.clamp(slot, 0, cap - 1)
+    x_rep = torch.repeat_interleave(xin, topk, dim=1)
+    grp = torch.arange(bl, device=x.device)[:, None].expand(bl, s * topk)
+    buf = torch.zeros((bl, e_loc, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((grp, el_c, slot_c), x_rep * mine[..., None].to(
+        x.dtype), accumulate=True)                          # (bl,e_loc,cap,d)
+    h = silu(torch.einsum("becd,edf->becf", buf, w1.to(x.dtype)))
+    h = h * torch.einsum("becd,edf->becf", buf, w3.to(x.dtype))
+    yb = torch.einsum("becf,efd->becd", h, w2.to(x.dtype))
+    y = yb[grp, el_c, slot_c] * (mine.to(x.dtype) * gate)[..., None]
+    y = C.sum_to_replicas(y.reshape(bl, s, topk, d).sum(2), mg)  # THE combine
+    probs = torch.softmax(logits, dim=-1)
+    frac_tokens = torch.mean(_one_hot(idx[..., 0], e, torch.float32),
+                             dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=(0, 1)).float()
+    bg = group(baxes)
+    if bg is not None:
+        both = C.psum(torch.stack([frac_tokens, frac_probs]), bg) / bg.size
+        frac_tokens, frac_probs = both[0].detach(), both[1]
+    mine_e = slice(off, off + e_loc)
+    aux = C.sum_to_replicas(e * torch.sum(frac_tokens[mine_e]
+                                          * frac_probs[mine_e]), mg)
+    return y, aux
+
+
+def _moe_block_gspmd(p: MoE, cfg: ArchConfig, x,
+                     capacity_factor: float = 1.25):
     """Top-k MoE by grouped capacity dispatch: the reference's
-    ``_moe_block_gspmd`` (the port has no mesh, so no shard_map branch).
+    ``_moe_block_gspmd``.
 
     Tokens are grouped along the batch dim; each group's s k requests take
     slots in their expert's buffer in token-major order, ``cap = max(int(

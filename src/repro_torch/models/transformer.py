@@ -16,6 +16,17 @@ and ``shift``; the enc-dec ``memory``.  ``init_params`` draws f32 weights
 whatever the config's dtype, and ``cast_params`` casts them to the compute
 dtype, as the reference does.
 
+Under ``layers.activation_sharding(mesh, batch_axes)`` (a ``DeviceMesh``;
+the model's parameters are the rank's shards, ``distributed.state.
+shard_model``) ``forward``, ``decode_step`` and ``init_cache`` run as SPMD
+programs, one process a rank: each takes the global batch (the same on
+every rank), cuts its batch shard's rows (``local_rows``: the rows of
+the rank's index over the batch axes when they divide the batch, else
+all), and returns those rows; ``init_cache`` returns the rank's slices
+under ``distributed.sharding.cache_spec`` (a ``ShardedCache``).  The
+embedding and the head are split over "model" (the vocab, or d_model
+when the vocab does not divide), the logits come back whole.
+
 Two reference behaviours are mirrored as they are (ROADMAP.md section 3):
 the hybrid's forward applies the shared block after layers 0, k, 2k, ...
 while its decode applies it before each segment [0, k), [k, 2k), ...; and
@@ -25,6 +36,7 @@ one-token decode step never does.
 from __future__ import annotations
 
 import math
+import types
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -32,6 +44,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -90,10 +104,11 @@ class RwkvLayer(nn.Module):
         """Returns (x, state, shift_state); the chunked form (any
         ``seq_mixer`` but "chunked" runs the scan) returns no states."""
         inner = L.rmsnorm(x, self.ln1, cfg.norm_eps)
+        mix = L.module_full(self.mix)
         if seq_mixer == "chunked" and state is None:
-            h, state, shift = S.rwkv6_chunked(self.mix, cfg, inner), None, None
+            h, state, shift = S.rwkv6_chunked(mix, cfg, inner), None, None
         else:
-            h, state, shift = S.rwkv6_scan(self.mix, cfg, inner, state=state,
+            h, state, shift = S.rwkv6_scan(mix, cfg, inner, state=state,
                                            shift_state=shift_state)
         x = x + h
         x = x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
@@ -117,10 +132,11 @@ class MambaLayer(nn.Module):
                 state=None):
         """Returns (x, state); the chunked form returns no state."""
         inner = L.rmsnorm(x, self.ln1, cfg.norm_eps)
+        mix = L.module_full(self.mix)
         if seq_mixer == "chunked" and state is None:
-            h, state = S.mamba2_chunked(self.mix, cfg, inner), None
+            h, state = S.mamba2_chunked(mix, cfg, inner), None
         else:
-            h, state = S.mamba2_scan(self.mix, cfg, inner, state=state)
+            h, state = S.mamba2_scan(mix, cfg, inner, state=state)
         x = x + h
         if hasattr(self, "mlp"):
             x = x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
@@ -316,13 +332,53 @@ def _tokens(model: Transformer, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens).to(model.embed.device).long()
 
 
+def local_rows(t):
+    """The rank's rows of a global batch tensor ``t`` (numpy or torch)
+    under the active mesh: its batch shard's when the batch axes divide
+    the rows, else all of them.  Returns (rows, split)."""
+    g = L.group(L._ACT["batch_axes"]) if L._mesh_on() else None
+    if g is None or t.shape[0] % g.size:
+        return t, False
+    n = t.shape[0] // g.size
+    return t[g.index * n:(g.index + 1) * n], True
+
+
+def _local_batch(batch):
+    """``batch`` cut to the rank's rows; sets ``layers._ACT
+    ["batch_sharded"]`` (the MoE dispatch reads it)."""
+    if not L._mesh_on():
+        return batch
+    out = {}
+    for k, v in batch.items():
+        out[k], L._ACT["batch_sharded"] = local_rows(v)
+    return out
+
+
+def _embed(model: Transformer, tok):
+    """Rows ``tok`` of the embedding: a vocab-split table looks up its own
+    rows (zeros elsewhere) and one all-reduce over "model" adds them; a
+    d_model-split one gathers the columns."""
+    emb = model.embed
+    spec = L._spec(emb)
+    if spec is None or spec == (None, None):
+        return emb[tok]
+    mg = L.group(("model",))
+    if spec[0] == "model":
+        v_l = emb.shape[0]
+        t = tok - mg.index * v_l
+        ok = (t >= 0) & (t < v_l)
+        e = emb[torch.clamp(t, 0, v_l - 1)] * ok[..., None].to(emb.dtype)
+        return C.sum_to_replicas(e, mg)
+    return C.gather_replicated(emb[tok], mg, -1)
+
+
 def _embed_inputs(model: Transformer, cfg: ArchConfig,
                   batch) -> Tuple[torch.Tensor, int]:
     """Returns (x (b, s, d), n_prefix) where the first n_prefix positions are
     the frontend embeddings (a frontend config given ``batch["frontend"]``;
     no loss there)."""
     dtype = L.dtype_of(cfg)
-    tok = model.embed[_tokens(model, batch["tokens"])].to(dtype)
+    tok = _embed(model, _tokens(model, batch["tokens"])).to(dtype)
     if cfg.frontend != "none" and "frontend" in batch:
         fe = torch.as_tensor(batch["frontend"]).to(tok.device, dtype)
         return torch.cat([fe, tok], dim=1), fe.shape[1]
@@ -336,10 +392,11 @@ def _run_encoder(model: Transformer, cfg: ArchConfig, enc_embeds, impl):
     x = torch.as_tensor(enc_embeds).to(model.embed.device, L.dtype_of(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in model.encoder.layers:
-        q, k, v = L._qkv(lp.attn, cfg, L.rmsnorm(x, lp.ln1, cfg.norm_eps),
+        attn = L.module_full(lp.attn)
+        q, k, v = L._qkv(attn, cfg, L.rmsnorm(x, lp.ln1, cfg.norm_eps),
                          positions)
         o = L.xla_attention(q, k, v, causal=False)
-        x = x + L._merge_heads(o) @ lp.attn.wo.to(x.dtype)
+        x = x + L._merge_heads(o) @ attn.wo.to(x.dtype)
         x = x + L.swiglu(lp.mlp, L.rmsnorm(x, lp.ln2, cfg.norm_eps))
     return L.rmsnorm(x, model.encoder.final_norm, cfg.norm_eps)
 
@@ -404,7 +461,20 @@ def forward(model: Transformer, cfg: ArchConfig, batch, *,
     body): ``remat_policy="dots"`` keeps the weight products
     (``_dots_policy``), any other value recomputes the whole layer.  Under
     ``torch.no_grad`` / ``inference_mode`` there is nothing to recompute and
-    the layers run as they are."""
+    the layers run as they are.  Under a mesh: the rank's rows (module
+    docstring)."""
+    x, aux = forward_hidden(model, cfg, batch, impl=impl, remat=remat,
+                            seq_mixer=seq_mixer, remat_policy=remat_policy)
+    with L.f32_accumulation():
+        return _logits(model, cfg, x), aux
+
+
+def forward_hidden(model: Transformer, cfg: ArchConfig, batch, *,
+                   impl: str = "xla", remat: bool = True,
+                   seq_mixer: str = "chunked",
+                   remat_policy: Optional[str] = "none"):
+    """``forward`` up to the final norm: (x (b, s_tok, d), aux)."""
+    batch = _local_batch(batch)
     x, n_prefix = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     checkpointed = bool(remat) and torch.is_grad_enabled()
@@ -421,20 +491,80 @@ def forward(model: Transformer, cfg: ArchConfig, batch, *,
         x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
         if n_prefix:
             x = x[:, n_prefix:]
-        return _logits(model, cfg, x), aux
+        return x, aux
+
+
+def _head(model: Transformer, cfg: ArchConfig, x):
+    """(logits (b, s, V_l) f32, lo): the logits of the vocab columns [lo,
+    lo + V_l) this rank holds (all of them without a vocab-split head),
+    padded columns masked to -1e30.  A head split over d_model (a tied
+    embedding whose vocab does not divide) adds its partial products by
+    one all-reduce over "model"."""
+    tied = model.lm_head is None
+    w = model.embed if tied else model.lm_head
+    head = w.T if tied else w                      # (d, V)
+    spec = L._spec(w)
+    spec = spec[::-1] if (spec is not None and tied) else spec
+    mg = L.group(("model",))
+    lo = 0
+    if spec is not None and spec[1] == "model":
+        logits = C.copy_to_partials(x, mg).float() @ head.float()
+        lo = mg.index * head.shape[1]
+    elif spec is not None and spec[0] == "model":
+        xin = C.own_chunk(C.copy_to_partials(x, mg), mg, -1)
+        logits = C.sum_to_replicas(xin.float() @ head.float(), mg)
+    else:
+        logits = x.float() @ head.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        cols = lo + torch.arange(logits.shape[-1], device=x.device)
+        logits = torch.where((cols < cfg.vocab_size)[None, None, :], logits,
+                             -1.0e30)
+    return logits, lo
 
 
 def _logits(model: Transformer, cfg: ArchConfig, x):
-    """(b, s, padded_vocab) logits with padded columns masked to -1e30."""
-    head = model.lm_head if model.lm_head is not None else model.embed.T
-    logits = x.float() @ head.float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-        logits = torch.where(mask[None, None, :], logits, -1.0e30)
+    """(b, s, padded_vocab) logits with padded columns masked to -1e30
+    (gathered over "model" when the head splits the vocab)."""
+    logits, _ = _head(model, cfg, x)
+    if logits.shape[-1] != cfg.padded_vocab:
+        logits = C.gather_replicated(logits, L.group(("model",)), -1)
     return logits
 
 
+def next_token_loss(model: Transformer, cfg: ArchConfig, x, tokens):
+    """Mean next-token loss of the hidden states ``x`` (b, s, d) against
+    ``tokens`` (b, s): logits[:, :-1] against tokens[:, 1:], as
+    ``train_step.cross_entropy``.  Over a vocab split across "model" the
+    logits are never gathered: logsumexp takes one max and one sum
+    all-reduce, the target's logit one sum all-reduce (from the rank that
+    holds it)."""
+    logits, lo = _head(model, cfg, x)
+    logits = logits[:, :-1]
+    idx = torch.as_tensor(tokens).to(logits.device).long()[:, 1:]
+    if logits.shape[-1] == cfg.padded_vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    mg = L.group(("model",))
+    v_l = logits.shape[-1]
+    m = C.pmax(torch.amax(logits, dim=-1), mg)
+    se = C.sum_to_replicas(torch.exp(logits - m[..., None]).sum(-1), mg)
+    logz = m + torch.log(se)
+    t = idx - lo
+    own = (t >= 0) & (t < v_l)
+    gold = torch.gather(logits, -1, torch.clamp(t, 0, v_l - 1)[..., None])
+    gold = C.sum_to_replicas(gold[..., 0] * own.float(), mg)
+    return torch.mean(logz - gold)
+
+
 # ------------------------------------------------------------------ decode
+class ShardedCache(dict):
+    """A decode cache of the rank's slices under a mesh: ``specs`` gives
+    each leaf's ``distributed.sharding.cache_spec`` of the global
+    layout."""
+    specs: Dict[str, tuple]
+
+
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, enc_len: int = 0,
                device=None) -> Dict[str, Any]:
@@ -443,31 +573,81 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     n, 64) f32, plus the hybrid's ``k`` / ``v`` over its ceil(L / k)
     shared-attention applications; else ``k`` / ``v`` (L, b, hkv, max_len,
     hd) and, for enc-dec, ``memory`` (b, enc_len, d).  K/V, ``shift`` and
-    ``memory`` in ``dtype`` (bf16 by default, as the reference's)."""
-    dev = resolve_device(device)
+    ``memory`` in ``dtype`` (bf16 by default, as the reference's).  Under
+    a mesh: the rank's slices (a ``ShardedCache``) on the mesh's
+    device."""
     hkv, hd, lcount = cfg.num_kv_heads, cfg.hd, cfg.num_layers
-
-    def zeros(shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
+    shapes = {}
     if cfg.ssm_kind == "rwkv6":
-        h = cfg.num_heads
-        return {"ssm": zeros((lcount, batch_size, h, hd, hd), torch.float32),
-                "shift": zeros((lcount, batch_size, cfg.d_model))}
-    if cfg.ssm_kind == "mamba2":
+        shapes["ssm"] = ((lcount, batch_size, cfg.num_heads, hd, hd),
+                         torch.float32)
+        shapes["shift"] = ((lcount, batch_size, cfg.d_model), dtype)
+    elif cfg.ssm_kind == "mamba2":
         hm = (2 * cfg.d_model) // 64
-        cache = {"ssm": zeros((lcount, batch_size, hm, cfg.ssm_state, 64),
-                              torch.float32)}
+        shapes["ssm"] = ((lcount, batch_size, hm, cfg.ssm_state, 64),
+                         torch.float32)
         if cfg.hybrid_attn_every:
             napp = math.ceil(lcount / cfg.hybrid_attn_every)
-            cache["k"] = zeros((napp, batch_size, hkv, max_len, hd))
-            cache["v"] = zeros((napp, batch_size, hkv, max_len, hd))
-        return cache
-    cache = {"k": zeros((lcount, batch_size, hkv, max_len, hd)),
-             "v": zeros((lcount, batch_size, hkv, max_len, hd))}
-    if cfg.is_encdec:
-        cache["memory"] = zeros((batch_size, enc_len, cfg.d_model))
+            shapes["k"] = shapes["v"] = ((napp, batch_size, hkv, max_len,
+                                          hd), dtype)
+    else:
+        shapes["k"] = shapes["v"] = ((lcount, batch_size, hkv, max_len, hd),
+                                     dtype)
+        if cfg.is_encdec:
+            shapes["memory"] = ((batch_size, enc_len, cfg.d_model), dtype)
+    mesh = L._ACT["mesh"]
+    if mesh is None:
+        dev = resolve_device(device)
+        return {k: torch.zeros(shp, dtype=dt, device=dev)
+                for k, (shp, dt) in shapes.items()}
+    dev = C.mesh_device(mesh, device)
+    cache = ShardedCache()
+    cache.specs = {}
+    for k, (shp, dt) in shapes.items():
+        spec = SH.cache_spec(cfg, None, mesh, k,
+                             types.SimpleNamespace(shape=shp))
+        cache.specs[k] = spec
+        cache[k] = torch.zeros(SH.local_shape(shp, spec, mesh), dtype=dt,
+                               device=dev)
     return cache
+
+
+def _decode_layout(cache):
+    """Set ``layers._ACT`` for one decode step over ``cache``: whether its
+    batch rows are split (the MoE dispatch), whether its kv heads are
+    split over "model" and the group its sequence is split over (the
+    attention blocks).  Returns a function that cuts the step's tokens
+    to the cache's rows."""
+    specs = getattr(cache, "specs", None)
+    if not L._mesh_on() or specs is None:
+        return lambda t: t
+    lead = specs.get("k", specs.get("ssm"))
+    L._ACT["batch_sharded"] = lead[1] is not None
+    if "k" in specs:
+        kspec = specs["k"]
+        axes = SH.entry_axes(kspec[3])
+        L._ACT["decode"] = {"heads_sharded": kspec[2] == "model",
+                            "seq_grp": L.group(axes) if axes else None}
+    return (lambda t: local_rows(t)[0]) if lead[1] is not None \
+        else (lambda t: t)
+
+
+def _state_heads(cache, key: str, i: int):
+    """Layer ``i``'s SSM state with every head (gathered over "model"
+    when the cache splits them) and a function that stores a new one
+    back into the rank's slice."""
+    specs = getattr(cache, "specs", None)
+    split = L._mesh_on() and specs is not None and specs[key][2] == "model"
+    st = cache[key][i]
+    if not split:
+        def put(t):
+            cache[key][i] = t
+        return st, put
+    mg = L.group(("model",))
+
+    def put(t):
+        cache[key][i] = C.own_chunk(t, mg, 1)
+    return C.all_gather(st, mg, 1), put
 
 
 def decode_step(model: Transformer, cfg: ArchConfig, tokens, cache, pos, *,
@@ -478,17 +658,29 @@ def decode_step(model: Transformer, cfg: ArchConfig, tokens, cache, pos, *,
     values at ``pos``, the SSM and shift states overwritten with the
     step's; the returned cache is the same dict.  The hybrid applies its
     shared block before each segment of k Mamba2 layers (ROADMAP.md
-    section 3)."""
+    section 3).  Under a mesh ``tokens`` is the global batch and the
+    logits are the rows of the rank's cache slice."""
+    old = dict(L._ACT)
+    try:
+        rows = _decode_layout(cache)
+        return _decode_step(model, cfg, rows(tokens), cache, pos, impl,
+                            kde_cfg)
+    finally:
+        L._ACT.update(old)
+
+
+def _decode_step(model, cfg, tokens, cache, pos, impl, kde_cfg):
     tok = _tokens(model, tokens)
-    x = model.embed[tok].to(L.dtype_of(cfg))
+    x = _embed(model, tok).to(L.dtype_of(cfg))
     pos = int(pos)
     positions = pos + torch.arange(tok.shape[1], device=x.device)
     with L.f32_accumulation():
         if cfg.ssm_kind == "rwkv6":
             for i, layer in enumerate(model.layers):
-                x, ssm, shift = layer(cfg, x, state=cache["ssm"][i],
+                st, put = _state_heads(cache, "ssm", i)
+                x, ssm, shift = layer(cfg, x, state=st,
                                       shift_state=cache["shift"][i])
-                cache["ssm"][i] = ssm
+                put(ssm)
                 cache["shift"][i] = shift
         elif cfg.ssm_kind == "mamba2":
             k = cfg.hybrid_attn_every or cfg.num_layers
@@ -500,8 +692,9 @@ def decode_step(model: Transformer, cfg: ArchConfig, tokens, cache, pos, *,
                         cache=(cache["k"][app], cache["v"][app]),
                         cache_pos=pos, kde_cfg=kde_cfg)
                 for i in range(lo, min(lo + k, cfg.num_layers)):
-                    x, cache["ssm"][i] = model.layers[i](
-                        cfg, x, state=cache["ssm"][i])
+                    st, put = _state_heads(cache, "ssm", i)
+                    x, ssm = model.layers[i](cfg, x, state=st)
+                    put(ssm)
         else:
             memory = cache.get("memory") if cfg.is_encdec else None
             for layer, ck, cv in zip(model.layers, cache["k"], cache["v"]):

@@ -8,9 +8,12 @@ them out as the reference's stacked tree.  ``adamw_update`` runs the
 update in f32 and writes each parameter back in its own dtype, IN PLACE
 under ``torch.no_grad`` -- the reference donates its parameter buffers to
 the jitted step, and the port keeps that one copy of the weights
-(ROADMAP.md section 3).  ``compress`` / ``decompress`` give the int8
-quantization with an error-feedback residual; ``compressed_psum`` needs a
-process group over the LM's mesh (ROADMAP.md queue 1 item 12).
+(ROADMAP.md section 3).  On a sharded model (``distributed.state``) the
+moments are the rank's shards too and the update is elementwise on them;
+the train step passes the global gradient norm (``grad_norm=``).
+``compress`` / ``decompress`` give the int8 quantization with an
+error-feedback residual; ``compressed_psum`` all-reduces it over one axis
+of the active mesh.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.device import not_in_slice
+from repro_torch.distributed import collectives as C
+from repro_torch.models import layers as L
 from repro_torch.models.transformer import stacked_ndim
 
 
@@ -66,15 +70,18 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, params, grads: Dict[str, torch.Tensor],
-                 state: AdamWState) -> Tuple[object, AdamWState]:
+                 state: AdamWState, grad_norm=None
+                 ) -> Tuple[object, AdamWState]:
     """One AdamW step on the model ``params`` with ``grads`` (parameter
     name -> gradient): global-norm clipping to ``grad_clip``, bias-
     corrected moments, decoupled weight decay on every parameter of two or
     more dims in the reference's stacked tree (``stacked_ndim``: each
     layer's norm gains and QKV biases too, not ``final_norm``).  The
-    parameters are written in place; returns (params, new state)."""
+    parameters are written in place; returns (params, new state).
+    ``grad_norm`` is the norm to clip by (a sharded model's global one;
+    ``global_norm(grads)`` when None)."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
     lr = _schedule(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.float()
@@ -110,7 +117,38 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
+def _map2(fn, g, r):
+    """(tree of fn(g, r)[0], tree of fn(g, r)[1]) over matching trees of
+    tensors (dicts, lists, tuples)."""
+    if isinstance(g, dict):
+        pairs = {k: _map2(fn, g[k], r[k]) for k in g}
+        return ({k: v[0] for k, v in pairs.items()},
+                {k: v[1] for k, v in pairs.items()})
+    if isinstance(g, (list, tuple)):
+        pairs = [_map2(fn, a, b) for a, b in zip(g, r)]
+        return type(g)(v[0] for v in pairs), type(g)(v[1] for v in pairs)
+    return fn(g, r)
+
+
 def compressed_psum(grads, residuals, axis_name: str):
-    """Quantize -> all-reduce -> dequantize across a process group: not
-    ported (a mesh axis needs ROADMAP.md queue 1 item 12)."""
-    raise not_in_slice(f"compressed_psum(axis_name={axis_name!r})", 12)
+    """Quantize -> all-reduce of the int32 codes -> dequantize, carrying
+    error feedback, over the axis ``axis_name`` of the active mesh
+    (``layers.activation_sharding``; the reference's runs inside a
+    shard_map over its mesh).  Per leaf of ``grads`` / ``residuals``
+    (tensors, or dicts / lists of them): one sum all-reduce of the codes
+    and one max all-reduce of the scales.  As in the reference, the sum of
+    codes quantized at each rank's own scale is dequantized at the largest
+    scale.  Returns (summed, new residuals)."""
+    mesh = L._ACT["mesh"]
+    if mesh is None:
+        raise ValueError("compressed_psum needs a mesh: run it under "
+                         "layers.activation_sharding")
+    grp = C.mesh_group(mesh, (axis_name,))
+
+    def one(g, r):
+        q, scale, new_r = compress(g, r)
+        total = C.all_reduce(q.to(torch.int32), grp)
+        scale_max = C.all_reduce(scale, grp, op="max")
+        return decompress(total, scale_max), new_r
+
+    return _map2(one, grads, residuals)

@@ -10,6 +10,16 @@ batch, as the reference's ``lax.scan`` does.  The whole step runs under ``layers
 the backward's bf16 GEMMs and a checkpointed layer's recompute run after
 the forward has returned, so the forward's own scope would not cover them.
 
+Under ``layers.activation_sharding(mesh, batch_axes)`` on a sharded model
+(``distributed.state.shard_model``; AdamW's moments made from it) the
+steps are SPMD programs, every rank called with the same global batch.
+The train step differentiates the rank's share of the global loss (its
+batch shard's mean over the number of batch shards): the weights'
+gathers sum their gradients back into the shards by reduce-scatter,
+``distributed.state.reduce_grads`` sums the rest over "data" and the
+replicas over "pod", the global norm is one all-reduce, and AdamW updates
+the shards.  The metrics are the global batch's.
+
 The prefill and decode steps run under ``torch.inference_mode``: no
 autograd graph, as the reference's jitted steps keep none.  They run the
 config's dtype: a bf16 config with a ``cast_params`` model and a bf16
@@ -23,6 +33,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import state as D
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as opt
@@ -42,6 +53,13 @@ def loss_fn(params, cfg: ArchConfig, batch, *, impl="xla", remat=True,
     ``batch`` (``tokens`` (b, s), and ``frontend`` for a frontend config):
     the next-token cross entropy of the forward's logits, aux the MoE
     layers' load-balance loss (0 for the other families)."""
+    if L._mesh_on():
+        x, aux = T.forward_hidden(params, cfg, batch, impl=impl, remat=remat,
+                                  seq_mixer=seq_mixer,
+                                  remat_policy=remat_policy)
+        tokens = T._tokens(params, T.local_rows(batch["tokens"])[0])
+        loss = T.next_token_loss(params, cfg, x, tokens)
+        return loss + aux_weight * aux, (loss, aux)
     tokens = T._tokens(params, batch["tokens"])
     logits, aux = T.forward(params, cfg, batch, impl=impl, remat=remat,
                             seq_mixer=seq_mixer, remat_policy=remat_policy)
@@ -61,41 +79,69 @@ def make_train_step(cfg: ArchConfig,
     weights, as the reference's donated step does (ROADMAP.md section
     3)."""
 
-    def grads_of(model, names, batch):
-        tot, (loss, aux) = loss_fn(model, cfg, batch, impl=impl,
-                                   remat=remat, seq_mixer=seq_mixer,
-                                   remat_policy=remat_policy)
-        params = [p for _, p in model.named_parameters()]
-        grads = torch.autograd.grad(tot, params)
-        return dict(zip(names, grads)), loss.detach(), aux.detach()
-
     def train_step(model, opt_state, batch):
-        names = [n for n, _ in model.named_parameters()]
         with L.f32_accumulation():
-            if microbatch and microbatch > 1:
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
-                         for n, p in model.named_parameters()}
-                loss = aux = 0.0
-                parts = {k: torch.as_tensor(v).chunk(microbatch)
-                         for k, v in batch.items()}
-                for i in range(microbatch):
-                    g, l, a = grads_of(model, names,
-                                       {k: v[i] for k, v in parts.items()})
-                    for n in names:
-                        grads[n] += g[n]
-                    loss, aux = loss + l, aux + a
-                grads = {n: g / microbatch for n, g in grads.items()}
-                loss, aux = loss / microbatch, aux / microbatch
+            grads, loss, aux = step_grads(
+                model, cfg, batch, impl=impl, remat=remat,
+                seq_mixer=seq_mixer, microbatch=microbatch,
+                remat_policy=remat_policy)
+            mesh = L._ACT["mesh"]
+            if mesh is None:
+                gn = opt.global_norm(grads)
             else:
-                grads, loss, aux = grads_of(model, names, batch)
+                world = L._axes_size(mesh, tuple(mesh.mesh_dim_names))
+                gn, (loss, aux) = D.global_grad_norm(
+                    model, grads, mesh, (loss / world, aux / world))
             model, opt_state = opt.adamw_update(adamw, model, grads,
-                                                opt_state)
-            metrics = {"loss": loss, "aux": aux,
-                       "grad_norm": opt.global_norm(grads)}
+                                                opt_state, grad_norm=gn)
+            metrics = {"loss": loss, "aux": aux, "grad_norm": gn}
         return model, opt_state, metrics
 
     return train_step
+
+
+def step_grads(model, cfg: ArchConfig, batch, *, impl: str = "xla",
+               remat: bool = True, seq_mixer: str = "chunked",
+               microbatch: int = 0, remat_policy: str = "none"):
+    """(grads, loss, aux) of one train step before the optimizer: grads
+    keyed by parameter name, f32 sums over ``microbatch`` parts when it is
+    above 1.  Under a mesh each rank differentiates its share of the
+    global objective and the gradients come back as the rank's shards of
+    the global ones (``distributed.state.reduce_grads``); loss and aux
+    are then the rank's own (``make_train_step`` averages them)."""
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads_of(part):
+        tot, (loss, aux) = loss_fn(model, cfg, part, impl=impl, remat=remat,
+                                   seq_mixer=seq_mixer,
+                                   remat_policy=remat_policy)
+        if L._mesh_on():   # the rank's share of the global objective
+            bg = L.group(L._ACT["batch_axes"])
+            tot = tot / (bg.size if bg is not None else 1)
+        grads = torch.autograd.grad(tot, [p for _, p in
+                                          model.named_parameters()])
+        return dict(zip(names, grads)), loss.detach(), aux.detach()
+
+    with L.f32_accumulation():
+        if microbatch and microbatch > 1:
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in model.named_parameters()}
+            loss = aux = 0.0
+            parts = {k: torch.as_tensor(v).chunk(microbatch)
+                     for k, v in batch.items()}
+            for i in range(microbatch):
+                g, l, a = grads_of({k: v[i] for k, v in parts.items()})
+                for n in names:
+                    grads[n] += g[n]
+                loss, aux = loss + l, aux + a
+            grads = {n: g / microbatch for n, g in grads.items()}
+            loss, aux = loss / microbatch, aux / microbatch
+        else:
+            grads, loss, aux = grads_of(batch)
+        if L._mesh_on():
+            D.reduce_grads(model, grads, L._ACT["mesh"])
+    return grads, loss, aux
 
 
 def make_prefill_step(cfg: ArchConfig, *, impl: str = "xla",

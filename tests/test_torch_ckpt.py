@@ -1,7 +1,8 @@
 """The port's training loop, checkpoints and fault tolerance: the mirrors
 of ``tests/test_train_ckpt_ft.py`` (the reference's elastic-restore and
-watchdog tests have no twin here: the mesh is ROADMAP.md queue 1 item 12,
-and the watchdog is ported and tested in ``test_torch_chaos.py``), and a
+watchdog tests have no twin here: the elastic restore runs on gloo ranks
+in ``test_torch_lm_mesh_state.py``, and the watchdog is ported and tested
+in ``test_torch_chaos.py``), and a
 checkpoint written by either package restored by the other.
 
 Reduced yi-6b in f32, seq 64, batch 4 (the reference test's shape), on the
@@ -124,10 +125,14 @@ def test_checkpoint_prunes_and_atomic(tmp_path):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """``restore(shardings=)`` re-shards onto a mesh since the sharded-state
+    slice (``tests/test_torch_lm_mesh_state.py``); a ``shardings`` without
+    the template's structure (an empty dict for a model) is refused with a
+    TypeError before anything is read."""
     cfg, model = _setup()
     path = str(tmp_path / "ck")
     ckpt.save(path, 1, model)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="shardings"):
         ckpt.restore(path, model, shardings={})
 
 
@@ -193,8 +198,11 @@ def test_failure_injection_and_resume(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh():
+    """A mesh run (``--data 2``) takes one process a rank since the
+    sharded-state slice (``tests/test_torch_lm_mesh_state.py``): started
+    alone, without torchrun or a process group, it is refused."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="one process a rank"):
         train.main(["--device", "cpu", "--reduced", "--data", "2"])
 
 
@@ -219,7 +227,9 @@ def test_gradient_compression_error_feedback():
     acc_true = np.sum(g_true, axis=0)
     rel = np.abs(acc_comp - acc_true).max() / np.abs(acc_true).max()
     assert rel < 0.02, rel
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # compressed_psum runs over a mesh axis (tests/test_torch_lm_mesh.py);
+    # with no mesh to name the axis in it is refused
+    with pytest.raises(ValueError, match="needs a mesh"):
         opt.compressed_psum({}, {}, "pod")
 
 

@@ -2172,3 +2172,57 @@ def test_full_width_family_decode_on_the_card_matches_the_cpu(cuda, arch):
         top = max(float(t.abs().max()), 1e-30)
         torch.testing.assert_close(caches[cuda][name].cpu(), t, rtol=0,
                                    atol=1e-4 * top)
+
+
+@pytest.mark.cuda
+def test_sharded_lm_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """On one rank with a P = 1 NCCL group (a (1, 1) ("data", "model")
+    mesh): the sharded train step of the reduced yi-6b (flash, remat)
+    equals the unsharded step on the card bitwise (loss, grad norm, every
+    parameter: every collective of a one-rank group is a copy), and the
+    shard_map KDE decode over a one-rank sequence group equals the fused
+    kde_decode kernel's decode within 1e-5 (the same function, the
+    reference's four steps in torch ops against one launch)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import state as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import make_train_step
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        cfg = dataclasses.replace(get_reduced("yi_6b"), dtype="float32")
+        adamw = topt.AdamWConfig(lr=1e-3, warmup_steps=1)
+        batch = make_batch(cfg, ShapeConfig("t", 64, 2, "train"), 0)
+        ref = T.init_params(cfg, seed=0)
+        model = D.shard_model(T.map_params(
+            ref, lambda n, p: p.detach().clone()), mesh)
+        step = make_train_step(cfg, adamw, impl="flash")
+        with L.activation_sharding(mesh, ("data",)):
+            model, _, m = step(model, topt.init_adamw(model), batch)
+        ref, _, mw = step(ref, topt.init_adamw(ref), batch)
+        for key in ("loss", "grad_norm"):
+            assert torch.equal(m[key], mw[key]), key
+        for (n, p), (_, w) in zip(model.named_parameters(),
+                                  ref.named_parameters()):
+            assert torch.equal(p, w), n
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        q = torch.randn((1, 8, 1, 64), generator=gen, device=cuda)
+        k, v = (torch.randn((1, 2, 2048, 64), generator=gen, device=cuda)
+                for _ in range(2))
+        grp = C.mesh_group(mesh, ("data", "model"))
+        got = L._kde_decode_seq_sharded(q, k, v, 1900, top_p=4, bk=128,
+                                        stride=8, grp=grp)
+        want = kops.kde_attention(q[:, :, 0], k, v, top_p=4, bk=128,
+                                  stride=8, kv_valid=1900)
+        torch.testing.assert_close(got[:, :, 0], want, rtol=0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+        C._GROUPS.clear()

@@ -251,22 +251,30 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_out_of_slice_options_raise():
-    """A CUDA default without a card raises, and the mesh options the LM
-    path still lacks (queue 1 item 12) refuse (the other families, their
-    configs and ``serve --robust`` run since the families slice:
-    ``tests/test_torch_families*.py``; the bf16 config builds and serves:
-    ``tests/test_torch_lm_bf16.py``; the graph-serving modes are ported:
-    ``tests/test_torch_serving.py``)."""
+    """A CUDA default without a card raises, and what the LM path still
+    lacks refuses: context-parallel prefill (queue 1 item 14).  The mesh
+    options the sharded-state slice ported take their own errors now
+    (they run in ``tests/test_torch_lm_mesh*.py``): a ``--data 2`` run
+    started without torchrun, ``compressed_psum`` with no mesh, and a
+    ``restore(shardings=)`` whose structure is not the template's (the
+    other families, their configs and ``serve --robust`` run since the
+    families slice: ``tests/test_torch_families*.py``; the bf16 config
+    builds and serves: ``tests/test_torch_lm_bf16.py``; the graph-serving
+    modes are ported: ``tests/test_torch_serving.py``)."""
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.launch import train as ttrain
+    from repro_torch.models import layers as TLy
     from repro_torch.train import optimizer as topt
     f32 = dataclasses.replace(tbase.get_reduced("yi_6b"), dtype="float32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(RuntimeError, match="one process a rank"):
         ttrain.main(["--device", "cpu", "--reduced", "--data", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(TypeError, match="shardings"):
         ckpt.restore("/nonexistent", None, 1, {})
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         topt.compressed_psum({}, {}, "data")
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        with TLy.activation_sharding(None, ("data",), seq_mode=True):
+            pass
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TT.init_params(f32)

@@ -462,3 +462,183 @@ def signature_cases(rank, world, pl):
     def evals(r):
         return r if isinstance(r, int) else int(r.kernel_evals)
     return {name: (evals(m()), evals(f())) for name, (m, f) in cases.items()}
+
+
+# --------------------------------------------------------------------- #
+# the LM's sharded state (tests/test_torch_lm_mesh*.py)
+# --------------------------------------------------------------------- #
+def _lm_model(arch, tree, mesh):
+    """The reduced f32 config of ``arch`` and the port's model holding the
+    reference's ``tree``, sharded onto ``mesh``."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.distributed import state as D
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    model = convert.params_from_reference(tree, cfg, device="cpu")
+    return cfg, D.shard_model(model, mesh)
+
+
+def _whole(model, named=None):
+    """Name -> whole numpy array of a sharded model's parameters (or of a
+    dict of its moments / gradients)."""
+    from repro_torch.distributed import state as D
+    named = dict(model.named_parameters()) if named is None else named
+    specs = {n: D.spec_of(p) for n, p in model.named_parameters()}
+    return {k: _np(v) for k, v in D.full_named(named, specs,
+                                                model._mesh).items()}
+
+
+def lm_mesh(rank, world, pl):
+    """Eight ranks: (a) one sharded train step of each reduced config on a
+    (2, 2, 2) ("pod", "data", "model") mesh; (b) the shard_map MoE forward
+    and gradients on (2, 4); (c) the shard_map KDE decode on (2, 4); (d)
+    the model's decode over a sequence-split cache, xla and kde; (e)
+    ``compressed_psum`` over "pod"."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import state as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    res = {}
+    m222 = make_debug_mesh(2, 2, 2, device_type="cpu")
+    m24 = make_debug_mesh(2, 4, device_type="cpu")
+    # (a) the sharded train steps
+    for arch, tree in pl["trees"].items():
+        cfg, model = _lm_model(arch, tree, m222)
+        ost = opt.init_adamw(model)
+        C.reset_collectives()
+        with L.activation_sharding(m222, SH.batch_axes(m222)):
+            model, ost, met = make_train_step(
+                cfg, opt.AdamWConfig(lr=pl["lr"], warmup_steps=1))(
+                model, ost, pl["batches"][arch])
+        res[arch] = dict(metrics={k: float(v) for k, v in met.items()},
+                         cc=dict(C.COLLECTIVES),
+                         bytes=D.state_bytes(model, ost))
+        whole = _whole(model)
+        if rank == 0:
+            res[arch]["params"] = whole
+    # (b) the shard_map MoE
+    cfg, model = _lm_model("granite_moe_1b_a400m", pl["moe_tree"], m24)
+    mlp = model.layers[0].mlp
+    dg = C.mesh_group(m24, ("data",))
+    with L.activation_sharding(m24, ("data",)):
+        L._ACT["batch_sharded"] = True
+        x = torch.as_tensor(pl["moe_x"])
+        y, aux = L.moe_block(mlp, cfg, T.local_rows(x)[0],
+                             capacity_factor=8.0)
+        res["moe_y"], res["moe_aux"] = _np(C.all_gather(y, dg, 0)), \
+            float(aux.detach())
+        x2 = T.local_rows(torch.as_tensor(pl["moe_x2"]))[0]
+        y2, aux2 = L.moe_block(mlp, cfg, x2, capacity_factor=8.0)
+        obj = torch.sum(y2 ** 2) + 0.01 * aux2 / dg.size
+        names = [n for n, _ in mlp.named_parameters()]
+        grads = dict(zip(names, torch.autograd.grad(
+            obj, [p for _, p in mlp.named_parameters()])))
+        D.reduce_grads(mlp, grads, m24)
+        res["moe_grads"] = {n: _np(D.unshard(g, D.spec_of(p), m24))
+                            for (n, p), g in zip(mlp.named_parameters(),
+                                                 grads.values())}
+    # (c) the shard_map KDE decode, kv heads split or not, and indivisible
+    mg = C.mesh_group(m24, ("model",))
+    for hkv in (2, 4):
+        q, k, v = (torch.as_tensor(pl[f"kde{hkv}"][n]) for n in "qkv")
+        if hkv % mg.size == 0:
+            hq_l, kv_l = q.shape[1] // mg.size, hkv // mg.size
+            q = q[:, mg.index * hq_l:(mg.index + 1) * hq_l]
+            k, v = (t[:, mg.index * kv_l:(mg.index + 1) * kv_l] for t in (k, v))
+            seq = dg
+        else:
+            seq = C.mesh_group(m24, ("data", "model"))
+        s_l = k.shape[2] // seq.size
+        k, v = (t[:, :, seq.index * s_l:(seq.index + 1) * s_l] for t in (k, v))
+        cc = {}
+        out = C.collective_counts(lambda: cc.setdefault(
+            "o", L.kde_decode_attention_shardmap(
+                q, k, v, 900, top_p=4, bk=64, stride=4, mesh=m24,
+                baxes=("data",), num_kv_heads=hkv)))
+        o = cc["o"]
+        if hkv % mg.size == 0:
+            o = C.all_gather(o, mg, 1)
+        res[f"kde{hkv}"] = (_np(o), out)
+    q, k, v = (torch.as_tensor(pl["kde_odd"][n]) for n in "qkv")
+    seq = C.mesh_group(m24, ("data", "model"))
+    res["kde_odd"] = L.kde_decode_attention_shardmap(
+        q, k[:, :, :96 // 8], v[:, :, :96 // 8], 90, top_p=2, bk=64,
+        stride=4, mesh=m24, baxes=("data",), num_kv_heads=2)
+    # (d) the model's decode over a sequence-split cache
+    cfg, model = _lm_model("yi_6b", pl["dec_tree"], m24)
+    for impl, toks, kw in (("xla", pl["dec_tok"], None),
+                           ("kde", pl["dec_tok"][:1], pl["kde_cfg"])):
+        with L.activation_sharding(m24, ("data",)), torch.inference_mode():
+            cache = T.init_cache(cfg, toks.shape[0], pl["dec_len"],
+                                 torch.float32, device="cpu")
+            outs = []
+            for t in range(toks.shape[1]):
+                logits, cache = T.decode_step(model, cfg, toks[:, t:t + 1],
+                                              cache, t, impl=impl,
+                                              kde_cfg=kw)
+                if cache.specs["k"][1] is not None:
+                    logits = C.all_gather(logits, dg, 0)
+                outs.append(_np(logits))
+        res[f"dec_{impl}"] = (np.stack(outs), dict(cache.specs))
+    # (e) compressed_psum over "pod"
+    g = {k: torch.as_tensor(a[rank]) for k, a in pl["cp_g"].items()}
+    r = {k: torch.as_tensor(a[rank]) for k, a in pl["cp_r"].items()}
+    cc = {}
+    with L.activation_sharding(m222, SH.batch_axes(m222)):
+        res["cp_cc"] = C.collective_counts(lambda: cc.setdefault(
+            "o", opt.compressed_psum(g, r, "pod")))
+    res["cp"] = {k: (_np(cc["o"][0][k]), _np(cc["o"][1][k])) for k in g}
+    return res
+
+
+def lm_state(rank, world, pl):
+    """Four ranks: a sharded train step on (2, 2), saved and restored onto
+    (4, 1) (elastic restore: bitwise the same state), then ``launch.train
+    --data 2 --model 2`` for two steps with checkpoints, resumed by
+    ``--data 4 --model 1`` for two more; rank 0's log lines."""
+    import contextlib
+    import io
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    res = {}
+    m22 = make_debug_mesh(2, 2, device_type="cpu")
+    m41 = make_debug_mesh(4, 1, device_type="cpu")
+    cfg, model = _lm_model("yi_6b", pl["tree"], m22)
+    ost = opt.init_adamw(model)
+    with L.activation_sharding(m22, ("data",)):
+        model, ost, _ = make_train_step(
+            cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1))(
+            model, ost, pl["batch"])
+    before = (_whole(model), _whole(model, ost.m), _whole(model, ost.v))
+    ckpt.save(pl["dir"], 1, (model, ost))
+    cfg, fresh = _lm_model("yi_6b", pl["tree"], m41)
+    fo = opt.init_adamw(fresh)
+    shd = SH.param_shardings(fresh, m41)
+    (fresh, fo), step = ckpt.restore(
+        pl["dir"], (fresh, fo),
+        shardings=(shd, opt.AdamWState(step=None, m=shd, v=shd)))
+    after = (_whole(fresh), _whole(fresh, fo.m), _whole(fresh, fo.v))
+    res["restore"] = dict(step=step, opt_step=int(fo.step),
+                          local=tuple(fresh.layers[0].attn.wq.shape),
+                          same=all(np.array_equal(a[k], b[k])
+                                   for a, b in zip(before, after)
+                                   for k in a))
+    logs = io.StringIO()
+    with contextlib.redirect_stdout(logs):
+        base = ["--device", "cpu", "--arch", "yi_6b", "--reduced", "--batch",
+                "4", "--seq", "16", "--log-every", "1", "--ckpt-every", "1",
+                "--ckpt-dir", pl["train_dir"]]
+        ttrain.main(base + ["--data", "2", "--model", "2", "--steps", "2"])
+        ttrain.main(base + ["--data", "4", "--model", "1", "--steps", "4"])
+    res["log"] = logs.getvalue()
+    return res
