@@ -451,8 +451,24 @@ Phases (any failure exits non-zero; no phase catches and continues):
                ("pod", "data") mesh, bitwise the plain sum of the codes at
                the larger scale, residuals bitwise.  (e) (a) at P = 1 on
                NCCL against the unsharded step: bitwise, or what differs.
-               Flash is held to its plain version at each rank's shapes
-               first; the launches are ``lm_mesh_launches``.
+               (f) context-parallel prefill: qwen2.5-14b (40 / 8 heads,
+               the config seq mode is for; 2 of 48 layers, full width,
+               f32) on a (1, 4) mesh, a flash prefill of batch 1 x 2048
+               with ``seq_mode=True`` (rank r's 512 queries at offset
+               512 r, weights gathered a layer at a time, keys and values
+               gathered) and with ``seq_mode=False`` (tensor-parallel):
+               each held by rank 0 to the unsharded prefill (last
+               position and whole forward within 1e-3 of max |logit|,
+               argmax equal), each rank's first flash launch tapped and
+               held to the plain version at its offset; the walls, the
+               share inside the collective wrapper, collectives and
+               bytes, each rank's peak memory and its flash device ms
+               beside the bound.  (g) (a)'s train step with the sequence
+               split over "model" (``seq_mode=True``) on (a)'s mesh,
+               batch and weights: gradients leaf by leaf, loss and grad
+               norm against the unsharded step.  Flash is held to its
+               plain version at each rank's shapes first; the launches
+               are ``lm_mesh_launches``.
 20. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
                the graph phase's paths, ``graph_launches``, on the
                streaming and estimator paths, ``stream_launches``, on the
@@ -472,7 +488,11 @@ Phase 2 also holds the two LM kernels against their plain versions
 at head dims that take the scalar-staged instance (30, 7) and on k / v
 rows off 16-byte alignment, f32 and bf16 operands, and at the prefill
 shape (1, 32, 8192, 128) with 4 kv-heads in f32 and in bf16 (the
-lm-bf16 prefill's row), printing the kernel instance and body each check
+lm-bf16 prefill's row); at explicit query offsets (``flash_at``, a
+sequence shard's rows: ``flash_offset_checks``) over 4 shards of 777
+and of 1024 rows (40 / 8 heads, dh 128), f32 and bf16, each offset's
+device ms at the 1024-row shard beside its bound (``cp_offsets`` on the
+flash rows); printing the kernel instance and body each check
 ran (FMA f32, or the tensor-core bf16 body: mma.sync with p split into
 bf16 hi + lo) and, for bf16, its ``max_bf16_steps``; the
 fused KDE decode kernel (out and its step-1 estimates) against its plain
@@ -519,8 +539,8 @@ CLI run (``serve_launches``); phase 16 around each loss-and-gradient
 call and each run of train steps (``train_launches``); phase 17 around
 each family's flash prefill and kde serve run (``family_launches``);
 every rank of phase 18 around each of its paths (``mesh_launches``);
-phase 19 around its train steps and the single-device decode
-(``lm_mesh_launches``).
+phase 19 around its train steps, the single-device decode, (f)'s
+timed prefills and (g)'s train step (``lm_mesh_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -532,7 +552,9 @@ term, the distance assembly, the scale, exp and the accumulate) and
 accumulate); the kde_hash kernels add one multiply by the weight per
 pair and read each distinct gathered row of x once (x is 16 MB and stays
 in the 50 MB L2).  Flash counts the causal half, 4 b hq dh s^2 / 2 FP32
-operations (QK^T and PV), against q, k, v, out and lse; the KDE decode
+operations (QK^T and PV), against q, k, v, out and lse (at a shard's
+offset ``flash_cp_bound``: its causal pairs, and the keys the mask
+leaves); the KDE decode
 kernel's work depends on the run's data (kv_valid and the selection): it
 reads the strided keys below kv_valid once per kv-head, less those of the
 selected blocks (they are read as gathered keys), and the gathered keys and
@@ -621,6 +643,10 @@ FLASH_RAGGED = [(2, 4, 2, 64, 64, 32), (1, 8, 2, 1, 300, 64),
 # head dims that are not a multiple of 16 bytes: the scalar-staged instance
 FLASH_SCALAR = [(1, 4, 2, 257, 257, 30), (1, 2, 2, 70, 70, 7)]
 FLASH_MAIN = (1, 32, 4, 8192, 8192, 128)    # the prefill shape
+#: flash at a sequence shard's query offset (``flash_at``): (b, hq, hkv,
+#: sq, skv, dh), the queries of shard r of skv / sq at offset r sq -- a
+#: ragged shard of 777 and qwen2.5-14b's rank shape at 4096 tokens on 4
+FLASH_CP = ((1, 40, 8, 777, 4 * 777, 128), (1, 40, 8, 1024, 4096, 128))
 # (b, hq, hkv, S, dh, bk, stride): the serve shape (yi's heads, cache 544)
 # and bench_attention's production setting at yi's heads
 LSE_SERVE = (4, 32, 4, 544, 128, 32, 4)
@@ -1898,6 +1924,7 @@ def phase_lm_kernels(gen):
         del q, k, v, q32, k32, v32
         free_cuda()
     rows.append(row)
+    flash_offset_checks(rows, qkv, errs)
     family_kernel_checks(rows, flash_check, decode_check, decode_inputs,
                          qkv, steps)
     for r in rows:
@@ -1910,6 +1937,81 @@ def phase_lm_kernels(gen):
     log("[kernels] kde_decode library_ms null: no PyTorch call computes "
         "KDE block selection with attention over the selected blocks")
     return rows
+
+
+def flash_cp_bound(b, hq, hkv, sq, dh, off, dtype):
+    """(bound_ms, bound_by) of the flash kernel on a shard's sq query rows
+    at offset ``off``: its causal pairs, b hq (sq off + sq (sq + 1) / 2),
+    at 4 dh operations a pair (FP32, or bf16 operands on the tensor
+    cores), against q, out and lse and the keys and values the mask
+    leaves (positions below off + sq), at the operands' size."""
+    import torch
+    ops = 4 * dh * b * hq * (sq * off + sq * (sq + 1) // 2)
+    vb = 4 if dtype == torch.float32 else 2
+    nbytes = vb * (2 * b * hq * sq * dh + 2 * b * hkv * (off + sq) * dh) \
+        + 4 * b * hq * sq
+    if dtype == torch.float32:
+        return bound(ops, nbytes)
+    return bound(0.0, nbytes, bf16_flops=ops)
+
+
+def flash_offset_checks(rows, qkv, errs):
+    """Phase 2: the flash kernel at explicit query offsets (``flash_at``'s
+    launches: a sequence shard's rows against the whole key timeline), f32
+    and bf16, against its plain version at the same offset -- f32 at RTOL
+    / ATOL, bf16 within one bf16 step (``max_bf16_steps`` <= 1) -- over
+    the shards of ``FLASH_CP`` (a ragged 777-row shard; qwen2.5-14b's rank
+    shape at 4096 tokens, each offset's device ms beside its bound).  The results go on
+    the flash rows as ``cp_offsets``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.testing import assert_bf16_close
+    by_name = {r["name"]: r for r in rows}
+    for dtype, name in ((torch.float32, "flash_attention"),
+                        (torch.bfloat16, "flash_attention_bf16")):
+        cp = by_name[name].setdefault("cp_offsets", [])
+        for b, hq, hkv, sq, skv, dh in FLASH_CP:
+            q, k, v = qkv(b, hq, hkv, skv, skv, dh, dtype=dtype)
+            kp, vp, kw = fops.flash_args(q[:, :, :sq], k, v)
+            timed_shape = (b, hq, hkv, sq, skv, dh) == FLASH_CP[-1]
+            for off in range(0, skv, sq):
+                qs = q[:, :, off:off + sq]
+                kw["offset"] = off
+                out, lse = fk.flash_attention_cuda(qs, kp, vp, **kw)
+                p_out, p_lse = fk.flash_attention_plain(qs, kp, vp, **kw)
+                tag = f"flash_at {(b, hq, hkv, sq, skv, dh)} offset {off}"
+                if dtype == torch.bfloat16:
+                    e, nsteps = assert_bf16_close(out, p_out, ATOL, tag)
+                    e = max(e, close(lse, p_lse, f"{tag} lse"))
+                else:
+                    e, nsteps = max(close(out, p_out, tag),
+                                    close(lse, p_lse, f"{tag} lse")), None
+                errs[name] = max(errs[name], e)
+                via = fops.flash_at(qs, k, v, off)
+                assert torch.equal(via, out), f"{tag}: flash_at differs"
+                rec = dict(shape=[b, hq, hkv, sq, skv, dh], offset=off,
+                           max_abs_err=e, instance=fk.instantiation(
+                               qs, kp, vp))
+                if nsteps is not None:
+                    rec["max_bf16_steps"] = nsteps
+                if timed_shape:
+                    rec["device_ms"] = kernel_device_ms(
+                        lambda: fk.flash_attention_cuda(qs, kp, vp, **kw),
+                        fk.BODIES[dtype][1], 3)
+                    rec["bound_ms"], rec["bound_by"] = flash_cp_bound(
+                        b, hq, hkv, sq, dh, off, dtype)
+                cp.append(rec)
+                log(f"[kernels] flash_at {str(dtype)[6:]} (b, hq, hkv, sq, "
+                    f"skv, dh) = {(b, hq, hkv, sq, skv, dh)} offset {off} "
+                    f"[{rec['instance']}]: max_abs_err {e:.3e}"
+                    + (f", max bf16 steps {nsteps}" if nsteps is not None
+                       else "")
+                    + (f"; device {rec['device_ms']} ms, bound "
+                       f"{rec['bound_ms']:.5f} by {rec['bound_by']}"
+                       if timed_shape else ""))
+            del q, k, v, kp, vp, out, lse, p_out, p_lse, via
+            free_cuda()
 
 
 def family_heads():
@@ -6095,6 +6197,12 @@ LMM_SOLO = "nccl"           # (e): P = 1 on NCCL against the unsharded step
 #: ranks, 2 rows a "data" rank; (c) granite-moe's 16 / 8 heads likewise
 LMM_FLASH = ((LMM_BATCH // 2, 16, 2, LMM_SEQ, 128),
              (LMM_BATCH // 2, 8, 4, LMM_MOE_SEQ, 64))
+#: (f): qwen2.5-14b's context-parallel prefill (40 / 8 heads, the config
+#: seq mode is for) on a (1, 4) mesh, batch 1 x LMM_CP_SEQ (s_l 512 a
+#: rank; cut from 4096 when the whole script passed 900 s of its 1200)
+LMM_CP_ARCH = "qwen2_5_14b"
+LMM_CP_SHAPE = (1, 4)
+LMM_CP_SEQ = 2048
 
 
 def lmm_config(arch: str):
@@ -6350,6 +6458,227 @@ def lmm_moe(mesh, rank0: bool):
     return res
 
 
+def lmm_cp_models(cfg, mesh, rank: int, world: int):
+    """``lmm_models`` one rank at a time (a rank holds the whole f32
+    model only while it cuts its shards), the others waiting at a
+    barrier."""
+    import torch.distributed as dist
+    for r in range(world):
+        if r == rank:
+            model, ref = lmm_models(cfg, mesh, rank == 0)
+            free_cuda()
+        dist.barrier()
+    return model, ref
+
+
+def logits_match(got, want, vocab: int, what: str, chunk: int = 512):
+    """max |got - want| <= LM_LOGIT_REL max |want| over every position of
+    (b, s, V) logits (compared a chunk of positions at a time), and the
+    same argmax at every position whose top-two gap in ``want`` exceeds
+    twice that max |diff| (a nearer tie may swap); returns the log
+    text."""
+    import torch
+    diff, top, ties, pos = 0.0, 0.0, 0, 0
+    tops, args = [], []
+    for i in range(0, got.shape[1], chunk):
+        g = got[:, i:i + chunk, :vocab].double()
+        w = want[:, i:i + chunk, :vocab].double()
+        assert bool(torch.isfinite(g).all()), f"{what}: non-finite logits"
+        diff = max(diff, float((g - w).abs().max()))
+        top = max(top, float(w.abs().max()))
+        tops.append(torch.topk(w, 2, dim=-1).values)
+        args.append((g.argmax(-1), w.argmax(-1)))
+    assert diff <= LM_LOGIT_REL * top, (what, diff, top)
+    for t2, (ga, wa) in zip(tops, args):
+        clear = (t2[..., 0] - t2[..., 1]) > 2 * diff
+        assert bool((ga == wa)[clear].all()), f"{what}: argmax differs"
+        ties += int((~clear).sum())
+        pos += int(clear.numel())
+    return (f"max |diff| {diff:.3e} <= {LM_LOGIT_REL} x max |logit| "
+            f"{top:.4f}; argmax equal at all {pos - ties} of {pos} positions "
+            f"whose top-two gap exceeds 2 max |diff| ({ties} nearer ties)")
+
+
+def lmm_cp_prefill(rank: int, world: int):
+    """(f) qwen2.5-14b's flash prefill (LMM_LAYERS layers, full width, f32)
+    on a LMM_CP_SHAPE ("data", "model") mesh, batch 1 x LMM_CP_SEQ: the
+    context-parallel layout (``seq_mode=True``: rank r's LMM_CP_SEQ / 4
+    queries at offset r LMM_CP_SEQ / 4) and the tensor-parallel one
+    (``seq_mode=False``), each first as the whole forward (its logits
+    kept, its first flash launch tapped; the warm-up), then the prefill
+    step timed (counts set to 0 just before); rank 0 holds both to the
+    unsharded prefill.  Each rank's flash device ms at its shapes are
+    taken one rank at a time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import state as D
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = lmm_config(LMM_CP_ARCH)
+    mesh = make_debug_mesh(*LMM_CP_SHAPE, device_type=MESH_DEVICE)
+    model, ref = lmm_cp_models(cfg, mesh, rank, world)
+    batch = make_batch(cfg, ShapeConfig("lm-mesh-cp", LMM_CP_SEQ, 1,
+                                        "prefill"), 0, 0)
+    step = make_prefill_step(cfg, impl="flash")
+    v = cfg.vocab_size
+    res = dict(bytes=D.state_bytes(model), bytes_whole=4 * sum(
+        int(torch.Size(D.full_shape(p)).numel())
+        for p in model.parameters()))
+    keep = {}
+    for tag, seq_mode in (("cp", True), ("tp", False)):
+        with L.activation_sharding(mesh, ("data",), seq_mode=seq_mode):
+            with torch.inference_mode():
+                (lg, _), seen = tapped(
+                    lambda: T.forward(model, cfg, batch, impl="flash"),
+                    (fk, "flash_attention_cuda"))
+            if rank == 0:
+                keep[tag] = lg
+            del lg
+            (q, kp, vp), kw, (out, lse) = seen["flash_attention_cuda"]
+            p_out, p_lse = fk.flash_attention_plain(q, kp, vp, **kw)
+            err = max(close(out, p_out, f"lm-mesh (f) {tag} flash"),
+                      close(lse, p_lse, f"lm-mesh (f) {tag} flash lse"))
+            shapes = dict(q=list(q.shape), k=list(kp.shape),
+                          offset=kw["offset"], kv_valid=kw["kv_valid"])
+            del seen, q, kp, vp, out, lse, p_out, p_lse
+            free_cuda()
+            fk.reset_launches()
+            C.reset_collectives()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            dist.barrier()
+            t0 = time.perf_counter()
+            last = step(model, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = dict(wall=wall, coll_secs=C.COLLECTIVE_SECONDS[0],
+                     cc=dict(C.COLLECTIVES), cbytes=dict(C.COLLECTIVE_BYTES),
+                     flash=fk.LAUNCHES["flash_attention"],
+                     peak=torch.cuda.max_memory_allocated() - held,
+                     held=held, layout=L._ACT["seq_layout"], tap_err=err,
+                     tap=shapes, last=last[0, -1, :v].float().cpu())
+            del last
+            free_cuda()
+        res[tag] = r
+    # each rank's flash at its shapes, timed one rank at a time
+    hd, hq, hkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    m, s_l = LMM_CP_SHAPE[1], LMM_CP_SEQ // LMM_CP_SHAPE[1]
+    g = torch.Generator(device=MESH_DEVICE).manual_seed(7)
+    for r in range(world):
+        if r == rank:
+            k = torch.randn((1, hkv, LMM_CP_SEQ, hd), generator=g,
+                            device=MESH_DEVICE)
+            q = torch.randn((1, hq, s_l, hd), generator=g,
+                            device=MESH_DEVICE)
+            kp, vp, kw = fops.flash_args(q, k, k)
+            kw["offset"] = rank * s_l
+            res["cp"]["flash_ms"] = kernel_device_ms(
+                lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
+                fk.BODIES[torch.float32][1], 3)
+            res["cp"]["flash_bound"] = flash_cp_bound(
+                1, hq, hkv, s_l, hd, rank * s_l, torch.float32)
+            q = torch.randn((1, hq // m, LMM_CP_SEQ, hd), generator=g,
+                            device=MESH_DEVICE)
+            kt = k[:, :hkv // m].contiguous()
+            kp, vp, kw = fops.flash_args(q, kt, kt)
+            res["tp"]["flash_ms"] = kernel_device_ms(
+                lambda: fk.flash_attention_cuda(q, kp, vp, **kw),
+                fk.BODIES[torch.float32][1], 3)
+            res["tp"]["flash_bound"] = flash_cp_bound(
+                1, hq // m, hkv // m, LMM_CP_SEQ, hd, 0, torch.float32)
+            del q, k, kt, kp, vp
+            free_cuda()
+        dist.barrier()
+    if rank != 0:
+        return res
+    del model
+    free_cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    last = step(ref, batch)
+    torch.cuda.synchronize()
+    res["ref_wall"] = time.perf_counter() - t0
+    res["ref_peak"] = torch.cuda.max_memory_allocated() - held
+    want_last = last[0, -1, :v].float().cpu()
+    for tag in ("cp", "tp"):
+        res[tag]["last_text"] = logit_check(
+            res[tag]["last"][None], want_last[None], v,
+            f"lm-mesh (f) {tag} last position")
+    del last
+    with torch.inference_mode():
+        want, _ = T.forward(ref, cfg, batch, impl="flash")
+    del ref
+    free_cuda()
+    for tag in ("cp", "tp"):
+        res[tag]["whole_text"] = logits_match(
+            keep.pop(tag), want, v, f"lm-mesh (f) {tag} whole forward")
+        free_cuda()
+    del want
+    free_cuda()
+    for tag in ("cp", "tp"):
+        del res[tag]["last"]
+    return res
+
+
+def lmm_cp_train(mesh, rank0: bool):
+    """(g) (a)'s yi-6b train step on (a)'s mesh, batch and weights with the
+    sequence split over "model" (``seq_mode=True``: 256 positions a
+    rank): the step's gradients leaf by leaf against the unsharded ones
+    (rank 0), then one timed step's metrics, wall and collectives."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step, step_grads
+    cfg = lmm_config(LM_ARCH)
+    batch = make_batch(cfg, ShapeConfig("lm-mesh", LMM_SEQ, LMM_BATCH,
+                                        "train"), 0, 0)
+    adamw = opt.AdamWConfig(lr=LMM_LR, warmup_steps=1)
+    model, ref = lmm_models(cfg, mesh, rank0)
+    step = make_train_step(cfg, adamw, impl="flash", remat=True)
+    with L.activation_sharding(mesh, SH.batch_axes(mesh), seq_mode=True):
+        g, _, _ = step_grads(model, cfg, batch, impl="flash", remat=True)
+        layout = L._ACT["seq_layout"]
+        g = lmm_whole(model, g)
+        ost = opt.init_adamw(model)
+        fk.reset_launches()
+        C.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, ost, m = step(model, ost, batch)
+        torch.cuda.synchronize()
+        res = dict(wall=time.perf_counter() - t0, layout=layout,
+                   metrics={k: float(v) for k, v in m.items()},
+                   coll_secs=C.COLLECTIVE_SECONDS[0], cc=dict(C.COLLECTIVES),
+                   cbytes=dict(C.COLLECTIVE_BYTES),
+                   flash=fk.LAUNCHES["flash_attention"])
+    del model, ost
+    free_cuda()
+    if not rank0:
+        return res
+    g_ref, _, _ = step_grads(ref, cfg, batch, impl="flash", remat=True)
+    res["grad_rel"] = max(float((g[n] - g_ref[n]).abs().max()
+                                / g_ref[n].abs().max().clamp_min(1e-30))
+                          for n in g_ref)
+    del g, g_ref, ref
+    free_cuda()
+    return res
+
+
 def lmm_compressed(rank: int, world: int):
     """(d) ``compressed_psum`` over the "pod" axis of a (2, 2) ("pod",
     "data") mesh: the rank's leaves and residuals (seeded by rank) and
@@ -6373,8 +6702,55 @@ def lmm_compressed(rank: int, world: int):
                 resid=cpu(new_r))
 
 
+def lmm_cp_report(res) -> str:
+    """(f)'s checks over every rank's results, and its printed lines;
+    returns a one-line summary."""
+    f0 = res[0]["f"]
+    s_l = LMM_CP_SEQ // LMM_CP_SHAPE[1]
+    for rank, r in enumerate(res):
+        f = r["f"]
+        assert f["cp"]["layout"] == "split" and f["tp"]["layout"] is None
+        for tag in ("cp", "tp"):
+            assert f[tag]["flash"] == LMM_LAYERS, (rank, tag, f[tag]["flash"])
+        assert f["cp"]["tap"]["offset"] == rank * s_l, f["cp"]["tap"]
+        assert f["cp"]["tap"]["q"][2] == s_l, f["cp"]["tap"]
+    for tag, name in (("cp", "context-parallel (seq_mode=True)"),
+                      ("tp", "tensor-parallel (seq_mode=False)")):
+        t = f0[tag]
+        log(f"[lm-mesh] (f) {LMM_CP_ARCH} ({LMM_LAYERS} of 48 layers, full "
+            f"width, f32) flash prefill, batch 1 x {LMM_CP_SEQ}, "
+            f"{name} on a {LMM_CP_SHAPE} ('data', 'model') mesh: last "
+            f"position {t['last_text']}; whole forward {t['whole_text']}")
+        log(f"[lm-mesh] (f) {tag}: wall " + ", ".join(
+            f"rank {i} {r['f'][tag]['wall']:.3f} s" for i, r in enumerate(res))
+            + f" (unsharded on the same card {f0['ref_wall']:.3f} s); "
+            f"{t['coll_secs'] / t['wall']:.1%} of rank 0's wall inside the "
+            f"collective wrapper; rank 0's collectives {t['cc']}, operand "
+            f"bytes {({k: v for k, v in t['cbytes'].items() if v})}; peak "
+            f"memory of the step above what the rank held before it "
+            + ", ".join(
+                f"rank {i} {r['f'][tag]['peak'] / 1e9:.2f} GB (held "
+                f"{r['f'][tag]['held'] / 1e9:.2f})"
+                for i, r in enumerate(res))
+            + f" (the unsharded step {f0['ref_peak'] / 1e9:.2f} GB on rank "
+            f"0); flash device ms "
+            + ", ".join(
+                f"rank {i} {r['f'][tag]['flash_ms']} (bound "
+                f"{r['f'][tag]['flash_bound'][0]:.4f} by "
+                f"{r['f'][tag]['flash_bound'][1]}; tapped launch at offset "
+                f"{r['f'][tag]['tap']['offset']}, q {r['f'][tag]['tap']['q']}"
+                f" vs k {r['f'][tag]['tap']['k']}: max_abs_err "
+                f"{r['f'][tag]['tap_err']:.3e})" for i, r in enumerate(res)))
+    log(f"[lm-mesh] (f) state a rank: " + ", ".join(
+        f"rank {i} {r['f']['bytes'] / 1e9:.3f} GB" for i, r in enumerate(res))
+        + f" of {f0['bytes_whole'] / 1e9:.3f} GB of f32 parameters unsharded")
+    return (f"CP prefill wall {f0['cp']['wall']:.3f} s vs TP "
+            f"{f0['tp']['wall']:.3f} s (rank 0; {MESH_P} ranks time-share "
+            f"one card)")
+
+
 def lmm_job_main(rank, world):
-    """(a)-(d) on ``world`` gloo ranks sharing the card."""
+    """(a)-(d), (f) and (g) on ``world`` gloo ranks sharing the card."""
     from repro_torch.launch.mesh import make_debug_mesh
     mesh = make_debug_mesh(*LMM_SHAPE, device_type=MESH_DEVICE)
     res = {}
@@ -6386,8 +6762,12 @@ def lmm_job_main(rank, world):
     res["c"] = lmm_moe(mesh, rank == 0)
     t3 = time.perf_counter()
     res["d"] = lmm_compressed(rank, world)
-    res["secs"] = dict(a=t1 - t0, b=t2 - t1, c=t3 - t2,
-                       d=time.perf_counter() - t3)
+    t4 = time.perf_counter()
+    res["f"] = lmm_cp_prefill(rank, world)
+    t5 = time.perf_counter()
+    res["g"] = lmm_cp_train(mesh, rank == 0)
+    res["secs"] = dict(a=t1 - t0, b=t2 - t1, c=t3 - t2, d=t4 - t3,
+                       f=t5 - t4, g=time.perf_counter() - t5)
     return res
 
 
@@ -6541,6 +6921,29 @@ def phase_lm_mesh():
         f"('pod', 'data') mesh: {n_ok} leaves on {MESH_P} ranks bitwise "
         f"the plain sum of the int8 codes at the larger scale, residuals "
         f"bitwise")
+    f_txt = lmm_cp_report(res)
+    g = r0["g"]
+    for r in res:
+        assert r["g"]["metrics"] == g["metrics"], (r["g"]["metrics"],
+                                                   g["metrics"])
+        assert r["g"]["layout"] == "split" and r["g"]["flash"] == L2, r["g"]
+    for k in ("loss", "grad_norm"):
+        assert abs(g["metrics"][k] - a["ref_metrics"][0][k]) \
+            <= LMM_RTOL * abs(a["ref_metrics"][0][k]), (k, g["metrics"],
+                                                       a["ref_metrics"][0])
+    assert g["grad_rel"] <= LMM_GRAD_REL, g["grad_rel"]
+    log(f"[lm-mesh] (g) (a)'s yi-6b train step with the sequence split over "
+        f"'model' (seq_mode=True, {LMM_SEQ // LMM_SHAPE[1]} positions a rank,"
+        f" layout {g['layout']}) on (a)'s mesh, batch and weights: loss "
+        f"{g['metrics']['loss']:.6f} (unsharded {a['ref_metrics'][0]['loss']:.6f}),"
+        f" grad norm {g['metrics']['grad_norm']:.6f} (unsharded "
+        f"{a['ref_metrics'][0]['grad_norm']:.6f}; rtol {LMM_RTOL}); gradients "
+        f"max |diff| / max |g| {g['grad_rel']:.3e} over every leaf (bound "
+        f"{LMM_GRAD_REL}); step wall {g['wall']:.3f} s (TP (a) step 1 "
+        f"{a['walls'][0]:.3f} s), {g['coll_secs'] / g['wall']:.1%} inside the "
+        f"collective wrapper; rank 0's collectives {g['cc']}, operand bytes "
+        f"{ {k: v for k, v in g['cbytes'].items() if v} }; flash "
+        f"{g['flash']} launches a rank a step (2 L with remat)")
     t0 = time.perf_counter()
     e = mesh_start("lm_mesh_solo", 1, LMM_SOLO, "lm_solo")()[0]
     secs["lm-mesh (e)"] = time.perf_counter() - t0
@@ -6565,6 +6968,14 @@ def phase_lm_mesh():
                 "kde_decode_bf16": {"(b) single-device yardstick":
                                     b["launches"],
                                     "(b) shard_map path": 0}}
+    launches["flash_attention"].update({
+        "(f) CP prefill a rank": r0["f"]["cp"]["flash"],
+        "(f) TP prefill a rank": r0["f"]["tp"]["flash"],
+        "(g) CP train step a rank": g["flash"]})
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  max(r["f"][t]["tap_err"] for r in res
+                                      for t in ("cp", "tp")))
+    log(f"[lm-mesh] (f) {f_txt}")
     return launches, secs, errs
 
 
@@ -6587,7 +6998,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     phases = {}
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     phase_build()
     phases["build"] = time.perf_counter() - t0
 
@@ -6780,7 +7191,8 @@ def main() -> int:
             r.update(train_rows[r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items()))
+    log("[phases] " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items())
+        + f"; total {time.perf_counter() - t_start:.2f} s")
     log(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("device_ms", "host_us", "max_bf16_steps",
                                   "ctas", "instance", "reduce_share",
@@ -6790,7 +7202,8 @@ def main() -> int:
                                   "train_shape", "train_ms",
                                   "train_device_ms", "train_bound_ms",
                                   "train_bound_by", "train_library_ms",
-                                  "family_launches", "family_shapes")
+                                  "family_launches", "family_shapes",
+                                  "cp_offsets")
          if k in r}
         for r in rows]}))
     log(card_line())

@@ -30,7 +30,14 @@ The autograd forms carry the two conventions of the LM's mesh programs
     product has the identity as its backward (``sum_to_replicas``), the
     identity before a column-parallel product an all-reduce
     (``copy_to_partials``), and a weight gathered for replicated compute
-    takes back its own slice of the gradient (``gather_replicated``).
+    takes back its own slice of the gradient (``gather_replicated``);
+  * except in a context-parallel step (the sequence split over "model"),
+    where each rank's backward carries its own chunk's share: the
+    weights' and the keys' gathers sum their gradients back by
+    reduce-scatter (``gather_partial``), the embedding's reduce-scatter
+    over the sequence gathers them (``sum_scatter``), and a value every
+    rank computes whole divides its gradient by the ranks
+    (``grad_share``).
 """
 from __future__ import annotations
 
@@ -280,6 +287,28 @@ class _CopyToPartials(torch.autograd.Function):
         return all_reduce(g, ctx.grp), None
 
 
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return reduce_scatter(t, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.grp, ctx.dim), None, None
+
+
+class _GradShare(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, size):
+        ctx.size = size
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, grp):
@@ -314,6 +343,20 @@ def copy_to_partials(t, grp: Optional[MeshGroup]):
     """Identity whose backward sums the ranks' gradients (before a
     column-parallel product)."""
     return t if grp is None else _CopyToPartials.apply(t, grp)
+
+
+def sum_scatter(t, grp: Optional[MeshGroup], dim: int):
+    """Reduce-scatter whose backward is an all-gather: each rank's chunk of
+    the sum gets its whole gradient on that rank, and every rank's part
+    of the sum reads every chunk's."""
+    return t if grp is None else _SumScatter.apply(t, grp, dim)
+
+
+def grad_share(t, grp: Optional[MeshGroup]):
+    """Identity whose backward divides by the group's size: a value every
+    rank of the group computes whole, in a program whose gradients the
+    group sums (so the group counts it once)."""
+    return t if grp is None else _GradShare.apply(t, grp.size)
 
 
 def psum(t, grp: Optional[MeshGroup]):

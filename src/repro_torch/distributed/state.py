@@ -9,7 +9,8 @@ reads the spec to gather what a block's compute needs.
 The train step's gradient bookkeeping lives here too: after the backward
 a parameter split over "data" already holds its summed shard (the
 gathers' reduce-scatter); ``reduce_grads`` sums the ones replicated over
-"data" with one all-reduce of their concatenation, then every gradient
+"data" with one all-reduce of their concatenation (and over "model" after
+a context-parallel step), then every gradient
 over "pod" (the replicas' mean: each rank's objective is its share of the
 global batch), and ``global_grad_norm`` takes the global norm with one
 all-reduce of the ranks' squared shard norms (each divided by the number
@@ -116,17 +117,25 @@ def _bucket_reduce(grads: Dict[str, torch.Tensor], names: Sequence[str],
 
 
 def reduce_grads(model: nn.Module, grads: Dict[str, torch.Tensor],
-                 mesh) -> Dict[str, torch.Tensor]:
+                 mesh, model_partial: bool = False
+                 ) -> Dict[str, torch.Tensor]:
     """Bring the rank's gradients to their shards' global values, in
-    place: those of parameters replicated over "data" are summed over it,
-    then every one over "pod"."""
+    place: those of parameters replicated over "data" are summed over it
+    (and, with ``model_partial`` -- a step whose sequence was split over
+    "model", each rank's backward its chunk's share -- those replicated
+    over "model" over it too, one all-reduce a set of axes), then every
+    one over "pod"."""
     shape = SH.mesh_shape(mesh)
-    if "data" in shape:
-        names = [n for n, p in model.named_parameters()
-                 if "data" not in [a for e in spec_of(p)
-                                   for a in SH.entry_axes(e)]]
-        if names:
-            _bucket_reduce(grads, names, C.mesh_group(mesh, ("data",)))
+    sums = [a for a in ("data", "model") if a in shape
+            and (a == "data" or model_partial)]
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for n, p in model.named_parameters():
+        used = {a for e in spec_of(p) for a in SH.entry_axes(e)}
+        axes = tuple(a for a in sums if a not in used)
+        if axes:
+            by_axes.setdefault(axes, []).append(n)
+    for axes, names in by_axes.items():
+        _bucket_reduce(grads, names, C.mesh_group(mesh, axes))
     if "pod" in shape:
         _bucket_reduce(grads, [n for n, _ in model.named_parameters()],
                        C.mesh_group(mesh, ("pod",)))

@@ -7,6 +7,10 @@ differentiates that, the lse cotangent included with ``with_lse``.  The
 reference's backward is a jnp VJP, not a Pallas kernel, so the port adds
 no backward kernel either: the forward's memory saving is what training
 keeps, the backward is a standard rematerialisation.
+
+``flash_at`` runs the same kernel on one sequence shard's queries at an
+explicit offset (context-parallel prefill), its backward the plain
+version's VJP at that offset.
 """
 from __future__ import annotations
 
@@ -95,6 +99,51 @@ def flash_attention(q, k, v, causal=True, bq=128, bk=128, interpret=None,
     no_switch("interpret", interpret)
     out, lse = _Flash.apply(q, k, v, causal, bq, bk, with_lse)
     return (out, lse) if with_lse else out
+
+
+def flash_at(q, k, v, q_offset: int):
+    """Causal attention of the query rows of one sequence shard: q (b, hq,
+    sq, dh) holds global positions [q_offset, q_offset + sq) of a sequence
+    whose keys and values k, v (b, hkv, skv, dh) are all there, from
+    position 0.  ``flash_args``' block sizes and key padding, with the
+    kernel's query offset set to ``q_offset`` (``flash_attention`` derives
+    it from the padded lengths instead); the kernel on CUDA tensors, its
+    plain version on CPU tensors.  The port's own entry (the reference
+    shards this attention through GSPMD): context-parallel prefill calls
+    it at each rank's offset.  Gradients flow through ``_FlashAt``."""
+    if q_offset < 0 or q_offset + q.shape[2] > k.shape[2]:
+        raise ValueError(f"query rows [{q_offset}, {q_offset + q.shape[2]})"
+                         f" lie outside the {k.shape[2]} keys")
+    return _FlashAt.apply(q, k, v, int(q_offset))
+
+
+class _FlashAt(torch.autograd.Function):
+    """Forward: ``flash_at``'s launch.  Backward: the VJP of the plain
+    version at the same offset, recomputed from the saved (q, k, v) (the
+    reference's recompute strategy, ``_Flash``'s, at the shard's
+    offset)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset):
+        kp, vp, kw = flash_args(q, k, v)
+        kw["offset"] = q_offset
+        fn = _k.flash_attention_cuda if q.is_cuda \
+            else _k.flash_attention_plain
+        out, _ = fn(q, kp, vp, **kw)
+        ctx.save_for_backward(q, k, v)
+        ctx.q_offset = q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out, _ = _k.flash_attention_plain(
+                *qkv, causal=True, scale=1.0 / (q.shape[-1] ** 0.5),
+                kv_valid=k.shape[2], offset=ctx.q_offset)
+            grads = torch.autograd.grad(out, qkv, g)
+        return (*grads, None)
 
 
 attention_ref = _ref.attention_ref

@@ -23,6 +23,8 @@ record keeps the reference's keys:
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k --multi-pod
+  python -m repro_torch.launch.dryrun --arch qwen2_5_14b --shape prefill_32k \
+      --seq-mode-prefill
   python -m repro_torch.launch.dryrun --all --out build/dryrun.json
 """
 from __future__ import annotations
@@ -38,7 +40,6 @@ import torch
 
 from repro_torch.configs.base import ARCH_IDS, SHAPES, ArchConfig, ShapeConfig, get_config
 from repro_torch.data.pipeline import input_specs, token_split
-from repro_torch.device import not_in_slice
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as shard
 from repro_torch.distributed import state as D
@@ -84,20 +85,26 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                donate: bool = True, microbatch: int = 4,
                seq_mode_prefill: bool = False) -> Dict[str, Any]:
     """Trace one cell on rank 0 of a fake production mesh and return its
-    record."""
+    record.  ``seq_mode_prefill`` runs a prefill cell context-parallel
+    (``activation_sharding(seq_mode=True)``), as the reference's does: seq
+    mode applies to prefill shapes only."""
     from repro_torch.launch.mesh import make_production_mesh
-    if seq_mode_prefill:
-        raise not_in_slice("dryrun --seq-mode-prefill", 14)
     fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-    return trace_cell(get_config(arch), SHAPES[shape_name], mesh,
-                      donate=donate, microbatch=microbatch)
+    shape = SHAPES[shape_name]
+    return trace_cell(get_config(arch), shape, mesh, donate=donate,
+                      microbatch=microbatch,
+                      seq_mode=seq_mode_prefill and shape.kind == "prefill")
 
 
 def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
-               donate: bool = True, microbatch: int = 4) -> Dict[str, Any]:
+               donate: bool = True, microbatch: int = 4,
+               seq_mode: bool = False) -> Dict[str, Any]:
     """The record of ``cfg``'s ``shape`` step traced as rank 0 of ``mesh``
-    (a ``"cpu"`` mesh on the current fake group)."""
+    (a ``"cpu"`` mesh on the current fake group), under
+    ``activation_sharding(seq_mode=seq_mode)``: ``record["seq_mode"]``
+    says whether seq mode was asked for, ``record["seq_layout"]`` the
+    layout the step took (``layers.seq_layout``; None without seq mode)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     chips = int(mesh.mesh.numel())
@@ -105,12 +112,12 @@ def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     record: Dict[str, Any] = {
         "arch": cfg.name, "shape": shape.name,
         "mesh": "x".join(str(s) for s in mesh.mesh.shape), "chips": chips,
-        "kde_decode": kde, "seq_mode": False,
+        "kde_decode": kde, "seq_mode": bool(seq_mode),
     }
     t0 = time.time()
     baxes = shard.batch_axes(mesh)
     with FakeTensorMode(allow_non_fake_inputs=True), \
-            L.activation_sharding(mesh, baxes):
+            L.activation_sharding(mesh, baxes, seq_mode=seq_mode):
         model = T.cast_params(T.init_params(cfg, 0, device="cpu"),
                               torch.bfloat16)
         D.shard_model(model, mesh)
@@ -155,6 +162,7 @@ def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             outs = [nxt, logits] + list(cache.values())
             alias = list(cache.values()) if donate else []
         flops = float(fc.get_total_flops())
+        record["seq_layout"] = L._ACT["seq_layout"]
     record["lower_s"] = round(time.time() - t0, 1)
     record["compile_s"] = 0.0
     record["memory"] = {
@@ -191,12 +199,10 @@ def main(argv=None) -> None:
     ap.add_argument("--force", action="store_true",
                     help="re-run cells even if cached ok")
     ap.add_argument("--seq-mode-prefill", action="store_true",
-                    help="context-parallel prefill (sequence over 'model'; "
-                         "not ported: refused)")
+                    help="run prefill cells context-parallel (the sequence "
+                         "over 'model')")
     ap.add_argument("--microbatch", type=int, default=4)
     args = ap.parse_args(argv)
-    if args.seq_mode_prefill:
-        raise not_in_slice("dryrun --seq-mode-prefill", 14)
 
     cells = []
     if args.all:
@@ -223,9 +229,11 @@ def main(argv=None) -> None:
         print(f"[dryrun] {arch} x {sh} x {mesh_name} ...", flush=True)
         try:
             rec = lower_cell(arch, sh, args.multi_pod,
-                             microbatch=args.microbatch)
+                             microbatch=args.microbatch,
+                             seq_mode_prefill=args.seq_mode_prefill)
             rl = rec["roofline"]
-            print(f"  ok: trace={rec['lower_s']}s "
+            print(f"  ok: seq_mode={rec['seq_mode']} "
+                  f"layout={rec['seq_layout']} trace={rec['lower_s']}s "
                   f"args/dev={rec['memory']['argument_bytes']/2**30:.2f}GiB "
                   f"compute={rl['compute_s']*1e3:.2f}ms "
                   f"memory={rl['memory_s']*1e3:.2f}ms "

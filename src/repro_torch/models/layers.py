@@ -26,7 +26,14 @@ by ``distributed.state.shard_model``), attention and the SwiGLU run
 tensor-parallel over "model" where the heads and d_ff divide (column-
 parallel wq / wk / wv / w1 / w3, row-parallel wo / w2 and one all-reduce),
 anything else gathers its weights and computes replicated over "model";
-every collective goes through ``distributed.collectives``.
+every collective goes through ``distributed.collectives``.  Under
+``activation_sharding(..., seq_mode=True)`` (context-parallel prefill and
+training) a forward whose positions divide "model" splits the sequence
+instead: each block gathers its weights whole, attention keeps the
+rank's queries and gathers the keys and values (``_attend_seq_split``:
+the flash kernel at the rank's query offset), and the blocks whose result
+depends on the whole sequence (the MoE capacity dispatch, the SSM
+mixers) gather it and keep the rank's chunk.
 
 Dtypes follow the reference: activations in the config's dtype
 (``dtype_of``: bf16 for "bfloat16", else f32), weights cast to it at use
@@ -56,7 +63,6 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import not_in_slice
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import SPEC_ATTR, entry_axes, mesh_shape
 
@@ -68,25 +74,61 @@ _NEG_INF = -1.0e30
 # through every call.  The reference pins GSPMD layouts with it; the port's
 # blocks read it to run their rank's share (the mesh section below).
 _ACT = {"mesh": None, "batch_axes": (), "seq_mode": False,
-        "batch_sharded": False, "decode": None}
+        "batch_sharded": False, "decode": None, "seq_layout": None}
 
 
 @contextmanager
 def activation_sharding(mesh, batch_axes=("data",), seq_mode: bool = False):
     """Run the model's blocks as SPMD programs on ``mesh`` (a
-    ``DeviceMesh``), the batch over ``batch_axes``.  seq_mode=True
-    (context-parallel prefill: the sequence over 'model') is not ported:
-    the flash kernel places queries at padded skv - padded sq, so a
-    sequence shard's queries need a kernel offset that does not exist
-    yet."""
-    if seq_mode:
-        raise not_in_slice("activation_sharding(seq_mode=True)", 14)
+    ``DeviceMesh``), the batch over ``batch_axes``.
+
+    seq_mode=True: context parallelism for prefill and training, the
+    reference's -- activations split the *sequence* over "model" instead
+    of heads or d_ff, weights are gathered a layer at a time (FSDP-style)
+    and the queries stay sequence-split while keys and values are
+    gathered.  For prefill cells whose head counts do not divide the
+    tensor-parallel axis (qwen2.5's 40 heads on TP16).  Each forward
+    records the layout it took in ``_ACT["seq_layout"]``
+    (``seq_layout``): "split" when its token count (a frontend prefix
+    included) divides the "model" extent (> 1), else "replicated" (every
+    block computes the whole sequence on gathered weights, as the
+    reference's ``constrain`` skips an axis that does not divide).  A
+    decode step with a cache runs as it does without seq_mode."""
     old = dict(_ACT)
-    _ACT.update(mesh=mesh, batch_axes=tuple(batch_axes), seq_mode=False)
+    _ACT.update(mesh=mesh, batch_axes=tuple(batch_axes),
+                seq_mode=bool(seq_mode), seq_layout=None)
     try:
         yield
     finally:
         _ACT.update(old)
+
+
+def seq_layout(n_tokens: int) -> Optional[str]:
+    """The layout a forward of ``n_tokens`` positions takes under the
+    active context: None without seq_mode, "split" when "model" (> 1
+    ranks) divides the positions, else "replicated"."""
+    if not (_mesh_on() and _ACT["seq_mode"]):
+        return None
+    m = model_size()
+    return "split" if m > 1 and n_tokens % m == 0 else "replicated"
+
+
+def seq_split() -> bool:
+    """Whether the running forward splits its sequence over "model"."""
+    return _ACT["seq_layout"] == "split"
+
+
+def seq_whole(x, dim: int = 1):
+    """In a sequence-split forward, the whole sequence from every rank's
+    chunk of ``x`` (an all-gather over "model" whose backward sums the
+    ranks' gradients and keeps the chunk); else ``x``."""
+    return C.gather_partial(x, group(("model",)), dim) if seq_split() else x
+
+
+def seq_own(x, dim: int = 1):
+    """In a sequence-split forward, this rank's chunk of the whole
+    sequence ``x``; else ``x``."""
+    return C.own_chunk(x, group(("model",)), dim) if seq_split() else x
 
 
 def _axes_size(mesh, axes) -> int:
@@ -137,7 +179,11 @@ def full(p, model_partial: bool = False):
     adds its share); over "model" it is the rank's own slice (the compute
     that reads it is replicated over "model"), or with ``model_partial``
     a reduce-scatter (each "model" rank reads another part of it; a
-    weight replicated over "model" then sums its gradient over "model")."""
+    weight replicated over "model" then sums its gradient over "model").
+    In a sequence-split forward every "model" rank reads its own chunk:
+    the gather over "model" is a reduce-scatter's adjoint, and a weight
+    replicated over "model" has its gradient summed by
+    ``distributed.state.reduce_grads(model_partial=True)``."""
     spec = _spec(p)
     if spec is None or p is None:
         return p
@@ -147,7 +193,7 @@ def full(p, model_partial: bool = False):
             g = group((a,))
             if a == "model":
                 on_model = True
-                t = (C.gather_partial if model_partial
+                t = (C.gather_partial if model_partial or seq_split()
                      else C.gather_replicated)(t, g, d)
             else:
                 t = C.gather_partial(t, g, d)
@@ -473,7 +519,7 @@ def _attn_plan(p: Attention, cfg: ArchConfig):
     [kv_lo, kv_hi) they read, and whether wk / wv's own shard holds
     exactly those (else they are gathered and sliced)."""
     mg = group(("model",))
-    if mg is None:
+    if mg is None or _ACT["seq_mode"]:
         return None
     m, r = mg.size, mg.index
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -529,7 +575,12 @@ def attention_block(p: Attention, cfg: ArchConfig, x, positions,
     cache: when the cache's kv heads are split over "model") or
     replicated over "model" on gathered weights; a cache whose sequence
     is split (``_ACT["decode"]``) attends over its slice and combines
-    across the slices."""
+    across the slices.  In a sequence-split forward ``x`` is the rank's
+    chunk (``positions`` its global ones): the queries stay the chunk's,
+    the keys and values are gathered over "model"
+    (``_attend_seq_split``)."""
+    if cache is None and seq_split():
+        return _attend_seq_split(module_full(p), cfg, x, positions, impl)
     lay = _ACT["decode"] if cache is not None else None
     plan = None
     if _mesh_on():
@@ -584,6 +635,29 @@ def attention_block(p: Attention, cfg: ArchConfig, x, positions,
     if plan is not None:
         out = C.sum_to_replicas(out, group(("model",)))
     return out, cache
+
+
+def _attend_seq_split(p: Attention, cfg: ArchConfig, x, positions,
+                      impl: str):
+    """Causal attention of the rank's chunk of a sequence split over
+    "model": the chunk's q, k, v on the gathered weights ``p``, k and v
+    all-gathered over "model" (the gather's backward sums the ranks'
+    gradients and keeps the chunk), then attention at the chunk's first
+    global position -- the flash kernel (``flash_at``) or the xla forms
+    at ``q_offset``, chunked from ``CHUNKED_ATTN_THRESHOLD`` global
+    positions on, as the whole sequence would pick.  Returns (out, None)."""
+    mg = group(("model",))
+    q, k, v = _qkv(p, cfg, x, positions)
+    k, v = C.gather_partial(k, mg, 2), C.gather_partial(v, mg, 2)
+    off = mg.index * q.shape[2]
+    if impl == "flash":
+        from repro_torch.kernels.flash_attention.ops import flash_at
+        o = flash_at(q, k, v, off)
+    elif k.shape[2] >= CHUNKED_ATTN_THRESHOLD:
+        o = xla_attention_chunked(q, k, v, causal=True, q_offset=off)
+    else:
+        o = xla_attention(q, k, v, causal=True, q_offset=off)
+    return _merge_heads(o) @ p.wo.to(x.dtype), None
 
 
 def _xla_decode_seq_sharded(q, ck, cv, cache_pos: int, kv_valid: int,
@@ -734,9 +808,11 @@ def silu(x):
 def swiglu(p: MLP, x):
     """silu(x w1) * (x w3) @ w2.  Under a mesh: tensor-parallel over
     "model" when d_ff divides it (w1 / w3 column-parallel, w2
-    row-parallel, one all-reduce), else replicated on gathered weights."""
+    row-parallel, one all-reduce), else replicated on gathered weights;
+    under seq_mode always on gathered weights (the rank's rows of a
+    sequence-split forward)."""
     mg = group(("model",))
-    if mg is not None and model_sharded(p.w1, 1) \
+    if mg is not None and not _ACT["seq_mode"] and model_sharded(p.w1, 1) \
             and model_sharded(p.w3, 1) and model_sharded(p.w2, 0):
         xin = C.copy_to_partials(x, mg)
         h = silu(xin @ local(p.w1, 1).to(x.dtype)) \
@@ -793,14 +869,22 @@ def moe_block(p: MoE, cfg: ArchConfig, x, capacity_factor: float = 1.25):
     under a mesh whose "model" axis divides the experts while the batch
     is split over the batch axes, else the grouped capacity dispatch
     (``_moe_block_gspmd``; replicated over "model" on gathered weights
-    under a mesh).  Returns (out (b, s, d), aux)."""
+    under a mesh).  The capacity and the drop order are functions of the
+    whole sequence, so a sequence-split forward gathers it over "model",
+    dispatches and keeps its chunk; the aux loss, computed whole on every
+    rank, then counts once (``grad_share``).  Returns (out (b, s, d),
+    aux)."""
     mesh = _ACT["mesh"]
     if (mesh is not None and "model" in mesh_shape(mesh)
             and cfg.num_experts % mesh_shape(mesh)["model"] == 0
             and not _ACT["seq_mode"] and _ACT["batch_sharded"]):
         return _moe_block_shardmap(p, cfg, x, mesh, _ACT["batch_axes"],
                                    capacity_factor)
-    return _moe_block_gspmd(module_full(p), cfg, x, capacity_factor)
+    y, aux = _moe_block_gspmd(module_full(p), cfg, seq_whole(x),
+                              capacity_factor)
+    if seq_split():
+        y, aux = seq_own(y), C.grad_share(aux, group(("model",)))
+    return y, aux
 
 
 def _moe_block_shardmap(p: MoE, cfg: ArchConfig, x, mesh, baxes,
@@ -894,13 +978,22 @@ def _moe_block_gspmd(p: MoE, cfg: ArchConfig, x,
     yb = torch.einsum("becf,efd->becd", h, p.w2.to(x.dtype))
     y = yb[grp, eid, slot_c] * (keep.to(x.dtype) * gate)[..., None]
     y = y.reshape(b, s, k, d).sum(2)
-    return y, _load_balance_loss(logits, idx, e)
+    # a decode step drops the aux: no reduction for it
+    bg = group(_ACT["batch_axes"]) \
+        if _ACT["batch_sharded"] and _ACT["decode"] is None else None
+    return y, _load_balance_loss(logits, idx, e, bg)
 
 
-def _load_balance_loss(logits, idx, e):
-    """Switch-style aux loss: e * sum_i f_i * p_i."""
+def _load_balance_loss(logits, idx, e, bg=None):
+    """Switch-style aux loss: e * sum_i f_i * p_i.  With ``bg`` (the batch
+    axes' group of a batch split over them) the fractions are the global
+    batch's, their means taken over ``bg`` before the product, as
+    ``_moe_block_shardmap`` takes them."""
     probs = torch.softmax(logits, dim=-1)
     frac_tokens = torch.mean(_one_hot(idx[..., 0], e, torch.float32),
                              dim=(0, 1))
     frac_probs = torch.mean(probs, dim=(0, 1)).float()
+    if bg is not None:
+        both = C.psum(torch.stack([frac_tokens, frac_probs]), bg) / bg.size
+        frac_tokens, frac_probs = both[0].detach(), both[1]
     return e * torch.sum(frac_tokens * frac_probs)

@@ -102,15 +102,18 @@ class RwkvLayer(nn.Module):
     def forward(self, cfg: ArchConfig, x, seq_mixer: str = "chunked",
                 state=None, shift_state=None):
         """Returns (x, state, shift_state); the chunked form (any
-        ``seq_mixer`` but "chunked" runs the scan) returns no states."""
-        inner = L.rmsnorm(x, self.ln1, cfg.norm_eps)
+        ``seq_mixer`` but "chunked" runs the scan) returns no states.  The
+        mixer is sequential over the sequence and its chunks start at
+        position 0, so a sequence-split forward runs it on the whole
+        sequence (``layers.seq_whole``) and keeps its chunk."""
+        inner = L.seq_whole(L.rmsnorm(x, self.ln1, cfg.norm_eps))
         mix = L.module_full(self.mix)
         if seq_mixer == "chunked" and state is None:
             h, state, shift = S.rwkv6_chunked(mix, cfg, inner), None, None
         else:
             h, state, shift = S.rwkv6_scan(mix, cfg, inner, state=state,
                                            shift_state=shift_state)
-        x = x + h
+        x = x + L.seq_own(h)
         x = x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
         return x, state, shift
 
@@ -130,14 +133,16 @@ class MambaLayer(nn.Module):
 
     def forward(self, cfg: ArchConfig, x, seq_mixer: str = "chunked",
                 state=None):
-        """Returns (x, state); the chunked form returns no state."""
-        inner = L.rmsnorm(x, self.ln1, cfg.norm_eps)
+        """Returns (x, state); the chunked form returns no state.  A
+        sequence-split forward runs the mixer on the whole sequence and
+        keeps its chunk, as ``RwkvLayer``."""
+        inner = L.seq_whole(L.rmsnorm(x, self.ln1, cfg.norm_eps))
         mix = L.module_full(self.mix)
         if seq_mixer == "chunked" and state is None:
             h, state = S.mamba2_chunked(mix, cfg, inner), None
         else:
             h, state = S.mamba2_scan(mix, cfg, inner, state=state)
-        x = x + h
+        x = x + L.seq_own(h)
         if hasattr(self, "mlp"):
             x = x + L.swiglu(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps))
         return x, state
@@ -364,12 +369,52 @@ def _embed(model: Transformer, tok):
         return emb[tok]
     mg = L.group(("model",))
     if spec[0] == "model":
-        v_l = emb.shape[0]
-        t = tok - mg.index * v_l
-        ok = (t >= 0) & (t < v_l)
-        e = emb[torch.clamp(t, 0, v_l - 1)] * ok[..., None].to(emb.dtype)
-        return C.sum_to_replicas(e, mg)
-    return C.gather_replicated(emb[tok], mg, -1)
+        return C.sum_to_replicas(_own_rows(emb, tok, mg), mg)
+    gather = C.gather_partial if L.seq_split() else C.gather_replicated
+    return gather(emb[tok], mg, -1)
+
+
+def _own_rows(emb, tok, mg):
+    """Rows ``tok`` of a vocab-split table's shard: the rows it holds,
+    zeros for the others."""
+    v_l = emb.shape[0]
+    t = tok - mg.index * v_l
+    ok = (t >= 0) & (t < v_l)
+    return emb[torch.clamp(t, 0, v_l - 1)] * ok[..., None].to(emb.dtype)
+
+
+def _n_prefix(cfg: ArchConfig, batch) -> int:
+    """Positions of the frontend prefix ``_embed_inputs`` puts before the
+    tokens."""
+    if cfg.frontend != "none" and "frontend" in batch:
+        return int(batch["frontend"].shape[1])
+    return 0
+
+
+def _embed_split(model: Transformer, cfg: ArchConfig, batch):
+    """The rank's chunk (b, s / m, d) of ``_embed_inputs``' sequence (the
+    frontend prefix and the tokens) in a sequence-split forward.  Every
+    rank embeds the whole sequence as its part of a sum -- its own rows
+    of a vocab-split table, zeros for the rest; or, from a table split
+    over d_model or not at all, everything on the first "model" rank and
+    zeros on the others, as the prefix -- and one reduce-scatter over
+    "model" adds the parts and cuts the chunks (``sum_scatter``: its
+    backward all-gathers the chunks' gradients, so each rank's table rows
+    take every position's)."""
+    dtype = L.dtype_of(cfg)
+    mg = L.group(("model",))
+    tok = _tokens(model, batch["tokens"])
+    first = float(mg.index == 0)
+    spec = L._spec(model.embed)
+    if spec is not None and spec[0] == "model":
+        e = _own_rows(model.embed, tok, mg)
+    else:
+        e = _embed(model, tok) * first
+    parts = [e.to(dtype)]
+    if _n_prefix(cfg, batch):
+        fe = torch.as_tensor(batch["frontend"]).to(e.device, dtype)
+        parts.insert(0, fe * first)
+    return C.sum_scatter(torch.cat(parts, dim=1), mg, 1)
 
 
 def _embed_inputs(model: Transformer, cfg: ArchConfig,
@@ -462,7 +507,9 @@ def forward(model: Transformer, cfg: ArchConfig, batch, *,
     (``_dots_policy``), any other value recomputes the whole layer.  Under
     ``torch.no_grad`` / ``inference_mode`` there is nothing to recompute and
     the layers run as they are.  Under a mesh: the rank's rows (module
-    docstring)."""
+    docstring); under ``layers.activation_sharding(seq_mode=True)`` the
+    same logits from a forward whose sequence is split over "model"
+    (``forward_hidden``)."""
     x, aux = forward_hidden(model, cfg, batch, impl=impl, remat=remat,
                             seq_mixer=seq_mixer, remat_policy=remat_policy)
     with L.f32_accumulation():
@@ -473,10 +520,29 @@ def forward_hidden(model: Transformer, cfg: ArchConfig, batch, *,
                    impl: str = "xla", remat: bool = True,
                    seq_mixer: str = "chunked",
                    remat_policy: Optional[str] = "none"):
-    """``forward`` up to the final norm: (x (b, s_tok, d), aux)."""
+    """``forward`` up to the final norm: (x (b, s_tok, d), aux).
+
+    Under ``layers.activation_sharding(seq_mode=True)`` it records the
+    layout it takes (``layers.seq_layout``) in ``layers._ACT
+    ["seq_layout"]``.  Split: rank r of "model" embeds and runs global
+    positions [r s_l, (r + 1) s_l) of the sequence (the frontend prefix
+    included) through every layer -- attention over the gathered keys at
+    its query offset, the SSM mixers and the MoE dispatch on the gathered
+    sequence -- and the final hidden states are gathered whole, so the
+    head, the loss and the logits are those of the unsplit forward;
+    every rank's backward carries its chunk's share
+    (``distributed.collectives``)."""
     batch = _local_batch(batch)
-    x, n_prefix = _embed_inputs(model, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    n_prefix = _n_prefix(cfg, batch)
+    L._ACT["seq_layout"] = L.seq_layout(
+        n_prefix + int(torch.as_tensor(batch["tokens"]).shape[1]))
+    if L.seq_split():
+        x = _embed_split(model, cfg, batch)
+        r = L.group(("model",)).index
+        positions = r * x.shape[1] + torch.arange(x.shape[1], device=x.device)
+    else:
+        x, n_prefix = _embed_inputs(model, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
     checkpointed = bool(remat) and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     with L.f32_accumulation():
@@ -488,7 +554,7 @@ def forward_hidden(model: Transformer, cfg: ArchConfig, batch, *,
                                memory)
             x, a = _remat(body, x, remat_policy) if checkpointed else body(x)
             aux = aux + a
-        x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+        x = L.seq_whole(L.rmsnorm(x, model.final_norm, cfg.norm_eps))
         if n_prefix:
             x = x[:, n_prefix:]
         return x, aux
@@ -499,22 +565,29 @@ def _head(model: Transformer, cfg: ArchConfig, x):
     lo + V_l) this rank holds (all of them without a vocab-split head),
     padded columns masked to -1e30.  A head split over d_model (a tied
     embedding whose vocab does not divide) adds its partial products by
-    one all-reduce over "model"."""
+    one all-reduce over "model".  After a sequence-split forward ``x`` is
+    already the gathered sequence, whose gather sums the ranks' gradients:
+    no further sum, and a head that is not split over "model" shares its
+    gradient out (``grad_share``)."""
     tied = model.lm_head is None
     w = model.embed if tied else model.lm_head
     head = w.T if tied else w                      # (d, V)
     spec = L._spec(w)
     spec = spec[::-1] if (spec is not None and tied) else spec
     mg = L.group(("model",))
+    split = L.seq_split()
+    xin = x if split else C.copy_to_partials(x, mg)
     lo = 0
     if spec is not None and spec[1] == "model":
-        logits = C.copy_to_partials(x, mg).float() @ head.float()
+        logits = xin.float() @ head.float()
         lo = mg.index * head.shape[1]
     elif spec is not None and spec[0] == "model":
-        xin = C.own_chunk(C.copy_to_partials(x, mg), mg, -1)
-        logits = C.sum_to_replicas(xin.float() @ head.float(), mg)
+        logits = C.sum_to_replicas(
+            C.own_chunk(xin, mg, -1).float() @ head.float(), mg)
     else:
         logits = x.float() @ head.float()
+        if split:
+            logits = C.grad_share(logits, mg)
     if cfg.padded_vocab != cfg.vocab_size:
         cols = lo + torch.arange(logits.shape[-1], device=x.device)
         logits = torch.where((cols < cfg.vocab_size)[None, None, :], logits,
@@ -659,9 +732,11 @@ def decode_step(model: Transformer, cfg: ArchConfig, tokens, cache, pos, *,
     step's; the returned cache is the same dict.  The hybrid applies its
     shared block before each segment of k Mamba2 layers (ROADMAP.md
     section 3).  Under a mesh ``tokens`` is the global batch and the
-    logits are the rows of the rank's cache slice."""
+    logits are the rows of the rank's cache slice.  Under seq_mode a
+    decode step runs as it does without it."""
     old = dict(L._ACT)
     try:
+        L._ACT.update(seq_mode=False, seq_layout=None)
         rows = _decode_layout(cache)
         return _decode_step(model, cfg, rows(tokens), cache, pos, impl,
                             kde_cfg)

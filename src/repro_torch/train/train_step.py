@@ -18,7 +18,11 @@ batch shard's mean over the number of batch shards): the weights'
 gathers sum their gradients back into the shards by reduce-scatter,
 ``distributed.state.reduce_grads`` sums the rest over "data" and the
 replicas over "pod", the global norm is one all-reduce, and AdamW updates
-the shards.  The metrics are the global batch's.
+the shards.  The metrics are the global batch's.  Under
+``activation_sharding(seq_mode=True)`` the forward splits the sequence
+over "model" (``transformer.forward_hidden``): each rank's backward then
+carries its chunk's share, and ``reduce_grads`` also sums the gradients
+of the parameters replicated over "model".
 
 The prefill and decode steps run under ``torch.inference_mode``: no
 autograd graph, as the reference's jitted steps keep none.  They run the
@@ -140,7 +144,8 @@ def step_grads(model, cfg: ArchConfig, batch, *, impl: str = "xla",
         else:
             grads, loss, aux = grads_of(batch)
         if L._mesh_on():
-            D.reduce_grads(model, grads, L._ACT["mesh"])
+            D.reduce_grads(model, grads, L._ACT["mesh"],
+                           model_partial=L.seq_split())
     return grads, loss, aux
 
 

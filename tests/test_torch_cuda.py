@@ -934,6 +934,49 @@ def test_flash_kernel_matches_plain_at_the_prefill_shape(cuda):
     torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
 
 
+#: (b, hq, hkv, sq, shards, dh) of ``flash_at``: a sequence of shards x sq
+#: positions, each shard's queries at its offset -- a ragged shard of 777
+#: rows (lm-mesh's qwen2.5 heads) and a small one of 100 at two rows
+FLASH_AT_SHAPES = [(1, 8, 2, 777, 4, 128), (2, 4, 4, 100, 4, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_AT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_matches_plain_at_shard_offsets(cuda, shape, dtype):
+    """``flash_at`` at every shard's offset (one kernel launch each) vs the
+    same call on the CPU tensors (the plain version): f32 out at rtol 2e-4
+    / atol 1e-5, a bf16 out within one bf16 step; the f32 gradients of a
+    weighted sum of out (the plain version's VJP at the offset, on the
+    card) at rtol 1e-4 / atol 1e-5 of the CPU's."""
+    b, hq, hkv, sq, shards, dh = shape
+    skv = sq * shards
+    gen = torch.Generator(device=cuda).manual_seed(sq)
+    q = _randn(gen, (b, hq, skv, dh), cuda, dtype)
+    k = _randn(gen, (b, hkv, skv, dh), cuda, dtype)
+    v = _randn(gen, (b, skv, hkv, dh), cuda, dtype).transpose(1, 2)
+    w = _randn(gen, (b, hq, sq, dh), cuda)
+    for r in range(shards):
+        qs = q[:, :, r * sq:(r + 1) * sq]
+        fk.reset_launches()
+        out = fops.flash_at(qs, k, v, r * sq)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["flash_attention"] == 1
+        want = fops.flash_at(qs.cpu(), k.cpu(), v.cpu(), r * sq)
+        if dtype == torch.bfloat16:
+            assert_bf16_close(out.cpu(), want, ATOL, f"flash_at shard {r}")
+            continue
+        torch.testing.assert_close(out.cpu(), want, rtol=RTOL, atol=ATOL)
+        qkv = [t.detach().clone().requires_grad_() for t in (qs, k, v)]
+        got = torch.autograd.grad((fops.flash_at(*qkv, r * sq) * w).sum(),
+                                  qkv)
+        qkv = [t.detach().cpu().requires_grad_() for t in (qs, k, v)]
+        exp = torch.autograd.grad((fops.flash_at(*qkv, r * sq)
+                                   * w.cpu()).sum(), qkv)
+        for g, e in zip(got, exp):
+            torch.testing.assert_close(g.cpu(), e, rtol=1e-4, atol=1e-5)
+
+
 #: (sq, skv, kv_valid, offset, causal): sq and skv off multiples of 16,
 #: 64 and 128, kv_valid inside a key tile, rows with no valid key, and a
 #: non-causal call

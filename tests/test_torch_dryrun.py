@@ -140,15 +140,27 @@ def test_small_mesh_dryrun_train_and_decode(arch, fake8):
             cfg, jbase.ShapeConfig("p", 64, 8, "prefill"), fake8)
 
 
-def test_dryrun_refuses_context_parallel_prefill(fake8):
-    """``--seq-mode-prefill`` (context-parallel prefill) is not ported:
-    queue 1 item 14."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        dryrun.lower_cell("yi_6b", "prefill_32k", False,
-                          seq_mode_prefill=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        dryrun.main(["--arch", "yi_6b", "--shape", "prefill_32k",
-                     "--seq-mode-prefill"])
+def test_dryrun_refuses_context_parallel_prefill(fake8, tmp_path, capsys,
+                                                monkeypatch):
+    """``--seq-mode-prefill`` (context-parallel prefill, queue 1 item 14)
+    is ported and no longer refuses: through ``main`` a prefill cell of
+    granite-moe-1b-a400m (256 tokens, batch 32, on the 16 x 16 fake group)
+    runs with the sequence split over "model" and records ``seq_mode``;
+    ``lower_cell`` applies seq mode to prefill shapes only, as the
+    reference's does (a decode cell records False)."""
+    monkeypatch.setitem(dryrun.SHAPES, "p256",
+                        tbase.ShapeConfig("p256", 256, 32, "prefill"))
+    out = tmp_path / "dryrun.json"
+    dryrun.main(["--arch", "granite_moe_1b_a400m", "--shape", "p256",
+                 "--seq-mode-prefill", "--out", str(out)])
+    assert "1/1 cells ok" in capsys.readouterr().out
+    rec = json.loads(out.read_text())[0]
+    assert rec["ok"] and rec["seq_mode"] and rec["seq_layout"] == "split"
+    by = rec["collectives"]["bytes_by_kind"]
+    assert by["reduce-scatter"] > 0 and by["all-gather"] > 0
+    rec = dryrun.lower_cell("granite_moe_1b_a400m", "decode_32k", False,
+                            seq_mode_prefill=True)
+    assert rec["ok"] and not rec["seq_mode"] and rec["seq_layout"] is None
 
 
 def test_production_decode_cell_and_report(fake8, tmp_path, capsys):

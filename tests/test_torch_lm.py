@@ -251,8 +251,10 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_out_of_slice_options_raise():
-    """A CUDA default without a card raises, and what the LM path still
-    lacks refuses: context-parallel prefill (queue 1 item 14).  The mesh
+    """A CUDA default without a card raises.  Context-parallel prefill
+    (queue 1 item 14) no longer refuses: ``activation_sharding(seq_mode=
+    True)`` enters, sets the context and restores it on exit (it runs in
+    ``tests/test_torch_cp.py``).  The mesh
     options the sharded-state slice ported take their own errors now
     (they run in ``tests/test_torch_lm_mesh*.py``): a ``--data 2`` run
     started without torchrun, ``compressed_psum`` with no mesh, and a
@@ -272,9 +274,12 @@ def test_out_of_slice_options_raise():
         ckpt.restore("/nonexistent", None, 1, {})
     with pytest.raises(ValueError, match="needs a mesh"):
         topt.compressed_psum({}, {}, "data")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        with TLy.activation_sharding(None, ("data",), seq_mode=True):
-            pass
+    before = dict(TLy._ACT)
+    with TLy.activation_sharding(None, ("data",), seq_mode=True):
+        assert TLy._ACT["seq_mode"] is True
+        assert TLy._ACT["batch_axes"] == ("data",)
+        assert TLy.seq_layout(32) is None     # no mesh: nothing splits
+    assert TLy._ACT == before
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TT.init_params(f32)

@@ -642,3 +642,106 @@ def lm_state(rank, world, pl):
         ttrain.main(base + ["--data", "4", "--model", "1", "--steps", "4"])
     res["log"] = logs.getvalue()
     return res
+
+
+# --------------------------------------------------------------------- #
+# context-parallel prefill (tests/test_torch_cp.py)
+# --------------------------------------------------------------------- #
+def _cp_forward(cfg, model, mesh, batch, impl, seq_mode=True):
+    """Rank's ``forward`` under ``activation_sharding(seq_mode=)`` on
+    ``mesh``: the whole batch's logits (gathered over "data" when it split
+    the rows), aux, the layout taken and the collectives by kind."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    out = {}
+    with L.activation_sharding(mesh, SH.batch_axes(mesh), seq_mode=seq_mode), \
+            torch.inference_mode():
+        cc = C.collective_counts(lambda: out.setdefault(
+            "o", T.forward(model, cfg, batch, impl=impl)))
+        logits, aux = out["o"]
+        if L._ACT["batch_sharded"]:
+            logits = C.all_gather(logits, C.mesh_group(mesh, ("data",)), 0)
+        layout = L._ACT["seq_layout"]
+    return dict(logits=_np(logits), aux=float(aux), layout=layout, cc=cc)
+
+
+def lm_cp(rank, world, pl):
+    """Eight ranks: (a) seq-mode forwards on (2, 4) ("data", "model") and
+    (1, 8) meshes, every case of ``pl["fwd"]`` (split and replicated
+    layouts); (b) seq-mode gradients and train-step metrics; (c) decode
+    steps under seq mode and without it."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import state as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step, step_grads
+    meshes = {"2x4": make_debug_mesh(2, 4, device_type="cpu"),
+              "1x8": make_debug_mesh(1, 8, device_type="cpu")}
+    res = {"fwd": {}, "grads": {}}
+    for name, (arch, mesh, seq, impls) in pl["fwd"].items():
+        cfg, model = _lm_model(arch, pl["trees"][arch], meshes[mesh])
+        batch = pl["batches"][(arch, seq)]
+        for impl in impls:
+            res["fwd"][(name, impl)] = _cp_forward(cfg, model, meshes[mesh],
+                                                   batch, impl)
+    m24 = meshes["2x4"]
+    for arch, seq in pl["grads"]:
+        cfg, model = _lm_model(arch, pl["trees"][arch], m24)
+        batch = pl["batches"][(arch, seq)]
+        with L.activation_sharding(m24, SH.batch_axes(m24), seq_mode=True):
+            cc = {}
+            counts = C.collective_counts(lambda: cc.setdefault(
+                "g", step_grads(model, cfg, batch, impl="flash")))
+            grads, loss, aux = cc["g"]
+            layout = L._ACT["seq_layout"]
+            whole = _whole(model, grads)
+            ost = opt.init_adamw(model)
+            _, _, met = make_train_step(
+                cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1),
+                impl="flash")(model, ost, batch)
+        res["grads"][arch] = dict(
+            grads=whole if rank == 0 else None, layout=layout, cc=counts,
+            metrics={k: float(v) for k, v in met.items()})
+    # decode steps: under seq mode exactly as without it
+    cfg, model = _lm_model("yi_6b", pl["trees"]["yi_6b"], m24)
+    toks = pl["dec_tok"]
+    for seq_mode in (False, True):
+        with L.activation_sharding(m24, ("data",), seq_mode=seq_mode), \
+                torch.inference_mode():
+            cache = T.init_cache(cfg, toks.shape[0], pl["dec_len"],
+                                 torch.float32, device="cpu")
+            outs = []
+            for t in range(toks.shape[1]):
+                logits, cache = T.decode_step(model, cfg, toks[:, t:t + 1],
+                                              cache, t)
+                outs.append(_np(logits))
+            res[f"dec_{seq_mode}"] = (np.stack(outs), L._ACT["seq_mode"],
+                                      L._ACT["seq_layout"])
+    return res
+
+
+def lm_cp_odd(rank, world, pl):
+    """A (1, world) mesh whose "model" extent divides neither the padded
+    vocab nor the heads: ``pl["cfg"]``'s embedding splits over d_model
+    and its head not at all.  The seq-mode forward's logits, layout and
+    the parameters' specs, and the seq-mode gradients (whole)."""
+    from repro_torch.distributed import state as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import step_grads
+    cfg = pl["cfg"]
+    mesh = make_debug_mesh(1, world, device_type="cpu")
+    model = D.shard_model(T.init_params(cfg, 0, device="cpu"), mesh)
+    res = _cp_forward(cfg, model, mesh, pl["batch"], "xla")
+    res["specs"] = {n: D.spec_of(p) for n, p in model.named_parameters()
+                    if n in ("embed", "lm_head")}
+    with L.activation_sharding(mesh, ("data",), seq_mode=True):
+        grads, _, _ = step_grads(model, cfg, pl["batch"], impl="flash")
+        res["grads"] = _whole(model, grads)
+    return res

@@ -5,7 +5,8 @@
 Phase 19 puts its 4 ranks on one card in a gloo group (NCCL refuses two
 ranks on one device), so every collective is staged through the host and
 its walls are correctness numbers.  This runs the same phase -- the same
-checks (a)-(e) against the unsharded port on rank 0's card, the same
+checks (a)-(g) against the unsharded port on rank 0's card (the
+context-parallel prefill (f) and train step (g) included), the same
 printed lines (their "gloo" wording is the phase's) -- with rank r on
 cuda:r and the group on NCCL, where the collectives move over NVLink.
 Needs as many cards as ``chip_smoke.MESH_P`` (4).  Exits 0 when every
