@@ -36,7 +36,11 @@ Phases (any failure exits non-zero; no phase catches and continues):
                the wide-tile ragged shapes (d = 8, 32), the deep tile's
                (d = 36, 784) and views off 16 bytes (the generic tile of
                every kernel; for the kde_hash kernels, x) join the ragged
-               checks, each printing the rowsum / blocksum tile it took.
+               checks, each printing the rowsum / blocksum tile it took,
+               and so do the paper phase's widths (d = 2 and 3: the
+               generic tile; d = 200: the deep one) and a rings-like
+               input (coordinates near 100, where the L2 expansion
+               cancels in f32) in every kind.
                ``host_us`` of the sample-block and weighted-kv wrappers,
                and the weighted-kv kernel's achieved rate of gathered
                bytes, are printed.  The rowsum kernel is also checked and
@@ -469,12 +473,33 @@ Phases (any failure exits non-zero; no phase catches and continues):
                norm against the unsharded step.  Flash is held to its
                plain version at each rank's shapes first; the launches
                are ``lm_mesh_launches``.
-20. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
+20. paper   -- the paper's Section 7 experiments through the public
+               entry points (``phase_paper``).  (a) Figure 4: nested (n =
+               5000, gaussian at bandwidth 0.3, 2.5% of the n (n - 1) / 2
+               edges) and rings (n = 2500, 0.25 x the median bandwidth,
+               3.3%), ``spectral_sparsify(estimator="exact",
+               exact_blocks=True, seed=0)``: num_edges, kernel_evals and
+               kde_queries equal the reference's (``PAPER_REF``, from
+               ``tools/paper_reference.py``), the cluster accuracy at most
+               0.03 below the reference's, the size reduction, the
+               sparsifier's wall and ``laplacian_eigenvectors``' against
+               the same subspace iteration on the dense K on the card.
+               (b) Figure 3: mnist_like and glove_like at n = 2500,
+               laplacian at the median L1 bandwidth, ranks 5 / 10 / 20 /
+               40, ``fkv_lowrank(estimator="rs", num_rows=25 r)``:
+               kernel_evals the reference's, the relative Frobenius error
+               within 1.5x a 10-step subspace iteration's (the countsketch
+               sketch's printed beside it), the evaluation reduction.  (c)
+               Each kernel's first call on each path held to its plain
+               version on the path's own inputs; the launches are
+               ``paper_launches``.
+21. report  -- a ``{"kernels": [...]}`` line (each row with its launches on
                the graph phase's paths, ``graph_launches``, on the
                streaming and estimator paths, ``stream_launches``, on the
                serve paths, ``serve_launches``, on the mesh paths (per
                rank), ``mesh_launches``, on the lm-mesh paths,
-               ``lm_mesh_launches``, the two flash rows on
+               ``lm_mesh_launches``, on the paper's, ``paper_launches``,
+               the two flash rows on
                the training paths, ``train_launches``, and the f32 flash
                and kde_decode rows on the family phase's, by arch,
                ``family_launches``, with their device ms at each family's
@@ -540,7 +565,9 @@ call and each run of train steps (``train_launches``); phase 17 around
 each family's flash prefill and kde serve run (``family_launches``);
 every rank of phase 18 around each of its paths (``mesh_launches``);
 phase 19 around its train steps, the single-device decode, (f)'s
-timed prefills and (g)'s train step (``lm_mesh_launches``).
+timed prefills and (g)'s train step (``lm_mesh_launches``); phase 20
+around each sparsifier and each ``fkv_lowrank`` call
+(``paper_launches``).
 
 ``bound_ms`` is the least time the card could take for a kernel's work at
 its main-path shape: the larger of (bytes of every input read once and
@@ -995,7 +1022,14 @@ def phase_kernels(data, gen):
                           ("exponential", 8, False),
                           ("rational_quadratic", 32, False),
                           ("gaussian", 36, False), ("laplacian", 36, False),
-                          ("gaussian", 16, True), ("laplacian", 784, True)]:
+                          ("gaussian", 16, True), ("laplacian", 784, True),
+                          # the paper phase's widths: nested (2) and rings
+                          # (3) on the generic tile, glove_like (200) on
+                          # rowsum's and blocksum's deep one
+                          ("gaussian", 2, False), ("laplacian", 2, False),
+                          ("gaussian", 3, False), ("exponential", 3, False),
+                          ("gaussian", 200, False),
+                          ("laplacian", 200, False)]:
         m, n, bn = 37, 301, 70
         q = torch.randn(m, d, generator=gen, device=dev) * 0.3
         x = torch.randn(n, d, generator=gen, device=dev) * 0.3
@@ -1009,6 +1043,25 @@ def phase_kernels(data, gen):
         check_all(q, x, own, g, kind, inv_bw, 0.7, bn, tag)
         log(f"[kernels] {tag} m={m} n={n} bn={bn}: ok (rowsum / blocksum "
             f"tile {rk._cached_plan(q, x, kind, inv_bw, 0.7, bn)[0].instance})")
+
+    # a rings-like input (coordinates near 100, tori of radius 5): the L2
+    # expansion |q|^2 + |x|^2 - 2 q.x cancels in f32, in the kernels and
+    # in their plain versions alike; every kind at phase 2's tolerances
+    from repro_torch.core.kernels_fn import median_bandwidth
+    from repro_torch.data.synthetic_points import rings
+    xr = torch.as_tensor(rings(n=301, seed=0)[0], device=dev)
+    qr = torch.as_tensor(rings(n=37, seed=1)[0], device=dev)
+    for kind in ("gaussian", "exponential", "rational_quadratic",
+                 "laplacian"):
+        bw_r = 0.25 * median_bandwidth(xr, ord=1 if kind == "laplacian"
+                                       else 2)
+        own = torch.randint(-1, 5, (37,), generator=gen, device=dev)
+        g = gumbel((37, 5), gen, dev)
+        tag = f"{kind} d=3 rings-like (|x| ~ 100)"
+        check_all(qr, xr, own, g, kind, 1.0 / bw_r, 0.7, 70, tag)
+        tile = rk._cached_plan(qr, xr, kind, 1.0 / bw_r, 0.7, 70)[0]
+        log(f"[kernels] {tag} m=37 n=301 bn=70 bandwidth {bw_r:.4f}: ok "
+            f"(tile {tile.instance})")
 
     rows = []
     # main-path shapes
@@ -6979,6 +7032,204 @@ def phase_lm_mesh():
     return launches, secs, errs
 
 
+# --------------------------------------------------------------------- #
+# phase 20: the paper's Section 7 experiments (Figures 4 and 3)
+# --------------------------------------------------------------------- #
+#: Figure 4 (``bench_sparsify.py`` ``_figure4``, at the generators' default
+#: sizes): (dataset, n, gaussian bandwidth or None for 0.25 x the median
+#: bandwidth, fraction of the n (n - 1) / 2 edges)
+PAPER_FIG4 = (("nested", 5000, 0.3, 0.025), ("rings", 2500, None, 0.033))
+#: Figure 3 (``bench_lra.py`` ``run``): the datasets at n 2500, the ranks
+PAPER_FIG3 = ("mnist_like", "glove_like")
+PAPER_LRA_N = 2500
+PAPER_RANKS = (5, 10, 20, 40)
+PAPER_ACC_SLACK = 0.03      # accuracy at most this far below the reference's
+#: the reference's values for the same calls, from its CPU run
+#: (``tools/paper_reference.py``, JAX 0.9.0): num_edges, kernel_evals and
+#: kde_queries are functions of the static shapes; accuracy is
+#: ``cluster_accuracy(spectral_cluster(g, 2, seed=0).labels, labels, 2)``
+PAPER_REF = {
+    "nested": dict(num_edges=312437, kernel_evals=1613967424,
+                   kde_queries=318344, accuracy=1.0),
+    "rings": dict(num_edges=103083, kernel_evals=270084624,
+                  kde_queries=105924, accuracy=1.0)}
+#: ``fkv_lowrank(estimator="rs", num_rows=25 r)``'s kernel_evals at n 2500
+#: (both datasets; the reference's run gives these)
+PAPER_REF_LRA = {5: 512500, 10: 825000, 20: 1450000, 40: 2700000}
+#: the paper's own figures (abstract and Section 7): size reduction of the
+#: sparsifier, cluster accuracy, the sparse / dense eigenvector speed-up,
+#: the LRA's kernel-evaluation reduction
+PAPER_SAYS = dict(size=41.0, acc={"nested": 0.995, "rings": 1.0}, eig=4.5,
+                  evals=9.0)
+PAPER_KERNELS = ("rowsum", "blocksum", "masked_blocksum", "sample_block")
+PAPER_DEVICE = "cuda"
+
+
+def dense_eig_secs(k, kk: int, iters: int, guard: int = 4) -> float:
+    """Seconds of ``laplacian_eigenvectors``' subspace iteration run on the
+    dense normalized adjacency D^-1/2 (K - I) D^-1/2 on the card in f64
+    (``bench_sparsify._dense_eig_time`` on the host): the dense yardstick
+    of Figure 4's eigenvector speed-up."""
+    import torch
+    n = k.shape[0]
+    d = torch.clamp(k.sum(1) - 1.0, min=1e-12)
+    dm = torch.rsqrt(d)
+    nadj = dm[:, None] * (k - torch.eye(n, dtype=k.dtype, device=k.device)) \
+        * dm[None, :]
+    gen = torch.Generator(device=k.device).manual_seed(0)
+    q = torch.linalg.qr(torch.randn(n, kk + guard, generator=gen,
+                                    device=k.device, dtype=k.dtype)).Q
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        q = torch.linalg.qr(nadj @ q + q).Q
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def paper_figure4(name, n, bw, frac, launches, errs) -> float:
+    """Figure 4 on the card: the exact sparsifier (exact level-1 blocks),
+    spectral clustering and the eigenvector speed-up; returns seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cluster.spectral import (cluster_accuracy,
+                                                   laplacian_eigenvectors,
+                                                   spectral_cluster)
+    from repro_torch.core.kernels_fn import gaussian, median_bandwidth
+    from repro_torch.core.sparsify import spectral_sparsify
+    from repro_torch.data import synthetic_points as data
+    from repro_torch.ft import guards
+    t_phase = time.perf_counter()
+    x_np, lab = getattr(data, name)(n=n, seed=0)
+    x = torch.as_tensor(x_np, device=PAPER_DEVICE)
+    if bw is None:
+        bw = 0.25 * median_bandwidth(x)
+    ker = gaussian(bw)
+    total = n * (n - 1) / 2
+    budget = int(frac * total)
+    wall = {}
+
+    def run():
+        t0 = time.perf_counter()
+        g = spectral_sparsify(x_np, ker, num_edges=budget, estimator="exact",
+                              exact_blocks=True, seed=0, device=PAPER_DEVICE)
+        torch.cuda.synchronize()
+        wall["sparsify"] = time.perf_counter() - t0
+        return g
+
+    (g, taps), counts = kernel_launches(
+        lambda: tapped(run, *kernel_taps(*PAPER_KERNELS)))
+    path = f"fig4 {name}"
+    launches[path] = counts
+    for k in ("blocksum", "sample_block"):
+        assert counts.get(k, 0) > 0, f"{path}: {k} was not launched"
+    ref = PAPER_REF[name]
+    got = dict(num_edges=g.num_edges, kernel_evals=int(g.kernel_evals),
+               kde_queries=int(g.kde_queries))
+    for k, v in got.items():
+        assert v == ref[k], (path, k, v, ref[k])
+    assert budget == ref["num_edges"], (budget, ref["num_edges"])
+    assert not (g.status & guards.FATAL), guards.decode_status(g.status)
+    assert np.all(np.isfinite(g.weight)) and np.all(g.weight > 0)
+    path_kernel_checks(taps, f"{name} sparsifier", errs, phase="paper")
+    acc = cluster_accuracy(spectral_cluster(g, 2, seed=0).labels, lab, 2)
+    assert acc >= ref["accuracy"] - PAPER_ACC_SLACK, (path, acc, ref)
+    t0 = time.perf_counter()
+    laplacian_eigenvectors(g, 2, iters=100, seed=0)
+    t_sparse = time.perf_counter() - t0
+    k = ker.matrix(x).double()
+    t_dense = dense_eig_secs(k, 2, 100)
+    del k
+    log(f"[paper] Figure 4 {name}: n={n} d={x_np.shape[1]} gaussian "
+        f"bandwidth {bw:.6f}, {frac:.1%} of {int(total)} edges = {budget}; "
+        f"num_edges {got['num_edges']}, kernel_evals {got['kernel_evals']}, "
+        f"kde_queries {got['kde_queries']} (the reference's, exactly); "
+        f"spectral_sparsify {wall['sparsify']:.3f} s "
+        f"({budget / wall['sparsify']:.0f} edges/s); launches {counts}")
+    log(f"[paper] Figure 4 {name}: size reduction {total / budget:.1f}x "
+        f"(paper ~{PAPER_SAYS['size']:.0f}x); cluster accuracy {acc:.4f} "
+        f"(reference CPU {ref['accuracy']:.4f}, bound -{PAPER_ACC_SLACK}; "
+        f"paper {PAPER_SAYS['acc'][name]:.1%}); laplacian_eigenvectors "
+        f"(100 iters, host) {t_sparse:.4f} s vs the dense subspace "
+        f"iteration on the card (f64) {t_dense:.4f} s: speed-up "
+        f"{t_dense / t_sparse:.2f}x (paper {PAPER_SAYS['eig']}x, dense on "
+        f"its host)")
+    return time.perf_counter() - t_phase
+
+
+def paper_figure3(name, launches, errs) -> float:
+    """Figure 3 on the card: ``fkv_lowrank(estimator="rs")`` at each rank
+    against the countsketch sketch and a 10-step subspace iteration on the
+    dense K (computed on the card in f64); returns seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kernels_fn import laplacian, median_bandwidth
+    from repro_torch.core.lowrank import (countsketch_lowrank, fkv_lowrank,
+                                          projection_error,
+                                          subspace_iteration)
+    from repro_torch.data import synthetic_points as data
+    from repro_torch.kernels.kde_sampler.ref import l1_dists
+    t_phase = time.perf_counter()
+    n = PAPER_LRA_N
+    x_np = getattr(data, name)(n=n)
+    x = torch.as_tensor(x_np, device=PAPER_DEVICE)
+    bw = median_bandwidth(x, ord=1)
+    ker = laplacian(bw)
+    k = torch.exp(-l1_dists(x, x) / bw).double().cpu().numpy()
+    fro2 = float(np.linalg.norm(k, "fro") ** 2)
+    path = f"fig3 {name}"
+    launches[path] = {}
+    taps_all = {}
+    for r in PAPER_RANKS:
+        t0 = time.perf_counter()
+        (res, taps), counts = kernel_launches(lambda: tapped(
+            lambda: fkv_lowrank(x_np, ker, rank=r, num_rows=25 * r,
+                                estimator="rs", seed=0,
+                                device=PAPER_DEVICE),
+            *kernel_taps(*PAPER_KERNELS)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for key, v in counts.items():
+            launches[path][key] = launches[path].get(key, 0) + v
+        for key, v in taps.items():
+            taps_all.setdefault(key, v)
+        assert counts.get("rowsum", 0) == -(-n // BATCH), (path, r, counts)
+        assert int(res.kernel_evals) == PAPER_REF_LRA[r], \
+            (path, r, res.kernel_evals, PAPER_REF_LRA[r])
+        assert res.u.shape == (r, n) and np.all(np.isfinite(res.u))
+        err = projection_error(k, res.u) / fro2
+        err_is = projection_error(
+            k, countsketch_lowrank(k, r, max(4 * r, 32), seed=0)) / fro2
+        err_svd = projection_error(
+            k, subspace_iteration(k, r, iters=10, seed=0)[1]) / fro2
+        assert err <= LRA_FACTOR * err_svd, (path, r, err, err_svd)
+        log(f"[paper] Figure 3 {name} n={n} d={x_np.shape[1]} laplacian "
+            f"bandwidth {bw:.4f} rank {r}: relative Frobenius error "
+            f"KDE {err:.6e} / countsketch {err_is:.6e} / subspace "
+            f"iteration {err_svd:.6e} (ratio {err / err_svd:.4f}, bound "
+            f"{LRA_FACTOR}x); kernel_evals {res.kernel_evals} (the "
+            f"reference's), reduction n^2 / kernel_evals "
+            f"{n * n / res.kernel_evals:.2f}x (paper ~"
+            f"{PAPER_SAYS['evals']:.0f}x); fkv_lowrank {secs:.3f} s; "
+            f"launches {counts}")
+    path_kernel_checks(taps_all, f"{name} LRA", errs, phase="paper")
+    return time.perf_counter() - t_phase
+
+
+def phase_paper():
+    """Phase 20: Figures 4 and 3 through the public entry points; every
+    kernel launch counted by path (``paper_launches``) and each kernel's
+    first call on a path held to its plain version.  Returns (launches by
+    path, errs by kernel, seconds by part)."""
+    launches, errs, secs = {}, {}, {}
+    for name, n, bw, frac in PAPER_FIG4:
+        secs[f"paper fig4 {name}"] = paper_figure4(name, n, bw, frac,
+                                                   launches, errs)
+    for name in PAPER_FIG3:
+        secs[f"paper fig3 {name}"] = paper_figure3(name, launches, errs)
+    return launches, errs, secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7163,6 +7414,9 @@ def main() -> int:
     free_cuda()
     lmm_launches, lmm_secs, lmm_errs = phase_lm_mesh()
     phases.update(lmm_secs)
+    free_cuda()
+    paper_launches, paper_errs, paper_secs = phase_paper()
+    phases.update(paper_secs)
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -7173,13 +7427,16 @@ def main() -> int:
                                sv_errs.get(r["name"], 0.0),
                                tr_errs.get(r["name"], 0.0),
                                mesh_errs.get(r["name"], 0.0),
-                               lmm_errs.get(r["name"], 0.0))
+                               lmm_errs.get(r["name"], 0.0),
+                               paper_errs.get(r["name"], 0.0))
         if r["name"] in lmm_launches:
             r["lm_mesh_launches"] = lmm_launches[r["name"]]
         r["mesh_launches"] = {path: c[r["name"]] for path, c in
                               mesh_launches.items() if r["name"] in c}
         r["graph_launches"] = {path: c[r["name"]] for path, c in
                                graph_launches.items() if r["name"] in c}
+        r["paper_launches"] = {path: c[r["name"]] for path, c in
+                               paper_launches.items() if r["name"] in c}
         r["stream_launches"] = {path: c[r["name"]] for path, c in
                                 stream_launches.items() if r["name"] in c}
         r["serve_launches"] = {path: c[r["name"]] for path, c in
@@ -7198,7 +7455,8 @@ def main() -> int:
                                   "ctas", "instance", "reduce_share",
                                   "graph_launches", "stream_launches",
                                   "serve_launches", "mesh_launches",
-                                  "lm_mesh_launches", "train_launches",
+                                  "lm_mesh_launches", "paper_launches",
+                                  "train_launches",
                                   "train_shape", "train_ms",
                                   "train_device_ms", "train_bound_ms",
                                   "train_bound_by", "train_library_ms",

@@ -28,8 +28,9 @@ class PrefixCDF:
     """Inverse-CDF sampler over a positive weight array.
 
     Host path: float64 prefix sums + ``np.searchsorted``.  Device path:
-    ``cdf_device`` / ``weights_device`` are float32 tensors on
-    ``device``, rounded from the float64 accumulation and exported once.
+    ``cdf_device`` / ``probs_device`` / ``weights_device`` are float32
+    tensors on ``device``, rounded from the float64 accumulation (never
+    re-accumulated in float32) and exported once.
     """
 
     def __init__(self, weights: np.ndarray, seed: int = 0, device=None):
@@ -40,6 +41,7 @@ class PrefixCDF:
         self._rng = np.random.default_rng(seed)
         self.device = resolve_device(device)
         self._cdf_dev: Optional[torch.Tensor] = None
+        self._probs_dev: Optional[torch.Tensor] = None
         self._weights_dev: Optional[torch.Tensor] = None
 
     def __len__(self) -> int:
@@ -64,6 +66,14 @@ class PrefixCDF:
         if self._cdf_dev is None:
             self._cdf_dev = self._export(self._prefix / self.total)
         return self._cdf_dev
+
+    @property
+    def probs_device(self) -> torch.Tensor:
+        """Float32 probabilities w_i / sum w on the device, divided in
+        float64 and rounded once."""
+        if self._probs_dev is None:
+            self._probs_dev = self._export(self.weights / self.total)
+        return self._probs_dev
 
     @property
     def weights_device(self) -> torch.Tensor:

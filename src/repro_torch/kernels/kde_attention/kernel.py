@@ -4,7 +4,8 @@ with its plain PyTorch version.
 ``kde_decode_cuda`` launches the fused decode kernel -- the reference's
 whole ``kde_attention`` for one decode step and one layer -- and
 ``kde_decode_plain`` is its plain version, the four-step pipeline in torch
-ops with ``block_lse_plain`` as step 1: the reference's ``block_lse_pallas``,
+ops (``ref.kde_attention_ref``) with ``block_lse_plain``
+(``ref.block_lse_ref``) as step 1: the reference's ``block_lse_pallas``,
 for each (batch, q-head, key block of ``bk``), ``log(stride * sum_i exp(q .
 k_i * scale))`` over the block's keys ``i = 0, stride, 2 stride, ...``, with
 positions ``>= kv_valid`` at -1e30.  q is float32 or bfloat16, the cache (k
@@ -29,7 +30,6 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.kde_attention import ref as _ref
 from repro_torch.kernels.kde_rowsum.kernel import stream_of
 
-_NEG_INF = -1.0e30
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES = {"kde_decode": 0}
 MAX_HEAD_DIM = 128
@@ -68,78 +68,10 @@ def _check(q, k, v, bk, stride):
                          f"bk={bk} (stride {stride} >= 1)")
 
 
-def block_lse_plain(q, k, *, scale: float, stride: int, kv_valid: int,
-                    bk: int):
-    """Step 1 of ``kde_decode_plain`` (f32 estimates (b, hq, S / bk)): the
-    strided keys only, each GQA group's q-heads against its kv-head."""
-    b, hq, dh = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    nb = s // bk
-    ks = k.reshape(b, hkv, nb, bk, dh)[:, :, :, ::stride].float()
-    qg = q.reshape(b, hkv, hq // hkv, dh).float()
-    sc = torch.einsum("bhgd,bhnid->bhgni", qg, ks) * scale
-    pos = (torch.arange(nb, device=q.device)[:, None] * bk
-           + torch.arange(0, bk, stride, device=q.device)[None, :])
-    sc = torch.where(pos < kv_valid, sc, _NEG_INF)
-    m = torch.amax(sc, dim=-1)
-    lse = m + torch.log(torch.clamp(
-        torch.sum(torch.exp(sc - m[..., None]), dim=-1), min=1e-30))
-    return (lse + math.log(float(stride))).reshape(b, hq, nb)
-
-
-def kde_decode_plain(q, k, v, *, top_p: int, bk: int, stride: int,
-                     kv_valid: int | None = None, with_est: bool = False):
-    """Plain torch version of ``kde_decode_cuda``: the reference's
-    ``kde_attention`` step by step (its ``ops.py:34-81``), with
-    ``block_lse_plain`` as the level-1 sweep.  Returns out (b, hq, dh) in
-    q's dtype, and the estimates (b, hq, S / bk) with ``with_est``; no
-    ``kv_valid`` means every key is valid."""
-    b, hq, dh = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    kv_valid = s if kv_valid is None else kv_valid
-    group = hq // hkv
-    nb = s // bk
-    top_p = min(top_p, nb)
-    scale = 1.0 / (dh ** 0.5)
-    dev = q.device
-
-    # (1) level-1 KDE estimates per block
-    est = block_lse_plain(q, k, scale=scale, stride=stride,
-                          kv_valid=kv_valid, bk=bk)       # (b, hq, nb)
-
-    # (2) block selection (shared within each GQA group)
-    est_kv = _ref._group_lse(est, group)                  # (b, hkv, nb)
-    sel = _ref.top_blocks(est_kv, top_p)                  # (b, hkv, P)
-
-    # (3) gather + exact attention over the selected blocks
-    elem = (sel[..., None] * bk
-            + torch.arange(bk, device=dev)).reshape(b, hkv, -1)
-    idx = elem[..., None].expand(-1, -1, -1, dh)
-    kg = torch.gather(k, 2, idx)                          # (b, hkv, P*bk, dh)
-    vg = torch.gather(v, 2, idx)
-    qg = q.reshape(b, hkv, group, dh)
-    valid = elem < kv_valid                               # (b, hkv, P*bk)
-    kg = torch.where(valid[..., None], kg, 0.0)
-    vg = torch.where(valid[..., None], vg, 0.0)
-    sc = torch.einsum("bhgd,bhsd->bhgs", qg.float(), kg.float()) * scale
-    sc = torch.where(valid[:, :, None, :], sc, _NEG_INF)
-    m = torch.amax(sc, dim=-1, keepdim=True)
-    p = torch.exp(sc - m)
-    l_sel = p.sum(-1)                                     # (b, hkv, g)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, vg.float())
-    out = out / torch.clamp(l_sel, min=1e-30)[..., None]
-
-    # (4) denominator correction with the estimated residual mass
-    sel_q = torch.repeat_interleave(sel, group, dim=1)    # (b, hq, P)
-    chosen = torch.zeros((b, hq, nb), dtype=torch.bool, device=dev)
-    chosen.scatter_(2, sel_q, True)
-    est_resid = torch.where(chosen, _NEG_INF, est)
-    m_q = m.reshape(b, hq, 1)
-    resid_mass = torch.exp(est_resid - m_q).sum(-1)       # (b, hq)
-    l_q = l_sel.reshape(b, hq)
-    frac = l_q / torch.clamp(l_q + resid_mass, min=1e-30)
-    out = (out.reshape(b, hq, dh) * frac[..., None]).to(q.dtype)
-    return (out, est) if with_est else out
+#: the plain versions are the reference oracles' torch mirrors, one
+#: definition each (``ref.block_lse_ref``, ``ref.kde_attention_ref``)
+block_lse_plain = _ref.block_lse_ref
+kde_decode_plain = _ref.kde_attention_ref
 
 
 #: the kernels a launch may take (``build.KdeDecodeShape.mode``)

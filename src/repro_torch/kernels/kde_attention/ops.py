@@ -9,8 +9,8 @@ Pipeline (one decode step, KV cache of length S):
      unselected blocks.
 On CUDA tensors all four steps are one launch of the fused decode kernel
 (``kernel.kde_decode_cuda``); on CPU tensors they are the torch ops of
-``kernel.kde_decode_plain``, as the reference computes steps 2-4 outside
-Pallas.
+``ref.kde_attention_ref`` (``kernel.kde_decode_plain``), as the reference
+computes steps 2-4 outside Pallas.
 """
 from __future__ import annotations
 
@@ -36,5 +36,6 @@ def kde_attention(q, k, v, *, top_p: int, bk: int = 256, stride: int = 8,
 
 
 exact_decode_attention = _ref.exact_decode_attention
-#: the plain mirror of ``kde_attention``: the fused kernel's plain version
-kde_attention_ref = _k.kde_decode_plain
+#: the plain mirror of ``kde_attention``, also the fused kernel's plain
+#: version (``kernel.kde_decode_plain``)
+kde_attention_ref = _ref.kde_attention_ref

@@ -393,3 +393,34 @@ def stacked_scatter_block_sums(kv, cols, src, stack: HashState, trow,
         int(stack.overflow.shape[-1]) if stack.overflow is not None else 0)
     return _scatter_sums(kv, cols, src, stack.self_stored[trow, src], nex,
                          num_far, block_size, num_blocks)
+
+
+def sharded_hashed_query_ref(x_pad, y, shard_states, key_off, kind: str,
+                             inv_bw: float, beta: float, cell_width: float,
+                             num_far: int, n: int, shard_size: int,
+                             pairwise=None):
+    """``sharded.ShardedHashTable.query`` in one process (no process
+    group): every shard looks up its OWN bucket table and gathers its NEAR
+    members and ``num_far`` FAR rows of its ``shard_size`` slots (the
+    flat ``query_gather`` contract over the shard: HT weight ``shard_size /
+    num_far``, a streaming state's ``overflow`` rows swept exactly and
+    kept out of the FAR draw; sentinel rows evaluate to exactly 0), and
+    the estimate is the plain sum of the per-shard partials -- what the
+    one all-reduce produces.  ``key_off`` is the (P, m, num_far) FAR row
+    offsets in [0, shard_size), shard p's in row p (the reference draws
+    them with ``randint(fold_in(key, p), (m, num_far), 0, shard_size)``);
+    None when ``num_far == 0``.  Returns (estimates, NEAR counts)."""
+    m = y.shape[0]
+    est = torch.zeros((m,), dtype=torch.float32, device=y.device)
+    cnt = torch.zeros((m,), dtype=torch.int64, device=y.device)
+    for p, st in enumerate(shard_states):
+        b, hit = lookup_buckets(y, st, cell_width)
+        fidx = (None if num_far == 0
+                else p * shard_size + key_off[p].to(torch.int64))
+        cols, wgt, c, _ = _query_cols(st.members[b], st.counts[b], hit, None,
+                                      st.overflow, fidx, num_far, shard_size)
+        kv = rowwise_kv(y, x_pad[cols.to(torch.int64)], kind, inv_bw, beta,
+                        pairwise)
+        est = est + torch.sum(kv * wgt, dim=1)
+        cnt = cnt + c
+    return est, cnt

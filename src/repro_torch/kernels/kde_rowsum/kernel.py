@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.kde_rowsum.ref import kernel_values
+from repro_torch.kernels.kde_rowsum.ref import blocksum_ref, rowsum_ref
 from repro_torch.kernels.kde_sampler.ref import check_precision, exp_table_on
 
 #: ``KdeTileShape::instance`` of the deep tile (``kde::DEEP``)
@@ -215,11 +215,8 @@ def rowsum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
     return out
 
 
-def rowsum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
-                 precision: str = "f32"):
-    """Plain torch version of ``rowsum_cuda``."""
-    return torch.sum(kernel_values(q, x, kind, inv_bw, beta, precision),
-                     dim=1)
+#: the plain torch version of ``rowsum_cuda``
+rowsum_plain = rowsum_ref
 
 
 def blocksum_cuda(q, x, kind: str, inv_bw: float, beta: float = 1.0,
@@ -343,8 +340,8 @@ def blocksum_tile_rows(d: int, aligned: bool = True,
 
 def blocksum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
                    bn: int = 256, precision: str = "f32", tile_base=None):
-    """Plain torch version of ``blocksum_cuda``: the (m, n) values,
-    zero-padded to a block multiple, summed per block."""
+    """Plain torch version of ``blocksum_cuda``: ``ref.blocksum_ref``
+    (each tenant's rows alone with ``tile_base``)."""
     if tile_base is not None:
         from repro_torch.kernels.kde_sampler import kernel as sk
         bm = blocksum_tile_rows(q.shape[1], precision=precision)
@@ -353,8 +350,4 @@ def blocksum_plain(q, x, kind: str, inv_bw: float, beta: float = 1.0,
             lambda qq, xt: blocksum_plain(qq, xt, kind, inv_bw, beta, bn,
                                           precision),
             q, x, tile_base, bm)
-    kv = kernel_values(q, x, kind, inv_bw, beta, precision)
-    pad = -kv.shape[1] % bn
-    if pad:
-        kv = torch.nn.functional.pad(kv, (0, pad))
-    return kv.reshape(kv.shape[0], -1, bn).sum(-1)
+    return blocksum_ref(q, x, kind, inv_bw, beta, bn, precision)

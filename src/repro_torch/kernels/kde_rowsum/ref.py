@@ -1,6 +1,7 @@
-"""Plain-torch kernel values of the kde_rowsum kernels (the f32 path and
-the bf16 policy of DESIGN.md §14); the plain row and block sums built on
-them are in ``kernel.py``."""
+"""Pure-torch oracle for the kde_rowsum kernels: the kernel values (the
+f32 path and the bf16 policy of DESIGN.md §14) and the row and block sums
+built on them -- the plain versions of the CUDA wrappers in ``kernel.py``
+(the torch mirror of ``repro.kernels.kde_rowsum.ref``)."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +26,22 @@ def kernel_values(q, x, kind: str, inv_bw: float, beta: float = 1.0,
     qq = torch.sum(q * q, dim=1, keepdim=True)
     xx = torch.sum(x * x, dim=1, keepdim=True).T
     return _finish_l2(qq + xx - 2.0 * (q @ x.T), kind, inv_bw, beta)
+
+
+def rowsum_ref(q, x, kind: str, inv_bw: float, beta: float = 1.0,
+               precision: str = "f32"):
+    """(m,) row sums sum_j k(q_i, x_j)."""
+    return torch.sum(kernel_values(q, x, kind, inv_bw, beta, precision),
+                     dim=1)
+
+
+def blocksum_ref(q, x, kind: str, inv_bw: float, beta: float = 1.0,
+                 bn: int = 256, precision: str = "f32"):
+    """(m, ceil(n / bn)) sums over blocks of ``bn`` consecutive rows of x.
+    The reference needs n a multiple of ``bn``; here a ragged last block
+    sums the rows it has (the values zero-padded to a block multiple)."""
+    kv = kernel_values(q, x, kind, inv_bw, beta, precision)
+    pad = -kv.shape[1] % bn
+    if pad:
+        kv = torch.nn.functional.pad(kv, (0, pad))
+    return kv.reshape(kv.shape[0], -1, bn).sum(-1)

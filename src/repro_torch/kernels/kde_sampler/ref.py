@@ -503,6 +503,134 @@ def sample_block_ref(q, x, x_sq, own, gumbel, kind: str, inv_bw: float,
     return blk, pb, tot, bs
 
 
+# --------------------------------------------------------------------- #
+# single-process oracles of the sharded engine (``sharded.ShardedBlocks``)
+# --------------------------------------------------------------------- #
+# They emulate P shards with plain torch ops, as the reference's jnp
+# oracles do, and start no process group.  They take the reference's
+# parameters in its order; its threefry ``key`` (``keys``) becomes the
+# noise the reference derives from it, named after it (ROADMAP.md
+# section 3): ``key_u`` / ``keys_u``.
+
+
+def sharded_masked_sums_ref(x_pad, x_sq_pad, src, key_u, kind: str,
+                            inv_bw: float, beta: float, block_size: int,
+                            blocks_per_shard: int, num_shards: int, n: int,
+                            exact: bool = True, s: int = 16, pairwise=None):
+    """The engine's local level-1 sums, concatenated over shards: the
+    §2-contract read on the padded ``P * shard_size`` layout -- own-block
+    corrected, real blocks floored at 1e-12, all-sentinel blocks pinned to
+    0.  ``key_u`` is the stratified read's (P B_p, bs) subsample uniforms,
+    shard p's rows ``[p B_p, (p + 1) B_p)`` (the reference draws them from
+    ``fold_in(key, p)``); ignored on the exact read."""
+    w = src.shape[0]
+    bs = block_size
+    shard_size = blocks_per_shard * bs
+    num_blocks_pad = num_shards * blocks_per_shard
+    dev = x_pad.device
+    q = x_pad[src]
+    if exact:
+        kv = kv_matrix(q, x_pad, x_sq_pad, kind, inv_bw, beta, pairwise)
+        sums = kv.reshape(w, num_blocks_pad, bs).sum(-1)
+    else:
+        parts = []
+        base = torch.arange(blocks_per_shard, device=dev) * bs
+        pos = base[:, None] + torch.arange(bs, device=dev)[None, :]
+        for p in range(num_shards):
+            lo = p * shard_size
+            u = key_u[p * blocks_per_shard:(p + 1) * blocks_per_shard]
+            valid = (lo + pos) < n
+            u = torch.where(valid, u, torch.inf)
+            order = torch.topk(-u, s, dim=1).indices
+            idx = torch.gather(pos, 1, order)
+            sel_valid = torch.gather(valid, 1, order)
+            flat = lo + idx.reshape(-1)
+            kv = kv_matrix(q, x_pad[flat], x_sq_pad[flat], kind, inv_bw,
+                           beta, pairwise)
+            kv = kv.reshape(w, blocks_per_shard, s) * sel_valid[None]
+            sizes = torch.clamp(n - (lo + base), 0, bs).to(torch.float32)
+            s_b = torch.clamp(sizes, max=float(s))
+            parts.append(kv.sum(-1)
+                         * (sizes / torch.clamp(s_b, min=1.0))[None, :])
+        sums = torch.cat(parts, dim=1)
+    own = src // bs
+    corr = torch.arange(num_blocks_pad, device=dev)[None, :] == own[:, None]
+    sums = torch.where(corr, sums - 1.0, sums)
+    gbase = torch.arange(num_blocks_pad, device=dev) * bs
+    real = torch.clamp(n - gbase, 0, bs) > 0
+    return torch.where(real[None, :],
+                       torch.clamp(sums, min=BLOCK_SUM_FLOOR), 0.0)
+
+
+def sharded_sample_from_sums_ref(x_pad, x_sq_pad, views, src, sums, key_u,
+                                 kind: str, inv_bw: float, beta: float,
+                                 block_size: int, blocks_per_shard: int,
+                                 n: int, pairwise=None):
+    """The two-stage collective draw in one process: inverse CDF over the
+    shard totals, then the owner's local block sums, then the in-block
+    columns.  ``key_u`` is the draw's (3, w) uniforms: owner shard, local
+    block, in-block column (the reference's ``(k_shard, k_blk, k_in) =
+    split(key, 3)``).  Returns (nb, prob, total)."""
+    w, num_blocks_pad = sums.shape
+    num_shards = num_blocks_pad // blocks_per_shard
+    u0, u1, u2 = key_u[0], key_u[1], key_u[2]
+    by_shard = sums.reshape(w, num_shards, blocks_per_shard)
+    t = by_shard.sum(-1)                                  # (w, P)
+    ct = torch.cumsum(t, dim=1)
+    tot = ct[:, -1]
+    owner = torch.sum((u0 * tot)[:, None] > ct, dim=1).clamp(0,
+                                                             num_shards - 1)
+    local = by_shard[torch.arange(w, device=sums.device), owner]  # (w, B_p)
+    t_o = torch.gather(t, 1, owner[:, None])[:, 0]
+    c = torch.cumsum(local, dim=1)
+    blk_l = torch.sum((u1 * t_o)[:, None] > c, dim=1).clamp(
+        0, blocks_per_shard - 1)
+    s_b = torch.gather(local, 1, blk_l[:, None])[:, 0]
+    gblk = owner * blocks_per_shard + blk_l
+    kv, live, cols_c = level2_row(x_pad, x_sq_pad, views, src, gblk, kind,
+                                  inv_bw, beta, block_size, n, pairwise)
+    nb, pin = level2_draw(kv, live, cols_c, u2)
+    return nb, s_b * pin / torch.clamp(tot, min=1e-30), tot
+
+
+def sharded_fused_sample_ref(x_pad, x_sq_pad, src, key_u, kind: str,
+                             inv_bw: float, beta: float, block_size: int,
+                             blocks_per_shard: int, num_shards: int, n: int,
+                             exact: bool = True, s: int = 16, pairwise=None):
+    """``ShardedBlocks.fused_sample`` in one process: the §2 level-1 read,
+    then the two-stage draw.  ``key_u`` is ``(l1, u)``, the reference's
+    ``k_l1, k_rest = split(key)`` as noise: the read's (P B_p, bs)
+    uniforms (None on the exact read) and the draw's (3, w) ones.
+    Returns (nb, prob, sums)."""
+    l1, u = key_u
+    sums = sharded_masked_sums_ref(x_pad, x_sq_pad, src, l1, kind, inv_bw,
+                                   beta, block_size, blocks_per_shard,
+                                   num_shards, n, exact=exact, s=s,
+                                   pairwise=pairwise)
+    views = block_views(x_pad, x_sq_pad, block_size)
+    nb, prob, _ = sharded_sample_from_sums_ref(
+        x_pad, x_sq_pad, views, src, sums, u, kind, inv_bw, beta,
+        block_size, blocks_per_shard, n, pairwise)
+    return nb, prob, sums
+
+
+def sharded_walk_ref(x_pad, x_sq_pad, starts, keys_u, kind: str,
+                     inv_bw: float, beta: float, block_size: int,
+                     blocks_per_shard: int, num_shards: int, n: int,
+                     exact: bool = True, s: int = 16, pairwise=None):
+    """``ShardedBlocks.walk_scan`` (rounds = 0) in one process: a host loop
+    of a level-1 read and a two-stage draw a step.  ``keys_u`` holds one
+    ``(l1, u)`` pair a step, as ``sharded_fused_sample_ref`` takes it (the
+    reference's per-step key).  Returns the endpoints."""
+    cur = starts
+    for key_u in keys_u:
+        cur, _, _ = sharded_fused_sample_ref(
+            x_pad, x_sq_pad, cur, key_u, kind, inv_bw, beta, block_size,
+            blocks_per_shard, num_shards, n, exact=exact, s=s,
+            pairwise=pairwise)
+    return cur
+
+
 def fused_edge_batch_ref(x, x_sq, cdf, degs, inv_total, inv_t, u_vert,
                          gumbel, u_in, kind: str, inv_bw: float, beta: float,
                          block_size: int, n: int, pairwise=None):

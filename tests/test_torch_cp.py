@@ -224,6 +224,49 @@ def test_seq_mode_with_the_embedding_split_over_d_model(tmp_path):
         assert err <= GRAD_REL * max(float(np.abs(g).max()), 1e-30), (n, err)
 
 
+def test_grouped_moe_under_a_batch_split_matches_the_unsharded(tmp_path):
+    """Six ranks on (2, 3): reduced granite-moe's 4 experts do not divide
+    "model" = 3, so every MoE block takes the grouped dispatch (never the
+    expert-parallel one) under the batch split, without seq mode.  Its aux
+    takes the global batch's fractions: the forward's aux within 1e-5 of
+    the unsharded forward's and its logits within 1e-5 of max |logit|;
+    the gradients within 1e-4 of each leaf's max |g| of the unsharded
+    step; a train step's loss and aux rtol 1e-5, grad norm rtol 1e-4."""
+    arch, seq = "granite_moe_1b_a400m", 64
+    cfg = _cfg(tbase, arch)
+    tree = jax.tree.map(np.asarray, JT.init_params(jax.random.PRNGKey(0),
+                                                   _cfg(jbase, arch)))
+    batch = _batch(arch, seq)
+    res = ranks.spawn("lm_moe_grouped", 6, tmp_path,
+                      dict(arch=arch, tree=tree, batch=batch), timeout=360)
+    got = res[0]
+    assert got["taken"] == ["grouped"] and got["batch_sharded"]
+    model = convert.params_from_reference(tree, cfg, device="cpu")
+    with torch.inference_mode():
+        logits, aux = TT.forward(model, cfg, batch, impl="xla")
+    assert abs(got["aux"] - float(aux)) <= 1e-5
+    assert _rel(got["logits"], logits.numpy(), cfg.vocab_size) <= LOGIT_REL
+    want = step_grads(model, cfg, batch, impl="xla")[0]
+    for n, g in want.items():
+        g = g.numpy()
+        err = float(np.abs(got["grads"][n] - g).max())
+        assert err <= GRAD_REL * max(float(np.abs(g).max()), 1e-30), (n, err)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    _, _, met = make_train_step(cfg, opt.AdamWConfig(
+        lr=1e-3, warmup_steps=1), impl="xla")(
+        model, opt.init_adamw(model), batch)
+    m = got["metrics"]
+    np.testing.assert_allclose(m["loss"], float(met["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(m["grad_norm"], float(met["grad_norm"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(m["aux"], float(met["aux"]), rtol=1e-5,
+                               atol=1e-7)
+    for r in res[1:]:
+        np.testing.assert_array_equal(r["logits"], got["logits"])
+        assert r["metrics"] == m
+
+
 @pytest.mark.parametrize("arch,seq", GRADS)
 def test_seq_mode_gradients_match_the_unsharded_step(run, arch, seq):
     """``step_grads`` and ``make_train_step`` under seq mode on (2, 4)

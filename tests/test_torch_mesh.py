@@ -6,7 +6,8 @@ ranks) run the port on ``"cpu"`` meshes: the functional KDE API on a (4,
 2) ``("data", "model")`` mesh and on ``("pod", "data")`` flattened over
 all 8 shards, the block sums (aligned, ragged, ``own=``), the
 ``ShardedBlocks`` engine at n = 250 on an (8,) mesh fed the uniforms of
-the reference's pure-jnp ``sharded_*_ref`` oracles, the counted collective
+the reference's pure-jnp ``sharded_*_ref`` oracles (and the port's own torch
+mirrors of them, fed the same uniforms), the counted collective
 schedules, the sharded noisy power method and the sharded hash table.
 The reference's own mesh pipelines fail on this tree's JAX (``jax.make_mesh``
 defaults to Explicit axes), so the jnp oracles are the reference here.
@@ -22,12 +23,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import torch_mesh_ranks as ranks
 from repro.core.kernels_fn import gaussian
 from repro.kernels.kde_hash import ops as jhops
 from repro.kernels.kde_hash import ref as jhref
 from repro.kernels.kde_sampler import ref as sref
+from repro_torch.kernels.kde_hash import ref as thref
+from repro_torch.kernels.kde_sampler import ref as tsref
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -285,3 +289,63 @@ def test_sharded_hash_query_matches_the_oracle(mesh_run):
     np.testing.assert_allclose(est, np.asarray(rest), rtol=2e-5, atol=1e-9)
     assert res[0]["hash_cc"]["psum_total"] == 1 and int(hw[7]) == 1
     _same_on_every_rank(res, "hash")
+
+
+def _padded_sq(res):
+    xp = torch.as_tensor(res[0]["x_pad"])
+    return xp, torch.sum(xp * xp, -1)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_fused_sample_matches_the_torch_oracle(mesh_run, exact):
+    """``ShardedBlocks.fused_sample`` against the port's single-process
+    ``sharded_fused_sample_ref`` on the ranks' uniforms: neighbors
+    bitwise, probabilities and sums at rtol 2e-5."""
+    pl, refs, res = mesh_run
+    tag = "exact" if exact else "strat"
+    xp, xsq = _padded_sq(res)
+    key_u = (None if exact else torch.as_tensor(pl["l1_strat"]),
+             torch.as_tensor(pl[f"u_{tag}"]))
+    rnb, rprob, rsums = tsref.sharded_fused_sample_ref(
+        xp, xsq, torch.as_tensor(pl["src"]), key_u, "gaussian", 1.0, 1.0,
+        BS, refs["bl"], P, N_E, exact=exact, s=8)
+    nb, prob, sums, _, _ = res[0][f"fused_{tag}"]
+    np.testing.assert_array_equal(nb, rnb.numpy())
+    np.testing.assert_allclose(prob, rprob.numpy(), rtol=2e-5, atol=1e-9)
+    np.testing.assert_allclose(sums, rsums.numpy(), rtol=2e-5, atol=1e-9)
+
+
+def test_walk_matches_the_torch_oracle(mesh_run):
+    """``walk_scan``'s 5 exact steps against the port's
+    ``sharded_walk_ref`` on the same draw uniforms: endpoints bitwise."""
+    pl, refs, res = mesh_run
+    xp, xsq = _padded_sq(res)
+    rend = tsref.sharded_walk_ref(
+        xp, xsq, torch.as_tensor(pl["src"]),
+        [(None, torch.as_tensor(u)) for u in pl["walk_u"]], "gaussian", 1.0,
+        1.0, BS, refs["bl"], P, N_E, exact=True)
+    np.testing.assert_array_equal(res[0]["walk"][0], rend.numpy())
+
+
+def test_sharded_hash_query_matches_the_torch_oracle(mesh_run):
+    """``ShardedHashTable.query`` against the port's
+    ``sharded_hashed_query_ref`` on the ranks' own shard tables and FAR
+    offsets: NEAR counts bitwise, estimates at rtol 2e-5."""
+    pl, _, res = mesh_run
+    (keys, members, counts, trunc, dims, shift, cw_, shard, x_pad) = \
+        res[0]["hash_tables"]
+    states = [thref.HashState(
+        dims=torch.as_tensor(np.asarray(dims, np.int64)),
+        shift=torch.as_tensor(shift),
+        keys=torch.as_tensor(keys[p].astype(np.int64)),
+        members=torch.as_tensor(members[p]),
+        counts=torch.as_tensor(counts[p].astype(np.int64)),
+        point_bucket=None, self_stored=None,
+        truncated=torch.as_tensor(trunc[p])) for p in range(P)]
+    rest, rcnt = thref.sharded_hashed_query_ref(
+        torch.as_tensor(x_pad), torch.as_tensor(pl["yh"]), states,
+        torch.as_tensor(pl["fidx"]), "gaussian", 1.0, 1.0, cw_, 8,
+        len(pl["xh"]), shard)
+    est, cnt, _ = res[0]["hash"]
+    np.testing.assert_array_equal(cnt, rcnt.numpy())
+    np.testing.assert_allclose(est, rest.numpy(), rtol=2e-5, atol=1e-9)

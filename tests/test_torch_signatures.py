@@ -294,6 +294,133 @@ def test_shared_keywords_keep_the_reference_defaults(module):
                     f"port {q.default!r}")
 
 
+#: reference names with no port twin by design: the TPU's Pallas bodies,
+#: their specs and switch, and JAX's shard_map shim.  Each maps to (why,
+#: the port's counterpart as "module:attr" under ``repro_torch``).
+TPU_ONLY = {
+    **{f"kernels.{mod}.kernel.{name}_pallas": (
+        "a Pallas body; the port launches its CUDA twin by device",
+        f"kernels.{mod}.kernel:{cuda}")
+       for mod, name, cuda in (
+           ("flash_attention", "flash_attention", "flash_attention_cuda"),
+           ("kde_attention", "block_lse", "kde_decode_cuda"),
+           ("kde_hash", "weighted_kv_sum", "weighted_kv_sum_cuda"),
+           ("kde_hash", "weighted_kv", "weighted_kv_cuda"),
+           ("kde_rowsum", "rowsum", "rowsum_cuda"),
+           ("kde_rowsum", "blocksum", "blocksum_cuda"),
+           ("kde_sampler", "masked_blocksum", "masked_blocksum_cuda"),
+           ("kde_sampler", "sample_block", "sample_block_cuda"))},
+    "kernels.kde_rowsum.kernel.exp_table_spec": (
+        "a Pallas BlockSpec of the bf16 exp table; every CUDA launch takes "
+        "the table's pointer", "kernels.kde_rowsum.kernel:exp_table_ptr"),
+    "kernels.kde_rowsum.kernel.exp_table_operand": (
+        "the exp table as a Pallas operand; the table on a device is "
+        "cached once", "kernels.kde_sampler.ref:exp_table_on"),
+    "kernels.kde_sampler.ops.default_use_pallas": (
+        "the use_pallas switch; the port dispatches by the tensor's device "
+        "and takes use_pallas=None only", "device:no_switch"),
+    "compat.shard_map": (
+        "JAX's shard_map shim; the port's mesh programs are explicit SPMD "
+        "over torch.distributed", "distributed.collectives:all_reduce"),
+}
+#: reference names still to port, each under the ROADMAP.md queue 1 item
+#: that ports it
+PENDING = {"kernels.tuning.pallas_tiles": 11,
+           "kernels.tuning.sweep_blocks_per_tile": 11,
+           "kernels.tuning.VMEM_BUDGET": 11}
+
+
+def _top_nodes(body):
+    """Top-level statements, through ``try`` / ``if`` blocks."""
+    for node in body:
+        if isinstance(node, ast.Try):
+            for part in (node.body, *(h.body for h in node.handlers),
+                         node.orelse, node.finalbody):
+                yield from _top_nodes(part)
+        elif isinstance(node, ast.If):
+            yield from _top_nodes(node.body)
+            yield from _top_nodes(node.orelse)
+        else:
+            yield node
+
+
+def _public_names(module):
+    """Public top-level functions and classes of the reference module
+    (read from its source) and each class's public methods, as
+    ``name`` / ``Class.method``."""
+    rel = Path(*module.split(".")) if module else Path()
+    path = ROOT / "src" / "repro" / rel.with_suffix(".py")
+    if not path.exists():
+        path = ROOT / "src" / "repro" / rel / "__init__.py"
+    out = []
+    defs = (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)
+    for node in _top_nodes(ast.parse(path.read_text()).body):
+        if not isinstance(node, defs) or node.name.startswith("_"):
+            continue
+        out.append(node.name)
+        if isinstance(node, ast.ClassDef):
+            out += [f"{node.name}.{m.name}" for m in node.body
+                    if isinstance(m, defs[:2]) and not m.name.startswith("_")]
+    return list(dict.fromkeys(out))
+
+
+def _lookup(root: str, dotted: str, name: str):
+    """``name`` (``a`` or ``A.b``) of module ``root.dotted``, or None."""
+    try:
+        obj = importlib.import_module(root + (dotted and "." + dotted))
+    except ModuleNotFoundError:
+        return None
+    for part in name.split("."):
+        obj = getattr(obj, part, None)
+        if obj is None:
+            return None
+    return obj
+
+
+@pytest.mark.parametrize("module", _ported_modules() + ["compat"])
+def test_every_public_reference_name_has_its_port(module):
+    """Name-by-name parity: every public top-level function and class of a
+    reference module, and every public method of its classes, exists in
+    the port's twin module (by ``getattr`` after import, so re-exports
+    count), unless ``TPU_ONLY`` or ``PENDING`` lists it."""
+    names = _public_names(module)
+    missing = [n for n in names
+               if f"{module}.{n}" not in TPU_ONLY
+               and f"{module}.{n}" not in PENDING
+               and _lookup("repro_torch", module, n) is None]
+    assert not missing, (module, missing)
+
+
+@pytest.mark.parametrize("entry", sorted(TPU_ONLY))
+def test_tpu_only_names_name_their_counterpart(entry):
+    """A ``TPU_ONLY`` name is a reference name the port lacks, and the
+    counterpart it names exists in the port."""
+    module, _, name = entry.rpartition(".")
+    assert _lookup("repro", module, name) is not None, entry
+    assert _lookup("repro_torch", module, name) is None, \
+        f"{entry} is ported now: take it out of TPU_ONLY"
+    reason, where = TPU_ONLY[entry]
+    mod, attr = where.split(":")
+    assert reason and _lookup("repro_torch", mod, attr) is not None, where
+
+
+@pytest.mark.parametrize("entry", sorted(PENDING))
+def test_pending_names_head_a_roadmap_item(entry):
+    """A ``PENDING`` name is a reference name the port lacks, under a
+    queue 1 item of ROADMAP.md: its number heads exactly one queue 1 line
+    (``N. **``)."""
+    module, _, name = entry.rpartition(".")
+    assert _lookup("repro", module, name) is not None, entry
+    assert _lookup("repro_torch", module, name) is None, \
+        f"{entry} is ported now: take it out of PENDING"
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text[text.index("### 1. Modules to port"):
+                 text.index("### 2. TPU kernels to port")]
+    item = PENDING[entry]
+    assert len([ln for ln in queue.splitlines()
+                if ln.startswith(f"{item}. **")]) == 1, item
+
+
 def test_hashed_level1_read_counts_as_the_reference_by_default():
     """ROADMAP.md's F1 reproduction: the hashed level-1 read of a
     16-vertex frontier with ``num_far`` left at its default (n = 1024, d =

@@ -745,3 +745,39 @@ def lm_cp_odd(rank, world, pl):
         grads, _, _ = step_grads(model, cfg, pl["batch"], impl="flash")
         res["grads"] = _whole(model, grads)
     return res
+
+
+def lm_moe_grouped(rank, world, pl):
+    """A (2, 3) ("data", "model") mesh: reduced granite-moe, whose 4
+    experts do not divide "model" = 3, so the MoE takes the grouped
+    dispatch under the batch split (no seq mode).  The forward's logits,
+    aux and the dispatches its blocks took, the gradients (whole) and one
+    train step's metrics."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step, step_grads
+    mesh = make_debug_mesh(2, 3, device_type="cpu")
+    cfg, model = _lm_model(pl["arch"], pl["tree"], mesh)
+    taken = []
+    grouped, shardmap = L._moe_block_gspmd, L._moe_block_shardmap
+    L._moe_block_gspmd = lambda *a, **k: taken.append("grouped") \
+        or grouped(*a, **k)
+    L._moe_block_shardmap = lambda *a, **k: taken.append("shardmap") \
+        or shardmap(*a, **k)
+    try:
+        res = _cp_forward(cfg, model, mesh, pl["batch"], "xla",
+                          seq_mode=False)
+        with L.activation_sharding(mesh, SH.batch_axes(mesh)):
+            grads, _, _ = step_grads(model, cfg, pl["batch"], impl="xla")
+            res["batch_sharded"] = L._ACT["batch_sharded"]
+            res["grads"] = _whole(model, grads)
+            _, _, met = make_train_step(
+                cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1),
+                impl="xla")(model, opt.init_adamw(model), pl["batch"])
+    finally:
+        L._moe_block_gspmd, L._moe_block_shardmap = grouped, shardmap
+    res.update(taken=sorted(set(taken)),
+               metrics={k: float(v) for k, v in met.items()})
+    return res
