@@ -15,6 +15,12 @@ Phases (any failure exits non-zero; no phase catches and continues):
                rowsum / blocksum tile, ``blocksum_mma_kernel``), and none
                in the f32 flash instances or the other sampler and rowsum
                tiles (the wide ones built for the f32 kinds only).
+               Then (``phase_tuning``) the card against
+               ``kernels/tuning.py``: its limits as the CUDA attributes
+               give them, and every kernel instance's registers, shared
+               memory, local memory, spills and CTAs an SM equal to
+               ``tuning.RESOURCES`` and ``tuning.ctas_per_sm``, a
+               ``[tuning]`` line each.
 2. kernels  -- every kernel against its plain PyTorch version on the card:
                all four kernel kinds on ragged shapes (m=37, n=301, d=19,
                bn=70; the kde_hash kernels at m=37, t=45, d=19; laplacian
@@ -610,9 +616,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 RTOL, ATOL = 2e-4, 1e-5
 TIE = 1e-5
-PEAK_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores
-PEAK_BF16 = 989e12          # H100 SXM, dense bf16 tensor-core rate
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+# H100 SXM, FP32 outside the tensor cores (NVIDIA's data sheet; no field
+# of roofline.analysis.ChipSpec, whose peak is the bf16 tensor-core rate)
+PEAK_FLOPS = 67e12
 SP_N, SP_D, SP_BW = 65536, 16, 1.0
 NS_FRONTIER = 4096
 LRA_N, LRA_D, LRA_RANK, LRA_ROWS = 16384, 784, 20, 500
@@ -882,9 +888,11 @@ def sample_block_err(got, want, g, what: str) -> float:
 def bound(flops: float, nbytes: float, bf16_flops: float = 0.0):
     """(bound_ms, bound_by) of a kernel call: ``flops`` f32 operations at
     the FP32 rate plus ``bf16_flops`` operations on bf16 operands at the
-    tensor cores' rate, against ``nbytes`` at the HBM rate."""
-    t_ops = (flops / PEAK_FLOPS + bf16_flops / PEAK_BF16) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    tensor cores' rate (``roofline.analysis.H100.peak_flops``), against
+    ``nbytes`` at the HBM rate (``H100.hbm_bw``)."""
+    from repro_torch.roofline.analysis import H100
+    t_ops = (flops / PEAK_FLOPS + bf16_flops / H100.peak_flops) * 1e3
+    t_bytes = nbytes / H100.hbm_bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -902,11 +910,34 @@ def phase_build():
         if "Compiling entry function" in line or "registers" in line \
                 or "spill" in line:
             log("[build]", line.strip())
-    sass_check(build)
+    return sass_dump(build)
 
 
-def sass_check(build) -> None:
-    """The built library's SASS (``cuobjdump --dump-sass``): every bf16
+def sass_dump(build):
+    """Start dumping the built library's SASS (``cuobjdump --dump-sass``,
+    filtered by ``grep`` to the function headers and ``HMMA`` lines) for
+    ``sass_check``, which ``main`` calls after phase 2: the dump runs
+    beside the tuning and kernel phases (inline, with its parse, it was
+    part of the build phase's ~35 s past nvcc on the card).  Returns the
+    two processes and grep's output file."""
+    import atexit
+    import tempfile
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    lib = build.BUILD_ROOT / build.source_hash() / "libkde.so"
+    out = tempfile.TemporaryFile(mode="w+")     # a pipe would fill and stall
+    dump = subprocess.Popen([str(tool), "--dump-sass", str(lib)],
+                            stdout=subprocess.PIPE)
+    grep = subprocess.Popen(["grep", "-E", "Function : |HMMA"],
+                            stdin=dump.stdout, stdout=out)
+    dump.stdout.close()       # grep alone reads the pipe
+    # a phase that fails before sass_check leaves no process behind
+    atexit.register(lambda: [p.kill() for p in (dump, grep)
+                             if p.poll() is None])
+    return dump, grep, out
+
+
+def sass_check(procs) -> None:
+    """The built library's SASS (``sass_dump``'s processes): every bf16
     instance of the flash kernel (``flash_mma_kernel``) and of the KDE
     tensor-core tile (``sampler_mma_kernel`` and ``blocksum_mma_kernel``,
     the bf16 kinds 4-6) contains tensor-core ``HMMA`` instructions, and no
@@ -916,11 +947,12 @@ def sass_check(build) -> None:
     import re
     from repro_torch.kernels.flash_attention import kernel as fk
     import torch
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    lib = build.BUILD_ROOT / build.source_hash() / "libkde.so"
-    sass = subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
-                          capture_output=True, text=True,
-                          timeout=300).stdout
+    dump, grep, out = procs
+    codes = dump.wait(timeout=300), grep.wait(timeout=300)
+    assert codes == (0, 0), ("cuobjdump | grep failed", codes)
+    out.seek(0)
+    sass = out.read()
+    out.close()
     counts, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -969,6 +1001,66 @@ def sass_check(build) -> None:
         log(f"[build] SASS of {mma_name}: HMMA instructions per instance "
             f"{sorted(mma.values())}; its source's {len(other)} wide / deep "
             f"/ generic instances (the f32 kinds' among them): none")
+
+
+def phase_tuning():
+    """Phase 1b: the card against ``kernels/tuning.py``.  ``tuning.limits``
+    (torch's device properties, the rest through ``cudaDeviceGetAttribute``)
+    equals every field as ``cudaDeviceGetAttribute`` reports it, and each
+    plan's CTA count (``tuning.PLAN_FAMILIES``) is the same on the card's
+    figures as on ``H100_SXM``'s.  For every ``RESOURCES`` instance, what
+    ``kde_func_attributes`` reports (block size, registers, static and
+    dynamic shared memory, local memory) equals the table, and its CTAs an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) equal
+    ``tuning.ctas_per_sm``'s.  When this process built the library, the
+    ptxas lines name exactly the table's instances, with its registers,
+    shared memory, stack frames and spills (held to the table, not to 0:
+    25 instances spill)."""
+    import shutil
+    import torch
+    from repro_torch.kernels import build, tuning
+    dev = torch.device("cuda", 0)
+    lim = tuning.limits(dev)
+    card = {f: tuning.device_attribute(f, dev) for f in tuning.DEVICE_FIELDS}
+    props = torch.cuda.get_device_properties(dev)
+    log(f"[tuning] limits {lim}; from torch: "
+        f"{[f for f, a in tuning.TORCH_FIELDS.items() if hasattr(props, a)]}")
+    assert all(getattr(lim, f) == v for f, v in card.items()), (lim, card)
+    plans = {w: tuning.plan_ctas(w, lim) for w in tuning.PLAN_FAMILIES}
+    log(f"[tuning] plan CTAs an SM on the card {plans}")
+    assert all(getattr(tuning, w) == c for w, c in plans.items()), plans
+    ptx = None
+    if build.BUILD_LOG:
+        tool = shutil.which("c++filt") or str(
+            Path(build._nvcc()).with_name("cu++filt"))
+
+        def demangle(names):
+            return subprocess.run([tool], input="\n".join(names), check=True,
+                                  capture_output=True, text=True,
+                                  timeout=60).stdout.splitlines()
+        ptx = tuning.ptxas_resources(build.BUILD_LOG, demangle)
+    else:
+        log("[tuning] the library was built before this process: no ptxas "
+            "lines to hold to the table")
+    bad = [] if ptx is None else sorted(set(ptx) ^ set(tuning.RESOURCES))
+    for name, r in tuning.RESOURCES.items():
+        got = tuning.card_resources(name, dev)
+        ctas = tuning.resource_ctas(name, lim)
+        if (got.threads, got.regs, got.static, got.smem, got.local,
+                got.ctas) != (r.threads, r.regs, r.static, r.smem, r.stack,
+                              ctas) or got.max_threads < r.threads:
+            bad.append((name, got, r, ctas))
+        if ptx is not None and ptx.get(name) != (
+                r.regs, r.static, r.stack, r.spill_stores, r.spill_loads):
+            bad.append((name, "ptxas", ptx.get(name), r))
+        spill = (f" spills {r.spill_stores} / {r.spill_loads} B"
+                 if r.spill_stores or r.spill_loads else "")
+        log(f"[tuning] {name} regs {got.regs} smem {got.static + got.smem} "
+            f"B ctas/SM {got.ctas}{spill}")
+    assert not bad, bad
+    log(f"[tuning] {len(tuning.RESOURCES)} instances equal the table on the "
+        f"card ({sum(1 for r in tuning.RESOURCES.values() if r.spill_stores)}"
+        f" spill as the table says)")
 
 
 def phase_kernels(data, gen):
@@ -1593,6 +1685,7 @@ def phase_hash_kernels(data, gen):
     from repro_torch.kernels.kde_hash import kernel as hk
     from repro_torch.kernels.kde_hash import ops as hops
     from repro_torch.kernels.kde_hash import ref as href
+    from repro_torch.roofline.analysis import H100
     dev = torch.device("cuda")
     errs = {"weighted_kv_sum": 0.0, "weighted_kv": 0.0}
 
@@ -1673,7 +1766,7 @@ def phase_hash_kernels(data, gen):
         log(f"[kernels] {name} main [{hk.weighted_kv_plan(m, n, d, t)}]: "
             f"gathers {gathered / 1e6:.1f} MB of x rows through L2 "
             f"({gathered / (uniq * d * 4):.2f}x the distinct rows) at {rate} "
-            f"on the card, against the HBM bound's {PEAK_BYTES / 1e12:.2f} "
+            f"on the card, against the HBM bound's {H100.hbm_bw / 1e12:.2f} "
             f"TB/s over the distinct rows")
     for r in rows:
         r["max_abs_err"] = errs[r["name"]]
@@ -2509,6 +2602,7 @@ def lm_bf16_long_decode(m16, cfg, gen):
     from repro_torch.kernels.kde_attention import ops as kops
     from repro_torch.models import transformer as T
     from repro_torch.train.train_step import make_decode_step
+    from repro_torch.roofline.analysis import H100
     dev = m16.embed.device
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
 
@@ -2607,7 +2701,7 @@ def lm_bf16_long_decode(m16, cfg, gen):
             f"{b_by}; {grid_text(grid)}"
             f"); GEMM / GEMV kernels {gemm * 1e3:.3f} ms against the weights' "
             f"{w_bytes / 1e9:.2f} GB / 3.35 TB/s = "
-            f"{w_bytes / PEAK_BYTES * 1e3:.3f} ms; top kernels: " + "; ".join(
+            f"{w_bytes / H100.hbm_bw * 1e3:.3f} ms; top kernels: " + "; ".join(
                 f"{n[:50]} {t * 1e3:.3f} ms x{c}" for n, t, c in names[:6]))
 
     # the bf16 kernel on the final cache: bitwise the f32 instance on the
@@ -7250,8 +7344,11 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     phases = {}
     t_start = t0 = time.perf_counter()
-    phase_build()
+    sass = phase_build()
     phases["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_tuning()
+    phases["tuning"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -7277,6 +7374,9 @@ def main() -> int:
     rows = phase_kernels(data, gen) + phase_hash_kernels(data, gen) + \
         phase_lm_kernels(gen)
     phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sass_check(sass)
+    phases["sass"] = time.perf_counter() - t0
 
     rk.reset_launches()
     sk.reset_launches()

@@ -77,6 +77,8 @@
 
 #include <type_traits>
 
+#include "kde_func.cuh"
+
 namespace {
 
 constexpr int BQ = 128;          // query rows per CTA
@@ -708,3 +710,34 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
 }
 
 }  // extern "C"
+
+namespace {
+
+// The instance (T, DB, VEC) as launch() launches it.
+template <typename T, int DB>
+bool flash_func(bool vec, kde::FuncInfo* f) {
+  constexpr int smem = std::is_same_v<T, float> ? Layout<T, DB>::BYTES : MmaLayout<DB>::BYTES;
+  *f = vec ? kde::info(body<T, DB, true>(), THREADS, smem)
+           : kde::info(body<T, DB, false>(), THREADS, smem);
+  return true;
+}
+
+template <typename T>
+bool flash_bucket(int db, bool vec, kde::FuncInfo* f) {
+  if (db == 32) return flash_func<T, 32>(vec, f);
+  if (db == 64) return flash_func<T, 64>(vec, f);
+  if (db == 128) return flash_func<T, 128>(vec, f);
+  return false;
+}
+
+}  // namespace
+
+// kde_func.cuh: an instance of this source, flash_fwd_kernel<float, DB, VEC>
+// or flash_mma_kernel<DB, VEC>.  1 when found, else 0.
+extern "C" int flash_attention_func(int id, int instance, kde::FuncInfo* f) {
+  if (id == kde::F_FLASH_FWD && kde::targ(instance, 0) == 0)
+    return flash_bucket<float>(kde::targ(instance, 1), kde::targ(instance, 2) != 0, f);
+  if (id == kde::F_FLASH_MMA)
+    return flash_bucket<__nv_bfloat16>(kde::targ(instance, 0), kde::targ(instance, 1) != 0, f);
+  return 0;
+}

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kde_func.cuh"
+
 namespace {
 
 constexpr int DMAX = 128;
@@ -1438,3 +1440,36 @@ int kde_decode_launch(const void* q, const void* k, const void* v, void* out, fl
 }
 
 }  // extern "C"
+
+namespace {
+
+// The (TQ, TKV) instances as launch_cluster / launch_spread launch them, at
+// the most shared memory a plan gives them (MAX_SMEM).
+template <typename TQ, typename TKV>
+bool decode_func(int id, bool vec, kde::FuncInfo* f) {
+  using kde::info;
+  if (id == kde::F_KDE_DECODE) *f = info(kde_decode_kernel<TQ, TKV>, DK_THREADS, MAX_SMEM);
+  else if (vec) *f = info(kde_spread_kernel<TQ, TKV, true>, SP_THREADS, MAX_SMEM);
+  else *f = info(kde_spread_kernel<TQ, TKV, false>, SP_THREADS, MAX_SMEM);
+  return true;
+}
+
+template <typename TQ>
+bool decode_kv(int id, int tkv, bool vec, kde::FuncInfo* f) {
+  if (tkv == 0) return decode_func<TQ, float>(id, vec, f);
+  if (tkv == 1) return decode_func<TQ, __nv_bfloat16>(id, vec, f);
+  return false;
+}
+
+}  // namespace
+
+// kde_func.cuh: an instance of this source, kde_decode_kernel<TQ, TKV> or
+// kde_spread_kernel<TQ, TKV, VEC>.  1 when found, else 0.
+extern "C" int kde_attention_func(int id, int instance, kde::FuncInfo* f) {
+  if (id != kde::F_KDE_DECODE && id != kde::F_KDE_SPREAD) return 0;
+  const int tq = kde::targ(instance, 0), tkv = kde::targ(instance, 1);
+  const bool vec = kde::targ(instance, 2) != 0;
+  if (tq == 0) return decode_kv<float>(id, tkv, vec, f);
+  if (tq == 1) return decode_kv<__nv_bfloat16>(id, tkv, vec, f);
+  return 0;
+}

@@ -73,6 +73,7 @@
 
 #include <type_traits>
 
+#include "kde_func.cuh"
 #include "kde_tile.cuh"
 
 // Static arguments of a launch (kernels/build.py ``KdeWeightedShape``).
@@ -376,3 +377,44 @@ int kde_weighted_kv_sum_launch(const float* q, const void* x, const int* cols,
 }
 
 }  // extern "C"
+
+namespace {
+
+// The weighted instances of one kind and row type, as launch_rows launches
+// them (the scalar instance's 4 d bytes of shared memory are the shape's:
+// 0 here).
+template <int KIND, class XT>
+bool weighted_func(int id, bool sum, int d4, kde::FuncInfo* f) {
+  using kde::info;
+  if (id == kde::F_WEIGHTED_SCALAR) {
+    *f = sum ? info(weighted_kv_scalar_kernel<KIND, true, XT>, THREADS, 0)
+             : info(weighted_kv_scalar_kernel<KIND, false, XT>, THREADS, 0);
+    return true;
+  }
+  if (id != kde::F_WEIGHTED_VEC || (d4 != 4 && d4 != 8)) return false;
+  if (d4 == 4)
+    *f = sum ? info(weighted_kv_vec_kernel<KIND, true, 4, XT>, THREADS, 0)
+             : info(weighted_kv_vec_kernel<KIND, false, 4, XT>, THREADS, 0);
+  else
+    *f = sum ? info(weighted_kv_vec_kernel<KIND, true, 8, XT>, THREADS, 0)
+             : info(weighted_kv_vec_kernel<KIND, false, 8, XT>, THREADS, 0);
+  return true;
+}
+
+}  // namespace
+
+// kde_func.cuh: an instance of this source (every kind on an f32 x, the bf16
+// kinds on a bf16 x too).  1 when found, else 0.
+extern "C" int kde_hash_func(int id, int instance, kde::FuncInfo* f) {
+  const int kind = kde::targ(instance, 0);
+  const bool sum = kde::targ(instance, 1) != 0;
+  const int d4 = id == kde::F_WEIGHTED_VEC ? kde::targ(instance, 2) : 0;
+  const bool rows16 = kde::targ(instance, id == kde::F_WEIGHTED_VEC ? 3 : 2) != 0;
+  return kde::with_kind_tenant(kind, 0, [&](auto k, auto) {
+    constexpr int KIND = decltype(k)::value;
+    if constexpr (kde::is_bf16(KIND)) {
+      if (rows16) return weighted_func<KIND, bf16>(id, sum, d4, f);
+    }
+    return !rows16 && weighted_func<KIND, float>(id, sum, d4, f);
+  }) ? 1 : 0;
+}

@@ -46,6 +46,7 @@
 // cudaErrorInvalidValue.
 #include <type_traits>
 
+#include "kde_func.cuh"
 #include "kde_wide.cuh"
 
 namespace {
@@ -243,3 +244,51 @@ int kde_blocksum_launch(const float* q, const float* x, float* out, const int* t
 }
 
 }  // extern "C"
+
+// kde_func.cuh: an instance of this source as its launcher launches it
+// (blocksum_kind's generic tile and launch_tiled's dynamic shared memory;
+// the reduce kernel of kde_rowsum_launch).  1 when found, else 0.
+extern "C" int kde_rowsum_func(int id, int instance, kde::FuncInfo* f) {
+  using kde::info;
+  if (id == kde::F_ROWSUM_REDUCE) {
+    *f = info(rowsum_reduce_kernel, REDUCE_THREADS, 0);
+    return 1;
+  }
+  const int kind = kde::targ(instance, 0);
+  const int dk = id == kde::F_BLOCKSUM_WIDE || id == kde::F_BLOCKSUM_MMA
+                     ? kde::targ(instance, 1) : 0;
+  const int tenant = id == kde::F_BLOCKSUM_WIDE ? kde::targ(instance, 2)
+                     : id == kde::F_BLOCKSUM_MMA ? 0 : kde::targ(instance, 1);
+  return kde::with_kind_tenant(kind, tenant, [&](auto k, auto t) {
+    constexpr int KIND = decltype(k)::value;
+    constexpr bool TENANT = decltype(t)::value;
+    if (id == kde::F_BLOCKSUM) {
+      *f = info(blocksum_kernel<KIND, TENANT>, kde::THREADS, 0);
+      return true;
+    }
+    if (id == kde::F_BLOCKSUM_DEEP) {
+      *f = info(blocksum_deep_kernel<KIND, TENANT>, THREADS, kde::Deep<kde::DEEP_DK>::BYTES);
+      return true;
+    }
+    if constexpr (kde::is_bf16(KIND)) {
+      if (id == kde::F_BLOCKSUM_MMA && dk == 16) {
+        *f = info(blocksum_mma_kernel<KIND, 16>, THREADS, kde::Mma<16>::BYTES);
+        return true;
+      }
+      if (id == kde::F_BLOCKSUM_MMA && dk == 32) {
+        *f = info(blocksum_mma_kernel<KIND, 32>, THREADS, kde::Mma<32>::BYTES);
+        return true;
+      }
+    } else {
+      if (id == kde::F_BLOCKSUM_WIDE && dk == 16) {
+        *f = info(blocksum_wide_kernel<KIND, 16, TENANT>, THREADS, kde::Wide<16>::BYTES);
+        return true;
+      }
+      if (id == kde::F_BLOCKSUM_WIDE && dk == 32) {
+        *f = info(blocksum_wide_kernel<KIND, 32, TENANT>, THREADS, kde::Wide<32>::BYTES);
+        return true;
+      }
+    }
+    return false;
+  }) ? 1 : 0;
+}

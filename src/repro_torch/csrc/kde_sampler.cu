@@ -70,6 +70,7 @@
 
 #include <type_traits>
 
+#include "kde_func.cuh"
 #include "kde_wide.cuh"
 
 namespace {
@@ -350,3 +351,51 @@ int kde_sample_block_launch(const float* q, const float* x, const void* own,
 }
 
 }  // extern "C"
+
+// kde_func.cuh: an instance of this source as launch_kind launches it.  1
+// when found, else 0.
+extern "C" int kde_sampler_func(int id, int instance, kde::FuncInfo* f) {
+  using kde::info;
+  const bool tiled = id == kde::F_SAMPLER_WIDE || id == kde::F_SAMPLER_MMA;
+  const int kind = kde::targ(instance, 0);
+  const int dk = tiled ? kde::targ(instance, 1) : 0;
+  const bool draw = kde::targ(instance, tiled ? 2 : 1) != 0;
+  const int tenant = id == kde::F_SAMPLER_MMA ? 0 : kde::targ(instance, tiled ? 3 : 2);
+  return kde::with_kind_tenant(kind, tenant, [&](auto k, auto t) {
+    constexpr int KIND = decltype(k)::value;
+    constexpr bool TENANT = decltype(t)::value;
+    if (id == kde::F_SAMPLER_GENERIC) {
+      *f = draw ? info(sampler_generic_kernel<KIND, true, TENANT>, kde::THREADS, 0)
+                : info(sampler_generic_kernel<KIND, false, TENANT>, kde::THREADS, 0);
+      return true;
+    }
+    if constexpr (kde::is_bf16(KIND)) {
+      if (id == kde::F_SAMPLER_MMA && dk == 16) {
+        *f = draw ? info(sampler_mma_kernel<KIND, 16, true>, THREADS, kde::Mma<16>::BYTES)
+                  : info(sampler_mma_kernel<KIND, 16, false>, THREADS, kde::Mma<16>::BYTES);
+        return true;
+      }
+      if (id == kde::F_SAMPLER_MMA && dk == 32) {
+        *f = draw ? info(sampler_mma_kernel<KIND, 32, true>, THREADS, kde::Mma<32>::BYTES)
+                  : info(sampler_mma_kernel<KIND, 32, false>, THREADS, kde::Mma<32>::BYTES);
+        return true;
+      }
+    } else {
+      if (id == kde::F_SAMPLER_WIDE && dk == 16) {
+        *f = draw ? info(sampler_wide_kernel<KIND, 16, true, TENANT>, THREADS,
+                         kde::Wide<16>::BYTES)
+                  : info(sampler_wide_kernel<KIND, 16, false, TENANT>, THREADS,
+                         kde::Wide<16>::BYTES);
+        return true;
+      }
+      if (id == kde::F_SAMPLER_WIDE && dk == 32) {
+        *f = draw ? info(sampler_wide_kernel<KIND, 32, true, TENANT>, THREADS,
+                         kde::Wide<32>::BYTES)
+                  : info(sampler_wide_kernel<KIND, 32, false, TENANT>, THREADS,
+                         kde::Wide<32>::BYTES);
+        return true;
+      }
+    }
+    return false;
+  }) ? 1 : 0;
+}

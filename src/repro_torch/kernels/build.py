@@ -26,8 +26,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "kernels"
 SOURCES = ("kde_rowsum.cu", "kde_sampler.cu", "kde_hash.cu",
-           "flash_attention.cu", "kde_attention.cu")
-HEADERS = ("kde_tile.cuh", "kde_wide.cuh")
+           "flash_attention.cu", "kde_attention.cu", "kde_resources.cu")
+HEADERS = ("kde_tile.cuh", "kde_wide.cuh", "kde_func.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -77,7 +77,9 @@ class KdeWeightedShape(ctypes.Structure):
 # or kde_decode_plan's status).  The KDE launchers take the bf16
 # exp table (or null) just before the stream; the blocksum, masked-blocksum
 # and sample-block launchers take the tenant axis's per-tile arena offsets
-# (or null) just before the table.
+# (or null) just before the table.  kde_func_attributes and
+# kde_device_attribute (csrc/kde_resources.cu) are the card's check of
+# ``tuning.RESOURCES`` and ``tuning.limits``; no launch path calls them.
 SIGNATURES = {
     "kde_rowsum_launch": (_P, _P, _P, _P, _P, _P,
                           ctypes.POINTER(KdeTileShape)),
@@ -98,6 +100,8 @@ SIGNATURES = {
                           ctypes.POINTER(KdeDecodeShape)),
     "kde_decode_plan": (ctypes.POINTER(KdeDecodeShape),
                         ctypes.POINTER(KdeDecodePlan)),
+    "kde_func_attributes": (_I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "kde_device_attribute": (_I, _I, _P),
 }
 
 _LIB = None

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import tuning
 from repro_torch.kernels.kde_hash.ref import weighted_kv_ref
 from repro_torch.kernels.kde_rowsum.kernel import (check_operand,
                                                    exp_table_ptr, kind_args,
@@ -71,12 +72,13 @@ def weighted_kv_plan(m: int, n: int, d: int, t: int,
                      aligned: bool = True, x_dtype=torch.float32,
                      precision: str = "f32") -> WeightedPlan:
     """The instance an (m, n, d, t) call of either weighted kernel runs:
-    the vector instance (4 lanes read a gathered row at d <= 16, 8 at
-    d <= 32, 4 coordinates each) when d % 4 == 0, d <= 32 and x starts on
-    16 bytes (8 for a bf16 x; ``aligned``), else the scalar one (a lane a
-    row); + ``BF16_ROWS`` for a bf16 x (``x_dtype``).  Raises ValueError
-    for what the kernel does not take: an empty dataset, d below 1, sizes
-    past int32, and ``check_rows``'s x."""
+    the vector instance (``tuning.weighted_lanes``: 4 lanes read a
+    gathered row at d <= 16, 8 at d <= 32, 4 coordinates each) when d % 4
+    == 0, d <= 32 and x starts on 16 bytes (8 for a bf16 x; ``aligned``),
+    else the scalar one (a lane a row); + ``BF16_ROWS`` for a bf16 x
+    (``x_dtype``).  Raises ValueError for what the kernel does not take:
+    an empty dataset, d below 1, sizes past int32, and ``check_rows``'s
+    x."""
     check_rows(x_dtype, precision)
     if n < 1:
         raise ValueError("empty dataset")
@@ -86,9 +88,8 @@ def weighted_kv_plan(m: int, n: int, d: int, t: int,
         raise ValueError(f"(m, n, d, t) = ({m}, {n}, {d}, {t}) exceed the "
                          f"kernel's int32 sizes")
     rows = BF16_ROWS if x_dtype == torch.bfloat16 else 0
-    if not (aligned and d % 4 == 0 and d <= 32):
-        return WeightedPlan(rows, 1)
-    return WeightedPlan(rows + 4, 4) if d <= 16 else WeightedPlan(rows + 8, 8)
+    lanes = tuning.weighted_lanes(d) if aligned else 1
+    return WeightedPlan(rows + (lanes if lanes > 1 else 0), lanes)
 
 
 #: build.KdeWeightedShape per validated call signature

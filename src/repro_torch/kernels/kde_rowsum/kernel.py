@@ -6,7 +6,8 @@ and count each launch in ``LAUNCHES``; ``rowsum_plain`` /
 ``blocksum_plain`` compute the same functions with plain torch ops (the
 CPU path, and the yardstick the kernels are checked against on the card).
 Kernel kinds and bandwidths are runtime arguments; the tile sizes are
-constants of ``csrc/kde_tile.cuh`` and ``csrc/kde_wide.cuh``.
+constants of ``csrc/kde_tile.cuh`` and ``csrc/kde_wide.cuh``, mirrored in
+``kernels/tuning.py``, which the plans read.
 
 ``blocksum_plan`` / ``rowsum_plan`` are the host-side plans of both kernels,
 built on ``kde_sampler.kernel.sample_block_plan``: the wide 128-row tile
@@ -30,15 +31,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import tuning
 from repro_torch.kernels.kde_rowsum.ref import blocksum_ref, rowsum_ref
 from repro_torch.kernels.kde_sampler.ref import check_precision, exp_table_on
 
 #: ``KdeTileShape::instance`` of the deep tile (``kde::DEEP``)
 DEEP = 1
-#: columns a staged chunk of the generic tile / the 128-row tiles covers
-GENERIC_BN, TILE_BN = 64, 128
-#: CTAs an SM a generic-tile rowsum's split aims for (its 64-row tiles)
-GENERIC_CTAS_PER_SM = 4
 
 #: kernel launches per wrapper and precision since the last
 #: ``reset_launches()``
@@ -134,8 +132,8 @@ def blocksum_plan(m: int, n: int, d: int, bn: int, aligned: bool = True,
     if plan.instance:
         return plan
     if aligned and d % 4 == 0:
-        tiles = -(-m // sk.WIDE_BM)
-        return sk.TilePlan(DEEP, sk.WIDE_BM, tiles, plan.nb,
+        tiles = -(-m // tuning.WIDE_BM)
+        return sk.TilePlan(DEEP, tuning.WIDE_BM, tiles, plan.nb,
                            sk.group_for(tiles, plan.nb, sms))
     return plan._replace(group=1)
 
@@ -144,12 +142,15 @@ def rowsum_plan(m: int, n: int, d: int, aligned: bool = True,
                 sms: int = 132, precision: str = "f32"):
     """(plan, cols): the rowsum's first pass is a blocksum over ``plan.nb``
     splits of ``cols`` columns (a multiple of the tile's chunk), one split
-    a CTA, so the grid fills the card: 2 CTAs an SM on the 128-row tiles
-    (the mma tile among them), 4 on the generic one (its 64-row tiles)."""
+    a CTA, so the grid fills the card: ``tuning.CTAS_PER_SM`` CTAs an SM
+    on the 128-row tiles (the mma tile among them; 2 on the H100),
+    ``tuning.GENERIC_CTAS_PER_SM`` on the generic one (its 64-row tiles;
+    4)."""
     from repro_torch.kernels.kde_sampler import kernel as sk
     base = blocksum_plan(m, n, d, max(n, 1), aligned, sms, precision)
-    chunk, per_sm = ((GENERIC_BN, GENERIC_CTAS_PER_SM) if base.instance == 0
-                     else (TILE_BN, sk.CTAS_PER_SM))
+    chunk, per_sm = ((tuning.GENERIC_BN, tuning.GENERIC_CTAS_PER_SM)
+                     if base.instance == 0
+                     else (tuning.TILE_BN, tuning.CTAS_PER_SM))
     chunks = -(-n // chunk)
     want = min(max(-(-per_sm * sms // max(base.tiles, 1)), 1), chunks)
     cols = -(-chunks // want) * chunk
@@ -180,7 +181,7 @@ def _cached_plan(q, x, kind, inv_bw, beta, bn, precision="f32",
             check_operand(x, "x", torch.float32, 3, q.device)
         check_qx(q, x.reshape(-1, x.shape[-1]))
         m, d = q.shape
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        sms = tuning.limits(q.device).sms
         if bn is None:
             plan, cols = rowsum_plan(m, n, d, aligned, sms, precision)
         else:
@@ -297,9 +298,9 @@ def mma_sums_model(q, x, kind: str, inv_bw: float, beta: float = 1.0,
 
     cols = bn if bn is not None else rowsum_plan(m, n, d, True, sms,
                                                  "bf16")[1]
-    nb, chunks = -(-n // cols), -(-cols // TILE_BN)
+    nb, chunks = -(-n // cols), -(-cols // tuning.TILE_BN)
     kv = pad(pad(kv, (0, nb * cols - n)).view(m, nb, cols),
-             (0, chunks * TILE_BN - cols))
+             (0, chunks * tuning.TILE_BN - cols))
     # column jp 16 + h 8 + tig 2 + e of chunk c: (c, jp as (t, parity), h,
     # tig, e); lane tig's order is (c, jp, h, e), or (c, t, h, e) a parity
     kv = kv.view(m, nb, chunks, 4, 2, 2, 4, 2)
@@ -318,8 +319,8 @@ def mma_sums_model(q, x, kind: str, inv_bw: float, beta: float = 1.0,
     halves = lane_sums(kv.permute(0, 1, 4, 6, 2, 3, 5, 7)
                        .reshape(m, nb, 2, 4, -1))
     split = quad(halves[:, :, 0]) + quad(halves[:, :, 1])
-    tile = torch.arange(m) // sk.WIDE_BM
-    short = (m - tile * sk.WIDE_BM <= sk.WIDE_BM // 2)[:, None]
+    tile = torch.arange(m) // tuning.WIDE_BM
+    short = (m - tile * tuning.WIDE_BM <= tuning.WIDE_BM // 2)[:, None]
     sums = torch.where(short, split, full)
     if bn is not None:
         return sums

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import tuning
 from repro_torch.kernels.kde_rowsum.kernel import (check_operand, check_qx,
                                                    exp_table_ptr, kind_args,
                                                    launch_key, stream_of)
@@ -46,8 +47,11 @@ from repro_torch.kernels.kde_sampler.ref import (argmax_draw,
 LAUNCHES = {"masked_blocksum": 0, "sample_block": 0,
             "masked_blocksum_bf16": 0, "sample_block_bf16": 0}
 
-WIDE_BM, GENERIC_BM = 128, 64      # query rows per tile of each instance
-MAX_WIDE_D = 32
+# query rows per tile of each instance, the wide tiles' widest d and the
+# CTAs an SM the plans size their grids for: ``tuning``'s
+WIDE_BM, GENERIC_BM = tuning.WIDE_BM, tuning.GENERIC_BM
+MAX_WIDE_D = tuning.MAX_WIDE_D
+CTAS_PER_SM = tuning.CTAS_PER_SM
 MAX_TILES = 65535                  # query tiles are the grid's y axis
 _INT_MAX = 2 ** 31 - 1
 
@@ -102,17 +106,13 @@ def sample_block_plan(m: int, n: int, d: int, bn: int,
     return TilePlan(instance, bm, tiles, nb, group_for(tiles, nb, sms))
 
 
-#: CTAs of 256 threads an SM holds at once (ptxas: the wide and deep tiles
-#: use at most 128 registers, the generic tile with the draw 118)
-CTAS_PER_SM = 2
-
-
 def group_for(tiles: int, nb: int, sms: int) -> int:
     """Level-1 blocks a CTA sums: just enough that the grid fits in one
     wave of resident CTAs, so no CTA waits for a second wave and each
     stages its query tile once for all its blocks (``tools/kernel_ab.py``
     on an H100 80GB HBM3 at 700 W, edge-batch shape: group 8 0.1202 ms,
-    group 1 0.1249 ms)."""
+    group 1 0.1249 ms).  The resident CTAs are ``tuning.CTAS_PER_SM`` an
+    SM, the least any sampler or 128-row blocksum instance holds."""
     slots = CTAS_PER_SM * sms
     return max(1, min(nb, -(-nb * tiles // slots)))
 
@@ -256,7 +256,7 @@ def _ptr(t):
 
 
 def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return tuning.limits(device).sms
 
 
 def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import tile_size
+from repro_torch.kernels import tuning
 
 _L2_KINDS = ("gaussian", "exponential", "rational_quadratic")
 # Kinds with closed-form math in this module and a CUDA kernel.
@@ -251,15 +252,15 @@ def _pair_slack(q, x, kind: str, inv_bw: float) -> torch.Tensor:
 def kv_block_sums_bf16(q, x, kind: str, inv_bw: float, beta: float,
                        bn: int, blocks_per_tile: int | None = None):
     """(m, ceil(n / bn)) per-block sums of the bf16 values, swept over
-    column tiles of ``blocks_per_tile`` blocks (None: about 2^22 values),
-    so the (m, n) matrix is never formed; each block's sum is the same
-    whatever the tile.  The tail is padded at the far offset (values
-    exactly 0)."""
+    column tiles of ``blocks_per_tile`` blocks (None:
+    ``tuning.sweep_blocks_per_tile(bn, d)``, as the reference's), so the
+    (m, n) matrix is never formed; each block's sum is the same whatever
+    the tile.  The tail is padded at the far offset (values exactly 0)."""
     tile_size("blocks_per_tile", blocks_per_tile)
     m = q.shape[0]
     n, d = x.shape
     num_b = -(-n // bn)
-    t = blocks_per_tile or max(1, (1 << 22) // max(m * bn, 1))
+    t = blocks_per_tile or tuning.sweep_blocks_per_tile(bn, d)
     pad = num_b * bn - n
     if pad:
         x = torch.cat([x, torch.full((pad, d), _FAR_OFFSET, dtype=x.dtype,
