@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.sampling.rownorm import RowNormSampler
 from repro_torch.device import as_f32, resolve_device
+from repro_torch.obs import metrics as _m
 
 
 @dataclasses.dataclass
@@ -41,28 +42,33 @@ def fkv_lowrank(x, kernel: Kernel, rank: int, num_rows: Optional[int] = None,
                 fit_cols: Optional[int] = None, mesh=None,
                 device=None) -> LowRankResult:
     """Theorem 5.12 pipeline.  num_rows defaults to 25*rank (the paper's
-    experimental setting, Section 7.1)."""
-    n = int(x.shape[0])
-    s = int(num_rows if num_rows is not None else 25 * rank)
-    sampler = RowNormSampler(x, kernel, estimator=estimator, seed=seed,
-                             mesh=mesh, device=device)
-    idx = sampler.sample(s)
-    sk = sampler.sketch_rows_device(idx)             # (s, n) float64
+    experimental setting, Section 7.1).  The call is the ``lowrank`` span;
+    the sampler's ``row_norms``, ``row_draws`` and ``sketch_rows`` and the
+    factor's ``lowrank.eigh`` are spans inside it."""
+    with _m.span("lowrank"):
+        n = int(x.shape[0])
+        s = int(num_rows if num_rows is not None else 25 * rank)
+        sampler = RowNormSampler(x, kernel, estimator=estimator, seed=seed,
+                                 mesh=mesh, device=device)
+        idx = sampler.sample(s)
+        sk = sampler.sketch_rows_device(idx)             # (s, n) float64
 
-    # Top right-singular directions of the sketch.
-    w = sk @ sk.T                                    # (s, s)
-    eigval, eigvec = torch.linalg.eigh(w)
-    order = torch.argsort(eigval, descending=True)[:rank]
-    sig = torch.sqrt(torch.clamp(eigval[order], min=1e-30))
-    u = (sk.T @ eigvec[:, order] / sig[None, :]).T   # (r, n)
-    u = u.cpu().numpy()
+        # Top right-singular directions of the sketch.
+        with _m.span("lowrank.eigh"):
+            w = sk @ sk.T                                # (s, s)
+            _m.note_sync()           # eigh reads its solver's status
+            eigval, eigvec = torch.linalg.eigh(w)
+            order = torch.argsort(eigval, descending=True)[:rank]
+            sig = torch.sqrt(torch.clamp(eigval[order], min=1e-30))
+            u = (sk.T @ eigvec[:, order] / sig[None, :]).T   # (r, n)
+            u = _m.to_host(u).numpy()
 
-    v = None
-    if fit_cols:
-        v, _ = fit_left_factor(x, kernel, u, num_cols=fit_cols,
-                               seed=seed + 1, sampler=sampler)
-    return LowRankResult(u=u, v=v, kernel_evals=sampler.evals,
-                         kde_queries=n, row_indices=idx)
+        v = None
+        if fit_cols:
+            v, _ = fit_left_factor(x, kernel, u, num_cols=fit_cols,
+                                   seed=seed + 1, sampler=sampler)
+        return LowRankResult(u=u, v=v, kernel_evals=sampler.evals,
+                             kde_queries=n, row_indices=idx)
 
 
 def fit_left_factor(x, kernel: Kernel, u: np.ndarray, num_cols: int,

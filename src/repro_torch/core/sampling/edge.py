@@ -85,6 +85,7 @@ from repro_torch.kernels.kde_sampler.sharded import mesh_device
 from repro_torch.kernels.kde_sampler.ref import (check_precision,
                                                  static_pairwise)
 from repro_torch.obs import counters as _c
+from repro_torch.obs import metrics as _m
 
 # Flags a healthy pipeline may legitimately raise (accuracy, not validity).
 _BENIGN = _g.BUCKET_OVERFLOW | _g.HT_HEAVY | _g.REJECT_EXHAUSTED
@@ -602,33 +603,40 @@ class NeighborSampler:
         probability q_vu = k(u,v)/deg(v), and the importance weight
         ``k(u,v) / (t q_e)`` -- returning the first t edges as (u, v,
         weight, q_uv, q_vu) numpy arrays.  Extra draws of the final
-        partial batch are discarded (edges are iid)."""
+        partial batch are discarded (edges are iid).  The batches and the
+        read of their counter word are the ``edges.scan`` span, the edge
+        list's copy to the host ``edges.to_host``."""
         self._enter("NeighborSampler.edge_batches")
         t = int(t)
         num_batches = max((t + batch - 1) // batch, 1)
         gen = self._gen if generator is None else generator
-        if self._engine is not None:
-            eng = self._engine
-            noise = ((torch.rand(batch, generator=gen, device=self.device),
-                      eng.draw_level1_noise(gen), eng.draw_noise(batch, gen))
-                     for _ in range(num_batches))
-            *data, word = eng.edge_batch_scan(
-                cdf_device, degs_device, 1.0 / float(total_degree), 1.0 / t,
-                noise, batch=int(batch))
-        else:
-            *data, word = _ops.edge_batch_scan(
-                self.x, self.x_sq, cdf_device.to(self.device),
-                degs_device.to(self.device), 1.0 / float(total_degree),
-                1.0 / t, gen, num_batches, self._hstate, batch=int(batch),
-                **self._cfg)
-        drawn = num_batches * batch
-        # per edge: one level-1 read of the u frontier, one exact level-2
-        # row, and one aligned k(u, v) pair
-        self._count(self._level1_evals(drawn) + drawn * self.block_size
-                    + drawn)
-        self._l1_cache = None  # frontier moved; cached sums are stale
-        self._note(word, "NeighborSampler.edge_batches")
-        return tuple(a.reshape(-1)[:t].cpu().numpy() for a in data)
+        with _m.span("edges.scan"):
+            if self._engine is not None:
+                eng = self._engine
+                noise = ((torch.rand(batch, generator=gen,
+                                     device=self.device),
+                          eng.draw_level1_noise(gen),
+                          eng.draw_noise(batch, gen))
+                         for _ in range(num_batches))
+                *data, word = eng.edge_batch_scan(
+                    cdf_device, degs_device, 1.0 / float(total_degree),
+                    1.0 / t, noise, batch=int(batch))
+            else:
+                *data, word = _ops.edge_batch_scan(
+                    self.x, self.x_sq, cdf_device.to(self.device),
+                    degs_device.to(self.device), 1.0 / float(total_degree),
+                    1.0 / t, gen, num_batches, self._hstate,
+                    batch=int(batch), **self._cfg)
+            drawn = num_batches * batch
+            # per edge: one level-1 read of the u frontier, one exact
+            # level-2 row, and one aligned k(u, v) pair
+            self._count(self._level1_evals(drawn) + drawn * self.block_size
+                        + drawn)
+            self._l1_cache = None  # frontier moved; cached sums are stale
+            self._note(word, "NeighborSampler.edge_batches")
+        with _m.span("edges.to_host"):
+            return tuple(_m.to_host(a.reshape(-1)[:t]).numpy()
+                         for a in data)
 
     # ------------------------------------------------------------------ #
     def triangle_batches(self, u: np.ndarray, v: np.ndarray,

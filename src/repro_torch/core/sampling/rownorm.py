@@ -29,6 +29,7 @@ from repro_torch.core.kernels_fn import Kernel, squared_kernel_dataset
 from repro_torch.core.sampling.vertex import PrefixCDF
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.kde_sampler.sharded import ShardedBlocks, mesh_device
+from repro_torch.obs import metrics as _m
 
 
 class RowNormSampler:
@@ -89,9 +90,10 @@ class RowNormSampler:
             self._est = make_estimator(estimator, xs, kernel, seed=seed,
                                        device=self.device, **est_kw)
         self.n = int(xs.shape[0])
-        self.row_norms_sq = self._init_probs(xs)
-        self._cdf = PrefixCDF(self.row_norms_sq, seed=seed,
-                              device=self.device)
+        with _m.span("row_norms"):
+            self.row_norms_sq = self._init_probs(xs)
+            self._cdf = PrefixCDF(self.row_norms_sq, seed=seed,
+                                  device=self.device)
         self.total = self._cdf.total          # ~= ||K||_F^2
         self._row_evals = 0
         from repro_torch.kernels.kde_sampler.ref import static_pairwise
@@ -109,7 +111,7 @@ class RowNormSampler:
         if self._dataset is None:
             for lo in range(0, self.n, batch):
                 hi = min(lo + batch, self.n)
-                probs[lo:hi] = self._est.query(xs[lo:hi]).cpu().numpy()
+                probs[lo:hi] = _m.to_host(self._est.query(xs[lo:hi])).numpy()
             return np.maximum(probs, 1e-12)
         ls = np.asarray(self._dataset.live_slots())
         for lo in range(0, len(ls), batch):
@@ -181,8 +183,9 @@ class RowNormSampler:
 
     def sample(self, size: int) -> np.ndarray:
         """Draw ``size`` iid row indices i ~ ||K_i,*||^2 (Section 5.2)."""
-        self._sync()
-        return self._cdf.sample(size)
+        with _m.span("row_draws"):
+            self._sync()
+            return self._cdf.sample(size)
 
     def prob(self, idx) -> np.ndarray:
         """Probability this sampler assigns to row idx."""
@@ -194,7 +197,7 @@ class RowNormSampler:
         on the sampler's device)."""
         from repro_torch.kernels.kde_sampler import ops as sampler_ops
         self._sync()
-        sel = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
+        sel = _m.to_device(np.asarray(idx, np.int64), self.device)
         self._row_evals += len(idx) * self.n
         if self._rows_engine is not None:
             out, cw = self._rows_engine.kernel_rows(self.x[sel])
@@ -210,10 +213,12 @@ class RowNormSampler:
 
     def sketch_rows_device(self, idx: np.ndarray) -> torch.Tensor:
         """The FKV sketch S as a float64 device tensor: rows K_{idx,*}
-        rescaled by 1/sqrt(s p_i)."""
-        scale = 1.0 / np.sqrt(np.maximum(len(idx) * self.prob(idx), 1e-30))
-        scale = torch.as_tensor(scale, dtype=torch.float64).to(self.device)
-        return self.rows_device(idx).double() * scale[:, None]
+        rescaled by 1/sqrt(s p_i) (the ``sketch_rows`` span)."""
+        with _m.span("sketch_rows"):
+            scale = 1.0 / np.sqrt(np.maximum(len(idx) * self.prob(idx),
+                                             1e-30))
+            scale = _m.to_device(scale, self.device, torch.float64)
+            return self.rows_device(idx).double() * scale[:, None]
 
     def sketch_rows(self, idx: np.ndarray) -> np.ndarray:
         """The FKV sketch S: rows K_{idx,*} rescaled by 1/sqrt(s p_i)."""

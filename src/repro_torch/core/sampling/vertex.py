@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core.kde.base import KDEBase
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as _m
 
 
 class PrefixCDF:
@@ -58,7 +59,7 @@ class PrefixCDF:
         return self.weights[np.asarray(idx)] / self.total
 
     def _export(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a.astype(np.float32)).to(self.device)
+        return _m.to_device(a.astype(np.float32), self.device)
 
     @property
     def cdf_device(self) -> torch.Tensor:
@@ -92,11 +93,11 @@ def host_degree_loop(estimator: KDEBase, batch: int = 1024) -> np.ndarray:
     out = np.zeros(n, np.float64)
     for lo in range(0, n, batch):
         hi = min(lo + batch, n)
-        out[lo:hi] = estimator.query(estimator.x[lo:hi]).cpu().numpy()
+        out[lo:hi] = _m.to_host(estimator.query(estimator.x[lo:hi])).numpy()
     if estimator.kernel.name in BUILTIN_KINDS:
         return out - 1.0         # k(x, x) = 1 exactly for Table-1 kernels
-    return out - estimator.kernel.pairs(
-        estimator.x, estimator.x).cpu().numpy().astype(np.float64)
+    return out - _m.to_host(estimator.kernel.pairs(
+        estimator.x, estimator.x)).numpy().astype(np.float64)
 
 
 def streaming_degrees(estimator: KDEBase, dataset,

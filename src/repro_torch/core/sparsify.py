@@ -34,6 +34,7 @@ from repro_torch.core.sampling.edge import (NeighborSampler,
                                             shared_level1_estimator)
 from repro_torch.core.sampling.vertex import DegreeSampler
 from repro_torch.device import as_f32, resolve_device
+from repro_torch.obs import metrics as _m
 
 
 @dataclasses.dataclass
@@ -99,33 +100,42 @@ def spectral_sparsify(x, kernel: Kernel, num_edges: int,
     ``DeviceMesh``, every rank calling) the same program runs sharded
     (DESIGN.md §9): the level-1 state is mesh-resident and each edge batch
     performs one all-reduce; there the hashed estimator covers the degrees
-    only (the draws stay on the blocked engine).
+    only (the draws stay on the blocked engine).  The call is the
+    ``sparsify`` span, with ``sparsify.setup``, ``degrees``,
+    ``edges.scan`` and ``edges.to_host`` inside it.
     """
-    n = int(x.shape[0])
-    t = int(num_edges)
-    nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
-                          exact_blocks=exact_blocks,
-                          samples_per_block=samples_per_block, mesh=mesh,
-                          level1="hash" if estimator == "hash"
-                          and mesh is None else "blocked",
-                          device=device)
-    # Degree preprocessing (Algorithm 4.3) against the sampler's own
-    # level-1 structure whenever it implements the requested estimator.
-    est = shared_level1_estimator(nbr, estimator, seed=seed)
-    deg = DegreeSampler(est, seed=seed + 1,
-                        mesh=mesh if est is nbr.blocks else None)
-    u, v, w, _, _ = nbr.edge_batches(deg.cdf_device, deg.degrees_device,
-                                     deg.total, t, batch=batch)
-    g = SparseGraph(n, u.astype(np.int64), v.astype(np.int64),
-                    w.astype(np.float64))
-    g.kernel_evals = nbr.evals + (0 if est is nbr.blocks else est.evals)
-    g.status = nbr.status | est.device_counters.status
-    g.degrees = deg.degrees
-    # degree preprocessing + one forward level-1 read per drawn edge (the
-    # reverse probability collapses onto the preprocessed degrees)
-    drawn = ((t + batch - 1) // batch) * batch
-    g.kde_queries = n + drawn
-    return g
+    with _m.span("sparsify"):
+        n = int(x.shape[0])
+        t = int(num_edges)
+        with _m.span("sparsify.setup"):
+            nbr = NeighborSampler(x, kernel, mode="blocked", seed=seed + 2,
+                                  exact_blocks=exact_blocks,
+                                  samples_per_block=samples_per_block,
+                                  mesh=mesh, level1="hash"
+                                  if estimator == "hash" and mesh is None
+                                  else "blocked", device=device)
+            # Degree preprocessing (Algorithm 4.3) against the sampler's
+            # own level-1 structure whenever it implements the requested
+            # estimator.
+            est = shared_level1_estimator(nbr, estimator, seed=seed)
+        # the degrees' span holds their copy to the device, which the
+        # sampler exports lazily
+        with _m.span("degrees"):
+            deg = DegreeSampler(est, seed=seed + 1,
+                                mesh=mesh if est is nbr.blocks else None)
+            cdf, degs = deg.cdf_device, deg.degrees_device
+        u, v, w, _, _ = nbr.edge_batches(cdf, degs, deg.total, t,
+                                         batch=batch)
+        g = SparseGraph(n, u.astype(np.int64), v.astype(np.int64),
+                        w.astype(np.float64))
+        g.kernel_evals = nbr.evals + (0 if est is nbr.blocks else est.evals)
+        g.status = nbr.status | est.device_counters.status
+        g.degrees = deg.degrees
+        # degree preprocessing + one forward level-1 read per drawn edge
+        # (the reverse probability collapses onto the preprocessed degrees)
+        drawn = ((t + batch - 1) // batch) * batch
+        g.kde_queries = n + drawn
+        return g
 
 
 def resparsify(g: SparseGraph, num_edges: int, seed: int = 0) -> SparseGraph:

@@ -29,6 +29,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as _m
+
 WIDTH = 8
 
 STATUS = 0
@@ -54,16 +56,15 @@ def word(status=0, evals=0, l1_reads=0, draws=0, retries=0, far_samples=0,
     """Build one ``(WIDTH,)`` int64 counter word.  Counters are python
     ints (static shape products, wrapped mod 2^32); ``status`` is a python
     int or a 0-d tensor, and a tensor status keeps the word on its device
-    without a host synchronisation."""
+    without reading the status (the counts' copy there waits on the host,
+    counted by ``metrics.note_sync``)."""
     counts = [int(v) % _MOD for v in (evals, l1_reads, draws, retries,
                                       far_samples, overflow, psums)]
     if isinstance(status, torch.Tensor):
-        dev = status.device
-        head = status.reshape(1).to(torch.int64)
-    else:
-        dev = torch.device("cpu") if device is None else torch.device(device)
-        head = torch.tensor([int(status) % _MOD], dtype=torch.int64,
-                            device=dev)
+        return torch.cat([status.reshape(1).to(torch.int64),
+                          _m.to_device(counts, status.device, torch.int64)])
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    head = torch.tensor([int(status) % _MOD], dtype=torch.int64, device=dev)
     return torch.cat([head, torch.tensor(counts, dtype=torch.int64,
                                          device=dev)])
 
@@ -135,7 +136,7 @@ def counter(w, slot) -> int:
 
 def _host(w) -> np.ndarray:
     if isinstance(w, torch.Tensor):
-        w = w.detach().cpu().numpy()
+        w = _m.to_host(w.detach()).numpy()
     return np.asarray(w, np.int64).reshape(-1, WIDTH)
 
 

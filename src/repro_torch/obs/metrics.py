@@ -6,7 +6,10 @@ Host-side telemetry with the reference's performance contract:
   guards every recording call; while disabled, ``counter_inc`` /
   ``gauge_set`` / ``observe`` / ``event`` are a single branch and ``span``
   returns a shared no-op context manager -- no dict churn, no allocation
-  on the hot path.
+  on the hot path.  ``span``, ``counter_inc``, ``observe`` and
+  ``note_sync`` also record, without ``enable()``, while a
+  ``torch.profiler`` session is active (one more C++ flag read while
+  neither holds), so a traced run sees the program's stages.
 * **Fenced timing.**  ``Timer`` is the one sanctioned way to time device
   work: after the timed callable returns it synchronizes every CUDA
   device that holds a tensor of the return value
@@ -17,13 +20,20 @@ Host-side telemetry with the reference's performance contract:
 * **Deterministic percentiles.**  Histograms use fixed log-spaced bucket
   edges; p50/p99 are cumulative-count lookups over those buckets, so two
   runs with identical samples report identical quantiles.
-* **Profiler integration.**  While enabled, spans open a
-  ``torch.profiler.record_function`` range, so the same names show up in
-  a ``torch.profiler`` trace beside the kernels they enclose.
+* **Profiler integration.**  While recording, spans open a profiler
+  range (function scope, so no device-side twin), so the same names show
+  up in a ``torch.profiler`` trace beside the kernels they enclose.
+* **Span records.**  Each finished span is kept in a bounded ring: its
+  name, the span open when it began, host start and end, a pair of CUDA
+  events on the current stream (when CUDA is initialised) and the host
+  syncs (``note_sync``) counted while it was the innermost open span.
+  The events are resolved only by ``span_records()``, so recording never
+  synchronises.
 """
 from __future__ import annotations
 
 import bisect
+import itertools
 import threading
 import time
 from typing import Callable, Dict, List, Tuple
@@ -41,6 +51,17 @@ _gauges: Dict[str, float] = {}
 _histograms: Dict[str, "Histogram"] = {}
 _events: List[Tuple[str, dict]] = []
 _MAX_EVENTS = 4096
+_spans: List["_Record"] = []
+_MAX_SPANS = 4096
+_ids = itertools.count()
+_local = threading.local()      # this thread's open spans, innermost last
+_profiling = torch.autograd._profiler_enabled
+
+
+def _live() -> bool:
+    """Whether recording calls record: ``enable()`` or an active
+    ``torch.profiler`` session."""
+    return _enabled or _profiling()
 
 
 def enable() -> None:
@@ -65,11 +86,12 @@ def reset() -> None:
         _gauges.clear()
         _histograms.clear()
         _events.clear()
+        _spans.clear()
 
 
 def counter_inc(name: str, value: int = 1) -> None:
-    """Monotone counter; no-op while disabled."""
-    if not _enabled:
+    """Monotone counter; no-op while not recording."""
+    if not _live():
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + int(value)
@@ -166,8 +188,8 @@ def histogram(name: str,
 
 def observe(name: str, value: float,
             edges: Tuple[float, ...] = _DEFAULT_EDGES) -> None:
-    """Record one histogram sample; no-op while disabled."""
-    if not _enabled:
+    """Record one histogram sample; no-op while not recording."""
+    if not _live():
         return
     histogram(name, edges).record(value)
 
@@ -187,33 +209,140 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """Enabled-mode span: a profiler range + elapsed histogram."""
+def _open_spans() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
 
-    __slots__ = ("name", "_t0", "_rf")
+
+def _device_event():
+    """A timing event recorded on the current CUDA stream, or None where
+    CUDA is not initialised (CPU programs)."""
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class _Record:
+    """One span: see ``span_records`` for the fields it is read as."""
+
+    __slots__ = ("id", "name", "parent", "t0", "t1", "ev0", "ev1",
+                 "device_s", "syncs")
+
+    def __init__(self, name: str, parent):
+        self.id = next(_ids)
+        self.name = name
+        self.parent = parent
+        self.syncs = 0
+        self.device_s = None
+        self.ev1 = None
+
+
+class _Span:
+    """Recording span: a profiler range, an elapsed histogram and a
+    record in the span ring."""
+
+    __slots__ = ("name", "_rf", "_rec")
 
     def __init__(self, name: str):
         self.name = name
         self._rf = None
-        self._t0 = 0.0
+        self._rec = None
 
     def __enter__(self):
-        self._rf = torch.profiler.record_function(self.name)
+        # a function-scope range: a user-scope one (``record_function``)
+        # gets a device-side twin in a CUDA trace, spanning the kernels it
+        # launched, that a device timeline would count as a kernel
+        self._rf = torch._C._profiler._RecordFunctionFast(self.name)
         self._rf.__enter__()
-        self._t0 = time.perf_counter()
+        stack = _open_spans()
+        rec = _Record(self.name, stack[-1].id if stack else None)
+        stack.append(rec)
+        self._rec = rec
+        rec.ev0 = _device_event()
+        rec.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        us = (time.perf_counter() - self._t0) * 1e6
+        rec = self._rec
+        rec.t1 = time.perf_counter()
+        if rec.ev0 is not None:
+            rec.ev1 = _device_event()
+        _open_spans().pop()
         self._rf.__exit__(*exc)
-        observe(f"span.{self.name}.us", us)
+        observe(f"span.{self.name}.us", (rec.t1 - rec.t0) * 1e6)
+        with _lock:
+            _spans.append(rec)
+            if len(_spans) > _MAX_SPANS:
+                del _spans[: len(_spans) - _MAX_SPANS]
         return False
 
 
 def span(name: str):
     """``with span("serve.tick"): ...`` -- a profiler-annotated timed
-    region; the shared no-op singleton while disabled."""
-    return _Span(name) if _enabled else _NULL_SPAN
+    region, recorded while ``enable()`` holds or a profiler runs; the
+    shared no-op singleton otherwise."""
+    return _Span(name) if _live() else _NULL_SPAN
+
+
+def note_sync() -> None:
+    """Count one host synchronisation (a read of a device result, a copy
+    to the device, a solver that checks its status on the host) against
+    the innermost open span and the registry counter ``host_syncs``;
+    no-op while not recording.  The KDE pipelines call it where they
+    cross between the host and their device, on the CPU too, so a CPU
+    run counts the syncs the same call makes on a card."""
+    if not _live():
+        return
+    stack = _open_spans()
+    if stack:
+        stack[-1].syncs += 1
+    counter_inc("host_syncs")
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host (``t.cpu()``), counted by ``note_sync``: the way
+    the KDE pipelines read a result of their device."""
+    note_sync()
+    return t.cpu()
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """Host data ``a`` as a tensor on ``device``
+    (``torch.as_tensor(a, dtype=dtype).to(device)``), counted by
+    ``note_sync``: a copy from pageable host memory waits on the host."""
+    note_sync()
+    return torch.as_tensor(a, dtype=dtype).to(device)
+
+
+def span_records() -> List[dict]:
+    """The finished spans in the ring, oldest first, as dicts: ``id``,
+    ``name``, ``parent`` (the id of the span open when it began, or
+    None), ``start`` (host clock), ``host_s``, ``device_s`` (between the
+    span's two CUDA events; its host seconds where it recorded none),
+    ``self_s`` (``device_s`` less its children's in the ring) and
+    ``syncs``.  Waits for the events not resolved yet."""
+    with _lock:
+        recs = list(_spans)
+    for r in recs:
+        if r.device_s is None:
+            if r.ev1 is None:
+                r.device_s = r.t1 - r.t0
+            else:
+                r.ev1.synchronize()
+                r.device_s = r.ev0.elapsed_time(r.ev1) / 1e3
+                r.ev0 = r.ev1 = None
+    child_s: Dict[int, float] = {}
+    for r in recs:
+        if r.parent is not None:
+            child_s[r.parent] = child_s.get(r.parent, 0.0) + r.device_s
+    return [dict(id=r.id, name=r.name, parent=r.parent, start=r.t0,
+                 host_s=r.t1 - r.t0, device_s=r.device_s,
+                 self_s=r.device_s - child_s.get(r.id, 0.0),
+                 syncs=r.syncs) for r in recs]
 
 
 def _cuda_devices(out, acc: set) -> set:

@@ -137,6 +137,134 @@ def test_span_shows_in_a_profiler_trace():
     assert "serve.tick" in {e.key for e in prof.key_averages()}
 
 
+# ---------------------------------------------------------- span records
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_records_under_a_profiler_with_the_registry_disabled():
+    """No enable(): a profiler session alone makes spans record, and each
+    shows in the trace as a host range of function scope (a user-scope
+    range would get a device-side twin that a CUDA trace counts as a
+    kernel)."""
+    assert not tm.enabled()
+    with _profiled() as prof:
+        assert tm.span("a") is not tm.span("b")
+        with tm.span("kde.stage"):
+            torch.ones(16).sum()
+    (ev,) = [e for e in prof.events() if e.name == "kde.stage"]
+    assert ev.scope == int(torch._C._profiler.RecordScope.FUNCTION)
+    assert "kde.stage" in {e.key for e in prof.key_averages()}
+    (rec,) = tm.span_records()
+    assert rec["name"] == "kde.stage" and rec["parent"] is None
+    assert rec["host_s"] > 0 and rec["syncs"] == 0
+
+
+def test_nothing_records_without_a_profiler_or_enable(monkeypatch):
+    """Neither: span() stays the shared null span, and a whole pipeline
+    call leaves no span record, no event pair and no counter."""
+    from repro_torch.core.kernels_fn import gaussian
+    from repro_torch.core.lowrank import fkv_lowrank
+    from repro_torch.core.sparsify import spectral_sparsify
+    events = []
+    monkeypatch.setattr(tm, "_device_event", lambda: events.append(1))
+    assert tm.span("a") is tm.span("b") is tm._NULL_SPAN
+    x = np.random.default_rng(0).normal(size=(300, 4))
+    spectral_sparsify(x, gaussian(1.0), 600, estimator="exact",
+                      exact_blocks=True, device="cpu")
+    fkv_lowrank(x, gaussian(1.0), 4, 20, device="cpu")
+    tm.note_sync()
+    tm.to_host(torch.ones(3))
+    assert tm.span_records() == [] and events == []
+    assert tm.get_registry()["counters"] == {}
+    assert tm.histograms() == {}
+
+
+def test_span_parents_and_self_time():
+    tm.enable()
+    with tm.span("root"):
+        with tm.span("child"):
+            with tm.span("leaf"):
+                pass
+        with tm.span("child"):
+            pass
+    recs = {r["id"]: r for r in tm.span_records()}
+    by_name = {}
+    for r in recs.values():
+        by_name.setdefault(r["name"], []).append(r)
+    (root,), (leaf,) = by_name["root"], by_name["leaf"]
+    assert root["parent"] is None
+    assert [c["parent"] for c in by_name["child"]] == [root["id"]] * 2
+    assert recs[leaf["parent"]]["name"] == "child"
+    kids = sum(c["device_s"] for c in by_name["child"])
+    assert root["self_s"] == pytest.approx(root["device_s"] - kids)
+    assert 0 <= root["self_s"] <= root["device_s"]
+    assert leaf["self_s"] == leaf["device_s"]
+
+
+def test_span_ring_keeps_the_last_4096():
+    tm.enable()
+    for _ in range(tm._MAX_SPANS + 10):
+        with tm.span("s"):
+            pass
+    recs = tm.span_records()
+    assert len(recs) == 4096
+    assert recs[-1]["id"] - recs[0]["id"] == 4095
+
+
+def test_note_sync_lands_on_the_innermost_span_and_host_syncs():
+    with _profiled():
+        tm.note_sync()                           # no span open
+        with tm.span("outer"):
+            tm.to_host(torch.ones(2))
+            with tm.span("inner"):
+                tm.note_sync()
+                tm.to_device(np.ones(2), "cpu")
+            tm.note_sync()
+    syncs = {r["name"]: r["syncs"] for r in tm.span_records()}
+    assert syncs == {"inner": 2, "outer": 2}
+    assert tm.get_registry()["counters"]["host_syncs"] == 5
+
+
+def test_device_seconds_equal_host_seconds_on_the_cpu():
+    tm.enable()
+    with tm.span("work"):
+        torch.ones((128, 128)) @ torch.ones((128, 128))
+    (rec,) = tm.span_records()
+    assert rec["device_s"] == rec["host_s"] > 0
+
+
+def test_device_seconds_come_from_the_event_pair(monkeypatch):
+    """With CUDA initialised a span records an event at entry and exit;
+    ``span_records`` waits on the exit event and reads the pair."""
+    made = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.t, self.waited = len(made) * 250.0, False
+            made.append(self)
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            self.waited = True
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    tm.enable()
+    with tm.span("card"):
+        pass
+    assert len(made) == 2 and not made[1].waited
+    (rec,) = tm.span_records()
+    assert made[1].waited and rec["device_s"] == pytest.approx(0.25)
+
+
 # ------------------------------------------------------------- exporters
 def test_schema_constants_equal_the_reference():
     assert texport.SCHEMA_VERSION == jexport.SCHEMA_VERSION
